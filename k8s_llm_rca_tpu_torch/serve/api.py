@@ -1,0 +1,335 @@
+"""Local assistants API (Assistant / Thread / Message / Run) on a local
+backend: the port of ``k8s_llm_rca_tpu/serve/api.py``'s ``AssistantService``.
+
+The run-state machine (``queued | in_progress | completed | cancelled |
+failed | expired``), the prompt rendering, the usage accounting and the
+newest-first message listings are the JAX package's, so the same calls
+give the same replies and token usage.  The run journal, the Prometheus
+surface, session save/load, the ``retrieve_*``/``list_runs`` lookups and
+the reference-compatible ``GenericAssistant`` client come with a later
+slice (ROADMAP Queue 1 item 4).  The service is thread-safe: one re-entrant lock serializes every
+public method and the backend pump.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import itertools
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from k8s_llm_rca_tpu_torch.obs import trace as obs_trace
+from k8s_llm_rca_tpu_torch.serve.backend import GenOptions, LMBackend
+from k8s_llm_rca_tpu_torch.utils.logging import METRICS
+
+
+class RunStatus:
+    QUEUED = "queued"
+    IN_PROGRESS = "in_progress"
+    COMPLETED = "completed"
+    CANCELLED = "cancelled"
+    FAILED = "failed"
+    EXPIRED = "expired"
+
+    TERMINAL = (COMPLETED, CANCELLED, FAILED, EXPIRED)
+
+
+# --- OpenAI-shaped message content (stage code reads .content[0].text.value)
+
+
+@dataclass
+class _Text:
+    value: str
+
+
+@dataclass
+class _ContentPart:
+    text: _Text
+    type: str = "text"
+
+
+@dataclass
+class Message:
+    id: str
+    role: str
+    raw_content: str
+    created_at: float
+    content: List[_ContentPart] = field(default_factory=list)
+
+    def __post_init__(self):
+        if not self.content:
+            self.content = [_ContentPart(text=_Text(value=self.raw_content))]
+
+
+@dataclass
+class MessageList:
+    data: List[Message]        # newest first, like the OpenAI listing
+
+
+@dataclass
+class Assistant:
+    id: str
+    name: str
+    instructions: str
+    model: str
+    gen: GenOptions = field(default_factory=GenOptions)
+
+
+@dataclass
+class Thread:
+    id: str
+    messages: List[Message] = field(default_factory=list)  # oldest first
+
+
+@dataclass
+class Run:
+    id: str
+    thread_id: str
+    assistant_id: str
+    status: str = RunStatus.QUEUED
+    created_at: Optional[int] = None
+    completed_at: Optional[int] = None
+    usage: Dict[str, int] = field(default_factory=lambda: {
+        "prompt_tokens": 0, "completion_tokens": 0, "total_tokens": 0})
+    error: Optional[str] = None
+    instructions_override: Optional[str] = None
+    backend_handle: Optional[int] = None
+    deadline: Optional[float] = None
+    response_message_id: Optional[str] = None
+    # precise start time on the service clock, for the "serve.run" span
+    t_started: Optional[float] = None
+
+
+def render_prompt(assistant: Assistant, thread: Thread,
+                  instructions_override: Optional[str] = None) -> str:
+    """Chat-template rendering of instructions + the whole thread history."""
+    instructions = instructions_override or assistant.instructions
+    parts = [f"<|system|>\n{instructions}\n"]
+    for m in thread.messages:
+        parts.append(f"<|{m.role}|>\n{m.raw_content}\n")
+    parts.append("<|assistant|>\n")
+    return "".join(parts)
+
+
+def _locked(fn):
+    """Serialize a service method on the instance's re-entrant lock."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        with self._lock:
+            return fn(self, *args, **kwargs)
+    return wrapper
+
+
+class AssistantService:
+    """The 'server': owns assistants/threads/runs and drives an LMBackend.
+    ``clock``: injectable time source for run timestamps and deadlines."""
+
+    def __init__(self, backend: LMBackend, run_timeout_s: float = 600.0,
+                 clock=None):
+        self.backend = backend
+        self.run_timeout_s = run_timeout_s
+        self._clock = clock if clock is not None else time
+        self.assistants: Dict[str, Assistant] = {}
+        self.threads: Dict[str, Thread] = {}
+        self.runs: Dict[str, Run] = {}
+        self._thread_runs: Dict[str, List[str]] = {}
+        self._inflight: Dict[int, str] = {}   # backend handle -> run id
+        self._ids = itertools.count()
+        self._lock = threading.RLock()
+        self._waiters = 0       # concurrent wait_run count (handoff sleep)
+
+    @_locked
+    def _next_id(self, prefix: str) -> str:
+        return f"{prefix}_{next(self._ids):08d}"
+
+    # ------------------------------------------------------------ lifecycle
+
+    @_locked
+    def create_assistant(self, instructions: str, name: str,
+                         model: str = "local",
+                         gen: Optional[GenOptions] = None) -> Assistant:
+        a = Assistant(self._next_id("asst"), name, instructions, model,
+                      gen or GenOptions())
+        self.assistants[a.id] = a
+        return a
+
+    @_locked
+    def create_thread(self) -> Thread:
+        t = Thread(self._next_id("thread"))
+        self.threads[t.id] = t
+        self._thread_runs[t.id] = []
+        return t
+
+    @_locked
+    def add_message(self, thread_id: str, content: str,
+                    role: str = "user") -> Message:
+        m = Message(self._next_id("msg"), role, content, time.time())
+        self.threads[thread_id].messages.append(m)
+        return m
+
+    @_locked
+    def create_run(self, thread_id: str, assistant_id: str,
+                   instructions: Optional[str] = None,
+                   gen: Optional[GenOptions] = None) -> Run:
+        assistant = self.assistants[assistant_id]
+        run = Run(self._next_id("run"), thread_id, assistant_id,
+                  created_at=int(self._clock.time()),
+                  instructions_override=instructions)
+        run.t_started = self._clock.time()
+        self.runs[run.id] = run
+        self._thread_runs[thread_id].append(run.id)
+
+        prompt = render_prompt(assistant, self.threads[thread_id], instructions)
+        # every run carries a concrete deadline into the engine: the
+        # caller's GenOptions.deadline_s when set, else run_timeout_s
+        base = gen or assistant.gen
+        deadline_s = (base.deadline_s if base.deadline_s is not None
+                      else self.run_timeout_s)
+        run.deadline = self._clock.time() + min(self.run_timeout_s,
+                                                deadline_s)
+        opts = dataclasses.replace(base, assistant_name=assistant.name,
+                                   session=thread_id, deadline_s=deadline_s)
+        run.usage["prompt_tokens"] = self.backend.count_tokens(prompt)
+        run.backend_handle = self.backend.start(prompt, opts)
+        run.status = RunStatus.IN_PROGRESS
+        self._inflight[run.backend_handle] = run.id
+        METRICS.inc("serve.runs_started")
+        obs_trace.event("serve.run_started", run=run.id,
+                        assistant=assistant.name)
+        return run
+
+    @_locked
+    def poll_run(self, run_id: str) -> Run:
+        """Non-blocking probe: one pump, then the run, terminal or not."""
+        self._pump()
+        return self.runs[run_id]
+
+    @_locked
+    def pump_once(self) -> None:
+        """Advance the backend one tick and settle any finished runs."""
+        self._pump()
+
+    @_locked
+    def cancel_run(self, run_id: str) -> Run:
+        run = self.runs[run_id]
+        if run.status not in RunStatus.TERMINAL:
+            self.backend.cancel(run.backend_handle)
+            run.status = RunStatus.CANCELLED
+            run.completed_at = int(self._clock.time())
+            self._inflight.pop(run.backend_handle, None)
+            self._trace_run_settled(run)
+        return run
+
+    def _trace_run_settled(self, run: Run) -> None:
+        """Record the run's lifetime as one explicit-times 'serve.run'
+        span.  No-op without an active tracer."""
+        tr = obs_trace._ACTIVE
+        if tr is None:
+            return
+        assistant = self.assistants.get(run.assistant_id)
+        now = self._clock.time()
+        t0 = run.t_started if run.t_started is not None else now
+        tr.add_span("serve.run", t0, now, cat="serve",
+                    args={"run": run.id, "status": run.status,
+                          "assistant": assistant.name if assistant else "",
+                          "completion_tokens":
+                          run.usage["completion_tokens"]})
+
+    @_locked
+    def list_messages(self, thread_id: str, limit: Optional[int] = None
+                      ) -> MessageList:
+        msgs = self.threads[thread_id].messages[::-1]  # newest first
+        if limit is not None:
+            msgs = msgs[:limit]
+        return MessageList(data=msgs)
+
+    # ------------------------------------------------------------ execution
+
+    @_locked
+    def _pump(self) -> None:
+        """Advance the backend and settle any finished runs."""
+        results = self.backend.pump()
+        now = self._clock.time()
+        for handle, run_id in list(self._inflight.items()):
+            run = self.runs[run_id]
+            if handle in results:
+                res = results[handle]
+                if res.error is not None:
+                    run.status = (RunStatus.EXPIRED if res.expired
+                                  else RunStatus.FAILED)
+                    run.error = res.error
+                else:
+                    run.status = RunStatus.COMPLETED
+                    msg = Message(self._next_id("msg"), "assistant",
+                                  res.text, now)
+                    self.threads[run.thread_id].messages.append(msg)
+                    run.response_message_id = msg.id
+                if res.prompt_tokens is not None:
+                    # the engine's ground truth (BOS, forced prefix,
+                    # overflow truncation included)
+                    run.usage["prompt_tokens"] = res.prompt_tokens
+                run.usage["completion_tokens"] = res.completion_tokens
+                run.usage["total_tokens"] = (
+                    run.usage["prompt_tokens"] + res.completion_tokens)
+                run.completed_at = int(self._clock.time())
+                del self._inflight[handle]
+                self._trace_run_settled(run)
+            elif run.deadline is not None and now > run.deadline:
+                self.backend.cancel(run.backend_handle)
+                run.status = RunStatus.EXPIRED
+                run.completed_at = int(self._clock.time())
+                del self._inflight[handle]
+                self._trace_run_settled(run)
+        if results:
+            obs_trace.event("serve.settled", n=len(results))
+
+    def wait_run(self, run_id: str, timeout_s: Optional[float] = None) -> Run:
+        """Pump until the run is terminal.  The lock is taken per pump, not
+        for the whole wait, so concurrent waiters interleave."""
+        run = self.runs[run_id]
+        t0 = self._clock.time()
+        with self._lock:
+            self._waiters += 1
+        try:
+            return self._wait_run_loop(run, t0, timeout_s)
+        finally:
+            with self._lock:
+                self._waiters -= 1
+
+    def _wait_run_loop(self, run: Run, t0: float,
+                       timeout_s: Optional[float]) -> Run:
+        while run.status not in RunStatus.TERMINAL:
+            with self._lock:
+                if run.status in RunStatus.TERMINAL:
+                    break
+                self._pump()
+                if run.status in RunStatus.TERMINAL:
+                    break
+                if not self.backend.busy(run.backend_handle):
+                    run.status = RunStatus.FAILED
+                    run.error = "backend dropped the run"
+                    break
+                if (timeout_s is not None
+                        and self._clock.time() - t0 > timeout_s):
+                    self.backend.cancel(run.backend_handle)
+                    self._inflight.pop(run.backend_handle, None)
+                    run.status = RunStatus.EXPIRED
+                    run.completed_at = int(self._clock.time())
+                    self._trace_run_settled(run)
+                    break
+            # with peer waiters a real sleep hands the lock over
+            if self._waiters > 1:
+                time.sleep(0.001)
+        return run
+
+
+def run_reply_text(service: AssistantService, run: Run) -> str:
+    """Reply text of a COMPLETED run, located by its response_message_id."""
+    for m in service.list_messages(run.thread_id).data:
+        if m.id == run.response_message_id:
+            return m.content[0].text.value
+    raise RuntimeError(f"reply message for run {run.id} not found")
