@@ -90,7 +90,7 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      long long q_sh, long long k_sb, long long k_ss, long long k_sh,
                      long long v_sb, long long v_ss, long long v_sh, long long o_sb,
                      long long o_ss, long long o_sh, float scale) {
-  static_assert(D % 32 == 0 && D <= 128, "head_dim must be 32, 64, 96 or 128");
+  static_assert(D == 64 || D == 128, "head_dim must be 64 or 128");
   constexpr int kCols = D / 8;  // output columns per thread
 
   extern __shared__ __align__(16) float smem[];
@@ -479,9 +479,7 @@ int launch(const Args& a) {
 template <typename T>
 int launch_dim(const Args& a, int head_dim) {
   switch (head_dim) {
-    case 32: return launch<T, 32>(a);
     case 64: return launch<T, 64>(a);
-    case 96: return launch<T, 96>(a);
     case 128: return launch<T, 128>(a);
     default: return (int)cudaErrorInvalidValue;
   }

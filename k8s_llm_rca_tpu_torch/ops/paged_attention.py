@@ -29,7 +29,7 @@ from k8s_llm_rca_tpu_torch.ops.attention import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_REP = 8           # query heads per kv-head the kernel holds (kMaxRep)
-_HEAD_DIMS = (32, 64, 96, 128)
+_HEAD_DIMS = (64, 128)     # the configs' head_dims (TINY, LLAMA3_8B)
 _SPLIT_TOKENS = 256    # tokens per pass-1 block of the kernel (kChunk)
 
 

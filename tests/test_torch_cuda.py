@@ -7,8 +7,12 @@ a card and no JAX, run them without the JAX test harness:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerances: fp32 atol 1e-4 with TF32 off (both sides fp32, different
-summation orders); bf16 atol 3e-2 (the kernel computes in fp32 from bf16
-inputs; one bf16 rounding of the output on each side).
+summation orders).  bf16: for every output row (one token and head, d
+values) the largest |out - ref| is at most 2^-6 of the row's largest
+|ref|, a limit that scales with the values compared.  Each side rounds an
+element to bf16 once, at most one ulp (2^-7 of the row's largest value)
+apart; the bf16 flash body's bf16 probabilities add a small fraction of
+that.
 """
 
 import numpy as np
@@ -22,7 +26,17 @@ from k8s_llm_rca_tpu_torch.ops.paged_attention import (
 )
 
 pytestmark = pytest.mark.cuda
-TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
+
+
+def _err(out, ref):
+    """fp32: max |out - ref|; bf16: max over rows of the row's largest
+    |out - ref| over its largest |ref|."""
+    diff = (out.float() - ref.float()).abs()
+    if out.dtype != torch.bfloat16:
+        return diff.max().item()
+    scale = ref.float().abs().amax(-1).clamp_min(1e-30)
+    return (diff.amax(-1) / scale).max().item()
 
 
 @pytest.fixture
@@ -56,7 +70,7 @@ def _paged_inputs(gen, dtype, n_heads, n_kv, d, page, lengths):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_heads,n_kv,d,page", [
-    (4, 4, 32, 16), (8, 2, 64, 16), (32, 8, 128, 64), (16, 2, 128, 64)])
+    (4, 4, 64, 16), (8, 2, 64, 16), (32, 8, 128, 64), (16, 2, 128, 64)])
 def test_paged_kernel_matches_plain(card, dtype, n_heads, n_kv, d, page):
     args = _paged_inputs(card, dtype, n_heads, n_kv, d, page,
                          [1, page, page + 1, 5 * page + 7])
@@ -66,11 +80,11 @@ def test_paged_kernel_matches_plain(card, dtype, n_heads, n_kv, d, page):
     assert paged_attention.launches == before + 1
     ref = paged_attention_plain(*args)
     assert torch.isfinite(out).all()
-    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert _err(out, ref) <= TOL[dtype]
 
 
 def test_paged_kernel_refuses_what_it_does_not_take(card):
-    q, kp, vp, lens, tables = _paged_inputs(card, torch.float32, 4, 4, 32,
+    q, kp, vp, lens, tables = _paged_inputs(card, torch.float32, 4, 4, 64,
                                             16, [3])
     with pytest.raises(TypeError):
         paged_attention(q, kp, vp, lens.long(), tables)
@@ -80,8 +94,8 @@ def test_paged_kernel_refuses_what_it_does_not_take(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_heads,n_kv,d", [(4, 4, 32), (8, 2, 64),
-                                            (6, 3, 96), (32, 8, 128)])
+@pytest.mark.parametrize("n_heads,n_kv,d", [(4, 4, 64), (8, 2, 64),
+                                            (6, 3, 64), (32, 8, 128)])
 def test_flash_kernel_matches_plain(card, dtype, n_heads, n_kv, d):
     b, s = 2, 200                    # not a multiple of the 64-row tile
     # q is a strided view (every other head of a wider tensor): the kernel
@@ -95,7 +109,7 @@ def test_flash_kernel_matches_plain(card, dtype, n_heads, n_kv, d):
     out = flash_attention(q, k, v, lens)
     ref = causal_attention(q, k, v, lens)
     assert torch.isfinite(out).all()
-    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert _err(out, ref) <= TOL[dtype]
 
 
 def test_flash_kernel_chunk_offset(card):
@@ -112,8 +126,8 @@ def test_flash_kernel_chunk_offset(card):
 
 
 def test_flash_kernel_row_with_no_visible_key_is_zero(card):
-    q = torch.randn((1, 64, 4, 32), generator=card, device="cuda")
-    k = torch.randn((1, 64, 4, 32), generator=card, device="cuda")
+    q = torch.randn((1, 64, 4, 64), generator=card, device="cuda")
+    k = torch.randn((1, 64, 4, 64), generator=card, device="cuda")
     out = flash_attention(q, k, k, torch.zeros(1, dtype=torch.int32,
                                                device="cuda"))
     assert torch.equal(out, torch.zeros_like(out))
