@@ -5,31 +5,42 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Each phase
 prints one JSON line; any failure exits non-zero without the result line.
 
 1. env: the card, its power limit, the software versions.
-2. build: both CUDA kernels compiled from ``k8s_llm_rca_tpu_torch/csrc``
+2. build: the four CUDA sources compiled from ``k8s_llm_rca_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together).
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes, in bf16 (row-relative error at most 2^-6, see
+   the main paths' shapes, in bf16 (row-relative error at most 2^-6, see
    ``TOL``) and fp32 with TF32 off (atol 1e-4), with its time, the plain
    version's, the least time the card could take (bound) and one PyTorch
-   library call as a yardstick (timed here only; the port never calls it).
-4. cross-device: a 2-layer model (head_dim 128, GQA 4, fp32) served by the
-   engine on the card and on the CPU gives the same greedy tokens.
+   library call as a yardstick (timed here only; the port never calls it):
+   paged and flash attention (slice 1), the int4 matmul at decode and
+   prefill shapes, the int4 lm head, and paged attention over int8 and
+   int4 pools.
+4. cross-device: the engine on the card and on the CPU gives the same
+   greedy tokens for a 2-layer model (head_dim 128, GQA 4, fp32) and for
+   TINY (head_dim 32, GQA 2, fp32) with its own weights and with int4
+   weights under ``fused_quant_matmul`` over int4 and int8 KV pools.
 5. slice: Llama-3-8B at full depth and width in bf16 (seeded random
    weights) behind ``AssistantService`` answers four requests of ~400,
-   900, 1500 and 2300 prompt tokens; both kernels' launch counters must be
-   32 x (decode steps) and 32 x (prefill dispatches) of that run.
+   900, 1500 and 2300 prompt tokens; the paged and flash kernels' launch
+   counters must be 32 x (decode steps) and 32 x (prefill dispatches).
+5b. int4 slice: the same with int4 weights, ``fused_quant_matmul`` and an
+   int4 KV pool; quant_matmul launches 224 x (decode steps + prefill
+   dispatches), quant_matmul_head 1 x that, paged_attention_quant 32 x
+   decode steps and flash_attention 32 x prefill dispatches.
 
 Then the kernel table (one JSON line), the ``nvidia-smi`` name and power
 limit line, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 ``--profile-decode`` runs only a profile of one decode step at the slice's
-shapes (the source of PERF.md's decode-step breakdown) and prints no
-result line.
+shapes, bf16 and int4, and the host time per call of the int4 step's
+extra eager work (the sources of PERF.md's decode-step breakdowns), and
+prints no result line.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -39,6 +50,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PAGED_SRC = "k8s_llm_rca_tpu_torch/csrc/paged_attention.cu"
 FLASH_SRC = "k8s_llm_rca_tpu_torch/csrc/flash_attention.cu"
+QMM_SRC = "k8s_llm_rca_tpu_torch/csrc/quant_matmul.cu"
+PAGED_QUANT_SRC = "k8s_llm_rca_tpu_torch/csrc/paged_attention_quant.cu"
+KERNELS = ("paged_attention", "flash_attention", "quant_matmul",
+           "paged_attention_quant")
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -47,7 +62,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # limit scales with the values compared (|out| is ~0.03 after a softmax
 # over thousands of keys).  The two sides round an element to bf16 once
 # each, at most one ulp apart: 2^-7 of the row's largest value; the bf16
-# flash body's bf16 probabilities add a small fraction of that.
+# flash body's bf16 probabilities and the plain matmuls' bf16-rounded
+# dequantized weights (the kernels scale in fp32) add a fraction of that.
+# For the matmuls a row is one token's N (or V) outputs.
 TOL = {"bfloat16": 2 ** -6, "float32": 1e-4}
 
 
@@ -138,35 +155,42 @@ def bound(nbytes: int, flops: int, dtype_name: str):
                                        else "operations")
 
 
-def paged_bound(q, kp, lens, dtype_name):
+def paged_bound(q, kp, lens, dtype_name, scale_bytes: int = 0):
+    """Bytes: q and out, the pages' rows the lengths need (with
+    ``scale_bytes`` of scales per row and pool), lengths and table entries;
+    operations: q.k and p.v at 2 flops per MAC."""
     b, h, d = q.shape
-    kv_dim, page = kp.shape[2], kp.shape[1]
+    page = kp.shape[1]
     tokens = int(lens.sum())
-    es = q.element_size()
     pages_read = sum(-(-int(n) // page) for n in lens.tolist())
-    nbytes = (2 * b * h * d * es            # q in, out
-              + 2 * tokens * kv_dim * es    # the keys and values it needs
-              + 4 * b + 4 * pages_read)     # lengths, table entries used
-    flops = 4 * tokens * h * d              # q.k and p.v, 2 flops per MAC
-    return bound(nbytes, flops, dtype_name)
+    row_bytes = kp.shape[2] * kp.element_size() + scale_bytes
+    nbytes = (2 * b * h * d * q.element_size() + 2 * tokens * row_bytes
+              + 4 * b + 4 * pages_read)
+    return bound(nbytes, 4 * tokens * h * d, dtype_name)
 
 
-def paged_library_fn(q, kp, vp, lens, tables):
-    """One SDPA call over a KV view gathered (and head-expanded) before
-    timing: the library yardstick for paged decode attention."""
+def sdpa_decode_fn(q, k, v, lens):
+    """One SDPA call over a gathered KV view [B, S, n_kv, d], head-expanded
+    before timing: the library yardstick for paged decode attention."""
     import torch
     import torch.nn.functional as F
 
-    b, h, d = q.shape
-    n_kv = kp.shape[2] // d
-    k = kp[tables.long()].reshape(b, -1, n_kv, d).transpose(1, 2)
-    v = vp[tables.long()].reshape(b, -1, n_kv, d).transpose(1, 2)
-    k = k.repeat_interleave(h // n_kv, dim=1).contiguous()
-    v = v.repeat_interleave(h // n_kv, dim=1).contiguous()
+    h = q.shape[1]
+    n_kv = k.shape[2]
+    k = k.transpose(1, 2).repeat_interleave(h // n_kv, dim=1).contiguous()
+    v = v.transpose(1, 2).repeat_interleave(h // n_kv, dim=1).contiguous()
     mask = (torch.arange(k.shape[2], device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
     qq = q[:, :, None, :]
     return lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=mask)
+
+
+def paged_library_fn(q, kp, vp, lens, tables):
+    """SDPA over the pages gathered before timing."""
+    b, _, d = q.shape
+    n_kv = kp.shape[2] // d
+    return sdpa_decode_fn(q, kp[tables.long()].reshape(b, -1, n_kv, d),
+                          vp[tables.long()].reshape(b, -1, n_kv, d), lens)
 
 
 def flash_cases(dtype, gen):
@@ -198,69 +222,138 @@ def flash_bound(q, k, seq_lens, q_offset, dtype_name):
     return bound(nbytes, flops, dtype_name)
 
 
+def quant_weight(gen, k, n, axis=-1):
+    """An int4 weight quantized as the model's (bf16 scales) from N(0, 1/K)
+    values, so outputs are of order one."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.models.quant import quantize
+
+    w = torch.randn((k, n) if axis == -1 else (n, k), generator=gen,
+                    device="cuda") / k ** 0.5
+    return quantize(w, axis=axis, compute_dtype=torch.bfloat16, bits=4)
+
+
+def matmul_bound(m, k, n, es, dtype_name):
+    """Packed weights, scales, x and out once each; 2 flops per MAC."""
+    return bound(k * n // 2 + 2 * n + (m * k + m * n) * es, 2 * m * k * n,
+                 dtype_name)
+
+
+def paged_quant_case(args, packed):
+    """The slice's paged shapes with the pools quantized per token."""
+    from k8s_llm_rca_tpu_torch.models.quant import quantize_kv
+
+    q, kp, vp, lens, tables = args
+    kq, ks = quantize_kv(kp, packed)
+    vq, vs = quantize_kv(vp, packed)
+    return q, kq, vq, ks.float(), vs.float(), lens, tables
+
+
+def paged_quant_library_fn(q, kq, vq, ks, vs, lens, tables, packed):
+    """SDPA over KV gathered, dequantized and head-expanded before timing."""
+    from k8s_llm_rca_tpu_torch.ops.paged_attention import gather_dequant_pages
+
+    d = q.shape[2]
+    n_kv = kq.shape[2] * (2 if packed else 1) // d
+    return sdpa_decode_fn(
+        q, gather_dequant_pages(kq, ks, tables, n_kv, d, q.dtype, packed),
+        gather_dequant_pages(vq, vs, tables, n_kv, d, q.dtype, packed), lens)
+
+
+def held_record(kernel, dtype_name, out, ref, **fields) -> dict:
+    """The check record of one case; exits unless ``out`` holds ``ref``
+    within ``TOL`` and is finite."""
+    import torch
+
+    torch.cuda.synchronize()
+    errs = errors(out, ref)
+    tol = TOL[dtype_name]
+    err = held(errs, dtype_name)
+    finite = bool(torch.isfinite(out).all())
+    rec = {"kernel": kernel, "dtype": dtype_name, **fields, **errs,
+           "tol": tol, "finite": finite}
+    if not (err <= tol and finite):
+        emit("kernels", **rec)
+        raise SystemExit(f"{kernel} disagrees with its plain version "
+                         f"({fields}, {dtype_name}): {err} > {tol}")
+    return rec
+
+
 def phase_kernels() -> dict:
     import torch
     import torch.nn.functional as F
 
+    from k8s_llm_rca_tpu_torch.models.quant import dq
     from k8s_llm_rca_tpu_torch.ops.attention import causal_attention
     from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
     from k8s_llm_rca_tpu_torch.ops.paged_attention import (
-        paged_attention, paged_attention_plain,
+        paged_attention, paged_attention_plain, paged_attention_quant,
+        paged_attention_quant_plain,
+    )
+    from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
+        quant_matmul, quant_matmul_head, quant_matmul_head_plain,
+        quant_matmul_plain,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     table = {}
+    # the slice's int4 weights: an MLP matmul [4096, 14336] and the head
+    w_mlp = quant_weight(gen, 4096, 14336)
+    w_head = quant_weight(gen, 4096, 128256, axis=0)
+    flush = 256 << 20
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
-        tol = TOL[dtype_name]
 
         args = paged_case(dtype, gen)
-        out = paged_attention(*args)
-        ref = paged_attention_plain(*args)
-        torch.cuda.synchronize()
-        errs = errors(out, ref)
-        err = held(errs, dtype_name)
-        finite = bool(torch.isfinite(out).all())
-        rec = {"kernel": "paged_attention", "dtype": dtype_name,
-               "shapes": "B=4 H=32 n_kv=8 d=128 page=64 lens=1,64,65,2400",
-               **errs, "tol": tol, "finite": finite}
-        if not (err <= tol and finite):
-            emit("kernels", **rec)
-            raise SystemExit(f"paged_attention disagrees with its plain "
-                             f"version in {dtype_name}: {err} > {tol}")
+        rec = held_record(
+            "paged_attention", dtype_name, paged_attention(*args),
+            paged_attention_plain(*args),
+            shapes="B=4 H=32 n_kv=8 d=128 page=64 lens=1,64,65,2400")
         rec["kernel_ms"] = time_ms(lambda: paged_attention(*args), 200,
-                            flush_bytes=256 << 20)
+                                   flush_bytes=flush)
         rec["plain_ms"] = time_ms(lambda: paged_attention_plain(*args), 20,
-                                  flush_bytes=256 << 20)
+                                  flush_bytes=flush)
         rec["library_ms"] = time_ms(paged_library_fn(*args), 200,
-                                    flush_bytes=256 << 20)
+                                    flush_bytes=flush)
         rec["bound_ms"], rec["bound_by"] = paged_bound(args[0], args[1],
                                                        args[3], dtype_name)
         emit("kernels", **rec)
         table[("paged_attention", dtype_name)] = rec
 
-        for case, (q, k, v, lens, off) in flash_cases(dtype, gen).items():
-            out = flash_attention(q, k, v, lens, off)
-            ref = causal_attention(q, k, v, lens, off)
-            torch.cuda.synchronize()
-            errs = errors(out, ref)
-            err = held(errs, dtype_name)
-            finite = bool(torch.isfinite(out).all())
-            rec = {"kernel": "flash_attention", "dtype": dtype_name,
-                   "case": case, "shapes": f"q {list(q.shape)} k/v "
-                   f"{list(k.shape)} seq_len {int(lens[0])} q_offset "
-                   f"{0 if off is None else int(off[0])}",
-                   **errs, "tol": tol, "finite": finite}
-            if not (err <= tol and finite):
-                emit("kernels", **rec)
-                raise SystemExit(f"flash_attention disagrees with its plain "
-                                 f"version ({case}, {dtype_name}): {err} > "
-                                 f"{tol}")
+        for packed, kind in ((False, "int8"), (True, "int4")):
+            qargs = paged_quant_case(args, packed)
+            rec = held_record(
+                "paged_attention_quant", dtype_name,
+                paged_attention_quant(*qargs, packed=packed),
+                paged_attention_quant_plain(*qargs, packed=packed),
+                case=kind, shapes="B=4 H=32 n_kv=8 d=128 page=64 "
+                "lens=1,64,65,2400")
             rec["kernel_ms"] = time_ms(
-                lambda: flash_attention(q, k, v, lens, off),
-                                20)
+                lambda: paged_attention_quant(*qargs, packed=packed), 200,
+                flush_bytes=flush)
+            rec["plain_ms"] = time_ms(
+                lambda: paged_attention_quant_plain(*qargs, packed=packed),
+                20, flush_bytes=flush)
+            rec["library_ms"] = time_ms(
+                paged_quant_library_fn(*qargs, packed), 200,
+                flush_bytes=flush)
+            rec["bound_ms"], rec["bound_by"] = paged_bound(
+                qargs[0], qargs[1], qargs[5], dtype_name, scale_bytes=4)
+            emit("kernels", **rec)
+            table[("paged_attention_quant", dtype_name, kind)] = rec
+
+        for case, (q, k, v, lens, off) in flash_cases(dtype, gen).items():
+            rec = held_record(
+                "flash_attention", dtype_name,
+                flash_attention(q, k, v, lens, off),
+                causal_attention(q, k, v, lens, off), case=case,
+                shapes=f"q {list(q.shape)} k/v {list(k.shape)} seq_len "
+                f"{int(lens[0])} q_offset {0 if off is None else int(off[0])}")
+            rec["kernel_ms"] = time_ms(
+                lambda: flash_attention(q, k, v, lens, off), 20)
             rec["plain_ms"] = time_ms(
                 lambda: causal_attention(q, k, v, lens, off), 5)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -281,73 +374,169 @@ def phase_kernels() -> dict:
                                                            dtype_name)
             emit("kernels", **rec)
             table[("flash_attention", dtype_name, case)] = rec
+
+        # decode: one weight stream per call, cold in L2 as in a decode
+        # step; prefill: two 2560-token prompts batched
+        for case, m, iters, plain_iters in (("decode", 4, 200, 20),
+                                            ("prefill", 5120, 5, 3)):
+            x = torch.randn((m, 4096), generator=gen, device="cuda").to(dtype)
+            rec = held_record("quant_matmul", dtype_name,
+                              quant_matmul(x, w_mlp),
+                              quant_matmul_plain(x, w_mlp), case=case,
+                              shapes=f"x [{m}, 4096] @ int4 [4096, 14336]")
+            fl = flush if case == "decode" else 0
+            rec["kernel_ms"] = time_ms(lambda: quant_matmul(x, w_mlp), iters,
+                                       flush_bytes=fl)
+            rec["plain_ms"] = time_ms(lambda: quant_matmul_plain(x, w_mlp),
+                                      plain_iters, flush_bytes=fl)
+            w_dense = dq(w_mlp, dtype).to(dtype)    # dequantized before timing
+            rec["library_ms"] = time_ms(lambda: torch.matmul(x, w_dense),
+                                        iters, flush_bytes=fl)
+            del w_dense
+            rec["bound_ms"], rec["bound_by"] = matmul_bound(
+                m, 4096, 14336, x.element_size(), dtype_name)
+            emit("kernels", **rec)
+            table[("quant_matmul", dtype_name, case)] = rec
+
+        x = torch.randn((4, 4096), generator=gen, device="cuda").to(dtype)
+        rec = held_record("quant_matmul_head", dtype_name,
+                          quant_matmul_head(x, w_head),
+                          quant_matmul_head_plain(x, w_head),
+                          shapes="x [4, 4096] @ int4 [128256, 4096]^T")
+        rec["kernel_ms"] = time_ms(lambda: quant_matmul_head(x, w_head), 50,
+                                   flush_bytes=flush)
+        rec["plain_ms"] = time_ms(lambda: quant_matmul_head_plain(x, w_head),
+                                  5, flush_bytes=flush)
+        w_dense = dq(w_head, dtype).to(dtype)
+        rec["library_ms"] = time_ms(lambda: torch.matmul(x, w_dense.t()), 50,
+                                    flush_bytes=flush)
+        del w_dense
+        rec["bound_ms"], rec["bound_by"] = matmul_bound(
+            4, 4096, 128256, x.element_size(), dtype_name)
+        emit("kernels", **rec)
+        table[("quant_matmul_head", dtype_name)] = rec
     return table
 
 
 # ------------------------------------------------------------------ phase 4
 
 
+def launch_counters():
+    """Every kernel wrapper, by the short name the phases report."""
+    from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
+    from k8s_llm_rca_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_quant,
+    )
+    from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
+        quant_matmul, quant_matmul_head,
+    )
+
+    return {"paged": paged_attention, "flash": flash_attention,
+            "paged_quant": paged_attention_quant, "qmm": quant_matmul,
+            "qmm_head": quant_matmul_head}
+
+
+def reset_counts() -> None:
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in launch_counters().items()}
+
+
+def expected_counts(cfg, engine, quantized_kv: bool) -> dict:
+    """The launches one engine run must have made: per layer, one decode
+    attention per decode step and one flash prefill per prefill dispatch;
+    under fused_quant_matmul 7 matmuls per layer and one head per decode
+    step and per prefill dispatch."""
+    c = engine._counts
+    steps = int(c["engine.decode_steps"])
+    prefills = int(c["engine.prefill_dispatches"])
+    fused = 1 if cfg.fused_quant_matmul else 0
+    return {"paged": 0 if quantized_kv else cfg.n_layers * steps,
+            "flash": cfg.n_layers * prefills,
+            "paged_quant": cfg.n_layers * steps if quantized_kv else 0,
+            "qmm": fused * 7 * cfg.n_layers * (steps + prefills),
+            "qmm_head": fused * (steps + prefills)}
+
+
 def phase_cross_device() -> None:
     """Same weights, same prompts: the engine on the card and on the CPU
-    must emit the same greedy tokens (fp32, TF32 off)."""
+    must emit the same greedy tokens (fp32, TF32 off), for a 2-layer
+    head_dim-128 GQA-4 model and for TINY (head_dim 32, GQA 2) in fp32, with
+    int4 weights under fused_quant_matmul over int4 and int8 KV pools."""
     import numpy as np
     import torch
 
-    from k8s_llm_rca_tpu_torch.config import EngineConfig, ModelConfig
+    from k8s_llm_rca_tpu_torch.config import TINY, EngineConfig, ModelConfig
     from k8s_llm_rca_tpu_torch.engine import make_engine
     from k8s_llm_rca_tpu_torch.models.llama import init_params
-    from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
-    from k8s_llm_rca_tpu_torch.ops.paged_attention import paged_attention
+    from k8s_llm_rca_tpu_torch.models.quant import quantize_params
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    cfg = ModelConfig(name="smoke-gqa4", vocab_size=512, hidden_size=1024,
-                      n_layers=2, n_heads=8, n_kv_heads=2, head_dim=128,
-                      intermediate_size=2048, max_seq_len=1024,
-                      dtype="float32", tie_embeddings=False)
-    ecfg = EngineConfig(max_batch=4, max_seq_len=512,
-                        prefill_buckets=(128, 256), max_new_tokens=32,
-                        paged=True, page_size=16, num_pages=168,
-                        prefix_cache=False, decode_chunk=16)
-    cpu_params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
-    # x3 projections: greedy decode walks many distinct tokens
-    for layer in cpu_params["layers"]:
-        for name in layer:
-            if name.startswith("w"):
-                layer[name] = layer[name] * 3.0
-    gpu_params = {k: ([{n: t.cuda() for n, t in layer.items()}
-                       for layer in v] if k == "layers" else v.cuda())
-                  for k, v in cpu_params.items()}
-    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    gqa4 = ModelConfig(name="smoke-gqa4", vocab_size=512, hidden_size=1024,
+                       n_layers=2, n_heads=8, n_kv_heads=2, head_dim=128,
+                       intermediate_size=2048, max_seq_len=1024,
+                       dtype="float32", tie_embeddings=False)
+    int4 = TINY.replace(fused_quant_matmul=True)
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(0, 256, n)]
                for n in (7, 100, 150, 300)]
-    t0 = time.perf_counter()
-    cpu = make_engine(cfg, ecfg, cpu_params, tok, device="cpu").generate(
-        prompts)
-    t1 = time.perf_counter()
-    engine = make_engine(cfg, ecfg, gpu_params, tok)
-    paged_attention.launches = flash_attention.launches = 0
-    gpu = engine.generate(prompts)
-    counts = {"paged": paged_attention.launches,
-              "flash": flash_attention.launches}
-    t2 = time.perf_counter()
-    same = [a.token_ids == b.token_ids for a, b in zip(cpu, gpu)]
-    c = engine._counts
-    expect = {"paged": cfg.n_layers * int(c["engine.decode_steps"]),
-              "flash": cfg.n_layers * int(c["engine.prefill_dispatches"])}
-    emit("cross_device", model=cfg.name, prompts=[len(p) for p in prompts],
-         tokens_per_seq=[len(r.token_ids) for r in gpu],
-         distinct_tokens=[len(set(r.token_ids)) for r in gpu],
-         equal_streams=same, launches=counts, expected_launches=expect,
-         cpu_s=t1 - t0, gpu_s=t2 - t1)
-    if not all(same):
-        i = same.index(False)
-        a, b = cpu[i].token_ids, gpu[i].token_ids
-        j = next(k for k in range(min(len(a), len(b))) if a[k] != b[k])
-        raise SystemExit(f"card and CPU greedy streams differ: seq {i} "
-                         f"token {j}: cpu {a[j]} gpu {b[j]}")
-    if counts != expect:
-        raise SystemExit(f"launch counts {counts} != expected {expect}")
+    for cfg, kv in ((gqa4, None), (TINY, None), (int4, "int4"),
+                    (int4, "int8")):
+        ecfg = EngineConfig(max_batch=4, max_seq_len=512,
+                            prefill_buckets=(128, 256), max_new_tokens=32,
+                            paged=True, page_size=16, num_pages=168,
+                            prefix_cache=False, decode_chunk=16,
+                            kv_cache_dtype=kv)
+        cpu_params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+        # x3 projections: greedy decode walks many distinct tokens
+        for layer in cpu_params["layers"]:
+            for name in layer:
+                if name.startswith("w"):
+                    layer[name] = layer[name] * 3.0
+        if cfg.fused_quant_matmul:
+            cpu_params = quantize_params(cpu_params, bits=4)
+        gpu_params = {k: ([{n: _to_cuda(t) for n, t in layer.items()}
+                           for layer in v] if k == "layers" else _to_cuda(v))
+                      for k, v in cpu_params.items()}
+        tok = get_tokenizer(vocab_size=cfg.vocab_size)
+        t0 = time.perf_counter()
+        cpu = make_engine(cfg, ecfg, cpu_params, tok, device="cpu").generate(
+            prompts)
+        t1 = time.perf_counter()
+        engine = make_engine(cfg, ecfg, gpu_params, tok)
+        reset_counts()
+        gpu = engine.generate(prompts)
+        counts = read_counts()
+        t2 = time.perf_counter()
+        same = [a.token_ids == b.token_ids for a, b in zip(cpu, gpu)]
+        expect = expected_counts(cfg, engine, kv is not None)
+        label = f"{cfg.name}{'-int4-fused' if cfg.fused_quant_matmul else ''}"
+        emit("cross_device", model=label, head_dim=cfg.head_dim,
+             kv_cache_dtype=kv, prompts=[len(p) for p in prompts],
+             tokens_per_seq=[len(r.token_ids) for r in gpu],
+             distinct_tokens=[len(set(r.token_ids)) for r in gpu],
+             equal_streams=same, launches=counts, expected_launches=expect,
+             cpu_s=t1 - t0, gpu_s=t2 - t1)
+        if not all(same):
+            i = same.index(False)
+            a, b = cpu[i].token_ids, gpu[i].token_ids
+            j = next(k for k in range(min(len(a), len(b))) if a[k] != b[k])
+            raise SystemExit(f"{label} kv={kv}: card and CPU greedy streams "
+                             f"differ: seq {i} token {j}: cpu {a[j]} gpu "
+                             f"{b[j]}")
+        if counts != expect:
+            raise SystemExit(f"{label} kv={kv}: launch counts {counts} != "
+                             f"expected {expect}")
+
+
+def _to_cuda(w):
+    """A parameter on the card (a quantized weight field by field)."""
+    if isinstance(w, tuple):
+        return type(w)(*(t.cuda() for t in w))
+    return w.cuda()
 
 
 # ------------------------------------------------------------------ phase 5
@@ -380,27 +569,34 @@ def incident_text(n_chars: int) -> str:
     return (line * (n_chars // len(line) + 1))[:n_chars]
 
 
-def phase_slice() -> dict:
+def phase_slice(int4: bool) -> dict:
+    """Llama-3-8B behind AssistantService, four requests: bf16 (phase 5)
+    or int4 weights, fused_quant_matmul and an int4 KV pool (phase 5b).
+    Returns the run's launch counts."""
     import torch
 
     from k8s_llm_rca_tpu_torch.config import LLAMA3_8B, EngineConfig
     from k8s_llm_rca_tpu_torch.engine import make_engine
     from k8s_llm_rca_tpu_torch.models.llama import init_params
-    from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
-    from k8s_llm_rca_tpu_torch.ops.paged_attention import paged_attention
+    from k8s_llm_rca_tpu_torch.models.quant import quantizing_transform
     from k8s_llm_rca_tpu_torch.serve.api import (
         AssistantService, Message, RunStatus, Thread, render_prompt,
     )
     from k8s_llm_rca_tpu_torch.serve.backend import EngineBackend, GenOptions
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    cfg = LLAMA3_8B
+    cfg = LLAMA3_8B.replace(fused_quant_matmul=int4)
+    kv = "int4" if int4 else None
     ecfg = EngineConfig(max_batch=4, max_seq_len=2560,
                         prefill_buckets=(512, 1024, 2560), max_new_tokens=64,
                         temperature=0.0, paged=True, page_size=64,
-                        num_pages=168, prefix_cache=False, decode_chunk=16)
+                        num_pages=168, prefix_cache=False, decode_chunk=16,
+                        kv_cache_dtype=kv)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=(quantizing_transform(bits=4)
+                                           if int4 else None))
     engine = make_engine(cfg, ecfg, params, get_tokenizer(
         vocab_size=cfg.vocab_size))
     torch.cuda.synchronize()
@@ -421,7 +617,7 @@ def phase_slice() -> dict:
     engine._drain_admission_commits = drain_stamped
     flags = []
     runs = []
-    paged_attention.launches = flash_attention.launches = 0
+    reset_counts()
     t_submit = time.perf_counter()
     with watch_logits(flags):
         # one token per byte: the template around an empty message, + BOS
@@ -435,16 +631,16 @@ def phase_slice() -> dict:
             service.pump_once()
         torch.cuda.synchronize()
     t_end = time.perf_counter()
-    counts = {"paged": paged_attention.launches,
-              "flash": flash_attention.launches}
+    counts = read_counts()
     c = engine._counts
-    expect = {"paged": cfg.n_layers * int(c["engine.decode_steps"]),
-              "flash": cfg.n_layers * int(c["engine.prefill_dispatches"])}
+    expect = expected_counts(cfg, engine, int4)
     all_finite = bool(torch.stack(flags).all())
     usage = [dict(r.usage) for r in runs]
     completion = sum(u["completion_tokens"] for u in usage)
     ttft = stamps[0] - t_submit
-    emit("slice", model=cfg.name, layers=cfg.n_layers,
+    emit("slice_int4" if int4 else "slice", model=cfg.name,
+         layers=cfg.n_layers, weights="int4" if int4 else "bfloat16",
+         kv_cache_dtype=kv, fused_quant_matmul=cfg.fused_quant_matmul,
          prompt_tokens=[u["prompt_tokens"] for u in usage],
          completion_tokens=[u["completion_tokens"] for u in usage],
          statuses=[r.status for r in runs], logits_finite=all_finite,
@@ -467,10 +663,11 @@ def phase_slice() -> dict:
     return counts
 
 
-def phase_profile_decode(steps: int = 8) -> None:
+def phase_profile_decode(int4: bool, steps: int = 8) -> None:
     """Where one decode step's time goes at the slice's shapes (Llama-3-8B,
-    bf16, batch 4 at 400/900/1500/2300 cached tokens): wall time per step
-    without and with the profiler, the device time of the step's kernels
+    bf16, or int4 weights with fused_quant_matmul over an int4 pool; batch
+    4 at 400/900/1500/2300 cached tokens): wall time per step without and
+    with the profiler, the device time of the step's kernels
     (torch.profiler), the device's busy share and the heaviest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -480,10 +677,14 @@ def phase_profile_decode(steps: int = 8) -> None:
         init_paged_cache, paged_decode_step,
     )
     from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.models.quant import quantizing_transform
 
-    cfg = LLAMA3_8B
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-    pool = init_paged_cache(cfg, 168, 64, "cuda")
+    cfg = LLAMA3_8B.replace(fused_quant_matmul=int4)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=(quantizing_transform(bits=4)
+                                           if int4 else None))
+    pool = init_paged_cache(cfg, 168, 64, "cuda",
+                            kv_dtype="int4" if int4 else None)
     lens = [400, 900, 1500, 2300]
     tables = torch.zeros((4, 40), dtype=torch.int32)
     used = 1
@@ -520,13 +721,47 @@ def phase_profile_decode(steps: int = 8) -> None:
               if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
     device_ms = sum(dev_us(e) for e in events) / 1e3 / steps
     top = sorted(events, key=dev_us, reverse=True)[:8]
-    emit("profile_decode", steps=steps, wall_ms_per_step=1e3 * wall,
+    emit("profile_decode", weights="int4" if int4 else "bfloat16",
+         steps=steps, wall_ms_per_step=1e3 * wall,
          wall_ms_per_step_profiled=1e3 * wall_profiled,
          device_ms_per_step=device_ms,
          device_busy_share=device_ms / (1e3 * wall_profiled),
          kernel_launches_per_step=sum(e.count for e in events) / steps,
          top=[{"name": e.key[:80], "ms_per_step": dev_us(e) / 1e3 / steps,
                "calls_per_step": e.count / steps} for e in top])
+
+
+def phase_host_costs(calls: int = 2000) -> None:
+    """Host time per call of the int4 decode step's extra eager work, at
+    its shapes: one ``quant_matmul`` (x [4, 4096] @ int4 [4096, 4096]), the
+    ``torch.matmul`` it replaces, and one ``quantize_kv`` of a token batch.
+    The clock stops before the synchronize: the card finishes each call
+    sooner than the host issues the next, so this is the host's time."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.models.quant import quantize_kv
+    from k8s_llm_rca_tpu_torch.ops.quant_matmul import quant_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((4, 4096), generator=gen, device="cuda").bfloat16()
+    w = quant_weight(gen, 4096, 4096)
+    w_dense = torch.randn((4096, 4096), generator=gen,
+                          device="cuda").bfloat16()
+    kv = torch.randn((4, 1024), generator=gen, device="cuda").bfloat16()
+    out = {}
+    for name, fn in (("quant_matmul_us", lambda: quant_matmul(x, w)),
+                     ("torch_matmul_us", lambda: torch.matmul(x, w_dense)),
+                     ("quantize_kv_us", lambda: quantize_kv(kv, True))):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        out[name] = 1e6 * (t1 - t0) / calls
+    emit("host_costs", calls=calls, **out)
 
 
 def main(argv) -> int:
@@ -550,18 +785,25 @@ def main(argv) -> int:
          python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    reports = build.build(["paged_attention", "flash_attention"])
+    reports = build.build(KERNELS)
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={name: [ln.strip() for ln in rep.splitlines()
                        if "registers" in ln or "spill" in ln]
                 for name, rep in reports.items()})
 
     if "--profile-decode" in argv:
-        phase_profile_decode()
+        phase_profile_decode(int4=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_profile_decode(int4=True)
+        phase_host_costs()
         return 0
     table = phase_kernels()
     phase_cross_device()
-    launches = phase_slice()
+    launches = phase_slice(int4=False)
+    gc.collect()                      # the bf16 model goes before the int4
+    torch.cuda.empty_cache()
+    launches_int4 = phase_slice(int4=True)
 
     rows = []
     for name, src, replaces, key, count in (
@@ -570,7 +812,17 @@ def main(argv) -> int:
              ("paged_attention", "bfloat16"), launches["paged"]),
             ("flash_attention", FLASH_SRC,
              "k8s_llm_rca_tpu/ops/flash_attention.py:31",
-             ("flash_attention", "bfloat16", "full"), launches["flash"])):
+             ("flash_attention", "bfloat16", "full"), launches["flash"]),
+            ("quant_matmul", QMM_SRC,
+             "k8s_llm_rca_tpu/ops/quant_matmul.py:137",
+             ("quant_matmul", "bfloat16", "decode"), launches_int4["qmm"]),
+            ("quant_matmul_head", QMM_SRC,
+             "k8s_llm_rca_tpu/ops/quant_matmul.py:177",
+             ("quant_matmul_head", "bfloat16"), launches_int4["qmm_head"]),
+            ("paged_attention_quant", PAGED_QUANT_SRC,
+             "k8s_llm_rca_tpu/ops/paged_attention.py:141",
+             ("paged_attention_quant", "bfloat16", "int4"),
+             launches_int4["paged_quant"])):
         rec = table[key]
         # the absolute error over the main path's dtype (bf16), every case
         err = max(r["max_abs_err"] for k, r in table.items()

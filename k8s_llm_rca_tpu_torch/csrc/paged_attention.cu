@@ -273,6 +273,7 @@ int launch_dim(const void* q, const void* k, const void* v, const int* lengths,
                         (T*)out, scratch, batch, n_heads, n_kv, page_size, pps,   \
                         n_split, s);
   switch (head_dim) {
+    PAGED_CASE(32)
     PAGED_CASE(64)
     PAGED_CASE(128)
     default:

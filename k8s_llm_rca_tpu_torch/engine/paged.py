@@ -14,12 +14,16 @@
 - Decode attention is ``ops.paged_attention`` (the CUDA kernel on the card,
   its plain version on the CPU); prefill attention is
   ``ops.flash_attention`` through ``models.llama``.
+- ``kv_cache_dtype`` "int8" or "int4" quantizes the pool per token (int4
+  split-half packed along the merged kv axis) with f32 scale pools
+  [L, n_pages, page_size]; decode then runs ``ops.paged_attention_quant``.
 - A chunked tick runs ``decode_chunk`` steps as a Python loop over device
   tensors with one host fetch per chunk (``paged_decode_scan``).
 
 Not ported yet, and refused loudly when configured: the prefix cache and
 its tiers, chunked prefill, speculative decoding, host overlap, KV spill,
-quantized pools and the TP/PP/CP/EP/FSDP meshes (ROADMAP Queue 1).
+int8 weights under ``fused_quant_matmul`` and the TP/PP/CP/EP/FSDP meshes
+(ROADMAP Queues 1 and 2).
 """
 
 from __future__ import annotations
@@ -36,8 +40,12 @@ from k8s_llm_rca_tpu_torch.engine.engine import (
 )
 from k8s_llm_rca_tpu_torch.engine.sampling import SamplingParams, sample_tokens
 from k8s_llm_rca_tpu_torch.models import llama
-from k8s_llm_rca_tpu_torch.models.quant import gather_rows
-from k8s_llm_rca_tpu_torch.ops.paged_attention import paged_attention
+from k8s_llm_rca_tpu_torch.models.quant import (
+    QuantTensor, gather_rows, quantize_kv,
+)
+from k8s_llm_rca_tpu_torch.ops.paged_attention import (
+    paged_attention, paged_attention_quant,
+)
 from k8s_llm_rca_tpu_torch.utils.device import resolve_device
 from k8s_llm_rca_tpu_torch.utils.logging import get_logger
 from k8s_llm_rca_tpu_torch.utils.tokenizer import Tokenizer
@@ -115,36 +123,78 @@ class PageAllocator:
 
 
 class PagePool(NamedTuple):
-    """Paged KV pool: k/v [L, n_pages, page_size, kv_dim] (model dtype)."""
+    """Paged KV pool: k/v [L, n_pages, page_size, kv_dim] in the model dtype,
+    or int8 [.., kv_dim] ("int8") / split-half packed int8 [.., kv_dim/2]
+    ("int4") with one f32 scale per written token in ``k_scale``/
+    ``v_scale`` [L, n_pages, page_size].  Page ids index the pages and the
+    scale pools alike."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def page_size(self) -> int:
         return self.k.shape[2]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+_KV_DTYPES = (None, "int8", "int4")
+
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
-                     device=None) -> PagePool:
+                     device=None, kv_dtype: Optional[str] = None) -> PagePool:
+    """Zeroed pool on ``device`` (``None`` = the card); ``kv_dtype`` None
+    (model dtype), "int8" or "int4" (anything else raises ``ValueError``,
+    as the JAX engine does)."""
+    if kv_dtype not in _KV_DTYPES:
+        raise ValueError(f"unsupported kv_cache_dtype {kv_dtype!r} (None, "
+                         f"'int8' or 'int4')")
     shape = (cfg.n_layers, n_pages, page_size, cfg.kv_dim)
     dev = resolve_device(device)
-    dtype = llama.torch_dtype(cfg.dtype)
-    return PagePool(torch.zeros(shape, dtype=dtype, device=dev),
-                    torch.zeros(shape, dtype=dtype, device=dev))
+    if kv_dtype is None:
+        dtype = llama.torch_dtype(cfg.dtype)
+        return PagePool(torch.zeros(shape, dtype=dtype, device=dev),
+                        torch.zeros(shape, dtype=dtype, device=dev))
+    if kv_dtype == "int4":
+        if cfg.kv_dim % 2:
+            raise ValueError(f"int4 pools pack pairs: kv_dim {cfg.kv_dim} is "
+                             f"odd")
+        shape = (*shape[:3], cfg.kv_dim // 2)
+    # scale pools in f32: 1/kv_dim of the page bytes
+    return PagePool(torch.zeros(shape, dtype=torch.int8, device=dev),
+                    torch.zeros(shape, dtype=torch.int8, device=dev),
+                    torch.zeros(shape[:3], dtype=torch.float32, device=dev),
+                    torch.zeros(shape[:3], dtype=torch.float32, device=dev))
+
+
+def _pool_packed(cfg: ModelConfig, pool: PagePool) -> bool:
+    """True when the pool stores nibble-packed int4 KV (kv_dim halved)."""
+    return pool.k.shape[-1] != cfg.kv_dim
 
 
 def _write_pool_pages(cfg: ModelConfig, pool: PagePool, new_k: torch.Tensor,
                       new_v: torch.Tensor, page_map: torch.Tensor,
                       n_seq_pages: int, page_size: int) -> PagePool:
     """Scatter [L, n_seq_pages * page_size, ...] prefill KV into the
-    ``page_map`` pool pages, in place.  Repeated ids carry identical
-    pages (padding rows) or land in the trash page."""
+    ``page_map`` pool pages, in place, quantizing per token first when the
+    pool is quantized.  Repeated ids carry identical pages (padding rows)
+    or land in the trash page."""
     idx = page_map.long()
-    pool.k[:, idx] = new_k.reshape(new_k.shape[0], n_seq_pages, page_size,
-                                   cfg.kv_dim)
-    pool.v[:, idx] = new_v.reshape(new_v.shape[0], n_seq_pages, page_size,
-                                   cfg.kv_dim)
+    new_k = new_k.reshape(new_k.shape[0], n_seq_pages, page_size, cfg.kv_dim)
+    new_v = new_v.reshape(new_v.shape[0], n_seq_pages, page_size, cfg.kv_dim)
+    if pool.quantized:
+        packed = _pool_packed(cfg, pool)
+        new_k, ks = quantize_kv(new_k, packed)
+        new_v, vs = quantize_kv(new_v, packed)
+        pool.k_scale[:, idx] = ks.float()
+        pool.v_scale[:, idx] = vs.float()
+    pool.k[:, idx] = new_k
+    pool.v[:, idx] = new_v
     return pool
 
 
@@ -190,19 +240,32 @@ def paged_decode_step(cfg: ModelConfig, params, pool: PagePool,
     attention runs over lengths + 1 tokens.  Returns (pool, logits [B, V])."""
     b = tokens.shape[0]
     page_size = pool.page_size
+    packed = _pool_packed(cfg, pool)
     lens = lengths.long()
     angles = llama._angles(cfg, tokens.device)
-    x = gather_rows(params["embedding"], tokens.long()[:, None]).to(
-        llama.torch_dtype(cfg.dtype))
+    dtype = llama.torch_dtype(cfg.dtype)
+    x = gather_rows(params["embedding"], tokens.long()[:, None], dtype).to(dtype)
     page_ids = block_tables.long().gather(1, (lens // page_size)[:, None])[:, 0]
     offsets = lens % page_size
     attn_lens = (lengths + 1).to(torch.int32)
     for li, layer in enumerate(params["layers"]):
         q, k, v = llama._decode_qkv(cfg, layer, x, angles, lens[:, None])
-        pool.k[li, page_ids, offsets] = k[:, 0].reshape(b, cfg.kv_dim)
-        pool.v[li, page_ids, offsets] = v[:, 0].reshape(b, cfg.kv_dim)
-        attn = paged_attention(q[:, 0], pool.k[li], pool.v[li], attn_lens,
-                               block_tables)
+        k_tok = k[:, 0].reshape(b, cfg.kv_dim)
+        v_tok = v[:, 0].reshape(b, cfg.kv_dim)
+        if pool.quantized:
+            k_tok, ks = quantize_kv(k_tok, packed)
+            v_tok, vs = quantize_kv(v_tok, packed)
+            pool.k_scale[li, page_ids, offsets] = ks.float()
+            pool.v_scale[li, page_ids, offsets] = vs.float()
+        pool.k[li, page_ids, offsets] = k_tok
+        pool.v[li, page_ids, offsets] = v_tok
+        if pool.quantized:
+            attn = paged_attention_quant(
+                q[:, 0], pool.k[li], pool.v[li], pool.k_scale[li],
+                pool.v_scale[li], attn_lens, block_tables, packed=packed)
+        else:
+            attn = paged_attention(q[:, 0], pool.k[li], pool.v[li],
+                                   attn_lens, block_tables)
         x = llama._decode_finish(cfg, layer, x,
                                  attn.reshape(b, 1, cfg.q_dim))
     return pool, llama._logits(cfg, params, x)[:, 0]
@@ -254,8 +317,6 @@ _UNPORTED_KNOBS = (
      _REST_OF_ENGINE),
     ("prefix_store_writethrough", False, "prefix store write-through",
      _REST_OF_ENGINE),
-    ("kv_cache_dtype", None, "a quantized KV pool",
-     "Queue 1 item 2, quantized paths"),
 )
 
 
@@ -267,6 +328,17 @@ def check_engine_config(engine_cfg: EngineConfig) -> None:
             raise NotImplementedError(
                 f"EngineConfig.{name}={value!r} turns on {what}, which is not "
                 f"ported yet (ROADMAP {item}); set {name}={supported!r}")
+
+
+def check_params(model_cfg: ModelConfig, params) -> None:
+    """Refuse int8 weights under ``fused_quant_matmul``: only the int4
+    kernels are ported."""
+    if model_cfg.fused_quant_matmul and any(
+            isinstance(w, QuantTensor) for w in _weights(params)):
+        raise NotImplementedError(
+            "fused_quant_matmul over int8 weights (QuantTensor) is not "
+            "ported yet (ROADMAP Queue 2 item 3, the int8 kn and nk "
+            "kernels); quantize with bits=4 or turn fused_quant_matmul off")
 
 
 class PagedInferenceEngine(EngineBase):
@@ -286,6 +358,7 @@ class PagedInferenceEngine(EngineBase):
                 "Queue 1 item 10, multi-GPU)")
         llama.check_model_config(model_cfg)
         check_engine_config(engine_cfg)
+        check_params(model_cfg, params)
         self.device = resolve_device(device)
         for leaf in _leaves(params):
             if leaf.device != self.device:
@@ -311,7 +384,8 @@ class PagedInferenceEngine(EngineBase):
                 f"num_pages={engine_cfg.num_pages} cannot hold one full "
                 f"sequence ({self.pages_per_seq} pages + trash page)")
         self.pool = init_paged_cache(model_cfg, engine_cfg.num_pages,
-                                     self.page_size, self.device)
+                                     self.page_size, self.device,
+                                     kv_dtype=engine_cfg.kv_cache_dtype)
         self.allocator = PageAllocator(engine_cfg.num_pages)
         self.block_tables = np.full((b, self.pages_per_seq), TRASH_PAGE,
                                     np.int32)
@@ -654,12 +728,18 @@ class PagedInferenceEngine(EngineBase):
             completion_tokens=len(generated))
 
 
-def _leaves(tree):
+def _weights(tree):
+    """The leaves of a param tree, a quantized weight counting as one."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
+        tree = list(tree.values())
+    if isinstance(tree, list):
         for v in tree:
-            yield from _leaves(v)
+            yield from _weights(v)
     else:
         yield tree
+
+
+def _leaves(tree):
+    """Every tensor of a param tree (a quantized weight's q and scale)."""
+    for w in _weights(tree):
+        yield from (w if isinstance(w, tuple) else (w,))

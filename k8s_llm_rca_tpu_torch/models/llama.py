@@ -4,11 +4,14 @@ Parameters are a plain nested dict with the JAX tree's names and layouts
 (``embedding`` [V, H], ``layers[i]`` with ``attn_norm``, ``mlp_norm``,
 ``wq``, ``wk``, ``wv``, ``wo``, ``w_gate``, ``w_up``, ``w_down`` stored
 [in, out] for ``x @ w``, ``final_norm``, and ``lm_head`` [V, H] unless
-tied), so ``params_from_numpy`` carries a JAX tree across unchanged.
-Projections, the MLP and the lm head are ``torch.matmul``; prefill
-attention is ``ops.flash_attention`` (the CUDA kernel on the card, its
-plain version on the CPU).  Dense Llama only: the MoE MLP (ROADMAP Queue 1
-item 8) and the fused quantized matmuls (Queue 1 item 2) are not ported.
+tied), so ``params_from_numpy`` carries a JAX tree across unchanged,
+quantized leaves (``models.quant.QuantTensor``/``QuantTensor4``) included.
+Projections, the MLP and the lm head are ``x @ dq(w)`` in ``torch.matmul``,
+or, under ``ModelConfig.fused_quant_matmul``, the ``ops.quant_matmul``
+shims (the int4 CUDA kernels on the card); prefill attention is
+``ops.flash_attention`` (the CUDA kernel on the card, its plain version on
+the CPU).  Dense Llama only: the MoE MLP is not ported (ROADMAP Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -21,8 +24,13 @@ import torch
 import torch.nn.functional as F
 
 from k8s_llm_rca_tpu_torch.config import ModelConfig
-from k8s_llm_rca_tpu_torch.models.quant import dq, gather_rows
+from k8s_llm_rca_tpu_torch.models.quant import (
+    QuantTensor, QuantTensor4, gather_rows,
+)
 from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
+from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
+    qmm, qmm_head, quant_matmul_head_plain, quant_matmul_plain,
+)
 from k8s_llm_rca_tpu_torch.ops.norms import rms_norm
 from k8s_llm_rca_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from k8s_llm_rca_tpu_torch.utils.device import resolve_device
@@ -43,16 +51,17 @@ def check_model_config(cfg: ModelConfig) -> None:
     if cfg.n_experts > 0:
         raise NotImplementedError(
             "MoE (n_experts > 0) is not ported yet (ROADMAP Queue 1 item 8)")
-    if cfg.fused_quant_matmul:
-        raise NotImplementedError(
-            "fused_quant_matmul is not ported yet (ROADMAP Queue 1 item 2, "
-            "quantized paths)")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> Params:
+                device=None, tensor_transform=None) -> Params:
     """Random init (scaled normal, the JAX init's scales) from ``generator``,
-    which must live on ``device`` (``None`` = the card)."""
+    which must live on ``device`` (``None`` = the card).
+
+    ``tensor_transform`` (e.g. ``models.quant.quantizing_transform``) is
+    applied to every matmul weight as it is created, with ``axis=0`` for
+    ``embedding``/``lm_head``, so a quantized model never holds its
+    full-precision weights all at once."""
     check_model_config(cfg)
     device = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
@@ -61,10 +70,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     scale = 1.0 / math.sqrt(h)
     out_scale = scale / math.sqrt(2 * cfg.n_layers)
 
-    def dense(shape, s):
+    def dense(shape, s, axis=-1):
         w = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return (w * s).to(dtype)
+        w = (w * s).to(dtype)
+        return w if tensor_transform is None else tensor_transform(w,
+                                                                   axis=axis)
 
     def ones():
         return torch.ones((h,), device=device, dtype=dtype)
@@ -78,10 +89,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "w_gate": dense((h, inter), scale), "w_up": dense((h, inter), scale),
             "w_down": dense((inter, h), out_scale),
         })
-    params: Params = {"embedding": dense((cfg.vocab_size, h), 1.0),
+    params: Params = {"embedding": dense((cfg.vocab_size, h), 1.0, axis=0),
                       "final_norm": ones(), "layers": layers}
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((cfg.vocab_size, h), scale)
+        params["lm_head"] = dense((cfg.vocab_size, h), scale, axis=0)
     return params
 
 
@@ -96,15 +107,35 @@ def _tensor_from_numpy(a, device, dtype: Optional[torch.dtype]
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+def _quant_leaf(tree, device) -> "QuantTensor | QuantTensor4":
+    """A JAX ``QuantTensor``/``QuantTensor4`` (a NamedTuple of numpy arrays
+    under ``jax.tree.map``), recognised by its fields, carried across byte
+    for byte.  int4 is told by the class name or, for per-column scales, by
+    the packed axis being half the scale's."""
+    kind = type(tree).__name__
+    if kind == "QuantTensor4Grouped":
+        raise ValueError("grouped int4 (QuantTensor4Grouped) is a shard-local "
+                         "layout of PP x TP, not ported (ROADMAP Queue 1 "
+                         "item 10)")
+    q = _tensor_from_numpy(tree.q, device, None)
+    scale = _tensor_from_numpy(tree.scale, device, None)
+    packed = kind == "QuantTensor4" or (scale.shape[-1] > 1 and
+                                        scale.shape[-1] == 2 * q.shape[-1])
+    return (QuantTensor4 if packed else QuantTensor)(q=q, scale=scale)
+
+
 def params_from_numpy(tree, device=None,
                       dtype: Optional[torch.dtype] = None) -> Params:
     """Carry a JAX parameter tree across: ``tree`` is
     ``jax.tree.map(np.asarray, params)``; every leaf becomes a tensor on
     ``device`` (``None`` = the card) in ``dtype`` (``None`` keeps the
-    leaf's).  bf16 leaves arrive bit-exact."""
+    leaf's).  bf16 leaves arrive bit-exact; quantized leaves keep their
+    int8 bytes and scale bits whatever ``dtype``."""
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if getattr(tree, "_fields", None) == ("q", "scale"):
+        return _quant_leaf(tree, device)
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device, dtype) for v in tree]
     return _tensor_from_numpy(tree, device, dtype)
@@ -115,23 +146,27 @@ def params_from_numpy(tree, device=None,
 # ---------------------------------------------------------------------------
 
 
-def _w_mm(x: torch.Tensor, w) -> torch.Tensor:
-    return torch.matmul(x, dq(w))
+def _w_mm(cfg: ModelConfig, x: torch.Tensor, w) -> torch.Tensor:
+    """Every weight matmul: ``x @ dq(w)``, or the fused kernel shim under
+    ``cfg.fused_quant_matmul``."""
+    if cfg.fused_quant_matmul:
+        return qmm(x, w)
+    return quant_matmul_plain(x, w)
 
 
 def _qkv(cfg: ModelConfig, layer: Params, x: torch.Tensor,
          angles: torch.Tensor, positions: torch.Tensor):
     """x [B, S, H] -> q [B, S, n_heads, d], k/v [B, S, n_kv, d] (roped q, k)."""
     b, s, _ = x.shape
-    q = _w_mm(x, layer["wq"]).reshape(b, s, -1, cfg.head_dim)
-    k = _w_mm(x, layer["wk"]).reshape(b, s, -1, cfg.head_dim)
-    v = _w_mm(x, layer["wv"]).reshape(b, s, -1, cfg.head_dim)
+    q = _w_mm(cfg, x, layer["wq"]).reshape(b, s, -1, cfg.head_dim)
+    k = _w_mm(cfg, x, layer["wk"]).reshape(b, s, -1, cfg.head_dim)
+    v = _w_mm(cfg, x, layer["wv"]).reshape(b, s, -1, cfg.head_dim)
     return apply_rope(q, angles, positions), apply_rope(k, angles, positions), v
 
 
-def _mlp(layer: Params, x: torch.Tensor) -> torch.Tensor:
-    gate = F.silu(_w_mm(x, layer["w_gate"]))
-    return _w_mm(gate * _w_mm(x, layer["w_up"]), layer["w_down"])
+def _mlp(cfg: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
+    gate = F.silu(_w_mm(cfg, x, layer["w_gate"]))
+    return _w_mm(cfg, gate * _w_mm(cfg, x, layer["w_up"]), layer["w_down"])
 
 
 def _block_prefill(cfg: ModelConfig, layer: Params, x: torch.Tensor,
@@ -143,9 +178,9 @@ def _block_prefill(cfg: ModelConfig, layer: Params, x: torch.Tensor,
     q, k, v = _qkv(cfg, layer, h, angles, positions)
     attn = flash_attention(q, k, v, seq_lens)
     b, s = attn.shape[:2]
-    x = x + _w_mm(attn.reshape(b, s, cfg.q_dim), layer["wo"])
+    x = x + _w_mm(cfg, attn.reshape(b, s, cfg.q_dim), layer["wo"])
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
-    return x + _mlp(layer, h), k, v
+    return x + _mlp(cfg, layer, h), k, v
 
 
 def _decode_qkv(cfg: ModelConfig, layer: Params, x: torch.Tensor,
@@ -159,14 +194,17 @@ def _decode_finish(cfg: ModelConfig, layer: Params, x: torch.Tensor,
                    attn: torch.Tensor) -> torch.Tensor:
     """Decode-block back half: output projection + residual + MLP.
     ``attn`` is already [B, T, q_dim]."""
-    x = x + _w_mm(attn, layer["wo"])
-    return x + _mlp(layer, rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps))
+    x = x + _w_mm(cfg, attn, layer["wo"])
+    return x + _mlp(cfg, layer,
+                    rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps))
 
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(x, dq(head).t()).float()
+    if cfg.fused_quant_matmul:
+        return qmm_head(x, head).float()
+    return quant_matmul_head_plain(x, head).float()
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +227,8 @@ def prefill_kv(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     angles = _angles(cfg, dev)
     positions = torch.arange(s_pad, device=dev)[None, :]
     seq_lens = torch.tensor([int(length)], dtype=torch.int32, device=dev)
-    x = gather_rows(params["embedding"], tokens).to(torch_dtype(cfg.dtype))
+    dtype = torch_dtype(cfg.dtype)
+    x = gather_rows(params["embedding"], tokens, dtype).to(dtype)
     ks, vs = [], []
     for layer in params["layers"]:
         x, k, v = _block_prefill(cfg, layer, x, angles, positions, seq_lens)
@@ -209,7 +248,8 @@ def _prefill_batch_kv(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     n, s_pad = tokens.shape
     angles = _angles(cfg, dev)
     positions = torch.arange(s_pad, device=dev)[None, :].expand(n, s_pad)
-    x = gather_rows(params["embedding"], tokens).to(torch_dtype(cfg.dtype))
+    dtype = torch_dtype(cfg.dtype)
+    x = gather_rows(params["embedding"], tokens, dtype).to(dtype)
     ks, vs = [], []
     for layer in params["layers"]:
         x, k, v = _block_prefill(cfg, layer, x, angles, positions, lengths)

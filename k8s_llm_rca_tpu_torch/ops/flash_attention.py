@@ -29,7 +29,7 @@ from k8s_llm_rca_tpu_torch.ops import build
 from k8s_llm_rca_tpu_torch.ops.attention import causal_attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)     # the configs' head_dims (TINY, LLAMA3_8B)
+_HEAD_DIMS = (32, 64, 128)  # TINY is 32, LLAMA3_8B 128
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,6 +15,15 @@ are the JAX package's:
 ``paged_attention`` launches ``csrc/paged_attention.cu`` for CUDA tensors
 and takes ``paged_attention_plain`` only for CPU tensors.  There is no
 fallback: a CUDA input the kernel does not take raises.
+
+``paged_attention_quant`` is the same over a quantized pool (the
+counterpart of ``paged_attention_quant``): int8 pages [.., n_kv*d], or
+split-half int4 pages [.., n_kv*d/2] when ``packed``, with one f32 scale
+per token in ``k_scales``/``v_scales`` [n_pages, page_size].  It launches
+``csrc/paged_attention_quant.cu`` for CUDA tensors and takes
+``paged_attention_quant_plain`` for CPU tensors: the gather, dequantize
+and masked softmax of the JAX engine's path without the kernel
+(``engine/paged.py::_gather_dequant_pages`` + ``decode_attention``).
 """
 
 from __future__ import annotations
@@ -24,12 +33,13 @@ import functools
 
 import torch
 
+from k8s_llm_rca_tpu_torch.models.quant import dequant_kv
 from k8s_llm_rca_tpu_torch.ops import build
-from k8s_llm_rca_tpu_torch.ops.attention import NEG_INF
+from k8s_llm_rca_tpu_torch.ops.attention import NEG_INF, decode_attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_REP = 8           # query heads per kv-head the kernel holds (kMaxRep)
-_HEAD_DIMS = (64, 128)     # the configs' head_dims (TINY, LLAMA3_8B)
+_HEAD_DIMS = (32, 64, 128)  # TINY is 32, LLAMA3_8B 128
 _SPLIT_TOKENS = 256    # tokens per pass-1 block of the kernel (kChunk)
 
 
@@ -139,3 +149,133 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# quantized pools
+# ---------------------------------------------------------------------------
+
+
+def gather_dequant_pages(pages: torch.Tensor, scales: torch.Tensor,
+                         block_tables: torch.Tensor, n_kv: int, d: int, dtype,
+                         packed: bool) -> torch.Tensor:
+    """A dense per-sequence view [B, S_max, n_kv, d] of a quantized pool
+    (``engine/paged.py::_gather_dequant_pages``): gather the table's pages
+    and their scales, unpack, and dequantize in ``dtype``."""
+    tables = block_tables.long()
+    kv = dequant_kv(pages[tables], scales[tables], dtype, packed)
+    return kv.reshape(tables.shape[0], -1, n_kv, d)
+
+
+def paged_attention_quant_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor, k_scales: torch.Tensor,
+                                v_scales: torch.Tensor, lengths: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                packed: bool = False) -> torch.Tensor:
+    """Gather, dequantize, masked softmax: [B, n_heads, d] in q's dtype.
+    The pages dequantize in f32, where ``decode_attention`` computes (and
+    where XLA keeps the JAX engine's dequantized pages inside its jitted
+    step)."""
+    d = q.shape[2]
+    n_kv = k_pages.shape[2] * (2 if packed else 1) // d
+    k = gather_dequant_pages(k_pages, k_scales, block_tables, n_kv, d,
+                             torch.float32, packed)
+    v = gather_dequant_pages(v_pages, v_scales, block_tables, n_kv, d,
+                             torch.float32, packed)
+    return decode_attention(q[:, None], k, v, lengths)[:, 0]
+
+
+@functools.lru_cache(maxsize=None)
+def _quant_launcher():
+    fn = build.load("paged_attention_quant").paged_attention_quant_launch
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_quant(q, k_pages, v_pages, k_scales, v_scales, lengths,
+                 block_tables, packed) -> None:
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"paged_attention_quant kernel takes float32 or "
+                        f"bfloat16 queries, got {q.dtype}")
+    for name, t, dtype in (("k_pages", k_pages, torch.int8),
+                           ("v_pages", v_pages, torch.int8),
+                           ("k_scales", k_scales, torch.float32),
+                           ("v_scales", v_scales, torch.float32),
+                           ("lengths", lengths, torch.int32),
+                           ("block_tables", block_tables, torch.int32)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dim() != 3 or k_pages.dim() != 3 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"q {tuple(q.shape)} must be [B, H, d] and the "
+                         f"pools [n_pages, page, kv], got "
+                         f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+    if (tuple(k_scales.shape) != tuple(k_pages.shape[:2])
+            or k_scales.shape != v_scales.shape):
+        raise ValueError(f"scales {tuple(k_scales.shape)} / "
+                         f"{tuple(v_scales.shape)} must be [n_pages, page] "
+                         f"of the pools {tuple(k_pages.shape)}")
+    b, n_heads, d = q.shape
+    kv_dim = k_pages.shape[2] * (2 if packed else 1)
+    if kv_dim % d or n_heads % (kv_dim // d):
+        raise ValueError(f"pool width {kv_dim} is not n_kv * d with n_heads "
+                         f"{n_heads} a multiple of n_kv (d = {d})")
+    if n_heads // (kv_dim // d) > _MAX_REP or d not in _HEAD_DIMS:
+        raise ValueError(f"kernel holds at most {_MAX_REP} query heads per "
+                         f"kv-head and head_dim one of {_HEAD_DIMS}")
+    if tuple(lengths.shape) != (b,) or block_tables.dim() != 2 \
+            or block_tables.shape[0] != b:
+        raise ValueError(f"lengths {tuple(lengths.shape)} / block_tables "
+                         f"{tuple(block_tables.shape)} do not match batch {b}")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("the pools must be 16-byte aligned (vector loads)")
+
+
+def paged_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, k_scales: torch.Tensor,
+                          v_scales: torch.Tensor, lengths: torch.Tensor,
+                          block_tables: torch.Tensor, *,
+                          packed: bool = False) -> torch.Tensor:
+    """Decode attention over a quantized paged pool: [B, n_heads, d].
+
+    CPU tensors take ``paged_attention_quant_plain``; CUDA tensors launch
+    the kernel on the current stream (``paged_attention_quant.launches``
+    counts the launches) or raise."""
+    if q.device.type == "cpu":
+        return paged_attention_quant_plain(q, k_pages, v_pages, k_scales,
+                                           v_scales, lengths, block_tables,
+                                           packed)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_quant runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check_quant(q, k_pages, v_pages, k_scales, v_scales, lengths,
+                 block_tables, packed)
+    b, n_heads, d = q.shape
+    _, page_size, kv_store = k_pages.shape
+    n_kv = kv_store * (2 if packed else 1) // d
+    pps = block_tables.shape[1]
+    n_split = -(-pps * page_size // _SPLIT_TOKENS)
+    out = torch.empty_like(q)
+    scratch = torch.empty(b * n_heads * n_split * (d + 2),
+                          dtype=torch.float32, device=q.device)
+    rc = _quant_launcher()(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scales.data_ptr(), v_scales.data_ptr(), lengths.data_ptr(),
+        block_tables.data_ptr(), out.data_ptr(), scratch.data_ptr(), b,
+        n_heads, n_kv, d, page_size, pps, n_split, int(packed),
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention_quant kernel launch failed: "
+                           f"CUDA error {rc}")
+    paged_attention_quant.launches += 1
+    return out
+
+
+paged_attention_quant.launches = 0

@@ -8,21 +8,28 @@ a card and no JAX, run them without the JAX test harness:
 
 Tolerances: fp32 atol 1e-4 with TF32 off (both sides fp32, different
 summation orders).  bf16: for every output row (one token and head, d
-values) the largest |out - ref| is at most 2^-6 of the row's largest
-|ref|, a limit that scales with the values compared.  Each side rounds an
-element to bf16 once, at most one ulp (2^-7 of the row's largest value)
-apart; the bf16 flash body's bf16 probabilities add a small fraction of
-that.
+values; for the matmuls one token's N or V outputs) the largest
+|out - ref| is at most 2^-6 of the row's largest |ref|, a limit that
+scales with the values compared.  Each side rounds an element to bf16
+once, at most one ulp (2^-7 of the row's largest value) apart; the bf16
+flash body's bf16 probabilities and the plain matmul's bf16-rounded
+dequantized weights (the kernel scales in fp32) add a fraction of that.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from k8s_llm_rca_tpu_torch.models.quant import quantize, quantize_kv
 from k8s_llm_rca_tpu_torch.ops.attention import causal_attention
 from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
 from k8s_llm_rca_tpu_torch.ops.paged_attention import (
-    paged_attention, paged_attention_plain,
+    paged_attention, paged_attention_plain, paged_attention_quant,
+    paged_attention_quant_plain,
+)
+from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
+    quant_matmul, quant_matmul_head, quant_matmul_head_plain,
+    quant_matmul_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -70,7 +77,8 @@ def _paged_inputs(gen, dtype, n_heads, n_kv, d, page, lengths):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_heads,n_kv,d,page", [
-    (4, 4, 64, 16), (8, 2, 64, 16), (32, 8, 128, 64), (16, 2, 128, 64)])
+    (4, 2, 32, 16), (8, 1, 32, 16), (4, 4, 64, 16), (8, 2, 64, 16),
+    (32, 8, 128, 64), (16, 2, 128, 64)])
 def test_paged_kernel_matches_plain(card, dtype, n_heads, n_kv, d, page):
     args = _paged_inputs(card, dtype, n_heads, n_kv, d, page,
                          [1, page, page + 1, 5 * page + 7])
@@ -94,7 +102,8 @@ def test_paged_kernel_refuses_what_it_does_not_take(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_heads,n_kv,d", [(4, 4, 64), (8, 2, 64),
+@pytest.mark.parametrize("n_heads,n_kv,d", [(4, 2, 32), (8, 8, 32),
+                                            (4, 4, 64), (8, 2, 64),
                                             (6, 3, 64), (32, 8, 128)])
 def test_flash_kernel_matches_plain(card, dtype, n_heads, n_kv, d):
     b, s = 2, 200                    # not a multiple of the 64-row tile
@@ -131,3 +140,95 @@ def test_flash_kernel_row_with_no_visible_key_is_zero(card):
     out = flash_attention(q, k, k, torch.zeros(1, dtype=torch.int32,
                                                device="cuda"))
     assert torch.equal(out, torch.zeros_like(out))
+
+
+# ------------------------------------------------------------ int4 matmuls
+
+
+def _weight(gen, k, n, scale_dtype, axis=-1):
+    """An int4 weight quantized from N(0, 1/K) values: outputs of order 1."""
+    w = torch.randn((k, n) if axis == -1 else (n, k), generator=gen,
+                    device="cuda") / k ** 0.5
+    return quantize(w, axis=axis, compute_dtype=scale_dtype, bits=4)
+
+
+@pytest.mark.parametrize("dtype,scale_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32)])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 256, 352), (4, 4096, 1024), (16, 512, 64), (4, 14336, 4096),
+    (17, 256, 352), (300, 96, 416), (5120, 256, 160)])
+def test_quant_matmul_matches_plain(card, dtype, scale_dtype, m, k, n):
+    """GEMV body (M <= 16, split K) and tiled bodies (M > 16); N/2 = 176 and
+    208 are not multiples of the 256/64/32-column blocks, K = 96 not of the
+    64-deep tensor-core step."""
+    w = _weight(card, k, n, scale_dtype)
+    x = torch.randn((m, k), generator=card, device="cuda").to(dtype)
+    before = quant_matmul.launches
+    out = quant_matmul(x, w)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    ref = quant_matmul_plain(x, w)
+    assert torch.isfinite(out).all()
+    assert _err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,v", [(1, 128, 512), (4, 4096, 1003),
+                                   (8, 256, 64), (9, 256, 1000)])
+def test_quant_matmul_head_matches_plain(card, dtype, m, k, v):
+    w = _weight(card, k, v, torch.bfloat16, axis=0)
+    x = torch.randn((m, 1, k), generator=card, device="cuda").to(dtype)
+    before = quant_matmul_head.launches
+    out = quant_matmul_head(x, w)
+    torch.cuda.synchronize()
+    assert quant_matmul_head.launches == before + 1
+    assert out.shape == (m, 1, v)
+    ref = quant_matmul_head_plain(x, w)
+    assert torch.isfinite(out).all()
+    assert _err(out, ref) <= TOL[dtype]
+
+
+def test_int8_weights_raise_on_the_card(card):
+    w = quantize(torch.randn((64, 64), generator=card, device="cuda"),
+                 bits=8)
+    x = torch.randn((2, 64), generator=card, device="cuda")
+    with pytest.raises(NotImplementedError, match="Queue 2 items 3/4"):
+        quant_matmul(x, w)
+    with pytest.raises(NotImplementedError, match="Queue 2 items 3/4"):
+        quant_matmul_head(x, quantize(torch.randn((64, 64), generator=card,
+                                                  device="cuda"),
+                                      axis=0, bits=8))
+
+
+# ------------------------------------------------- quantized paged attention
+
+
+def _quant_pools(args, packed):
+    """The float pools of ``_paged_inputs`` quantized per token."""
+    q, kp, vp, lens, tables = args
+    kq, ks = quantize_kv(kp, packed)
+    vq, vs = quantize_kv(vp, packed)
+    return q, kq, vq, ks.float(), vs.float(), lens, tables
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_heads,n_kv,d,page", [
+    (4, 2, 32, 16), (8, 1, 32, 16), (3, 3, 64, 16), (16, 2, 64, 16),
+    (32, 8, 128, 64), (8, 1, 128, 64)])
+def test_paged_quant_kernel_matches_plain(card, packed, dtype, n_heads, n_kv,
+                                          d, page):
+    """GQA 1-8, one kv-head (a head straddling the int4 split), lengths 1,
+    a page, a page + 1 and several pages over shuffled page ids."""
+    args = _quant_pools(_paged_inputs(card, dtype, n_heads, n_kv, d, page,
+                                      [1, page, page + 1, 5 * page + 7]),
+                        packed)
+    before = paged_attention_quant.launches
+    out = paged_attention_quant(*args, packed=packed)
+    torch.cuda.synchronize()
+    assert paged_attention_quant.launches == before + 1
+    ref = paged_attention_quant_plain(*args, packed=packed)
+    assert torch.isfinite(out).all()
+    assert _err(out, ref) <= TOL[dtype]

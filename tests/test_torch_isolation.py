@@ -15,6 +15,7 @@ import torch
 from k8s_llm_rca_tpu_torch import config
 from k8s_llm_rca_tpu_torch.engine import make_engine
 from k8s_llm_rca_tpu_torch.models.llama import init_params
+from k8s_llm_rca_tpu_torch.models.quant import quantize_params
 from k8s_llm_rca_tpu_torch.serve.backend import EngineBackend, GenOptions
 from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
@@ -81,6 +82,13 @@ def test_sources_import_no_jax(path):
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
 
 
+def test_sources_cover_the_quantized_slice():
+    names = {p.relative_to(PORT).as_posix() for p in SOURCES if PORT in
+             p.parents}
+    assert {"models/quant.py", "ops/quant_matmul.py",
+            "ops/paged_attention.py", "engine/paged.py"} <= names
+
+
 def test_forbidden_name_match_is_exact():
     assert _forbidden("k8s_llm_rca_tpu.ops.attention")
     assert _forbidden("jax.numpy")
@@ -124,7 +132,6 @@ UNPORTED = [
     ({"prefix_disk_pages": 8}, "Queue 1 item 3"),
     ({"prefix_hbm_watermark": 4}, "Queue 1 item 3"),
     ({"prefix_store_writethrough": True}, "Queue 1 item 3"),
-    ({"kv_cache_dtype": "int8"}, "Queue 1 item 2"),
     ({"paged": False}, "Queue 1 item 9"),
 ]
 
@@ -138,6 +145,23 @@ def test_unported_engine_knob_raises(over, item):
                     device="cpu")
 
 
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+def test_ported_engine_knob_is_accepted(kv):
+    """``kv_cache_dtype`` int8/int4 quantize the pool (it used to raise)."""
+    cfg, ecfg, params, tok = _tiny_engine_args(max_new_tokens=3)
+    engine = make_engine(cfg, dataclasses.replace(ecfg, kv_cache_dtype=kv),
+                         params, tok, device="cpu")
+    assert engine.pool.quantized
+    assert len(engine.generate([[1, 2, 3]])[0].token_ids) == 3
+
+
+def test_kv_cache_dtype_fp8_raises_like_jax():
+    cfg, ecfg, params, tok = _tiny_engine_args()
+    with pytest.raises(ValueError, match="unsupported kv_cache_dtype"):
+        make_engine(cfg, dataclasses.replace(ecfg, kv_cache_dtype="fp8"),
+                    params, tok, device="cpu")
+
+
 @pytest.mark.parametrize("mesh", ["tp_mesh", "cp_mesh", "ep_mesh", "pp_mesh",
                                   "fsdp_mesh"])
 def test_meshes_raise(mesh):
@@ -146,13 +170,26 @@ def test_meshes_raise(mesh):
         make_engine(cfg, ecfg, params, tok, device="cpu", **{mesh: object()})
 
 
-@pytest.mark.parametrize("over,item", [({"n_experts": 4}, "Queue 1 item 8"),
-                                       ({"fused_quant_matmul": True},
-                                        "Queue 1 item 2")])
+@pytest.mark.parametrize("over,item", [({"n_experts": 4}, "Queue 1 item 8")])
 def test_unported_model_features_raise(over, item):
     cfg, ecfg, params, tok = _tiny_engine_args()
     with pytest.raises(NotImplementedError, match=item):
         make_engine(cfg.replace(**over), ecfg, params, tok, device="cpu")
+
+
+def test_ported_model_feature_is_accepted():
+    """``fused_quant_matmul`` over int4 weights serves (it used to raise)."""
+    cfg, ecfg, params, tok = _tiny_engine_args(max_new_tokens=3)
+    engine = make_engine(cfg.replace(fused_quant_matmul=True), ecfg,
+                         quantize_params(params, bits=4), tok, device="cpu")
+    assert len(engine.generate([[1, 2, 3]])[0].token_ids) == 3
+
+
+def test_int8_weights_under_fused_quant_matmul_raise():
+    cfg, ecfg, params, tok = _tiny_engine_args()
+    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
+        make_engine(cfg.replace(fused_quant_matmul=True), ecfg,
+                    quantize_params(params, bits=8), tok, device="cpu")
 
 
 def test_engine_backend_serves_on_cpu_when_asked():
