@@ -5,7 +5,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Each phase
 prints one JSON line; any failure exits non-zero without the result line.
 
 1. env: the card, its power limit, the software versions.
-2. build: the four CUDA sources compiled from ``k8s_llm_rca_tpu_torch/csrc``
+2. build: the six CUDA sources compiled from ``k8s_llm_rca_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together).
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes, in bf16 (row-relative error at most 2^-6, see
@@ -13,12 +13,17 @@ prints one JSON line; any failure exits non-zero without the result line.
    version's, the least time the card could take (bound) and one PyTorch
    library call as a yardstick (timed here only; the port never calls it):
    paged and flash attention (slice 1), the int4 matmul at decode and
-   prefill shapes, the int4 lm head, and paged attention over int8 and
-   int4 pools.
+   prefill shapes, the int4 lm head, paged attention over int8 and int4
+   pools (slice 2), and the int8 matmul (wq at decode and prefill, the
+   router at N = 8 and 4, and the int4 one at those widths), the int8 head
+   and the int8 and int4 stacked-expert matmuls in both einsum forms at
+   decode and prefill (slice 3).
 4. cross-device: the engine on the card and on the CPU gives the same
-   greedy tokens for a 2-layer model (head_dim 128, GQA 4, fp32) and for
-   TINY (head_dim 32, GQA 2, fp32) with its own weights and with int4
-   weights under ``fused_quant_matmul`` over int4 and int8 KV pools.
+   greedy tokens for a 2-layer model (head_dim 128, GQA 4, fp32), for
+   TINY (head_dim 32, GQA 2, fp32) with its own weights, with int4 weights
+   under ``fused_quant_matmul`` over int4 and int8 KV pools and with int8
+   weights over an int8 pool, and for TINY_MOE with int8 weights over an
+   int8 pool and int4 weights over an int4 pool.
 5. slice: Llama-3-8B at full depth and width in bf16 (seeded random
    weights) behind ``AssistantService`` answers four requests of ~400,
    900, 1500 and 2300 prompt tokens; the paged and flash kernels' launch
@@ -27,15 +32,23 @@ prints one JSON line; any failure exits non-zero without the result line.
    int4 KV pool; quant_matmul launches 224 x (decode steps + prefill
    dispatches), quant_matmul_head 1 x that, paged_attention_quant 32 x
    decode steps and flash_attention 32 x prefill dispatches.
+5c. Mixtral-8x7B at full depth and width with int8 weights (~47 GB), an
+   int8 KV pool and ``fused_quant_matmul``, the same four requests: per
+   layer and per decode step or prefill dispatch 5 int8 kn launches (4
+   projections and the router) and 3 int8 expert launches, one int8 head
+   per step or dispatch.
+5d. the same Mixtral with int4 weights and an int4 pool (the int4 kn, head
+   and expert kernels).
 
 Then the kernel table (one JSON line), the ``nvidia-smi`` name and power
 limit line, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 ``--profile-decode`` runs only a profile of one decode step at the slice's
-shapes, bf16 and int4, and the host time per call of the int4 step's
-extra eager work (the sources of PERF.md's decode-step breakdowns), and
-prints no result line.
+shapes (Llama-3-8B bf16 and int4, Mixtral-8x7B int8), and the host time
+per call of the int4 step's extra eager work (the sources of PERF.md's
+decode-step breakdowns), and prints no result line.
 """
+
 
 from __future__ import annotations
 
@@ -52,8 +65,11 @@ PAGED_SRC = "k8s_llm_rca_tpu_torch/csrc/paged_attention.cu"
 FLASH_SRC = "k8s_llm_rca_tpu_torch/csrc/flash_attention.cu"
 QMM_SRC = "k8s_llm_rca_tpu_torch/csrc/quant_matmul.cu"
 PAGED_QUANT_SRC = "k8s_llm_rca_tpu_torch/csrc/paged_attention_quant.cu"
+QMM8_SRC = "k8s_llm_rca_tpu_torch/csrc/quant_matmul_int8.cu"
+EKN_SRC = "k8s_llm_rca_tpu_torch/csrc/quant_matmul_experts.cu"
 KERNELS = ("paged_attention", "flash_attention", "quant_matmul",
-           "paged_attention_quant")
+           "paged_attention_quant", "quant_matmul_int8",
+           "quant_matmul_experts")
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -64,7 +80,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # each, at most one ulp apart: 2^-7 of the row's largest value; the bf16
 # flash body's bf16 probabilities and the plain matmuls' bf16-rounded
 # dequantized weights (the kernels scale in fp32) add a fraction of that.
-# For the matmuls a row is one token's N (or V) outputs.
+# For the matmuls a row is one token's N (or V) outputs.  The int8 and
+# expert matmuls of slice 3 are held against the plain version on the same
+# values in fp32 (``exact``): the bf16 plain version rounds every
+# dequantized weight to bf16, which over a router row of 4 or 8 outputs is
+# not a fraction of the row's largest value.
 TOL = {"bfloat16": 2 ** -6, "float32": 1e-4}
 
 
@@ -222,22 +242,28 @@ def flash_bound(q, k, seq_lens, q_offset, dtype_name):
     return bound(nbytes, flops, dtype_name)
 
 
-def quant_weight(gen, k, n, axis=-1):
-    """An int4 weight quantized as the model's (bf16 scales) from N(0, 1/K)
-    values, so outputs are of order one."""
+def quant_weight(gen, k, n, axis=-1, bits=4, experts=0):
+    """A weight quantized as the model's (bf16 scales) from N(0, 1/K)
+    values, so outputs are of order one: [K, N] (axis -1), [N, K] (axis 0)
+    or stacked [experts, K, N] (axis (0, -1))."""
     import torch
 
     from k8s_llm_rca_tpu_torch.models.quant import quantize
 
-    w = torch.randn((k, n) if axis == -1 else (n, k), generator=gen,
-                    device="cuda") / k ** 0.5
-    return quantize(w, axis=axis, compute_dtype=torch.bfloat16, bits=4)
+    if experts:
+        shape, axis = (experts, k, n), (0, -1)
+    else:
+        shape = (k, n) if axis == -1 else (n, k)
+    w = torch.randn(shape, generator=gen, device="cuda") / k ** 0.5
+    return quantize(w, axis=axis, compute_dtype=torch.bfloat16, bits=bits)
 
 
-def matmul_bound(m, k, n, es, dtype_name):
-    """Packed weights, scales, x and out once each; 2 flops per MAC."""
-    return bound(k * n // 2 + 2 * n + (m * k + m * n) * es, 2 * m * k * n,
-                 dtype_name)
+def weight_bound(w, x, out_elems, flops, dtype_name):
+    """Quantized weights and scales, x and out once each; ``flops`` at 2
+    per multiply-add."""
+    nbytes = (w.q.numel() + w.scale.numel() * w.scale.element_size()
+              + (x.numel() + out_elems) * x.element_size())
+    return bound(nbytes, flops, dtype_name)
 
 
 def paged_quant_case(args, packed):
@@ -280,6 +306,122 @@ def held_record(kernel, dtype_name, out, ref, **fields) -> dict:
     return rec
 
 
+def timed_case(table, key, kernel, dtype_name, run, exact, plain, library,
+               bnd, iters, plain_iters, flush, **fields) -> None:
+    """Check ``run()`` against ``exact`` (the plain version on the same
+    values in fp32, see ``TOL``), time it, the plain version in the working
+    dtype and the library call, and record the bound."""
+    rec = held_record(kernel, dtype_name, run(), exact, **fields)
+    rec["kernel_ms"] = time_ms(run, iters, flush_bytes=flush)
+    rec["plain_ms"] = time_ms(plain, plain_iters, flush_bytes=flush)
+    rec["library_ms"] = time_ms(library, iters, flush_bytes=flush)
+    rec["bound_ms"], rec["bound_by"] = bnd
+    emit("kernels", **rec)
+    table[key] = rec
+
+
+def slice3_weights(gen) -> dict:
+    """Mixtral-8x7B's int8 weights at full width (wq, the router, the head,
+    w_gate and w_down), the router and experts in int4 too."""
+    return {"wq8": quant_weight(gen, 4096, 4096, bits=8),
+            "router8": quant_weight(gen, 4096, 8, bits=8),
+            "router8_4": quant_weight(gen, 4096, 4, bits=8),
+            "router4": quant_weight(gen, 4096, 8, bits=4),
+            "router4_4": quant_weight(gen, 4096, 4, bits=4),
+            "head8": quant_weight(gen, 4096, 32000, axis=0, bits=8),
+            "gate8": quant_weight(gen, 4096, 14336, bits=8, experts=8),
+            "down8": quant_weight(gen, 14336, 4096, bits=8, experts=8),
+            "gate4": quant_weight(gen, 4096, 14336, bits=4, experts=8),
+            "down4": quant_weight(gen, 14336, 4096, bits=4, experts=8)}
+
+
+def slice3_kernels(table, ws, dtype_name, gen, flush) -> None:
+    """The int8 kn (wq at decode and prefill, the router at N = 8 and 4),
+    the int4 kn at the router's widths, the int8 head, and the int8/int4
+    expert matmuls in both einsum forms at M = 4 and 5120."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.models.quant import dq
+    from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
+        quant_matmul, quant_matmul_experts, quant_matmul_experts_plain,
+        quant_matmul_head, quant_matmul_head_plain, quant_matmul_plain,
+    )
+
+    dtype = getattr(torch, dtype_name)
+    fp32 = dtype_name == "float32"
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    kn = [("quant_matmul_int8", "wq8", "decode", 4, 200, 20),
+          ("quant_matmul_int8", "wq8", "prefill", 5120, 5, 3)]
+    for name, bits in (("quant_matmul_int8", 8), ("quant_matmul", 4)):
+        for n in (8, 4):
+            wkey = f"router{bits}" + ("" if n == 8 else "_4")
+            for case, m in (("decode", 4), ("prefill", 5120)):
+                kn.append((name, wkey, f"router N={n} {case}", m, 20, 5))
+    for name, wkey, case, m, iters, plain_iters in kn:
+        w = ws[wkey]
+        x = rnd(m, 4096)
+        n = w.shape[1]
+        w_dense = dq(w, dtype).to(dtype)
+        fl = flush if m == 4 else 0
+        timed_case(table, (name, dtype_name, case), name, dtype_name,
+                   lambda: quant_matmul(x, w),
+                   quant_matmul_plain(x.float(), w),
+                   lambda: quant_matmul_plain(x, w),
+                   lambda: torch.matmul(x, w_dense),
+                   weight_bound(w, x, m * n, 2 * m * 4096 * n, dtype_name),
+                   iters, plain_iters, fl, case=case,
+                   shapes=f"x [{m}, 4096] @ int{8 if 'int8' in name else 4} "
+                          f"[4096, {n}]")
+        del w_dense
+
+    w = ws["head8"]
+    x = rnd(4, 4096)
+    w_dense = dq(w, dtype).to(dtype)
+    timed_case(table, ("quant_matmul_head_int8", dtype_name),
+               "quant_matmul_head_int8", dtype_name,
+               lambda: quant_matmul_head(x, w),
+               quant_matmul_head_plain(x.float(), w),
+               lambda: quant_matmul_head_plain(x, w),
+               lambda: torch.matmul(x, w_dense.t()),
+               weight_bound(w, x, 4 * 32000, 2 * 4 * 4096 * 32000, dtype_name),
+               50, 5, flush, shapes="x [4, 4096] @ int8 [32000, 4096]^T")
+    del w_dense
+
+    for bits in (8, 4):
+        name = f"quant_matmul_experts_int{bits}"
+        for form, wkey, k in (("3d", f"gate{bits}", 4096),
+                              ("4d", f"down{bits}", 14336)):
+            w = ws[wkey]
+            e, _, n = w.shape
+            w_dense = dq(w, dtype).to(dtype)
+            for case, m in (("decode", 4), ("prefill", 5120)):
+                x = rnd(1, m, k) if form == "3d" else rnd(1, m, e, k)
+                if form == "3d":
+                    xe = x[0].expand(e, m, k)
+                    lib = lambda: torch.matmul(xe, w_dense)  # noqa: E731
+                else:
+                    xt = x[0].transpose(0, 1).contiguous()  # before timing
+                    lib = lambda: torch.bmm(xt, w_dense)  # noqa: E731
+                big = m > 16
+                iters = (2 if fp32 else 3) if big else 50
+                timed_case(table, (name, dtype_name, f"{form} {case}"), name,
+                           dtype_name, lambda: quant_matmul_experts(x, w),
+                           quant_matmul_experts_plain(x.float(), w),
+                           lambda: quant_matmul_experts_plain(x, w), lib,
+                           weight_bound(w, x, m * e * n, 2 * m * e * k * n,
+                                        dtype_name),
+                           iters, 1 if big else 5, 0 if big else flush,
+                           case=f"{form} {case}",
+                           shapes=f"x {list(x.shape)} @ int{bits} [{e}, {k}, "
+                                  f"{n}]")
+                del x, lib
+                torch.cuda.empty_cache()
+            del w_dense
+
+
 def phase_kernels() -> dict:
     import torch
     import torch.nn.functional as F
@@ -303,6 +445,7 @@ def phase_kernels() -> dict:
     # the slice's int4 weights: an MLP matmul [4096, 14336] and the head
     w_mlp = quant_weight(gen, 4096, 14336)
     w_head = quant_weight(gen, 4096, 128256, axis=0)
+    ws = slice3_weights(gen)
     flush = 256 << 20
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
@@ -393,8 +536,8 @@ def phase_kernels() -> dict:
             rec["library_ms"] = time_ms(lambda: torch.matmul(x, w_dense),
                                         iters, flush_bytes=fl)
             del w_dense
-            rec["bound_ms"], rec["bound_by"] = matmul_bound(
-                m, 4096, 14336, x.element_size(), dtype_name)
+            rec["bound_ms"], rec["bound_by"] = weight_bound(
+                w_mlp, x, m * 14336, 2 * m * 4096 * 14336, dtype_name)
             emit("kernels", **rec)
             table[("quant_matmul", dtype_name, case)] = rec
 
@@ -411,10 +554,11 @@ def phase_kernels() -> dict:
         rec["library_ms"] = time_ms(lambda: torch.matmul(x, w_dense.t()), 50,
                                     flush_bytes=flush)
         del w_dense
-        rec["bound_ms"], rec["bound_by"] = matmul_bound(
-            4, 4096, 128256, x.element_size(), dtype_name)
+        rec["bound_ms"], rec["bound_by"] = weight_bound(
+            w_head, x, 4 * 128256, 2 * 4 * 4096 * 128256, dtype_name)
         emit("kernels", **rec)
         table[("quant_matmul_head", dtype_name)] = rec
+        slice3_kernels(table, ws, dtype_name, gen, flush)
     return table
 
 
@@ -422,54 +566,74 @@ def phase_kernels() -> dict:
 
 
 def launch_counters():
-    """Every kernel wrapper, by the short name the phases report."""
+    """Every kernel's launch counter, by the short name the phases report:
+    (wrapper, attribute); the matmul wrappers count int4 launches in
+    ``launches`` and int8 launches in ``launches_int8``."""
     from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
     from k8s_llm_rca_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_quant,
     )
     from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
-        quant_matmul, quant_matmul_head,
+        quant_matmul, quant_matmul_experts, quant_matmul_head,
     )
 
-    return {"paged": paged_attention, "flash": flash_attention,
-            "paged_quant": paged_attention_quant, "qmm": quant_matmul,
-            "qmm_head": quant_matmul_head}
+    return {"paged": (paged_attention, "launches"),
+            "flash": (flash_attention, "launches"),
+            "paged_quant": (paged_attention_quant, "launches"),
+            "qmm": (quant_matmul, "launches"),
+            "qmm_head": (quant_matmul_head, "launches"),
+            "qmm_experts": (quant_matmul_experts, "launches"),
+            "qmm8": (quant_matmul, "launches_int8"),
+            "qmm_head8": (quant_matmul_head, "launches_int8"),
+            "qmm_experts8": (quant_matmul_experts, "launches_int8")}
 
 
 def reset_counts() -> None:
-    for fn in launch_counters().values():
-        fn.launches = 0
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in launch_counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in
+            launch_counters().items()}
 
 
-def expected_counts(cfg, engine, quantized_kv: bool) -> dict:
+def expected_counts(cfg, engine, quantized_kv: bool, bits=None) -> dict:
     """The launches one engine run must have made: per layer, one decode
     attention per decode step and one flash prefill per prefill dispatch;
-    under fused_quant_matmul 7 matmuls per layer and one head per decode
-    step and per prefill dispatch."""
+    under fused_quant_matmul over ``bits``-wide weights, per layer and per
+    decode step or prefill dispatch 7 kn matmuls (dense) or 5 kn matmuls
+    (4 projections and the router) and 3 expert matmuls (MoE), and one
+    head per decode step and per prefill dispatch."""
     c = engine._counts
     steps = int(c["engine.decode_steps"])
     prefills = int(c["engine.prefill_dispatches"])
-    fused = 1 if cfg.fused_quant_matmul else 0
-    return {"paged": 0 if quantized_kv else cfg.n_layers * steps,
-            "flash": cfg.n_layers * prefills,
-            "paged_quant": cfg.n_layers * steps if quantized_kv else 0,
-            "qmm": fused * 7 * cfg.n_layers * (steps + prefills),
-            "qmm_head": fused * (steps + prefills)}
+    counts = {k: 0 for k in launch_counters()}
+    counts["paged_quant" if quantized_kv else "paged"] = cfg.n_layers * steps
+    counts["flash"] = cfg.n_layers * prefills
+    if cfg.fused_quant_matmul:
+        sfx = "8" if bits == 8 else ""
+        calls = cfg.n_layers * (steps + prefills)
+        moe = cfg.n_experts > 0
+        counts["qmm" + sfx] = (5 if moe else 7) * calls
+        counts["qmm_experts" + sfx] = 3 * calls if moe else 0
+        counts["qmm_head" + sfx] = steps + prefills
+    return counts
 
 
 def phase_cross_device() -> None:
     """Same weights, same prompts: the engine on the card and on the CPU
     must emit the same greedy tokens (fp32, TF32 off), for a 2-layer
     head_dim-128 GQA-4 model and for TINY (head_dim 32, GQA 2) in fp32, with
-    int4 weights under fused_quant_matmul over int4 and int8 KV pools."""
+    int4 weights under fused_quant_matmul over int4 and int8 KV pools, int8
+    weights over an int8 pool, and for TINY_MOE with int8 weights over an
+    int8 pool and int4 weights over an int4 pool."""
     import numpy as np
     import torch
 
-    from k8s_llm_rca_tpu_torch.config import TINY, EngineConfig, ModelConfig
+    from k8s_llm_rca_tpu_torch.config import (
+        TINY, TINY_MOE, EngineConfig, ModelConfig,
+    )
     from k8s_llm_rca_tpu_torch.engine import make_engine
     from k8s_llm_rca_tpu_torch.models.llama import init_params
     from k8s_llm_rca_tpu_torch.models.quant import quantize_params
@@ -479,12 +643,15 @@ def phase_cross_device() -> None:
                        n_layers=2, n_heads=8, n_kv_heads=2, head_dim=128,
                        intermediate_size=2048, max_seq_len=1024,
                        dtype="float32", tie_embeddings=False)
-    int4 = TINY.replace(fused_quant_matmul=True)
+    fused = TINY.replace(fused_quant_matmul=True)
+    moe = TINY_MOE.replace(fused_quant_matmul=True)
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(0, 256, n)]
                for n in (7, 100, 150, 300)]
-    for cfg, kv in ((gqa4, None), (TINY, None), (int4, "int4"),
-                    (int4, "int8")):
+    for cfg, kv, bits in ((gqa4, None, None), (TINY, None, None),
+                          (fused, "int4", 4), (fused, "int8", 4),
+                          (fused, "int8", 8), (moe, "int8", 8),
+                          (moe, "int4", 4)):
         ecfg = EngineConfig(max_batch=4, max_seq_len=512,
                             prefill_buckets=(128, 256), max_new_tokens=32,
                             paged=True, page_size=16, num_pages=168,
@@ -496,8 +663,8 @@ def phase_cross_device() -> None:
             for name in layer:
                 if name.startswith("w"):
                     layer[name] = layer[name] * 3.0
-        if cfg.fused_quant_matmul:
-            cpu_params = quantize_params(cpu_params, bits=4)
+        if bits is not None:
+            cpu_params = quantize_params(cpu_params, bits=bits)
         gpu_params = {k: ([{n: _to_cuda(t) for n, t in layer.items()}
                            for layer in v] if k == "layers" else _to_cuda(v))
                       for k, v in cpu_params.items()}
@@ -512,8 +679,8 @@ def phase_cross_device() -> None:
         counts = read_counts()
         t2 = time.perf_counter()
         same = [a.token_ids == b.token_ids for a, b in zip(cpu, gpu)]
-        expect = expected_counts(cfg, engine, kv is not None)
-        label = f"{cfg.name}{'-int4-fused' if cfg.fused_quant_matmul else ''}"
+        expect = expected_counts(cfg, engine, kv is not None, bits)
+        label = cfg.name + (f"-int{bits}-fused" if bits else "")
         emit("cross_device", model=label, head_dim=cfg.head_dim,
              kv_cache_dtype=kv, prompts=[len(p) for p in prompts],
              tokens_per_seq=[len(r.token_ids) for r in gpu],
@@ -569,24 +736,34 @@ def incident_text(n_chars: int) -> str:
     return (line * (n_chars // len(line) + 1))[:n_chars]
 
 
-def phase_slice(int4: bool) -> dict:
-    """Llama-3-8B behind AssistantService, four requests: bf16 (phase 5)
-    or int4 weights, fused_quant_matmul and an int4 KV pool (phase 5b).
-    Returns the run's launch counts."""
+def slice_model(name: str, bits=None):
+    """(config, weight transform) of a slice model: ``bits`` None keeps
+    bf16 weights; 8 or 4 quantizes each weight as it is created, under
+    fused_quant_matmul."""
+    from k8s_llm_rca_tpu_torch.config import MODEL_REGISTRY
+    from k8s_llm_rca_tpu_torch.models.quant import quantizing_transform
+
+    cfg = MODEL_REGISTRY[name].replace(fused_quant_matmul=bits is not None)
+    return cfg, None if bits is None else quantizing_transform(bits=bits)
+
+
+def phase_slice(phase: str, name: str, bits=None, kv=None) -> dict:
+    """A slice model behind AssistantService, four requests: Llama-3-8B in
+    bf16 (phase 5) or int4 with an int4 pool (5b), Mixtral-8x7B in int8
+    with an int8 pool (5c) or int4 with an int4 pool (5d).  Returns the
+    run's launch counts."""
     import torch
 
-    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B, EngineConfig
+    from k8s_llm_rca_tpu_torch.config import EngineConfig
     from k8s_llm_rca_tpu_torch.engine import make_engine
     from k8s_llm_rca_tpu_torch.models.llama import init_params
-    from k8s_llm_rca_tpu_torch.models.quant import quantizing_transform
     from k8s_llm_rca_tpu_torch.serve.api import (
         AssistantService, Message, RunStatus, Thread, render_prompt,
     )
     from k8s_llm_rca_tpu_torch.serve.backend import EngineBackend, GenOptions
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    cfg = LLAMA3_8B.replace(fused_quant_matmul=int4)
-    kv = "int4" if int4 else None
+    cfg, transform = slice_model(name, bits)
     ecfg = EngineConfig(max_batch=4, max_seq_len=2560,
                         prefill_buckets=(512, 1024, 2560), max_new_tokens=64,
                         temperature=0.0, paged=True, page_size=64,
@@ -595,8 +772,7 @@ def phase_slice(int4: bool) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         tensor_transform=(quantizing_transform(bits=4)
-                                           if int4 else None))
+                         tensor_transform=transform)
     engine = make_engine(cfg, ecfg, params, get_tokenizer(
         vocab_size=cfg.vocab_size))
     torch.cuda.synchronize()
@@ -633,13 +809,13 @@ def phase_slice(int4: bool) -> dict:
     t_end = time.perf_counter()
     counts = read_counts()
     c = engine._counts
-    expect = expected_counts(cfg, engine, int4)
+    expect = expected_counts(cfg, engine, kv is not None, bits)
     all_finite = bool(torch.stack(flags).all())
     usage = [dict(r.usage) for r in runs]
     completion = sum(u["completion_tokens"] for u in usage)
     ttft = stamps[0] - t_submit
-    emit("slice_int4" if int4 else "slice", model=cfg.name,
-         layers=cfg.n_layers, weights="int4" if int4 else "bfloat16",
+    emit(phase, model=cfg.name, layers=cfg.n_layers,
+         weights=f"int{bits}" if bits else "bfloat16",
          kv_cache_dtype=kv, fused_quant_matmul=cfg.fused_quant_matmul,
          prompt_tokens=[u["prompt_tokens"] for u in usage],
          completion_tokens=[u["completion_tokens"] for u in usage],
@@ -651,7 +827,8 @@ def phase_slice(int4: bool) -> dict:
          init_s=init_s, ttft_s=ttft,
          decode_tok_per_s=(completion - len(runs)) / (t_end - stamps[0]),
          total_s=t_end - t_submit,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         nvidia_smi=nvidia_smi_name_power())
     if any(r.status != RunStatus.COMPLETED for r in runs):
         raise SystemExit(f"runs did not complete: {[r.status for r in runs]}")
     if any(u["completion_tokens"] <= 0 for u in usage):
@@ -663,28 +840,26 @@ def phase_slice(int4: bool) -> dict:
     return counts
 
 
-def phase_profile_decode(int4: bool, steps: int = 8) -> None:
-    """Where one decode step's time goes at the slice's shapes (Llama-3-8B,
-    bf16, or int4 weights with fused_quant_matmul over an int4 pool; batch
-    4 at 400/900/1500/2300 cached tokens): wall time per step without and
-    with the profiler, the device time of the step's kernels
-    (torch.profiler), the device's busy share and the heaviest kernels."""
+def phase_profile_decode(name: str, bits=None, kv=None,
+                         steps: int = 8) -> None:
+    """Where one decode step's time goes at the slice's shapes (Llama-3-8B
+    in bf16 or int4 over an int4 pool, Mixtral-8x7B in int8 over an int8
+    pool, quantized weights under fused_quant_matmul; batch 4 at
+    400/900/1500/2300 cached tokens): wall time per step without and with
+    the profiler, the device time of the step's kernels (torch.profiler),
+    the device's busy share and the heaviest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
     from k8s_llm_rca_tpu_torch.engine.paged import (
         init_paged_cache, paged_decode_step,
     )
     from k8s_llm_rca_tpu_torch.models.llama import init_params
-    from k8s_llm_rca_tpu_torch.models.quant import quantizing_transform
 
-    cfg = LLAMA3_8B.replace(fused_quant_matmul=int4)
+    cfg, transform = slice_model(name, bits)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         tensor_transform=(quantizing_transform(bits=4)
-                                           if int4 else None))
-    pool = init_paged_cache(cfg, 168, 64, "cuda",
-                            kv_dtype="int4" if int4 else None)
+                         tensor_transform=transform)
+    pool = init_paged_cache(cfg, 168, 64, "cuda", kv_dtype=kv)
     lens = [400, 900, 1500, 2300]
     tables = torch.zeros((4, 40), dtype=torch.int32)
     used = 1
@@ -721,8 +896,9 @@ def phase_profile_decode(int4: bool, steps: int = 8) -> None:
               if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
     device_ms = sum(dev_us(e) for e in events) / 1e3 / steps
     top = sorted(events, key=dev_us, reverse=True)[:8]
-    emit("profile_decode", weights="int4" if int4 else "bfloat16",
-         steps=steps, wall_ms_per_step=1e3 * wall,
+    emit("profile_decode", model=cfg.name,
+         weights=f"int{bits}" if bits else "bfloat16", kv_cache_dtype=kv,
+         steps=steps, nvidia_smi=nvidia_smi_name_power(), wall_ms_per_step=1e3 * wall,
          wall_ms_per_step_profiled=1e3 * wall_profiled,
          device_ms_per_step=device_ms,
          device_busy_share=device_ms / (1e3 * wall_profiled),
@@ -764,6 +940,14 @@ def phase_host_costs(calls: int = 2000) -> None:
     emit("host_costs", calls=calls, **out)
 
 
+def free_card() -> None:
+    """Return the memory of the models and tensors just dropped."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     if not (ROOT / "k8s_llm_rca_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py runs from the root of a checkout: "
@@ -792,43 +976,66 @@ def main(argv) -> int:
                 for name, rep in reports.items()})
 
     if "--profile-decode" in argv:
-        phase_profile_decode(int4=False)
-        gc.collect()
-        torch.cuda.empty_cache()
-        phase_profile_decode(int4=True)
+        for name, bits, kv in (("llama3-8b", None, None),
+                               ("llama3-8b", 4, "int4"),
+                               ("mixtral-8x7b", 8, "int8")):
+            phase_profile_decode(name, bits, kv)
+            free_card()
         phase_host_costs()
         return 0
     table = phase_kernels()
+    free_card()
     phase_cross_device()
-    launches = phase_slice(int4=False)
-    gc.collect()                      # the bf16 model goes before the int4
-    torch.cuda.empty_cache()
-    launches_int4 = phase_slice(int4=True)
+    runs = {}
+    for phase, name, bits, kv in (("slice", "llama3-8b", None, None),
+                                  ("slice_int4", "llama3-8b", 4, "int4"),
+                                  ("slice_mixtral_int8", "mixtral-8x7b", 8,
+                                   "int8"),
+                                  ("slice_mixtral_int4", "mixtral-8x7b", 4,
+                                   "int4")):
+        runs[phase] = phase_slice(phase, name, bits, kv)
+        free_card()                   # one model on the card at a time
 
     rows = []
-    for name, src, replaces, key, count in (
+    for name, src, replaces, key, phase, count in (
             ("paged_attention", PAGED_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:90",
-             ("paged_attention", "bfloat16"), launches["paged"]),
+             ("paged_attention", "bfloat16"), "slice", "paged"),
             ("flash_attention", FLASH_SRC,
              "k8s_llm_rca_tpu/ops/flash_attention.py:31",
-             ("flash_attention", "bfloat16", "full"), launches["flash"]),
+             ("flash_attention", "bfloat16", "full"), "slice", "flash"),
             ("quant_matmul", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:137",
-             ("quant_matmul", "bfloat16", "decode"), launches_int4["qmm"]),
+             ("quant_matmul", "bfloat16", "decode"), "slice_int4", "qmm"),
             ("quant_matmul_head", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:177",
-             ("quant_matmul_head", "bfloat16"), launches_int4["qmm_head"]),
+             ("quant_matmul_head", "bfloat16"), "slice_int4", "qmm_head"),
             ("paged_attention_quant", PAGED_QUANT_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:141",
-             ("paged_attention_quant", "bfloat16", "int4"),
-             launches_int4["paged_quant"])):
+             ("paged_attention_quant", "bfloat16", "int4"), "slice_int4",
+             "paged_quant"),
+            ("quant_matmul_int8", QMM8_SRC,
+             "k8s_llm_rca_tpu/ops/quant_matmul.py:120",
+             ("quant_matmul_int8", "bfloat16", "decode"),
+             "slice_mixtral_int8", "qmm8"),
+            ("quant_matmul_head_int8", QMM8_SRC,
+             "k8s_llm_rca_tpu/ops/quant_matmul.py:159",
+             ("quant_matmul_head_int8", "bfloat16"), "slice_mixtral_int8",
+             "qmm_head8"),
+            ("quant_matmul_experts_int8", EKN_SRC,
+             "k8s_llm_rca_tpu/ops/quant_matmul.py:201",
+             ("quant_matmul_experts_int8", "bfloat16", "3d decode"),
+             "slice_mixtral_int8", "qmm_experts8"),
+            ("quant_matmul_experts_int4", EKN_SRC,
+             "k8s_llm_rca_tpu/ops/quant_matmul.py:218",
+             ("quant_matmul_experts_int4", "bfloat16", "3d decode"),
+             "slice_mixtral_int4", "qmm_experts")):
         rec = table[key]
         # the absolute error over the main path's dtype (bf16), every case
         err = max(r["max_abs_err"] for k, r in table.items()
                   if k[0] == name and k[1] == "bfloat16")
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": count,
+                     "replaces": replaces, "launches": runs[phase][count],
                      "max_abs_err": err, "ms": rec["kernel_ms"],
                      "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                      "bound_by": rec["bound_by"],

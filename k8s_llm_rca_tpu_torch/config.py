@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Decoder-LM architecture config (Llama family)."""
+    """Decoder-LM architecture config (Llama family; Mixtral via n_experts>0)."""
 
     name: str = "tiny"
     vocab_size: int = 512
@@ -52,6 +52,23 @@ class ModelConfig:
 
 TINY = ModelConfig(name="tiny")
 
+TINY_MOE = ModelConfig(name="tiny_moe", n_experts=4, n_experts_per_tok=2)
+
+TINYLLAMA_1B = ModelConfig(
+    name="tinyllama-1.1b",
+    vocab_size=32000,
+    hidden_size=2048,
+    n_layers=22,
+    n_heads=32,
+    n_kv_heads=4,
+    head_dim=64,
+    intermediate_size=5632,
+    rope_theta=10000.0,
+    max_seq_len=2048,
+    dtype="bfloat16",
+    tie_embeddings=False,
+)
+
 LLAMA3_8B = ModelConfig(
     name="llama3-8b",
     vocab_size=128256,
@@ -66,6 +83,27 @@ LLAMA3_8B = ModelConfig(
     dtype="bfloat16",
     tie_embeddings=False,
 )
+
+MIXTRAL_8X7B = ModelConfig(
+    name="mixtral-8x7b",
+    vocab_size=32000,
+    hidden_size=4096,
+    n_layers=32,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    intermediate_size=14336,
+    rope_theta=1000000.0,
+    max_seq_len=8192,
+    dtype="bfloat16",
+    tie_embeddings=False,
+    n_experts=8,
+    n_experts_per_tok=2,
+)
+
+MODEL_REGISTRY = {
+    c.name: c for c in (TINY, TINY_MOE, TINYLLAMA_1B, LLAMA3_8B, MIXTRAL_8X7B)
+}
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,60 @@
+// Fused int8 weight-dequant matmuls for Hopper (sm_90a), plain C interface for ctypes.
+//
+// Replaces: k8s_llm_rca_tpu/ops/quant_matmul.py::quant_matmul (Pallas kernel
+// _kn8_kernel) and ::quant_matmul_head (_nk8_kernel).  Layouts are the JAX
+// package's (models/quant.py), read as stored:
+//
+//   kn  x [M, K] @ (q [K, N] int8) * scale [1, N] -> [M, N]
+//   nk  x [M, K] @ (q [V, K] int8 * scale [V, 1]) transposed -> [M, V]
+//
+// As in the Pallas kernels, the integer weights meet x with fp32
+// accumulation and the scale is applied once, in the epilogue; the output
+// is in x's type.  Bytes become floats by an exponent trick (byte_f) and
+// bf16 exactly (|q| <= 127 fits bf16's 8 significant bits).
+//
+// What bounds them on the H100.  At decode (M = 4 on the Mixtral path) both
+// stream their weights: 4-17 MB per kn call (wq/wo [4096, 4096], wk/wv
+// [4096, 1024]) and 131 MB for the Mixtral head [32000, 4096], against
+// 2 * M flops per byte, so the floor is the bytes over 3.35 TB/s.  At
+// prefill (M = 5120) a wq call is 0.17 TFLOP: the tensor-core rate.  The
+// router [4096, 8] is tiny either way.
+//
+// Design (the bodies live in quant_matmul.cuh).
+// - kn: the int4 matmul's bodies with 8-bit weights: for M <= 16
+//   a lane streams 16 bytes of a row (a warp 512 contiguous bytes), split K
+//   fills the card in one wave, a second pass sums, scales and converts;
+//   for larger M, 128 x 128 mma.sync tiles over cp.async stages (bf16) or
+//   64 x 64 FMA tiles (fp32); rows of N = 4 or 8 bytes (the router) take
+//   the narrow body, whose byte loads assume no alignment.
+// - nk: one warp per vocab row at a time (rows strided over a grid of one
+//   wave); a lane reads 4-byte words 128 bytes apart, four bytes meeting
+//   x[m, j .. j+3], with the block's rows of x (up to 8) staged once in
+//   shared memory as fp32.
+//
+// Not yet: TMA and wgmma for the prefill tiles, tensor cores for the head.
+
+#include "quant_matmul.cuh"
+
+// x [m, k] (x_dtype 0 = float32, 1 = bfloat16), q [k, n] int8, scale [n]
+// (scale_dtype 0 = float32, 1 = bfloat16; bfloat16 x takes bfloat16 scales),
+// out [m, n] in x's type; x and q 16-byte aligned.  For m <= 16 with n a
+// multiple of 16 and k of 32, scratch holds max_splits * m * n floats, with
+// max_splits >= k / 1792 rounded up; otherwise it is unused.  Returns
+// cudaGetLastError().
+extern "C" int quant_matmul_kn8_launch(const void* x, const void* q, const void* scale,
+                                       void* out, void* scratch, int m, int k, int n,
+                                       int max_splits, int x_dtype, int scale_dtype,
+                                       void* stream) {
+  const KnGeom g{m, k, n, 1, 0, k, 0, n};
+  return kn_dispatch<8>(x, q, scale, out, scratch, g, max_splits, x_dtype, scale_dtype,
+                        stream);
+}
+
+// x [m, k], q [v, k] int8, scale [v], out [m, v] in x's type; dtypes as
+// above.  k is a multiple of 4 and min(m, 8) * k * 4 bytes fits the
+// block's shared memory (227 KB).  Returns cudaGetLastError().
+extern "C" int quant_matmul_nk8_launch(const void* x, const void* q, const void* scale,
+                                       void* out, int m, int k, int v, int x_dtype,
+                                       int scale_dtype, void* stream) {
+  return nk_dispatch<8>(x, q, scale, out, m, k, v, x_dtype, scale_dtype, stream);
+}

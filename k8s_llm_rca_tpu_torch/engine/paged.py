@@ -21,9 +21,8 @@
   tensors with one host fetch per chunk (``paged_decode_scan``).
 
 Not ported yet, and refused loudly when configured: the prefix cache and
-its tiers, chunked prefill, speculative decoding, host overlap, KV spill,
-int8 weights under ``fused_quant_matmul`` and the TP/PP/CP/EP/FSDP meshes
-(ROADMAP Queues 1 and 2).
+its tiers, chunked prefill, speculative decoding, host overlap, KV spill
+and the TP/PP/CP/EP/FSDP meshes (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -40,9 +39,7 @@ from k8s_llm_rca_tpu_torch.engine.engine import (
 )
 from k8s_llm_rca_tpu_torch.engine.sampling import SamplingParams, sample_tokens
 from k8s_llm_rca_tpu_torch.models import llama
-from k8s_llm_rca_tpu_torch.models.quant import (
-    QuantTensor, gather_rows, quantize_kv,
-)
+from k8s_llm_rca_tpu_torch.models.quant import gather_rows, quantize_kv
 from k8s_llm_rca_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_quant,
 )
@@ -330,17 +327,6 @@ def check_engine_config(engine_cfg: EngineConfig) -> None:
                 f"ported yet (ROADMAP {item}); set {name}={supported!r}")
 
 
-def check_params(model_cfg: ModelConfig, params) -> None:
-    """Refuse int8 weights under ``fused_quant_matmul``: only the int4
-    kernels are ported."""
-    if model_cfg.fused_quant_matmul and any(
-            isinstance(w, QuantTensor) for w in _weights(params)):
-        raise NotImplementedError(
-            "fused_quant_matmul over int8 weights (QuantTensor) is not "
-            "ported yet (ROADMAP Queue 2 item 3, the int8 kn and nk "
-            "kernels); quantize with bits=4 or turn fused_quant_matmul off")
-
-
 class PagedInferenceEngine(EngineBase):
     """Continuous batching over the paged pool with on-demand page growth
     and preemption (youngest, lowest-priority sequence first, requeued
@@ -356,9 +342,7 @@ class PagedInferenceEngine(EngineBase):
             raise NotImplementedError(
                 "device meshes (TP/CP/EP/PP/FSDP) are not ported yet (ROADMAP "
                 "Queue 1 item 10, multi-GPU)")
-        llama.check_model_config(model_cfg)
         check_engine_config(engine_cfg)
-        check_params(model_cfg, params)
         self.device = resolve_device(device)
         for leaf in _leaves(params):
             if leaf.device != self.device:
@@ -728,18 +712,12 @@ class PagedInferenceEngine(EngineBase):
             completion_tokens=len(generated))
 
 
-def _weights(tree):
-    """The leaves of a param tree, a quantized weight counting as one."""
+def _leaves(tree):
+    """Every tensor of a param tree (a quantized weight's q and scale)."""
     if isinstance(tree, dict):
         tree = list(tree.values())
     if isinstance(tree, list):
         for v in tree:
-            yield from _weights(v)
+            yield from _leaves(v)
     else:
-        yield tree
-
-
-def _leaves(tree):
-    """Every tensor of a param tree (a quantized weight's q and scale)."""
-    for w in _weights(tree):
-        yield from (w if isinstance(w, tuple) else (w,))
+        yield from (tree if isinstance(tree, tuple) else (tree,))

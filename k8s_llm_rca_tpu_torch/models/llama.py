@@ -8,10 +8,12 @@ tied), so ``params_from_numpy`` carries a JAX tree across unchanged,
 quantized leaves (``models.quant.QuantTensor``/``QuantTensor4``) included.
 Projections, the MLP and the lm head are ``x @ dq(w)`` in ``torch.matmul``,
 or, under ``ModelConfig.fused_quant_matmul``, the ``ops.quant_matmul``
-shims (the int4 CUDA kernels on the card); prefill attention is
+shims (the int8/int4 CUDA kernels on the card); prefill attention is
 ``ops.flash_attention`` (the CUDA kernel on the card, its plain version on
-the CPU).  Dense Llama only: the MoE MLP is not ported (ROADMAP Queue 1
-item 8).
+the CPU).  ``n_experts > 0`` (Mixtral) swaps the MLP for the dense
+soft-dispatch MoE block (``_moe_mlp``): ``router`` [H, E] and stacked
+``w_gate``/``w_up`` [E, H, I], ``w_down`` [E, I, H], every expert run on
+every token and the top-k router weights zeroing the rest, as in JAX.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from k8s_llm_rca_tpu_torch.models.quant import (
 )
 from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
 from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
-    qmm, qmm_head, quant_matmul_head_plain, quant_matmul_plain,
+    qmm, qmm_experts, qmm_head, quant_matmul_experts_plain,
+    quant_matmul_head_plain, quant_matmul_plain,
 )
 from k8s_llm_rca_tpu_torch.ops.norms import rms_norm
 from k8s_llm_rca_tpu_torch.ops.rope import apply_rope, rope_frequencies
@@ -46,13 +49,6 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def check_model_config(cfg: ModelConfig) -> None:
-    """Refuse the model features this slice does not port."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoE (n_experts > 0) is not ported yet (ROADMAP Queue 1 item 8)")
-
-
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None, tensor_transform=None) -> Params:
     """Random init (scaled normal, the JAX init's scales) from ``generator``,
@@ -60,9 +56,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     ``tensor_transform`` (e.g. ``models.quant.quantizing_transform``) is
     applied to every matmul weight as it is created, with ``axis=0`` for
-    ``embedding``/``lm_head``, so a quantized model never holds its
-    full-precision weights all at once."""
-    check_model_config(cfg)
+    ``embedding``/``lm_head`` and ``axis=(0, -1)`` for stacked experts, so
+    a quantized model never holds its full-precision weights all at once
+    (Mixtral-8x7B is ~93 GB in bf16, ~47 GB in int8)."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     h, q, kv, inter = (cfg.hidden_size, cfg.q_dim, cfg.kv_dim,
@@ -82,13 +78,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
+        layer = {
             "attn_norm": ones(), "mlp_norm": ones(),
             "wq": dense((h, q), scale), "wk": dense((h, kv), scale),
             "wv": dense((h, kv), scale), "wo": dense((q, h), out_scale),
-            "w_gate": dense((h, inter), scale), "w_up": dense((h, inter), scale),
-            "w_down": dense((inter, h), out_scale),
-        })
+        }
+        if cfg.n_experts > 0:
+            e, stacked = cfg.n_experts, (0, -1)
+            layer.update({
+                "router": dense((h, e), scale),
+                "w_gate": dense((e, h, inter), scale, axis=stacked),
+                "w_up": dense((e, h, inter), scale, axis=stacked),
+                "w_down": dense((e, inter, h), out_scale, axis=stacked)})
+        else:
+            layer.update({
+                "w_gate": dense((h, inter), scale),
+                "w_up": dense((h, inter), scale),
+                "w_down": dense((inter, h), out_scale)})
+        layers.append(layer)
     params: Params = {"embedding": dense((cfg.vocab_size, h), 1.0, axis=0),
                       "final_norm": ones(), "layers": layers}
     if not cfg.tie_embeddings:
@@ -165,8 +172,42 @@ def _qkv(cfg: ModelConfig, layer: Params, x: torch.Tensor,
 
 
 def _mlp(cfg: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.n_experts > 0:
+        return _moe_mlp(cfg, layer, x)
     gate = F.silu(_w_mm(cfg, x, layer["w_gate"]))
     return _w_mm(cfg, gate * _w_mm(cfg, x, layer["w_up"]), layer["w_down"])
+
+
+def _moe_route(router_logits: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` routing: router_logits [B, S, E] f32 -> (the k
+    chosen experts [B, S, k], largest first, the lower index first among
+    equal logits; their softmax weights scattered to a dense [B, S, E]
+    map).  ``torch.topk`` does not break ties toward the lower index; a
+    stable descending sort does."""
+    topi = torch.sort(router_logits, dim=-1, descending=True,
+                      stable=True)[1][..., :k]
+    weights = torch.softmax(router_logits.gather(-1, topi), dim=-1)
+    return topi, torch.zeros_like(router_logits).scatter_(-1, topi, weights)
+
+
+def _moe_mlp(cfg: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
+    """Mixtral sparse-MoE MLP, the dense soft-dispatch form of JAX's
+    ``llama._moe_mlp``: every expert runs on every token (padding rows
+    included) and the top-k router weights zero out the rest.  The router
+    logits are rounded to x's dtype before f32, as in JAX, so bf16 ties
+    break the same way.  Under ``fused_quant_matmul`` the stacked einsums
+    go through ``qmm_experts`` (the ekn kernels on the card); gate and up
+    are combined in place, so a 5120-row prefill holds two [B, S, E, I]
+    tensors, not four."""
+    router_logits = _w_mm(cfg, x, layer["router"]).float()       # [B,S,E]
+    _, dense_w = _moe_route(router_logits, cfg.n_experts_per_tok)
+    experts = (qmm_experts if cfg.fused_quant_matmul
+               else quant_matmul_experts_plain)
+    h = F.silu(experts(x, layer["w_gate"]))
+    h.mul_(experts(x, layer["w_up"]))
+    per_expert = experts(h, layer["w_down"])                     # [B,S,E,H]
+    return torch.einsum("bseh,bse->bsh", per_expert, dense_w.to(x.dtype))
 
 
 def _block_prefill(cfg: ModelConfig, layer: Params, x: torch.Tensor,

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  ``nvcc`` compiles it for
 ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at the root of the
 checkout (git-ignored), and ``ctypes`` loads it.  The hash covers the
-source and the flags, so an edited source is rebuilt, never loaded stale.
+source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
+source is rebuilt, never loaded stale.
 Builds happen at first use, never at import: a host without ``nvcc`` can
 import every module and run the plain versions on CPU tensors.
 """
@@ -39,7 +40,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (*.cuh) count as part of every source
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

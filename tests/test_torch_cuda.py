@@ -28,12 +28,21 @@ from k8s_llm_rca_tpu_torch.ops.paged_attention import (
     paged_attention_quant_plain,
 )
 from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
-    quant_matmul, quant_matmul_head, quant_matmul_head_plain,
-    quant_matmul_plain,
+    quant_matmul, quant_matmul_experts, quant_matmul_experts_plain,
+    quant_matmul_head, quant_matmul_head_plain, quant_matmul_plain,
 )
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
+
+
+def _exact(plain, x, w):
+    """The plain version on x's values in fp32: the reference of the int8
+    and expert matmul cases.  The bf16 plain version rounds every
+    dequantized weight to bf16 before its product; over the 4 or 8 outputs
+    of a router row that rounding is not a fraction of the row's largest
+    value, while the kernels scale their fp32 sums exactly."""
+    return plain(x.float(), w)
 
 
 def _err(out, ref):
@@ -142,14 +151,14 @@ def test_flash_kernel_row_with_no_visible_key_is_zero(card):
     assert torch.equal(out, torch.zeros_like(out))
 
 
-# ------------------------------------------------------------ int4 matmuls
+# ------------------------------------------------- int4 and int8 matmuls
 
 
-def _weight(gen, k, n, scale_dtype, axis=-1):
-    """An int4 weight quantized from N(0, 1/K) values: outputs of order 1."""
+def _weight(gen, k, n, scale_dtype, axis=-1, bits=4):
+    """A quantized weight from N(0, 1/K) values: outputs of order 1."""
     w = torch.randn((k, n) if axis == -1 else (n, k), generator=gen,
                     device="cuda") / k ** 0.5
-    return quantize(w, axis=axis, compute_dtype=scale_dtype, bits=4)
+    return quantize(w, axis=axis, compute_dtype=scale_dtype, bits=bits)
 
 
 @pytest.mark.parametrize("dtype,scale_dtype", [
@@ -190,16 +199,95 @@ def test_quant_matmul_head_matches_plain(card, dtype, m, k, v):
     assert _err(out, ref) <= TOL[dtype]
 
 
-def test_int8_weights_raise_on_the_card(card):
-    w = quantize(torch.randn((64, 64), generator=card, device="cuda"),
-                 bits=8)
-    x = torch.randn((2, 64), generator=card, device="cuda")
-    with pytest.raises(NotImplementedError, match="Queue 2 items 3/4"):
-        quant_matmul(x, w)
-    with pytest.raises(NotImplementedError, match="Queue 2 items 3/4"):
-        quant_matmul_head(x, quantize(torch.randn((64, 64), generator=card,
-                                                  device="cuda"),
-                                      axis=0, bits=8))
+@pytest.mark.parametrize("dtype,scale_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32)])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 256, 352), (4, 4096, 1024), (16, 512, 64), (17, 256, 352),
+    (300, 96, 416), (5120, 256, 160), (4, 4096, 8), (5120, 4096, 8),
+    (3, 128, 4), (301, 128, 4), (7, 100, 48)])
+def test_quant_matmul_int8_matches_plain(card, dtype, scale_dtype, m, k, n):
+    """int8 kn: the weight-streaming body (M <= 16), the tile bodies, and
+    the narrow body for the router's rows of 8 and 4 bytes and for K not a
+    multiple of 32."""
+    w = _weight(card, k, n, scale_dtype, bits=8)
+    x = torch.randn((m, k), generator=card, device="cuda").to(dtype)
+    before = (quant_matmul.launches, quant_matmul.launches_int8)
+    out = quant_matmul(x, w)
+    torch.cuda.synchronize()
+    assert (quant_matmul.launches, quant_matmul.launches_int8) == (
+        before[0], before[1] + 1)
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert torch.isfinite(out).all()
+    assert _err(out, _exact(quant_matmul_plain, x, w)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 8), (4, 4096, 4), (300, 128, 8),
+                                   (5120, 4096, 4), (9, 96, 40)])
+def test_quant_matmul_int4_router_widths(card, dtype, m, k, n):
+    """int4 kn with rows of 4 or 2 packed bytes (the router, N = 8 or 4) and
+    N/2 not a multiple of 16: the narrow body."""
+    w = _weight(card, k, n, torch.bfloat16)
+    x = torch.randn((m, k), generator=card, device="cuda").to(dtype)
+    before = quant_matmul.launches
+    out = quant_matmul(x, w)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    assert _err(out, _exact(quant_matmul_plain, x, w)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,v", [(1, 128, 512), (4, 4096, 1003),
+                                   (8, 256, 64), (9, 260, 1000)])
+def test_quant_matmul_head_int8_matches_plain(card, dtype, m, k, v):
+    w = _weight(card, k, v, torch.bfloat16, axis=0, bits=8)
+    x = torch.randn((m, 1, k), generator=card, device="cuda").to(dtype)
+    before = (quant_matmul_head.launches, quant_matmul_head.launches_int8)
+    out = quant_matmul_head(x, w)
+    torch.cuda.synchronize()
+    assert (quant_matmul_head.launches,
+            quant_matmul_head.launches_int8) == (before[0], before[1] + 1)
+    assert out.shape == (m, 1, v)
+    assert _err(out, _exact(quant_matmul_head_plain, x, w)) <= TOL[dtype]
+
+
+def _experts(gen, e, k, n, bits, scale_dtype=torch.bfloat16):
+    w = torch.randn((e, k, n), generator=gen, device="cuda") / k ** 0.5
+    return quantize(w, axis=(0, -1), compute_dtype=scale_dtype, bits=bits)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("form", ["3d", "4d"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,e,k,n", [
+    (1, 1, 1, 256, 352), (4, 1, 8, 512, 1024), (1, 17, 4, 256, 160),
+    (2, 150, 8, 128, 96), (1, 5120, 8, 256, 128), (3, 5, 4, 128, 8)])
+def test_quant_matmul_experts_matches_plain(card, bits, form, dtype, b, s, e,
+                                            k, n):
+    """ekn, both einsum forms: M = 1 to 5120 rows, E = 1/4/8, odd M, and
+    the narrow body (N = 8)."""
+    w = _experts(card, e, k, n, bits)
+    shape = (b, s, k) if form == "3d" else (b, s, e, k)
+    x = torch.randn(shape, generator=card, device="cuda").to(dtype)
+    attr = "launches" if bits == 4 else "launches_int8"
+    before = getattr(quant_matmul_experts, attr)
+    out = quant_matmul_experts(x, w)
+    torch.cuda.synchronize()
+    assert getattr(quant_matmul_experts, attr) == before + 1
+    assert out.dtype == dtype and out.shape == (b, s, e, n)
+    assert torch.isfinite(out).all()
+    assert _err(out, _exact(quant_matmul_experts_plain, x, w)) <= TOL[dtype]
+
+
+def test_quant_matmul_experts_reads_a_strided_x(card):
+    """A 4-D x that is a view (every other expert of a wider tensor) is
+    copied to rows once; the result equals the plain version's."""
+    w = _experts(card, 4, 128, 64, 8)
+    wide = torch.randn((2, 3, 8, 128), generator=card, device="cuda")
+    x = wide[:, :, ::2]
+    out = quant_matmul_experts(x, w)
+    assert _err(out, quant_matmul_experts_plain(x, w)) <= TOL[torch.float32]
 
 
 # ------------------------------------------------- quantized paged attention

@@ -14,6 +14,7 @@ import torch
 
 from k8s_llm_rca_tpu_torch import config
 from k8s_llm_rca_tpu_torch.engine import make_engine
+from k8s_llm_rca_tpu_torch.models import mixtral
 from k8s_llm_rca_tpu_torch.models.llama import init_params
 from k8s_llm_rca_tpu_torch.models.quant import quantize_params
 from k8s_llm_rca_tpu_torch.serve.backend import EngineBackend, GenOptions
@@ -86,7 +87,16 @@ def test_sources_cover_the_quantized_slice():
     names = {p.relative_to(PORT).as_posix() for p in SOURCES if PORT in
              p.parents}
     assert {"models/quant.py", "ops/quant_matmul.py",
-            "ops/paged_attention.py", "engine/paged.py"} <= names
+            "ops/paged_attention.py", "engine/paged.py",
+            "models/mixtral.py"} <= names
+
+
+def test_every_kernel_source_has_a_loader():
+    """Each CUDA source under csrc/ is loaded by name from a port module
+    (and so built by chip_smoke.py's KERNELS)."""
+    text = "\n".join(p.read_text() for p in SOURCES)
+    for cu in sorted((PORT / "csrc").glob("*.cu")):
+        assert f'"{cu.stem}"' in text, cu.name
 
 
 def test_forbidden_name_match_is_exact():
@@ -170,26 +180,34 @@ def test_meshes_raise(mesh):
         make_engine(cfg, ecfg, params, tok, device="cpu", **{mesh: object()})
 
 
-@pytest.mark.parametrize("over,item", [({"n_experts": 4}, "Queue 1 item 8")])
-def test_unported_model_features_raise(over, item):
-    cfg, ecfg, params, tok = _tiny_engine_args()
+@pytest.mark.parametrize("name,item", [
+    ("build_ep_mesh", "Queue 1 item 10"), ("shard_params_ep", "Queue 1 item 10"),
+    ("make_ep_engine", "Queue 1 item 10")])
+def test_unported_model_features_raise(name, item):
+    """MoE serves on one card; its expert-parallel assembly raises."""
     with pytest.raises(NotImplementedError, match=item):
-        make_engine(cfg.replace(**over), ecfg, params, tok, device="cpu")
+        getattr(mixtral, name)(config.TINY_MOE)
 
 
-def test_ported_model_feature_is_accepted():
-    """``fused_quant_matmul`` over int4 weights serves (it used to raise)."""
+@pytest.mark.parametrize("bits", [4, 8])
+def test_ported_model_feature_is_accepted(bits):
+    """``fused_quant_matmul`` over int4 and int8 weights serves (int8 used to
+    raise)."""
     cfg, ecfg, params, tok = _tiny_engine_args(max_new_tokens=3)
     engine = make_engine(cfg.replace(fused_quant_matmul=True), ecfg,
-                         quantize_params(params, bits=4), tok, device="cpu")
+                         quantize_params(params, bits=bits), tok, device="cpu")
     assert len(engine.generate([[1, 2, 3]])[0].token_ids) == 3
 
 
-def test_int8_weights_under_fused_quant_matmul_raise():
-    cfg, ecfg, params, tok = _tiny_engine_args()
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-        make_engine(cfg.replace(fused_quant_matmul=True), ecfg,
-                    quantize_params(params, bits=8), tok, device="cpu")
+def test_moe_model_serves_on_the_cpu_when_asked():
+    """TINY_MOE (it used to raise) with int8 weights under fused_quant_matmul."""
+    cfg = config.TINY_MOE.replace(fused_quant_matmul=True)
+    params = quantize_params(init_params(cfg, torch.Generator().manual_seed(0),
+                                         "cpu"), bits=8)
+    _, ecfg, _, tok = _tiny_engine_args(max_new_tokens=3,
+                                        kv_cache_dtype="int8")
+    engine = make_engine(cfg, ecfg, params, tok, device="cpu")
+    assert len(engine.generate([[1, 2, 3]])[0].token_ids) == 3
 
 
 def test_engine_backend_serves_on_cpu_when_asked():

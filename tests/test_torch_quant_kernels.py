@@ -65,7 +65,7 @@ def _close(out, ref, dtype) -> None:
 def _weight(rng, shape, bits, axis):
     """A JAX-quantized weight (bf16 scales, ``quantize_params``' default)
     and its port twin, carried across byte for byte."""
-    w = (rng.standard_normal(shape) / np.sqrt(shape[1 if axis == 0 else 0])
+    w = (rng.standard_normal(shape) / np.sqrt(shape[1 if axis == 0 else -2])
          ).astype(np.float32)
     jw = jquant.quantize(jnp.asarray(w), axis=axis, bits=bits,
                          compute_dtype=jnp.bfloat16)
@@ -81,14 +81,17 @@ def _x(rng, shape, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("m,k,n", [(4, 128, 256), (2 * 64, 256, 96)])
+@pytest.mark.parametrize("m,k,n", [(4, 128, 256), (2 * 64, 256, 96),
+                                   (4, 128, 4), (6, 128, 8)])
 def test_quant_matmul_plain_matches_jax(dtype, bits, m, k, n):
+    """Projection shapes and the MoE router's (N = 4 and 8)."""
     rng = np.random.default_rng(m + bits)
     jw, tw = _weight(rng, (k, n), bits, -1)
     jx, tx = _x(rng, (m // 2, 2, k), dtype)
-    before = tqmm.quant_matmul.launches
+    before = (tqmm.quant_matmul.launches, tqmm.quant_matmul.launches_int8)
     out = tqmm.quant_matmul(tx, tw)
-    assert tqmm.quant_matmul.launches == before     # CPU: no launch
+    assert (tqmm.quant_matmul.launches,
+            tqmm.quant_matmul.launches_int8) == before   # CPU: no launch
     assert out.shape == (m // 2, 2, n)
     _close(out, j_quant_matmul(jx, jw), dtype)
     _close(out, jax.jit(j_qmm)(jx, jw), dtype)
@@ -101,9 +104,11 @@ def test_quant_matmul_head_plain_matches_jax(dtype, bits):
     rng = np.random.default_rng(bits)
     jw, tw = _weight(rng, (512, 128), bits, 0)         # [V, K], per-row
     jx, tx = _x(rng, (4, 1, 128), dtype)
-    before = tqmm.quant_matmul_head.launches
+    before = (tqmm.quant_matmul_head.launches,
+              tqmm.quant_matmul_head.launches_int8)
     out = tqmm.quant_matmul_head(tx, tw)
-    assert tqmm.quant_matmul_head.launches == before
+    assert (tqmm.quant_matmul_head.launches,
+            tqmm.quant_matmul_head.launches_int8) == before
     assert out.shape == (4, 1, 512)
     _close(out, j_quant_matmul_head(jx, jw), dtype)
     _close(tqmm.qmm_head(tx, tw), jax.jit(j_qmm_head)(jx, jw), dtype)
@@ -122,7 +127,9 @@ def test_shape_and_layout_checks():
         tqmm.quant_matmul(torch.zeros((2, 63)), tw)
     with pytest.raises(ValueError, match="QuantTensor"):
         tqmm.quant_matmul(x, torch.zeros((64, 32)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match="stacked experts"):
+        tqmm.quant_matmul(x, _weight(rng, (4, 64, 32), 8, (0, -1))[1])
+    with pytest.raises(ValueError, match="3-D weights"):
         tqmm.qmm_experts(x, tw)
     # plain weights take torch.matmul through the shims
     np.testing.assert_allclose(
