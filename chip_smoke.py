@@ -6,18 +6,21 @@ prints one JSON line; any failure exits non-zero without the result line.
 
 1. env: the card, its power limit, the software versions.
 2. build: the six CUDA sources compiled from ``k8s_llm_rca_tpu_torch/csrc``
-   (one ``nvcc`` per source, all started together).
+   (one ``nvcc`` per source, all started together), with each kernel's
+   registers, shared memory and spills as ``ptxas -v`` reports them.
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes, in bf16 (row-relative error at most 2^-6, see
-   ``TOL``) and fp32 with TF32 off (atol 1e-4), with its time, the plain
-   version's, the least time the card could take (bound) and one PyTorch
-   library call as a yardstick (timed here only; the port never calls it):
-   paged and flash attention (slice 1), the int4 matmul at decode and
-   prefill shapes, the int4 lm head, paged attention over int8 and int4
-   pools (slice 2), and the int8 matmul (wq at decode and prefill, the
-   router at N = 8 and 4, and the int4 one at those widths), the int8 head
-   and the int8 and int4 stacked-expert matmuls in both einsum forms at
-   decode and prefill (slice 3).
+   ``TOL``) and fp32 with TF32 off (atol 1e-4), with its device time, the
+   plain version's, the least time the card could take (bound) and one
+   PyTorch library call as a yardstick (timed here only; the port never
+   calls it): paged and flash attention (slice 1; flash also at the
+   slice's batched 2560 bucket, seq_lens 1500 and 2300), the int4 matmul
+   at decode and prefill shapes, the int4 lm head, paged attention over
+   int8 and int4 pools (slice 2), and the int8 matmul (wq at decode and
+   prefill, the router at N = 8 and 4, and the int4 one at those widths,
+   each router case naming the kn body it took), the int8 head and the
+   int8 and int4 stacked-expert matmuls in both einsum forms at decode and
+   prefill (slice 3).
 4. cross-device: the engine on the card and on the CPU gives the same
    greedy tokens for a 2-layer model (head_dim 128, GQA 4, fp32), for
    TINY (head_dim 32, GQA 2, fp32) with its own weights, with int4 weights
@@ -99,11 +102,18 @@ def nvidia_smi_name_power() -> str:
     return out.strip().splitlines()[0]
 
 
+HOST_COVER_CYCLES = 300_000   # ~0.15 ms of device sleep before each launch
+
+
 def time_ms(fn, iters: int, flush_bytes: int = 0) -> float:
     """Mean device time of ``fn`` over ``iters`` launches (CUDA events,
     after warm-up).  With ``flush_bytes`` a buffer that size is rewritten
     before every launch, outside the timed span, so each launch finds the
-    L2 cache cold, as a layer's call does on the serving path."""
+    L2 cache cold, as a layer's call does on the serving path.  A device
+    sleep before each start event keeps the card busy while the host
+    enqueues the call, so the span holds the call's device time and not
+    the host's Python and launch overhead (which the eager wrappers spend
+    in tens of microseconds, as long as a small kernel runs)."""
     import torch
 
     flush = (torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
@@ -115,6 +125,7 @@ def time_ms(fn, iters: int, flush_bytes: int = 0) -> float:
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(HOST_COVER_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -215,31 +226,93 @@ def paged_library_fn(q, kp, vp, lens, tables):
 
 def flash_cases(dtype, gen):
     """The prefill shapes of the slice: one 2560-token bucket with
-    seq_len 2300, and a 512-query chunk at offset 1800 over 2400 keys."""
+    seq_len 2300, a 512-query chunk at offset 1800 over 2400 keys, and the
+    2560 bucket as the slice dispatches it, two prompts of 1500 and 2300
+    tokens batched."""
     import torch
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
+    def ints(*vals):
+        return torch.tensor(vals, dtype=torch.int32, device="cuda")
+
     s, h, n_kv, d = 2560, 32, 8, 128
     full = (rnd(1, s, h, d), rnd(1, s, n_kv, d), rnd(1, s, n_kv, d),
-            torch.tensor([2300], dtype=torch.int32, device="cuda"), None)
+            ints(2300), None)
     chunk = (rnd(1, 512, h, d), rnd(1, s, n_kv, d), rnd(1, s, n_kv, d),
-             torch.tensor([2400], dtype=torch.int32, device="cuda"),
-             torch.tensor([1800], dtype=torch.int32, device="cuda"))
-    return {"full": full, "chunk": chunk}
+             ints(2400), ints(1800))
+    batch2 = (rnd(2, s, h, d), rnd(2, s, n_kv, d), rnd(2, s, n_kv, d),
+              ints(1500, 2300), None)
+    return {"full": full, "chunk": chunk, "batch2": batch2}
 
 
 def flash_bound(q, k, seq_lens, q_offset, dtype_name):
-    _, s_q, h, d = q.shape
+    """Bytes: q and out, the valid keys' k and v rows, lengths and offsets;
+    operations: the visible (query, key) pairs' q.k and p.v, 2 flops per
+    MAC, summed over the batch rows."""
+    b, s_q, h, d = q.shape
     s_k, n_kv = k.shape[1], k.shape[2]
-    n = min(int(seq_lens[0]), s_k)
-    off = 0 if q_offset is None else int(q_offset[0])
-    visible = sum(min(off + i + 1, n) for i in range(s_q))
     es = q.element_size()
-    nbytes = 2 * s_q * h * d * es + 2 * n * n_kv * d * es + 8
-    flops = 4 * visible * h * d
-    return bound(nbytes, flops, dtype_name)
+    nbytes, visible = 2 * b * s_q * h * d * es + 8 * b, 0
+    for i in range(b):
+        n = min(int(seq_lens[i]), s_k)
+        off = 0 if q_offset is None else int(q_offset[i])
+        visible += sum(min(off + j + 1, n) for j in range(s_q))
+        nbytes += 2 * n * n_kv * d * es
+    return bound(nbytes, 4 * visible * h * d, dtype_name)
+
+
+def flash_library_fn(q, k, v, seq_lens, q_offset):
+    """One SDPA call with ``enable_gqa`` over the same layout transposed to
+    [B, H, S, d]: causal for a full bucket of one row, else with the mask
+    q_pos >= k_pos and k_pos < seq_len built before timing."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if q_offset is None and q.shape[0] == 1:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    b, s_q = q.shape[:2]
+    off = (torch.zeros(b, dtype=torch.int32, device="cuda")
+           if q_offset is None else q_offset)
+    k_pos = torch.arange(k.shape[1], device="cuda")
+    q_pos = off[:, None] + torch.arange(s_q, device="cuda")[None, :]
+    mask = ((q_pos[:, :, None] >= k_pos[None, None, :])
+            & (k_pos[None, None, :] < seq_lens[:, None, None]))[:, None]
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def flash_kernels(table, dtype_name, gen) -> None:
+    """Each flash case against the plain version, timed with its SDPA
+    yardstick and bound."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.ops.attention import causal_attention
+    from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
+
+    dtype = getattr(torch, dtype_name)
+    for case, (q, k, v, lens, off) in flash_cases(dtype, gen).items():
+        rec = held_record(
+            "flash_attention", dtype_name,
+            flash_attention(q, k, v, lens, off),
+            causal_attention(q, k, v, lens, off), case=case,
+            shapes=f"q {list(q.shape)} k/v {list(k.shape)} seq_lens "
+            f"{lens.tolist()} q_offset "
+            f"{0 if off is None else off.tolist()}")
+        rec["kernel_ms"] = time_ms(
+            lambda: flash_attention(q, k, v, lens, off), 20)
+        rec["plain_ms"] = time_ms(
+            lambda: causal_attention(q, k, v, lens, off), 3)
+        rec["library_ms"] = time_ms(flash_library_fn(q, k, v, lens, off), 20)
+        rec["bound_ms"], rec["bound_by"] = flash_bound(q, k, lens, off,
+                                                       dtype_name)
+        emit("kernels", **rec)
+        table[("flash_attention", dtype_name, case)] = rec
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 def quant_weight(gen, k, n, axis=-1, bits=4, experts=0):
@@ -343,8 +416,9 @@ def slice3_kernels(table, ws, dtype_name, gen, flush) -> None:
 
     from k8s_llm_rca_tpu_torch.models.quant import dq
     from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
-        quant_matmul, quant_matmul_experts, quant_matmul_experts_plain,
-        quant_matmul_head, quant_matmul_head_plain, quant_matmul_plain,
+        kn_body, quant_matmul, quant_matmul_experts,
+        quant_matmul_experts_plain, quant_matmul_head,
+        quant_matmul_head_plain, quant_matmul_plain,
     )
 
     dtype = getattr(torch, dtype_name)
@@ -364,6 +438,7 @@ def slice3_kernels(table, ws, dtype_name, gen, flush) -> None:
         w = ws[wkey]
         x = rnd(m, 4096)
         n = w.shape[1]
+        bits = 8 if "int8" in name else 4
         w_dense = dq(w, dtype).to(dtype)
         fl = flush if m == 4 else 0
         timed_case(table, (name, dtype_name, case), name, dtype_name,
@@ -373,8 +448,8 @@ def slice3_kernels(table, ws, dtype_name, gen, flush) -> None:
                    lambda: torch.matmul(x, w_dense),
                    weight_bound(w, x, m * n, 2 * m * 4096 * n, dtype_name),
                    iters, plain_iters, fl, case=case,
-                   shapes=f"x [{m}, 4096] @ int{8 if 'int8' in name else 4} "
-                          f"[4096, {n}]")
+                   body=kn_body(bits, m, 4096, n),
+                   shapes=f"x [{m}, 4096] @ int{bits} [4096, {n}]")
         del w_dense
 
     w = ws["head8"]
@@ -424,11 +499,8 @@ def slice3_kernels(table, ws, dtype_name, gen, flush) -> None:
 
 def phase_kernels() -> dict:
     import torch
-    import torch.nn.functional as F
 
     from k8s_llm_rca_tpu_torch.models.quant import dq
-    from k8s_llm_rca_tpu_torch.ops.attention import causal_attention
-    from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
     from k8s_llm_rca_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_plain, paged_attention_quant,
         paged_attention_quant_plain,
@@ -488,35 +560,7 @@ def phase_kernels() -> dict:
             emit("kernels", **rec)
             table[("paged_attention_quant", dtype_name, kind)] = rec
 
-        for case, (q, k, v, lens, off) in flash_cases(dtype, gen).items():
-            rec = held_record(
-                "flash_attention", dtype_name,
-                flash_attention(q, k, v, lens, off),
-                causal_attention(q, k, v, lens, off), case=case,
-                shapes=f"q {list(q.shape)} k/v {list(k.shape)} seq_len "
-                f"{int(lens[0])} q_offset {0 if off is None else int(off[0])}")
-            rec["kernel_ms"] = time_ms(
-                lambda: flash_attention(q, k, v, lens, off), 20)
-            rec["plain_ms"] = time_ms(
-                lambda: causal_attention(q, k, v, lens, off), 5)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            if off is None:
-                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
-            else:
-                # the chunk's mask, q_pos >= k_pos and k_pos < seq_len,
-                # built before timing
-                k_pos = torch.arange(k.shape[1], device="cuda")
-                q_pos = int(off[0]) + torch.arange(q.shape[1], device="cuda")
-                mask = ((q_pos[:, None] >= k_pos[None, :])
-                        & (k_pos[None, :] < int(lens[0])))
-                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
-            rec["library_ms"] = time_ms(lib, 20)
-            rec["bound_ms"], rec["bound_by"] = flash_bound(q, k, lens, off,
-                                                           dtype_name)
-            emit("kernels", **rec)
-            table[("flash_attention", dtype_name, case)] = rec
+        flash_kernels(table, dtype_name, gen)
 
         # decode: one weight stream per call, cold in L2 as in a decode
         # step; prefill: two 2560-token prompts batched
@@ -940,6 +984,31 @@ def phase_host_costs(calls: int = 2000) -> None:
     emit("host_costs", calls=calls, **out)
 
 
+def ptxas_summary(report: str) -> list:
+    """One line per kernel of a ``ptxas -v`` report: its name (demangled
+    by ``c++filt`` where the toolchain has it, up to its parameter list),
+    then its spill and its registers/shared-memory lines."""
+    import re
+    import shutil
+
+    kernels = []
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            kernels.append([m.group(1)])
+        elif kernels and ("registers" in ln or "spill" in ln):
+            kernels[-1].append(ln.split(":", 1)[-1].strip()
+                               if "registers" in ln else ln.strip())
+    names = [k[0] for k in kernels]
+    if names and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True, check=True,
+                               timeout=60).stdout.splitlines()
+        names = [n.replace("(anonymous namespace)::", "").split("(")[0]
+                 for n in names]
+    return [f"{n}: {'; '.join(k[1:])}" for n, k in zip(names, kernels)]
+
+
 def free_card() -> None:
     """Return the memory of the models and tensors just dropped."""
     import torch
@@ -971,9 +1040,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     reports = build.build(KERNELS)
     emit("build", seconds=time.perf_counter() - t0,
-         ptxas={name: [ln.strip() for ln in rep.splitlines()
-                       if "registers" in ln or "spill" in ln]
-                for name, rep in reports.items()})
+         ptxas={name: ptxas_summary(rep) for name, rep in reports.items()})
 
     if "--profile-decode" in argv:
         for name, bits, kv in (("llama3-8b", None, None),

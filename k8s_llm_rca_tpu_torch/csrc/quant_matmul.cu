@@ -46,8 +46,12 @@
 //   nibble meeting x[m, j] and its high nibble x[m, j + K/2], with the
 //   block's rows of x (up to 8) staged once in shared memory as fp32.
 // - kn, rows not a multiple of 16 packed bytes or K not a multiple of 32
-//   (the MoE router, N = 4 or 8: 2 or 4 packed bytes a row): one block per
-//   row of x and 16 packed columns, byte loads, K split over the threads.
+//   (the MoE router, N = 4 or 8: 2 or 4 packed bytes a row): the narrow
+//   bodies of quant_matmul.cuh.  M > 16: a block stages its [K, 2..16
+//   bytes] slice in shared memory once and its warps walk rows of x, x
+//   read once as 16-byte vectors; M <= 16: K split over warps, fp32
+//   partials and the second pass; K not a multiple of 8: one block per row
+//   of x and 16 packed columns, byte loads, K split over the threads.
 //
 // Not yet: TMA, wgmma and a deeper pipeline for the prefill tiles.
 
@@ -66,6 +70,12 @@ extern "C" int quant_matmul_kn4_launch(const void* x, const void* q, const void*
   const KnGeom g{m, k, n, 1, 0, k, 0, n};
   return kn_dispatch<4>(x, q, scale, out, scratch, g, max_splits, x_dtype, scale_dtype,
                         stream);
+}
+
+// The body an [m, k] @ [k, n] call takes (quant_matmul.cuh): "gemv",
+// "tile", "narrow_split", "narrow_smem" or "narrow_bytes".
+extern "C" const char* quant_matmul_kn4_body(int m, int k, int n) {
+  return kn_body_name<4>(m, k, n);
 }
 
 // x [m, k], q [v, k/2] int8, scale [v], out [m, v] in x's type; dtypes as

@@ -16,10 +16,28 @@
 //   the weights are converted to bf16 exactly (|q| <= 127) in shared memory.
 // - M > 16, fp32: 64 x 64 FMA tiles.
 // - Rows that are not a multiple of 16 bytes or K not a multiple of 32
-//   (the MoE router: N = 4 or 8): one block per (row of x, 16 packed
-//   columns), its threads splitting K, bytes read one by one (no alignment
-//   assumed) with 4 rows of K in flight for M <= 16, a block reduction at
-//   the end.
+//   (the MoE router: N = 4 or 8, rows of 2 to 8 packed bytes).  A block
+//   owns a slice of CB packed columns (the whole row when it is 2, 4, 8 or
+//   16 bytes, else 16 or the next power of two).  Three bodies, chosen by
+//   shape (kn_narrow_kind; quant_matmul_kn{4,8}_body names them):
+//   - narrow_smem, M > 16 and K a multiple of 8 (up to 10240): a block
+//     stages its weight slice once in shared memory and then streams rows
+//     of x past it, so x is read from memory once and the weights once per
+//     block, not once per row of x.  bf16 x: the slice is 8 output columns
+//     as exact bf16, and units of 16 rows run on tensor cores (mma.sync),
+//     the block's warps splitting K and meeting in shared memory (x as
+//     16-byte loads, four 32-k steps in flight).  fp32 x (exact fp32, the
+//     cross-device checks): CB packed columns as bytes, warps walking a few
+//     rows of x at a time, lanes along K on 16-byte vectors, fp32 FMA and
+//     one warp reduction per sum.
+//   - narrow_split, M <= 16 and K a multiple of 8: the same warp walk, its
+//     weights read straight from memory, with K split over one warp per
+//     split; fp32 partials and the second pass of the weight-streaming body
+//     (deterministic sums, no atomics).
+//   - narrow_bytes, any other shape (K not a multiple of 8, or a slice
+//     too large for shared memory): one block per (row of x, 16 packed
+//     columns), its threads splitting K, bytes read one by one (no
+//     alignment assumed), a block reduction at the end.
 // Integers become floats by an exponent trick on 32-bit words (nib_f,
 // byte_f), not by integer-to-float instructions (a quarter-rate pipe).
 
@@ -553,7 +571,493 @@ kn_fma_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
-// ---------------------------------------- narrow or unaligned rows, any M
+// ---------------------------- narrow rows, K a multiple of 8 (smem, split)
+
+constexpr int kNwThreads = 256;            // narrow_smem: 8 warps walk rows of x
+constexpr int kNwWarps = kNwThreads / 32;
+constexpr int kNwSplitThreads = 128;       // narrow_split: a warp per K split
+constexpr int kNwSplitWarps = kNwSplitThreads / 32;
+constexpr int kNwMaxSlice = 160 * 1024;    // most weight bytes a block stages
+
+// packed columns a block covers: the whole row when it is 2, 4, 8 or 16
+// bytes (then the slice is contiguous), else the next power of two, or 16
+__host__ __device__ constexpr int narrow_cb(int np) {
+  return np <= 2 ? 2 : np <= 4 ? 4 : np <= 8 ? 8 : 16;
+}
+
+template <int BITS, int CB, typename T> struct Nw {
+  static constexpr int kVals = BITS == 4 ? 2 * CB : CB;  // a lane's sums per row of x
+  // rows of x a warp walks together: kRows * kVals <= 32 sums a lane
+  static constexpr int kRows = kVals >= 32 ? 1 : (32 / kVals > 8 ? 8 : 32 / kVals);
+  static constexpr int kVec = 16 / (int)sizeof(T);      // K of one 16-byte load of x
+  static constexpr int kLane = kVec * CB;               // weight bytes meeting that load
+  static constexpr int kWords = kLane / 4;
+  static constexpr int kStep = 32 * kVec;               // K a warp covers per step
+};
+
+// Shared-memory position of byte o of the staged slice ([K][CB] bytes,
+// K-row major): a lane reads kLane contiguous bytes as 16-byte chunks, and
+// the chunks of neighbouring lanes' groups are XOR-permuted so 8 lanes of a
+// phase hit 8 distinct bank quads
+template <int L> __device__ __forceinline__ int nw_pos(int o) {
+  if constexpr (L < 32) {
+    return o;
+  } else {
+    const int grp = o / L;
+    const int key = ((grp * L) >> 7) & (L / 16 - 1);
+    return grp * L + ((((o % L) >> 4) ^ key) << 4) + (o & 15);
+  }
+}
+
+// stage rows [0, k) of the slice (packed columns c0 .. c0 + nc of rows np
+// bytes apart) into ws; columns past nc are zeros
+template <int BITS, int CB, typename T>
+__device__ void nw_stage(unsigned char* ws, const int8_t* qe, int k, int np, int c0, int nc) {
+  using N = Nw<BITS, CB, T>;
+  if (np == CB) {  // the slice is the whole weight, contiguous: 16-byte loads
+    const uint4* src = reinterpret_cast<const uint4*>(qe);
+    const int n16 = k * CB / 16;
+    for (int i0 = threadIdx.x; i0 < n16; i0 += 4 * blockDim.x) {
+      uint4 v[4];  // four loads in flight before the stores
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * blockDim.x;
+        if (i < n16) v[u] = src[i];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * blockDim.x;
+        if (i < n16) *reinterpret_cast<uint4*>(ws + nw_pos<N::kLane>(16 * i)) = v[u];
+      }
+    }
+  } else {
+    for (int o = threadIdx.x; o < k * CB; o += blockDim.x) {
+      const int c = o % CB;
+      ws[nw_pos<N::kLane>(o)] =
+          c < nc ? (unsigned char)qe[(long long)(o / CB) * np + c0 + c] : (unsigned char)0;
+    }
+  }
+}
+
+// the kLane weight bytes of rows kk .. kk + kVec of the slice as words
+template <int BITS, int CB, typename T>
+__device__ __forceinline__ void nw_words_smem(uint32_t (&w)[Nw<BITS, CB, T>::kWords],
+                                              const unsigned char* ws, int kk) {
+  using N = Nw<BITS, CB, T>;
+  const int o = kk * CB;
+  if constexpr (N::kLane >= 16) {
+#pragma unroll
+    for (int j = 0; j < N::kLane / 16; ++j) {
+      const uint4 v = *reinterpret_cast<const uint4*>(ws + nw_pos<N::kLane>(o + 16 * j));
+      w[4 * j] = v.x;
+      w[4 * j + 1] = v.y;
+      w[4 * j + 2] = v.z;
+      w[4 * j + 3] = v.w;
+    }
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(ws + o);
+    w[0] = v.x;
+    w[1] = v.y;
+  }
+}
+
+// the same bytes read from memory: vectors when the slice is contiguous
+template <int BITS, int CB, typename T>
+__device__ __forceinline__ void nw_words_global(uint32_t (&w)[Nw<BITS, CB, T>::kWords],
+                                                const int8_t* qe, int np, int c0, int nc,
+                                                int kk) {
+  using N = Nw<BITS, CB, T>;
+  if (np == CB) {
+    const int8_t* p = qe + (long long)kk * CB;
+    if constexpr (N::kLane >= 16) {
+#pragma unroll
+      for (int j = 0; j < N::kLane / 16; ++j) {
+        const uint4 v = reinterpret_cast<const uint4*>(p)[j];
+        w[4 * j] = v.x;
+        w[4 * j + 1] = v.y;
+        w[4 * j + 2] = v.z;
+        w[4 * j + 3] = v.w;
+      }
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N::kWords; ++i) w[i] = 0u;
+#pragma unroll
+    for (int o = 0; o < N::kLane; ++o) {
+      const int c = o % CB;
+      if (c < nc)
+        w[o / 4] |= (uint32_t)(unsigned char)qe[(long long)(kk + o / CB) * np + c0 + c]
+                    << (8 * (o % 4));
+    }
+  }
+}
+
+// lane's x values of one 16-byte load as floats
+__device__ __forceinline__ void nw_x(const uint4& v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+__device__ __forceinline__ void nw_x(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+
+// One warp's sums over K range [kb, ke) for rows r0 .. r0 + kRows of x
+// (rows past m read zeros): lane l takes the 16-byte vectors at kb + l *
+// kVec + i * kStep, and `words(kk, w)` gives the weight bytes of rows kk ..
+// kk + kVec.  acc[r][v]: v < CB is packed column v (int4: its low nibble),
+// v >= CB int4's high nibble of packed column v - CB.
+template <int BITS, int CB, typename T, typename Words>
+__device__ __forceinline__ void nw_rows(float (&acc)[Nw<BITS, CB, T>::kRows][Nw<BITS, CB, T>::kVals],
+                                        const T* xe, long long x_rs, int m, int r0, int kb,
+                                        int ke, int lane, Words words) {
+  using N = Nw<BITS, CB, T>;
+#pragma unroll
+  for (int r = 0; r < N::kRows; ++r)
+#pragma unroll
+    for (int v = 0; v < N::kVals; ++v) acc[r][v] = 0.f;
+  auto load = [&](int kk, uint4 (&xv)[N::kRows]) {
+#pragma unroll
+    for (int r = 0; r < N::kRows; ++r) {
+      xv[r] = make_uint4(0u, 0u, 0u, 0u);
+      if (r0 + r < m) xv[r] = *reinterpret_cast<const uint4*>(xe + (r0 + r) * x_rs + kk);
+    }
+  };
+  int kk = kb + lane * N::kVec;
+  uint4 cur[N::kRows], nxt[N::kRows];
+  if (kk < ke) load(kk, cur);
+  for (; kk < ke; kk += N::kStep) {
+    if (kk + N::kStep < ke) load(kk + N::kStep, nxt);
+    uint32_t w[N::kWords];
+    words(kk, w);
+    if constexpr (BITS == 8) {
+#pragma unroll
+      for (int i = 0; i < N::kWords; ++i) w[i] ^= 0x80808080u;
+    } else {
+#pragma unroll
+      for (int i = 0; i < N::kWords; ++i) w[i] ^= 0x88888888u;
+    }
+    float xf[N::kRows][N::kVec];
+#pragma unroll
+    for (int r = 0; r < N::kRows; ++r) nw_x(cur[r], xf[r]);
+#pragma unroll
+    for (int u = 0; u < N::kVec; ++u)
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        const int o = u * CB + c;  // byte of the lane's chunk
+        if constexpr (BITS == 8) {
+          const float wv = __uint_as_float(__byte_perm(w[o / 4], 0x4B000000u, 0x7440 + o % 4)) -
+                           8388736.f;
+#pragma unroll
+          for (int r = 0; r < N::kRows; ++r) acc[r][c] = fmaf(xf[r][u], wv, acc[r][c]);
+        } else {
+          const float lo = nib_f(w[o / 4], 8 * (o % 4));
+          const float hi = nib_f(w[o / 4], 8 * (o % 4) + 4);
+#pragma unroll
+          for (int r = 0; r < N::kRows; ++r) {
+            acc[r][c] = fmaf(xf[r][u], lo, acc[r][c]);
+            acc[r][CB + c] = fmaf(xf[r][u], hi, acc[r][CB + c]);
+          }
+        }
+      }
+#pragma unroll
+    for (int r = 0; r < N::kRows; ++r) cur[r] = nxt[r];
+  }
+}
+
+// warp-reduce every sum; lane r * kVals + v returns row r's sum v
+template <int ROWS, int VALS>
+__device__ __forceinline__ float nw_reduce(float (&acc)[ROWS][VALS], int lane) {
+  float mine = 0.f;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int v = 0; v < VALS; ++v) {
+      const float s = warp_sum(acc[r][v]);
+      if (lane == r * VALS + v) mine = s;
+    }
+  return mine;
+}
+
+// output column of a lane's sum v in the block's slice at c0, or -1
+template <int BITS, int CB>
+__device__ __forceinline__ int nw_col(int v, int c0, int nc, int np) {
+  if (BITS == 4 && v >= CB) return v - CB < nc ? np + c0 + v - CB : -1;
+  return v < nc ? c0 + v : -1;
+}
+
+// narrow_smem: blockIdx (packed-column slice, row blocks striding over the
+// row groups, expert)
+template <int BITS, int CB, typename T, typename S>
+__global__ void __launch_bounds__(kNwThreads)
+kn_narrow_smem_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
+                      const S* __restrict__ scale, T* __restrict__ out, KnGeom g) {
+  using N = Nw<BITS, CB, T>;
+  extern __shared__ __align__(16) unsigned char ws[];
+  const int np = packed_cols<BITS>(g.n);
+  const int c0 = blockIdx.x * CB;
+  const int nc = min(CB, np - c0);
+  const int ex = blockIdx.z;
+  const int8_t* qe = q + (long long)ex * g.k * np;
+  nw_stage<BITS, CB, T>(ws, qe, g.k, np, c0, nc);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const T* xe = x + ex * g.x_es;
+  const int groups = (g.m + N::kRows - 1) / N::kRows;
+  const int v = lane % N::kVals;
+  const int col = lane < N::kRows * N::kVals ? nw_col<BITS, CB>(v, c0, nc, np) : -1;
+  const float s = col >= 0 ? to_f(scale[(long long)ex * g.n + col]) : 0.f;
+  for (int rg = blockIdx.y * kNwWarps + warp; rg < groups; rg += gridDim.y * kNwWarps) {
+    const int r0 = rg * N::kRows;
+    float acc[N::kRows][N::kVals];
+    nw_rows<BITS, CB, T>(acc, xe, g.x_rs, g.m, r0, 0, g.k, lane,
+                         [&](int kk, uint32_t (&w)[N::kWords]) {
+                           nw_words_smem<BITS, CB, T>(w, ws, kk);
+                         });
+    const float sum = nw_reduce(acc, lane);
+    const int row = r0 + lane / N::kVals;
+    if (col >= 0 && row < g.m) out[ex * g.out_es + row * g.out_rs + col] = from_f<T>(sum * s);
+  }
+}
+
+// narrow_split: blockIdx (packed-column slice, group of kNwSplitWarps K
+// splits, expert); unscaled fp32 partials [e, splits, m, n] for
+// kn_reduce_kernel
+template <int BITS, int CB, typename T>
+__global__ void __launch_bounds__(kNwSplitThreads)
+kn_narrow_split_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
+                       float* __restrict__ part, KnGeom g, int k_per_split, int splits) {
+  using N = Nw<BITS, CB, T>;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int split = blockIdx.y * kNwSplitWarps + warp;
+  if (split >= splits) return;
+  const int np = packed_cols<BITS>(g.n);
+  const int c0 = blockIdx.x * CB;
+  const int nc = min(CB, np - c0);
+  const int ex = blockIdx.z;
+  const int8_t* qe = q + (long long)ex * g.k * np;
+  const T* xe = x + ex * g.x_es;
+  const int kb = split * k_per_split;
+  const int ke = min(g.k, kb + k_per_split);
+  const int col = lane < N::kRows * N::kVals
+                      ? nw_col<BITS, CB>(lane % N::kVals, c0, nc, np) : -1;
+  float* pe = part + ((long long)ex * splits + split) * g.m * g.n;
+  for (int r0 = 0; r0 < g.m; r0 += N::kRows) {
+    float acc[N::kRows][N::kVals];
+    nw_rows<BITS, CB, T>(acc, xe, g.x_rs, g.m, r0, kb, ke, lane,
+                         [&](int kk, uint32_t (&w)[N::kWords]) {
+                           nw_words_global<BITS, CB, T>(w, qe, np, c0, nc, kk);
+                         });
+    const float sum = nw_reduce(acc, lane);
+    const int row = r0 + lane / N::kVals;
+    if (col >= 0 && row < g.m) pe[(long long)row * g.n + col] = sum;
+  }
+}
+
+// narrow_smem for bf16 x, on tensor cores: a block owns 8 output columns
+// (8 int8 or 4 int4 packed columns), their weights staged once as bf16
+// (exact), transposed [8][K] in shared memory; units of 16 rows of x,
+// one per block at a time, the block's 8 warps splitting K.  Every 32 k a
+// lane loads 16 bytes (8 k) of its two rows and 16 bytes of its column's
+// weights, and two mma.sync m16n8k16 consume them: the product sums over
+// k in any order, so the fragments' k slots 2t, 2t+1, 2t+8, 2t+9 take k
+// 8t .. 8t+3 of the first 16-byte half and 8t+4 .. 8t+7 in the second
+// product, in x and in the weights alike.
+constexpr int kNmThreads = 256;
+constexpr int kNmWarps = kNmThreads / 32;
+constexpr int kNmRows = 16;  // rows of x per unit
+
+template <int BITS> struct Nm {
+  static constexpr int kCols = BITS == 4 ? 4 : 8;  // packed columns per block
+};
+
+// weight row stride in bf16: K rounded up to 64, + 32, so the rows of a
+// lane group's 16-byte reads sit 16 banks apart
+__host__ __device__ constexpr int nm_ld(int k) { return (k + 63) / 64 * 64 + 32; }
+
+__host__ __device__ constexpr int nm_smem(int k) {
+  return 8 * nm_ld(k) * 2 + kNmWarps * 4 * 32 * 4;
+}
+
+// Stage a contiguous slice whose rows are NP bytes (NP <= CB, a power of
+// two): 16-byte loads, four in flight a thread; each load holds 16 / NP
+// rows, and each pair of rows k, k + 1 of a column becomes one 32-bit
+// store of two bf16 values at wt[c][k] (int4: the high nibbles at
+// wt[CB + c][k]).
+template <int BITS, int CB, int NP>
+__device__ void nm_stage_vec(__nv_bfloat16* wt, int ld, const int8_t* qe, int k) {
+  static_assert(NP <= CB && 16 % NP == 0, "a row must fit the slice and a load");
+  constexpr int kRows = 16 / NP;
+  const int n16 = k * NP / 16;
+  const uint4* src = reinterpret_cast<const uint4*>(qe);
+  for (int i0 = threadIdx.x; i0 < n16; i0 += 4 * kNmThreads) {
+    uint4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (i0 + u * kNmThreads < n16) v[u] = src[i0 + u * kNmThreads];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * kNmThreads;
+      if (i >= n16) break;
+      const uint32_t w[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+      for (int pr = 0; pr < kRows / 2; ++pr)
+#pragma unroll
+        for (int c = 0; c < NP; ++c) {
+          constexpr int kNp = NP;
+          const int j0 = 2 * pr * kNp + c;  // the byte of row 2pr, then of row 2pr + 1
+          const int j1 = j0 + kNp;
+          const uint32_t pair = ((w[j0 / 4] >> (8 * (j0 % 4))) & 0xFFu) |
+                                (((w[j1 / 4] >> (8 * (j1 % 4))) & 0xFFu) << 8);
+          uint32_t* dst = reinterpret_cast<uint32_t*>(&wt[c * ld + i * kRows + 2 * pr]);
+          if constexpr (BITS == 8) {
+            const uint32_t x = pair ^ 0x8080u;
+            *dst = pack_bf16(byte_f(x, 0), byte_f(x, 8));
+          } else {
+            const uint32_t x = pair ^ 0x8888u;
+            *dst = pack_bf16(nib_f(x, 0), nib_f(x, 8));
+            *reinterpret_cast<uint32_t*>(&wt[(CB + c) * ld + i * kRows + 2 * pr]) =
+                pack_bf16(nib_f(x, 4), nib_f(x, 12));
+          }
+        }
+    }
+  }
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+template <int BITS, typename S>
+__global__ void __launch_bounds__(kNmThreads)
+kn_narrow_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+                     const S* __restrict__ scale, __nv_bfloat16* __restrict__ out, KnGeom g) {
+  constexpr int CB = Nm<BITS>::kCols;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = nm_ld(g.k);
+  __nv_bfloat16* wt = reinterpret_cast<__nv_bfloat16*>(smem);            // [8][ld]
+  float* red = reinterpret_cast<float*>(smem + 8 * ld * 2);              // [warps][4][32]
+  const int np = packed_cols<BITS>(g.n);
+  const int c0 = blockIdx.x * CB;
+  const int nc = min(CB, np - c0);
+  const int ex = blockIdx.z;
+  const int8_t* qe = q + (long long)ex * g.k * np;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;  // fragment row group: rows gr and gr + 8, column gr
+  const int tg = lane & 3;   // thread in group: k 8tg .. 8tg + 7 of each 32
+  const int chunk = (g.k + kNmWarps * 32 - 1) / (kNmWarps * 32) * 32;
+  const int kb = warp * chunk;
+  const int ke = min(g.k, kb + chunk);
+  constexpr int kUnroll = 4;  // 32-k steps whose loads are in flight together
+  // the first unit's first x loads head for L2 while the weights stage
+  for (int j = 0; j < kUnroll; ++j) {
+    const int kk = kb + 32 * j + 8 * tg;
+    const long long ra = (long long)blockIdx.y * kNmRows + gr;
+    if (kk < ke && ra < g.m) prefetch_l2(x + ex * g.x_es + ra * g.x_rs + kk);
+    if (kk < ke && ra + 8 < g.m) prefetch_l2(x + ex * g.x_es + (ra + 8) * g.x_rs + kk);
+  }
+
+  // stage the slice as bf16 W^T [8][ld]: the value of packed column c at K
+  // row k lands at wt[c][k] (int4: its high nibble at wt[CB + c][k]).  A
+  // slice that is the whole weight (np <= CB) is contiguous and, for rows
+  // of 1, 2, 4 or 8 bytes, takes 16-byte loads (nm_stage_vec).  Other
+  // weights read their CB columns byte by byte.  Rows of wt past the
+  // slice's columns stay unwritten: they meet only output columns that are
+  // never stored.
+  if (np <= CB && g.k * np % 16 == 0 && (np & (np - 1)) == 0) {
+    switch (np) {
+      case 1: nm_stage_vec<BITS, CB, 1>(wt, ld, qe, g.k); break;
+      case 2: nm_stage_vec<BITS, CB, 2>(wt, ld, qe, g.k); break;
+      case 4: nm_stage_vec<BITS, CB, 4>(wt, ld, qe, g.k); break;
+      default:
+        if constexpr (CB >= 8) nm_stage_vec<BITS, CB, 8>(wt, ld, qe, g.k);
+        break;
+    }
+  } else {
+#pragma unroll 4
+    for (int o = threadIdx.x; o < g.k * CB; o += kNmThreads) {
+      const int c = o % CB;
+      if (c >= nc) continue;
+      const uint32_t byte = (unsigned char)qe[(long long)(o / CB) * np + c0 + c];
+      if constexpr (BITS == 8) {
+        wt[c * ld + o / CB] = __float2bfloat16(byte_f(byte ^ 0x80u, 0));
+      } else {
+        wt[c * ld + o / CB] = __float2bfloat16(nib_f(byte ^ 0x88u, 0));
+        wt[(CB + c) * ld + o / CB] = __float2bfloat16(nib_f(byte ^ 0x88u, 4));
+      }
+    }
+  }
+  __syncthreads();
+
+  const __nv_bfloat16* xe = x + ex * g.x_es;
+  const __nv_bfloat16* wrow = wt + gr * ld + 8 * tg;
+  const int units = (g.m + kNmRows - 1) / kNmRows;
+  // this thread's outputs in the epilogue: (row, column) pairs of a unit
+  const int o_row = threadIdx.x / 8;  // 0 .. 31: rows 0 .. 15 used
+  const int o_v = threadIdx.x % 8;    // the block's output column
+  int col = -1;
+  if (BITS == 8) col = o_v < nc ? c0 + o_v : -1;
+  else col = o_v < CB ? (o_v < nc ? c0 + o_v : -1) : (o_v - CB < nc ? np + c0 + o_v - CB : -1);
+  const float s = col >= 0 ? to_f(scale[(long long)ex * g.n + col]) : 0.f;
+
+  for (int u = blockIdx.y; u < units; u += gridDim.y) {
+    const int ra = u * kNmRows + gr;
+    const int rb = ra + 8;
+    const __nv_bfloat16* xa = xe + (long long)ra * g.x_rs + 8 * tg;
+    const __nv_bfloat16* xb = xe + (long long)rb * g.x_rs + 8 * tg;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = kb; k0 < ke; k0 += 32 * kUnroll) {
+      uint4 va[kUnroll], vb[kUnroll], vw[kUnroll];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        const int kk = k0 + 32 * j;
+        const bool ok = kk + 8 * tg < ke;  // whole 8-k groups: k is a multiple of 8
+        va[j] = ok && ra < g.m ? *reinterpret_cast<const uint4*>(xa + kk) : make_uint4(0, 0, 0, 0);
+        vb[j] = ok && rb < g.m ? *reinterpret_cast<const uint4*>(xb + kk) : make_uint4(0, 0, 0, 0);
+        vw[j] = ok ? *reinterpret_cast<const uint4*>(wrow + kk) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        const uint32_t a0[4] = {va[j].x, vb[j].x, va[j].y, vb[j].y};
+        const uint32_t a1[4] = {va[j].z, vb[j].z, va[j].w, vb[j].w};
+        mma_bf16(acc, a0, vw[j].x, vw[j].y);
+        mma_bf16(acc, a1, vw[j].z, vw[j].w);
+      }
+    }
+    // the warps' K chunks meet in shared memory: acc[i] is row gr + 8 * (i
+    // >> 1), column 2 * tg + (i & 1)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) red[(warp * 4 + i) * 32 + lane] = acc[i];
+    __syncthreads();
+    const int row = u * kNmRows + o_row;
+    if (o_row < kNmRows && col >= 0 && row < g.m) {
+      const int i = (o_row >> 3) * 2 + (o_v & 1);
+      const int ln = (o_row & 7) * 4 + (o_v >> 1);
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kNmWarps; ++w) sum += red[(w * 4 + i) * 32 + ln];
+      out[ex * g.out_es + row * g.out_rs + col] = __float2bfloat16(sum * s);
+    }
+    __syncthreads();  // red is read before the next unit writes it
+  }
+}
+
+// ------------------------------------------- narrow rows, any shape (bytes)
 
 constexpr int kNarrowThreads = 256;
 constexpr int kNarrowBytes = 16;  // packed columns per block
@@ -629,6 +1133,17 @@ kn_narrow_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
 
 // ------------------------------------------------------------- launch
 
+// the card's streaming multiprocessors
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
 // K splits of the weight-streaming body: as many as fill the card's
 // resident block slots in one wave (a second, partial wave would double
 // the time), each walking kGemvMinRows..kGemvMaxRows rows of K
@@ -636,13 +1151,11 @@ template <int BITS, typename T>
 int kn_gemv_splits(const KnGeom& g, int max_splits) {
   static int slots = 0;
   if (slots == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int per_sm = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kn_gemv_kernel<BITS, T>,
                                                   kGemvThreads,
                                                   kGemvMT * kGemvMaxRows * sizeof(float));
-    slots = sms * (per_sm > 0 ? per_sm : 1);
+    slots = sm_count() * (per_sm > 0 ? per_sm : 1);
   }
   const int np = packed_cols<BITS>(g.n);
   const int blocks = ((np + KnGemv<BITS>::kCols - 1) / KnGemv<BITS>::kCols) *
@@ -653,17 +1166,146 @@ int kn_gemv_splits(const KnGeom& g, int max_splits) {
   return max(1, min(splits, max_splits));
 }
 
-// True when the rows take the narrow body (see the top of this file).
+// True when the rows take a narrow body (see the top of this file).
 template <int BITS> bool kn_narrow(const KnGeom& g) {
   return packed_cols<BITS>(g.n) % 16 != 0 || g.k % 32 != 0;
 }
 
-// scratch: for m <= 16 on the aligned path, e * max_splits * m * n floats
+enum NarrowKind { kNarrowBytesBody, kNarrowSplitBody, kNarrowSmemBody };
+
+// Which narrow body a call takes: the vector bodies need x rows that start
+// on 16 bytes and K in whole 16-byte loads (K, and the x strides, multiples
+// of 8 elements), and narrow_smem a slice that fits shared memory.
+template <int BITS> NarrowKind kn_narrow_kind(const KnGeom& g) {
+  if (g.k % 8 != 0 || g.x_rs % 8 != 0 || g.x_es % 8 != 0) return kNarrowBytesBody;
+  if (g.m <= kGemvMaxM) return kNarrowSplitBody;
+  // 16 bytes of staged weights per row of K: 16 packed bytes (fp32 x) or
+  // 8 bf16 values (bf16 x)
+  if ((long long)g.k * 16 > kNwMaxSlice) return kNarrowBytesBody;
+  return kNarrowSmemBody;
+}
+
+// The name of the body a 2-D call of this shape takes.
+template <int BITS> const char* kn_body_name(int m, int k, int n) {
+  const KnGeom g{m, k, n, 1, 0, k, 0, n};
+  if (m <= 0 || k <= 0 || n <= 0 || (BITS == 4 && n % 2)) return "invalid";
+  if (!kn_narrow<BITS>(g)) return m <= kGemvMaxM ? "gemv" : "tile";
+  switch (kn_narrow_kind<BITS>(g)) {
+    case kNarrowSplitBody: return "narrow_split";
+    case kNarrowSmemBody: return "narrow_smem";
+    default: return "narrow_bytes";
+  }
+}
+
+template <int BITS, int CB, typename T, typename S>
+int narrow_smem_launch(const T* x, const int8_t* q, const S* scale, T* out, const KnGeom& g,
+                       cudaStream_t st) {
+  using N = Nw<BITS, CB, T>;
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    cudaError_t err = cudaFuncSetAttribute(kn_narrow_smem_kernel<BITS, CB, T, S>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           kNwMaxSlice);
+    if (err != cudaSuccess) return (int)err;
+    // residency by registers alone; shared memory is counted per call below
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kn_narrow_smem_kernel<BITS, CB, T, S>, kNwThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    per_sm = per_sm > 0 ? per_sm : 1;
+  }
+  const int smem = g.k * CB;
+  const int by_smem = 227 * 1024 / (smem + 1024);
+  const int cols = (packed_cols<BITS>(g.n) + CB - 1) / CB;
+  // one wave of blocks, their warps striding over the row groups
+  const long long slots = (long long)sm_count() * min(per_sm, by_smem > 0 ? by_smem : 1);
+  const long long wanted = ((g.m + N::kRows - 1) / N::kRows + kNwWarps - 1) / kNwWarps;
+  const long long fit = slots / ((long long)cols * g.e);
+  const int rows_blocks = (int)max(1LL, min(wanted, fit));
+  if (g.e > 65535) return (int)cudaErrorInvalidValue;
+  kn_narrow_smem_kernel<BITS, CB, T, S><<<dim3(cols, rows_blocks, g.e), kNwThreads, smem, st>>>(
+      x, q, scale, out, g);
+  return (int)cudaGetLastError();
+}
+
+template <int BITS, typename S>
+int narrow_mma_launch(const __nv_bfloat16* x, const int8_t* q, const S* scale,
+                      __nv_bfloat16* out, const KnGeom& g, cudaStream_t st) {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    cudaError_t err = cudaFuncSetAttribute(kn_narrow_mma_kernel<BITS, S>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           nm_smem(kNwMaxSlice / 16));
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kn_narrow_mma_kernel<BITS, S>,
+                                                        kNmThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    per_sm = per_sm > 0 ? per_sm : 1;
+  }
+  const int smem = nm_smem(g.k);
+  const int by_smem = 227 * 1024 / (smem + 1024);
+  const int cols = (packed_cols<BITS>(g.n) + Nm<BITS>::kCols - 1) / Nm<BITS>::kCols;
+  // every unit of 16 rows resident at once where the card holds them
+  const long long slots = (long long)sm_count() * min(per_sm, by_smem > 0 ? by_smem : 1);
+  const long long units = (g.m + kNmRows - 1) / kNmRows;
+  const long long fit = slots / ((long long)cols * g.e);
+  const int rows_blocks = (int)max(1LL, min(units, fit));
+  if (g.e > 65535) return (int)cudaErrorInvalidValue;
+  kn_narrow_mma_kernel<BITS, S><<<dim3(cols, rows_blocks, g.e), kNmThreads, smem, st>>>(
+      x, q, scale, out, g);
+  return (int)cudaGetLastError();
+}
+
+template <int BITS, int CB, typename T, typename S>
+int narrow_split_launch(const T* x, const int8_t* q, const S* scale, T* out, float* scratch,
+                        const KnGeom& g, int max_splits, cudaStream_t st) {
+  using N = Nw<BITS, CB, T>;
+  // one warp per split, each a few warp steps of K at most
+  const int splits = max(1, min(max_splits, (g.k + N::kStep - 1) / N::kStep));
+  const int per = (g.k + splits - 1) / splits;
+  const int k_per_split = (per + N::kVec - 1) / N::kVec * N::kVec;
+  const int cols = (packed_cols<BITS>(g.n) + CB - 1) / CB;
+  const dim3 grid(cols, (splits + kNwSplitWarps - 1) / kNwSplitWarps, g.e);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  kn_narrow_split_kernel<BITS, CB, T><<<grid, kNwSplitThreads, 0, st>>>(x, q, scratch, g,
+                                                                         k_per_split, splits);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long total = (long long)g.e * g.m * g.n;
+  kn_reduce_kernel<T, S><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(scratch, scale, out,
+                                                                          g, splits);
+  return (int)cudaGetLastError();
+}
+
+template <int BITS, int CB, typename T, typename S>
+int narrow_launch(NarrowKind kind, const void* x, const void* q, const void* scale, void* out,
+                  float* scratch, const KnGeom& g, int max_splits, cudaStream_t st) {
+  if (kind == kNarrowSplitBody)
+    return narrow_split_launch<BITS, CB, T, S>((const T*)x, (const int8_t*)q, (const S*)scale,
+                                               (T*)out, scratch, g, max_splits, st);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return narrow_mma_launch<BITS, S>((const T*)x, (const int8_t*)q, (const S*)scale, (T*)out,
+                                      g, st);
+  } else {
+    return narrow_smem_launch<BITS, CB, T, S>((const T*)x, (const int8_t*)q, (const S*)scale,
+                                              (T*)out, g, st);
+  }
+}
+
+// scratch: for m <= 16 (the aligned and the narrow_split bodies), e *
+// max_splits * m * n floats
 template <int BITS, typename T, typename S>
 int kn_launch(const void* x, const void* q, const void* scale, void* out, float* scratch,
               const KnGeom& g, int max_splits, cudaStream_t st) {
   const int np = packed_cols<BITS>(g.n);
   if (kn_narrow<BITS>(g)) {
+    const NarrowKind kind = kn_narrow_kind<BITS>(g);
+    switch (kind == kNarrowBytesBody ? 0 : narrow_cb(np)) {
+      case 2: return narrow_launch<BITS, 2, T, S>(kind, x, q, scale, out, scratch, g, max_splits, st);
+      case 4: return narrow_launch<BITS, 4, T, S>(kind, x, q, scale, out, scratch, g, max_splits, st);
+      case 8: return narrow_launch<BITS, 8, T, S>(kind, x, q, scale, out, scratch, g, max_splits, st);
+      case 16: return narrow_launch<BITS, 16, T, S>(kind, x, q, scale, out, scratch, g, max_splits, st);
+      default: break;
+    }
     if (g.m > 65535 || g.e > 65535) return (int)cudaErrorInvalidValue;
     const dim3 grid((np + kNarrowBytes - 1) / kNarrowBytes, g.m, g.e);
     if (g.m <= kGemvMaxM)
@@ -834,12 +1476,10 @@ int nk_launch(const void* x, const void* q, const void* scale, void* out, int m,
   if (err != cudaSuccess) return (int)err;
   // one wave: as many blocks as the card holds at once with this much
   // shared memory, warps striding over the vocab rows (once per step)
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int per_sm = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nk_kernel<BITS, T, S>, kHeadThreads,
                                                 smem);
-  const int slots = sms * (per_sm > 0 ? per_sm : 1);
+  const int slots = sm_count() * (per_sm > 0 ? per_sm : 1);
   const int rows_blocks = (v + kHeadWarps - 1) / kHeadWarps;
   const dim3 grid(rows_blocks < slots ? rows_blocks : slots, (m + kHeadMT - 1) / kHeadMT);
   nk_kernel<BITS, T, S><<<grid, kHeadThreads, smem, st>>>(

@@ -55,3 +55,11 @@ extern "C" int quant_matmul_ekn_launch(const void* x, const void* q, const void*
                           stream);
   return (int)cudaErrorInvalidValue;
 }
+
+// The body an expert call of m rows, [k, n] weights and `bits` takes (the
+// names of quant_matmul_kn{4,8}_body; the expert axis does not change it).
+extern "C" const char* quant_matmul_ekn_body(int m, int k, int n, int bits) {
+  if (bits == 8) return kn_body_name<8>(m, k, n);
+  if (bits == 4) return kn_body_name<4>(m, k, n);
+  return "invalid";
+}

@@ -25,7 +25,9 @@
 //   fills the card in one wave, a second pass sums, scales and converts;
 //   for larger M, 128 x 128 mma.sync tiles over cp.async stages (bf16) or
 //   64 x 64 FMA tiles (fp32); rows of N = 4 or 8 bytes (the router) take
-//   the narrow body, whose byte loads assume no alignment.
+//   the narrow bodies: the weight slice staged once per block in shared
+//   memory with warps walking rows of x (M > 16), K split over warps with
+//   a second pass (M <= 16), byte loads for K not a multiple of 8.
 // - nk: one warp per vocab row at a time (rows strided over a grid of one
 //   wave); a lane reads 4-byte words 128 bytes apart, four bytes meeting
 //   x[m, j .. j+3], with the block's rows of x (up to 8) staged once in
@@ -48,6 +50,12 @@ extern "C" int quant_matmul_kn8_launch(const void* x, const void* q, const void*
   const KnGeom g{m, k, n, 1, 0, k, 0, n};
   return kn_dispatch<8>(x, q, scale, out, scratch, g, max_splits, x_dtype, scale_dtype,
                         stream);
+}
+
+// The body an [m, k] @ [k, n] call takes (quant_matmul.cuh): "gemv",
+// "tile", "narrow_split", "narrow_smem" or "narrow_bytes".
+extern "C" const char* quant_matmul_kn8_body(int m, int k, int n) {
+  return kn_body_name<8>(m, k, n);
 }
 
 // x [m, k], q [v, k] int8, scale [v], out [m, v] in x's type; dtypes as

@@ -71,8 +71,9 @@ def _check(q, k, v, seq_lens, q_offset) -> None:
         if q.dtype == torch.bfloat16 and (
                 t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
             raise ValueError(f"bf16 {name} must be 16-byte aligned with "
-                             f"strides that are multiples of 8 (the kernel "
-                             f"loads 16-byte vectors)")
+                             f"strides that are multiples of 8 (the "
+                             f"kernel's TMA tensor maps take 16-byte "
+                             f"strides)")
     for name, t in (("seq_lens", seq_lens), ("q_offset", q_offset)):
         if tuple(t.shape) != (b,) or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous [B] vector")

@@ -92,6 +92,28 @@ def _launcher(source: str, entry: str, argtypes: tuple):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _body_query(bits: int, experts: bool):
+    """The C query naming the kn body a call takes (builds the library)."""
+    if experts:
+        fn = build.load("quant_matmul_experts").quant_matmul_ekn_body
+        fn.argtypes = [_I] * 4
+    else:
+        fn = getattr(build.load(_KN[bits][0]), f"quant_matmul_kn{bits}_body")
+        fn.argtypes = [_I] * 3
+    fn.restype = ctypes.c_char_p
+    return fn
+
+
+def kn_body(bits: int, m: int, k: int, n: int, experts: bool = False) -> str:
+    """The body of ``csrc/quant_matmul.cuh`` that a kn call of x [m, k]
+    over ``bits``-wide weights [k, n] takes on the card (``experts``: a
+    ``quant_matmul_experts`` call, m rows per expert): "gemv", "tile",
+    "narrow_split", "narrow_smem" or "narrow_bytes"."""
+    args = (m, k, n, bits) if experts else (m, k, n)
+    return _body_query(bits, experts)(*args).decode()
+
+
 def _bits(w) -> int:
     return 4 if isinstance(w, QuantTensor4) else 8
 

@@ -151,6 +151,46 @@ def test_flash_kernel_row_with_no_visible_key_is_zero(card):
     assert torch.equal(out, torch.zeros_like(out))
 
 
+# (S_q, S_k, seq_lens, q_offset or None) of two batch rows
+_FLASH_EDGES = {
+    "s130": (130, 130, [130, 77], None),        # not a multiple of 64/128
+    "s1000": (1000, 1000, [1000, 613], None),
+    "chunk": (130, 1000, [1000, 700], [870, 300]),   # S_k well above S_q
+    "empty": (70, 200, [0, 5], [0, 100]),       # a row with nothing visible
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("gqa", [1, 4, 8])
+@pytest.mark.parametrize("case", sorted(_FLASH_EDGES))
+def test_flash_kernel_tile_edges(card, dtype, d, gqa, case):
+    """The bf16 body's 128-query tiles and 128-key TMA stages at their
+    edges: ragged S_q, B = 2 with their own seq_lens and q_offsets, GQA 1/4/8
+    at every head_dim, S_k well above S_q, and a strided q view (every
+    other head of a wider tensor, read through its strides)."""
+    s_q, s_k, lens, off = _FLASH_EDGES[case]
+    n_kv = 2
+    wide = torch.randn((2, s_q, 2 * n_kv * gqa, d), generator=card,
+                       device="cuda").to(dtype)
+    q = wide[:, :, ::2]
+    k = torch.randn((2, s_k, n_kv, d), generator=card, device="cuda").to(dtype)
+    v = torch.randn((2, s_k, n_kv, d), generator=card, device="cuda").to(dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if off is not None:
+        off = torch.tensor(off, dtype=torch.int32, device="cuda")
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, lens, off)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert torch.isfinite(out).all()
+    ref = causal_attention(q, k, v, lens, off)
+    if case == "empty":   # batch row 0 sees no key: 0, not the plain mean
+        assert torch.equal(out[0], torch.zeros_like(out[0]))
+        out, ref = out[1:], ref[1:]
+    assert _err(out, ref) <= TOL[dtype]
+
+
 # ------------------------------------------------- int4 and int8 matmuls
 
 
@@ -278,6 +318,64 @@ def test_quant_matmul_experts_matches_plain(card, bits, form, dtype, b, s, e,
     assert out.dtype == dtype and out.shape == (b, s, e, n)
     assert torch.isfinite(out).all()
     assert _err(out, _exact(quant_matmul_experts_plain, x, w)) <= TOL[dtype]
+
+
+def _narrow_body(m, k):
+    """The narrow body a call with rows of x [m, k] takes: the vector bodies
+    need K in whole 16-byte loads of x."""
+    if k % 8:
+        return "narrow_bytes"
+    return "narrow_split" if m <= 16 else "narrow_smem"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k", [100, 4096])
+@pytest.mark.parametrize("n", [2, 4, 8, 24])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 300, 5120])
+def test_quant_matmul_narrow_bodies(card, dtype, bits, k, n, m):
+    """kn with rows of 1 to 24 packed bytes (the router is N = 8 and 4):
+    the split body at M <= 16, the shared-memory body above, the byte body
+    for K = 100; the launch counted once and the body named by the C query."""
+    from k8s_llm_rca_tpu_torch.ops.quant_matmul import kn_body
+
+    assert kn_body(bits, m, k, n) == _narrow_body(m, k)
+    w = _weight(card, k, n, torch.bfloat16, bits=bits)
+    x = torch.randn((m, k), generator=card, device="cuda").to(dtype)
+    before = (quant_matmul.launches, quant_matmul.launches_int8)
+    out = quant_matmul(x, w)
+    torch.cuda.synchronize()
+    added = (1, 0) if bits == 4 else (0, 1)
+    assert (quant_matmul.launches, quant_matmul.launches_int8) == (
+        before[0] + added[0], before[1] + added[1])
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert torch.isfinite(out).all()
+    assert _err(out, _exact(quant_matmul_plain, x, w)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("form", ["3d", "4d"])
+@pytest.mark.parametrize("b,s,e,k,n", [
+    (1, 4, 8, 4096, 8), (1, 300, 8, 4096, 4), (2, 9, 2, 4096, 24),
+    (1, 40, 4, 100, 8)])
+def test_quant_matmul_experts_narrow_bodies(card, bits, form, b, s, e, k, n):
+    """ekn at the router's widths with E > 1: each expert's own weight
+    slice, x read through the expert strides."""
+    from k8s_llm_rca_tpu_torch.ops.quant_matmul import kn_body
+
+    m = b * s
+    assert kn_body(bits, m, k, n, experts=True) == _narrow_body(m, k)
+    w = _experts(card, e, k, n, bits)
+    shape = (b, s, k) if form == "3d" else (b, s, e, k)
+    x = torch.randn(shape, generator=card, device="cuda").bfloat16()
+    attr = "launches" if bits == 4 else "launches_int8"
+    before = getattr(quant_matmul_experts, attr)
+    out = quant_matmul_experts(x, w)
+    torch.cuda.synchronize()
+    assert getattr(quant_matmul_experts, attr) == before + 1
+    assert out.shape == (b, s, e, n) and torch.isfinite(out).all()
+    assert _err(out, _exact(quant_matmul_experts_plain, x, w)) <= TOL[
+        torch.bfloat16]
 
 
 def test_quant_matmul_experts_reads_a_strided_x(card):
