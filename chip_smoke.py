@@ -7,7 +7,11 @@ prints one JSON line; any failure exits non-zero without the result line.
 1. env: the card, its power limit, the software versions.
 2. build: the six CUDA sources compiled from ``k8s_llm_rca_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together), with each kernel's
-   registers, shared memory and spills as ``ptxas -v`` reports them.
+   registers, shared memory and spills as ``ptxas -v`` reports them, and
+   the count of wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
+   instructions in the kn tile and weight-streaming bodies
+   (``cuobjdump -sass``): the tile body must have the first two, the
+   weight-streaming body the third.
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes, in bf16 (row-relative error at most 2^-6, see
    ``TOL``) and fp32 with TF32 off (atol 1e-4), with its device time, the
@@ -15,12 +19,13 @@ prints one JSON line; any failure exits non-zero without the result line.
    PyTorch library call as a yardstick (timed here only; the port never
    calls it): paged and flash attention (slice 1; flash also at the
    slice's batched 2560 bucket, seq_lens 1500 and 2300), the int4 matmul
-   at decode and prefill shapes, the int4 lm head, paged attention over
-   int8 and int4 pools (slice 2), and the int8 matmul (wq at decode and
-   prefill, the router at N = 8 and 4, and the int4 one at those widths,
-   each router case naming the kn body it took), the int8 head and the
-   int8 and int4 stacked-expert matmuls in both einsum forms at decode and
-   prefill (slice 3).
+   at decode and at the three prefill buckets (M = 512, 1024, 5120), the
+   int4 lm head, paged attention over int8 and int4 pools (slice 2), and
+   the int8 matmul (wq at decode and prefill, the router at N = 8 and 4,
+   and the int4 one at those widths), the int8 head and the int8 and int4
+   stacked-expert matmuls in both einsum forms at decode and prefill (int8
+   at all three buckets; slice 3).  Every matmul case names the kn body it
+   took.
 4. cross-device: the engine on the card and on the CPU gives the same
    greedy tokens for a 2-layer model (head_dim 128, GQA 4, fp32), for
    TINY (head_dim 32, GQA 2, fp32) with its own weights, with int4 weights
@@ -472,7 +477,11 @@ def slice3_kernels(table, ws, dtype_name, gen, flush) -> None:
             w = ws[wkey]
             e, _, n = w.shape
             w_dense = dq(w, dtype).to(dtype)
-            for case, m in (("decode", 4), ("prefill", 5120)):
+            # int8: also the slice's 512 and 1024 prefill buckets
+            buckets = ((512, 1024) if bits == 8 else ())
+            for case, m in (("decode", 4),
+                            *((f"prefill {b}", b) for b in buckets),
+                            ("prefill", 5120)):
                 x = rnd(1, m, k) if form == "3d" else rnd(1, m, e, k)
                 if form == "3d":
                     xe = x[0].expand(e, m, k)
@@ -481,7 +490,7 @@ def slice3_kernels(table, ws, dtype_name, gen, flush) -> None:
                     xt = x[0].transpose(0, 1).contiguous()  # before timing
                     lib = lambda: torch.bmm(xt, w_dense)  # noqa: E731
                 big = m > 16
-                iters = (2 if fp32 else 3) if big else 50
+                iters = (2 if fp32 else 3 if m > 1024 else 10) if big else 50
                 timed_case(table, (name, dtype_name, f"{form} {case}"), name,
                            dtype_name, lambda: quant_matmul_experts(x, w),
                            quant_matmul_experts_plain(x.float(), w),
@@ -490,6 +499,7 @@ def slice3_kernels(table, ws, dtype_name, gen, flush) -> None:
                                         dtype_name),
                            iters, 1 if big else 5, 0 if big else flush,
                            case=f"{form} {case}",
+                           body=kn_body(bits, m, k, n, experts=True),
                            shapes=f"x {list(x.shape)} @ int{bits} [{e}, {k}, "
                                   f"{n}]")
                 del x, lib
@@ -506,7 +516,7 @@ def phase_kernels() -> dict:
         paged_attention_quant_plain,
     )
     from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
-        quant_matmul, quant_matmul_head, quant_matmul_head_plain,
+        kn_body, quant_matmul, quant_matmul_head, quant_matmul_head_plain,
         quant_matmul_plain,
     )
 
@@ -563,13 +573,17 @@ def phase_kernels() -> dict:
         flash_kernels(table, dtype_name, gen)
 
         # decode: one weight stream per call, cold in L2 as in a decode
-        # step; prefill: two 2560-token prompts batched
+        # step; prefill: the 512 and 1024 buckets and two 2560-token
+        # prompts batched
         for case, m, iters, plain_iters in (("decode", 4, 200, 20),
+                                            ("prefill 512", 512, 20, 3),
+                                            ("prefill 1024", 1024, 20, 3),
                                             ("prefill", 5120, 5, 3)):
             x = torch.randn((m, 4096), generator=gen, device="cuda").to(dtype)
             rec = held_record("quant_matmul", dtype_name,
                               quant_matmul(x, w_mlp),
                               quant_matmul_plain(x, w_mlp), case=case,
+                              body=kn_body(4, m, 4096, 14336),
                               shapes=f"x [{m}, 4096] @ int4 [4096, 14336]")
             fl = flush if case == "decode" else 0
             rec["kernel_ms"] = time_ms(lambda: quant_matmul(x, w_mlp), iters,
@@ -989,7 +1003,6 @@ def ptxas_summary(report: str) -> list:
     by ``c++filt`` where the toolchain has it, up to its parameter list),
     then its spill and its registers/shared-memory lines."""
     import re
-    import shutil
 
     kernels = []
     for ln in report.splitlines():
@@ -999,14 +1012,70 @@ def ptxas_summary(report: str) -> list:
         elif kernels and ("registers" in ln or "spill" in ln):
             kernels[-1].append(ln.split(":", 1)[-1].strip()
                                if "registers" in ln else ln.strip())
-    names = [k[0] for k in kernels]
-    if names and shutil.which("c++filt"):
-        names = subprocess.run(["c++filt"], input="\n".join(names),
-                               capture_output=True, text=True, check=True,
-                               timeout=60).stdout.splitlines()
-        names = [n.replace("(anonymous namespace)::", "").split("(")[0]
-                 for n in names]
+    names = demangle([k[0] for k in kernels])
     return [f"{n}: {'; '.join(k[1:])}" for n, k in zip(names, kernels)]
+
+
+def demangle(names: list) -> list:
+    """Kernel names demangled by ``c++filt`` where the toolchain has it, up
+    to the parameter list."""
+    import shutil
+
+    if not names or not shutil.which("c++filt"):
+        return names
+    out = subprocess.run(["c++filt"], input="\n".join(names),
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.splitlines()
+    return [n.replace("(anonymous namespace)::", "").split("(")[0]
+            for n in out]
+
+
+# the machine instructions that show what the kn bodies run on: HGMMA is
+# wgmma, UTMALDG a TMA tensor load, HMMA mma.sync
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def sass_counts(cuobjdump: Path, lib: Path, names) -> dict:
+    """Per kernel of ``lib`` whose mangled name holds one of ``names``, the
+    count of each of ``SASS_OPS`` in its ``cuobjdump -sass`` listing."""
+    listing = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                             capture_output=True, text=True, check=True,
+                             timeout=300).stdout
+    counts, current = {}, None
+    for ln in listing.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            current = fn if any(n in fn for n in names) else None
+            if current:
+                counts[current] = dict.fromkeys(SASS_OPS, 0)
+        elif current:
+            for op in SASS_OPS:
+                if f" {op}" in ln:
+                    counts[current][op] += 1
+    return counts
+
+
+def kn_sass(build) -> dict:
+    """The tile body's instructions in each matmul library: the bf16 body
+    for M > 16 must issue wgmma (HGMMA) on operands brought by TMA
+    (UTMALDG), and the weight-streaming body mma.sync (HMMA); exits if
+    not."""
+    out = {}
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")  # beside nvcc
+    for name in ("quant_matmul", "quant_matmul_int8", "quant_matmul_experts"):
+        counts = sass_counts(cuobjdump, build.library_path(name),
+                             ("kn_wgmma_kernel", "kn_gemv_mma_kernel"))
+        tiles = {f: c for f, c in counts.items() if "kn_wgmma_kernel" in f}
+        gemvs = {f: c for f, c in counts.items() if "kn_gemv_mma_kernel" in f}
+        if (not tiles or not gemvs
+                or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0
+                       for c in tiles.values())
+                or any(c["HMMA"] == 0 for c in gemvs.values())):
+            raise SystemExit(f"{name}: the kn bodies lack their tensor-core "
+                             f"or TMA instructions: {counts}")
+        fns = sorted(counts)
+        out[name] = dict(zip(demangle(fns), (counts[f] for f in fns)))
+    return out
 
 
 def free_card() -> None:
@@ -1040,7 +1109,8 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     reports = build.build(KERNELS)
     emit("build", seconds=time.perf_counter() - t0,
-         ptxas={name: ptxas_summary(rep) for name, rep in reports.items()})
+         ptxas={name: ptxas_summary(rep) for name, rep in reports.items()},
+         sass=kn_sass(build))
 
     if "--profile-decode" in argv:
         for name, bits, kv in (("llama3-8b", None, None),

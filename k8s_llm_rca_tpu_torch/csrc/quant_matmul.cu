@@ -23,24 +23,28 @@
 //
 // Design (the bodies live in quant_matmul.cuh, shared with the int8 and
 // expert matmuls).
-// - kn, M <= 16 (weight streaming): each block owns 256 packed columns (a
-//   warp reads 8 bytes a lane, 256 contiguous bytes of a row) and one K
-//   split, whose rows of x it stages in shared memory.  Its 8 warps take
-//   batches of 8 rows in turn, each thread keeping 4 x 16 fp32 sums (4
-//   rows of x, 8 low and 8 high columns) and the next batch's loads in
-//   flight while it multiplies the current one.  The warps' sums meet in
-//   shared memory and each split writes fp32 partials; a second pass sums
-//   the splits, scales and converts.  The split count fills the card's
-//   resident block slots (the occupancy the runtime reports) in one wave,
-//   which also gives the narrow matrices (wk, wv: 512 packed columns)
-//   enough blocks.
-// - kn, M > 16, bf16: 128 x 128 output tiles (64 packed columns give the
-//   64 low and 64 high columns) on tensor cores, mma.sync m16n8k16 with
-//   fp32 accumulators.  64-deep steps: cp.async brings the next step's x
-//   tile and packed weights into a second shared-memory stage while the
-//   current step's weights are unpacked to bf16 (exact) and multiplied.
-//   Fragments by ldmatrix, as in flash_attention.cu.
-// - kn, M > 16, fp32: 64 x 64 tiles, plain FMA, 4 x 4 outputs a thread.
+// - kn, M <= 16, bf16 ("gemv"): weight streaming on tensor cores.  The
+//   packed weights, 8 bytes a lane group (16 outputs) at four rows of K,
+//   are the A operand of mma.sync m16n8k16, the rows of x the B operand
+//   (8 or 16, zeros past M); a byte_perm pairs one column's values of two
+//   K rows and lop3 plus one bf16x2 subtraction makes them exact bf16, so
+//   a packed word costs ~12 instructions, not ~64 fp32 FMAs.  A block owns
+//   128 outputs (64 packed columns) and one K split; the splits of a panel
+//   form a thread block cluster whose sums meet in distributed shared
+//   memory in split order: one launch, deterministic.
+// - kn, M > 16, bf16 ("tile"): 128 x 256 output tiles (128 packed
+//   columns give the 128 low and 128 high columns).  One producer thread
+//   brings x (128 rows x 64 k, 128-byte swizzled) and the packed weights
+//   (64 k x 128 bytes) by TMA into a 6-stage ring.  Each of two consumer
+//   warpgroups takes one nibble of the 128 packed columns: its lanes read
+//   packed words from shared memory and convert them straight into the A
+//   fragments of wgmma m64n128k16 (the transposed product: weights from
+//   registers, x the K-major B operand), and the two warpgroups take turns
+//   issuing, so one converts while the other's products run.  The
+//   epilogue scales in fp32 and stores 16-byte rows staged in shared
+//   memory.
+// - kn, fp32 (the cross-device checks): split-K FMA weight streaming with
+//   a second pass (M <= 16), 64 x 64 FMA tiles (M > 16).
 // - nk: one warp per vocab row at a time (rows strided over a grid of one
 //   wave); a lane reads 4-byte words 128 bytes apart, each byte's low
 //   nibble meeting x[m, j] and its high nibble x[m, j + K/2], with the
@@ -53,15 +57,17 @@
 //   partials and the second pass; K not a multiple of 8: one block per row
 //   of x and 16 packed columns, byte loads, K split over the threads.
 //
-// Not yet: TMA, wgmma and a deeper pipeline for the prefill tiles.
+// Not yet: a persistent tile grid and a TMA store of the output tile;
+// tensor cores for the head (nk), which is still issue-bound on FMAs.
 
 #include "quant_matmul.cuh"
 
 // x [m, k] (x_dtype 0 = float32, 1 = bfloat16), q [k, n/2] int8, scale [n]
 // (scale_dtype 0 = float32, 1 = bfloat16; bfloat16 x takes bfloat16 scales),
 // out [m, n] in x's type; n even, x and q 16-byte aligned.  For m <= 16
-// with n a multiple of 32 and k of 32, scratch holds max_splits * m * n
-// floats, with max_splits >= k / 1792 rounded up; otherwise it is unused.
+// with float32 x, n a multiple of 32 and k of 32, and for the narrow_split
+// body, scratch holds max_splits * m * n floats, with max_splits >= k /
+// 1792 rounded up; otherwise it is unused.
 // Returns cudaGetLastError().
 extern "C" int quant_matmul_kn4_launch(const void* x, const void* q, const void* scale,
                                        void* out, void* scratch, int m, int k, int n,

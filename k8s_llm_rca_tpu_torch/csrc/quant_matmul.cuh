@@ -1,20 +1,32 @@
 // Shared pieces of the fused weight-dequant matmuls for Hopper (sm_90a):
-// value conversions, the tensor-core helpers, the kn bodies y = x @ (q * s)
-// with per-column scales, for int8 and split-half int4 weights, with an
-// optional leading expert axis, and the nk body (the lm head).  Included by
-// quant_matmul.cu (int4 kn and nk), quant_matmul_int8.cu (int8 kn and nk)
-// and quant_matmul_experts.cu (int8 and int4 ekn); each compiles its own
-// copy into its own library.
+// value conversions, the TMA, mbarrier and tensor-core helpers, the kn
+// bodies y = x @ (q * s) with per-column scales, for int8 and split-half
+// int4 weights, with an optional leading expert axis, and the nk body
+// (the lm head).  Included by quant_matmul.cu (int4 kn and nk),
+// quant_matmul_int8.cu (int8 kn and nk) and quant_matmul_experts.cu (int8
+// and int4 ekn); each compiles its own copy into its own library.
 //
-// The kn bodies (what bounds them and why, see quant_matmul.cu):
-// - M <= 16, rows of a multiple of 16 bytes (weight streaming): split K,
-//   fp32 partials, a second pass that sums the splits and scales.  A lane
-//   holds 16 outputs: 8 packed int4 bytes (8 low, 8 high columns) or 16
-//   int8 bytes.
-// - M > 16, bf16: 128 x 128 output tiles on tensor cores (mma.sync
-//   m16n8k16, fp32 accumulators), cp.async double-buffered 64-deep steps;
-//   the weights are converted to bf16 exactly (|q| <= 127) in shared memory.
-// - M > 16, fp32: 64 x 64 FMA tiles.
+// The kn bodies for rows of a multiple of 16 packed bytes and K of 32
+// (what bounds them, see quant_matmul.cu):
+// - M <= 16, bf16 x ("gemv", weight streaming; bound by the weight bytes):
+//   the weights are the A operand of mma.sync m16n8k16 and up to two tiles
+//   of 8 rows of x the B operand, so the FMA issue rate no longer sets the
+//   time; int8 and int4 become bf16 pairs by lop3 and one bf16x2
+//   subtraction (s8x2_bf16, s4x2_bf16).  A block owns 128 outputs and one
+//   K split; the splits of a panel (up to 8, as many as fill the card's
+//   resident slots in one wave) form a thread block cluster and add their
+//   sums in distributed shared memory in split order: one launch, the same
+//   bits on every run.
+// - M > 16, bf16 x ("tile"; bound by the tensor-core rate): 128 x 256
+//   output tiles; a producer thread streams x and the packed weights by
+//   TMA into a 5- or 6-stage ring; two consumer warpgroups convert the
+//   packed weights straight into wgmma A fragments (the transposed
+//   product, weights as A from registers, x as the K-major B operand in
+//   shared memory) and take turns issuing wgmma m64n128k16, so one
+//   converts while the other's products run; an L2 raster of 8-row-tile
+//   bands.
+// - fp32 x (the cross-device checks; tensor cores would round it): split-K
+//   FMA weight streaming with a second pass (M <= 16), 64 x 64 FMA tiles.
 // - Rows that are not a multiple of 16 bytes or K not a multiple of 32
 //   (the MoE router: N = 4 or 8, rows of 2 to 8 packed bytes).  A block
 //   owns a slice of CB packed columns (the whole row when it is 2, 4, 8 or
@@ -32,17 +44,24 @@
 //     one warp reduction per sum.
 //   - narrow_split, M <= 16 and K a multiple of 8: the same warp walk, its
 //     weights read straight from memory, with K split over one warp per
-//     split; fp32 partials and the second pass of the weight-streaming body
-//     (deterministic sums, no atomics).
+//     split; fp32 partials and the second pass of the fp32 weight-streaming
+//     body (deterministic sums, no atomics).
 //   - narrow_bytes, any other shape (K not a multiple of 8, or a slice
 //     too large for shared memory): one block per (row of x, 16 packed
 //     columns), its threads splitting K, bytes read one by one (no
 //     alignment assumed), a block reduction at the end.
-// Integers become floats by an exponent trick on 32-bit words (nib_f,
-// byte_f), not by integer-to-float instructions (a quarter-rate pipe).
+// Integers become fp32 by an exponent trick on 32-bit words (nib_f,
+// byte_f) and bf16 by the lop3 trick above, not by integer-to-float
+// instructions (a quarter-rate pipe).
+//
+// Not yet: a persistent tile grid (one tile's epilogue overlapping the
+// next tile's loads), a TMA store of the output tile, and tensor cores
+// for the nk head.
 
 #pragma once
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,67 +106,124 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// four 8x8 bf16 matrices from shared memory: as stored (an A fragment of a
-// row-major tile) or transposed (the B operand of a row-major [K][N] tile)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16 bytes global -> shared without registers; src_bytes 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n"); }
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// 16 packed int4 bytes -> 16 low and 16 high values as bf16 (exact)
-__device__ __forceinline__ void unpack16_nib_bf16(const uint4& p, uint4 (&lo)[2],
-                                                  uint4 (&hi)[2]) {
-  const uint32_t w[4] = {p.x ^ 0x88888888u, p.y ^ 0x88888888u, p.z ^ 0x88888888u,
-                         p.w ^ 0x88888888u};
-  uint32_t l[8], h[8];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    l[2 * j] = pack_bf16(nib_f(w[j], 0), nib_f(w[j], 8));
-    l[2 * j + 1] = pack_bf16(nib_f(w[j], 16), nib_f(w[j], 24));
-    h[2 * j] = pack_bf16(nib_f(w[j], 4), nib_f(w[j], 12));
-    h[2 * j + 1] = pack_bf16(nib_f(w[j], 20), nib_f(w[j], 28));
-  }
-  lo[0] = make_uint4(l[0], l[1], l[2], l[3]);
-  lo[1] = make_uint4(l[4], l[5], l[6], l[7]);
-  hi[0] = make_uint4(h[0], h[1], h[2], h[3]);
-  hi[1] = make_uint4(h[4], h[5], h[6], h[7]);
+// Integers to bf16 pairs without a float: each 16-bit half of t holds a
+// value in its low bits, which lop3 ORs into the mantissa of a bf16 of
+// exponent 2^7 (0x4300 | u is 128 + u for u < 128), and one bf16x2
+// subtraction removes the offset.  Exact: every result is an integer of
+// at most 8 significant bits.
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// 16 int8 bytes -> 16 values as bf16 (exact: |q| <= 128 fits 8 bits)
-__device__ __forceinline__ void unpack16_byte_bf16(const uint4& p, uint4 (&v)[2]) {
-  const uint32_t w[4] = {p.x ^ 0x80808080u, p.y ^ 0x80808080u, p.z ^ 0x80808080u,
-                         p.w ^ 0x80808080u};
-  uint32_t o[8];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    o[2 * j] = pack_bf16(byte_f(w[j], 0), byte_f(w[j], 8));
-    o[2 * j + 1] = pack_bf16(byte_f(w[j], 16), byte_f(w[j], 24));
+// the signed bytes at bits 0 and 16 of t: 128 + (low 7 bits) minus 128
+// + (the sign bit's 128), i.e. 128 or 256
+__device__ __forceinline__ uint32_t s8x2_bf16(uint32_t t) {
+  return bf16x2_sub((t & 0x007F007Fu) | 0x43004300u, (t & 0x00800080u) | 0x43004300u);
+}
+
+// the signed nibbles at bits 0 and 16 of t: (u ^ 8) + 128 minus 136
+__device__ __forceinline__ uint32_t s4x2_bf16(uint32_t t) {
+  return bf16x2_sub((t & 0x000F000Fu) ^ 0x43084308u, 0x43084308u);
+}
+
+// ------------------------------------------- TMA, mbarriers and wgmma
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// spin until the phase of the given parity has completed; a wait that
+// outlasts any real copy (2^28 polls, seconds) traps, so a broken
+// protocol fails the launch instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (polls == (1u << 28)) __trap();
   }
-  v[0] = make_uint4(o[0], o[1], o[2], o[3]);
-  v[1] = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// one box of a 3-D tensor map (coordinates innermost first) into shared
+// memory, completing its bytes on the barrier
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle layout (1 = 128-byte)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous product that owns it
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D[64 x 128] += A[64 x 16] . B[16 x 128], A from registers (the
+// mma.sync A fragment layout, per warp 16 rows), B K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\nwgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // Geometry of one kn call.  Expert ex's row r of x starts at
@@ -163,9 +239,14 @@ template <int BITS> __host__ __device__ constexpr int packed_cols(int n) {
   return BITS == 4 ? n / 2 : n;
 }
 
-// ------------------------------------------------------------ small M
+// ------------------------------------------------ small M, fp32: FMA
+//
+// The fp32 weight-streaming body (exact fp32 x, the cross-device checks):
+// split K, each lane's 16 outputs as fp32 FMAs on weights made float by
+// unpack_lane, fp32 partials and a second pass (kn_reduce_kernel) that
+// sums the splits in order and scales.
 
-constexpr int kGemvMaxM = 16;      // rows of x the weight-streaming body takes
+constexpr int kGemvMaxM = 16;      // rows of x the weight-streaming bodies take
 constexpr int kGemvMT = 4;         // rows of x per block
 constexpr int kGemvThreads = 256;
 constexpr int kGemvWarps = kGemvThreads / 32;
@@ -210,9 +291,9 @@ template <int BITS> __device__ __forceinline__ int slot_col(int c, int e, int np
 // unscaled fp32 partials [e, k_splits, m, n]; the x rows of this split
 // staged in dynamic shared memory [kGemvMT][ke - kb].  blockIdx.z is
 // expert * m_blocks + the block of rows.
-template <int BITS, typename T>
+template <int BITS>
 __global__ void __launch_bounds__(kGemvThreads, 2)
-kn_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
+kn_gemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
                float* __restrict__ part, KnGeom g, int k_per_split, int m_blocks) {
   using G = KnGemv<BITS>;
   using Vec = typename G::Vec;
@@ -230,13 +311,13 @@ kn_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   const int kb = split * k_per_split;
   const int ke = min(g.k, kb + k_per_split);
   const int rows = max(ke - kb, 0);
-  const T* xe = x + ex * g.x_es;
+  const float* xe = x + ex * g.x_es;
   const int8_t* qe = q + (long long)ex * g.k * np;
 
   for (int i = tid; i < kGemvMT * rows; i += kGemvThreads) {
     const int mm = i / rows;
     const int r = i % rows;
-    xs[i] = m0 + mm < g.m ? to_f(xe[(m0 + mm) * g.x_rs + kb + r]) : 0.f;
+    xs[i] = m0 + mm < g.m ? xe[(m0 + mm) * g.x_rs + kb + r] : 0.f;
   }
   __syncthreads();
 
@@ -318,158 +399,460 @@ kn_reduce_kernel(const float* __restrict__ part, const S* __restrict__ scale,
       from_f<T>(s * to_f(scale[(long long)ex * g.n + col]));
 }
 
-// ---------------------------------------------------- large M, bf16 MMA
+// ------------------------------------------- small M, bf16: tensor cores
+//
+// The weights are the A operand of mma.sync m16n8k16 (16 output columns x
+// 16 k), the rows of x the B operand (8 rows: x rows past m are zeros,
+// which cost nothing on a card that waits for the weights).  A lane group
+// (lanes 4gq .. 4gq + 3) owns 16 outputs: 16 int8 bytes or 8 int4 bytes
+// (8 low, 8 high nibbles) of one weight row, read as one vector.  In a
+// 16-k step lane tq loads that vector at rows k + 4tq .. k + 4tq + 3, so a
+// warp's load reads four rows of 8 contiguous vectors.  The product sums
+// over k in any order: the fragments' k slots 2tq, 2tq + 1, 2tq + 8, 2tq + 9
+// take rows k + 4tq + 0 .. 3, in the weights and in x alike (x's four
+// values are one 8-byte load).  Fragment j of the step holds the group's
+// output slots 2j (rows gq) and 2j + 1 (rows gq + 8): a byte_perm pairs
+// one column's bytes of two rows, and s8x2_bf16 / s4x2_bf16 make them
+// bf16.  Slot s of a group is int8 column c + s; int4 slot s < 8 the low
+// nibble of packed column c + s (output c + s), s >= 8 its high nibble
+// (output np + c + s - 8).
+//
+// A block owns 128 outputs and one K split; its 8 warps take 16-k steps in
+// batches whose loads are in flight together, and their sums meet in
+// shared memory in warp order.  The K splits of a panel form one thread
+// block cluster; their sums meet in distributed shared memory, each block
+// of the cluster adding a share of the outputs over the splits in split
+// order, scaling and storing.  One launch, no atomics: the same inputs give
+// the same bits.
 
-constexpr int kTmBM = 128;         // rows of x per block
-constexpr int kTmBK = 64;          // K per step
-constexpr int kTmThreads = 256;    // 8 warps: 2 along M x 4 along N
-constexpr int kTmLdA = kTmBK + 8;  // bf16 row strides, padded so the
-constexpr int kTmLdB = 128 + 8;    // fragment loads hit distinct banks
-constexpr int kTmStageA = kTmBM * kTmLdA * 2;
+constexpr int kGmThreads = 256;
+constexpr int kGmWarps = kGmThreads / 32;
+constexpr int kGmMaxSplits = 8;  // one cluster of the portable size
 
-// two stages of x [BM][LdA] bf16 and packed weights [BK][kBytes] bytes,
-// then one converted weight tile [BK][LdB] bf16 (128 output columns: int4
-// 64 packed columns, low then high; int8 128 columns)
-template <int BITS> struct KnTile {
-  static constexpr int kBytes = BITS == 4 ? 64 : 128;
-  static constexpr int kStageB = kTmBK * kBytes;
-  static constexpr int kSmem = 2 * (kTmStageA + kStageB) + kTmBK * kTmLdB * 2;
+template <int BITS> struct KnGm {
+  using Vec = typename std::conditional<BITS == 4, uint2, uint4>::type;
+  static constexpr int kGroupBytes = BITS == 4 ? 8 : 16;  // a lane group's 16 outputs
+  static constexpr int kPanel = 8 * kGroupBytes;          // packed columns per block
+  static constexpr int kBatch = BITS == 4 ? 4 : 2;        // steps whose loads issue together
+  static constexpr int kMinK = kGmWarps * kBatch * 16;    // fewest rows of K a split walks
 };
 
-template <int BITS, typename S>
-__global__ void __launch_bounds__(kTmThreads)
-kn_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-              const S* __restrict__ scale, __nv_bfloat16* __restrict__ out, KnGeom g) {
-  using Tl = KnTile<BITS>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem + 2 * (kTmStageA + Tl::kStageB));
+// shared memory: the warps' sums [warps][NT * 32 registers][32 lanes], then
+// the block's [NT * 32][32]
+template <int NT> constexpr int gm_smem() { return (kGmWarps + 1) * NT * 32 * 32 * 4; }
+
+// the A fragments of one step's 8 products from a lane's four vectors
+__device__ __forceinline__ void gm_frags(const uint4 (&w)[4], uint32_t (&a)[8][4]) {
+  const uint32_t v[4][4] = {{w[0].x, w[0].y, w[0].z, w[0].w},
+                            {w[1].x, w[1].y, w[1].z, w[1].w},
+                            {w[2].x, w[2].y, w[2].z, w[2].w},
+                            {w[3].x, w[3].y, w[3].z, w[3].w}};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    // bytes 2j, 2j + 1 of rows 0 and 1 (and 2 and 3) side by side
+    const uint32_t sel = (j & 1) ? 0x7632u : 0x5410u;
+    const uint32_t t01 = __byte_perm(v[0][j / 2], v[1][j / 2], sel);
+    const uint32_t t23 = __byte_perm(v[2][j / 2], v[3][j / 2], sel);
+    a[j][0] = s8x2_bf16(t01);
+    a[j][1] = s8x2_bf16(t01 >> 8);
+    a[j][2] = s8x2_bf16(t23);
+    a[j][3] = s8x2_bf16(t23 >> 8);
+  }
+}
+__device__ __forceinline__ void gm_frags(const uint2 (&w)[4], uint32_t (&a)[8][4]) {
+  const uint32_t v[4][2] = {{w[0].x, w[0].y}, {w[1].x, w[1].y}, {w[2].x, w[2].y},
+                            {w[3].x, w[3].y}};
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    // bytes 2p, 2p + 1: their low nibbles are slots 2p, 2p + 1, their
+    // high nibbles slots 2p + 8, 2p + 9
+    const uint32_t sel = (p & 1) ? 0x7632u : 0x5410u;
+    const uint32_t t01 = __byte_perm(v[0][p / 2], v[1][p / 2], sel);
+    const uint32_t t23 = __byte_perm(v[2][p / 2], v[3][p / 2], sel);
+    a[p][0] = s4x2_bf16(t01);
+    a[p][1] = s4x2_bf16(t01 >> 8);
+    a[p][2] = s4x2_bf16(t23);
+    a[p][3] = s4x2_bf16(t23 >> 8);
+    a[p + 4][0] = s4x2_bf16(t01 >> 4);
+    a[p + 4][1] = s4x2_bf16(t01 >> 12);
+    a[p + 4][2] = s4x2_bf16(t23 >> 4);
+    a[p + 4][3] = s4x2_bf16(t23 >> 12);
+  }
+}
+
+// blockIdx (panel of 128 outputs, K split = rank in the cluster, expert);
+// NT tiles of 8 rows of x (m <= 8 * NT)
+template <int BITS, int NT, typename S>
+__global__ void __launch_bounds__(kGmThreads, NT == 1 ? 2 : 1)
+kn_gemv_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+                   const S* __restrict__ scale, __nv_bfloat16* __restrict__ out, KnGeom g,
+                   int k_per_split) {
+  using G = KnGm<BITS>;
+  using Vec = typename G::Vec;
+  constexpr int kRegs = NT * 32;  // a lane's sums: NT x 8 products x 4
+  extern __shared__ __align__(16) float red[];
   const int np = packed_cols<BITS>(g.n);
-  const int pc0 = blockIdx.x * Tl::kBytes;
-  const int m0 = blockIdx.y * kTmBM;
-  const int ex = blockIdx.z;
-  const __nv_bfloat16* xe = x + ex * g.x_es;
-  const int8_t* qe = q + (long long)ex * g.k * np;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int gr = lane >> 2;  // fragment row group
-  const int tg = lane & 3;   // thread in group
-  const int wm = warp >> 2;  // rows wm*64 .. +63 of the tile
-  const int wn = warp & 3;   // tile columns wn*32 .. +31
+  const int gq = lane >> 2;  // lane group: its 16 outputs
+  const int tq = lane & 3;   // rows 4tq .. 4tq + 3 of each step
+  const int pbase = blockIdx.x * G::kPanel;
+  const int pc = pbase + gq * G::kGroupBytes;
+  const bool col_ok = pc < np;  // np % 16 == 0: a group is whole or absent
+  const int split = blockIdx.y;
+  const int ex = blockIdx.z;
+  const int kb = split * k_per_split;
+  const int steps = max(0, min(g.k - kb, k_per_split)) / 16;
+  const int8_t* qe = q + (long long)ex * g.k * np + pc;
+  const __nv_bfloat16* xe = x + ex * g.x_es;
 
-  auto stage_a = [&](int st) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + st * (kTmStageA + Tl::kStageB));
-  };
-  auto stage_b = [&](int st) { return smem + st * (kTmStageA + Tl::kStageB) + kTmStageA; };
-  constexpr int kVecsPerRow = Tl::kBytes / 16;
-  constexpr int kVecsB = Tl::kStageB / 16 / kTmThreads;  // 1 (int4) or 2 (int8)
-  // one step's tiles into stage st; rows past m, columns past np and depth
-  // past k read nothing and land as zeros
-  auto fetch = [&](int k0, int st) {
-    __nv_bfloat16* as = stage_a(st);
+  float acc[NT][8][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int idx = tid + j * kTmThreads;
-      const int r = idx >> 3;
-      const int cv = (idx & 7) * 8;
-      const bool ok = m0 + r < g.m && k0 + cv < g.k;
-      cp_async16(&as[r * kTmLdA + cv], ok ? xe + (m0 + r) * g.x_rs + k0 + cv : x,
-                 ok ? 16 : 0);
-    }
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int j = 0; j < kVecsB; ++j) {
-      const int idx = tid + j * kTmThreads;
-      const int r = idx / kVecsPerRow;
-      const int cb = (idx % kVecsPerRow) * 16;
-      const bool ok = pc0 + cb < np && k0 + r < g.k;
-      cp_async16(stage_b(st) + r * Tl::kBytes + cb,
-                 ok ? qe + (long long)(k0 + r) * np + pc0 + cb : q, ok ? 16 : 0);
-    }
-    cp_async_commit();
-  };
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][j][i] = 0.f;
 
-  float acc[4][4][4];
+  for (int s0 = warp * G::kBatch; s0 < steps; s0 += kGmWarps * G::kBatch) {
+    Vec w[G::kBatch][4];
+    uint2 xv[G::kBatch][NT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int u = 0; u < G::kBatch; ++u) {
+      const bool ok = s0 + u < steps;
+      const int k = kb + 16 * (s0 + u) + 4 * tq;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int r = 0; r < 4; ++r) {
+        w[u][r] = Vec{};
+        if (ok && col_ok) w[u][r] = __ldg(reinterpret_cast<const Vec*>(qe + (long long)(k + r) * np));
+      }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  fetch(0, 0);
-  for (int k0 = 0, st = 0; k0 < g.k; k0 += kTmBK, st ^= 1) {
-    cp_async_wait_all();
-    __syncthreads();  // stage st has landed; the previous step's readers are done
-#pragma unroll
-    for (int j = 0; j < kVecsB; ++j) {
-      const int idx = tid + j * kTmThreads;
-      const int r = idx / kVecsPerRow;
-      const int cb = (idx % kVecsPerRow) * 16;
-      const uint4 p = *reinterpret_cast<const uint4*>(stage_b(st) + r * Tl::kBytes + cb);
-      uint4* row = reinterpret_cast<uint4*>(&Bs[r * kTmLdB]);
-      if constexpr (BITS == 4) {
-        uint4 lo[2], hi[2];
-        unpack16_nib_bf16(p, lo, hi);
-        row[cb / 8] = lo[0];
-        row[cb / 8 + 1] = lo[1];
-        row[(64 + cb) / 8] = hi[0];
-        row[(64 + cb) / 8 + 1] = hi[1];
-      } else {
-        uint4 v[2];
-        unpack16_byte_bf16(p, v);
-        row[cb / 8] = v[0];
-        row[cb / 8 + 1] = v[1];
+      for (int nt = 0; nt < NT; ++nt) {
+        const int row = gq + 8 * nt;
+        xv[u][nt] = make_uint2(0u, 0u);
+        if (ok && row < g.m)
+          xv[u][nt] = __ldg(reinterpret_cast<const uint2*>(xe + row * g.x_rs + k));
       }
     }
-    if (k0 + kTmBK < g.k) fetch(k0 + kTmBK, st ^ 1);  // lands during this step's math
-    __syncthreads();  // the converted tile is complete
-
-    const __nv_bfloat16* as = stage_a(st);
 #pragma unroll
-    for (int kk = 0; kk < kTmBK / 16; ++kk) {
-      uint32_t a[4][4];
+    for (int u = 0; u < G::kBatch; ++u) {
+      uint32_t a[8][4];
+      gm_frags(w[u], a);
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4(a[mt], &as[(wm * 64 + mt * 16 + (lane & 15)) * kTmLdA + kk * 16 +
-                               (lane >> 4) * 8]);
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(
-            vb, &Bs[(kk * 16 + (lane & 15)) * kTmLdB + wn * 32 + (2 * p + (lane >> 4)) * 8]);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          mma_bf16(acc[mt][2 * p], a[mt], vb[0], vb[1]);
-          mma_bf16(acc[mt][2 * p + 1], a[mt], vb[2], vb[3]);
-        }
-      }
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[nt][j], a[j], xv[u][nt].x, xv[u][nt].y);
     }
   }
 
+  // the warps' sums, in warp order
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int tc = wn * 32 + nt * 8 + tg * 2;  // even tile column
-      int col;
-      if constexpr (BITS == 4) {
-        const int pcol = pc0 + (tc & 63);
-        if (pcol >= np) continue;
-        col = tc < 64 ? pcol : np + pcol;
-      } else {
-        col = pc0 + tc;
-        if (col >= np) continue;
-      }
-      const float s0 = to_f(scale[(long long)ex * g.n + col]);
-      const float s1 = to_f(scale[(long long)ex * g.n + col + 1]);
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = m0 + wm * 64 + mt * 16 + gr + 8 * r;
-        if (row >= g.m) continue;
-        *reinterpret_cast<uint32_t*>(&out[ex * g.out_es + row * g.out_rs + col]) =
-            pack_bf16(acc[mt][nt][2 * r] * s0, acc[mt][nt][2 * r + 1] * s1);
+      for (int i = 0; i < 4; ++i)
+        red[(warp * kRegs + (nt * 8 + j) * 4 + i) * 32 + lane] = acc[nt][j][i];
+  __syncthreads();
+  float* part = red + kGmWarps * kRegs * 32;
+  for (int e = tid; e < kRegs * 32; e += kGmThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kGmWarps; ++w) s += red[w * kRegs * 32 + e];
+    part[e] = s;
+  }
+
+  // the splits' sums, in split order: block `rank` of the cluster adds
+  // every splits-th share of 256 sums
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int splits = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  for (int e = rank * kGmThreads + tid; e < kRegs * 32; e += splits * kGmThreads) {
+    float s = 0.f;
+    for (int r = 0; r < splits; ++r) s += cluster.map_shared_rank(part, r)[e];
+    // sum e is register e / 32 of lane e % 32: product j of row tile nt,
+    // fragment register i (slot 2j + i / 2, row of x 2tq + i % 2)
+    const int reg = e >> 5;
+    const int ln = e & 31;
+    const int nt = reg >> 5;
+    const int j = (reg >> 2) & 7;
+    const int i = reg & 3;
+    const int slot = 2 * j + (i >> 1);
+    const int row = 8 * nt + 2 * (ln & 3) + (i & 1);
+    const int gc = pbase + (ln >> 2) * G::kGroupBytes;
+    if (row >= g.m || gc >= np) continue;
+    const int col = BITS == 4 ? (slot < 8 ? gc + slot : np + gc + slot - 8) : gc + slot;
+    out[ex * g.out_es + row * g.out_rs + col] =
+        __float2bfloat16(s * to_f(scale[(long long)ex * g.n + col]));
+  }
+  cluster.sync();  // the other blocks' sums are read before they exit
+}
+
+// ------------------------------------------ large M, bf16: TMA + wgmma
+//
+// A block computes a 128 x 256 output tile: 128 rows of x by 256 output
+// columns (int8: 256 packed columns; int4: 128 packed columns, whose low
+// nibbles are outputs pc0 .. pc0 + 127 and high nibbles np + pc0 ..).  It
+// computes the transposed product, out^T = (q s)^T x^T, so that the
+// weights are wgmma's A operand, taken from registers, and x the B
+// operand, K-major in shared memory as TMA lands it: the converted weights
+// never go through shared memory.
+// - Loads: one thread of the producer warpgroup keeps a ring of 5 (int8)
+//   or 6 (int4) stages in flight by TMA.  A stage is 64 k of x (128 rows
+//   of 128 bytes) and of the packed weights (one or two boxes of [64 k][128
+//   bytes]), all 128-byte swizzled; boxes past m, np or K land as zeros.
+// - Products: consumer warpgroup wg owns 128 output columns (int8: packed
+//   columns 128 wg ..; int4: nibble wg of all 128), as two wgmma
+//   m64n128k16 products per 16 k.  A lane group (lanes 4g .. 4g + 3 of
+//   warp w) reads the 4-byte word of packed columns 32w + 4g .. + 3 at the
+//   four k rows its A fragment needs (2tq, 2tq + 1, 2tq + 8, 2tq + 9); the
+//   swizzle puts the 32 lanes' words on 32 banks.  A byte_perm pairs one
+//   column's bytes of two rows and s8x2_bf16 / s4x2_bf16 make them bf16
+//   (exact); fragment rows g and g + 8 of product j are columns 4g + 2j
+//   and 4g + 2j + 1 of the word.
+// - Overlap: the two warpgroups take turns issuing their products of a
+//   16-k step (named barriers), so one converts its next fragments while
+//   the other's products hold the tensor cores; a warpgroup loads the
+//   next step's packed words while its own products run, and converts
+//   them once they are done.  It writes fragment registers only when none
+//   of its own products is in flight:
+//   ptxas serializes every wgmma of a kernel in which registers that feed
+//   one are written while another is pending, or whose in-flight
+//   fragments do not fit the 168 registers a thread of a 384-thread block
+//   has.  A stage is released once the products of its last 16 k are done.
+// - Epilogue: scale in fp32, stage the bf16 tile transposed back in the
+//   ring's shared memory, store 16-byte rows.
+// - Raster: tiles are numbered expert-major, and within an expert in
+//   bands of kTwGroupM row tiles walked column panel by column panel, so
+//   the blocks resident at once share a few MB of x and weights in L2.
+//
+// Why this shape: every tile reads its x rows and its weight panel over
+// all of K through L2, so wider tiles read fewer bytes per product (a
+// 128 x 128 tile read ~4 TB/s from L2 at every prefill shape).  And
+// shared memory, not the tensor cores, ran out first when the converted
+// weights were written there and read back by wgmma as its B operand: at
+// 128 x 256 a 64-k step then moves ~160 KB through shared memory in the
+// ~1024 clocks its products take, against 128 bytes a clock.  With the
+// weights in registers a step moves ~112 KB: x read by the products, the
+// packed weights by the lanes, the TMA writes.
+
+constexpr int kTwBM = 128;                      // rows of x per tile
+constexpr int kTwBK = 64;                       // K per stage: one swizzled 128-byte row
+constexpr int kTwBN = 256;                      // outputs per tile
+constexpr int kTwConsumers = 256;               // two consumer warpgroups
+constexpr int kTwThreads = kTwConsumers + 128;  // and the producer warpgroup
+constexpr int kTwGroupM = 8;                    // row tiles per raster band
+constexpr int kTwXBytes = kTwBM * kTwBK * 2;    // one stage of x
+constexpr int kTwBoxBytes = kTwBK * 128;        // one [64 k][128 bytes] weight box
+constexpr int kTwOutLd = kTwBN + 8;             // bf16 row stride of the staged output
+
+template <int BITS> struct KnTw {
+  static constexpr int kBytes = BITS == 4 ? 128 : 256;  // packed columns per tile
+  static constexpr int kBoxes = kBytes / 128;
+  static constexpr int kWBytes = kTwBK * kBytes;
+  static constexpr int kStageBytes = kTwXBytes + kWBytes;
+  static constexpr int kStages = BITS == 4 ? 6 : 5;     // TMA ring depth
+  // 1 KB of slack to align the swizzled stages, the stages, the tile's
+  // scales and the mbarriers
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + kTwBN * 4 + 2 * kStages * 8;
+  static_assert(kTwBM * kTwOutLd * 2 <= kStages * kStageBytes,
+                "the output tile is staged in the ring");
+};
+
+// the output column of tile column tc, or -1 past the weight's columns
+template <int BITS> __device__ __forceinline__ int tw_col(int tc, int pc0, int np) {
+  if constexpr (BITS == 4) {
+    const int p = pc0 + tc % (kTwBN / 2);
+    return p < np ? (tc < kTwBN / 2 ? p : np + p) : -1;
+  }
+  return pc0 + tc < np ? pc0 + tc : -1;
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kTwConsumers) : "memory");
+}
+__device__ __forceinline__ void turn_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kTwConsumers) : "memory");
+}
+__device__ __forceinline__ void turn_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kTwConsumers) : "memory");
+}
+
+// tm_x: [m, x_experts ? e : 1, k] bf16 (innermost last here, first in the
+// map), boxes 64 k x 1 x 128 rows; tm_q: [e, k, np] bytes, boxes 128 bytes
+// x 64 k x 1; both 128-byte swizzled
+template <int BITS, typename S>
+__global__ void __launch_bounds__(kTwThreads, 1)
+kn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_q,
+                const S* __restrict__ scale, __nv_bfloat16* __restrict__ out, KnGeom g,
+                int x_experts) {
+  using Tw = KnTw<BITS>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // stage st: x at st * kStageBytes, then its weight boxes
+  unsigned char* ring = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  float* sc = reinterpret_cast<float*>(ring + Tw::kStages * Tw::kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sc + kTwBN);
+  uint64_t* empty = full + Tw::kStages;
+
+  const int np = packed_cols<BITS>(g.n);
+  const int tiles_n = (np + Tw::kBytes - 1) / Tw::kBytes;
+  const int tiles_m = (g.m + kTwBM - 1) / kTwBM;
+  int r = blockIdx.x;
+  const int ex = r / (tiles_m * tiles_n);
+  r -= ex * tiles_m * tiles_n;
+  const int band = kTwGroupM * tiles_n;
+  const int first_m = r / band * kTwGroupM;
+  const int rows_in = min(tiles_m - first_m, kTwGroupM);
+  const int m0 = (first_m + r % band % rows_in) * kTwBM;
+  const int pc0 = r % band / rows_in * Tw::kBytes;
+  const int steps = (g.k + kTwBK - 1) / kTwBK;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < Tw::kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kTwConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kTwConsumers / 32) {  // producer
+    if (warp == kTwConsumers / 32 && lane == 0) {
+      for (int t = 0; t < steps; ++t) {
+        const int st = t % Tw::kStages;
+        unsigned char* stage = ring + st * Tw::kStageBytes;
+        mbar_wait(&empty[st], ((t / Tw::kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], Tw::kStageBytes);
+        tma_load_3d(stage, &tm_x, &full[st], t * kTwBK, x_experts ? ex : 0, m0);
+#pragma unroll
+        for (int b = 0; b < Tw::kBoxes; ++b)
+          tma_load_3d(stage + kTwXBytes + b * kTwBoxBytes, &tm_q, &full[st], pc0 + 128 * b,
+                      t * kTwBK, ex);
       }
     }
+    return;
+  }
+
+  const int tid = threadIdx.x;
+  const int wg = warp >> 2;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  static_assert(kTwBN == kTwConsumers, "a consumer thread loads one column's scale");
+  {
+    const int col = tw_col<BITS>(tid, pc0, np);
+    sc[tid] = col >= 0 ? to_f(scale[(long long)ex * g.n + col]) : 0.f;
+  }
+  // this lane group's word: packed columns cb .. cb + 3 of weight box
+  // `box`; int4 takes nibble wg of each byte
+  const int cb = 32 * (warp & 3) + 4 * gq;
+  const int box = BITS == 8 ? wg : 0;
+  const int nib = BITS == 4 ? 4 * wg : 0;
+
+  float acc[2][64];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[j][i] = 0.f;
+
+  // The warpgroups take turns issuing a 16-k step's products (named
+  // barriers 2 and 3, warpgroup 0 first), so one converts its next step
+  // while the other's products hold the tensor cores.  A warpgroup writes
+  // fragment registers only while none of its own products is in flight;
+  // the next step's words load before it waits.
+  if (wg == 1) turn_arrive(2);
+  for (int t = 0; t < steps; ++t) {
+    const int st = t % Tw::kStages;
+    const unsigned char* stage = ring + st * Tw::kStageBytes;
+    const unsigned char* wb = stage + kTwXBytes + box * kTwBoxBytes;
+    const uint32_t x_addr = smem_u32(stage);
+    mbar_wait(&full[st], (t / Tw::kStages) & 1);
+    // this lane's words of 16-k step kk: packed columns cb .. cb + 3 at
+    // its fragment rows 2tq, 2tq + 1, 2tq + 8, 2tq + 9
+    auto words = [&](int kk, uint32_t (&v)[4]) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = kk * 16 + 2 * tq + (i & 1) + 8 * (i >> 1);
+        v[i] = *reinterpret_cast<const uint32_t*>(wb + k * 128 + (((cb >> 4) ^ (k & 7)) << 4) +
+                                                  (cb & 15));
+      }
+    };
+    uint32_t v[4];
+    words(0, v);
+#pragma unroll
+    for (int kk = 0; kk < kTwBK / 16; ++kk) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        // bytes 2j, 2j + 1 of rows (2tq, 2tq + 1) and of (2tq + 8, 2tq + 9)
+        const uint32_t sel = j ? 0x7632u : 0x5410u;
+        const uint32_t t01 = __byte_perm(v[0], v[1], sel);
+        const uint32_t t23 = __byte_perm(v[2], v[3], sel);
+        if constexpr (BITS == 8) {
+          a[j][0] = s8x2_bf16(t01);
+          a[j][1] = s8x2_bf16(t01 >> 8);
+          a[j][2] = s8x2_bf16(t23);
+          a[j][3] = s8x2_bf16(t23 >> 8);
+        } else {
+          a[j][0] = s4x2_bf16(t01 >> nib);
+          a[j][1] = s4x2_bf16(t01 >> (8 + nib));
+          a[j][2] = s4x2_bf16(t23 >> nib);
+          a[j][3] = s4x2_bf16(t23 >> (8 + nib));
+        }
+      }
+      const uint64_t db = smem_desc(x_addr + kk * 32, 16, 1024, 1);
+      turn_sync(2 + wg);  // this warpgroup's turn
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      wgmma_fence();
+      wgmma_rs_n128(acc[0], a[0], db);
+      wgmma_rs_n128(acc[1], a[1], db);
+      wgmma_commit();
+      turn_arrive(3 - wg);  // the other warpgroup's turn
+      if (kk + 1 < kTwBK / 16) words(kk + 1, v);  // loads while the products run
+      wgmma_wait_all();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+    }
+    mbar_arrive(&empty[st]);  // this thread no longer reads the stage
+  }
+  wgmma_wait_all();
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+  consumer_sync();  // every product has read the ring
+
+  // register i of product j: fragment row 16 (warp & 3) + gq + 8 h, h =
+  // (i >> 1) & 1, i.e. output column cb + 2j + h of this warpgroup's 128;
+  // row of x 8 (i >> 2) + 2tq + (i & 1).  Registers i and i + 2 are two
+  // neighbouring output columns of one row of x.
+  __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(ring);  // [128][kTwOutLd]
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int tc = 128 * wg + cb + 2 * j;
+    const float s0 = sc[tc];
+    const float s1 = sc[tc + 1];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      if (i & 2) continue;
+      const int row = 8 * (i >> 2) + 2 * tq + (i & 1);
+      *reinterpret_cast<uint32_t*>(&os[row * kTwOutLd + tc]) =
+          pack_bf16(acc[j][i] * s0, acc[j][i + 2] * s1);
+    }
+  }
+  consumer_sync();
+  for (int c = tid; c < kTwBM * kTwBN / 8; c += kTwConsumers) {
+    const int row = c / (kTwBN / 8);
+    const int tc = c % (kTwBN / 8) * 8;
+    const int col = tw_col<BITS>(tc, pc0, np);
+    if (col < 0 || m0 + row >= g.m) continue;
+    *reinterpret_cast<uint4*>(&out[ex * g.out_es + (long long)(m0 + row) * g.out_rs + col]) =
+        *reinterpret_cast<const uint4*>(&os[row * kTwOutLd + tc]);
+  }
 }
 
 // ---------------------------------------------------- large M, fp32 FMA
@@ -1147,12 +1530,12 @@ int sm_count() {
 // K splits of the weight-streaming body: as many as fill the card's
 // resident block slots in one wave (a second, partial wave would double
 // the time), each walking kGemvMinRows..kGemvMaxRows rows of K
-template <int BITS, typename T>
+template <int BITS>
 int kn_gemv_splits(const KnGeom& g, int max_splits) {
   static int slots = 0;
   if (slots == 0) {
     int per_sm = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kn_gemv_kernel<BITS, T>,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kn_gemv_kernel<BITS>,
                                                   kGemvThreads,
                                                   kGemvMT * kGemvMaxRows * sizeof(float));
     slots = sm_count() * (per_sm > 0 ? per_sm : 1);
@@ -1164,6 +1547,119 @@ int kn_gemv_splits(const KnGeom& g, int max_splits) {
   splits = min(splits, g.k / kGemvMinRows);
   splits = max(splits, (g.k + kGemvMaxRows - 1) / kGemvMaxRows);
   return max(1, min(splits, max_splits));
+}
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded (no
+// link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 3-D map (dims and box innermost first; strides in bytes of dims 1, 2)
+bool make_map_3d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                 const cuuint64_t (&dims)[3], const cuuint64_t (&strides)[2],
+                 const cuuint32_t (&box)[3], CUtensorMapSwizzle swizzle) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tile body.  x rows are 16-byte aligned with strides of multiples of
+// 8 elements (the tensor maps' rule; kn_launch's caller checks the base).
+template <int BITS, typename S>
+int kn_wgmma_launch(const __nv_bfloat16* x, const int8_t* q, const S* scale, __nv_bfloat16* out,
+                    const KnGeom& g, cudaStream_t st) {
+  using Tw = KnTw<BITS>;
+  const int np = packed_cols<BITS>(g.n);
+  if (g.x_rs % 8 || g.x_es % 8) return (int)cudaErrorInvalidValue;
+  // x: [k, experts (or 1 when every expert reads the same rows), m]
+  const bool x_experts = g.x_es != 0;
+  CUtensorMap tx, tq;
+  const cuuint64_t xd[3] = {(cuuint64_t)g.k, (cuuint64_t)(x_experts ? g.e : 1), (cuuint64_t)g.m};
+  const cuuint64_t xs[2] = {(cuuint64_t)(x_experts ? g.x_es : g.k) * 2, (cuuint64_t)g.x_rs * 2};
+  const cuuint32_t xb[3] = {kTwBK, 1, kTwBM};
+  const cuuint64_t qd[3] = {(cuuint64_t)np, (cuuint64_t)g.k, (cuuint64_t)g.e};
+  const cuuint64_t qs[2] = {(cuuint64_t)np, (cuuint64_t)g.k * np};
+  const cuuint32_t qb[3] = {128, kTwBK, 1};
+  if (!make_map_3d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, xd, xs, xb,
+                   CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map_3d(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, qd, qs, qb, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kn_wgmma_kernel<BITS, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tw::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  const long long tiles = (long long)g.e * ((g.m + kTwBM - 1) / kTwBM) *
+                          ((np + Tw::kBytes - 1) / Tw::kBytes);
+  if (tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
+  kn_wgmma_kernel<BITS, S><<<(unsigned)tiles, kTwThreads, Tw::kSmem, st>>>(tx, tq, scale, out, g,
+                                                                           x_experts ? 1 : 0);
+  return (int)cudaGetLastError();
+}
+
+// K splits of the tensor-core weight-streaming body: as many as fill the
+// card's resident block slots in one wave, at most one cluster, each
+// split walking at least kMinK rows of K
+template <int BITS, int NT, typename S> int kn_gemv_mma_splits(const KnGeom& g, int max_splits) {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    cudaFuncSetAttribute(kn_gemv_mma_kernel<BITS, NT, S>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, gm_smem<NT>());
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kn_gemv_mma_kernel<BITS, NT, S>,
+                                                  kGmThreads, gm_smem<NT>());
+    per_sm = per_sm > 0 ? per_sm : 1;
+  }
+  const int np = packed_cols<BITS>(g.n);
+  const long long blocks = (long long)((np + KnGm<BITS>::kPanel - 1) / KnGm<BITS>::kPanel) * g.e;
+  long long splits = (long long)sm_count() * per_sm / blocks;
+  splits = min(splits, (long long)(g.k / KnGm<BITS>::kMinK));
+  return (int)max(1LL, min(splits, (long long)min(kGmMaxSplits, max_splits)));
+}
+
+template <int BITS, int NT, typename S>
+int kn_gemv_mma_launch(const __nv_bfloat16* x, const int8_t* q, const S* scale,
+                       __nv_bfloat16* out, const KnGeom& g, int max_splits, cudaStream_t st) {
+  if (g.x_rs % 4 || g.x_es % 4 || g.e > 65535) return (int)cudaErrorInvalidValue;
+  const int splits = kn_gemv_mma_splits<BITS, NT, S>(g, max_splits);
+  const int per = (g.k + splits - 1) / splits;
+  const int k_per_split = (per + 15) / 16 * 16;
+  const int np = packed_cols<BITS>(g.n);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((np + KnGm<BITS>::kPanel - 1) / KnGm<BITS>::kPanel, splits, g.e);
+  cfg.blockDim = dim3(kGmThreads, 1, 1);
+  cfg.dynamicSmemBytes = gm_smem<NT>();
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kn_gemv_mma_kernel<BITS, NT, S>, x, q, scale, out, g, k_per_split);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // True when the rows take a narrow body (see the top of this file).
@@ -1291,8 +1787,8 @@ int narrow_launch(NarrowKind kind, const void* x, const void* q, const void* sca
   }
 }
 
-// scratch: for m <= 16 (the aligned and the narrow_split bodies), e *
-// max_splits * m * n floats
+// scratch: for m <= 16 (fp32 x in the aligned body, and the narrow_split
+// body), e * max_splits * m * n floats
 template <int BITS, typename T, typename S>
 int kn_launch(const void* x, const void* q, const void* scale, void* out, float* scratch,
               const KnGeom& g, int max_splits, cudaStream_t st) {
@@ -1316,40 +1812,40 @@ int kn_launch(const void* x, const void* q, const void* scale, void* out, float*
           (const T*)x, (const int8_t*)q, (const S*)scale, (T*)out, g);
     return (int)cudaGetLastError();
   }
-  if (g.m <= kGemvMaxM) {
-    const int k_splits = kn_gemv_splits<BITS, T>(g, max_splits);
-    const int k_per_split = (g.k + k_splits - 1) / k_splits;
-    const int m_blocks = (g.m + kGemvMT - 1) / kGemvMT;
-    if (k_per_split > kGemvMaxRows || (long long)m_blocks * g.e > 65535)
-      return (int)cudaErrorInvalidValue;
-    const size_t smem = kGemvMT * k_per_split * sizeof(float);
-    const dim3 grid((np + KnGemv<BITS>::kCols - 1) / KnGemv<BITS>::kCols, k_splits,
-                    m_blocks * g.e);
-    kn_gemv_kernel<BITS, T><<<grid, kGemvThreads, smem, st>>>(
-        (const T*)x, (const int8_t*)q, scratch, g, k_per_split, m_blocks);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const long long total = (long long)g.e * g.m * g.n;
-    kn_reduce_kernel<T, S><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-        scratch, (const S*)scale, (T*)out, g, k_splits);
-    return (int)cudaGetLastError();
-  }
-  if (g.e > 65535) return (int)cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const auto* xb = (const __nv_bfloat16*)x;
+    const auto* qb = (const int8_t*)q;
+    const auto* sb = (const S*)scale;
+    auto* ob = (__nv_bfloat16*)out;
+    if (g.m <= 8) return kn_gemv_mma_launch<BITS, 1, S>(xb, qb, sb, ob, g, max_splits, st);
+    if (g.m <= kGemvMaxM)
+      return kn_gemv_mma_launch<BITS, 2, S>(xb, qb, sb, ob, g, max_splits, st);
+    return kn_wgmma_launch<BITS, S>(xb, qb, sb, ob, g, st);
+  } else {
+    if (g.m <= kGemvMaxM) {
+      const int k_splits = kn_gemv_splits<BITS>(g, max_splits);
+      const int k_per_split = (g.k + k_splits - 1) / k_splits;
+      const int m_blocks = (g.m + kGemvMT - 1) / kGemvMT;
+      if (k_per_split > kGemvMaxRows || (long long)m_blocks * g.e > 65535)
+        return (int)cudaErrorInvalidValue;
+      const size_t smem = kGemvMT * k_per_split * sizeof(float);
+      const dim3 grid((np + KnGemv<BITS>::kCols - 1) / KnGemv<BITS>::kCols, k_splits,
+                      m_blocks * g.e);
+      kn_gemv_kernel<BITS><<<grid, kGemvThreads, smem, st>>>(
+          (const float*)x, (const int8_t*)q, scratch, g, k_per_split, m_blocks);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      const long long total = (long long)g.e * g.m * g.n;
+      kn_reduce_kernel<T, S><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+          scratch, (const S*)scale, (T*)out, g, k_splits);
+      return (int)cudaGetLastError();
+    }
+    if (g.e > 65535) return (int)cudaErrorInvalidValue;
     constexpr int kBytes = BITS == 4 ? kTfBN / 2 : kTfBN;
     const dim3 grid((np + kBytes - 1) / kBytes, (g.m + kTfBM - 1) / kTfBM, g.e);
     if (grid.y > 65535) return (int)cudaErrorInvalidValue;
     kn_fma_kernel<BITS, S><<<grid, 256, 0, st>>>((const float*)x, (const int8_t*)q,
                                                  (const S*)scale, (float*)out, g);
-  } else {
-    cudaError_t err = cudaFuncSetAttribute(
-        kn_mma_kernel<BITS, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, KnTile<BITS>::kSmem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((np + KnTile<BITS>::kBytes - 1) / KnTile<BITS>::kBytes,
-                    (g.m + kTmBM - 1) / kTmBM, g.e);
-    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-    kn_mma_kernel<BITS, S><<<grid, kTmThreads, KnTile<BITS>::kSmem, st>>>(
-        (const __nv_bfloat16*)x, (const int8_t*)q, (const S*)scale, (__nv_bfloat16*)out, g);
   }
   return (int)cudaGetLastError();
 }

@@ -21,16 +21,23 @@
 // and 96 calls put >= 13.5 ms of int8 weights under every decode step.  At
 // prefill (5120 rows x 8 experts) a call is 4.8 TFLOP: the tensor-core rate.
 //
-// Design: the expert is a grid dimension of every kn body (blockIdx.z; the
-// weight-streaming body folds it with the row blocks), each block finding
-// its expert's x, q, scale and output through the strides above.  The split
-// count of the weight-streaming body counts the expert blocks: at decode the
-// 8 experts of w_gate alone give 224 blocks of 512 columns, and splits of at
-// most 1792 rows of K make 672 (2.5 waves of 264 resident blocks).  Dense
-// soft dispatch runs every expert on every row, padding included, as the
-// JAX function does.
+// Design: the expert is a grid dimension of every kn body, each block
+// finding its expert's x, q, scale and output through the strides above.
+// - M <= 16, bf16: the tensor-core weight-streaming body, blockIdx.z the
+//   expert; the K-split count fills the card's resident slots counting
+//   the expert blocks (at decode w_gate's 8 experts x 112 panels of 128
+//   outputs already fill it, so one split; see PERF.md for each shape).
+// - M > 16, bf16: the TMA + wgmma tile body; the x tensor map of the 3-D
+//   einsum has no expert axis (stride 0: the expert comes from the tile
+//   number), the 4-D einsum's has one (x rows E * K apart), and the
+//   weights' map is [E, K, np], so no box crosses into the next expert.
+//   Tiles are numbered expert-major, bands of 8 row tiles walked panel by
+//   panel, so the resident blocks share one expert's weights in L2.
+// Dense soft dispatch runs every expert on every row, padding included,
+// as the JAX function does.
 //
-// Not yet: skipping the experts a token does not use, TMA and wgmma.
+// Not yet: skipping the experts a token does not use; a persistent tile
+// grid.
 
 #include "quant_matmul.cuh"
 
@@ -38,9 +45,10 @@
 // 0 = float32, 1 = bfloat16); q [e, k, n] int8 (bits 8) or [e, k, n/2]
 // split-half packed (bits 4); scale [e, n] (scale_dtype as x_dtype;
 // bfloat16 x takes bfloat16 scales); out [m, e, n] in x's type.  x and q
-// 16-byte aligned.  For m <= 16 with n/2 (int4) or n (int8) a multiple of
-// 16 and k of 32, scratch holds e * max_splits * m * n floats, with
-// max_splits >= k / 1792 rounded up; otherwise it is unused.  Returns
+// 16-byte aligned.  For m <= 16 with float32 x, n/2 (int4) or n (int8) a
+// multiple of 16 and k of 32, and for the narrow_split body, scratch
+// holds e * max_splits * m * n floats, with max_splits >= k / 1792
+// rounded up; otherwise it is unused.  Returns
 // cudaGetLastError().
 extern "C" int quant_matmul_ekn_launch(const void* x, const void* q, const void* scale,
                                        void* out, void* scratch, int m, int k, int n, int e,

@@ -20,12 +20,14 @@
 // router [4096, 8] is tiny either way.
 //
 // Design (the bodies live in quant_matmul.cuh).
-// - kn: the int4 matmul's bodies with 8-bit weights: for M <= 16
-//   a lane streams 16 bytes of a row (a warp 512 contiguous bytes), split K
-//   fills the card in one wave, a second pass sums, scales and converts;
-//   for larger M, 128 x 128 mma.sync tiles over cp.async stages (bf16) or
-//   64 x 64 FMA tiles (fp32); rows of N = 4 or 8 bytes (the router) take
-//   the narrow bodies: the weight slice staged once per block in shared
+// - kn: the int4 matmul's bodies over bytes: for M <= 16 and bf16 x,
+//   weight streaming on mma.sync (a lane group's 16 bytes at four rows of
+//   K are the A fragments of 8 products, bytes to bf16 by lop3 and one
+//   bf16x2 subtraction), K splits meeting in a thread block cluster, one
+//   launch; for M > 16 and bf16 x, 128 x 256 tiles on wgmma over a TMA
+//   ring, the weights converted into wgmma's register A fragments; fp32 x
+//   keeps the FMA bodies; rows of N = 4 or 8 bytes (the router) take the
+//   narrow bodies: the weight slice staged once per block in shared
 //   memory with warps walking rows of x (M > 16), K split over warps with
 //   a second pass (M <= 16), byte loads for K not a multiple of 8.
 // - nk: one warp per vocab row at a time (rows strided over a grid of one
@@ -33,14 +35,15 @@
 //   x[m, j .. j+3], with the block's rows of x (up to 8) staged once in
 //   shared memory as fp32.
 //
-// Not yet: TMA and wgmma for the prefill tiles, tensor cores for the head.
+// Not yet: tensor cores for the head.
 
 #include "quant_matmul.cuh"
 
 // x [m, k] (x_dtype 0 = float32, 1 = bfloat16), q [k, n] int8, scale [n]
 // (scale_dtype 0 = float32, 1 = bfloat16; bfloat16 x takes bfloat16 scales),
-// out [m, n] in x's type; x and q 16-byte aligned.  For m <= 16 with n a
-// multiple of 16 and k of 32, scratch holds max_splits * m * n floats, with
+// out [m, n] in x's type; x and q 16-byte aligned.  For m <= 16 with
+// float32 x, n a multiple of 16 and k of 32, and for the narrow_split body,
+// scratch holds max_splits * m * n floats, with
 // max_splits >= k / 1792 rounded up; otherwise it is unused.  Returns
 // cudaGetLastError().
 extern "C" int quant_matmul_kn8_launch(const void* x, const void* q, const void* scale,

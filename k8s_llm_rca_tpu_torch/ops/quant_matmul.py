@@ -169,16 +169,22 @@ def _on_card(x: torch.Tensor, who: str) -> bool:
     return True
 
 
-def _rows(x: torch.Tensor, width: int) -> torch.Tensor:
-    """x as a contiguous, 16-byte aligned [M, width] matrix (vector loads)."""
+def _rows(x: torch.Tensor, width: int, who: str) -> torch.Tensor:
+    """x as a contiguous [M, width] matrix; raises unless it starts on 16
+    bytes (the kernels' vector loads and the tile body's tensor maps)."""
     x2 = x.reshape(-1, width).contiguous()
-    return x2.clone() if x2.data_ptr() % 16 else x2
+    if x2.data_ptr() % 16:
+        raise ValueError(f"{who}: x must start on a 16-byte boundary (vector "
+                         f"loads, TMA), got data pointer {x2.data_ptr():#x}")
+    return x2
 
 
 def _scratch(x: torch.Tensor, m: int, kdim: int, n: int, e: int = 1):
-    """The weight-streaming body's fp32 partial sums, one set per K split
-    (the kernel picks the count, at most one per 128 rows of K), and that
-    count."""
+    """Room for the fp32 partial sums of the bodies that meet their K
+    splits in a second pass (fp32 x at M <= 16, and the narrow_split
+    body), one set per split (the kernel picks the count, at most one per
+    128 rows of K), and that count.  The bf16 weight-streaming body meets
+    its splits in a thread block cluster and leaves it unused."""
     splits = max(1, kdim // _GEMV_MIN_ROWS)
     size = e * splits * m * n if m <= _GEMV_MAX_M else 1
     return torch.empty((size,), dtype=torch.float32, device=x.device), splits
@@ -208,7 +214,7 @@ def quant_matmul(x: torch.Tensor, w) -> torch.Tensor:
         return quant_matmul_plain(x, w)
     _check_cuda(x, w, "quant_matmul")
     lead = x.shape[:-1]
-    x2 = _rows(x, kdim)
+    x2 = _rows(x, kdim, "quant_matmul")
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
@@ -250,7 +256,7 @@ def quant_matmul_head(x: torch.Tensor, w) -> torch.Tensor:
         raise ValueError(f"quant_matmul_head kernel takes K a multiple of "
                          f"{align} for int{_bits(w)}, got K={kdim}")
     lead = x.shape[:-1]
-    x2 = _rows(x, kdim)
+    x2 = _rows(x, kdim, "quant_matmul_head")
     m = x2.shape[0]
     if min(m, _HEAD_MT) * kdim * 4 > _SMEM_BYTES:
         raise ValueError(f"quant_matmul_head kernel stages up to {_HEAD_MT} "
@@ -303,9 +309,10 @@ def quant_matmul_experts(x: torch.Tensor, w) -> torch.Tensor:
     _check_cuda(x, w, "quant_matmul_experts")
     b, s = x.shape[:2]
     if x.dim() == 3:           # every expert reads the same rows
-        x2, x_es, x_rs = _rows(x, kdim), 0, kdim
+        x2, x_es, x_rs = _rows(x, kdim, "quant_matmul_experts"), 0, kdim
     else:                      # expert e's row r is x2[r, e]
-        x2, x_es, x_rs = _rows(x, e * kdim), kdim, e * kdim
+        x2, x_es, x_rs = (_rows(x, e * kdim, "quant_matmul_experts"),
+                          kdim, e * kdim)
     m = b * s
     out = torch.empty((b, s, e, n), dtype=x.dtype, device=x.device)
     if m == 0:

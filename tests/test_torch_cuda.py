@@ -388,6 +388,113 @@ def test_quant_matmul_experts_reads_a_strided_x(card):
     assert _err(out, quant_matmul_experts_plain(x, w)) <= TOL[torch.float32]
 
 
+# ------------------------------------- the redesigned kn bodies (bf16 x)
+
+
+def _kn_call(gen, bits, form, m, k, n, e):
+    """x and weights of a kn call: ``form`` "2d" (quant_matmul, [k, n]),
+    "3d" or "4d" (quant_matmul_experts over [e, k, n], the two einsums);
+    returns (call, exact reference, the launch counter's getter)."""
+    if form == "2d":
+        w = _weight(gen, k, n, torch.bfloat16, bits=bits)
+        x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        fn, plain = quant_matmul, quant_matmul_plain
+    else:
+        w = _experts(gen, e, k, n, bits)
+        shape = (1, m, k) if form == "3d" else (1, m, e, k)
+        x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        fn, plain = quant_matmul_experts, quant_matmul_experts_plain
+    attr = "launches" if bits == 4 else "launches_int8"
+    return (lambda: fn(x, w)), _exact(plain, x, w), lambda: getattr(fn, attr)
+
+
+def _check_kn(gen, bits, form, m, k, n, e, body):
+    from k8s_llm_rca_tpu_torch.ops.quant_matmul import kn_body
+
+    assert kn_body(bits, m, k, n, experts=form != "2d") == body
+    call, ref, launches = _kn_call(gen, bits, form, m, k, n, e)
+    before = launches()
+    out = call()
+    torch.cuda.synchronize()
+    assert launches() == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    assert _err(out, ref) <= TOL[torch.bfloat16]
+
+
+# int8 N = 16 and 352, int4 np = 176, 208 and 512: panels of 128 outputs
+# that the weight's columns fill partly or not at all
+_TILE_WIDTHS = [(8, 16), (8, 352), (4, 352), (4, 416), (4, 1024)]
+
+
+@pytest.mark.parametrize("bits,n", _TILE_WIDTHS)
+@pytest.mark.parametrize("k", [96, 256, 4096, 14336])
+@pytest.mark.parametrize("m", [17, 129, 300, 512, 5120])
+def test_quant_matmul_tile_body_edges(card, bits, n, k, m):
+    """The TMA + wgmma tile body (M > 16): row tiles cut at 17, 129 and
+    300, K = 96 ending inside a 64-deep stage, partial column panels."""
+    _check_kn(card, bits, "2d", m, k, n, 1, "tile")
+
+
+@pytest.mark.parametrize("bits,n", [(8, 352), (4, 416)])
+@pytest.mark.parametrize("form", ["3d", "4d"])
+@pytest.mark.parametrize("e", [1, 8])
+@pytest.mark.parametrize("k", [96, 4096])
+@pytest.mark.parametrize("m", [17, 300, 5120])
+def test_quant_matmul_experts_tile_body_edges(card, bits, n, form, e, k, m):
+    """The tile body over stacked experts: the 3-D einsum's x map without an
+    expert axis (stride 0), the 4-D einsum's with one (x rows E * K apart)."""
+    _check_kn(card, bits, form, m, k, n, e, "tile")
+
+
+@pytest.mark.parametrize("bits,n", [(8, 352), (4, 416)])
+@pytest.mark.parametrize("e,form", [(1, "2d"), (8, "3d"), (8, "4d")])
+@pytest.mark.parametrize("k", [128, 4096, 14336])
+@pytest.mark.parametrize("m", list(range(1, 17)))
+def test_quant_matmul_gemv_body_shapes(card, bits, n, e, form, k, m):
+    """The tensor-core weight-streaming body (M <= 16): one or two tiles of
+    8 rows of x, K split over a cluster of one to eight blocks."""
+    _check_kn(card, bits, form, m, k, n, e, "gemv")
+
+
+@pytest.mark.parametrize("bits,n", [(8, 352), (4, 416)])
+@pytest.mark.parametrize("form,m,k,e", [
+    ("2d", 4, 14336, 1), ("2d", 13, 4096, 1), ("3d", 4, 4096, 8),
+    ("4d", 4, 14336, 8), ("2d", 300, 4096, 1), ("4d", 129, 4096, 8)])
+def test_quant_matmul_bodies_are_deterministic(card, bits, n, form, m, k, e):
+    """Two launches on the same inputs give the same bits: the K splits
+    meet in a fixed order, with no atomics."""
+    call, _, _ = _kn_call(card, bits, form, m, k, n, e)
+    first = call()
+    second = call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_refuses_an_unaligned_x(card, bits):
+    """x that does not start on 16 bytes (the tensor maps' and the vector
+    loads' rule) raises before any launch."""
+    w = _weight(card, 256, 352, torch.bfloat16, bits=bits)
+    we = _experts(card, 2, 256, 352, bits)
+    flat = torch.randn((300 * 256 + 1,), generator=card,
+                       device="cuda").bfloat16()
+    x = flat[1:].view(300, 256)            # 2 bytes past the allocation
+    assert x.data_ptr() % 16
+    counts = (quant_matmul.launches, quant_matmul.launches_int8,
+              quant_matmul_experts.launches,
+              quant_matmul_experts.launches_int8)
+    with pytest.raises(ValueError, match="16-byte"):
+        quant_matmul(x, w)
+    with pytest.raises(ValueError, match="16-byte"):
+        quant_matmul(x[:4], w)
+    with pytest.raises(ValueError, match="16-byte"):
+        quant_matmul_experts(x.view(1, 300, 256), we)
+    assert counts == (quant_matmul.launches, quant_matmul.launches_int8,
+                      quant_matmul_experts.launches,
+                      quant_matmul_experts.launches_int8)
+
+
 # ------------------------------------------------- quantized paged attention
 
 
