@@ -681,6 +681,7 @@ class PagedInferenceEngine(EngineBase):
         st = self._active.pop(slot)
         self._release_slot_pages(slot, st)
         self.block_tables[slot] = TRASH_PAGE
+        self.lengths[slot] = 0     # the scan advances idle slots too
         self._free_slots.append(slot)
         prefix = self._resumed.get(st.seq_id, []) + st.generated
         self._resumed[st.seq_id] = prefix
@@ -700,6 +701,7 @@ class PagedInferenceEngine(EngineBase):
         self._release_slot_pages(slot, st)
         self.allocator.check()
         self.block_tables[slot] = TRASH_PAGE
+        self.lengths[slot] = 0     # the scan advances idle slots too
         self._free_slots.append(slot)
         # report against the ORIGINAL prompt, with any pre-preemption
         # tokens stitched back on

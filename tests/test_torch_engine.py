@@ -127,3 +127,34 @@ def test_deadlines_reap_active_and_queued_like_jax():
     assert out[1] == out[0]
     assert [o[0] for o in out[1]] == ["expired", "expired"]
     assert len(out[1][0][1]) > 0 and out[1][1][1] == []
+
+
+@pytest.mark.parametrize("over,first,then", [
+    # a 470-token prompt runs its 40 tokens and retires at length 510;
+    # the next batch scans with that slot idle
+    ({}, (470,), (range(5, 15), range(5, 75))),
+    # 40 usable pages: the 470-token prompt holds 32, the 97-token one 8;
+    # the short one's growth at 128 tokens preempts the long one at ~500
+    # tokens, which cannot re-admit until the short one retires
+    ({"max_batch": 2, "num_pages": 41}, (97, 470), ()),
+], ids=["retired", "preempted-near-cap"])
+def test_freed_slot_length_resets_like_jax(over, first, then):
+    """A freed slot keeps no length: the decode scan advances idle slots
+    too, and one left near ``max_seq_len`` would walk its position past
+    the block table."""
+    je, te = engines(**over)
+    rng = np.random.default_rng(3)
+    prompts = [[int(t) for t in rng.integers(0, 256, n)] for n in first]
+    streams = []
+    for eng in (je, te):
+        tokens = [r.token_ids for r in eng.generate(prompts)]
+        if then:
+            tokens += [r.token_ids for r in eng.generate(
+                [list(p) for p in then], max_new_tokens=5)]
+        streams.append(tokens)
+    assert streams[1] == streams[0]
+    preempted = te._counts.get("engine.preemptions", 0)
+    assert preempted == je._counts.get("engine.preemptions", 0)
+    assert (preempted > 0) == ("num_pages" in over)
+    assert not te.lengths.any()
+    te.allocator.check()
