@@ -78,6 +78,7 @@ EKN_SRC = "k8s_llm_rca_tpu_torch/csrc/quant_matmul_experts.cu"
 KERNELS = ("paged_attention", "flash_attention", "quant_matmul",
            "paged_attention_quant", "quant_matmul_int8",
            "quant_matmul_experts")
+PAGED_KERNELS = ("paged_attention", "paged_attention_quant")
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -144,10 +145,14 @@ def time_ms(fn, iters: int, flush_bytes: int = 0) -> float:
 # ------------------------------------------------------------------ phase 3
 
 
-def paged_case(dtype, gen):
+PAGED_LENGTHS = {"mixed": [1, 64, 65, 2400], "long": [2400] * 4}
+
+
+def paged_case(dtype, gen, lengths=PAGED_LENGTHS["mixed"]):
     """The decode shapes of the slice: B=4, 32 heads over 8 kv-heads,
-    d=128, page 64, lengths 1 / 64 / 65 / 2400 over shuffled page ids of a
-    168-page pool (table width 40 = 2560 / 64)."""
+    d=128, page 64, over shuffled page ids of a 168-page pool (table width
+    40 = 2560 / 64); lengths 1 / 64 / 65 / 2400 (a new request beside long
+    ones) or 2400 x 4 (a batch of long RCA prompts in steady state)."""
     import torch
 
     b, h, n_kv, d, page, n_pages, pps = 4, 32, 8, 128, 64, 168, 40
@@ -156,7 +161,6 @@ def paged_case(dtype, gen):
                      device="cuda").to(dtype)
     vp = torch.randn((n_pages, page, n_kv * d), generator=gen,
                      device="cuda").to(dtype)
-    lengths = [1, 64, 65, 2400]
     ids = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1).cpu()
     tables = torch.zeros((b, pps), dtype=torch.int32)
     used = 0
@@ -507,36 +511,24 @@ def slice3_kernels(table, ws, dtype_name, gen, flush) -> None:
             del w_dense
 
 
-def phase_kernels() -> dict:
+def paged_kernels(table, dtype_name, gen, flush) -> None:
+    """The paged cases of phase 3: the bf16 or fp32 pool at the mixed and
+    the long lengths, the int8 and int4 pools at the mixed lengths."""
     import torch
 
-    from k8s_llm_rca_tpu_torch.models.quant import dq
     from k8s_llm_rca_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_plain, paged_attention_quant,
         paged_attention_quant_plain,
     )
-    from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
-        kn_body, quant_matmul, quant_matmul_head, quant_matmul_head_plain,
-        quant_matmul_plain,
-    )
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    table = {}
-    # the slice's int4 weights: an MLP matmul [4096, 14336] and the head
-    w_mlp = quant_weight(gen, 4096, 14336)
-    w_head = quant_weight(gen, 4096, 128256, axis=0)
-    ws = slice3_weights(gen)
-    flush = 256 << 20
-    for dtype_name in ("bfloat16", "float32"):
-        dtype = getattr(torch, dtype_name)
-
-        args = paged_case(dtype, gen)
+    dtype = getattr(torch, dtype_name)
+    for lens_name, lengths in PAGED_LENGTHS.items():
+        args = paged_case(dtype, gen, lengths)
         rec = held_record(
             "paged_attention", dtype_name, paged_attention(*args),
-            paged_attention_plain(*args),
-            shapes="B=4 H=32 n_kv=8 d=128 page=64 lens=1,64,65,2400")
+            paged_attention_plain(*args), case=lens_name,
+            shapes="B=4 H=32 n_kv=8 d=128 page=64 lens="
+            + ",".join(map(str, lengths)))
         rec["kernel_ms"] = time_ms(lambda: paged_attention(*args), 200,
                                    flush_bytes=flush)
         rec["plain_ms"] = time_ms(lambda: paged_attention_plain(*args), 20,
@@ -546,8 +538,9 @@ def phase_kernels() -> dict:
         rec["bound_ms"], rec["bound_by"] = paged_bound(args[0], args[1],
                                                        args[3], dtype_name)
         emit("kernels", **rec)
-        table[("paged_attention", dtype_name)] = rec
-
+        table[("paged_attention", dtype_name, lens_name)] = rec
+        if lens_name != "mixed":
+            continue
         for packed, kind in ((False, "int8"), (True, "int4")):
             qargs = paged_quant_case(args, packed)
             rec = held_record(
@@ -570,6 +563,28 @@ def phase_kernels() -> dict:
             emit("kernels", **rec)
             table[("paged_attention_quant", dtype_name, kind)] = rec
 
+
+def phase_kernels() -> dict:
+    import torch
+
+    from k8s_llm_rca_tpu_torch.models.quant import dq
+    from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
+        kn_body, quant_matmul, quant_matmul_head, quant_matmul_head_plain,
+        quant_matmul_plain,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    table = {}
+    # the slice's int4 weights: an MLP matmul [4096, 14336] and the head
+    w_mlp = quant_weight(gen, 4096, 14336)
+    w_head = quant_weight(gen, 4096, 128256, axis=0)
+    ws = slice3_weights(gen)
+    flush = 256 << 20
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        paged_kernels(table, dtype_name, gen, flush)
         flash_kernels(table, dtype_name, gen)
 
         # decode: one weight stream per call, cold in L2 as in a decode
@@ -755,6 +770,54 @@ def phase_cross_device() -> None:
         if counts != expect:
             raise SystemExit(f"{label} kv={kv}: launch counts {counts} != "
                              f"expected {expect}")
+    retired_slot_case()
+
+
+def retired_slot_case() -> None:
+    """A slot freed near max_seq_len (ROADMAP Queue 3 fault 2): TINY (fp32,
+    x3 projections, page 16, decode_chunk 16) runs a 470-token prompt to
+    its 40 tokens and retires it at length 510, then decodes two short
+    prompts with that slot idle.  The card engine's tokens must equal the
+    CPU engine's, and the card must survive the scan over the idle slot."""
+    import numpy as np
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import TINY, EngineConfig
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    ecfg = EngineConfig(max_batch=4, max_seq_len=512,
+                        prefill_buckets=(128, 256), max_new_tokens=40,
+                        temperature=0.0, paged=True, page_size=16,
+                        num_pages=168, prefix_cache=False, decode_chunk=16)
+    cpu_params = init_params(TINY, torch.Generator().manual_seed(1), "cpu")
+    for layer in cpu_params["layers"]:
+        for name in layer:
+            if name.startswith("w"):
+                layer[name] = layer[name] * 3.0
+    gpu_params = {k: ([{n: _to_cuda(t) for n, t in layer.items()}
+                       for layer in v] if k == "layers" else _to_cuda(v))
+                  for k, v in cpu_params.items()}
+    rng = np.random.default_rng(3)
+    first = [[int(t) for t in rng.integers(0, 256, 470)]]
+    then = [list(range(5, 15)), list(range(5, 75))]
+    streams = []
+    for params, device in ((cpu_params, "cpu"), (gpu_params, None)):
+        engine = make_engine(TINY, ecfg, params,
+                             get_tokenizer(vocab_size=TINY.vocab_size),
+                             device=device)
+        tokens = [r.token_ids for r in engine.generate(first)]
+        tokens += [r.token_ids for r in engine.generate(then,
+                                                        max_new_tokens=5)]
+        streams.append(tokens)
+    torch.cuda.synchronize()
+    emit("cross_device", model="tiny-retired-slot",
+         tokens_per_seq=[len(t) for t in streams[1]],
+         equal_streams=[a == b for a, b in zip(*streams)])
+    if streams[0] != streams[1]:
+        raise SystemExit(f"retired-slot case: card and CPU streams differ: "
+                         f"cpu {streams[0][1:]} gpu {streams[1][1:]}")
 
 
 def _to_cuda(w):
@@ -1106,6 +1169,18 @@ def main(argv) -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
 
+    if "--paged" in argv:
+        t0 = time.perf_counter()
+        reports = build.build(PAGED_KERNELS)
+        emit("build", seconds=time.perf_counter() - t0,
+             ptxas={name: ptxas_summary(rep) for name, rep in
+                    reports.items()})
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for dtype_name in ("bfloat16", "float32"):
+            paged_kernels({}, dtype_name, gen, 256 << 20)
+        return 0
     t0 = time.perf_counter()
     reports = build.build(KERNELS)
     emit("build", seconds=time.perf_counter() - t0,
@@ -1137,7 +1212,7 @@ def main(argv) -> int:
     for name, src, replaces, key, phase, count in (
             ("paged_attention", PAGED_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:90",
-             ("paged_attention", "bfloat16"), "slice", "paged"),
+             ("paged_attention", "bfloat16", "mixed"), "slice", "paged"),
             ("flash_attention", FLASH_SRC,
              "k8s_llm_rca_tpu/ops/flash_attention.py:31",
              ("flash_attention", "bfloat16", "full"), "slice", "flash"),

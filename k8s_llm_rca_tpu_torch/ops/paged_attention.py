@@ -14,7 +14,10 @@ are the JAX package's:
 
 ``paged_attention`` launches ``csrc/paged_attention.cu`` for CUDA tensors
 and takes ``paged_attention_plain`` only for CPU tensors.  There is no
-fallback: a CUDA input the kernel does not take raises.
+fallback: a CUDA input the kernel does not take raises.  Each call is one
+launch: a thread block cluster of ``split_plan``'s splits per (kv-head,
+sequence) that merge through distributed shared memory (the body is
+``csrc/paged_attention.cuh``); no scratch is allocated.
 
 ``paged_attention_quant`` is the same over a quantized pool (the
 counterpart of ``paged_attention_quant``): int8 pages [.., n_kv*d], or
@@ -40,7 +43,30 @@ from k8s_llm_rca_tpu_torch.ops.attention import NEG_INF, decode_attention
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_REP = 8           # query heads per kv-head the kernel holds (kMaxRep)
 _HEAD_DIMS = (32, 64, 128)  # TINY is 32, LLAMA3_8B 128
-_SPLIT_TOKENS = 256    # tokens per pass-1 block of the kernel (kChunk)
+_MAX_SPLITS = 8        # blocks of one cluster (kMaxSplits, portable)
+_MIN_SPLIT_TOKENS = 256     # 32 tokens for each of a block's 8 warps
+_WARPS = 8             # warps of a block (kWarps)
+_BLOCKS_PER_SM = 2     # resident blocks an SM holds (kernel launch bounds)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_plan(n_kv: int, table_tokens: int, sm_count: int):
+    """(n_split, tokens per split) of the kernel for a table of
+    ``table_tokens`` (pages_per_seq * page_size): enough splits that a full
+    table's n_kv clusters give about one wave of busy blocks on
+    ``sm_count`` SMs at two blocks an SM, at most one portable cluster of 8
+    and at least 256 tokens a split.  The kernel takes n_split as its
+    most: it launches fewer splits when the batch's n_kv * B clusters would
+    not all be resident at once, and computes the tokens per split from the
+    count it launches (``paged::split_chunk``: a multiple of its 8 warps)."""
+    n_split = max(1, min(_MAX_SPLITS, -(-_BLOCKS_PER_SM * sm_count // n_kv),
+                         -(-table_tokens // _MIN_SPLIT_TOKENS)))
+    per = -(-table_tokens // n_split)
+    return n_split, -(-per // _WARPS) * _WARPS
 
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -70,8 +96,8 @@ def _launcher():
     """The built kernel's C entry point with its argument types declared
     (without them ctypes would pass each pointer as a 32-bit int)."""
     fn = build.load("paged_attention").paged_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                  + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -130,16 +156,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     b, n_heads, d = q.shape
     _, page_size, kv_dim = k_pages.shape
     pps = block_tables.shape[1]
-    n_split = -(-pps * page_size // _SPLIT_TOKENS)
+    n_split, _ = split_plan(kv_dim // d, pps * page_size, _sm_count(q.device))
     out = torch.empty_like(q)
-    # per (sequence, head, split): max, sum and a d-wide accumulator
-    scratch = torch.empty(b * n_heads * n_split * (d + 2),
-                          dtype=torch.float32, device=q.device)
     rc = _launcher()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), b, n_heads, kv_dim // d, d, page_size, pps,
-        n_split, _DTYPES[q.dtype],
+        lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(), b,
+        n_heads, kv_dim // d, d, page_size, pps, n_split, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
@@ -188,7 +210,7 @@ def paged_attention_quant_plain(q: torch.Tensor, k_pages: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _quant_launcher():
     fn = build.load("paged_attention_quant").paged_attention_quant_launch
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -261,15 +283,13 @@ def paged_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
     _, page_size, kv_store = k_pages.shape
     n_kv = kv_store * (2 if packed else 1) // d
     pps = block_tables.shape[1]
-    n_split = -(-pps * page_size // _SPLIT_TOKENS)
+    n_split, _ = split_plan(n_kv, pps * page_size, _sm_count(q.device))
     out = torch.empty_like(q)
-    scratch = torch.empty(b * n_heads * n_split * (d + 2),
-                          dtype=torch.float32, device=q.device)
     rc = _quant_launcher()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr(), v_scales.data_ptr(), lengths.data_ptr(),
-        block_tables.data_ptr(), out.data_ptr(), scratch.data_ptr(), b,
-        n_heads, n_kv, d, page_size, pps, n_split, int(packed),
+        block_tables.data_ptr(), out.data_ptr(), b, n_heads, n_kv, d,
+        page_size, pps, n_split, int(packed),
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention_quant kernel launch failed: "

@@ -525,3 +525,152 @@ def test_paged_quant_kernel_matches_plain(card, packed, dtype, n_heads, n_kv,
     ref = paged_attention_quant_plain(*args, packed=packed)
     assert torch.isfinite(out).all()
     assert _err(out, ref) <= TOL[dtype]
+
+
+# ------------------------------------ paged attention: the one-launch body
+
+_POOLS = ["float", "int8", "int4"]
+
+
+def _pool_inputs(gen, dtype, pool, n_heads, n_kv, d, page, lengths,
+                 pps=None):
+    """Inputs of one pool kind over ``pps`` table entries a sequence
+    (default: the longest length's pages + 1).  A length past the table
+    gets the whole table (an idle slot's stale length)."""
+    pps = pps or max(-(-n // page) for n in lengths) + 1
+    used_pages = [min(-(-n // page), pps) for n in lengths]
+    n_pages = 1 + sum(used_pages) + 3
+    q = torch.randn((len(lengths), n_heads, d), generator=gen,
+                    device="cuda").to(dtype)
+    kp = torch.randn((n_pages, page, n_kv * d), generator=gen,
+                     device="cuda").to(dtype)
+    vp = torch.randn((n_pages, page, n_kv * d), generator=gen,
+                     device="cuda").to(dtype)
+    ids = np.random.default_rng(0).permutation(np.arange(1, n_pages))
+    tables = np.zeros((len(lengths), pps), np.int32)   # tails: trash page
+    used = 0
+    for i, n_p in enumerate(used_pages):
+        tables[i, :n_p] = ids[used:used + n_p]
+        used += n_p
+    args = (q, kp, vp, torch.tensor(lengths, dtype=torch.int32,
+                                    device="cuda"),
+            torch.from_numpy(tables).cuda())
+    if pool == "float":
+        return args
+    return _quant_pools(args, pool == "int4")
+
+
+def _pool_call(pool, args):
+    """(kernel call, plain call, the wrapper whose launches it counts)."""
+    if pool == "float":
+        return (lambda: paged_attention(*args),
+                lambda: paged_attention_plain(*args), paged_attention)
+    packed = pool == "int4"
+    return (lambda: paged_attention_quant(*args, packed=packed),
+            lambda: paged_attention_quant_plain(*args, packed=packed),
+            paged_attention_quant)
+
+
+def _check_pool(pool, args):
+    call, plain, wrapper = _pool_call(pool, args)
+    before = wrapper.launches
+    out = call()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.isfinite(out).all()
+    assert _err(out, plain()) <= TOL[out.dtype]
+    return out
+
+
+@pytest.mark.parametrize("pool", _POOLS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("gqa", [1, 4, 8])
+def test_paged_body_gqa_head_dims_pages(card, pool, dtype, page, d, gqa):
+    """GQA 1/4/8 at head_dim 32/64/128 and page 16/64, every pool and q
+    dtype; lengths 1, a page, a page + 1 and several pages."""
+    n_kv = 2
+    _check_pool(pool, _pool_inputs(card, dtype, pool, gqa * n_kv, n_kv, d,
+                                   page, [1, page, page + 1, 5 * page + 7]))
+
+
+@pytest.mark.parametrize("pool", _POOLS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ones", "full_table", "past_table",
+                                  "split_edges", "long_table"])
+def test_paged_body_length_edges(card, pool, dtype, case):
+    """Lengths of 1 only (a fresh prompt's first step: every split but the
+    first empty); a length that fills the table; a length past the table
+    (the kernel clamps it: the plain version sees every table token);
+    lengths on, one before and one past split boundaries of the host's
+    plan; and a table of 8192 tokens, whose splits hold more stages than a
+    warp's ring."""
+    from k8s_llm_rca_tpu_torch.ops.paged_attention import split_plan
+
+    n_heads, n_kv, d, page, pps = 32, 8, 128, 64, 40
+    if case == "ones":
+        lengths = [1, 1, 1, 1]
+    elif case == "full_table":
+        lengths = [pps * page, 3, pps * page, 100]
+    elif case == "past_table":
+        lengths = [pps * page + 17, 5, pps * page + 1000, 64]
+    elif case == "split_edges":
+        # the kernel may launch fewer splits than the plan's most (a batch
+        # whose clusters are not all resident): every count's boundaries
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        most, _ = split_plan(n_kv, pps * page, sms)
+        for n_split in range(1, most + 1):
+            per = -(-pps * page // n_split)
+            chunk = -(-per // 8) * 8             # paged::split_chunk
+            lengths = [chunk, min(2 * chunk, pps * page), chunk + 1,
+                       min(3 * chunk, pps * page) - 1]
+            _check_pool(pool, _pool_inputs(card, dtype, pool, n_heads, n_kv,
+                                           d, page, lengths, pps=pps))
+        return
+    else:
+        page, pps = 64, 128
+        lengths = [8192, 5000, 1, 8000]
+    _check_pool(pool, _pool_inputs(card, dtype, pool, n_heads, n_kv, d,
+                                   page, lengths, pps=pps))
+
+
+@pytest.mark.parametrize("pool", _POOLS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_body_is_deterministic(card, pool, dtype):
+    """Two launches on the same inputs give the same bits: the warps and
+    the splits meet in a fixed order, with no atomics."""
+    args = _pool_inputs(card, dtype, pool, 32, 8, 128, 64,
+                        [1, 64, 65, 2400], pps=40)
+    call, _, _ = _pool_call(pool, args)
+    first = call()
+    second = call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_paged_body_is_one_kernel_per_call(card):
+    """The profiler sees exactly one CUDA kernel for each wrapper call, the
+    body's, over every pool: the splits merge inside the launch, with no
+    second pass.  One profiled window holds the three calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = []
+    for pool in _POOLS:
+        args = _pool_inputs(card, torch.bfloat16, pool, 32, 8, 128, 64,
+                            [1, 64, 65, 2400], pps=40)
+        call, _, _ = _pool_call(pool, args)
+        call()                              # build and warm up
+        calls.append(call)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    assert sum(e.count for e in kernels) == len(calls), \
+        [(e.key, e.count) for e in kernels]
+    assert all("paged_decode_kernel" in e.key for e in kernels)
+    assert len(kernels) == len(calls)      # one body per pool kind
