@@ -17,10 +17,10 @@ prints one JSON line; any failure exits non-zero without the result line.
    ``TOL``) and fp32 with TF32 off (atol 1e-4), with its device time, the
    plain version's, the least time the card could take (bound) and one
    PyTorch library call as a yardstick (timed here only; the port never
-   calls it): paged and flash attention (slice 1; flash also at the
-   slice's batched 2560 bucket, seq_lens 1500 and 2300), the int4 matmul
-   at decode and at the three prefill buckets (M = 512, 1024, 5120), the
-   int4 lm head, paged attention over int8 and int4 pools (slice 2), and
+   calls it): paged and flash attention (slice 1; paged also at lengths
+   2400 x 4, flash also at the slice's batched 2560 bucket, seq_lens 1500
+   and 2300), the int4 matmul at decode and at the three prefill buckets
+   (M = 512, 1024, 5120), the int4 lm head, paged attention over int8 and int4 pools (slice 2), and
    the int8 matmul (wq at decode and prefill, the router at N = 8 and 4,
    and the int4 one at those widths), the int8 head and the int8 and int4
    stacked-expert matmuls in both einsum forms at decode and prefill (int8
@@ -31,7 +31,8 @@ prints one JSON line; any failure exits non-zero without the result line.
    TINY (head_dim 32, GQA 2, fp32) with its own weights, with int4 weights
    under ``fused_quant_matmul`` over int4 and int8 KV pools and with int8
    weights over an int8 pool, and for TINY_MOE with int8 weights over an
-   int8 pool and int4 weights over an int4 pool.
+   int8 pool and int4 weights over an int4 pool; and for TINY when a slot
+   retires near max_seq_len and the next batch decodes with it idle.
 5. slice: Llama-3-8B at full depth and width in bf16 (seeded random
    weights) behind ``AssistantService`` answers four requests of ~400,
    900, 1500 and 2300 prompt tokens; the paged and flash kernels' launch
@@ -54,7 +55,9 @@ limit line, and the result line
 ``--profile-decode`` runs only a profile of one decode step at the slice's
 shapes (Llama-3-8B bf16 and int4, Mixtral-8x7B int8), and the host time
 per call of the int4 step's extra eager work (the sources of PERF.md's
-decode-step breakdowns), and prints no result line.
+decode-step breakdowns), and prints no result line.  ``--paged`` builds
+the two paged sources and runs only phase 3's paged cases (their build
+report and times), and prints no result line either.
 """
 
 
@@ -700,16 +703,14 @@ def phase_cross_device() -> None:
     head_dim-128 GQA-4 model and for TINY (head_dim 32, GQA 2) in fp32, with
     int4 weights under fused_quant_matmul over int4 and int8 KV pools, int8
     weights over an int8 pool, and for TINY_MOE with int8 weights over an
-    int8 pool and int4 weights over an int4 pool."""
+    int8 pool and int4 weights over an int4 pool; then the retired-slot
+    case."""
     import numpy as np
-    import torch
 
     from k8s_llm_rca_tpu_torch.config import (
         TINY, TINY_MOE, EngineConfig, ModelConfig,
     )
     from k8s_llm_rca_tpu_torch.engine import make_engine
-    from k8s_llm_rca_tpu_torch.models.llama import init_params
-    from k8s_llm_rca_tpu_torch.models.quant import quantize_params
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
     gqa4 = ModelConfig(name="smoke-gqa4", vocab_size=512, hidden_size=1024,
@@ -730,17 +731,7 @@ def phase_cross_device() -> None:
                             paged=True, page_size=16, num_pages=168,
                             prefix_cache=False, decode_chunk=16,
                             kv_cache_dtype=kv)
-        cpu_params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
-        # x3 projections: greedy decode walks many distinct tokens
-        for layer in cpu_params["layers"]:
-            for name in layer:
-                if name.startswith("w"):
-                    layer[name] = layer[name] * 3.0
-        if bits is not None:
-            cpu_params = quantize_params(cpu_params, bits=bits)
-        gpu_params = {k: ([{n: _to_cuda(t) for n, t in layer.items()}
-                           for layer in v] if k == "layers" else _to_cuda(v))
-                      for k, v in cpu_params.items()}
+        cpu_params, gpu_params = x3_params(cfg, bits)
         tok = get_tokenizer(vocab_size=cfg.vocab_size)
         t0 = time.perf_counter()
         cpu = make_engine(cfg, ecfg, cpu_params, tok, device="cpu").generate(
@@ -784,21 +775,13 @@ def retired_slot_case() -> None:
 
     from k8s_llm_rca_tpu_torch.config import TINY, EngineConfig
     from k8s_llm_rca_tpu_torch.engine import make_engine
-    from k8s_llm_rca_tpu_torch.models.llama import init_params
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
     ecfg = EngineConfig(max_batch=4, max_seq_len=512,
                         prefill_buckets=(128, 256), max_new_tokens=40,
                         temperature=0.0, paged=True, page_size=16,
                         num_pages=168, prefix_cache=False, decode_chunk=16)
-    cpu_params = init_params(TINY, torch.Generator().manual_seed(1), "cpu")
-    for layer in cpu_params["layers"]:
-        for name in layer:
-            if name.startswith("w"):
-                layer[name] = layer[name] * 3.0
-    gpu_params = {k: ([{n: _to_cuda(t) for n, t in layer.items()}
-                       for layer in v] if k == "layers" else _to_cuda(v))
-                  for k, v in cpu_params.items()}
+    cpu_params, gpu_params = x3_params(TINY)
     rng = np.random.default_rng(3)
     first = [[int(t) for t in rng.integers(0, 256, 470)]]
     then = [list(range(5, 15)), list(range(5, 75))]
@@ -818,6 +801,28 @@ def retired_slot_case() -> None:
     if streams[0] != streams[1]:
         raise SystemExit(f"retired-slot case: card and CPU streams differ: "
                          f"cpu {streams[0][1:]} gpu {streams[1][1:]}")
+
+
+def x3_params(cfg, bits=None):
+    """Seeded weights on the CPU and the same on the card, projections x3
+    (greedy decode then walks many distinct tokens), quantized to ``bits``
+    when given."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.models.quant import quantize_params
+
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    for layer in cpu_params["layers"]:
+        for name in layer:
+            if name.startswith("w"):
+                layer[name] = layer[name] * 3.0
+    if bits is not None:
+        cpu_params = quantize_params(cpu_params, bits=bits)
+    gpu_params = {k: ([{n: _to_cuda(t) for n, t in layer.items()}
+                       for layer in v] if k == "layers" else _to_cuda(v))
+                  for k, v in cpu_params.items()}
+    return cpu_params, gpu_params
 
 
 def _to_cuda(w):

@@ -29,39 +29,42 @@
 // query rows per kv-head would leave an m16 MMA three quarters empty).
 //
 // Design.  One thread block cluster per (kv-head, sequence), made of that
-// sequence's n_split splits: grid (n_kv, B, n_split), cluster (1, 1,
-// n_split), n_split <= 8 (the portable cluster size), chosen by the host so
-// that a full table gives about a wave of busy blocks at two blocks an SM.
-// A split covers `chunk` tokens (a multiple of the 8 warps); each warp owns
-// a contiguous run of chunk / 8 of them and keeps its own cp.async ring of
-// 12 KB in shared memory: stages of kJ tokens per lane group, K rows, V
-// rows and (int8/int4) the two scales, each 16-byte chunk of a row resolved
-// through the block table (staged in shared memory once per block, loaded
-// together with the queries and the length).  The next stages' loads are
-// in flight while a stage is scored; tokens past the run are zero-filled
-// (src-size 0), so no token at or past the length is read.  No block-wide
-// barrier sits in the token loop: a warp waits only on its own cp.async
-// groups (__syncwarp).
+// sequence's splits: grid (n_kv, B, n_split), cluster (1, 1, n_split).
+// The host's n_split (at most 8, the portable cluster size) gives a full
+// table about a wave of busy blocks at two blocks an SM; the launcher
+// lowers it until all n_kv * B clusters are resident at once
+// (cudaOccupancyMaxActiveClusters), since a cluster left for a second wave
+// would double the call.  A split covers `chunk` tokens, a multiple of the
+// 8 warps; a split at or past the length exits before it loads anything
+// (a cluster barrier waits only for blocks that have not exited), so short
+// sequences free their SMs at once.  Each warp owns a contiguous run of
+// chunk / 8 tokens and streams it through its own 12 KB cp.async ring:
+// stages of kJ tokens per lane group, K rows, V rows and (int8/int4) the
+// two scales, each 16-byte chunk of a row resolved through the block table
+// (staged in shared memory once, loaded together with the queries and the
+// length).  The next stages' loads are in flight while a stage is scored;
+// tokens past the run are zero-filled (src-size 0) and read nothing.  No
+// block-wide barrier sits in the token loop: a warp waits only on its own
+// cp.async groups (__syncwarp).
 //
 // Inside a warp a lane group of d / kVec lanes holds one token's row, each
 // lane kVec elements (fp32 4, bf16 8, int8/int4 8 from 8 bytes).  The
-// scores of the group's kJ tokens for the n_rep query rows (q pre-scaled by
-// log2(e)/sqrt(d) in shared memory) are kVec-long FMA chains, then a
-// reduce-scatter butterfly within the group leaves each lane whole scores
-// of its own (token, row) pairs, so every exp2 is computed once.  The
-// stage's max per row goes across the warp, which keeps one (m, l) per
-// query row (the Pallas NEG_INF shift rule: a fully masked row keeps m =
-// NEG_INF and shifts by 0); the weights p go to shared memory over the
-// stage's consumed K rows, and each lane accumulates kVec output columns of
-// every row over its group's tokens.  At the end the groups' sums meet by
-// shuffles, the warps' states in shared memory (one __syncthreads), and the
-// splits' states through distributed shared memory: after cluster.sync()
-// each block reads every rank's (m, l, acc) in rank order and writes its
-// share of the n_rep x d outputs, acc / (l == 0 ? 1 : l); a second
-// cluster.sync() keeps every block resident until the others have read it.
-// A split that starts at or past the length loads nothing and publishes
-// m = NEG_INF, l = 0.  No atomics and no global scratch: two launches give
-// the same bits.
+// scores of the group's kJ tokens for the n_rep query rows (q pre-scaled
+// by log2(e)/sqrt(d) in shared memory) are kVec-long FMA chains; a
+// butterfly within the group scatters the tokens over its lanes and adds
+// the rest, so each lane ends with whole scores of one token for every
+// row.  The stage's max per row goes across the warp, which keeps one
+// (m, l) per row (the Pallas NEG_INF shift rule: a fully masked row keeps
+// m = NEG_INF and shifts by 0) and rescales its sums only when a max rose.
+// The weights p go to shared memory over the stage's consumed K rows, and
+// each lane accumulates kVec output columns of every row over its group's
+// tokens.  At the end the groups' sums meet by shuffles, the warps' states
+// in shared memory (one __syncthreads), and the splits' states through
+// distributed shared memory: after cluster.sync() each busy block reads
+// every busy rank's (m, l, acc) in rank order and writes its share of the
+// n_rep x d outputs, acc / (l == 0 ? 1 : l); a second cluster barrier
+// keeps every block resident until the others have read it.  No atomics
+// and no global scratch: two launches give the same bits.
 
 #pragma once
 
@@ -593,7 +596,7 @@ paged_decode_kernel(const Args a) {
 }
 
 // Tokens per split for n_split splits of a table of `cap` tokens: a
-// multiple of the warps (ops/paged_attention.py::split_plan mirrors it).
+// multiple of the warps (tests/test_torch_cuda.py mirrors it).
 inline int split_chunk(int cap, int n_split) {
   const int per = (cap + n_split - 1) / n_split;
   return (per + kWarps - 1) / kWarps * kWarps;

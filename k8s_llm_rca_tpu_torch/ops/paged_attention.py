@@ -15,7 +15,7 @@ are the JAX package's:
 ``paged_attention`` launches ``csrc/paged_attention.cu`` for CUDA tensors
 and takes ``paged_attention_plain`` only for CPU tensors.  There is no
 fallback: a CUDA input the kernel does not take raises.  Each call is one
-launch: a thread block cluster of ``split_plan``'s splits per (kv-head,
+launch: a thread block cluster of up to ``max_splits`` splits per (kv-head,
 sequence) that merge through distributed shared memory (the body is
 ``csrc/paged_attention.cuh``); no scratch is allocated.
 
@@ -45,7 +45,6 @@ _MAX_REP = 8           # query heads per kv-head the kernel holds (kMaxRep)
 _HEAD_DIMS = (32, 64, 128)  # TINY is 32, LLAMA3_8B 128
 _MAX_SPLITS = 8        # blocks of one cluster (kMaxSplits, portable)
 _MIN_SPLIT_TOKENS = 256     # 32 tokens for each of a block's 8 warps
-_WARPS = 8             # warps of a block (kWarps)
 _BLOCKS_PER_SM = 2     # resident blocks an SM holds (kernel launch bounds)
 
 
@@ -54,19 +53,16 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def split_plan(n_kv: int, table_tokens: int, sm_count: int):
-    """(n_split, tokens per split) of the kernel for a table of
-    ``table_tokens`` (pages_per_seq * page_size): enough splits that a full
-    table's n_kv clusters give about one wave of busy blocks on
-    ``sm_count`` SMs at two blocks an SM, at most one portable cluster of 8
-    and at least 256 tokens a split.  The kernel takes n_split as its
-    most: it launches fewer splits when the batch's n_kv * B clusters would
-    not all be resident at once, and computes the tokens per split from the
-    count it launches (``paged::split_chunk``: a multiple of its 8 warps)."""
-    n_split = max(1, min(_MAX_SPLITS, -(-_BLOCKS_PER_SM * sm_count // n_kv),
-                         -(-table_tokens // _MIN_SPLIT_TOKENS)))
-    per = -(-table_tokens // n_split)
-    return n_split, -(-per // _WARPS) * _WARPS
+def max_splits(n_kv: int, table_tokens: int, sm_count: int) -> int:
+    """The most splits the kernel takes for a table of ``table_tokens``
+    (pages_per_seq * page_size): enough that a full table's n_kv clusters
+    give about one wave of busy blocks on ``sm_count`` SMs at two blocks an
+    SM, at most one portable cluster of 8, at least 256 tokens a split.
+    The kernel launches fewer when the batch's n_kv * B clusters would not
+    all be resident at once, and splits the table into equal runs that are
+    a multiple of its 8 warps (``paged::split_chunk``)."""
+    return max(1, min(_MAX_SPLITS, -(-_BLOCKS_PER_SM * sm_count // n_kv),
+                      -(-table_tokens // _MIN_SPLIT_TOKENS)))
 
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -156,7 +152,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     b, n_heads, d = q.shape
     _, page_size, kv_dim = k_pages.shape
     pps = block_tables.shape[1]
-    n_split, _ = split_plan(kv_dim // d, pps * page_size, _sm_count(q.device))
+    n_split = max_splits(kv_dim // d, pps * page_size, _sm_count(q.device))
     out = torch.empty_like(q)
     rc = _launcher()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -283,7 +279,7 @@ def paged_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
     _, page_size, kv_store = k_pages.shape
     n_kv = kv_store * (2 if packed else 1) // d
     pps = block_tables.shape[1]
-    n_split, _ = split_plan(n_kv, pps * page_size, _sm_count(q.device))
+    n_split = max_splits(n_kv, pps * page_size, _sm_count(q.device))
     out = torch.empty_like(q)
     rc = _quant_launcher()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

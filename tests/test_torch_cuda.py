@@ -63,9 +63,13 @@ def card():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _paged_inputs(gen, dtype, n_heads, n_kv, d, page, lengths):
-    pps = max(-(-n // page) for n in lengths) + 1
-    n_pages = 1 + sum(-(-n // page) for n in lengths) + 3
+def _paged_inputs(gen, dtype, n_heads, n_kv, d, page, lengths, pps=None):
+    """A pool of shuffled pages and each sequence's table over ``pps``
+    entries (default: the longest length's pages + 1); a length past the
+    table gets the whole table (an idle slot's stale length)."""
+    pps = pps or max(-(-n // page) for n in lengths) + 1
+    used_pages = [min(-(-n // page), pps) for n in lengths]
+    n_pages = 1 + sum(used_pages) + 3
     q = torch.randn((len(lengths), n_heads, d), generator=gen,
                     device="cuda").to(dtype)
     kp = torch.randn((n_pages, page, n_kv * d), generator=gen,
@@ -75,8 +79,7 @@ def _paged_inputs(gen, dtype, n_heads, n_kv, d, page, lengths):
     ids = np.random.default_rng(0).permutation(np.arange(1, n_pages))
     tables = np.zeros((len(lengths), pps), np.int32)   # tails: trash page
     used = 0
-    for i, n in enumerate(lengths):
-        n_p = -(-n // page)
+    for i, n_p in enumerate(used_pages):
         tables[i, :n_p] = ids[used:used + n_p]
         used += n_p
     return (q, kp, vp, torch.tensor(lengths, dtype=torch.int32,
@@ -534,30 +537,9 @@ _POOLS = ["float", "int8", "int4"]
 
 def _pool_inputs(gen, dtype, pool, n_heads, n_kv, d, page, lengths,
                  pps=None):
-    """Inputs of one pool kind over ``pps`` table entries a sequence
-    (default: the longest length's pages + 1).  A length past the table
-    gets the whole table (an idle slot's stale length)."""
-    pps = pps or max(-(-n // page) for n in lengths) + 1
-    used_pages = [min(-(-n // page), pps) for n in lengths]
-    n_pages = 1 + sum(used_pages) + 3
-    q = torch.randn((len(lengths), n_heads, d), generator=gen,
-                    device="cuda").to(dtype)
-    kp = torch.randn((n_pages, page, n_kv * d), generator=gen,
-                     device="cuda").to(dtype)
-    vp = torch.randn((n_pages, page, n_kv * d), generator=gen,
-                     device="cuda").to(dtype)
-    ids = np.random.default_rng(0).permutation(np.arange(1, n_pages))
-    tables = np.zeros((len(lengths), pps), np.int32)   # tails: trash page
-    used = 0
-    for i, n_p in enumerate(used_pages):
-        tables[i, :n_p] = ids[used:used + n_p]
-        used += n_p
-    args = (q, kp, vp, torch.tensor(lengths, dtype=torch.int32,
-                                    device="cuda"),
-            torch.from_numpy(tables).cuda())
-    if pool == "float":
-        return args
-    return _quant_pools(args, pool == "int4")
+    """``_paged_inputs`` as a pool of one kind: float, int8 or int4."""
+    args = _paged_inputs(gen, dtype, n_heads, n_kv, d, page, lengths, pps)
+    return args if pool == "float" else _quant_pools(args, pool == "int4")
 
 
 def _pool_call(pool, args):
@@ -606,7 +588,7 @@ def test_paged_body_length_edges(card, pool, dtype, case):
     lengths on, one before and one past split boundaries of the host's
     plan; and a table of 8192 tokens, whose splits hold more stages than a
     warp's ring."""
-    from k8s_llm_rca_tpu_torch.ops.paged_attention import split_plan
+    from k8s_llm_rca_tpu_torch.ops.paged_attention import max_splits
 
     n_heads, n_kv, d, page, pps = 32, 8, 128, 64, 40
     if case == "ones":
@@ -619,7 +601,7 @@ def test_paged_body_length_edges(card, pool, dtype, case):
         # the kernel may launch fewer splits than the plan's most (a batch
         # whose clusters are not all resident): every count's boundaries
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        most, _ = split_plan(n_kv, pps * page, sms)
+        most = max_splits(n_kv, pps * page, sms)
         for n_split in range(1, most + 1):
             per = -(-pps * page // n_split)
             chunk = -(-per // 8) * 8             # paged::split_chunk
