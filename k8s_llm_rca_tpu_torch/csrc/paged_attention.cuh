@@ -322,7 +322,7 @@ paged_decode_kernel(const Args a) {
   // a stage's loads: lane-constant tokens, chunks and offsets; the page of
   // each token from the stage's first one (a token lies fewer than 32
   // positions past it); tokens past the run read nothing
-  auto issue = [&](uint8_t* base, int s0) {
+  auto load_stage = [&](uint8_t* base, int s0) {
     const int pg0 = a.page_shift >= 0 ? s0 >> a.page_shift : s0 / page;
     const int in0 = s0 - pg0 * page;
 #pragma unroll
@@ -376,12 +376,12 @@ paged_decode_kernel(const Args a) {
   uint8_t* base = ring;
 #pragma unroll
   for (int st = 0; st < kS - 1; ++st) {
-    if (st < n_st) issue(fill, w_begin + st * G::kStageTok);
+    if (st < n_st) load_stage(fill, w_begin + st * G::kStageTok);
     else cp_async_commit();   // empty groups keep the wait count uniform
     fill += G::kStageBytes;
   }
   for (int st = 0; st < n_st; ++st) {
-    if (st + kS - 1 < n_st) issue(fill, w_begin + (st + kS - 1) * G::kStageTok);
+    if (st + kS - 1 < n_st) load_stage(fill, w_begin + (st + kS - 1) * G::kStageTok);
     else cp_async_commit();
     fill = fill + G::kStageBytes == ring_end ? ring : fill + G::kStageBytes;
     cp_async_wait<kS - 1>();
@@ -500,7 +500,7 @@ paged_decode_kernel(const Args a) {
 #pragma unroll
         for (int e = 0; e < kVec; ++e) acc[h][e] = fmaf(pr[h], vf[e], acc[h][e]);
     }
-    __syncwarp();   // the slot is read before the next issue overwrites it
+    __syncwarp();   // the slot is read before the next loads overwrite it
     base = base + G::kStageBytes == ring_end ? ring : base + G::kStageBytes;
   }
   cp_async_wait<0>();
