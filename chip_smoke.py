@@ -520,8 +520,8 @@ def paged_kernels(table, dtype_name, gen, flush) -> None:
     import torch
 
     from k8s_llm_rca_tpu_torch.ops.paged_attention import (
-        paged_attention, paged_attention_plain, paged_attention_quant,
-        paged_attention_quant_plain,
+        launched_splits, paged_attention, paged_attention_plain,
+        paged_attention_quant, paged_attention_quant_plain,
     )
 
     dtype = getattr(torch, dtype_name)
@@ -531,7 +531,8 @@ def paged_kernels(table, dtype_name, gen, flush) -> None:
             "paged_attention", dtype_name, paged_attention(*args),
             paged_attention_plain(*args), case=lens_name,
             shapes="B=4 H=32 n_kv=8 d=128 page=64 lens="
-            + ",".join(map(str, lengths)))
+            + ",".join(map(str, lengths)),
+            splits=launched_splits(args[0], args[1], args[4]))
         rec["kernel_ms"] = time_ms(lambda: paged_attention(*args), 200,
                                    flush_bytes=flush)
         rec["plain_ms"] = time_ms(lambda: paged_attention_plain(*args), 20,
@@ -551,7 +552,8 @@ def paged_kernels(table, dtype_name, gen, flush) -> None:
                 paged_attention_quant(*qargs, packed=packed),
                 paged_attention_quant_plain(*qargs, packed=packed),
                 case=kind, shapes="B=4 H=32 n_kv=8 d=128 page=64 "
-                "lens=1,64,65,2400")
+                "lens=1,64,65,2400",
+                splits=launched_splits(qargs[0], qargs[1], qargs[6], packed))
             rec["kernel_ms"] = time_ms(
                 lambda: paged_attention_quant(*qargs, packed=packed), 200,
                 flush_bytes=flush)

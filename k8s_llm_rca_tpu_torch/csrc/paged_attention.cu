@@ -16,28 +16,48 @@
 
 #include "paged_attention.cuh"
 
-// n_split: 1 to 8 splits of the table (one cluster of them per kv-head
-// and sequence).  dtype: 0 = float32, 1 = bfloat16.  The pools are 16-byte
-// aligned.  Returns the CUDA error of the launch (0 on success).
+namespace {
+
+// The launch, or with `splits` set only the split count it would take.
+int run(const void* q, const void* k_pages, const void* v_pages, const int* lengths,
+        const int* block_tables, void* out, int batch, int n_heads, int n_kv, int head_dim,
+        int page_size, int pages_per_seq, int n_split, int dtype, cudaStream_t s,
+        int* splits) {
+  if (!paged::shapes_ok(batch, n_heads, n_kv, page_size, pages_per_seq, n_split))
+    return (int)cudaErrorInvalidValue;
+  const int elem = dtype == 0 ? 4 : 2;
+  const paged::Args a{q, (const uint8_t*)k_pages, (const uint8_t*)v_pages, nullptr, nullptr,
+                      lengths, block_tables, out, (unsigned)(n_kv * head_dim * elem),
+                      n_heads, n_kv, page_size, pages_per_seq, n_split, 0, 0,
+                      paged::log2_exact(page_size)};
+  if (dtype == 0)
+    return paged::launch_shape<float, paged::FloatPages<float>>(a, batch, head_dim, s, splits);
+  if (dtype == 1)
+    return paged::launch_shape<__nv_bfloat16, paged::FloatPages<__nv_bfloat16>>(
+        a, batch, head_dim, s, splits);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// n_split: 1 to 8 splits of the table, the most the launch takes (one
+// cluster of them per kv-head and sequence).  dtype: 0 = float32, 1 =
+// bfloat16.  The pools are 16-byte aligned.  Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       const void* v_pages, const int* lengths,
                                       const int* block_tables, void* out, int batch,
                                       int n_heads, int n_kv, int head_dim, int page_size,
                                       int pages_per_seq, int n_split, int dtype,
                                       void* stream) {
-  if (!paged::shapes_ok(batch, n_heads, n_kv, page_size, pages_per_seq, n_split))
-    return (int)cudaErrorInvalidValue;
-  const int elem = dtype == 0 ? 4 : 2;
-  paged::Args a{q, (const uint8_t*)k_pages, (const uint8_t*)v_pages, nullptr, nullptr,
-                lengths, block_tables, out, (unsigned)(n_kv * head_dim * elem), n_heads, n_kv,
-                page_size, pages_per_seq, n_split,
-                paged::split_chunk(pages_per_seq * page_size, n_split), 0,
-                paged::log2_exact(page_size)};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return paged::launch_shape<float, paged::FloatPages<float>>(a, batch, head_dim, s);
-  if (dtype == 1)
-    return paged::launch_shape<__nv_bfloat16, paged::FloatPages<__nv_bfloat16>>(
-        a, batch, head_dim, s);
-  return (int)cudaErrorInvalidValue;
+  return run(q, k_pages, v_pages, lengths, block_tables, out, batch, n_heads, n_kv, head_dim,
+             page_size, pages_per_seq, n_split, dtype, (cudaStream_t)stream, nullptr);
+}
+
+// The split count a launch of these shapes takes, in *splits.
+extern "C" int paged_attention_splits(int batch, int n_heads, int n_kv, int head_dim,
+                                      int page_size, int pages_per_seq, int n_split,
+                                      int dtype, int* splits) {
+  return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, batch, n_heads, n_kv,
+             head_dim, page_size, pages_per_seq, n_split, dtype, nullptr, splits);
 }

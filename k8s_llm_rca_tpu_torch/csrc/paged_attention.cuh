@@ -215,7 +215,7 @@ struct Args {
   void* out;
   unsigned row_stride;    // bytes between token rows of a pool
   int n_heads, n_kv, page_size, pps, n_split;
-  int chunk;              // tokens per split, a multiple of kWarps
+  int chunk;              // tokens per split, set by the launcher
   int half;               // int4: n_kv * d / 2
   int page_shift;         // log2(page_size), or -1 when it is not a power of 2
 };
@@ -610,9 +610,10 @@ inline int log2_exact(int x) {
 
 // Launches at most `a.n_split` splits: fewer when the batch's n_kv * batch
 // clusters of that many blocks would not all be resident at once (a
-// cluster left for a second wave would double the call's time).
+// cluster left for a second wave would double the call's time).  With
+// `splits` set it launches nothing and stores the count it would take.
 template <typename T, typename P, int D, int REP>
-int launch(Args a, int batch, cudaStream_t stream) {
+int launch(Args a, int batch, cudaStream_t stream, int* splits) {
   const auto kernel = paged_decode_kernel<T, P, D, REP>;
   const int n_tab = a.pps + 2;   // the most pages a split's span touches
   const size_t smem = (size_t)kWarps * kRingBytes + sizeof(float) * shared_floats<D, REP>() +
@@ -650,6 +651,10 @@ int launch(Args a, int batch, cudaStream_t stream) {
       break;
     }
   }
+  if (splits) {
+    *splits = a.n_split;
+    return (int)cudaSuccess;
+  }
   a.chunk = split_chunk(a.pps * a.page_size, a.n_split);
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return (int)err;
@@ -659,11 +664,11 @@ int launch(Args a, int batch, cudaStream_t stream) {
 // Instantiates the kernel for head_dim 32, 64, 128 and n_rep rounded up to
 // 2, 4 or 8 query rows per kv-head.
 template <typename T, typename P>
-int launch_shape(const Args& a, int batch, int head_dim, cudaStream_t stream) {
+int launch_shape(const Args& a, int batch, int head_dim, cudaStream_t stream, int* splits) {
   const int n_rep = a.n_heads / a.n_kv;
   const int rep = n_rep <= 2 ? 2 : n_rep <= 4 ? 4 : 8;
 #define PAGED_CASE(D, R) \
-  if (head_dim == D && rep == R) return launch<T, P, D, R>(a, batch, stream);
+  if (head_dim == D && rep == R) return launch<T, P, D, R>(a, batch, stream, splits);
   PAGED_CASE(32, 2) PAGED_CASE(32, 4) PAGED_CASE(32, 8)
   PAGED_CASE(64, 2) PAGED_CASE(64, 4) PAGED_CASE(64, 8)
   PAGED_CASE(128, 2) PAGED_CASE(128, 4) PAGED_CASE(128, 8)

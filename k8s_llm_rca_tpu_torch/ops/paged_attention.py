@@ -65,6 +65,35 @@ def max_splits(n_kv: int, table_tokens: int, sm_count: int) -> int:
                       -(-table_tokens // _MIN_SPLIT_TOKENS)))
 
 
+def launched_splits(q: torch.Tensor, k_pages: torch.Tensor,
+                    block_tables: torch.Tensor, packed=None) -> int:
+    """The split count a kernel call on these CUDA inputs launches:
+    ``max_splits``, or fewer when the batch's n_kv * B clusters would not
+    all be resident at once.  ``packed`` None is a float pool, False an
+    int8 pool, True an int4 pool."""
+    b, n_heads, d = q.shape
+    _, page_size, kv_store = k_pages.shape
+    n_kv = kv_store * (2 if packed else 1) // d
+    pps = block_tables.shape[1]
+    n_split = max_splits(n_kv, pps * page_size, _sm_count(q.device))
+    lib = build.load("paged_attention" if packed is None
+                     else "paged_attention_quant")
+    fn = (lib.paged_attention_splits if packed is None
+          else lib.paged_attention_quant_splits)
+    args = [b, n_heads, n_kv, d, page_size, pps, n_split]
+    if packed is not None:
+        args.append(int(packed))
+    fn.argtypes = ([ctypes.c_int] * (len(args) + 1)
+                   + [ctypes.POINTER(ctypes.c_int)])
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    rc = fn(*args, _DTYPES[q.dtype], ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"paged attention split query failed: CUDA error "
+                           f"{rc}")
+    return out.value
+
+
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, lengths: torch.Tensor,
                           block_tables: torch.Tensor) -> torch.Tensor:

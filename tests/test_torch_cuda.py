@@ -588,7 +588,7 @@ def test_paged_body_length_edges(card, pool, dtype, case):
     lengths on, one before and one past split boundaries of the host's
     plan; and a table of 8192 tokens, whose splits hold more stages than a
     warp's ring."""
-    from k8s_llm_rca_tpu_torch.ops.paged_attention import max_splits
+    from k8s_llm_rca_tpu_torch.ops.paged_attention import launched_splits
 
     n_heads, n_kv, d, page, pps = 32, 8, 128, 64, 40
     if case == "ones":
@@ -598,18 +598,17 @@ def test_paged_body_length_edges(card, pool, dtype, case):
     elif case == "past_table":
         lengths = [pps * page + 17, 5, pps * page + 1000, 64]
     elif case == "split_edges":
-        # the kernel may launch fewer splits than the plan's most (a batch
-        # whose clusters are not all resident): every count's boundaries
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        most = max_splits(n_kv, pps * page, sms)
-        for n_split in range(1, most + 1):
-            per = -(-pps * page // n_split)
-            chunk = -(-per // 8) * 8             # paged::split_chunk
-            lengths = [chunk, min(2 * chunk, pps * page), chunk + 1,
-                       min(3 * chunk, pps * page) - 1]
-            _check_pool(pool, _pool_inputs(card, dtype, pool, n_heads, n_kv,
-                                           d, page, lengths, pps=pps))
-        return
+        # the split count this call launches (the plan's most, or fewer
+        # when the batch's clusters would not all be resident) and the
+        # tokens per split it gives (paged::split_chunk)
+        args = _pool_inputs(card, dtype, pool, n_heads, n_kv, d, page,
+                            [1] * 4, pps=pps)
+        n_split = launched_splits(args[0], args[1], args[-1],
+                                  None if pool == "float" else
+                                  pool == "int4")
+        per = -(-pps * page // n_split)
+        chunk = -(-per // 8) * 8
+        lengths = [chunk, 2 * chunk, chunk + 1, 3 * chunk - 1]
     else:
         page, pps = 64, 128
         lengths = [8192, 5000, 1, 8000]
