@@ -9,9 +9,9 @@ prints one JSON line; any failure exits non-zero without the result line.
    (one ``nvcc`` per source, all started together), with each kernel's
    registers, shared memory and spills as ``ptxas -v`` reports them, and
    the count of wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
-   instructions in the kn tile and weight-streaming bodies
-   (``cuobjdump -sass``): the tile body must have the first two, the
-   weight-streaming body the third.
+   instructions in the kn tile and weight-streaming bodies and the nk
+   head's tensor-core body (``cuobjdump -sass``): the tile body must have
+   the first two, the other two the third.
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes, in bf16 (row-relative error at most 2^-6, see
    ``TOL``) and fp32 with TF32 off (atol 1e-4), with its device time, the
@@ -20,12 +20,13 @@ prints one JSON line; any failure exits non-zero without the result line.
    calls it): paged and flash attention (slice 1; paged also at lengths
    2400 x 4, flash also at the slice's batched 2560 bucket, seq_lens 1500
    and 2300), the int4 matmul at decode and at the three prefill buckets
-   (M = 512, 1024, 5120), the int4 lm head, paged attention over int8 and int4 pools (slice 2), and
-   the int8 matmul (wq at decode and prefill, the router at N = 8 and 4,
-   and the int4 one at those widths), the int8 head and the int8 and int4
-   stacked-expert matmuls in both einsum forms at decode and prefill (int8
-   at all three buckets; slice 3).  Every matmul case names the kn body it
-   took.
+   (M = 512, 1024, 5120), paged attention over int8 and int4 pools (slice
+   2), the lm heads at decode (Llama-3-8B's int4 [128256, 4096], Mixtral's
+   int8 and int4 [32000, 4096]), and the int8 matmul (wq at decode and
+   prefill, the router at N = 8 and 4, and the int4 one at those widths)
+   and the int8 and int4 stacked-expert matmuls in both einsum forms at
+   decode and prefill (int8 at all three buckets; slice 3).  Every matmul
+   case names the kn or nk body it took.
 4. cross-device: the engine on the card and on the CPU gives the same
    greedy tokens for a 2-layer model (head_dim 128, GQA 4, fp32), for
    TINY (head_dim 32, GQA 2, fp32) with its own weights, with int4 weights
@@ -57,7 +58,8 @@ shapes (Llama-3-8B bf16 and int4, Mixtral-8x7B int8), and the host time
 per call of the int4 step's extra eager work (the sources of PERF.md's
 decode-step breakdowns), and prints no result line.  ``--paged`` builds
 the two paged sources and runs only phase 3's paged cases (their build
-report and times), and prints no result line either.
+report and times), and ``--heads`` the two matmul sources with a head and
+only phase 3's head cases; neither prints a result line.
 """
 
 
@@ -82,6 +84,7 @@ KERNELS = ("paged_attention", "flash_attention", "quant_matmul",
            "paged_attention_quant", "quant_matmul_int8",
            "quant_matmul_experts")
 PAGED_KERNELS = ("paged_attention", "paged_attention_quant")
+HEAD_KERNELS = ("quant_matmul", "quant_matmul_int8")
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -406,14 +409,13 @@ def timed_case(table, key, kernel, dtype_name, run, exact, plain, library,
 
 
 def slice3_weights(gen) -> dict:
-    """Mixtral-8x7B's int8 weights at full width (wq, the router, the head,
-    w_gate and w_down), the router and experts in int4 too."""
+    """Mixtral-8x7B's int8 weights at full width (wq, the router, w_gate
+    and w_down), the router and experts in int4 too."""
     return {"wq8": quant_weight(gen, 4096, 4096, bits=8),
             "router8": quant_weight(gen, 4096, 8, bits=8),
             "router8_4": quant_weight(gen, 4096, 4, bits=8),
             "router4": quant_weight(gen, 4096, 8, bits=4),
             "router4_4": quant_weight(gen, 4096, 4, bits=4),
-            "head8": quant_weight(gen, 4096, 32000, axis=0, bits=8),
             "gate8": quant_weight(gen, 4096, 14336, bits=8, experts=8),
             "down8": quant_weight(gen, 14336, 4096, bits=8, experts=8),
             "gate4": quant_weight(gen, 4096, 14336, bits=4, experts=8),
@@ -422,15 +424,14 @@ def slice3_weights(gen) -> dict:
 
 def slice3_kernels(table, ws, dtype_name, gen, flush) -> None:
     """The int8 kn (wq at decode and prefill, the router at N = 8 and 4),
-    the int4 kn at the router's widths, the int8 head, and the int8/int4
-    expert matmuls in both einsum forms at M = 4 and 5120."""
+    the int4 kn at the router's widths, and the int8/int4 expert matmuls
+    in both einsum forms at M = 4 and 5120."""
     import torch
 
     from k8s_llm_rca_tpu_torch.models.quant import dq
     from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
         kn_body, quant_matmul, quant_matmul_experts,
-        quant_matmul_experts_plain, quant_matmul_head,
-        quant_matmul_head_plain, quant_matmul_plain,
+        quant_matmul_experts_plain, quant_matmul_plain,
     )
 
     dtype = getattr(torch, dtype_name)
@@ -463,19 +464,6 @@ def slice3_kernels(table, ws, dtype_name, gen, flush) -> None:
                    body=kn_body(bits, m, 4096, n),
                    shapes=f"x [{m}, 4096] @ int{bits} [4096, {n}]")
         del w_dense
-
-    w = ws["head8"]
-    x = rnd(4, 4096)
-    w_dense = dq(w, dtype).to(dtype)
-    timed_case(table, ("quant_matmul_head_int8", dtype_name),
-               "quant_matmul_head_int8", dtype_name,
-               lambda: quant_matmul_head(x, w),
-               quant_matmul_head_plain(x.float(), w),
-               lambda: quant_matmul_head_plain(x, w),
-               lambda: torch.matmul(x, w_dense.t()),
-               weight_bound(w, x, 4 * 32000, 2 * 4 * 4096 * 32000, dtype_name),
-               50, 5, flush, shapes="x [4, 4096] @ int8 [32000, 4096]^T")
-    del w_dense
 
     for bits in (8, 4):
         name = f"quant_matmul_experts_int{bits}"
@@ -512,6 +500,56 @@ def slice3_kernels(table, ws, dtype_name, gen, flush) -> None:
                 del x, lib
                 torch.cuda.empty_cache()
             del w_dense
+
+
+def head_weights(gen) -> dict:
+    """The slices' lm heads at full width, by case: Llama-3-8B's int4
+    table [128256, 4096] and Mixtral-8x7B's int8 and int4 [32000, 4096]."""
+    return {"llama3-8b int4": quant_weight(gen, 4096, 128256, axis=0),
+            "mixtral-8x7b int8": quant_weight(gen, 4096, 32000, axis=0,
+                                              bits=8),
+            "mixtral-8x7b int4": quant_weight(gen, 4096, 32000, axis=0)}
+
+
+def head_body(bits, m, k, v, dtype):
+    """The nk body a head call takes (``nk_body``), or None under a package
+    that has no such query (an older tree run with this script, the parent
+    side of an A/B)."""
+    from k8s_llm_rca_tpu_torch.ops import quant_matmul
+
+    query = getattr(quant_matmul, "nk_body", None)
+    return None if query is None else query(bits, m, k, v, dtype)
+
+
+def head_kernels(table, ws, dtype_name, gen, flush) -> None:
+    """Each head at decode, x [4, 4096], against the plain version on the
+    same values in fp32, with the body it took, L2 flushed before each
+    launch as in a decode step."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.models.quant import QuantTensor4, dq
+    from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
+        quant_matmul_head, quant_matmul_head_plain,
+    )
+
+    dtype = getattr(torch, dtype_name)
+    for case, w in ws.items():
+        bits = 4 if isinstance(w, QuantTensor4) else 8
+        name = "quant_matmul_head" + ("" if bits == 4 else "_int8")
+        v = w.shape[0]
+        x = torch.randn((4, 4096), generator=gen, device="cuda").to(dtype)
+        w_dense = dq(w, dtype).to(dtype)    # dequantized before timing
+        timed_case(table, (name, dtype_name, case), name, dtype_name,
+                   lambda: quant_matmul_head(x, w),
+                   quant_matmul_head_plain(x.float(), w),
+                   lambda: quant_matmul_head_plain(x, w),
+                   lambda: torch.matmul(x, w_dense.t()),
+                   weight_bound(w, x, 4 * v, 2 * 4 * 4096 * v, dtype_name),
+                   50, 5, flush, case=case,
+                   body=head_body(bits, 4, 4096, v, dtype),
+                   shapes=f"x [4, 4096] @ int{bits} [{v}, 4096]^T")
+        del w_dense
+        torch.cuda.empty_cache()
 
 
 def paged_kernels(table, dtype_name, gen, flush) -> None:
@@ -574,17 +612,16 @@ def phase_kernels() -> dict:
 
     from k8s_llm_rca_tpu_torch.models.quant import dq
     from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
-        kn_body, quant_matmul, quant_matmul_head, quant_matmul_head_plain,
-        quant_matmul_plain,
+        kn_body, quant_matmul, quant_matmul_plain,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     table = {}
-    # the slice's int4 weights: an MLP matmul [4096, 14336] and the head
+    # the slice's int4 MLP matmul [4096, 14336], the heads, Mixtral's
     w_mlp = quant_weight(gen, 4096, 14336)
-    w_head = quant_weight(gen, 4096, 128256, axis=0)
+    heads = head_weights(gen)
     ws = slice3_weights(gen)
     flush = 256 << 20
     for dtype_name in ("bfloat16", "float32"):
@@ -619,23 +656,7 @@ def phase_kernels() -> dict:
             emit("kernels", **rec)
             table[("quant_matmul", dtype_name, case)] = rec
 
-        x = torch.randn((4, 4096), generator=gen, device="cuda").to(dtype)
-        rec = held_record("quant_matmul_head", dtype_name,
-                          quant_matmul_head(x, w_head),
-                          quant_matmul_head_plain(x, w_head),
-                          shapes="x [4, 4096] @ int4 [128256, 4096]^T")
-        rec["kernel_ms"] = time_ms(lambda: quant_matmul_head(x, w_head), 50,
-                                   flush_bytes=flush)
-        rec["plain_ms"] = time_ms(lambda: quant_matmul_head_plain(x, w_head),
-                                  5, flush_bytes=flush)
-        w_dense = dq(w_head, dtype).to(dtype)
-        rec["library_ms"] = time_ms(lambda: torch.matmul(x, w_dense.t()), 50,
-                                    flush_bytes=flush)
-        del w_dense
-        rec["bound_ms"], rec["bound_by"] = weight_bound(
-            w_head, x, 4 * 128256, 2 * 4 * 4096 * 128256, dtype_name)
-        emit("kernels", **rec)
-        table[("quant_matmul_head", dtype_name)] = rec
+        head_kernels(table, heads, dtype_name, gen, flush)
         slice3_kernels(table, ws, dtype_name, gen, flush)
     return table
 
@@ -1126,23 +1147,25 @@ def sass_counts(cuobjdump: Path, lib: Path, names) -> dict:
 
 
 def kn_sass(build) -> dict:
-    """The tile body's instructions in each matmul library: the bf16 body
-    for M > 16 must issue wgmma (HGMMA) on operands brought by TMA
-    (UTMALDG), and the weight-streaming body mma.sync (HMMA); exits if
-    not."""
+    """The tensor-core bodies' instructions in each matmul library: the kn
+    tile body (M > 16) must issue wgmma (HGMMA) on operands brought by TMA
+    (UTMALDG), the kn weight-streaming body and, in the two libraries with
+    a head, the nk body mma.sync (HMMA); exits if not."""
     out = {}
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")  # beside nvcc
     for name in ("quant_matmul", "quant_matmul_int8", "quant_matmul_experts"):
         counts = sass_counts(cuobjdump, build.library_path(name),
-                             ("kn_wgmma_kernel", "kn_gemv_mma_kernel"))
+                             ("kn_wgmma_kernel", "kn_gemv_mma_kernel",
+                              "nk_mma_kernel"))
         tiles = {f: c for f, c in counts.items() if "kn_wgmma_kernel" in f}
         gemvs = {f: c for f, c in counts.items() if "kn_gemv_mma_kernel" in f}
-        if (not tiles or not gemvs
+        heads = {f: c for f, c in counts.items() if "nk_mma_kernel" in f}
+        if (not tiles or not gemvs or (name in HEAD_KERNELS and not heads)
                 or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0
                        for c in tiles.values())
-                or any(c["HMMA"] == 0 for c in gemvs.values())):
-            raise SystemExit(f"{name}: the kn bodies lack their tensor-core "
-                             f"or TMA instructions: {counts}")
+                or any(c["HMMA"] == 0 for c in (gemvs | heads).values())):
+            raise SystemExit(f"{name}: the matmul bodies lack their "
+                             f"tensor-core or TMA instructions: {counts}")
         fns = sorted(counts)
         out[name] = dict(zip(demangle(fns), (counts[f] for f in fns)))
     return out
@@ -1188,6 +1211,18 @@ def main(argv) -> int:
         for dtype_name in ("bfloat16", "float32"):
             paged_kernels({}, dtype_name, gen, 256 << 20)
         return 0
+    if "--heads" in argv:
+        t0 = time.perf_counter()
+        reports = build.build(HEAD_KERNELS)
+        emit("build", seconds=time.perf_counter() - t0,
+             ptxas={name: ptxas_summary(rep) for name, rep in
+                    reports.items()})
+        torch.backends.cuda.matmul.allow_tf32 = False
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        heads = head_weights(gen)
+        for dtype_name in ("bfloat16", "float32"):
+            head_kernels({}, heads, dtype_name, gen, 256 << 20)
+        return 0
     t0 = time.perf_counter()
     reports = build.build(KERNELS)
     emit("build", seconds=time.perf_counter() - t0,
@@ -1228,7 +1263,8 @@ def main(argv) -> int:
              ("quant_matmul", "bfloat16", "decode"), "slice_int4", "qmm"),
             ("quant_matmul_head", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:177",
-             ("quant_matmul_head", "bfloat16"), "slice_int4", "qmm_head"),
+             ("quant_matmul_head", "bfloat16", "llama3-8b int4"),
+             "slice_int4", "qmm_head"),
             ("paged_attention_quant", PAGED_QUANT_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:141",
              ("paged_attention_quant", "bfloat16", "int4"), "slice_int4",
@@ -1239,8 +1275,8 @@ def main(argv) -> int:
              "slice_mixtral_int8", "qmm8"),
             ("quant_matmul_head_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:159",
-             ("quant_matmul_head_int8", "bfloat16"), "slice_mixtral_int8",
-             "qmm_head8"),
+             ("quant_matmul_head_int8", "bfloat16", "mixtral-8x7b int8"),
+             "slice_mixtral_int8", "qmm_head8"),
             ("quant_matmul_experts_int8", EKN_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:201",
              ("quant_matmul_experts_int8", "bfloat16", "3d decode"),

@@ -45,8 +45,18 @@
 //   memory.
 // - kn, fp32 (the cross-device checks): split-K FMA weight streaming with
 //   a second pass (M <= 16), 64 x 64 FMA tiles (M > 16).
-// - nk: one warp per vocab row at a time (rows strided over a grid of one
-//   wave); a lane reads 4-byte words 128 bytes apart, each byte's low
+// - nk, bf16 ("mma"): weight streaming on tensor cores.  The table rows
+//   are the A operand of mma.sync m16n8k16: a lane reads 16 bytes of each
+//   of two rows of a 16-row tile, whose low nibbles meet x[:, :K/2] and
+//   high nibbles x[:, K/2:] in 8 products, x's B fragments taking the same
+//   k order from a bf16 copy of x staged once per block in shared memory.
+//   Each warp streams whole tiles over all of K, 256 bytes of each row a
+//   batch, through two register buffers taken in turn, so the next batch
+//   is in flight while one is converted and multiplied; its sums are its
+//   outputs (no reduction); one resident wave of warps strides over the
+//   tiles.  One launch, deterministic.
+// - nk, fp32 ("fma", the cross-device checks): one warp per vocab row at a
+//   time; a lane reads 4-byte words 128 bytes apart, each byte's low
 //   nibble meeting x[m, j] and its high nibble x[m, j + K/2], with the
 //   block's rows of x (up to 8) staged once in shared memory as fp32.
 // - kn, rows not a multiple of 16 packed bytes or K not a multiple of 32
@@ -57,8 +67,7 @@
 //   partials and the second pass; K not a multiple of 8: one block per row
 //   of x and 16 packed columns, byte loads, K split over the threads.
 //
-// Not yet: a persistent tile grid and a TMA store of the output tile;
-// tensor cores for the head (nk), which is still issue-bound on FMAs.
+// Not yet: a persistent tile grid and a TMA store of the output tile.
 
 #include "quant_matmul.cuh"
 
@@ -85,10 +94,17 @@ extern "C" const char* quant_matmul_kn4_body(int m, int k, int n) {
 }
 
 // x [m, k], q [v, k/2] int8, scale [v], out [m, v] in x's type; dtypes as
-// above.  k is a multiple of 32 and min(m, 8) * k * 4 bytes fits the
-// block's shared memory (227 KB).  Returns cudaGetLastError().
+// above.  k is a multiple of 32 and the call has a body
+// (quant_matmul_nk4_body).  Returns cudaGetLastError().
 extern "C" int quant_matmul_nk4_launch(const void* x, const void* q, const void* scale,
                                        void* out, int m, int k, int v, int x_dtype,
                                        int scale_dtype, void* stream) {
   return nk_dispatch<4>(x, q, scale, out, m, k, v, x_dtype, scale_dtype, stream);
+}
+
+// The body an x [m, k] @ [v, k/2]^T call takes (quant_matmul.cuh): "mma",
+// "fma" or "invalid" (no body: K not a multiple of 32, or x too wide for
+// shared memory).
+extern "C" const char* quant_matmul_nk4_body(int m, int k, int v, int x_dtype) {
+  return nk_body_name<4>(m, k, v, x_dtype);
 }

@@ -1,7 +1,7 @@
 // Shared pieces of the fused weight-dequant matmuls for Hopper (sm_90a):
 // value conversions, the TMA, mbarrier and tensor-core helpers, the kn
 // bodies y = x @ (q * s) with per-column scales, for int8 and split-half
-// int4 weights, with an optional leading expert axis, and the nk body
+// int4 weights, with an optional leading expert axis, and the nk bodies
 // (the lm head).  Included by quant_matmul.cu (int4 kn and nk),
 // quant_matmul_int8.cu (int8 kn and nk) and quant_matmul_experts.cu (int8
 // and int4 ekn); each compiles its own copy into its own library.
@@ -50,13 +50,20 @@
 //     too large for shared memory): one block per (row of x, 16 packed
 //     columns), its threads splitting K, bytes read one by one (no
 //     alignment assumed), a block reduction at the end.
+// The nk head (x @ (q * s)^T, rows of the table along K), bf16 x ("mma",
+// weight streaming; bound by the table's bytes): the table rows are the A
+// operand of mma.sync m16n8k16, a lane reading 16 bytes of each of two
+// rows and the x rows' B fragments following the same k order from x
+// staged once per block in shared memory as bf16; each warp streams whole
+// 16-row tiles (no K split, no reduction) through two register buffers
+// taken in turn; one resident wave.  fp32 x, and int8 rows of K not a
+// multiple of 16, keep the FMA body ("fma"; nk_body names them).
 // Integers become fp32 by an exponent trick on 32-bit words (nib_f,
 // byte_f) and bf16 by the lop3 trick above, not by integer-to-float
 // instructions (a quarter-rate pipe).
 //
 // Not yet: a persistent tile grid (one tile's epilogue overlapping the
-// next tile's loads), a TMA store of the output tile, and tensor cores
-// for the nk head.
+// next tile's loads) and a TMA store of the output tile.
 
 #pragma once
 
@@ -1870,16 +1877,24 @@ int kn_dispatch(const void* x, const void* q, const void* scale, void* out, void
 }
 
 // ------------------------------------------------------------------- nk
+//
+// y = x @ (q * s)^T for a table q [v, k] int8 or [v, k/2] int4 packed along
+// K (byte j = k j low, k j + K/2 high), scale [v].  Two bodies, chosen by
+// nk_body (quant_matmul_nk{4,8}_body names them): "mma" for bf16 x with
+// rows of a multiple of 16 bytes, "fma" for fp32 x (exact fp32, the
+// cross-device checks), for int8 rows of K not a multiple of 16, and for x
+// too wide for the mma body's shared memory.
+
+// ------------------------------------------------------ nk, fp32 FMA
 
 constexpr int kHeadMT = 8;        // rows of x per block
 constexpr int kHeadThreads = 256;
 constexpr int kHeadWarps = kHeadThreads / 32;
 constexpr int kHeadUnroll = 16;   // 4-byte loads a lane issues together (a 2 KB row)
 
-// y = x @ (q * s)^T for a table q [v, k] int8 or [v, k/2] int4 packed along
-// K (byte j = k j low, k j + K/2 high), scale [v]: one warp per vocab row
-// at a time (rows strided over a grid of one wave), the block's rows of x
-// (up to 8) staged once in shared memory as fp32
+// One warp per vocab row at a time (rows strided over a grid of one
+// wave), the block's rows of x (up to 8) staged once in shared memory as
+// fp32
 template <int BITS, typename T, typename S>
 __global__ void __launch_bounds__(kHeadThreads)
 nk_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
@@ -1983,22 +1998,312 @@ int nk_launch(const void* x, const void* q, const void* scale, void* out, int m,
   return (int)cudaGetLastError();
 }
 
-// k: a multiple of 32 (int4: x's halves and the packed words align) or 4
-// (int8); dtypes as kn_dispatch
+// ---------------------------------------------- nk, bf16 x: tensor cores
+//
+// The head is a weight stream: M is 4 at decode and 1-2 at prefill, 2 M
+// flops per weight, so its floor is the table's bytes over 3.35 TB/s.  The
+// table rows are the A operand of mma.sync m16n8k16 (16 vocab rows x 16 k)
+// and the rows of x the B operand (8 rows a tile, zeros past M).  A lane
+// (group gq = lane / 4, tq = lane % 4) reads 16 bytes of each of its rows
+// gq and gq + 8 of a 16-row tile at byte j = 64 s + 16 tq of step s.  The
+// product sums over k in any order, so one k permutation serves both
+// operands: word i of the lane's vector (bytes j + 4i .. j + 4i + 3) fills
+// fragment slots 2tq, 2tq + 1 (its bytes 0, 1) and 2tq + 8, 2tq + 9 (bytes
+// 2, 3) of product i, whose B fragments are then x[gq, j + 4i .. j + 4i +
+// 3]: one 8-byte word of x in its natural order.  int4: the low nibbles of
+// those bytes meet x[:, :K/2] and the high nibbles x[:, K/2:], so a vector
+// feeds 8 products, 4 per half.  Bytes become bf16 by one byte_perm and
+// s8x2_bf16 / s4x2_bf16, not by integer-to-float instructions.
+//
+// x is staged once per block in shared memory as bf16 by cp.async, behind
+// the table's first batch: the row (int8) or each half (int4) padded with
+// zeros to whole batches, rows 16 bytes longer than a multiple of 128 so
+// the 16-byte reads of a quarter warp fall in distinct banks.  The
+// table's loads do not allocate in L1.
+//
+// Each warp streams whole tiles (all of K), tiles strided over the warps
+// of one resident wave: 2000 tiles at V = 32000 fill the ~2100 warps the
+// card holds, 8016 at V = 128256 take four rounds.  No K split: a lane's
+// sums are its outputs, scaled in fp32 (a tile's scales are loaded with
+// its first batch) and stored, with no reduction and no barrier after the
+// staging.  A warp reads a batch of 4 steps at a time, 256 contiguous
+// bytes of each of its 16 rows, into one of two register buffers taken in
+// turn (the loop unrolled by two): the next batch's loads, across the end
+// of a tile, are in flight while the current one is converted and
+// multiplied, and no register copy waits on a pending load (a copy from
+// the next buffer into the current one did, and left one batch in
+// flight).  4-8 KB in flight per warp, 64-128 KB per SM.  One launch, no
+// atomics: the same inputs give the same bits.
+
+constexpr int kNhThreads = 256;
+constexpr int kNhWarps = kNhThreads / 32;
+constexpr int kNhBatch = 4;              // steps of 64 bytes a warp loads together
+constexpr int kNhRun = 64 * kNhBatch;    // bytes of a row in a batch
+constexpr int kNhPad = 8;                // bf16 values after each staged row of x
+
+// a staged run of x: kb values padded to whole batches
+__host__ __device__ __forceinline__ int nh_seg(int kb) {
+  return (kb + kNhRun - 1) / kNhRun * kNhRun;
+}
+// a staged row of x: the row (int8) or its two halves (int4), padded
+template <int BITS> __host__ __device__ __forceinline__ int nh_ld(int kb) {
+  return (BITS == 4 ? 2 : 1) * nh_seg(kb) + kNhPad;
+}
+// min(m, 8 NT) staged rows of x (NT = 2 tiles of x rows above m = 8)
+template <int BITS> size_t nh_smem(int m, int kb) {
+  return (size_t)min(m, m > 8 ? 16 : 8) * nh_ld<BITS>(kb) * 2;
+}
+
+// a 16-byte load of the table, which is read once: it leaves L1 alone
+__device__ __forceinline__ uint4 ld_stream(const int8_t* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
+}
+
+// 16 bytes from global to shared memory, or 16 zeros when !ok
+__device__ __forceinline__ void stage16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// The A fragment of product i from word i of rows gq (w0) and gq + 8 (w1):
+// bytes 0, 1 in registers 0 and 1, bytes 2, 3 in 2 and 3; int4 half h
+// takes the low (0) or high (1) nibbles.
+template <int BITS>
+__device__ __forceinline__ void nh_frag(uint32_t w0, uint32_t w1, int h, uint32_t (&a)[4]) {
+  // bytes b0 b2 b1 b3: b0 and b1 at bits 0 and 16, b2 and b3 at 8 and 24
+  const uint32_t t0 = __byte_perm(w0, 0, 0x3120);
+  const uint32_t t1 = __byte_perm(w1, 0, 0x3120);
+  if constexpr (BITS == 8) {
+    a[0] = s8x2_bf16(t0);
+    a[1] = s8x2_bf16(t1);
+    a[2] = s8x2_bf16(t0 >> 8);
+    a[3] = s8x2_bf16(t1 >> 8);
+  } else {
+    const int sh = 4 * h;
+    a[0] = s4x2_bf16(t0 >> sh);
+    a[1] = s4x2_bf16(t1 >> sh);
+    a[2] = s4x2_bf16(t0 >> (8 + sh));
+    a[3] = s4x2_bf16(t1 >> (8 + sh));
+  }
+}
+
+// blockIdx (8 warps' first tiles, tile of 8 NT rows of x)
+template <int BITS, int NT>
+__global__ void __launch_bounds__(kNhThreads, NT == 1 ? 2 : 1)
+nk_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+              const __nv_bfloat16* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+              int m, int k, int v) {
+  constexpr int kSegs = BITS == 4 ? 2 : 1;  // runs of x a packed byte meets
+  extern __shared__ __align__(16) uint4 nh_xs[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(nh_xs);
+  const int kb = packed_cols<BITS>(k);  // bytes per table row
+  const int seg = nh_seg(kb);
+  const int ld = nh_ld<BITS>(kb);
+  const int m0 = blockIdx.y * 8 * NT;
+  const int mc = min(8 * NT, m - m0);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int tiles = (v + 15) / 16;
+  const int stride = gridDim.x * kNhWarps;
+  const int batches = seg / kNhRun;
+
+  // a warp's batches in order, position p: tile first + (p / batches)
+  // stride, batch p % batches
+  const int first = blockIdx.x * kNhWarps + (tid >> 5);
+  const int total = first < tiles ? ((tiles - 1 - first) / stride + 1) * batches : 0;
+  auto load_at = [&](int p, uint4 (&w)[kNhBatch][2]) {
+    const int tile = first + p / batches * stride;
+#pragma unroll
+    for (int u = 0; u < kNhBatch; ++u) {
+      const int j = kNhRun * (p % batches) + 64 * u + 16 * tq;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = 16 * tile + 8 * hh + gq;
+        w[u][hh] = make_uint4(0u, 0u, 0u, 0u);
+        if (row < v && j < kb) w[u][hh] = ld_stream(q + (long long)row * kb + j);
+      }
+    }
+  };
+
+  // the first batch is in flight while x is staged: run h of staged row r
+  // is x[m0 + r][h kb .. h kb + kb), zeros to seg
+  uint4 wa[kNhBatch][2], wb[kNhBatch][2];
+  if (total > 0) load_at(0, wa);
+  const int chunks = seg / 8;  // 16-byte chunks of a run
+  for (int i = tid; i < mc * kSegs * chunks; i += kNhThreads) {
+    const int r = i / (kSegs * chunks);
+    const int h = i / chunks % kSegs;
+    const int c = 8 * (i % chunks);
+    stage16(xs + r * ld + h * seg + c, x + (long long)(m0 + r) * k + h * kb + (c < kb ? c : 0),
+            c < kb);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  float acc[NT][4];
+  float s0 = 0.f, s1 = 0.f;
+  // the batch at position p, held in w: a tile's first batch loads its
+  // scales and clears the sums, its last scales and stores them
+  auto step = [&](int p, const uint4 (&w)[kNhBatch][2]) {
+    const int bt = p % batches;
+    const int r0 = 16 * (first + p / batches * stride) + gq;
+    if (bt == 0) {
+      s0 = r0 < v ? __bfloat162float(scale[r0]) : 0.f;
+      s1 = r0 + 8 < v ? __bfloat162float(scale[r0 + 8]) : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kNhBatch; ++u) {
+      const int j = kNhRun * bt + 64 * u + 16 * tq;
+      const uint32_t w0[4] = {w[u][0].x, w[u][0].y, w[u][0].z, w[u][0].w};
+      const uint32_t w1[4] = {w[u][1].x, w[u][1].y, w[u][1].z, w[u][1].w};
+#pragma unroll
+      for (int h = 0; h < kSegs; ++h) {
+        // B fragments of the step's 4 products: x[row, j .. j + 16) of run h
+        uint32_t b[NT][8];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int r = 8 * nt + gq;
+          uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
+          if (r < mc) {
+            const uint4* px = reinterpret_cast<const uint4*>(xs + r * ld + h * seg + j);
+            lo = px[0];
+            hi = px[1];
+          }
+          const uint32_t words[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e) b[nt][e] = words[e];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          uint32_t a[4];
+          nh_frag<BITS>(w0[i], w1[i], h, a);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[nt], a, b[nt][2 * i], b[nt][2 * i + 1]);
+        }
+      }
+    }
+    if (bt == batches - 1) {
+      // register i: vocab row r0 + 8 (i / 2), x row 8 nt + 2 tq + i % 2
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = r0 + 8 * (i >> 1);
+          const int mm = 8 * nt + 2 * tq + (i & 1);
+          if (row < v && mm < mc)
+            out[(long long)(m0 + mm) * v + row] =
+                __float2bfloat16(acc[nt][i] * ((i >> 1) ? s1 : s0));
+        }
+    }
+  };
+
+  // two buffers taken in turn, so no register copy waits for a load: the
+  // next batch is in flight while this one is multiplied, and the one
+  // after goes in flight before the next is waited for
+  for (int p = 0; p < total; p += 2) {
+    if (p + 1 < total) load_at(p + 1, wb);
+    step(p, wa);
+    if (p + 1 == total) break;
+    if (p + 2 < total) load_at(p + 2, wa);
+    step(p + 1, wb);
+  }
+}
+
+// the shared memory a block may opt in to on this card
+int smem_optin() {
+  static int bytes = 0;
+  if (bytes == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return bytes;
+}
+
+template <int BITS, int NT>
+int nk_mma_launch(const void* x, const void* q, const void* scale, void* out, int m, int k,
+                  int v, cudaStream_t st) {
+  const size_t smem = nh_smem<BITS>(m, packed_cols<BITS>(k));
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nk_mma_kernel<BITS, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_optin());
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  // one wave: as many blocks as the card holds at once with this much
+  // shared memory, shared by the tiles of x rows, each warp a tile of the
+  // table at a time
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nk_mma_kernel<BITS, NT>, kNhThreads,
+                                                smem);
+  const int row_tiles = (m + 8 * NT - 1) / (8 * NT);
+  const int slots = max(1, sm_count() * max(per_sm, 1) / row_tiles);
+  const int blocks = ((v + 15) / 16 + kNhWarps - 1) / kNhWarps;
+  const dim3 grid(min(blocks, slots), row_tiles);
+  nk_mma_kernel<BITS, NT><<<grid, kNhThreads, smem, st>>>(
+      (const __nv_bfloat16*)x, (const int8_t*)q, (const __nv_bfloat16*)scale,
+      (__nv_bfloat16*)out, m, k, v);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------- nk dispatch
+
+enum NkBody { kNkInvalid, kNkMma, kNkFma };
+
+// The body a call takes: "mma" for bf16 x over rows of a multiple of 16
+// bytes when its staged x fits a block's shared memory, else "fma" when
+// the FMA body's fp32 rows of x fit.  k: a multiple of 32 (int4: x's
+// halves and the packed words align) or 4 (int8); x_dtype 0 = float32,
+// 1 = bfloat16.
+template <int BITS> NkBody nk_body(int m, int k, int v, int x_dtype) {
+  if (m <= 0 || k <= 0 || v <= 0 || k % (BITS == 4 ? 32 : 4) || x_dtype < 0 || x_dtype > 1)
+    return kNkInvalid;
+  const size_t room = (size_t)smem_optin();
+  const int kb = packed_cols<BITS>(k);
+  if (x_dtype == 1 && kb % 16 == 0 && (m + 15) / 16 <= 65535 && nh_smem<BITS>(m, kb) <= room)
+    return kNkMma;
+  if ((m + kHeadMT - 1) / kHeadMT <= 65535 && (size_t)min(m, kHeadMT) * k * 4 <= room)
+    return kNkFma;
+  return kNkInvalid;
+}
+
+template <int BITS> const char* nk_body_name(int m, int k, int v, int x_dtype) {
+  switch (nk_body<BITS>(m, k, v, x_dtype)) {
+    case kNkMma: return "mma";
+    case kNkFma: return "fma";
+    default: return "invalid";
+  }
+}
+
+// dtypes as kn_dispatch (bfloat16 x takes bfloat16 scales)
 template <int BITS>
 int nk_dispatch(const void* x, const void* q, const void* scale, void* out, int m, int k,
                 int v, int x_dtype, int scale_dtype, void* stream) {
-  if (m <= 0 || k <= 0 || v <= 0 || k % (BITS == 4 ? 32 : 4) ||
-      (m + kHeadMT - 1) / kHeadMT > 65535)
+  if (scale_dtype < 0 || scale_dtype > 1 || (x_dtype == 1 && scale_dtype == 0))
     return (int)cudaErrorInvalidValue;
+  const NkBody body = nk_body<BITS>(m, k, v, x_dtype);
   cudaStream_t st = (cudaStream_t)stream;
-  if (x_dtype == 1 && scale_dtype == 1)
+  if (body == kNkMma)
+    return m > 8 ? nk_mma_launch<BITS, 2>(x, q, scale, out, m, k, v, st)
+                 : nk_mma_launch<BITS, 1>(x, q, scale, out, m, k, v, st);
+  if (body != kNkFma) return (int)cudaErrorInvalidValue;
+  if (x_dtype == 1)
     return nk_launch<BITS, __nv_bfloat16, __nv_bfloat16>(x, q, scale, out, m, k, v, st);
-  if (x_dtype == 0 && scale_dtype == 1)
+  if (scale_dtype == 1)
     return nk_launch<BITS, float, __nv_bfloat16>(x, q, scale, out, m, k, v, st);
-  if (x_dtype == 0 && scale_dtype == 0)
-    return nk_launch<BITS, float, float>(x, q, scale, out, m, k, v, st);
-  return (int)cudaErrorInvalidValue;
+  return nk_launch<BITS, float, float>(x, q, scale, out, m, k, v, st);
 }
 
 }  // namespace

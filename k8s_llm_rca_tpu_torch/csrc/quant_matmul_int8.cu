@@ -30,12 +30,16 @@
 //   narrow bodies: the weight slice staged once per block in shared
 //   memory with warps walking rows of x (M > 16), K split over warps with
 //   a second pass (M <= 16), byte loads for K not a multiple of 8.
-// - nk: one warp per vocab row at a time (rows strided over a grid of one
-//   wave); a lane reads 4-byte words 128 bytes apart, four bytes meeting
-//   x[m, j .. j+3], with the block's rows of x (up to 8) staged once in
-//   shared memory as fp32.
-//
-// Not yet: tensor cores for the head.
+// - nk, bf16 x and K a multiple of 16 ("mma"): the int4 head's tensor-core
+//   weight-streaming body over bytes: a lane's 16 bytes of each of two
+//   table rows are the A fragments of 4 products, x's B fragments taking
+//   the same k from a bf16 copy staged once per block; each warp streams
+//   whole 16-row tiles through two register buffers taken in turn; one
+//   launch.
+// - nk, fp32 x or K not a multiple of 16 ("fma"): one warp per vocab row at
+//   a time (rows strided over a grid of one wave); a lane reads 4-byte
+//   words 128 bytes apart, four bytes meeting x[m, j .. j+3], with the
+//   block's rows of x (up to 8) staged once in shared memory as fp32.
 
 #include "quant_matmul.cuh"
 
@@ -62,10 +66,17 @@ extern "C" const char* quant_matmul_kn8_body(int m, int k, int n) {
 }
 
 // x [m, k], q [v, k] int8, scale [v], out [m, v] in x's type; dtypes as
-// above.  k is a multiple of 4 and min(m, 8) * k * 4 bytes fits the
-// block's shared memory (227 KB).  Returns cudaGetLastError().
+// above.  k is a multiple of 4 and the call has a body
+// (quant_matmul_nk8_body).  Returns cudaGetLastError().
 extern "C" int quant_matmul_nk8_launch(const void* x, const void* q, const void* scale,
                                        void* out, int m, int k, int v, int x_dtype,
                                        int scale_dtype, void* stream) {
   return nk_dispatch<8>(x, q, scale, out, m, k, v, x_dtype, scale_dtype, stream);
+}
+
+// The body an x [m, k] @ [v, k]^T call takes (quant_matmul.cuh): "mma",
+// "fma" or "invalid" (no body: K not a multiple of 4, or x too wide for
+// shared memory).
+extern "C" const char* quant_matmul_nk8_body(int m, int k, int v, int x_dtype) {
+  return nk_body_name<8>(m, k, v, x_dtype);
 }

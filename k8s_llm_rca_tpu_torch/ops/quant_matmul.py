@@ -42,8 +42,6 @@ from k8s_llm_rca_tpu_torch.ops import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GEMV_MAX_M = 16        # rows the weight-streaming body takes (kGemvMaxM)
 _GEMV_MIN_ROWS = 128    # fewest rows of K a split walks (kGemvMinRows)
-_HEAD_MT = 8            # rows of x a head block stages (kHeadMT)
-_SMEM_BYTES = 232448    # shared memory a block can use on the H100
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (source, C entry, argument types) of each launcher
@@ -112,6 +110,19 @@ def kn_body(bits: int, m: int, k: int, n: int, experts: bool = False) -> str:
     "narrow_split", "narrow_smem" or "narrow_bytes"."""
     args = (m, k, n, bits) if experts else (m, k, n)
     return _body_query(bits, experts)(*args).decode()
+
+
+@functools.lru_cache(maxsize=None)
+def nk_body(bits: int, m: int, k: int, v: int,
+            dtype: torch.dtype = torch.bfloat16) -> str:
+    """The body of ``csrc/quant_matmul.cuh`` that a head call of x [m, k]
+    in ``dtype`` over a ``bits``-wide table [v, k] takes on the card:
+    "mma" (bf16 x, tensor cores), "fma" (fp32 x, or int8 rows of K not a
+    multiple of 16) or "invalid" (no body takes it).  Builds the library."""
+    fn = getattr(build.load(_NK[bits][0]), f"quant_matmul_nk{bits}_body")
+    fn.argtypes = [_I] * 4
+    fn.restype = ctypes.c_char_p
+    return fn(m, k, v, _DTYPES[dtype]).decode()
 
 
 def _bits(w) -> int:
@@ -237,7 +248,8 @@ def quant_matmul_head(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ dq(w)^T`` for a [V, K] table with per-row scales [V, 1] (the lm
     head).  CPU tensors take ``quant_matmul_head_plain``; CUDA tensors
     launch the int8 or int4 nk kernel (``quant_matmul_head.launches_int8``
-    / ``.launches``) or raise.  The output is in x's dtype."""
+    / ``.launches``; ``nk_body`` names the body a shape takes) or raise.
+    The output is in x's dtype."""
     _require_quant(w, "quant_matmul_head")
     v, kdim = w.shape
     if tuple(w.scale.shape) != (v, 1):
@@ -258,13 +270,12 @@ def quant_matmul_head(x: torch.Tensor, w) -> torch.Tensor:
     lead = x.shape[:-1]
     x2 = _rows(x, kdim, "quant_matmul_head")
     m = x2.shape[0]
-    if min(m, _HEAD_MT) * kdim * 4 > _SMEM_BYTES:
-        raise ValueError(f"quant_matmul_head kernel stages up to {_HEAD_MT} "
-                         f"rows of x in fp32 in {_SMEM_BYTES} bytes of shared "
-                         f"memory; K={kdim} does not fit")
     out = torch.empty((m, v), dtype=x.dtype, device=x.device)
     if m == 0:
         return out.reshape(*lead, v)
+    if nk_body(_bits(w), m, kdim, v, x.dtype) == "invalid":
+        raise ValueError(f"quant_matmul_head kernel stages the rows of x in "
+                         f"shared memory; x [{m}, {kdim}] does not fit")
     rc = _launcher(*_NK[_bits(w)], _NK_ARGS)(
         x2.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(), out.data_ptr(),
         m, kdim, v, _DTYPES[x.dtype], _DTYPES[w.scale.dtype],

@@ -498,6 +498,108 @@ def test_quant_matmul_refuses_an_unaligned_x(card, bits):
                       quant_matmul_experts.launches_int8)
 
 
+# --------------------------------------------------- the nk head bodies
+
+# (bits, K) at the alignment edges: int8 rows of 4 and 260 bytes (not a
+# multiple of 16: the FMA body) and 4096; int4 rows of 16, 48 (not a whole
+# 64-byte step) and 2048 bytes
+_HEAD_BITS_K = [(8, 4), (8, 260), (8, 4096), (4, 32), (4, 96), (4, 4096)]
+
+
+def _head_body(bits, k, dtype):
+    """The body a head call takes: tensor cores for bf16 x over rows of a
+    multiple of 16 bytes, else the FMA body."""
+    if dtype == torch.bfloat16 and (bits == 4 or k % 16 == 0):
+        return "mma"
+    return "fma"
+
+
+def _head_call(gen, bits, dtype, scale_dtype, m, k, v):
+    """(call, exact reference, the launch counter's getter) of a head call
+    x [m, k] @ a bits-wide table [v, k]^T."""
+    w = _weight(gen, k, v, scale_dtype, axis=0, bits=bits)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    attr = "launches" if bits == 4 else "launches_int8"
+    return ((lambda: quant_matmul_head(x, w)),
+            _exact(quant_matmul_head_plain, x, w),
+            lambda: getattr(quant_matmul_head, attr))
+
+
+def _check_head(gen, bits, dtype, scale_dtype, m, k, v):
+    from k8s_llm_rca_tpu_torch.ops.quant_matmul import nk_body
+
+    assert nk_body(bits, m, k, v, dtype) == _head_body(bits, k, dtype)
+    call, ref, launches = _head_call(gen, bits, dtype, scale_dtype, m, k, v)
+    before = launches()
+    out = call()
+    torch.cuda.synchronize()
+    assert launches() == before + 1
+    assert out.dtype == dtype and out.shape == (m, v)
+    assert torch.isfinite(out).all()
+    assert _err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("bits,k", _HEAD_BITS_K)
+@pytest.mark.parametrize("v", [1, 15, 16, 17, 1003, 32000, 128256])
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 9, 16, 17])
+def test_quant_matmul_head_bodies_bf16(card, bits, k, v, m):
+    """bf16 x: the tensor-core body over 64-row panels cut at V = 1..17 and
+    1003, one or two tiles of 8 rows of x (M 9-16) and a second tile of
+    rows (M 17), K split over the block's warps; int8 rows that are not
+    a multiple of 16 bytes take the FMA body."""
+    _check_head(card, bits, torch.bfloat16, torch.bfloat16, m, k, v)
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,k", _HEAD_BITS_K)
+@pytest.mark.parametrize("v", [1, 17, 1003, 128256])
+@pytest.mark.parametrize("m", [1, 4, 9, 17])
+def test_quant_matmul_head_bodies_fp32(card, scale_dtype, bits, k, v, m):
+    """fp32 x keeps the FMA body, with fp32 and bf16 scales."""
+    _check_head(card, bits, torch.float32, scale_dtype, m, k, v)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,v", [(4, 128256), (4, 32000), (2, 32000),
+                                 (9, 1003), (17, 17)])
+def test_quant_matmul_head_is_deterministic(card, bits, m, v):
+    """Two launches on the same inputs give the same bits: the warps' K
+    runs meet in a fixed order, with no atomics."""
+    call, _, _ = _head_call(card, bits, torch.bfloat16, torch.bfloat16, m,
+                            4096, v)
+    first = call()
+    second = call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_quant_matmul_head_is_one_kernel_per_call(card):
+    """The profiler sees exactly one CUDA kernel for each head call: the
+    tensor-core body for bf16 x and the FMA body for fp32 x, over int8 and
+    int4 tables.  One profiled window holds the four calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = []
+    for bits in (8, 4):
+        for dtype in (torch.bfloat16, torch.float32):
+            call, _, _ = _head_call(card, bits, dtype, torch.bfloat16, 4,
+                                    4096, 32000)
+            call()                          # build and warm up
+            calls.append(call)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    assert sum(e.count for e in kernels) == len(calls), \
+        [(e.key, e.count) for e in kernels]
+    assert sum("nk_mma_kernel" in e.key for e in kernels) == 2
+    assert sum("nk_kernel" in e.key for e in kernels) == 2
+
+
 # ------------------------------------------------- quantized paged attention
 
 
