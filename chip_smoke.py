@@ -33,7 +33,12 @@ prints one JSON line; any failure exits non-zero without the result line.
    under ``fused_quant_matmul`` over int4 and int8 KV pools and with int8
    weights over an int8 pool, and for TINY_MOE with int8 weights over an
    int8 pool and int4 weights over an int4 pool; and for TINY when a slot
-   retires near max_seq_len and the next batch decodes with it idle.
+   retires near max_seq_len and the next batch decodes with it idle.  Then
+   the RCA sweep on TINY (fp32, the soak engine, two incidents at
+   concurrency 2) on the card and on the CPU with the same weights: at
+   vocab 512 every grammar compiles to DFA tables, so the card runs the
+   constrained scan (``paged_decode_scan_dfa``); the report bytes must be
+   equal, with no failed incident and the engine left clean.
 5. slice: Llama-3-8B at full depth and width in bf16 (seeded random
    weights) behind ``AssistantService`` answers four requests of ~400,
    900, 1500 and 2300 prompt tokens; the paged and flash kernels' launch
@@ -49,6 +54,22 @@ prints one JSON line; any failure exits non-zero without the result line.
    per step or dispatch.
 5d. the same Mixtral with int4 weights and an int4 pool (the int4 kn, head
    and expert kernels).
+6. rca: the agent loop at full width.  Llama-3-8B in bf16 (seeded random
+   weights) behind the soak engine (max_seq_len 2560, one 2560 bucket,
+   page 64, 168 pages, decode_chunk 16, greedy) runs the four fixture
+   incidents at concurrency 4 through locator -> cyphergen -> auditor
+   (``faults/soak.py::run_pipelined_sweep``).  At vocab 128256 the
+   grammars do not compile to DFA tables: every stage decodes under the
+   interpreted grammar, one stepwise tick per token.  It prints the
+   incidents' wall seconds, ticks, the grammar kinds taken, the host time
+   of the grammar masks and the launch counts (paged = 32 x decode steps,
+   flash = 32 x prefill dispatches), and fails unless every incident
+   completes, every stage reply that decodes parses and the engine is
+   left clean.  A cypher stage whose prompt leaves less budget than its
+   skeleton grammar needs is refused (``BudgetError``) and falls back to
+   the compiled query, as in the JAX pipeline: the phase counts the
+   cypher replies parsed and the stages refused, one or the other for
+   each analysis.
 
 Then the kernel table (one JSON line), the ``nvidia-smi`` name and power
 limit line, and the result line
@@ -68,6 +89,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -787,6 +809,58 @@ def phase_cross_device() -> None:
     retired_slot_case()
 
 
+def sweep_case() -> None:
+    """The RCA sweep on TINY (fp32, ``faults/soak.py``'s engine, two
+    incidents at concurrency 2) on the CPU and on the card with the same
+    seeded weights: equal report bytes, no failed incident, both engines
+    clean, and the card's paged and flash launches exact."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import TINY
+    from k8s_llm_rca_tpu_torch.faults.soak import (
+        report_bytes, run_pipelined_sweep,
+    )
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+
+    cfg = TINY.replace(max_seq_len=2560)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu_params = {k: ([{n: _to_cuda(t) for n, t in layer.items()}
+                       for layer in v] if k == "layers" else _to_cuda(v))
+                  for k, v in cpu_params.items()}
+    t0 = time.perf_counter()
+    cpu = run_pipelined_sweep(backend="engine", n_incidents=2,
+                              concurrency=2, model_cfg=cfg,
+                              params=cpu_params, device="cpu")
+    t1 = time.perf_counter()
+    reset_counts()
+    gpu = run_pipelined_sweep(backend="engine", n_incidents=2,
+                              concurrency=2, model_cfg=cfg,
+                              params=gpu_params)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    t2 = time.perf_counter()
+    engine = gpu["engines"][0]
+    expect = expected_counts(cfg, engine, False)
+    report = gpu["report"]
+    same = report_bytes(report) == report_bytes(cpu["report"])
+    emit("cross_device", model="tiny-rca-sweep", incidents=2, concurrency=2,
+         equal_report_bytes=same, completed=report["completed"],
+         failed=report["failed"], engine_clean=report["engine_clean"],
+         decode_steps=int(engine._counts["engine.decode_steps"]),
+         dispatches=int(engine._counts["engine.dispatches"]),
+         launches=counts, expected_launches=expect, cpu_s=t1 - t0,
+         gpu_s=t2 - t1)
+    if not same:
+        raise SystemExit("TINY sweep: card and CPU report bytes differ")
+    if report["failed"] or not report["engine_clean"] \
+            or not cpu["report"]["engine_clean"]:
+        raise SystemExit(f"TINY sweep: failed {report['failed']}, "
+                         f"engine_clean {report['engine_clean']}")
+    if counts != expect:
+        raise SystemExit(f"TINY sweep: launch counts {counts} != expected "
+                         f"{expect}")
+
+
 def retired_slot_case() -> None:
     """A slot freed near max_seq_len (ROADMAP Queue 3 fault 2): TINY (fp32,
     x3 projections, page 16, decode_chunk 16) runs a 470-token prompt to
@@ -824,6 +898,7 @@ def retired_slot_case() -> None:
     if streams[0] != streams[1]:
         raise SystemExit(f"retired-slot case: card and CPU streams differ: "
                          f"cpu {streams[0][1:]} gpu {streams[1][1:]}")
+    sweep_case()
 
 
 def x3_params(cfg, bits=None):
@@ -986,6 +1061,176 @@ def phase_slice(phase: str, name: str, bits=None, kv=None) -> dict:
         raise SystemExit("non-finite logits on the slice run")
     if counts != expect:
         raise SystemExit(f"launch counts {counts} != expected {expect}")
+    return counts
+
+
+@contextlib.contextmanager
+def watch_grammars(kinds: dict, host_s: list):
+    """Tally the grammar class each run's ``GenOptions.grammar`` compiles
+    to, and add up the host seconds the engine spends building the
+    stepwise ticks' constraints (the interpreted grammars' masks)."""
+    from k8s_llm_rca_tpu_torch.engine.paged import PagedInferenceEngine
+    from k8s_llm_rca_tpu_torch.serve import backend
+
+    make = backend.make_grammar
+    constraints = PagedInferenceEngine._tick_constraints
+
+    def counted(spec, tokenizer):
+        g = make(spec, tokenizer)
+        if g is not None:
+            name = type(g).__name__
+            kinds[name] = kinds.get(name, 0) + 1
+        return g
+
+    def timed(self, *args):
+        t0 = time.perf_counter()
+        try:
+            return constraints(self, *args)
+        finally:
+            host_s[0] += time.perf_counter() - t0
+
+    backend.make_grammar = counted
+    PagedInferenceEngine._tick_constraints = timed
+    try:
+        yield kinds
+    finally:
+        backend.make_grammar = make
+        PagedInferenceEngine._tick_constraints = constraints
+
+
+@contextlib.contextmanager
+def watch_cypher(parsed: list, refused: list):
+    """Count the cypher stages whose reply decoded and parsed, and those
+    refused before decoding: when the prompt leaves a budget below the
+    skeleton grammar's minimal document, the backend raises
+    ``BudgetError`` and the pipeline falls back to the compiled query
+    without a reply (the JAX pipeline's rule), so attempt counts alone do
+    not show a parse."""
+    from k8s_llm_rca_tpu_torch.rca import cyphergen
+    from k8s_llm_rca_tpu_torch.serve.backend import BudgetError
+
+    submit = cyphergen.submit_cypher_query
+    parse = cyphergen.parse_cypher_query
+
+    def submitted(*args, **kwargs):
+        try:
+            return submit(*args, **kwargs)
+        except BudgetError:
+            refused[0] += 1
+            raise
+
+    def counted(generator, run):
+        query = parse(generator, run)
+        parsed[0] += 1
+        return query
+
+    cyphergen.submit_cypher_query = submitted
+    cyphergen.parse_cypher_query = counted
+    try:
+        yield
+    finally:
+        cyphergen.submit_cypher_query = submit
+        cyphergen.parse_cypher_query = parse
+
+
+def stage_replies_parse(report: dict, cypher_parsed: int,
+                        cypher_refused: int) -> bool:
+    """Every stage reply of a sweep report that was decoded parsed: the
+    locator took one attempt, each analysis one cypher attempt whose reply
+    parsed or was refused by its budget before decoding (``cypher_parsed``
+    and ``cypher_refused`` of them in all), and every audit report is
+    JSON."""
+    from k8s_llm_rca_tpu_torch.utils.fenced import extract_json
+
+    n_analyses = 0
+    for row in report["incidents"]:
+        if row.get("locator_attempts") != 1:
+            return False
+        for a in row["analyses"]:
+            n_analyses += 1
+            if a["cypher_attempts"] != 1:
+                return False
+            for text in a["reports"]:
+                try:
+                    json.loads(text)
+                except (TypeError, ValueError):
+                    try:
+                        extract_json(text)
+                    except (TypeError, ValueError):
+                        return False
+    return cypher_parsed + cypher_refused == n_analyses
+
+
+def phase_rca() -> dict:
+    """Phase 6: Llama-3-8B bf16 (seeded random weights) runs the four
+    fixture incidents at concurrency 4 through the RCA pipeline on the
+    soak engine.  Returns the run's launch counts."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.faults.soak import run_pipelined_sweep
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.utils.logging import METRICS
+
+    cfg = LLAMA3_8B
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kinds, host_s, cypher_parsed, cypher_refused = {}, [0.0], [0], [0]
+    n_before = METRICS.timings["rca.incident"].count
+    reset_counts()
+    t1 = time.perf_counter()
+    with watch_grammars(kinds, host_s), \
+            watch_cypher(cypher_parsed, cypher_refused):
+        out = run_pipelined_sweep(backend="engine", n_incidents=4,
+                                  concurrency=4, model_cfg=cfg,
+                                  params=params)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t1
+    counts = read_counts()
+    engine = out["engines"][0]
+    c = engine._counts
+    report = out["report"]
+    expect = expected_counts(cfg, engine, False)
+    timer = METRICS.timings["rca.incident"]
+    incident_s = sorted(timer.window()[-(timer.count - n_before):])
+    parsed = stage_replies_parse(report, cypher_parsed[0],
+                                 cypher_refused[0])
+    emit("rca", model=cfg.name, layers=cfg.n_layers, vocab=cfg.vocab_size,
+         incidents=report["n_incidents"], concurrency=4,
+         completed=report["completed"], failed=report["failed"],
+         engine_clean=report["engine_clean"], replies_parsed=parsed,
+         incident_s=incident_s,
+         incident_p50_s=statistics.median(incident_s),
+         incident_max_s=max(incident_s), total_s=total_s, init_s=init_s,
+         decode_steps=int(c["engine.decode_steps"]),
+         dispatches=int(c["engine.dispatches"]),
+         prefill_dispatches=int(c["engine.prefill_dispatches"]),
+         completion_tokens=int(c["engine.decode_tokens"]),
+         runs=len(out["service"].runs), grammar_kinds=kinds,
+         constraint_host_s=host_s[0],
+         statepaths=[a["n_statepaths"] for row in report["incidents"]
+                     for a in row["analyses"]],
+         cypher_parsed=cypher_parsed[0], cypher_refused=cypher_refused[0],
+         used_fallback=[a["used_fallback"] for row in report["incidents"]
+                        for a in row["analyses"]],
+         launches=counts, expected_launches=expect,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         nvidia_smi=nvidia_smi_name_power())
+    if report["failed"] or report["completed"] != 4:
+        raise SystemExit(f"rca: {report['completed']} of 4 incidents "
+                         f"completed, {report['failed']} failed: "
+                         f"{[r.get('error') for r in report['incidents']]}")
+    if not report["engine_clean"]:
+        raise SystemExit("rca: the engine was not left clean")
+    if not parsed:
+        raise SystemExit(f"rca: a stage reply did not parse (cypher: "
+                         f"{cypher_parsed[0]} parsed, {cypher_refused[0]} "
+                         f"refused by their budget)")
+    if counts != expect:
+        raise SystemExit(f"rca: launch counts {counts} != expected {expect}")
     return counts
 
 
@@ -1249,6 +1494,8 @@ def main(argv) -> int:
                                    "int4")):
         runs[phase] = phase_slice(phase, name, bits, kv)
         free_card()                   # one model on the card at a time
+    runs["rca"] = phase_rca()
+    free_card()
 
     rows = []
     for name, src, replaces, key, phase, count in (

@@ -1,6 +1,7 @@
 """Configuration layer of the PyTorch port.
 
-A copy of the model and engine dataclasses of ``k8s_llm_rca_tpu/config.py``
+A copy of the model, engine, RCA and sweep dataclasses of
+``k8s_llm_rca_tpu/config.py``
 (the port imports nothing of the JAX package).  Field names, defaults and
 the presets are identical, so one configuration drives both packages.
 Knobs whose feature this package does not implement yet are still
@@ -139,3 +140,58 @@ class EngineConfig:
     prefix_disk_pages: int = 0
     prefix_hbm_watermark: int = 0
     prefix_store_writethrough: bool = False
+
+
+@dataclass(frozen=True)
+class RCAConfig:
+    """Agent-pipeline config (retry budgets mirror the reference's:
+    test_all.py:63,99; polling limits common/openai_generic_assistant.py:94-95)."""
+
+    locator_max_attempts: int = 3
+    cypher_max_attempts: int = 3
+    metapath_max_hops: int = 3
+    # per-stage decode budgets (tokens); the locator's must exceed its
+    # structured-output schema's minimal document (constrain.SchemaGrammar
+    # .min_budget — EngineBackend.start rejects budgets below it)
+    locator_max_new_tokens: int = 768
+    cypher_max_new_tokens: int = 512
+    analyzer_max_new_tokens: int = 512
+    srckind_limit: int = 5
+    state_limit: int = 10
+    # submit all per-entity audit runs before awaiting any (SURVEY §3.4:
+    # they are independent until the summary barrier), so the engine
+    # decodes them in one continuous batch; False = reference-serial order
+    concurrent_audits: bool = True
+    run_timeout_s: float = 600.0
+    model: str = "tiny"                # serve-side model name
+    rerank_top_k: int = 0              # cap audited records when reranking (0 = all)
+    # cap the STATE fields entering each audit prompt to the k most
+    # relevant by embedding (0 = all 12 reference fields); requires a
+    # pipeline reranker — the rerank result then shapes prompt CONTENT,
+    # not just record order (BASELINE configs[4])
+    rerank_fields_top_k: int = 0
+    # start every incident on FRESH stage threads (templates/rules
+    # re-seeded).  The reference reuses one monotonically growing thread
+    # per assistant across a whole sweep (test_with_file.py loops over
+    # setup-once assistants) — viable only against a remote model with
+    # effectively unbounded context; with an in-tree engine whose
+    # max_seq_len is a real KV budget, long sweeps need re-anchoring.
+    # Retry-with-feedback WITHIN an incident still accumulates.
+    fresh_threads: bool = False
+    # grammar-constrained decode for the three structured stages (plan
+    # schema, cypher skeleton, report schema).  False = raw free decode:
+    # output validity then rests entirely on the MODEL — the content-
+    # validation mode for distilled checkpoints (rca/distill.py), and the
+    # reference's own hope-and-retry regime (test_all.py:63-83)
+    constrained: bool = True
+
+
+@dataclass(frozen=True)
+class SweepConfig:
+    """Batch-driver config (reference: test_with_file.py:42-43,177-198)."""
+
+    input_csv: str = "data/incidents.csv"
+    output_json: str = "output/rca-results.json"
+    locator_usage_limit: int = 10
+    cypher_usage_limit: int = 20
+    analyzer_usage_limit: int = 30

@@ -3,11 +3,14 @@
 
 Submission and prompt clamping, the priority queue, deadlines, cancel,
 finish reasons and stop-string trimming, the chunk choice of the scanned
-decode tick and the commit loop that trims after EOS all follow the JAX
-engine line for line, so the two packages emit equal greedy token streams.
-Host-overlap, speculative decoding, grammars, snapshot/restore and fault
-injection are not ported (ROADMAP Queue 1); the paged engine refuses the
-knobs that would turn them on.
+decode tick, the commit loop that trims after EOS and the grammar paths
+(per-slot constraints of a stepwise tick, the constrained first token, the
+fused DFA tables of a constrained scan and its device step
+``dfa_scan_step``) all follow the JAX engine line for line, so the two
+packages emit equal greedy token streams.  Host-overlap, speculative
+decoding, snapshot/restore and fault injection are not ported (ROADMAP
+Queue 1 item 3); the paged engine refuses the knobs that would turn them
+on.
 """
 
 from __future__ import annotations
@@ -20,6 +23,9 @@ import numpy as np
 import torch
 
 from k8s_llm_rca_tpu_torch.config import EngineConfig, ModelConfig
+from k8s_llm_rca_tpu_torch.engine.sampling import (
+    SamplingParams, sample_tokens_masked,
+)
 from k8s_llm_rca_tpu_torch.obs import trace as obs_trace
 from k8s_llm_rca_tpu_torch.utils.logging import METRICS, get_logger
 from k8s_llm_rca_tpu_torch.utils.tokenizer import Tokenizer
@@ -45,6 +51,7 @@ class _Active:
     generated: List[int] = field(default_factory=list)
     max_new_tokens: int = 256
     stop_strings: Tuple[str, ...] = ()
+    grammar: Optional[object] = None    # engine/constrain.py FSM (stateful)
     priority: int = 1           # serve.backend.Priority; lower = more urgent
 
 
@@ -54,6 +61,7 @@ class _Pending:
     prompt_ids: List[int]
     max_new_tokens: int
     stop_strings: Tuple[str, ...]
+    grammar: Optional[object] = None
     priority: int = 1
 
 
@@ -104,16 +112,20 @@ class EngineBase:
 
     def submit(self, prompt_ids: Sequence[int],
                max_new_tokens: Optional[int] = None,
-               stop_strings: Sequence[str] = (), priority: int = 1,
+               stop_strings: Sequence[str] = (),
+               grammar: Optional[object] = None, priority: int = 1,
                deadline_s: Optional[float] = None) -> int:
         """Queue a sequence; returns its seq_id.  Non-blocking.
+        ``grammar``: optional constrain.py FSM owned by this sequence; the
+        engine consults it every tick (forced tokens / logit masks).
         ``deadline_s``: seconds from now on the engine clock; past it the
         tick reaps the sequence (finish_reason "expired")."""
         seq_id = next(self._seq_counter)
         prompt_ids, max_new = self._clamp_prompt(prompt_ids, max_new_tokens)
         self._register(seq_id, prompt_ids)
         self._enqueue(_Pending(seq_id, prompt_ids, max_new,
-                               tuple(stop_strings), priority=int(priority)))
+                               tuple(stop_strings), grammar,
+                               priority=int(priority)))
         if deadline_s is not None:
             if self._deadlines is None:
                 self._deadlines = {}
@@ -185,6 +197,111 @@ class EngineBase:
                 return True
         return False
 
+    # ------------------------------------------------ grammar application
+
+    def _grammar_first_token(self, grammar, logits: torch.Tensor,
+                             sampled: int, remaining: int) -> int:
+        """Constrain the first post-prefill token: a forced token, or a
+        masked resample off the prefill's [1, V] logits when the sampled
+        one is not allowed."""
+        c = grammar.constraint(remaining)
+        if c.force is not None:
+            return c.force
+        if c.allow is not None and not bool(c.allow[sampled]):
+            allow = torch.from_numpy(c.allow[None]).to(logits.device)
+            masked = sample_tokens_masked(logits, self._gen, self.sampling,
+                                          allow)
+            return int(self._fetch(masked)[0][0])
+        return sampled
+
+    def _budget_remaining(self, st: _Active) -> int:
+        """Tokens this sequence can still emit: min of its max_new budget
+        and the cache room left (both can trigger "length")."""
+        cache_room = (self.engine_cfg.max_seq_len
+                      - (st.prompt_tokens + len(st.generated)) - 1)
+        return min(st.max_new_tokens - len(st.generated), cache_room)
+
+    def _tick_constraints(self, active_slots, n_slots: int, vocab: int):
+        """Per-slot constraints of a stepwise tick: (forced {slot: token},
+        allow [B, V] bool or None)."""
+        forced = {}
+        allow = None
+        for slot in active_slots:
+            st = self._active[slot]
+            if st.grammar is None:
+                continue
+            c = st.grammar.constraint(self._budget_remaining(st))
+            if c.force is not None:
+                forced[slot] = c.force
+            elif c.allow is not None:
+                if allow is None:
+                    allow = np.ones((n_slots, vocab), bool)
+                allow[slot] = c.allow
+        return forced, allow
+
+    def _scan_dfa_setup(self):
+        """Fused DFA tables and per-slot state/budget vectors for a
+        constrained scan, or None when no grammar slot is active.
+
+        Distinct compiled grammars fuse into one state space: each table's
+        states shift by a fixed offset, the [S_i, V] tables stack along
+        the state axis and each slot's state carries its table's offset.
+        JAX pads the stack to a multiple of 1024 rows so that jit reuses
+        its programs; eager torch compiles nothing, so the port does not.
+        The device tensors are built once per combination of tables (an
+        LRU of 4).  Returns ((allow, next, dist, close, complete) on the
+        device, states [B] int32, remaining [B] int32), both on the
+        host."""
+        tabs, seen = [], set()
+        for st in self._active.values():
+            if st.grammar is not None:
+                t = st.grammar.tables
+                if id(t) not in seen:
+                    seen.add(id(t))
+                    tabs.append(t)
+        if not tabs:
+            return None
+        tabs.sort(key=id)
+        key = tuple(id(t) for t in tabs)
+        cache = self._dfa_fused
+        entry = cache.get(key)
+        if entry is not None:
+            cache[key] = cache.pop(key)       # LRU refresh
+        else:
+            offsets, off = {}, 0
+            allow, nxt, dist, close, complete = [], [], [], [], []
+            for t in tabs:
+                offsets[id(t)] = off
+                allow.append(t.allow)
+                nxt.append(t.token_next.astype(np.int32) + np.int32(off))
+                dist.append(t.dist)
+                close.append(t.close_tok)
+                complete.append(t.complete)
+                off += t.n_states
+            dev = tuple(torch.from_numpy(np.concatenate(a)).to(self.device)
+                        for a in (allow, nxt, dist, close, complete))
+            # the kept tabs tuple pins the id()s of the key
+            entry = (dev, offsets, tabs[0].free_state, tuple(tabs))
+            while len(cache) >= 4:
+                cache.pop(next(iter(cache)))
+            cache[key] = entry
+        dev, offsets, free, _pin = entry
+        b = self.engine_cfg.max_batch
+        states = np.full((b,), free, np.int32)
+        remaining = np.full((b,), np.int32(1 << 30), np.int32)
+        for slot, st in self._active.items():
+            if st.grammar is not None:
+                states[slot] = (offsets[id(st.grammar.tables)]
+                                + st.grammar.state)
+                remaining[slot] = self._budget_remaining(st)
+        return dev, states, remaining
+
+    def _grammar_post_commit(self, slot: int, token: int) -> None:
+        """Keep host grammar FSMs in lockstep with scan-emitted tokens."""
+        st = self._active.get(slot)
+        if st is not None and st.grammar is not None:
+            st.grammar.advance(token)
+
     # -------------------------------------------------- tick + counters
 
     def _count(self, name: str, value: float = 1.0) -> None:
@@ -227,14 +344,19 @@ class EngineBase:
         """Device decode steps to run in ONE dispatch this tick: the
         largest power of two <= decode_chunk that fits every slot's cache
         headroom and subclass bound.  Token budgets do not bound it (a
-        slot's tokens past its budget are never committed); with
-        ``prompt_admission`` queued requests force stepwise ticks."""
+        slot's tokens past its budget are never committed; DFA slots
+        force-close in the scan); an interpreted (non-DFA) grammar forces
+        stepwise ticks, and so do queued requests under
+        ``prompt_admission``."""
         limit = self.engine_cfg.decode_chunk
         if limit <= 1:
             return 1
         if self.engine_cfg.prompt_admission and self._pending:
             return 1
         for slot, st in self._active.items():
+            if (st.grammar is not None
+                    and getattr(st.grammar, "tables", None) is None):
+                return 1           # interpreted FSM: per-token host work
             headroom = self.engine_cfg.max_seq_len - (
                 st.prompt_tokens + len(st.generated))
             limit = min(limit, max(1, headroom), self._chunk_bound(slot))
@@ -321,3 +443,34 @@ class EngineBase:
                     text = text[:idx]
                     break
         return text
+
+
+def dfa_scan_step(logits: torch.Tensor, cur: torch.Tensor,
+                  lens: torch.Tensor, done: torch.Tensor,
+                  states: torch.Tensor, remaining: torch.Tensor,
+                  generator: Optional[torch.Generator],
+                  sampling: SamplingParams, eos_id: int,
+                  allow_t: torch.Tensor, next_t: torch.Tensor,
+                  dist_t: torch.Tensor, close_t: torch.Tensor,
+                  complete_t: torch.Tensor):
+    """One DFA-constrained sampling step on the logits' device (the port of
+    ``k8s_llm_rca_tpu/engine/engine.py::dfa_scan_step``): budget-fits mask,
+    masked sample, force-close of an empty row, EOS from a complete state,
+    state transition.  ``states``/``remaining`` [B] int32 index the fused
+    tables.  Returns (cur', lens', done', states', remaining')."""
+    idx = states.long()
+    nxt_states = next_t[idx]                                   # [B, V]
+    fits = dist_t[nxt_states.long()] <= (remaining - 2)[:, None]
+    rows = allow_t[idx] & fits
+    sampled = sample_tokens_masked(logits, generator, sampling, rows)
+    # an empty row (sub-minimal budget, refused at submit): force close
+    nxt = torch.where(rows.any(dim=-1), sampled, close_t[idx])
+    nxt = torch.where(complete_t[idx], torch.full_like(nxt, eos_id), nxt)
+    newly_done = done | (nxt == eos_id)
+    advance = ~done
+    cur = torch.where(advance, nxt, cur)
+    lens = lens + advance.to(lens.dtype)
+    step_dfa = advance & (nxt != eos_id)
+    states = torch.where(step_dfa, next_t[idx, nxt.long()], states)
+    remaining = remaining - advance.to(remaining.dtype)
+    return cur, lens, newly_done, states, remaining

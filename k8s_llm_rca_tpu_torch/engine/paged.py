@@ -18,7 +18,13 @@
   split-half packed along the merged kv axis) with f32 scale pools
   [L, n_pages, page_size]; decode then runs ``ops.paged_attention_quant``.
 - A chunked tick runs ``decode_chunk`` steps as a Python loop over device
-  tensors with one host fetch per chunk (``paged_decode_scan``).
+  tensors with one host fetch per chunk (``paged_decode_scan``); with
+  compiled-DFA grammar slots the grammar rides inside that loop
+  (``paged_decode_scan_dfa``).  An interpreted grammar forces stepwise
+  ticks: the host builds each constrained slot's [V] mask, the device
+  samples under it (``sample_tokens_masked``) and forced tokens override
+  the sample.  A grammar slot's first token is constrained at admission,
+  synchronously.
 
 Not ported yet, and refused loudly when configured: the prefix cache and
 its tiers, chunked prefill, speculative decoding, host overlap, KV spill
@@ -35,9 +41,11 @@ import torch
 
 from k8s_llm_rca_tpu_torch.config import EngineConfig, ModelConfig
 from k8s_llm_rca_tpu_torch.engine.engine import (
-    EngineBase, SequenceResult, _Active, _Pending,
+    EngineBase, SequenceResult, _Active, _Pending, dfa_scan_step,
 )
-from k8s_llm_rca_tpu_torch.engine.sampling import SamplingParams, sample_tokens
+from k8s_llm_rca_tpu_torch.engine.sampling import (
+    SamplingParams, sample_tokens, sample_tokens_masked,
+)
 from k8s_llm_rca_tpu_torch.models import llama
 from k8s_llm_rca_tpu_torch.models.quant import gather_rows, quantize_kv
 from k8s_llm_rca_tpu_torch.ops.paged_attention import (
@@ -292,6 +300,32 @@ def paged_decode_scan(cfg: ModelConfig, params, pool: PagePool,
     return pool, torch.stack(toks), lens
 
 
+def paged_decode_scan_dfa(cfg: ModelConfig, params, pool: PagePool,
+                          cur_tokens: torch.Tensor, lengths: torch.Tensor,
+                          block_tables: torch.Tensor,
+                          generator: Optional[torch.Generator], n_steps: int,
+                          sampling: SamplingParams, eos_id: int,
+                          states: torch.Tensor, remaining: torch.Tensor,
+                          allow_t: torch.Tensor, next_t: torch.Tensor,
+                          dist_t: torch.Tensor, close_t: torch.Tensor,
+                          complete_t: torch.Tensor):
+    """``paged_decode_scan`` with the compiled grammar DFA riding inside
+    the loop (``dfa_scan_step``: budget-aware mask, sample, state
+    transition, all on the device).  Returns (pool, tokens [n_steps, B],
+    lengths, states)."""
+    cur, lens = cur_tokens, lengths
+    done = torch.zeros_like(cur_tokens, dtype=torch.bool)
+    toks = []
+    for _ in range(n_steps):
+        pool, logits = paged_decode_step(cfg, params, pool, cur, lens,
+                                         block_tables)
+        cur, lens, done, states, remaining = dfa_scan_step(
+            logits, cur, lens, done, states, remaining, generator, sampling,
+            eos_id, allow_t, next_t, dist_t, close_t, complete_t)
+        toks.append(cur)
+    return pool, torch.stack(toks), lens, states
+
+
 # ---------------------------------------------------------------------------
 # engine
 # ---------------------------------------------------------------------------
@@ -386,6 +420,7 @@ class PagedInferenceEngine(EngineBase):
         self._buckets = tuple(
             s for s in sorted(set(engine_cfg.prefill_buckets))
             if s <= engine_cfg.max_seq_len) or (engine_cfg.max_seq_len,)
+        self._dfa_fused: Dict[tuple, tuple] = {}   # _scan_dfa_setup's LRU
 
     # --------------------------------------------- device-side operands
 
@@ -402,7 +437,7 @@ class PagedInferenceEngine(EngineBase):
     def _tick(self) -> List[SequenceResult]:
         finished: List[SequenceResult] = self._reap_deadlines()
         if self._pending and self._free_slots:
-            self._tick_admission()
+            finished.extend(self._tick_admission())
         # one fetch commits every first token sampled at admission
         finished.extend(self._drain_admission_commits())
         if not self._active:
@@ -417,40 +452,54 @@ class PagedInferenceEngine(EngineBase):
             finished.extend(self._scan_tick(chunk, active_slots))
             return finished
 
+        forced, allow = self._tick_constraints(
+            active_slots, self.engine_cfg.max_batch,
+            self.model_cfg.vocab_size)
         cur_d, lens_d, bt_d = self._device_state()
         self._count("engine.dispatches")
         self._count("engine.decode_steps")
         self.pool, logits = paged_decode_step(
             self.model_cfg, self.params, self.pool, cur_d, lens_d, bt_d)
-        next_tokens = sample_tokens(logits, self._gen, self.sampling)
+        if allow is not None:
+            next_tokens = sample_tokens_masked(
+                logits, self._gen, self.sampling,
+                torch.from_numpy(allow).to(self.device))
+        else:
+            next_tokens = sample_tokens(logits, self._gen, self.sampling)
         self._count("engine.decode_tokens", len(active_slots))
         (host_next,) = self._fetch(next_tokens)
         for slot in active_slots:
             self.lengths[slot] += 1
             st = self._active[slot]
-            token = int(host_next[slot])
+            token = forced.get(slot, int(host_next[slot]))
             self.cur_tokens[slot] = token
             st.generated.append(token)
+            if st.grammar is not None:
+                st.grammar.advance(token)
             reason = self._finish_reason(st, token, int(self.lengths[slot]))
             if reason is not None:
                 finished.append(self._retire(slot, reason))
         return finished
 
-    def _tick_admission(self) -> None:
+    def _tick_admission(self) -> List[SequenceResult]:
         """Admit pending requests into free slots, one same-bucket group
         per prefill dispatch, until the queue, the slots or the pages run
-        out (admission never preempts running work)."""
+        out (admission never preempts running work).  Returns the grammar
+        admissions whose constrained first token already finished them."""
+        finished: List[SequenceResult] = []
         while self._pending and self._free_slots:
             group = self._admission_group()
             try:
                 if len(group) == 1:
-                    self._admit(group[0])
+                    admitted = self._admit(group[0])
                 else:
-                    self._admit_batch(group)
+                    admitted = self._admit_batch(group)
             except OutOfPages:
                 self._count("engine.admission_rejections")
                 break
             del self._pending[:len(group)]
+            finished.extend(admitted)
+        return finished
 
     def _tick_growth(self) -> None:
         """Cover this tick's decode window with pages: the page holding
@@ -499,18 +548,29 @@ class PagedInferenceEngine(EngineBase):
         return idx * self.page_size - pos
 
     def _scan_tick(self, chunk: int, active_slots) -> List[SequenceResult]:
-        """Commit ``chunk`` decode steps run in one device loop."""
+        """Commit ``chunk`` decode steps run in one device loop, with the
+        fused grammar DFA inside it when a DFA slot is active."""
+        setup = self._scan_dfa_setup()
         cur_d, lens_d, bt_d = self._device_state()
         self._count("engine.dispatches")
         self._count("engine.decode_steps", chunk)
-        self.pool, toks, _ = paged_decode_scan(
-            self.model_cfg, self.params, self.pool, cur_d, lens_d, bt_d,
-            self._gen, chunk, self.sampling, self.tokenizer.eos_id)
+        if setup is None:
+            self.pool, toks, _ = paged_decode_scan(
+                self.model_cfg, self.params, self.pool, cur_d, lens_d, bt_d,
+                self._gen, chunk, self.sampling, self.tokenizer.eos_id)
+        else:
+            tables, states, remaining = setup
+            self.pool, toks, _, _ = paged_decode_scan_dfa(
+                self.model_cfg, self.params, self.pool, cur_d, lens_d, bt_d,
+                self._gen, chunk, self.sampling, self.tokenizer.eos_id,
+                torch.from_numpy(states).to(self.device),
+                torch.from_numpy(remaining).to(self.device), *tables)
         (toks_host,) = self._fetch(toks)                # [chunk, B]
 
         def post_commit(slot: int, token: int) -> None:
             self.lengths[slot] += 1
             self.cur_tokens[slot] = token
+            self._grammar_post_commit(slot, token)
 
         return self._commit_scanned(active_slots, toks_host, chunk,
                                     post_commit)
@@ -545,8 +605,10 @@ class PagedInferenceEngine(EngineBase):
         table[:len(pages)] = pages
         return table
 
-    def _admit(self, req: _Pending) -> None:
-        """Admit one sequence through the single-sequence prefill."""
+    def _admit(self, req: _Pending) -> List[SequenceResult]:
+        """Admit one sequence through the single-sequence prefill.  A
+        grammar sequence commits its constrained first token now (the FSM
+        needs it before the next dispatch); others at the tick's drain."""
         n = len(req.prompt_ids)
         bucket = min(self._bucket(n), self.pages_per_seq * self.page_size)
         n_pages = bucket // self.page_size
@@ -563,12 +625,18 @@ class PagedInferenceEngine(EngineBase):
             torch.tensor(pages, dtype=torch.int32, device=self.device))
         first = sample_tokens(logits, self._gen, self.sampling)
         self._count("engine.prefill_tokens", n)
+        if req.grammar is not None:
+            early = self._activate_now(req, slot, logits,
+                                       int(self._fetch(first)[0][0]))
+            return [early] if early is not None else []
         self._admit_pending.append((self._activate(req, slot), first, 0))
+        return []
 
-    def _admit_batch(self, reqs: List[_Pending]) -> None:
+    def _admit_batch(self, reqs: List[_Pending]) -> List[SequenceResult]:
         """Admit N same-bucket sequences with ONE batched prefill, padded
         to a power of two by repeating the last real row's tokens AND
-        pages (the duplicate page writes are identical)."""
+        pages (the duplicate page writes are identical).  A group with a
+        grammar member commits every first token now, in order."""
         n = len(reqs)
         bucket = min(self._bucket(max(len(r.prompt_ids) for r in reqs)),
                      self.pages_per_seq * self.page_size)
@@ -607,9 +675,19 @@ class PagedInferenceEngine(EngineBase):
         firsts = sample_tokens(logits, self._gen, self.sampling)
         self._count("engine.prefill_tokens", int(lens[:n].sum()))
         self._count("engine.batched_admissions", n)
+        if any(r.grammar is not None for r in reqs):
+            finished: List[SequenceResult] = []
+            (firsts_host,) = self._fetch(firsts)
+            for i, req in enumerate(reqs):
+                early = self._activate_now(req, slots[i], logits[i:i + 1],
+                                           int(firsts_host[i]))
+                if early is not None:
+                    finished.append(early)
+            return finished
         for i, req in enumerate(reqs):
             self._admit_pending.append((self._activate(req, slots[i]),
                                         firsts, i))
+        return []
 
     def _activate(self, req: _Pending, slot: int) -> _Active:
         """Register an admitted sequence in its slot; its first token
@@ -617,10 +695,37 @@ class PagedInferenceEngine(EngineBase):
         st = _Active(seq_id=req.seq_id, slot=slot,
                      prompt_tokens=len(req.prompt_ids),
                      max_new_tokens=req.max_new_tokens,
-                     stop_strings=req.stop_strings, priority=req.priority)
+                     stop_strings=req.stop_strings, grammar=req.grammar,
+                     priority=req.priority)
         self._active[slot] = st
         self.lengths[slot] = len(req.prompt_ids)
         return st
+
+    def _activate_now(self, req: _Pending, slot: int, logits_1v,
+                      first_token: int) -> Optional[SequenceResult]:
+        """Synchronous activation: grammar-constrain the first token (cache
+        room as the budget), advance the FSM and commit it."""
+        st = self._activate(req, slot)
+        token = first_token
+        if st.grammar is not None:
+            remaining = min(st.max_new_tokens,
+                            self.engine_cfg.max_seq_len
+                            - st.prompt_tokens - 1)
+            token = self._grammar_first_token(st.grammar, logits_1v, token,
+                                              remaining)
+            st.grammar.advance(token)
+        return self._commit_first(st, token)
+
+    def _commit_first(self, st: _Active,
+                      token: int) -> Optional[SequenceResult]:
+        """Commit an admission's first token; it may already finish the
+        sequence."""
+        st.generated.append(token)
+        self.cur_tokens[st.slot] = token
+        reason = self._finish_reason(st, token, st.prompt_tokens)
+        if reason is not None:
+            return self._retire(st.slot, reason)
+        return None
 
     def _drain_admission_commits(self) -> List[SequenceResult]:
         """Fetch every admission's first token in ONE sync and commit them
@@ -638,12 +743,9 @@ class PagedInferenceEngine(EngineBase):
         hosts = self._fetch(*order)
         out: List[SequenceResult] = []
         for st, t, i in pend:
-            token = int(hosts[uniq[id(t)]][i])
-            st.generated.append(token)
-            self.cur_tokens[st.slot] = token
-            reason = self._finish_reason(st, token, st.prompt_tokens)
-            if reason is not None:
-                out.append(self._retire(st.slot, reason))
+            done = self._commit_first(st, int(hosts[uniq[id(t)]][i]))
+            if done is not None:
+                out.append(done)
         return out
 
     # ------------------------------------------------ growth / preemption
@@ -690,9 +792,11 @@ class PagedInferenceEngine(EngineBase):
         log.info("preempting seq %d (slot %d, %d tokens) to free pages",
                  st.seq_id, slot, len(resumed_prompt))
         self._count("engine.preemptions", 1)
+        # the grammar FSM rides along: its state already reflects every
+        # generated token now baked into the resume prompt
         self._enqueue(_Pending(st.seq_id, resumed_prompt, remaining,
-                               st.stop_strings, priority=st.priority),
-                      front=True)
+                               st.stop_strings, st.grammar,
+                               priority=st.priority), front=True)
 
     def _retire(self, slot: int, reason: str) -> SequenceResult:
         st = self._active.pop(slot)

@@ -1,4 +1,5 @@
-"""Token sampling on the logits' device: greedy / temperature / top-k / top-p.
+"""Token sampling on the logits' device: greedy / temperature / top-k /
+top-p, and its grammar-masked variant.
 
 The port of ``k8s_llm_rca_tpu/engine/sampling.py``.  Greedy is argmax (the
 first maximum on ties, as in JAX).  Random draws come from an explicit
@@ -59,3 +60,15 @@ def sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
     probs = torch.softmax(scaled, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
         torch.int32)
+
+
+def sample_tokens_masked(logits: torch.Tensor,
+                         generator: Optional[torch.Generator],
+                         params: SamplingParams,
+                         allow: torch.Tensor) -> torch.Tensor:
+    """Grammar-constrained variant: disallowed tokens (``allow`` [B, V]
+    bool, False) are masked to ``NEG_INF`` before top-k/top-p, so the
+    renormalized distribution stays inside the grammar."""
+    return sample_tokens(
+        torch.where(allow, logits, torch.full_like(logits, NEG_INF)),
+        generator, params)

@@ -1,7 +1,11 @@
 """Span tracer: the subset of the JAX package's ``obs/trace.py`` that the
-serving path emits into (``engine.tick`` spans, ``serve.run`` explicit-time
-spans, instant events).  Hot call sites guard on the module slot
-``_ACTIVE is not None``, so an inactive tracer costs one identity test."""
+serving path and the RCA pipeline emit into (``engine.tick`` spans,
+``serve.run`` and ``rca.*`` explicit-time spans, ``graph.query`` spans,
+instant events) and the flight digest of an incident.  Hot call sites
+guard on the module slot ``_ACTIVE is not None``, so an inactive tracer
+costs one identity test.  The JAX tracer's tick timeline is not ported
+(ROADMAP Queue 1 item 11): a digest counts ticks as ``engine.tick``
+spans."""
 
 from __future__ import annotations
 
@@ -10,7 +14,7 @@ import itertools
 import threading
 import time as _time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 
 @dataclass
@@ -105,8 +109,40 @@ class Tracer:
             self.events.append(SpanEvent(next(self._ids), parent, name,
                                          self.now(), dict(args)))
 
+    def mark(self) -> Tuple[int, int]:
+        """Current (spans, events) position: pass to
+        ``flight_summary(since=...)`` to digest just the work after it."""
+        with self._lock:
+            return (len(self.spans), len(self.events))
+
+    def flight_summary(self, since: Optional[Tuple[int, int]] = None
+                       ) -> Dict[str, Any]:
+        """Compact digest: span/event/tick counts and the per-name span
+        histogram, deterministic under a VirtualClock."""
+        s0, e0 = since if since is not None else (0, 0)
+        with self._lock:
+            spans = self.spans[s0:]
+            events = self.events[e0:]
+            by_name: Dict[str, int] = {}
+            for sp in spans:
+                by_name[sp.name] = by_name.get(sp.name, 0) + 1
+            ts = ([sp.t0 for sp in spans]
+                  + [sp.t1 for sp in spans if sp.t1 is not None]
+                  + [e.ts for e in events])
+            duration = (max(ts) - min(ts)) if ts else 0.0
+        return {
+            "spans": len(spans),
+            "events": len(events),
+            "ticks": by_name.get("engine.tick", 0),
+            "dropped": self.dropped,
+            "duration_s": round(duration, 6),
+            "by_name": {k: by_name[k] for k in sorted(by_name)},
+        }
+
 
 _ACTIVE: Optional[Tracer] = None
+
+_NULL = contextlib.nullcontext()
 
 
 def activate(tracer: Tracer) -> Tracer:
@@ -122,6 +158,10 @@ def deactivate() -> None:
     _ACTIVE = None
 
 
+def active() -> Optional[Tracer]:
+    return _ACTIVE
+
+
 @contextlib.contextmanager
 def tracing(tracer: Tracer):
     """``with trace.tracing(tracer): ...`` activates for the block."""
@@ -130,6 +170,14 @@ def tracing(tracer: Tracer):
         yield tracer
     finally:
         deactivate()
+
+
+def span(name: str, cat: str = "app", **args):
+    """Span under the active tracer; a shared no-op context otherwise."""
+    tr = _ACTIVE
+    if tr is None:
+        return _NULL
+    return tr.span(name, cat, **args)
 
 
 def event(name: str, **args) -> None:

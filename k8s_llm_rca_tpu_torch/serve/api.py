@@ -2,13 +2,13 @@
 backend: the port of ``k8s_llm_rca_tpu/serve/api.py``'s ``AssistantService``.
 
 The run-state machine (``queued | in_progress | completed | cancelled |
-failed | expired``), the prompt rendering, the usage accounting and the
-newest-first message listings are the JAX package's, so the same calls
-give the same replies and token usage.  The run journal, the Prometheus
-surface, session save/load, the ``retrieve_*``/``list_runs`` lookups and
-the reference-compatible ``GenericAssistant`` client come with a later
-slice (ROADMAP Queue 1 item 4).  The service is thread-safe: one re-entrant lock serializes every
-public method and the backend pump.
+failed | expired``), the prompt rendering, the usage accounting (windowed
+and by run id), the newest-first listings, ``drive_steps`` and the
+reference-compatible ``GenericAssistant`` client are the JAX package's, so
+the same calls give the same replies and token usage.  The run journal,
+the Prometheus surface and session save/load come with a later slice
+(ROADMAP Queue 1 item 4).  The service is thread-safe: one re-entrant
+lock serializes every public method and the backend pump.
 """
 
 from __future__ import annotations
@@ -19,11 +19,13 @@ import itertools
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 from k8s_llm_rca_tpu_torch.obs import trace as obs_trace
 from k8s_llm_rca_tpu_torch.serve.backend import GenOptions, LMBackend
-from k8s_llm_rca_tpu_torch.utils.logging import METRICS
+from k8s_llm_rca_tpu_torch.utils.logging import METRICS, get_logger
+
+log = get_logger(__name__)
 
 
 class RunStatus:
@@ -158,11 +160,19 @@ class AssistantService:
         return a
 
     @_locked
+    def retrieve_assistant(self, assistant_id: str) -> Assistant:
+        return self.assistants[assistant_id]
+
+    @_locked
     def create_thread(self) -> Thread:
         t = Thread(self._next_id("thread"))
         self.threads[t.id] = t
         self._thread_runs[t.id] = []
         return t
+
+    @_locked
+    def retrieve_thread(self, thread_id: str) -> Thread:
+        return self.threads[thread_id]
 
     @_locked
     def add_message(self, thread_id: str, content: str,
@@ -203,6 +213,11 @@ class AssistantService:
         return run
 
     @_locked
+    def retrieve_run(self, run_id: str) -> Run:
+        self._pump()
+        return self.runs[run_id]
+
+    @_locked
     def poll_run(self, run_id: str) -> Run:
         """Non-blocking probe: one pump, then the run, terminal or not."""
         self._pump()
@@ -212,6 +227,20 @@ class AssistantService:
     def pump_once(self) -> None:
         """Advance the backend one tick and settle any finished runs."""
         self._pump()
+
+    @_locked
+    def reap_dropped_run(self, run_id: str) -> Run:
+        """Settle a non-terminal run whose backend no longer tracks its
+        handle (``wait_run``'s liveness check, for non-blocking pollers
+        such as the sweep scheduler); the handle leaves ``_inflight`` so a
+        later deadline sweep cannot flip the FAILED run to EXPIRED."""
+        run = self.runs[run_id]
+        if (run.status not in RunStatus.TERMINAL
+                and not self.backend.busy(run.backend_handle)):
+            run.status = RunStatus.FAILED
+            run.error = "backend dropped the run"
+            self._inflight.pop(run.backend_handle, None)
+        return run
 
     @_locked
     def cancel_run(self, run_id: str) -> Run:
@@ -238,6 +267,57 @@ class AssistantService:
                           "assistant": assistant.name if assistant else "",
                           "completion_tokens":
                           run.usage["completion_tokens"]})
+
+    @_locked
+    def list_runs(self, thread_id: str, limit: int = 20,
+                  order: str = "desc") -> List[Run]:
+        ids = self._thread_runs.get(thread_id, [])
+        runs = [self.runs[i] for i in ids]
+        if order == "desc":
+            runs = runs[::-1]
+        return runs[:limit]
+
+    @_locked
+    def assistant_token_usage(self, assistant_id: str, tmin: int, tmax: int,
+                              limit: int = 20) -> Dict[str, int]:
+        """Windowed usage over all of an assistant's runs (any thread):
+        the newest ``limit`` runs first, then the reference's window test
+        (created_at and completed_at in [tmin, tmax))."""
+        usage = {"prompt_tokens": 0, "completion_tokens": 0,
+                 "total_tokens": 0}
+        newest = sorted(
+            (r for r in self.runs.values()
+             if r.assistant_id == assistant_id and r.created_at is not None),
+            key=lambda r: r.created_at, reverse=True)[:limit]
+        for run in newest:
+            if (run.completed_at is not None
+                    and tmin <= run.created_at < tmax
+                    and tmin <= run.completed_at < tmax):
+                for k in usage:
+                    usage[k] += run.usage[k]
+        return usage
+
+    @_locked
+    def usage_for_runs(self, run_ids: Sequence[str],
+                       critical_path: bool = False) -> Dict[str, Any]:
+        """Usage of exactly the named terminal runs (exact attribution,
+        where the wall-clock window double-counts overlapping incidents).
+        ``critical_path`` needs obs/critical_path.py, not ported yet."""
+        if critical_path:
+            raise NotImplementedError(
+                "usage_for_runs(critical_path=True) needs "
+                "obs/critical_path.py, which is not ported yet (ROADMAP "
+                "Queue 1 item 11, fleet)")
+        usage: Dict[str, Any] = {"prompt_tokens": 0,
+                                 "completion_tokens": 0,
+                                 "total_tokens": 0}
+        for rid in run_ids:
+            run = self.runs.get(rid)
+            if run is not None and run.status in RunStatus.TERMINAL:
+                for k in ("prompt_tokens", "completion_tokens",
+                          "total_tokens"):
+                    usage[k] += run.usage[k]
+        return usage
 
     @_locked
     def list_messages(self, thread_id: str, limit: Optional[int] = None
@@ -327,9 +407,110 @@ class AssistantService:
         return run
 
 
+def drive_steps(gen, service: AssistantService):
+    """Run a step generator (``rca/pipeline.py::incident_steps`` and its
+    stages) to completion by blocking on each yielded run: the sequential
+    scheduling of the code the sweep scheduler interleaves.
+    ``StopIteration.value`` is the generator's result."""
+    try:
+        pending = next(gen)
+        while True:
+            service.wait_run(pending.id)
+            pending = gen.send(None)
+    except StopIteration as stop:
+        return stop.value
+
+
 def run_reply_text(service: AssistantService, run: Run) -> str:
     """Reply text of a COMPLETED run, located by its response_message_id."""
     for m in service.list_messages(run.thread_id).data:
         if m.id == run.response_message_id:
             return m.content[0].text.value
     raise RuntimeError(f"reply message for run {run.id} not found")
+
+
+class GenericAssistant:
+    """Reference-compatible client: the 13 methods of the reference's
+    ``common/openai_generic_assistant.py``, same names, same shapes."""
+
+    def __init__(self, service: AssistantService):
+        self.service = service
+        self.assistant: Optional[Assistant] = None
+        self.thread: Optional[Thread] = None
+        self.message: Optional[Message] = None
+        self.run: Optional[Run] = None
+
+    def create_assistant(self, instructions: str, name: str,
+                         model: str = "local",
+                         gen: Optional[GenOptions] = None) -> None:
+        self.assistant = self.service.create_assistant(
+            instructions, name, model, gen)
+
+    def retrieve_assistant(self, assistant_id: str) -> None:
+        self.assistant = self.service.retrieve_assistant(assistant_id)
+
+    def create_thread(self) -> None:
+        self.thread = self.service.create_thread()
+
+    def retrieve_thread(self, thread_id: str) -> None:
+        self.thread = self.service.retrieve_thread(thread_id)
+
+    def add_message(self, content: str) -> None:
+        self.message = self.service.add_message(self.thread.id, content)
+
+    def run_assistant(self, instructions: Optional[str] = None,
+                      gen: Optional[GenOptions] = None) -> None:
+        """``gen``: per-run GenOptions override (e.g. the cypher skeleton
+        grammar, which differs per metapath)."""
+        self.run = self.service.create_run(
+            self.thread.id, self.assistant.id, instructions, gen)
+
+    def get_run_status(self) -> Run:
+        return self.service.retrieve_run(self.run.id)
+
+    def display_response(self) -> None:
+        print(self.get_last_message().data[0])
+
+    def get_last_message(self) -> MessageList:
+        return self.service.list_messages(self.thread.id, limit=1)
+
+    def get_all_message(self) -> MessageList:
+        return self.service.list_messages(self.thread.id, limit=20)
+
+    def get_last_k_message(self, num: int) -> MessageList:
+        return self.service.list_messages(self.thread.id, limit=num)
+
+    def wait_get_last_k_message(self, num: int = 1) -> Optional[MessageList]:
+        """Block until the run settles; ``data[0]`` is THIS run's reply
+        even when concurrent runs on the thread settled in the same pump."""
+        run = self.service.wait_run(self.run.id)
+        if run.status == RunStatus.COMPLETED:
+            msgs = self.get_last_k_message(num)
+            if run.response_message_id is not None and (
+                    not msgs.data
+                    or msgs.data[0].id != run.response_message_id):
+                all_msgs = self.service.list_messages(self.thread.id)
+                mine = [m for m in all_msgs.data
+                        if m.id == run.response_message_id]
+                rest = [m for m in all_msgs.data
+                        if m.id != run.response_message_id]
+                msgs = MessageList(data=(mine + rest)[:num])
+            return msgs
+        log.warning("run %s terminated with status=%s error=%s",
+                    run.id, run.status, run.error)
+        return None
+
+    def get_token_usage(self, tmin: int, tmax: int, limit: int = 20
+                        ) -> Dict[str, int]:
+        """The reference's window: runs of this thread whose created_at
+        and completed_at both fall in [tmin, tmax), newest first."""
+        usage = {"prompt_tokens": 0, "completion_tokens": 0,
+                 "total_tokens": 0}
+        for run in self.service.list_runs(self.thread.id, limit=limit,
+                                          order="desc"):
+            if (run.created_at is not None and run.completed_at is not None
+                    and tmin <= run.created_at < tmax
+                    and tmin <= run.completed_at < tmax):
+                for k in usage:
+                    usage[k] += run.usage[k]
+        return usage

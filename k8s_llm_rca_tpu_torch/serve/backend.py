@@ -1,11 +1,14 @@
-"""The engine behind the assistants service: the port of ``EngineBackend``
-from ``k8s_llm_rca_tpu/serve/backend.py`` (free decode only).
+"""LM backends for the assistants service: the port of ``EngineBackend``
+and ``EchoBackend`` from ``k8s_llm_rca_tpu/serve/backend.py``.
 
 Requests stream through the continuous-batching engine, so concurrent runs
 share decode steps.  The fence opener of a run (``forced_prefix``) is
-appended to its prompt and the closing fence is a stop string.  Grammar-
-constrained decode is the next slice (ROADMAP Queue 1 item 1): a
-``GenOptions.grammar`` raises.
+appended to its prompt and the closing fence is a stop string.  A
+``GenOptions.grammar`` ("json" or a schema dict) compiles through
+``engine/constrain.py::make_grammar`` and constrains the body; a budget
+below the grammar's minimal document raises ``BudgetError``.  The JAX
+backend's fault-injection site, snapshot/adopt and export/adopt handoff
+are not ported (ROADMAP Queue 1 items 3 and 11).
 """
 
 from __future__ import annotations
@@ -14,7 +17,9 @@ import itertools
 from dataclasses import dataclass
 from typing import Dict, Optional, Protocol, Tuple
 
+from k8s_llm_rca_tpu_torch.engine.constrain import make_grammar
 from k8s_llm_rca_tpu_torch.obs import trace as obs_trace
+from k8s_llm_rca_tpu_torch.utils.tokenizer import Tokenizer
 
 
 class Priority:
@@ -31,17 +36,24 @@ class GenOptions:
     stop: Tuple[str, ...] = ()
     forced_prefix: str = ""     # emitted verbatim, prefilled as forced tokens
     suffix: str = ""            # appended verbatim after generation stops
-    # grammar-constrained decode (engine/constrain.py in the JAX package);
-    # not ported: anything but None raises at start()
+    # grammar-constrained decode of the BODY (engine/constrain.py): "json"
+    # guarantees the generated text parses; a schema dict forces the exact
+    # shape.  Composes with forced_prefix / suffix carrying the fences.
     grammar: Optional[object] = None
     # routing metadata populated by AssistantService.create_run; the
-    # engine backend ignores both
+    # engine backend ignores both (the scripted oracle routes on the name)
     assistant_name: str = ""
     session: str = ""
     # engine admission / preemption class and per-run deadline (seconds on
     # the engine clock; None = the service's run_timeout_s)
     priority: int = Priority.NORMAL
     deadline_s: Optional[float] = None
+
+
+class BudgetError(ValueError):
+    """The effective token budget cannot hold the grammar's minimal
+    document: no valid output exists, so retrying the same request is
+    futile (callers fall back, not retry)."""
 
 
 @dataclass
@@ -77,16 +89,33 @@ class EngineBackend:
         self._live: Dict[int, bool] = {}
 
     def start(self, prompt: str, opts: GenOptions) -> int:
-        if opts.grammar is not None:
-            raise NotImplementedError(
-                "grammar-constrained decode (GenOptions.grammar) is not "
-                "ported yet (ROADMAP Queue 1 item 1, the RCA agent loop: "
-                "engine/constrain.py)")
         handle = next(self._handles)
         ids = self.tokenizer.encode(prompt + opts.forced_prefix, add_bos=True)
+        grammar = make_grammar(opts.grammar, self.tokenizer)
+        min_budget = getattr(grammar, "min_budget", None)
+        if min_budget is not None:
+            # the budget AFTER engine clamping: a long prompt shrinks
+            # max_new below the request, and a sub-minimal budget could
+            # only produce truncated, unparseable output
+            _, effective = self.engine._clamp_prompt(ids,
+                                                     opts.max_new_tokens)
+            if effective < min_budget():
+                raise BudgetError(
+                    f"effective token budget {effective} (requested "
+                    f"{opts.max_new_tokens}, clamped by prompt length "
+                    f"{len(ids)} vs cache cap "
+                    f"{self.engine.engine_cfg.max_seq_len}) cannot hold "
+                    f"the schema's minimal document ({min_budget()} tokens "
+                    f"worst case); no valid output exists under this "
+                    f"budget")
+        # a grammar owns termination (forced EOS when the value closes):
+        # a stop string such as "```" is legal INSIDE a JSON string and
+        # would cut the body mid-string
+        stop = () if grammar is not None else opts.stop
         seq_id = self.engine.submit(
-            ids, max_new_tokens=opts.max_new_tokens, stop_strings=opts.stop,
-            priority=opts.priority, deadline_s=opts.deadline_s)
+            ids, max_new_tokens=opts.max_new_tokens, stop_strings=stop,
+            grammar=grammar, priority=opts.priority,
+            deadline_s=opts.deadline_s)
         self._seq_to_handle[seq_id] = handle
         self._handle_seq[handle] = seq_id
         self._opts[handle] = opts
@@ -133,6 +162,55 @@ class EngineBackend:
         if seq_id is not None:
             self._seq_to_handle.pop(seq_id, None)
             self.engine.cancel_seq(seq_id)
+
+    def count_tokens(self, text: str) -> int:
+        return self.tokenizer.count(text)
+
+
+class EchoBackend:
+    """Deterministic test backend: replies with a prompt-derived string
+    after ``delay_pumps`` pump calls (to exercise the run-state machine's
+    in_progress window).  The JAX backend's fixed ``reply`` and ``fail``
+    options raise: the journal and recovery tests that set them come with
+    ROADMAP Queue 1 item 4."""
+
+    def __init__(self, tokenizer: Tokenizer, delay_pumps: int = 0,
+                 **unported):
+        for name in unported:
+            if name not in ("reply", "fail"):
+                raise TypeError(f"EchoBackend() got an unexpected keyword "
+                                f"argument {name!r}")
+            raise NotImplementedError(
+                f"EchoBackend({name}=...) is not ported yet (ROADMAP "
+                f"Queue 1 item 4, serve/journal.py and serve/recover.py)")
+        self.tokenizer = tokenizer
+        self.delay_pumps = delay_pumps
+        self._handles = itertools.count()
+        self._inflight: Dict[int, Tuple[str, GenOptions, int]] = {}
+
+    def start(self, prompt: str, opts: GenOptions) -> int:
+        handle = next(self._handles)
+        self._inflight[handle] = (prompt, opts, self.delay_pumps)
+        return handle
+
+    def pump(self) -> Dict[int, BackendResult]:
+        results: Dict[int, BackendResult] = {}
+        for handle in list(self._inflight):
+            prompt, opts, remaining = self._inflight[handle]
+            if remaining > 0:
+                self._inflight[handle] = (prompt, opts, remaining - 1)
+                continue
+            del self._inflight[handle]
+            text = opts.forced_prefix + f"echo: {prompt[-64:]}" + opts.suffix
+            results[handle] = BackendResult(
+                text=text, completion_tokens=self.tokenizer.count(text))
+        return results
+
+    def busy(self, handle: int) -> bool:
+        return handle in self._inflight
+
+    def cancel(self, handle: int) -> None:
+        self._inflight.pop(handle, None)
 
     def count_tokens(self, text: str) -> int:
         return self.tokenizer.count(text)

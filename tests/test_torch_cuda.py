@@ -757,3 +757,101 @@ def test_paged_body_is_one_kernel_per_call(card):
         [(e.key, e.count) for e in kernels]
     assert all("paged_decode_kernel" in e.key for e in kernels)
     assert len(kernels) == len(calls)      # one body per pool kind
+
+
+# --------------------------------------------- grammar steps (no kernel)
+
+
+def _grammar_logits(vocab, rows=4, seed=0):
+    """Seeded fp32 logits with exact ties in row 3 (argmax must take the
+    first maximum on both devices)."""
+    logits = np.random.default_rng(seed).standard_normal(
+        (rows, vocab)).astype(np.float32)
+    logits[3, ::7] = logits[3].max() + 1.0
+    return logits
+
+
+@pytest.mark.parametrize("vocab", [512, 128256])
+def test_sample_tokens_masked_card_equals_cpu(card, vocab):
+    """The masked greedy sample of the stepwise grammar tick on the card
+    equals the CPU's: a sparse mask, an empty row (every logit NEG_INF),
+    a single allowed token and tied maxima."""
+    from k8s_llm_rca_tpu_torch.engine.sampling import (
+        SamplingParams, sample_tokens_masked,
+    )
+
+    logits = _grammar_logits(vocab)
+    allow = np.random.default_rng(1).random((4, vocab)) < 0.3
+    allow[1] = False
+    allow[2] = False
+    allow[2, vocab - 1] = True
+    allow[3, ::7] = True
+    outs = [sample_tokens_masked(torch.from_numpy(logits).to(dev), None,
+                                 SamplingParams(),
+                                 torch.from_numpy(allow).to(dev)).cpu()
+            for dev in ("cpu", "cuda")]
+    assert torch.equal(outs[1], outs[0])
+    assert outs[0][2].item() == vocab - 1 and outs[0][3].item() == 0
+
+
+def _dfa_tables(vocab, n_states=9, seed=2):
+    """Synthetic fused tables: the last row is FREE (all allowed, dist 0,
+    self-loop); state 1 is complete; state 2 allows nothing."""
+    rng = np.random.default_rng(seed)
+    free = n_states - 1
+    allow = rng.random((n_states, vocab)) < 0.2
+    nxt = rng.integers(0, free, (n_states, vocab)).astype(np.int32)
+    dist = rng.integers(0, 40, n_states).astype(np.int32)
+    close = rng.integers(0, 256, n_states).astype(np.int32)
+    complete = np.zeros(n_states, bool)
+    complete[1] = True
+    dist[1] = 0
+    allow[1] = False
+    allow[2] = False
+    allow[free] = True
+    nxt[free] = free
+    dist[free] = 0
+    return allow, nxt, dist, close, complete
+
+
+@pytest.mark.parametrize("vocab", [512, 128256])
+def test_dfa_scan_step_card_equals_cpu(card, vocab):
+    """Three chained DFA scan steps on the card equal the CPU's: slots in
+    an ordinary state, a complete state (EOS), an empty row (force
+    close), a budget too small for any successor (force close), the FREE
+    row and a slot already done."""
+    from k8s_llm_rca_tpu_torch.engine.engine import dfa_scan_step
+    from k8s_llm_rca_tpu_torch.engine.sampling import SamplingParams
+
+    tables = _dfa_tables(vocab)
+    free = len(tables[0]) - 1
+    b = 6
+    logits = _grammar_logits(vocab, rows=b, seed=3)
+    eos = 258
+    results = []
+    for dev in ("cpu", "cuda"):
+        t = [torch.from_numpy(a).to(dev) for a in tables]
+        cur = torch.arange(b, dtype=torch.int32, device=dev)
+        lens = torch.full((b,), 10, dtype=torch.int32, device=dev)
+        done = torch.tensor([0, 0, 0, 0, 0, 1], dtype=torch.bool,
+                            device=dev)
+        states = torch.tensor([0, 1, 2, 3, free, 4], dtype=torch.int32,
+                              device=dev)
+        remaining = torch.tensor([60, 60, 60, 1, 1 << 30, 60],
+                                 dtype=torch.int32, device=dev)
+        lg = torch.from_numpy(logits).to(dev)
+        steps = []
+        for _ in range(3):
+            cur, lens, done, states, remaining = dfa_scan_step(
+                lg, cur, lens, done, states, remaining, None,
+                SamplingParams(), eos, *t)
+            steps.append([x.cpu() for x in (cur, lens, done, states,
+                                            remaining)])
+        results.append(steps)
+    for cpu_step, card_step in zip(*results):
+        for a, c in zip(cpu_step, card_step):
+            assert torch.equal(c, a)
+    first = results[0][0]
+    assert first[0][1].item() == eos and first[2][1].item()   # complete
+    assert first[0][2].item() == int(tables[3][2])            # force close
+    assert first[0][5].item() == 5                            # done: held

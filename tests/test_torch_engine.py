@@ -158,3 +158,48 @@ def test_freed_slot_length_resets_like_jax(over, first, then):
     assert (preempted > 0) == ("num_pages" in over)
     assert not te.lengths.any()
     te.allocator.check()
+
+
+MIXED_SCHEMA = {"type": "object", "properties": [
+    ("kind", {"enum": ["ConfigMap", "Job", "Pod", "Secret"]}),
+    ("count", {"type": "integer", "max_digits": 3}),
+    ("note", {"type": "string", "max_len": 24}),
+]}
+
+
+def test_mixed_grammar_batch_matches_jax():
+    """One batch holding an interpreted ``SchemaGrammar`` slot, a compiled
+    ``DFAGrammar`` slot and a free slot.  While the interpreted slot lives
+    every tick is stepwise (host masks, forced tokens, the masked sample);
+    after it closes, the DFA and free slots scan 16 steps a dispatch with
+    the DFA inside the loop.  Both grammar slots take their constrained
+    first token at admission (the first two prompts share a bucket: one
+    batched prefill).  Greedy streams, texts and finish reasons match the
+    JAX engine, and both constrained bodies parse."""
+    import json
+
+    from k8s_llm_rca_tpu.engine import constrain as jc
+    from k8s_llm_rca_tpu_torch.engine import constrain as tc
+
+    je, te = engines()
+    rng = np.random.default_rng(4)
+    prompts = [[int(t) for t in rng.integers(0, 256, n)]
+               for n in (20, 90, 150)]
+    out = []
+    for eng, mod in ((je, jc), (te, tc)):
+        ids = [eng.submit(prompts[0], max_new_tokens=70,
+                          grammar=mod.SchemaGrammar(MIXED_SCHEMA,
+                                                    eng.tokenizer)),
+               eng.submit(prompts[1], max_new_tokens=120,
+                          grammar=mod.DFAGrammar(MIXED_SCHEMA,
+                                                 eng.tokenizer)),
+               eng.submit(prompts[2], max_new_tokens=120)]
+        res = {r.seq_id: r for r in eng.run_to_completion()}
+        out.append([(res[i].token_ids, res[i].text, res[i].finish_reason)
+                    for i in ids])
+    assert out[1] == out[0]
+    for text, reason in ((o[1], o[2]) for o in out[1][:2]):
+        assert reason == "eos" and json.loads(text)["kind"]
+    c = te._counts
+    assert c["engine.decode_steps"] > c["engine.dispatches"]   # scanned
+    assert te.allocator.n_free == te.engine_cfg.num_pages - 1

@@ -91,6 +91,20 @@ def test_sources_cover_the_quantized_slice():
             "models/mixtral.py"} <= names
 
 
+def test_sources_cover_the_rca_slice():
+    """The agent loop's modules are the port's own copies (the import test
+    above holds them to no jax and no JAX package)."""
+    names = {p.relative_to(PORT).as_posix() for p in SOURCES if PORT in
+             p.parents}
+    assert {f"rca/{m}.py" for m in ("entity", "locator", "cyphergen",
+                                     "auditor", "oracle", "scheduler",
+                                     "pipeline")} <= names
+    assert {f"graph/{m}.py" for m in ("store", "cypher", "fixtures",
+                                       "executor")} <= names
+    assert {"faults/plan.py", "faults/soak.py", "engine/constrain.py",
+            "utils/fenced.py"} <= names
+
+
 def test_every_kernel_source_has_a_loader():
     """Each CUDA source under csrc/ is loaded by name from a port module
     (and so built by chip_smoke.py's KERNELS)."""

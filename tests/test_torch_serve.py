@@ -59,11 +59,60 @@ def test_assistant_runs_match_jax():
     assert port_out[1][1].startswith("```json\n")
 
 
+SCHEMA = {"type": "object", "properties": [
+    ("kind", {"enum": ["ConfigMap", "Pod", "Secret"]}),
+    ("score", {"enum": [str(i) for i in range(11)]}),
+    ("note", {"type": "string", "max_len": 16}),
+]}
+
+
+def _grammar_gen(gen_cls, max_new_tokens):
+    return gen_cls(max_new_tokens=max_new_tokens, forced_prefix="```json\n",
+                   suffix="\n```", stop=("```",), grammar=SCHEMA)
+
+
 def test_grammar_is_refused():
-    _, te = engines()
-    backend = EngineBackend(te)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        backend.start("hello", GenOptions(grammar="json"))
+    """A grammar run whose budget cannot hold the schema's minimal
+    document is refused with ``BudgetError`` at submission, as in JAX."""
+    from k8s_llm_rca_tpu.serve.backend import BudgetError as JBudgetError
+    from k8s_llm_rca_tpu_torch.serve.backend import BudgetError
+
+    je, te = engines()
+    for backend, gen_cls, err in ((JBackend(je), JGen, JBudgetError),
+                                  (EngineBackend(te), GenOptions,
+                                   BudgetError)):
+        with pytest.raises(err, match="minimal document"):
+            backend.start("hello", _grammar_gen(gen_cls, 8))
+    assert not te.has_work
+
+
+def test_grammar_runs_match_jax():
+    """Schema-constrained runs through the service: two in one batch,
+    reply text and usage equal to JAX's, and each body parses."""
+    import json
+
+    def drive(service_cls, backend_cls, gen_cls, engine, reply):
+        svc = service_cls(backend_cls(engine))
+        asst = svc.create_assistant("You are the reporter.", "reporter",
+                                    gen=_grammar_gen(gen_cls, 60))
+        runs = []
+        for _, _, text in CONVERSATION[:2]:
+            thread = svc.create_thread()
+            svc.add_message(thread.id, text)
+            runs.append(svc.create_run(thread.id, asst.id))
+        for run in runs:
+            svc.wait_run(run.id)
+        return [(run.status, reply(svc, run), dict(run.usage))
+                for run in runs]
+
+    je, te = engines()
+    jax_out = drive(JService, JBackend, JGen, je, j_reply)
+    port_out = drive(AssistantService, EngineBackend, GenOptions, te,
+                     run_reply_text)
+    assert port_out == jax_out
+    for status, text, _ in port_out:
+        assert status == "completed" and text.startswith("```json\n")
+        assert json.loads(text[len("```json\n"):-len("\n```")])["kind"]
 
 
 def test_cancel_frees_the_slot_and_pages():
@@ -101,3 +150,53 @@ def test_traced_run_records_engine_ticks_and_the_run_span():
     assert run.usage["completion_tokens"] == 8
     assert {e.name for e in tracer.events} >= {"serve.run_started",
                                                "backend.settled"}
+
+
+@pytest.mark.parametrize("kw", [{"reply": "the answer"}, {"fail": True}],
+                         ids=["reply", "fail"])
+def test_echo_backend_unported_options_raise(kw):
+    from k8s_llm_rca_tpu_torch.serve.backend import EchoBackend
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        EchoBackend(get_tokenizer(), **kw)
+
+
+def test_generic_assistant_over_echo_matches_jax():
+    """The reference-compatible client over the echo backend: the same
+    calls give the same replies, listings and windowed usage as JAX's
+    (two runs on one thread, the second still in flight for a pump)."""
+    from k8s_llm_rca_tpu.serve.api import GenericAssistant as JClient
+    from k8s_llm_rca_tpu.serve.backend import EchoBackend as JEcho
+    from k8s_llm_rca_tpu.utils.tokenizer import get_tokenizer as j_tok
+    from k8s_llm_rca_tpu_torch.serve.api import GenericAssistant
+    from k8s_llm_rca_tpu_torch.serve.backend import EchoBackend
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    def drive(service_cls, client_cls, echo_cls, tok):
+        svc = service_cls(echo_cls(tok, delay_pumps=2))
+        client = client_cls(svc)
+        client.create_assistant("You are the locator.", "locator")
+        client.create_thread()
+        out = []
+        for text in ("pod payment-7f9 CrashLoopBackOff",
+                     "deployment payment has 0/3 replicas"):
+            client.add_message(text)
+            client.run_assistant()
+            out.append(client.get_run_status().status)
+            msgs = client.wait_get_last_k_message(2)
+            out.append([(m.role, m.content[0].text.value)
+                        for m in msgs.data])
+        client.retrieve_thread(client.thread.id)
+        client.retrieve_assistant(client.assistant.id)
+        out.append([m.content[0].text.value
+                    for m in client.get_all_message().data])
+        out.append(client.get_token_usage(0, 1 << 40))
+        return out
+
+    jax_out = drive(JService, JClient, JEcho, j_tok())
+    port_out = drive(AssistantService, GenericAssistant, EchoBackend,
+                     get_tokenizer())
+    assert port_out == jax_out
+    assert port_out[0] == "in_progress"
+    assert port_out[-1]["completion_tokens"] > 0
