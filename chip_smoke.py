@@ -27,22 +27,37 @@ prints one JSON line; any failure exits non-zero without the result line.
    and the int8 and int4 stacked-expert matmuls in both einsum forms at
    decode and prefill (int8 at all three buckets; slice 3).  Every matmul
    case names the kn or nk body it took.
-4. cross-device: the engine on the card and on the CPU gives the same
-   greedy tokens for a 2-layer model (head_dim 128, GQA 4, fp32), for
+The engines on the card replay CUDA graphs of their decode step and
+scans (``engine/graphs.py``) unless built with ``cuda_graphs=False``, which
+only phases 5-5d do, for their eager half; every phase's launch counters
+count the launches a replay makes.
+
+4. cross-device: the graphed engine on the card and the engine on the
+   CPU give the same greedy tokens for a 2-layer model (head_dim 128, GQA 4, fp32), for
    TINY (head_dim 32, GQA 2, fp32) with its own weights, with int4 weights
    under ``fused_quant_matmul`` over int4 and int8 KV pools and with int8
    weights over an int8 pool, and for TINY_MOE with int8 weights over an
    int8 pool and int4 weights over an int4 pool; and for TINY when a slot
-   retires near max_seq_len and the next batch decodes with it idle.  Then
-   the RCA sweep on TINY (fp32, the soak engine, two incidents at
+   retires near max_seq_len and the next batch decodes with it idle.
+   Then TINY with the prefix cache on, four prompts sharing four pages in
+   three waves (a seed, one hit alone, two hits batched), with
+   ``prefill_chunk_budget`` 0 and 32: equal tokens and equal prefix
+   counters.  Then the RCA sweep on TINY (fp32, the soak engine, two incidents at
    concurrency 2) on the card and on the CPU with the same weights: at
    vocab 512 every grammar compiles to DFA tables, so the card runs the
-   constrained scan (``paged_decode_scan_dfa``); the report bytes must be
-   equal, with no failed incident and the engine left clean.
+   constrained scan (``paged_decode_scan_dfa``, a graph over the padded
+   tables); the report bytes must be equal, with no failed incident and
+   the engine left clean.
 5. slice: Llama-3-8B at full depth and width in bf16 (seeded random
    weights) behind ``AssistantService`` answers four requests of ~400,
-   900, 1500 and 2300 prompt tokens; the paged and flash kernels' launch
-   counters must be 32 x (decode steps) and 32 x (prefill dispatches).
+   900, 1500 and 2300 prompt tokens, once on an eager engine
+   (``cuda_graphs=False``) and once on a graphed one, same weights, each
+   warmed by one short request first; the greedy tokens must be equal.
+   For each: TTFT, decode tok/s, the engine's own decode step at batch 4
+   (wall ms per step; device ms, kernels and busy share of one profiled
+   step), graph captures, replays, capture seconds and pool bytes; the
+   paged and flash kernels' launch counters must be 32 x (decode steps)
+   and 32 x (prefill dispatches).
 5b. int4 slice: the same with int4 weights, ``fused_quant_matmul`` and an
    int4 KV pool; quant_matmul launches 224 x (decode steps + prefill
    dispatches), quant_matmul_head 1 x that, paged_attention_quant 32 x
@@ -54,6 +69,12 @@ prints one JSON line; any failure exits non-zero without the result line.
    per step or dispatch.
 5d. the same Mixtral with int4 weights and an int4 pool (the int4 kn, head
    and expert kernels).
+5e. prefix: Llama-3-8B bf16 on the same engine with the prefix cache on
+   (graphed): four prompts share exactly 1536 tokens (24 pages), BOS
+   included; one goes alone, then the other three together, which must
+   hit 3 x 1536 tokens in one batched chunk prefill.  Then the same with
+   ``prefill_chunk_budget`` 512.  Each wave's TTFT, the prefix and chunk
+   counters; flash counts the miss dispatches only.
 6. rca: the agent loop at full width.  Llama-3-8B in bf16 (seeded random
    weights) behind the soak engine (max_seq_len 2560, one 2560 bucket,
    page 64, 168 pages, decode_chunk 16, greedy) runs the four fixture
@@ -61,8 +82,9 @@ prints one JSON line; any failure exits non-zero without the result line.
    (``faults/soak.py::run_pipelined_sweep``).  At vocab 128256 the
    grammars do not compile to DFA tables: every stage decodes under the
    interpreted grammar, one stepwise tick per token.  It prints the
-   incidents' wall seconds, ticks, the grammar kinds taken, the host time
-   of the grammar masks and the launch counts (paged = 32 x decode steps,
+   incidents' wall seconds, ticks, dispatches against decode steps, the
+   graph replays, the grammar kinds taken, the host time of the grammar
+   masks and the launch counts (paged = 32 x decode steps,
    flash = 32 x prefill dispatches), and fails unless every incident
    completes, every stage reply that decodes parses and the engine is
    left clean.  A cypher stage whose prompt leaves less budget than its
@@ -719,27 +741,41 @@ def read_counts() -> dict:
             launch_counters().items()}
 
 
-def expected_counts(cfg, engine, quantized_kv: bool, bits=None) -> dict:
-    """The launches one engine run must have made: per layer, one decode
-    attention per decode step and one flash prefill per prefill dispatch;
-    under fused_quant_matmul over ``bits``-wide weights, per layer and per
-    decode step or prefill dispatch 7 kn matmuls (dense) or 5 kn matmuls
-    (4 projections and the router) and 3 expert matmuls (MoE), and one
-    head per decode step and per prefill dispatch."""
-    c = engine._counts
-    steps = int(c["engine.decode_steps"])
-    prefills = int(c["engine.prefill_dispatches"])
+def expected_counts(cfg, c: dict, quantized_kv: bool, bits=None) -> dict:
+    """The launches an engine run with the counters ``c`` (an engine's
+    ``_counts``, or their gain over a window) must have made: per layer,
+    one decode attention per decode step and one flash prefill per prefill
+    dispatch of a miss (a chunk prefill, of a prefix hit or a chunked
+    prompt, attends in plain torch, as in JAX); under fused_quant_matmul
+    over ``bits``-wide weights, per layer and per decode step or dispatch
+    of either prefill 7 kn matmuls (dense) or 5 kn matmuls (4 projections
+    and the router) and 3 expert matmuls (MoE), and one head per decode
+    step and per prefill dispatch of either kind.  Replayed CUDA graphs
+    count their launches at every replay."""
+    steps = int(c.get("engine.decode_steps", 0))
+    prefills = int(c.get("engine.prefill_dispatches", 0))
+    chunks = int(c.get("engine.chunk_prefill_dispatches", 0))
     counts = {k: 0 for k in launch_counters()}
     counts["paged_quant" if quantized_kv else "paged"] = cfg.n_layers * steps
     counts["flash"] = cfg.n_layers * prefills
     if cfg.fused_quant_matmul:
         sfx = "8" if bits == 8 else ""
-        calls = cfg.n_layers * (steps + prefills)
+        calls = cfg.n_layers * (steps + prefills + chunks)
         moe = cfg.n_experts > 0
         counts["qmm" + sfx] = (5 if moe else 7) * calls
         counts["qmm_experts" + sfx] = 3 * calls if moe else 0
-        counts["qmm_head" + sfx] = steps + prefills
+        counts["qmm_head" + sfx] = steps + prefills + chunks
     return counts
+
+
+def graph_stats(engine) -> dict:
+    """An engine's CUDA graph counters: captures, replays, the seconds of
+    warm-up and capture, and the bytes the captures reserved."""
+    c, g = engine._counts, engine.graphs
+    return {"graph_captures": int(c.get("engine.graph_captures", 0)),
+            "graph_replays": int(c.get("engine.graph_replays", 0)),
+            "capture_s": g.capture_s if g is not None else 0.0,
+            "graph_pool_bytes": g.pool_bytes if g is not None else 0}
 
 
 def phase_cross_device() -> None:
@@ -788,14 +824,15 @@ def phase_cross_device() -> None:
         counts = read_counts()
         t2 = time.perf_counter()
         same = [a.token_ids == b.token_ids for a, b in zip(cpu, gpu)]
-        expect = expected_counts(cfg, engine, kv is not None, bits)
+        expect = expected_counts(cfg, engine._counts, kv is not None, bits)
         label = cfg.name + (f"-int{bits}-fused" if bits else "")
+        graphs = graph_stats(engine)
         emit("cross_device", model=label, head_dim=cfg.head_dim,
              kv_cache_dtype=kv, prompts=[len(p) for p in prompts],
              tokens_per_seq=[len(r.token_ids) for r in gpu],
              distinct_tokens=[len(set(r.token_ids)) for r in gpu],
              equal_streams=same, launches=counts, expected_launches=expect,
-             cpu_s=t1 - t0, gpu_s=t2 - t1)
+             **graphs, cpu_s=t1 - t0, gpu_s=t2 - t1)
         if not all(same):
             i = same.index(False)
             a, b = cpu[i].token_ids, gpu[i].token_ids
@@ -806,7 +843,13 @@ def phase_cross_device() -> None:
         if counts != expect:
             raise SystemExit(f"{label} kv={kv}: launch counts {counts} != "
                              f"expected {expect}")
+        if not graphs["graph_replays"]:
+            raise SystemExit(f"{label} kv={kv}: the card engine replayed no "
+                             f"CUDA graph")
     retired_slot_case()
+    for budget in (0, 32):
+        prefix_case(budget)
+    sweep_case()
 
 
 def sweep_case() -> None:
@@ -840,14 +883,16 @@ def sweep_case() -> None:
     counts = read_counts()
     t2 = time.perf_counter()
     engine = gpu["engines"][0]
-    expect = expected_counts(cfg, engine, False)
+    expect = expected_counts(cfg, engine._counts, False)
     report = gpu["report"]
     same = report_bytes(report) == report_bytes(cpu["report"])
+    graphs = graph_stats(engine)
     emit("cross_device", model="tiny-rca-sweep", incidents=2, concurrency=2,
          equal_report_bytes=same, completed=report["completed"],
          failed=report["failed"], engine_clean=report["engine_clean"],
          decode_steps=int(engine._counts["engine.decode_steps"]),
          dispatches=int(engine._counts["engine.dispatches"]),
+         graph_keys=sorted(map(str, engine.graphs.buckets)), **graphs,
          launches=counts, expected_launches=expect, cpu_s=t1 - t0,
          gpu_s=t2 - t1)
     if not same:
@@ -859,6 +904,8 @@ def sweep_case() -> None:
     if counts != expect:
         raise SystemExit(f"TINY sweep: launch counts {counts} != expected "
                          f"{expect}")
+    if not any(k[0] == "dfa" for k in engine.graphs.buckets):
+        raise SystemExit("TINY sweep: no DFA scan ran as a CUDA graph")
 
 
 def retired_slot_case() -> None:
@@ -898,7 +945,66 @@ def retired_slot_case() -> None:
     if streams[0] != streams[1]:
         raise SystemExit(f"retired-slot case: card and CPU streams differ: "
                          f"cpu {streams[0][1:]} gpu {streams[1][1:]}")
-    sweep_case()
+
+
+PREFIX_COUNTERS = ("engine.prefix_hit_tokens",
+                   "engine.prefix_batch_hit_admissions",
+                   "engine.prefill_tokens", "engine.prefill_chunks")
+
+
+def prefix_case(budget: int) -> None:
+    """TINY (fp32, x3 projections) with the prefix cache on and
+    ``prefill_chunk_budget`` ``budget``: four prompts share a 64-token
+    prefix (four pages); the first seeds the cache, the second hits it
+    alone, the last two together (one batched chunk prefill unless the
+    budget sends them one by one through the chunked path).  The card
+    engine's tokens and prefix counters must equal the CPU engine's, and
+    its launches be exact."""
+    import numpy as np
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import TINY, EngineConfig
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    ecfg = EngineConfig(max_batch=4, max_seq_len=512,
+                        prefill_buckets=(128, 256), max_new_tokens=32,
+                        paged=True, page_size=16, num_pages=168,
+                        prefix_cache=True, prefill_chunk_budget=budget,
+                        decode_chunk=16)
+    rng = np.random.default_rng(5)
+    common = [int(t) for t in rng.integers(0, 256, 64)]
+    prompts = [common + [int(t) for t in rng.integers(0, 256, n)]
+               for n in (20, 35, 50, 27)]
+    waves = [prompts[:1], prompts[1:2], prompts[2:]]
+    cpu_params, gpu_params = x3_params(TINY)
+    runs = []
+    for params, device in ((cpu_params, "cpu"), (gpu_params, None)):
+        engine = make_engine(TINY, ecfg, params,
+                             get_tokenizer(vocab_size=TINY.vocab_size),
+                             device=device)
+        reset_counts()
+        tokens = [r.token_ids for w in waves for r in engine.generate(w)]
+        runs.append((engine, tokens, read_counts(),
+                     {k: int(engine._counts.get(k, 0))
+                      for k in PREFIX_COUNTERS}))
+    torch.cuda.synchronize()
+    (_, cpu_tokens, _, cpu_c), (engine, gpu_tokens, counts, gpu_c) = runs
+    expect = expected_counts(TINY, engine._counts, False)
+    emit("cross_device", model=f"tiny-prefix-budget{budget}",
+         equal_streams=[a == b for a, b in zip(cpu_tokens, gpu_tokens)],
+         counters=gpu_c, cpu_counters=cpu_c, launches=counts,
+         expected_launches=expect, **graph_stats(engine))
+    if gpu_tokens != cpu_tokens or gpu_c != cpu_c:
+        raise SystemExit(f"prefix case (budget {budget}): card and CPU "
+                         f"differ: counters {gpu_c} vs {cpu_c}")
+    if gpu_c["engine.prefix_hit_tokens"] != 3 * 64:
+        raise SystemExit(f"prefix case (budget {budget}): "
+                         f"{gpu_c['engine.prefix_hit_tokens']} hit tokens, "
+                         f"expected {3 * 64}")
+    if counts != expect:
+        raise SystemExit(f"prefix case (budget {budget}): launch counts "
+                         f"{counts} != expected {expect}")
 
 
 def x3_params(cfg, bits=None):
@@ -934,22 +1040,26 @@ def _to_cuda(w):
 
 
 @contextlib.contextmanager
-def watch_logits(flags: list):
+def watch_logits():
     """Record, on the device and without a sync, whether every logits
-    tensor the engine samples from is finite."""
+    tensor the engine samples from is finite: each sample folds into one
+    flag in place, so a sample recorded in a CUDA graph folds in again at
+    every replay.  Yields [flag, Python-side sample calls]."""
     import torch
 
     from k8s_llm_rca_tpu_torch.engine import paged
 
     sample = paged.sample_tokens
+    watch = [torch.ones((), dtype=torch.bool, device="cuda"), 0]
 
     def watched(logits, generator, params):
-        flags.append(torch.isfinite(logits).all())
+        watch[0].logical_and_(torch.isfinite(logits).all())
+        watch[1] += 1
         return sample(logits, generator, params)
 
     paged.sample_tokens = watched
     try:
-        yield flags
+        yield watch
     finally:
         paged.sample_tokens = sample
 
@@ -971,55 +1081,76 @@ def slice_model(name: str, bits=None):
     return cfg, None if bits is None else quantizing_transform(bits=bits)
 
 
-def phase_slice(phase: str, name: str, bits=None, kv=None) -> dict:
-    """A slice model behind AssistantService, four requests: Llama-3-8B in
-    bf16 (phase 5) or int4 with an int4 pool (5b), Mixtral-8x7B in int8
-    with an int8 pool (5c) or int4 with an int4 pool (5d).  Returns the
-    run's launch counts."""
-    import torch
-
+def slice_engine_config(**over):
+    """The soak engine at 8B: batch 4, max_seq_len 2560, buckets (512,
+    1024, 2560), page 64, 168 pages, decode_chunk 16, greedy, 64 new
+    tokens; no prefix cache unless ``over`` turns it on."""
     from k8s_llm_rca_tpu_torch.config import EngineConfig
-    from k8s_llm_rca_tpu_torch.engine import make_engine
-    from k8s_llm_rca_tpu_torch.models.llama import init_params
-    from k8s_llm_rca_tpu_torch.serve.api import (
-        AssistantService, Message, RunStatus, Thread, render_prompt,
-    )
-    from k8s_llm_rca_tpu_torch.serve.backend import EngineBackend, GenOptions
-    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    cfg, transform = slice_model(name, bits)
-    ecfg = EngineConfig(max_batch=4, max_seq_len=2560,
-                        prefill_buckets=(512, 1024, 2560), max_new_tokens=64,
-                        temperature=0.0, paged=True, page_size=64,
-                        num_pages=168, prefix_cache=False, decode_chunk=16,
-                        kv_cache_dtype=kv)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         tensor_transform=transform)
-    engine = make_engine(cfg, ecfg, params, get_tokenizer(
-        vocab_size=cfg.vocab_size))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    kw = dict(max_batch=4, max_seq_len=2560,
+              prefill_buckets=(512, 1024, 2560), max_new_tokens=64,
+              temperature=0.0, paged=True, page_size=64, num_pages=168,
+              prefix_cache=False, decode_chunk=16)
+    kw.update(over)
+    return EngineConfig(**kw)
 
-    service = AssistantService(EngineBackend(engine))
-    asst = service.create_assistant(
-        "You are the root-cause analyst for a Kubernetes cluster.",
-        "analyst", gen=GenOptions(max_new_tokens=64))
-    stamps = []
+
+def warm_engine(engine) -> dict:
+    """One short request (20 tokens, 33 new: one prefill, two 16-step
+    scans, no full page to cache) before a timed run, so the run does not
+    pay the kernels' first launches or, graphed, the scan's capture.
+    Returns the engine's counters after it, to subtract."""
+    engine.generate([list(range(1, 21))], max_new_tokens=33)
+    return dict(engine._counts)
+
+
+def counts_since(engine, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in engine._counts.items()}
+
+
+def stamp_first_tokens(engine, stamps: list) -> None:
+    """Stamp the host clock after each commit of admission first tokens."""
     drain = engine._drain_admission_commits
 
     def drain_stamped():
         out = drain()
-        stamps.append(time.perf_counter())
+        if out or engine._active:
+            stamps.append(time.perf_counter())
         return out
 
     engine._drain_admission_commits = drain_stamped
-    flags = []
+
+
+def serve_four(engine, cfg, kv, bits) -> dict:
+    """The slice's four requests (~400, 900, 1500 and 2300 prompt tokens)
+    behind AssistantService on a warmed engine: tokens, launch counts
+    against the expected, TTFT, decode tok/s, total seconds."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.serve.api import (
+        AssistantService, Message, RunStatus, Thread, render_prompt,
+    )
+    from k8s_llm_rca_tpu_torch.serve.backend import EngineBackend, GenOptions
+
+    before = warm_engine(engine)
+    service = AssistantService(EngineBackend(engine))
+    asst = service.create_assistant(
+        "You are the root-cause analyst for a Kubernetes cluster.",
+        "analyst", gen=GenOptions(max_new_tokens=64))
+    stamps, results = [], []
+    stamp_first_tokens(engine, stamps)
+    step = engine.step
+
+    def recorded():
+        out = step()
+        results.extend(out)
+        return out
+
+    engine.step = recorded
     runs = []
     reset_counts()
     t_submit = time.perf_counter()
-    with watch_logits(flags):
+    with watch_logits() as watch:
         # one token per byte: the template around an empty message, + BOS
         overhead = len(render_prompt(
             asst, Thread("t", [Message("m", "user", "", 0.0)]))) + 1
@@ -1032,36 +1163,219 @@ def phase_slice(phase: str, name: str, bits=None, kv=None) -> dict:
         torch.cuda.synchronize()
     t_end = time.perf_counter()
     counts = read_counts()
-    c = engine._counts
-    expect = expected_counts(cfg, engine, kv is not None, bits)
-    all_finite = bool(torch.stack(flags).all())
+    c = counts_since(engine, before)
     usage = [dict(r.usage) for r in runs]
     completion = sum(u["completion_tokens"] for u in usage)
-    ttft = stamps[0] - t_submit
-    emit(phase, model=cfg.name, layers=cfg.n_layers,
-         weights=f"int{bits}" if bits else "bfloat16",
-         kv_cache_dtype=kv, fused_quant_matmul=cfg.fused_quant_matmul,
-         prompt_tokens=[u["prompt_tokens"] for u in usage],
-         completion_tokens=[u["completion_tokens"] for u in usage],
-         statuses=[r.status for r in runs], logits_finite=all_finite,
-         sampled_batches=len(flags), launches=counts,
-         expected_launches=expect,
-         prefill_dispatches=int(c["engine.prefill_dispatches"]),
-         decode_steps=int(c["engine.decode_steps"]),
-         init_s=init_s, ttft_s=ttft,
-         decode_tok_per_s=(completion - len(runs)) / (t_end - stamps[0]),
-         total_s=t_end - t_submit,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
-         nvidia_smi=nvidia_smi_name_power())
     if any(r.status != RunStatus.COMPLETED for r in runs):
         raise SystemExit(f"runs did not complete: {[r.status for r in runs]}")
     if any(u["completion_tokens"] <= 0 for u in usage):
         raise SystemExit("a reply has no tokens")
-    if not all_finite:
+    if not bool(watch[0]):
         raise SystemExit("non-finite logits on the slice run")
+    expect = expected_counts(cfg, c, kv is not None, bits)
     if counts != expect:
         raise SystemExit(f"launch counts {counts} != expected {expect}")
-    return counts
+    return {"tokens": [r.token_ids for r in
+                       sorted(results, key=lambda r: r.seq_id)],
+            "prompt_tokens": [u["prompt_tokens"] for u in usage],
+            "completion_tokens": [u["completion_tokens"] for u in usage],
+            "launches": counts, "expected_launches": expect,
+            "prefill_dispatches": int(c["engine.prefill_dispatches"]),
+            "decode_steps": int(c["engine.decode_steps"]),
+            "dispatches": int(c["engine.dispatches"]),
+            "sampled_calls": watch[1], "ttft_s": stamps[0] - t_submit,
+            "decode_tok_per_s": (completion - len(runs)) / (t_end - stamps[0]),
+            "total_s": t_end - t_submit}
+
+
+def decode_step_times(engine, steps: int = 8) -> dict:
+    """The engine's own decode step (its static operands, then the eager
+    step or the step graph's replay) at the slice's decode shapes: batch 4
+    at 400/900/1500/2300 cached tokens over pages of the engine's pool.
+    Wall ms per step over ``steps`` steps, the device ms and kernel
+    launches of one profiled step, and the device's busy share: that
+    device time over the unprofiled wall time (the profiler's own host
+    work would stretch a profiled step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from k8s_llm_rca_tpu_torch.engine.paged import paged_decode_step
+
+    lens = [400, 900, 1500, 2300]
+    engine.lengths[:] = lens
+    engine.cur_tokens[:] = 0
+    engine.block_tables[:] = 0
+    used = 1
+    for i, n in enumerate(lens):
+        n_p = -(-(n + 1) // engine.page_size)
+        engine.block_tables[i, :n_p] = range(used, used + n_p)
+        used += n_p
+    cfg, params, pool = engine.model_cfg, engine.params, engine.pool
+
+    def step():
+        cur, lengths, tables = engine._device_state()
+        return engine._decode(("step",), lambda: paged_decode_step(
+            cfg, params, pool, cur, lengths, tables)[1])
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
+    device_ms = sum(dev_us(e) for e in events) / 1e3
+    return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+            "kernels_per_step": sum(e.count for e in events),
+            "device_busy_share": device_ms / wall_ms}
+
+
+def phase_slice(phase: str, name: str, bits=None, kv=None) -> dict:
+    """A slice model behind AssistantService, four requests, served eagerly
+    (``cuda_graphs=False``) and then through the engine's CUDA graphs, on
+    the same weights: Llama-3-8B in bf16 (phase 5) or int4 with an int4
+    pool (5b), Mixtral-8x7B in int8 with an int8 pool (5c) or int4 with an
+    int4 pool (5d).  The two runs' greedy tokens must be equal.  Returns
+    the graphed run's launch counts."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg, transform = slice_model(name, bits)
+    ecfg = slice_engine_config(kv_cache_dtype=kv)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=transform)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    runs = {}
+    for mode, graphs in (("eager", False), ("graphed", True)):
+        engine = make_engine(cfg, ecfg, params, tok, cuda_graphs=graphs)
+        run = serve_four(engine, cfg, kv, bits)
+        run.update(graph_stats(engine))
+        run.update(decode_step_times(engine))
+        runs[mode] = run
+        del engine
+        free_card()
+    eager, graphed = runs["eager"], runs["graphed"]
+    same = eager["tokens"] == graphed["tokens"]
+    emit(phase, model=cfg.name, layers=cfg.n_layers,
+         weights=f"int{bits}" if bits else "bfloat16",
+         kv_cache_dtype=kv, fused_quant_matmul=cfg.fused_quant_matmul,
+         prompt_tokens=graphed["prompt_tokens"],
+         completion_tokens=graphed["completion_tokens"],
+         equal_tokens=same, init_s=init_s,
+         **{f"{mode}_{k}": v for mode, run in runs.items()
+            for k, v in run.items() if k != "tokens"},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         nvidia_smi=nvidia_smi_name_power())
+    if not same:
+        raise SystemExit(f"{phase}: eager and graphed tokens differ")
+    if not graphed["graph_replays"]:
+        raise SystemExit(f"{phase}: the graphed engine replayed nothing")
+    return graphed["launches"]
+
+
+def prefix_prompts(tok) -> list:
+    """Four prompts sharing exactly 1536 tokens (24 pages of 64), BOS
+    included, with tails of 400, 550, 700 and 800 tokens."""
+    rng = __import__("random").Random(0)
+    shared = incident_text(1535)
+    tails = ["".join(rng.choice("abcdefghij klmnop") for _ in range(n))
+             for n in (400, 550, 700, 800)]
+    prompts = [tok.encode(shared + t, add_bos=True) for t in tails]
+    head = tok.encode(shared, add_bos=True)
+    assert len(head) == 1536 and all(p[:1536] == head for p in prompts)
+    return prompts
+
+
+def phase_prefix() -> dict:
+    """Phase 5e: Llama-3-8B bf16 on the soak engine with the prefix cache
+    on (the port's default), graphed.  Four requests share a 1536-token
+    prefix: one goes alone, then the other three together, which hit its
+    24 pages (one batched chunk prefill of their suffixes).  Then the same
+    four on a fresh engine with ``prefill_chunk_budget`` 512.  Prints each
+    wave's TTFT and the prefix and chunk counters; launches exact."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg = LLAMA3_8B
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    prompts = prefix_prompts(tok)
+    out = {}
+    for budget in (0, 512):
+        engine = make_engine(cfg, slice_engine_config(
+            prefix_cache=True, prefill_chunk_budget=budget), params, tok)
+        before = warm_engine(engine)
+        stamps = []
+        stamp_first_tokens(engine, stamps)
+        reset_counts()
+        ttft, tokens = [], []
+        for wave in (prompts[:1], prompts[1:]):
+            stamps.clear()
+            t0 = time.perf_counter()
+            ids = [engine.submit(p) for p in wave]
+            res = {r.seq_id: r for r in engine.run_to_completion()}
+            ttft.append(stamps[0] - t0)
+            tokens += [res[i].token_ids for i in ids]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        c = counts_since(engine, before)
+        expect = expected_counts(cfg, c, False)
+        run = {"ttft_s": ttft,
+               "prefix_hit_tokens": int(c.get("engine.prefix_hit_tokens",
+                                              0)),
+               "prefix_batch_hit_admissions": int(c.get(
+                   "engine.prefix_batch_hit_admissions", 0)),
+               "prefill_chunks": int(c.get("engine.prefill_chunks", 0)),
+               "prefill_dispatches": int(c.get("engine.prefill_dispatches",
+                                               0)),
+               "chunk_prefill_dispatches": int(c.get(
+                   "engine.chunk_prefill_dispatches", 0)),
+               "decode_steps": int(c.get("engine.decode_steps", 0)),
+               "launches": counts, "expected_launches": expect,
+               **graph_stats(engine)}
+        out[budget] = (run, tokens)
+        emit("prefix", model=cfg.name, prefill_chunk_budget=budget,
+             prompt_tokens=[len(p) for p in prompts],
+             completion_tokens=[len(t) for t in tokens], **run,
+             nvidia_smi=nvidia_smi_name_power())
+        if run["prefix_hit_tokens"] != 3 * 1536:
+            raise SystemExit(f"prefix phase (budget {budget}): "
+                             f"{run['prefix_hit_tokens']} hit tokens, "
+                             f"expected {3 * 1536}")
+        if budget == 0 and run["prefix_batch_hit_admissions"] != 3:
+            raise SystemExit("prefix phase: the three hits did not admit "
+                             "as one batch")
+        if counts != expect:
+            raise SystemExit(f"prefix phase (budget {budget}): launch "
+                             f"counts {counts} != expected {expect}")
+        del engine
+        free_card()
+    emit("prefix", model=cfg.name,
+         chunked_tokens_equal=out[512][1] == out[0][1])
+    return out[0][0]["launches"]
 
 
 @contextlib.contextmanager
@@ -1193,7 +1507,7 @@ def phase_rca() -> dict:
     engine = out["engines"][0]
     c = engine._counts
     report = out["report"]
-    expect = expected_counts(cfg, engine, False)
+    expect = expected_counts(cfg, c, False)
     timer = METRICS.timings["rca.incident"]
     incident_s = sorted(timer.window()[-(timer.count - n_before):])
     parsed = stage_replies_parse(report, cypher_parsed[0],
@@ -1209,6 +1523,8 @@ def phase_rca() -> dict:
          dispatches=int(c["engine.dispatches"]),
          prefill_dispatches=int(c["engine.prefill_dispatches"]),
          completion_tokens=int(c["engine.decode_tokens"]),
+         graph_keys=sorted(map(str, engine.graphs.buckets)),
+         **graph_stats(engine),
          runs=len(out["service"].runs), grammar_kinds=kinds,
          constraint_host_s=host_s[0],
          statepaths=[a["n_statepaths"] for row in report["incidents"]
@@ -1231,6 +1547,8 @@ def phase_rca() -> dict:
                          f"refused by their budget)")
     if counts != expect:
         raise SystemExit(f"rca: launch counts {counts} != expected {expect}")
+    if not c.get("engine.graph_replays"):
+        raise SystemExit("rca: the engine replayed no CUDA graph")
     return counts
 
 
@@ -1494,6 +1812,8 @@ def main(argv) -> int:
                                    "int4")):
         runs[phase] = phase_slice(phase, name, bits, kv)
         free_card()                   # one model on the card at a time
+    runs["prefix"] = phase_prefix()
+    free_card()
     runs["rca"] = phase_rca()
     free_card()
 

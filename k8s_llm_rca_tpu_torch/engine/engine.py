@@ -52,6 +52,8 @@ class _Active:
     max_new_tokens: int = 256
     stop_strings: Tuple[str, ...] = ()
     grammar: Optional[object] = None    # engine/constrain.py FSM (stateful)
+    n_shared: int = 0           # leading block-table pages held from the
+                                # prefix cache (refcounted, not owned)
     priority: int = 1           # serve.backend.Priority; lower = more urgent
 
 
@@ -159,7 +161,17 @@ class EngineBase:
                     out.append(self._retire(slot, "expired"))
                     self._count("engine.deadline_expirations")
                     break
+            else:
+                res = self._expire_extra(seq_id)
+                if res is not None:
+                    out.append(res)
+                    self._count("engine.deadline_expirations")
         return out
+
+    def _expire_extra(self, seq_id: int) -> Optional[SequenceResult]:
+        """Subclass hook: reap a deadline-expired sequence held outside the
+        pending and active books (the paged engine's chunked prefills)."""
+        return None
 
     def _drop_pending(self, seq_id: int,
                       expired: Optional[List[SequenceResult]] = None) -> bool:
@@ -168,17 +180,23 @@ class EngineBase:
         for i, req in enumerate(self._pending):
             if req.seq_id == seq_id:
                 del self._pending[i]
-                gen = list(self._resumed.pop(seq_id, ()))
-                prompt = self._prompts.pop(seq_id, req.prompt_ids)
                 if expired is not None:
-                    expired.append(SequenceResult(
-                        seq_id=seq_id, token_ids=gen,
-                        text=self._final_text(gen, "expired",
-                                              req.stop_strings),
-                        finish_reason="expired", prompt_tokens=len(prompt),
-                        completion_tokens=len(gen)))
+                    expired.append(self._expired_result(seq_id, req))
+                self._resumed.pop(seq_id, None)
+                self._prompts.pop(seq_id, None)
                 return True
         return False
+
+    def _expired_result(self, seq_id: int, req: _Pending) -> SequenceResult:
+        """Terminal result of a sequence that expired before it decoded in
+        a slot: what it generated before a preemption, if anything."""
+        gen = list(self._resumed.get(seq_id, ()))
+        prompt = self._prompts.get(seq_id, req.prompt_ids)
+        return SequenceResult(
+            seq_id=seq_id, token_ids=gen,
+            text=self._final_text(gen, "expired", req.stop_strings),
+            finish_reason="expired", prompt_tokens=len(prompt),
+            completion_tokens=len(gen))
 
     def _register(self, seq_id: int, prompt_ids: List[int]) -> None:
         self._prompts[seq_id] = list(prompt_ids)
@@ -239,6 +257,8 @@ class EngineBase:
                 allow[slot] = c.allow
         return forced, allow
 
+    _DFA_FUSE_BUCKET = 1024   # fused state-count rounding
+
     def _scan_dfa_setup(self):
         """Fused DFA tables and per-slot state/budget vectors for a
         constrained scan, or None when no grammar slot is active.
@@ -246,12 +266,13 @@ class EngineBase:
         Distinct compiled grammars fuse into one state space: each table's
         states shift by a fixed offset, the [S_i, V] tables stack along
         the state axis and each slot's state carries its table's offset.
-        JAX pads the stack to a multiple of 1024 rows so that jit reuses
-        its programs; eager torch compiles nothing, so the port does not.
-        The device tensors are built once per combination of tables (an
-        LRU of 4).  Returns ((allow, next, dist, close, complete) on the
-        device, states [B] int32, remaining [B] int32), both on the
-        host."""
+        The stack pads with dead rows (never indexed) to a multiple of
+        ``_DFA_FUSE_BUCKET`` states, as in JAX: distinct combinations then
+        share one table shape, so the paged engine's captured DFA scans
+        are keyed by the padded size, not by the combination.  The device
+        tensors are built once per combination of tables (an LRU of 4).
+        Returns ((allow, next, dist, close, complete) on the device,
+        states [B] int32, remaining [B] int32), both on the host."""
         tabs, seen = [], set()
         for st in self._active.values():
             if st.grammar is not None:
@@ -278,6 +299,15 @@ class EngineBase:
                 close.append(t.close_tok)
                 complete.append(t.complete)
                 off += t.n_states
+            v = allow[0].shape[1]
+            pad = -(-off // self._DFA_FUSE_BUCKET) * self._DFA_FUSE_BUCKET \
+                - off
+            if pad:
+                allow.append(np.zeros((pad, v), bool))
+                nxt.append(np.zeros((pad, v), np.int32))
+                dist.append(np.zeros((pad,), np.int32))
+                close.append(np.zeros((pad,), np.int32))
+                complete.append(np.zeros((pad,), bool))
             dev = tuple(torch.from_numpy(np.concatenate(a)).to(self.device)
                         for a in (allow, nxt, dist, close, complete))
             # the kept tabs tuple pins the id()s of the key

@@ -9,8 +9,9 @@
   sequence's pages point at it, inactive slots write their garbage KV into
   it, and attention masks it by length.
 - The page allocator, slot bookkeeping and block tables live on the host.
-  Each tick ships the [B] tokens, [B] lengths and [B, pages_per_seq] tables
-  to the device.
+  Each tick copies the [B] tokens, [B] lengths and [B, pages_per_seq]
+  tables into static device buffers, which the decode step and scans read
+  (on the card through CUDA graphs, ``engine/graphs.py``).
 - Decode attention is ``ops.paged_attention`` (the CUDA kernel on the card,
   its plain version on the CPU); prefill attention is
   ``ops.flash_attention`` through ``models.llama``.
@@ -26,9 +27,15 @@
   the sample.  A grammar slot's first token is constrained at admission,
   synchronously.
 
-Not ported yet, and refused loudly when configured: the prefix cache and
-its tiers, chunked prefill, speculative decoding, host overlap, KV spill
-and the TP/PP/CP/EP/FSDP meshes (ROADMAP Queue 1).
+- The prefix cache (``engine/prefix.py``) shares the KV pages of a cached
+  prompt prefix: a hit prefills only its suffix, attending over the
+  gathered prefix pages (``paged_prefill_chunk_batch``, plain torch as in
+  JAX).  ``prefill_chunk_budget`` prefills a long prompt one page-aligned
+  chunk per tick through the same function.
+
+Not ported yet, and refused loudly when configured: the prefix cache's
+store tiers, speculative decoding, host overlap, KV spill and the
+TP/PP/CP/EP/FSDP meshes (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -43,13 +50,17 @@ from k8s_llm_rca_tpu_torch.config import EngineConfig, ModelConfig
 from k8s_llm_rca_tpu_torch.engine.engine import (
     EngineBase, SequenceResult, _Active, _Pending, dfa_scan_step,
 )
+from k8s_llm_rca_tpu_torch.engine.graphs import DecodeGraphs
+from k8s_llm_rca_tpu_torch.engine.prefix import PrefixCache
 from k8s_llm_rca_tpu_torch.engine.sampling import (
     SamplingParams, sample_tokens, sample_tokens_masked,
 )
 from k8s_llm_rca_tpu_torch.models import llama
 from k8s_llm_rca_tpu_torch.models.quant import gather_rows, quantize_kv
+from k8s_llm_rca_tpu_torch.ops.attention import NEG_INF, repeat_kv
+from k8s_llm_rca_tpu_torch.ops.norms import rms_norm
 from k8s_llm_rca_tpu_torch.ops.paged_attention import (
-    paged_attention, paged_attention_quant,
+    gather_dequant_pages, paged_attention, paged_attention_quant,
 )
 from k8s_llm_rca_tpu_torch.utils.device import resolve_device
 from k8s_llm_rca_tpu_torch.utils.logging import get_logger
@@ -107,6 +118,22 @@ class PageAllocator:
                     f"page {p} owned by {got}, freed by {owner}")
             del self._owner[p]
             self._free.append(p)
+
+    def transfer(self, pages: Sequence[int], from_owner: int,
+                 to_owner: int) -> None:
+        """Re-tag ownership (a sequence's pages to the prefix cache).
+        Validates every page first, so a failed transfer changes nothing."""
+        for p in pages:
+            if p == TRASH_PAGE:
+                raise AllocatorError("attempt to transfer the trash page")
+            got = self._owner.get(p)
+            if got is None:
+                raise AllocatorError(f"transfer of free page {p}")
+            if got != from_owner:
+                raise AllocatorError(
+                    f"page {p} owned by {got}, transferred by {from_owner}")
+        for p in pages:
+            self._owner[p] = to_owner
 
     def check(self) -> None:
         """Global invariant: free and owned pages partition 1..n_pages-1."""
@@ -235,6 +262,113 @@ def paged_prefill_batch(cfg: ModelConfig, params, pool: PagePool,
     return pool, logits
 
 
+def _chunk_attention(cfg: ModelConfig, q: torch.Tensor, k_all: torch.Tensor,
+                     v_all: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked fp32 softmax attention of chunked prefill: q [N, C, n_heads,
+    d], k_all/v_all [N, S, n_kv, d], mask [N, C, S] built in ABSOLUTE
+    positions (the gathered prefix is padded to a page count, so a buffer
+    index is not a position).  Returns [N, C, n_heads, d] in q's dtype."""
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    k = repeat_kv(k_all, n_rep).float()
+    v = repeat_kv(v_all, n_rep).float()
+    scale = 1.0 / torch.sqrt(torch.tensor(cfg.head_dim, dtype=torch.float32))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * scale
+    logits = torch.where(mask[:, None], logits,
+                         torch.tensor(NEG_INF, device=logits.device))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
+
+
+def _chunk_layer(cfg: ModelConfig, layer, x: torch.Tensor,
+                 angles: torch.Tensor, positions: torch.Tensor,
+                 mask: torch.Tensor, pool: PagePool, li: int,
+                 prefix_tables: torch.Tensor, dtype, packed: bool):
+    """One layer of chunked prefill: gather and dequantize the layer's
+    cached prefix pages, attend chunk over (prefix + chunk), finish the
+    block.  Returns (x', k, v), k/v the chunk's new KV [N, C, n_kv, d]
+    (the caller writes them into the pool after the last layer)."""
+    n, c_pad = x.shape[:2]
+    h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+    q, k, v = llama._qkv(cfg, layer, h, angles, positions)
+    scales = ((pool.k_scale[li], pool.v_scale[li]) if pool.quantized
+              else (None, None))
+    kp, vp = (gather_dequant_pages(pages[li], sc, prefix_tables,
+                                   cfg.n_kv_heads, cfg.head_dim, dtype,
+                                   packed)
+              for pages, sc in zip((pool.k, pool.v), scales))
+    attn = _chunk_attention(cfg, q, torch.cat([kp, k], dim=1),
+                            torch.cat([vp, v], dim=1), mask)
+    x = x + llama._w_mm(cfg, attn.reshape(n, c_pad, cfg.q_dim), layer["wo"])
+    hm = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
+    return x + llama._mlp(cfg, layer, hm), k, v
+
+
+def paged_prefill_chunk(cfg: ModelConfig, params, pool: PagePool,
+                        tokens: torch.Tensor, chunk_len: int,
+                        prefix_len: int, prefix_table: torch.Tensor,
+                        page_map: torch.Tensor):
+    """Prefill the SUFFIX of ONE prompt whose first ``prefix_len`` tokens'
+    KV already sit in the ``prefix_table`` pages (a prefix hit, or the
+    chunks a chunked prefill has written): the N = 1 case of
+    ``paged_prefill_chunk_batch``.  Returns (pool, logits [1, V])."""
+    dev = tokens.device
+    return paged_prefill_chunk_batch(
+        cfg, params, pool, tokens,
+        torch.tensor([chunk_len], dtype=torch.int32, device=dev),
+        torch.tensor([prefix_len], dtype=torch.int32, device=dev),
+        prefix_table[None], page_map[None])
+
+
+def paged_prefill_chunk_batch(cfg: ModelConfig, params, pool: PagePool,
+                              tokens: torch.Tensor, chunk_lens: torch.Tensor,
+                              prefix_lens: torch.Tensor,
+                              prefix_tables: torch.Tensor,
+                              page_maps: torch.Tensor):
+    """Chunked prefill of N suffixes in ONE dispatch, in plain torch (the
+    JAX function is ``jnp`` outside any Pallas kernel; its projections and
+    head go through ``qmm``/``qmm_head`` under ``fused_quant_matmul``).
+
+    tokens [N, C_pad] right-padded (C_pad a page multiple), chunk_lens [N]
+    valid tokens, prefix_lens [N] cached tokens, absolute positions
+    ``prefix_len + i``; prefix_tables [N, PB] page ids whose first
+    ``prefix_len // page`` entries hold the cached prefix (the rest is
+    masked); page_maps [N, C_pad // page] pages receiving each row's chunk
+    KV (padding rows repeat a real row: identical duplicate writes).
+    Returns (pool, logits [N, V] at each row's last valid token)."""
+    n, c_pad = tokens.shape
+    page_size = pool.page_size
+    assert c_pad % page_size == 0, (c_pad, page_size)
+    s_prefix = prefix_tables.shape[1] * page_size
+    dtype = llama.torch_dtype(cfg.dtype)
+    packed = _pool_packed(cfg, pool)
+    dev = tokens.device
+    angles = llama._angles(cfg, dev)
+    positions = (prefix_lens.long()[:, None]
+                 + torch.arange(c_pad, device=dev)[None, :])       # [N, C]
+    x = gather_rows(params["embedding"], tokens, dtype).to(dtype)
+    # per-row causal + validity mask in absolute positions
+    pre = torch.arange(s_prefix, device=dev)[None, :]
+    k_abs = torch.cat([pre.expand(n, s_prefix), positions], dim=1)  # [N, S]
+    k_valid = torch.cat([
+        pre < prefix_lens.long()[:, None],
+        torch.arange(c_pad, device=dev)[None, :] < chunk_lens.long()[:, None]],
+        dim=1)
+    mask = ((positions[:, :, None] >= k_abs[:, None, :])
+            & k_valid[:, None, :])                                 # [N, C, S]
+    ks, vs = [], []
+    for li, layer in enumerate(params["layers"]):
+        x, k, v = _chunk_layer(cfg, layer, x, angles, positions, mask, pool,
+                               li, prefix_tables, dtype, packed)
+        ks.append(k.reshape(n * c_pad, cfg.kv_dim))
+        vs.append(v.reshape(n * c_pad, cfg.kv_dim))
+    pool = _write_pool_pages(cfg, pool, torch.stack(ks), torch.stack(vs),
+                             page_maps.reshape(-1),
+                             n * (c_pad // page_size), page_size)
+    last = x[torch.arange(n, device=dev),
+             (chunk_lens.long() - 1).clamp(min=0)][:, None]        # [N,1,H]
+    return pool, llama._logits(cfg, params, last)[:, 0]
+
+
 def paged_decode_step(cfg: ModelConfig, params, pool: PagePool,
                       tokens: torch.Tensor, lengths: torch.Tensor,
                       block_tables: torch.Tensor):
@@ -334,9 +468,6 @@ _REST_OF_ENGINE = "Queue 1 item 3, the rest of the paged engine"
 _UNPORTED_KNOBS = (
     # (EngineConfig field, its only supported value, what it turns on,
     #  the ROADMAP item that ports it)
-    ("prefix_cache", False, "the prefix cache (engine/prefix.py)",
-     _REST_OF_ENGINE),
-    ("prefill_chunk_budget", 0, "chunked prefill", _REST_OF_ENGINE),
     ("speculative_k", 0, "speculative decoding (engine/speculative.py)",
      _REST_OF_ENGINE),
     ("host_overlap", False, "the overlapped host loop", _REST_OF_ENGINE),
@@ -352,25 +483,48 @@ _UNPORTED_KNOBS = (
 
 
 def check_engine_config(engine_cfg: EngineConfig) -> None:
-    """Refuse every EngineConfig knob this slice does not port."""
+    """Refuse every EngineConfig knob this port does not have yet, and a
+    chunk budget the JAX engine refuses."""
     for name, supported, what, item in _UNPORTED_KNOBS:
         value = getattr(engine_cfg, name)
         if value != supported:
             raise NotImplementedError(
                 f"EngineConfig.{name}={value!r} turns on {what}, which is not "
                 f"ported yet (ROADMAP {item}); set {name}={supported!r}")
+    pcb = engine_cfg.prefill_chunk_budget
+    if pcb and (pcb < 0 or pcb % engine_cfg.page_size):
+        raise ValueError(
+            f"prefill_chunk_budget={pcb} must be a positive "
+            f"multiple of page_size={engine_cfg.page_size}: each "
+            f"per-tick chunk scatters whole pages, so its growing "
+            f"prefix stays page-aligned for the next chunk's "
+            f"gather")
+
+
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
 
 
 class PagedInferenceEngine(EngineBase):
     """Continuous batching over the paged pool with on-demand page growth
     and preemption (youngest, lowest-priority sequence first, requeued
     with prompt + generated as its new prompt).  Admission never preempts.
-    Runs on ``device`` (``None`` = the card); ``params`` must live there."""
+    Runs on ``device`` (``None`` = the card); ``params`` must live there.
+
+    With ``EngineConfig.prefix_cache`` admissions reuse the KV pages of a
+    cached prompt prefix and prefill only the suffix; with
+    ``prefill_chunk_budget`` a long prompt prefills one page-aligned chunk
+    per tick.  On the card the decode step and scans replay CUDA graphs
+    (``engine/graphs.py``) unless ``cuda_graphs=False``, which runs them
+    eagerly; on the CPU they always run eagerly."""
 
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
                  params, tokenizer: Tokenizer, device=None, *,
-                 tp_mesh=None, cp_mesh=None, ep_mesh=None, pp_mesh=None,
-                 fsdp_mesh=None):
+                 cuda_graphs: bool = True, tp_mesh=None, cp_mesh=None,
+                 ep_mesh=None, pp_mesh=None, fsdp_mesh=None):
         if any(m is not None for m in (tp_mesh, cp_mesh, ep_mesh, pp_mesh,
                                        fsdp_mesh)):
             raise NotImplementedError(
@@ -405,6 +559,9 @@ class PagedInferenceEngine(EngineBase):
                                      self.page_size, self.device,
                                      kv_dtype=engine_cfg.kv_cache_dtype)
         self.allocator = PageAllocator(engine_cfg.num_pages)
+        self.prefix_cache = (PrefixCache(self.allocator, self.page_size,
+                                         count=self._count)
+                             if engine_cfg.prefix_cache else None)
         self.block_tables = np.full((b, self.pages_per_seq), TRASH_PAGE,
                                     np.int32)
         self.lengths = np.zeros((b,), np.int64)
@@ -413,6 +570,11 @@ class PagedInferenceEngine(EngineBase):
         self._active: Dict[int, _Active] = {}
         self._pending: List[_Pending] = []
         self._admit_pending: List[Tuple[_Active, torch.Tensor, int]] = []
+        # slot -> in-progress chunked prefill: the request, its page table
+        # (kept OUT of block_tables until activation, so the idle slot's
+        # decode garbage writes stay in the trash page), the cached-prefix
+        # pages it holds, the pages it allocated and the tokens written
+        self._prefilling: Dict[int, Dict[str, object]] = {}
         self._seq_counter = itertools.count()
         self._prompts: Dict[int, List[int]] = {}   # seq_id -> ORIGINAL prompt
         self._resumed: Dict[int, List[int]] = {}   # seq_id -> tokens generated
@@ -421,21 +583,72 @@ class PagedInferenceEngine(EngineBase):
             s for s in sorted(set(engine_cfg.prefill_buckets))
             if s <= engine_cfg.max_seq_len) or (engine_cfg.max_seq_len,)
         self._dfa_fused: Dict[tuple, tuple] = {}   # _scan_dfa_setup's LRU
+        # the decode operands (tokens, lengths, block tables, DFA states
+        # and budgets) in static device buffers, filled each tick from
+        # staging buffers (pinned on the card), so a captured graph reads
+        # them where it found them
+        shapes = ((b,), (b,), (b, self.pages_per_seq), (b,), (b,))
+        pin = self.device.type == "cuda"
+        self._staging = tuple(torch.zeros(s, dtype=torch.int32,
+                                          pin_memory=pin) for s in shapes)
+        self._operands = tuple(torch.zeros(s, dtype=torch.int32,
+                                           device=self.device)
+                               for s in shapes)
+        # padded DFA table size -> (static table buffers, the fused tables
+        # they hold)
+        self._dfa_static: Dict[int, list] = {}
+        self.graphs = (DecodeGraphs(self.device,
+                                    None if self.sampling.greedy
+                                    else self._gen, self._count)
+                       if cuda_graphs and self.device.type == "cuda"
+                       else None)
 
     # --------------------------------------------- device-side operands
 
+    def _upload(self, i: int, array: np.ndarray) -> torch.Tensor:
+        """Copy a host array into static operand ``i``.  The copy is
+        asynchronous on the card: the staging buffer is rewritten only
+        after the tick's fetch, which waits for it."""
+        self._staging[i].numpy()[...] = array
+        return self._operands[i].copy_(self._staging[i], non_blocking=True)
+
     def _device_state(self):
-        """The decode operands (tokens, lengths, block tables) as int32
-        tensors on the engine's device."""
+        """The decode operands (tokens, lengths, block tables) as the
+        engine's static int32 device buffers."""
         self._count("engine.h2d_uploads", 3)
-        return tuple(torch.tensor(a, dtype=torch.int32, device=self.device)
-                     for a in (self.cur_tokens, self.lengths,
-                               self.block_tables))
+        return (self._upload(0, self.cur_tokens),
+                self._upload(1, self.lengths),
+                self._upload(2, self.block_tables))
+
+    def _decode(self, key: tuple, fn):
+        """Run a decode function: eagerly, or through its bucket's CUDA
+        graph."""
+        if self.graphs is None:
+            return fn()
+        return self.graphs.run(key, fn)
+
+    def _dfa_tables(self, tables: tuple) -> tuple:
+        """The fused DFA tables as the static buffers of their padded size
+        (``graphs`` only): copied in when another combination held them."""
+        n = tables[0].shape[0]
+        entry = self._dfa_static.get(n)
+        if entry is None:
+            entry = self._dfa_static[n] = [
+                tuple(torch.empty_like(t) for t in tables), None]
+        if entry[1] is not tables:
+            for dst, src in zip(entry[0], tables):
+                dst.copy_(src)
+            entry[1] = tables
+        return entry[0]
 
     # ------------------------------------------------------------- tick
 
     def _tick(self) -> List[SequenceResult]:
         finished: List[SequenceResult] = self._reap_deadlines()
+        if self._prefilling:
+            # every chunked prefill advances one chunk BEFORE admission, so
+            # it makes progress while new admissions compete for pages
+            finished.extend(self._tick_prefill_chunks())
         if self._pending and self._free_slots:
             finished.extend(self._tick_admission())
         # one fetch commits every first token sampled at admission
@@ -458,8 +671,9 @@ class PagedInferenceEngine(EngineBase):
         cur_d, lens_d, bt_d = self._device_state()
         self._count("engine.dispatches")
         self._count("engine.decode_steps")
-        self.pool, logits = paged_decode_step(
-            self.model_cfg, self.params, self.pool, cur_d, lens_d, bt_d)
+        cfg, params, pool = self.model_cfg, self.params, self.pool
+        logits = self._decode(("step",), lambda: paged_decode_step(
+            cfg, params, pool, cur_d, lens_d, bt_d)[1])
         if allow is not None:
             next_tokens = sample_tokens_masked(
                 logits, self._gen, self.sampling,
@@ -482,16 +696,33 @@ class PagedInferenceEngine(EngineBase):
         return finished
 
     def _tick_admission(self) -> List[SequenceResult]:
-        """Admit pending requests into free slots, one same-bucket group
-        per prefill dispatch, until the queue, the slots or the pages run
-        out (admission never preempts running work).  Returns the grammar
-        admissions whose constrained first token already finished them."""
+        """Admit pending requests into free slots until the queue, the
+        slots or the pages run out: a prompt longer than the chunk budget
+        through the chunked path, otherwise one group per dispatch (misses
+        in one batched prefill, equal-prefix hits in one batched chunk
+        prefill).  Admission never preempts running work.  Returns the
+        grammar admissions whose constrained first token already finished
+        them."""
         finished: List[SequenceResult] = []
+        budget = self.engine_cfg.prefill_chunk_budget
         while self._pending and self._free_slots:
-            group = self._admission_group()
+            if budget and len(self._pending[0].prompt_ids) > budget:
+                try:
+                    early = self._admit_chunked(self._pending[0])
+                except OutOfPages:
+                    self._count("engine.admission_rejections")
+                    break
+                del self._pending[:1]
+                if early is not None:
+                    finished.append(early)
+                continue
+            group, matches = self._admission_group()
             try:
                 if len(group) == 1:
-                    admitted = self._admit(group[0])
+                    early = self._admit(group[0], matches[0])
+                    admitted = [early] if early is not None else []
+                elif matches[0][1]:
+                    admitted = self._admit_batch_hits(group, matches)
                 else:
                     admitted = self._admit_batch(group)
             except OutOfPages:
@@ -532,6 +763,7 @@ class PagedInferenceEngine(EngineBase):
                     if self.block_tables[slot, idx] != TRASH_PAGE:
                         continue
                     try:
+                        # best-effort: never evicts prefix pages
                         (page,) = self.allocator.alloc(1, owner=st.seq_id)
                     except OutOfPages:
                         break
@@ -554,17 +786,23 @@ class PagedInferenceEngine(EngineBase):
         cur_d, lens_d, bt_d = self._device_state()
         self._count("engine.dispatches")
         self._count("engine.decode_steps", chunk)
+        cfg, params, pool = self.model_cfg, self.params, self.pool
+        gen, sampling, eos = self._gen, self.sampling, self.tokenizer.eos_id
         if setup is None:
-            self.pool, toks, _ = paged_decode_scan(
-                self.model_cfg, self.params, self.pool, cur_d, lens_d, bt_d,
-                self._gen, chunk, self.sampling, self.tokenizer.eos_id)
+            toks = self._decode(("scan", chunk), lambda: paged_decode_scan(
+                cfg, params, pool, cur_d, lens_d, bt_d, gen, chunk, sampling,
+                eos)[1])
         else:
             tables, states, remaining = setup
-            self.pool, toks, _, _ = paged_decode_scan_dfa(
-                self.model_cfg, self.params, self.pool, cur_d, lens_d, bt_d,
-                self._gen, chunk, self.sampling, self.tokenizer.eos_id,
-                torch.from_numpy(states).to(self.device),
-                torch.from_numpy(remaining).to(self.device), *tables)
+            states_d = self._upload(3, states)
+            remaining_d = self._upload(4, remaining)
+            if self.graphs is not None:
+                tables = self._dfa_tables(tables)
+            toks = self._decode(
+                ("dfa", chunk, tables[0].shape[0]),
+                lambda: paged_decode_scan_dfa(
+                    cfg, params, pool, cur_d, lens_d, bt_d, gen, chunk,
+                    sampling, eos, states_d, remaining_d, *tables)[1])
         (toks_host,) = self._fetch(toks)                # [chunk, B]
 
         def post_commit(slot: int, token: int) -> None:
@@ -584,128 +822,401 @@ class PagedInferenceEngine(EngineBase):
                 return -(-b // self.page_size) * self.page_size
         return self.pages_per_seq * self.page_size
 
-    def _admission_group(self) -> List[_Pending]:
-        """A FIFO run of same-bucket pending requests for one prefill,
-        bounded so every member's pages fit the current free list (the
-        batched allocation is all-or-nothing)."""
+    def _suffix_bucket(self, rest_len: int, n_shared: int) -> Tuple[int, int]:
+        """(bucket tokens, pages) of a prompt suffix that starts after
+        ``n_shared`` held pages, capped at the table room past them."""
+        bucket = min(self._bucket(rest_len),
+                     (self.pages_per_seq - n_shared) * self.page_size)
+        return bucket, bucket // self.page_size
+
+    def _alloc_with_evict(self, n: int, owner: int) -> List[int]:
+        """Allocate, evicting refcount-0 prefix-cache pages on pressure."""
+        try:
+            return self.allocator.alloc(n, owner=owner)
+        except OutOfPages:
+            if self.prefix_cache is None:
+                raise
+            need = n - self.allocator.n_free
+            if self.prefix_cache.evict(need) < need:
+                raise
+            return self.allocator.alloc(n, owner=owner)
+
+    def _admission_group(self) -> Tuple[List[_Pending],
+                                        List[Tuple[List[int], int]]]:
+        """Peek a FIFO run of same-bucket pending requests for one
+        dispatch, with each member's prefix-cache match (acquired, so
+        admission does not match twice).
+
+        A head with a cached prefix groups with the following same-bucket
+        requests whose match has the SAME cached length (one shared
+        preamble), up to 16, for one batched chunk prefill.  A miss head
+        groups up to 8 misses; a member with any cached prefix ends a miss
+        group.  Both are bounded by the pages the pool can give (free plus
+        evictable), since the batched allocation is all-or-nothing."""
         head = self._pending[0]
+        matched: Tuple[List[int], int] = ([], 0)
+        if self.prefix_cache is not None:
+            matched = self.prefix_cache.match(head.prompt_ids)
         b0 = self._bucket(len(head.prompt_ids))
+        group, matches = [head], [matched]
+        evictable = (self.prefix_cache.n_evictable
+                     if self.prefix_cache is not None else 0)
+        supply = self.allocator.n_free + evictable
+        if matched[1]:
+            n_pages_hit = max(1, self._bucket(
+                max(1, b0 - matched[1])) // self.page_size)
+            cap = min(16, len(self._free_slots),
+                      max(1, supply // n_pages_hit))
+            for req in itertools.islice(self._pending, 1, None):
+                if (len(group) >= cap
+                        or self._bucket(len(req.prompt_ids)) != b0):
+                    break
+                m = self.prefix_cache.match(req.prompt_ids)
+                if m[1] != matched[1]:
+                    self.prefix_cache.release(m[0])
+                    break
+                group.append(req)
+                matches.append(m)
+            return group, matches
         n_pages = max(1, b0 // self.page_size)
-        cap = min(8, len(self._free_slots),
-                  max(1, self.allocator.n_free // n_pages))
-        group = [head]
+        cap = min(8, len(self._free_slots), max(1, supply // n_pages))
         for req in itertools.islice(self._pending, 1, None):
             if len(group) >= cap or self._bucket(len(req.prompt_ids)) != b0:
                 break
+            if self.prefix_cache is not None \
+                    and self.prefix_cache.has_prefix(req.prompt_ids):
+                break
             group.append(req)
-        return group
+            matches.append(([], 0))
+        return group, matches
 
-    def _table_row(self, pages: List[int]) -> np.ndarray:
+    def _table_row(self, cached: Sequence[int],
+                   pages: Sequence[int]) -> np.ndarray:
         table = np.full((self.pages_per_seq,), TRASH_PAGE, np.int32)
-        table[:len(pages)] = pages
+        table[:len(cached)] = cached
+        table[len(cached):len(cached) + len(pages)] = pages
         return table
 
-    def _admit(self, req: _Pending) -> List[SequenceResult]:
-        """Admit one sequence through the single-sequence prefill.  A
-        grammar sequence commits its constrained first token now (the FSM
-        needs it before the next dispatch); others at the tick's drain."""
-        n = len(req.prompt_ids)
-        bucket = min(self._bucket(n), self.pages_per_seq * self.page_size)
-        n_pages = bucket // self.page_size
-        pages = self.allocator.alloc(n_pages, owner=req.seq_id)
-        slot = self._free_slots.pop(0)
-        self.block_tables[slot] = self._table_row(pages)
-        padded = np.zeros((1, bucket), np.int32)
-        padded[0, :n] = req.prompt_ids
-        self._count("engine.dispatches")
-        self._count("engine.prefill_dispatches")
-        self.pool, logits = paged_prefill(
-            self.model_cfg, self.params, self.pool,
-            torch.from_numpy(padded).to(self.device), n,
-            torch.tensor(pages, dtype=torch.int32, device=self.device))
-        first = sample_tokens(logits, self._gen, self.sampling)
-        self._count("engine.prefill_tokens", n)
-        if req.grammar is not None:
-            early = self._activate_now(req, slot, logits,
-                                       int(self._fetch(first)[0][0]))
-            return [early] if early is not None else []
-        self._admit_pending.append((self._activate(req, slot), first, 0))
-        return []
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
 
-    def _admit_batch(self, reqs: List[_Pending]) -> List[SequenceResult]:
-        """Admit N same-bucket sequences with ONE batched prefill, padded
-        to a power of two by repeating the last real row's tokens AND
-        pages (the duplicate page writes are identical).  A group with a
-        grammar member commits every first token now, in order."""
+    def _prefill_chunk(self, tokens: np.ndarray, chunk_len: int,
+                       prefix_len: int, table: np.ndarray,
+                       page_map: np.ndarray):
+        """One chunk prefill over the first ``prefix_len // page`` pages of
+        ``table``, the prefix table padded to a power of two of pages (the
+        gather and the attention span the whole table).  Returns logits."""
+        n_pre = prefix_len // self.page_size
+        prefix_table = np.full((_pow2_at_least(n_pre),), TRASH_PAGE, np.int32)
+        prefix_table[:n_pre] = table[:n_pre]
+        self._count("engine.dispatches")
+        self._count("engine.chunk_prefill_dispatches")
+        self.pool, logits = paged_prefill_chunk(
+            self.model_cfg, self.params, self.pool, self._to_device(tokens),
+            chunk_len, prefix_len, self._to_device(prefix_table),
+            self._to_device(page_map))
+        return logits
+
+    def _admit(self, req: _Pending,
+               matched: Tuple[List[int], int]) -> Optional[SequenceResult]:
+        """Admit one sequence: a prefix hit prefills only its suffix over
+        the cached pages, a miss the whole prompt.  A grammar sequence
+        commits its constrained first token now (the FSM needs it before
+        the next dispatch); others at the tick's drain."""
+        cached_pages, n_cached = matched
+        n_cp = len(cached_pages)
+        rest = req.prompt_ids[n_cached:]
+        bucket, n_pages = self._suffix_bucket(len(rest), n_cp)
+        try:
+            pages = self._alloc_with_evict(n_pages, owner=req.seq_id)
+        except OutOfPages:
+            if cached_pages:
+                self.prefix_cache.release(cached_pages)
+            raise
+        slot = self._free_slots.pop(0)
+        table = self._table_row(cached_pages, pages)
+        self.block_tables[slot] = table
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :len(rest)] = rest
+        if n_cached:
+            logits = self._prefill_chunk(padded, len(rest), n_cached, table,
+                                         table[n_cp:n_cp + n_pages])
+            self._count("engine.prefix_hit_tokens", n_cached)
+        else:
+            self._count("engine.dispatches")
+            self._count("engine.prefill_dispatches")
+            self.pool, logits = paged_prefill(
+                self.model_cfg, self.params, self.pool,
+                self._to_device(padded), len(rest),
+                self._to_device(table[:n_pages]))
+        first = sample_tokens(logits, self._gen, self.sampling)
+        self._count("engine.prefill_tokens", len(rest))
+        return self._activate_first(req, slot, table, n_cp, logits, first)
+
+    def _activate_first(self, req: _Pending, slot: int, table: np.ndarray,
+                        n_cp: int, logits, first: torch.Tensor,
+                        idx: int = 0) -> Optional[SequenceResult]:
+        """Activate an admission whose first token is row ``idx`` of
+        ``first``: synchronously for a grammar sequence, at the tick's
+        drain otherwise."""
+        if req.grammar is not None:
+            return self._activate_now(req, slot, table, n_cp,
+                                      logits[idx:idx + 1],
+                                      int(self._fetch(first)[0][idx]))
+        self._admit_pending.append(
+            (self._activate(req, slot, table, n_cp), first, idx))
+        return None
+
+    def _admit_chunked(self, req: _Pending) -> Optional[SequenceResult]:
+        """Admit a prompt longer than ``prefill_chunk_budget``: every page
+        allocates now (all-or-nothing, as ``_admit``: a sequence stalled
+        mid-prefill for pages would hold pages while blocking the pool),
+        and the prefill runs one budget-sized chunk per tick through the
+        chunk-prefill path of the prefix hits, the first chunk now.  A
+        prompt whose suffix after a prefix hit fits the budget admits
+        normally."""
+        matched = (self.prefix_cache.match(req.prompt_ids)
+                   if self.prefix_cache is not None else ([], 0))
+        cached_pages, n_cached = matched
+        rest = req.prompt_ids[n_cached:]
+        if len(rest) <= self.engine_cfg.prefill_chunk_budget:
+            return self._admit(req, matched)
+        n_cp = len(cached_pages)
+        _, n_pages = self._suffix_bucket(len(rest), n_cp)
+        try:
+            pages = self._alloc_with_evict(n_pages, owner=req.seq_id)
+        except OutOfPages:
+            if cached_pages:
+                self.prefix_cache.release(cached_pages)
+            raise
+        slot = self._free_slots.pop(0)
+        self._prefilling[slot] = {
+            "req": req, "table": self._table_row(cached_pages, pages),
+            "n_cp": n_cp, "cached": [int(p) for p in cached_pages],
+            "pages": [int(p) for p in pages],
+            "done": n_cached, "total": len(req.prompt_ids),
+        }
+        if n_cached:
+            self._count("engine.prefix_hit_tokens", n_cached)
+        return self._advance_prefill(slot)   # the first chunk goes now
+
+    def _advance_prefill(self, slot: int) -> Optional[SequenceResult]:
+        """Dispatch ONE chunk of a slot's chunked prefill; the final chunk
+        samples the first token and activates the slot."""
+        st = self._prefilling[slot]
+        req, table = st["req"], st["table"]
+        budget = self.engine_cfg.prefill_chunk_budget
+        done, total = st["done"], st["total"]
+        chunk_len = min(budget, total - done)
+        ps = self.page_size
+        # ``done`` is page-aligned: it starts at the cached prefix and
+        # every non-final chunk advances it by the page-multiple budget.
+        # Every chunk has the [1, budget] shape; the final one right-pads
+        # and maps only its own pages, its padding to the trash page.
+        n_pre = done // ps
+        padded = np.zeros((1, budget), np.int32)
+        padded[0, :chunk_len] = req.prompt_ids[done:done + chunk_len]
+        page_map = np.full((budget // ps,), TRASH_PAGE, np.int32)
+        n_chunk_pages = -(-chunk_len // ps)
+        page_map[:n_chunk_pages] = table[n_pre:n_pre + n_chunk_pages]
+        self._count("engine.prefill_chunks")
+        logits = self._prefill_chunk(padded, chunk_len, done, table,
+                                     page_map)
+        self._count("engine.prefill_tokens", chunk_len)
+        st["done"] = done + chunk_len
+        if st["done"] < total:
+            return None
+        del self._prefilling[slot]
+        self.block_tables[slot] = table
+        first = sample_tokens(logits, self._gen, self.sampling)
+        return self._activate_first(req, slot, table, st["n_cp"], logits,
+                                    first)
+
+    def _tick_prefill_chunks(self) -> List[SequenceResult]:
+        """Advance every chunked prefill by one chunk."""
+        finished: List[SequenceResult] = []
+        for slot in sorted(self._prefilling):
+            early = self._advance_prefill(slot)
+            if early is not None:
+                finished.append(early)
+        return finished
+
+    def _abort_prefilling(self, slot: int) -> None:
+        """Cancel a chunked prefill: drop its prefix references, free its
+        pages, return the slot."""
+        st = self._prefilling.pop(slot)
+        seq_id = st["req"].seq_id
+        if st["cached"]:
+            self.prefix_cache.release(st["cached"])
+        if st["pages"]:
+            self.allocator.free(st["pages"], owner=seq_id)
+        self.block_tables[slot] = TRASH_PAGE
+        self._free_slots.append(slot)
+        self._prompts.pop(seq_id, None)
+        self._resumed.pop(seq_id, None)
+        if self._deadlines:
+            self._deadlines.pop(seq_id, None)
+
+    def _expire_extra(self, seq_id: int) -> Optional[SequenceResult]:
+        for slot, pst in list(self._prefilling.items()):
+            if pst["req"].seq_id == seq_id:
+                res = self._expired_result(seq_id, pst["req"])
+                self._abort_prefilling(slot)
+                return res
+        return None
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self._active or self._pending or self._prefilling)
+
+    def cancel_seq(self, seq_id: int) -> bool:
+        for slot, st in list(self._prefilling.items()):
+            if st["req"].seq_id == seq_id:
+                self._abort_prefilling(slot)
+                return True
+        return super().cancel_seq(seq_id)
+
+    def _admit_batch_hits(self, reqs: List[_Pending],
+                          matches: List[Tuple[List[int], int]]
+                          ) -> List[SequenceResult]:
+        """Admit N same-bucket prefix hits of EQUAL cached length with ONE
+        batched chunk prefill, padded to a power of two by repeating the
+        last real row (tokens, prefix AND pages: identical duplicate
+        writes).  The matches arrive acquired; on OutOfPages every
+        reference is released before it escapes."""
+        n_cached = matches[0][1]
+        n_cp = len(matches[0][0])
+        rests = [r.prompt_ids[n_cached:] for r in reqs]
+        bucket, n_pages = self._suffix_bucket(max(len(r) for r in rests),
+                                              n_cp)
         n = len(reqs)
-        bucket = min(self._bucket(max(len(r.prompt_ids) for r in reqs)),
-                     self.pages_per_seq * self.page_size)
-        n_pages = bucket // self.page_size
         allocated: List[List[int]] = []
         try:
             for r in reqs:
-                allocated.append(self.allocator.alloc(n_pages,
-                                                      owner=r.seq_id))
+                allocated.append(
+                    self._alloc_with_evict(n_pages, owner=r.seq_id))
+        except OutOfPages:
+            for r, pages in zip(reqs, allocated):
+                self.allocator.free(pages, owner=r.seq_id)
+            for m in matches:
+                self.prefix_cache.release(m[0])
+            raise
+        slots = [self._free_slots.pop(0) for _ in range(n)]
+        n_pad = _pow2_at_least(n)
+        pb = _pow2_at_least(n_cp)
+        tokens = np.zeros((n_pad, bucket), np.int32)
+        clens = np.zeros((n_pad,), np.int32)
+        plens = np.full((n_pad,), n_cached, np.int32)
+        ptabs = np.full((n_pad, pb), TRASH_PAGE, np.int32)
+        maps = np.zeros((n_pad, n_pages), np.int32)
+        tables = []
+        for i, (m, rest) in enumerate(zip(matches, rests)):
+            tokens[i, :len(rest)] = rest
+            clens[i] = len(rest)
+            ptabs[i, :n_cp] = m[0]
+            maps[i] = allocated[i]
+            tables.append(self._table_row(m[0], allocated[i]))
+            self.block_tables[slots[i]] = tables[i]
+        for a in (tokens, clens, ptabs, maps):
+            a[n:] = a[n - 1]
+        self._count("engine.dispatches")
+        self._count("engine.chunk_prefill_dispatches")
+        self.pool, logits = paged_prefill_chunk_batch(
+            self.model_cfg, self.params, self.pool,
+            *(self._to_device(a) for a in (tokens, clens, plens, ptabs,
+                                           maps)))
+        firsts = sample_tokens(logits, self._gen, self.sampling)
+        self._count("engine.prefill_tokens", sum(len(r) for r in rests))
+        self._count("engine.prefix_hit_tokens", n_cached * n)
+        self._count("engine.prefix_batch_hit_admissions", n)
+        return self._activate_group(reqs, slots, tables, n_cp, logits,
+                                    firsts)
+
+    def _admit_batch(self, reqs: List[_Pending]) -> List[SequenceResult]:
+        """Admit N same-bucket prefix misses with ONE batched prefill,
+        padded to a power of two by repeating the last real row's tokens
+        AND pages (the duplicate page writes are identical)."""
+        n = len(reqs)
+        bucket, n_pages = self._suffix_bucket(
+            max(len(r.prompt_ids) for r in reqs), 0)
+        allocated: List[List[int]] = []
+        try:
+            for r in reqs:
+                allocated.append(
+                    self._alloc_with_evict(n_pages, owner=r.seq_id))
         except OutOfPages:
             for r, pages in zip(reqs, allocated):
                 self.allocator.free(pages, owner=r.seq_id)
             raise
         slots = [self._free_slots.pop(0) for _ in range(n)]
-        n_pad = 1
-        while n_pad < n:
-            n_pad *= 2
+        n_pad = _pow2_at_least(n)
         tokens = np.zeros((n_pad, bucket), np.int32)
         lens = np.zeros((n_pad,), np.int32)
         maps = np.zeros((n_pad, n_pages), np.int32)
+        tables = []
         for i, r in enumerate(reqs):
             tokens[i, :len(r.prompt_ids)] = r.prompt_ids
             lens[i] = len(r.prompt_ids)
             maps[i] = allocated[i]
-            self.block_tables[slots[i]] = self._table_row(allocated[i])
-        tokens[n:] = tokens[n - 1]
-        lens[n:] = lens[n - 1]
-        maps[n:] = maps[n - 1]
+            tables.append(self._table_row((), allocated[i]))
+            self.block_tables[slots[i]] = tables[i]
+        for a in (tokens, lens, maps):
+            a[n:] = a[n - 1]
         self._count("engine.dispatches")
         self._count("engine.prefill_dispatches")
         self.pool, logits = paged_prefill_batch(
             self.model_cfg, self.params, self.pool,
-            torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(lens).to(self.device),
-            torch.from_numpy(maps).to(self.device))
+            *(self._to_device(a) for a in (tokens, lens, maps)))
         firsts = sample_tokens(logits, self._gen, self.sampling)
         self._count("engine.prefill_tokens", int(lens[:n].sum()))
         self._count("engine.batched_admissions", n)
+        return self._activate_group(reqs, slots, tables, 0, logits, firsts)
+
+    def _activate_group(self, reqs: List[_Pending], slots: List[int],
+                        tables: List[np.ndarray], n_cp: int, logits,
+                        firsts: torch.Tensor) -> List[SequenceResult]:
+        """Activate a batched admission: a group with a grammar member
+        commits every first token now, in order (one fetch); others at
+        the tick's drain."""
+        finished: List[SequenceResult] = []
         if any(r.grammar is not None for r in reqs):
-            finished: List[SequenceResult] = []
             (firsts_host,) = self._fetch(firsts)
             for i, req in enumerate(reqs):
-                early = self._activate_now(req, slots[i], logits[i:i + 1],
+                early = self._activate_now(req, slots[i], tables[i], n_cp,
+                                           logits[i:i + 1],
                                            int(firsts_host[i]))
                 if early is not None:
                     finished.append(early)
             return finished
         for i, req in enumerate(reqs):
-            self._admit_pending.append((self._activate(req, slots[i]),
-                                        firsts, i))
-        return []
+            self._admit_pending.append(
+                (self._activate(req, slots[i], tables[i], n_cp), firsts, i))
+        return finished
 
-    def _activate(self, req: _Pending, slot: int) -> _Active:
-        """Register an admitted sequence in its slot; its first token
-        commits at the tick's drain (``_drain_admission_commits``)."""
+    def _activate(self, req: _Pending, slot: int, table: np.ndarray,
+                  n_cp: int) -> _Active:
+        """Register an admitted sequence in its slot and chain its full
+        prompt pages into the prefix cache; its first token commits at
+        the tick's drain (``_drain_admission_commits``)."""
+        n_shared = n_cp
+        if self.prefix_cache is not None:
+            n_shared = self.prefix_cache.insert(req.prompt_ids, table,
+                                                req.seq_id, n_cp)
         st = _Active(seq_id=req.seq_id, slot=slot,
                      prompt_tokens=len(req.prompt_ids),
                      max_new_tokens=req.max_new_tokens,
                      stop_strings=req.stop_strings, grammar=req.grammar,
-                     priority=req.priority)
+                     n_shared=n_shared, priority=req.priority)
         self._active[slot] = st
         self.lengths[slot] = len(req.prompt_ids)
         return st
 
-    def _activate_now(self, req: _Pending, slot: int, logits_1v,
+    def _activate_now(self, req: _Pending, slot: int, table: np.ndarray,
+                      n_cp: int, logits_1v,
                       first_token: int) -> Optional[SequenceResult]:
         """Synchronous activation: grammar-constrain the first token (cache
         room as the budget), advance the FSM and commit it."""
-        st = self._activate(req, slot)
+        st = self._activate(req, slot, table, n_cp)
         token = first_token
         if st.grammar is not None:
             remaining = min(st.max_new_tokens,
@@ -757,7 +1268,7 @@ class PagedInferenceEngine(EngineBase):
             return                              # at cap; finish_reason handles
         if self.block_tables[slot, idx] != TRASH_PAGE:
             return                              # page already present
-        (page,) = self.allocator.alloc(1, owner=st.seq_id)
+        (page,) = self._alloc_with_evict(1, owner=st.seq_id)
         self.block_tables[slot, idx] = page
 
     def _preempt_victim(self, exclude: Optional[int] = None) -> bool:
@@ -772,7 +1283,13 @@ class PagedInferenceEngine(EngineBase):
         return True
 
     def _release_slot_pages(self, slot: int, st: _Active) -> None:
-        private = [int(p) for p in self.block_tables[slot] if p != TRASH_PAGE]
+        """Return a slot's pages: the shared prefix to the prefix cache
+        (one reference each), the private pages to the allocator."""
+        table = self.block_tables[slot]
+        shared = [int(p) for p in table[:st.n_shared]]
+        private = [int(p) for p in table[st.n_shared:] if p != TRASH_PAGE]
+        if shared:
+            self.prefix_cache.release(shared)
         if private:
             self.allocator.free(private, owner=st.seq_id)
 

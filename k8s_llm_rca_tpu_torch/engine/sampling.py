@@ -2,7 +2,8 @@
 top-p, and its grammar-masked variant.
 
 The port of ``k8s_llm_rca_tpu/engine/sampling.py``.  Greedy is argmax (the
-first maximum on ties, as in JAX).  Random draws come from an explicit
+first maximum on ties, as in JAX).  Nothing here syncs with the host, so
+the decode scans sample inside a CUDA graph.  Random draws come from an explicit
 ``torch.Generator`` on the logits' device; they are not JAX's bits, so
 only greedy streams compare token for token across the two packages.
 """
@@ -58,8 +59,12 @@ def sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
     if params.top_p < 1.0:
         scaled = _apply_top_p(scaled, params.top_p)
     probs = torch.softmax(scaled, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    # one draw by the exponential race, argmax(p / q) with q ~ Exp(1): the
+    # draw torch.multinomial makes for one sample, without the validity
+    # check that syncs with the host (the scan samples under CUDA graph
+    # capture)
+    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / race, dim=-1).to(torch.int32)
 
 
 def sample_tokens_masked(logits: torch.Tensor,

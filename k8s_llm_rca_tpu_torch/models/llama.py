@@ -253,9 +253,19 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+_ANGLES: Dict[tuple, torch.Tensor] = {}
+
+
 def _angles(cfg: ModelConfig, device) -> torch.Tensor:
-    return rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
-                            device=device)
+    """The RoPE table of ``cfg`` on ``device``, built once per device and
+    shape: building it copies theta to the device, which a decode step
+    under CUDA graph capture must not do."""
+    key = (cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, torch.device(device))
+    table = _ANGLES.get(key)
+    if table is None:
+        table = _ANGLES[key] = rope_frequencies(
+            cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, device=device)
+    return table
 
 
 def prefill_kv(cfg: ModelConfig, params: Params, tokens: torch.Tensor,

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -203,14 +204,16 @@ paged_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def gather_dequant_pages(pages: torch.Tensor, scales: torch.Tensor,
+def gather_dequant_pages(pages: torch.Tensor, scales: Optional[torch.Tensor],
                          block_tables: torch.Tensor, n_kv: int, d: int, dtype,
                          packed: bool) -> torch.Tensor:
-    """A dense per-sequence view [B, S_max, n_kv, d] of a quantized pool
+    """A dense per-sequence view [B, S_max, n_kv, d] of a pool
     (``engine/paged.py::_gather_dequant_pages``): gather the table's pages
-    and their scales, unpack, and dequantize in ``dtype``."""
+    and, for a quantized pool, their scales, unpack, and dequantize in
+    ``dtype``; ``scales`` None leaves the pages as they are."""
     tables = block_tables.long()
-    kv = dequant_kv(pages[tables], scales[tables], dtype, packed)
+    kv = dequant_kv(pages[tables], None if scales is None else scales[tables],
+                    dtype, packed)
     return kv.reshape(tables.shape[0], -1, n_kv, d)
 
 

@@ -855,3 +855,148 @@ def test_dfa_scan_step_card_equals_cpu(card, vocab):
     assert first[0][1].item() == eos and first[2][1].item()   # complete
     assert first[0][2].item() == int(tables[3][2])            # force close
     assert first[0][5].item() == 5                            # done: held
+
+
+# ------------------------------------------------ CUDA graphs of the engine
+
+
+def _tiny_engine(graphs, bits=None, kv=None, **over):
+    """TINY (fp32, projections x3) on the card, ``bits``-wide weights under
+    fused_quant_matmul when given; replaying CUDA graphs or eager."""
+    from k8s_llm_rca_tpu_torch.config import TINY, EngineConfig
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.models.quant import quantize_params
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg = TINY.replace(fused_quant_matmul=bits is not None)
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    for layer in params["layers"]:
+        for name in layer:
+            if name.startswith("w"):
+                layer[name] = layer[name] * 3.0
+    if bits is not None:
+        params = quantize_params(params, bits=bits)
+    params = {k: ([{n: _card_leaf(t) for n, t in layer.items()}
+                   for layer in v] if k == "layers" else _card_leaf(v))
+              for k, v in params.items()}
+    kw = dict(max_batch=4, max_seq_len=512, prefill_buckets=(128, 256),
+              max_new_tokens=40, paged=True, page_size=16, num_pages=168,
+              prefix_cache=False, decode_chunk=16, kv_cache_dtype=kv)
+    kw.update(over)
+    return make_engine(cfg, EngineConfig(**kw), params,
+                       get_tokenizer(vocab_size=cfg.vocab_size),
+                       cuda_graphs=graphs)
+
+
+def _card_leaf(w):
+    if isinstance(w, tuple):
+        return type(w)(*(t.cuda() for t in w))
+    return w.cuda()
+
+
+def _graph_workload(engine, case):
+    """Greedy streams of a workload: ``step`` (decode_chunk 1), ``scan``
+    (prompts near the cache cap, so the scans take chunks 16, 8, 4 and 2)
+    or ``dfa`` (a compiled grammar slot beside a free one)."""
+    from k8s_llm_rca_tpu_torch.engine.constrain import DFAGrammar
+
+    rng = np.random.default_rng(1 if case == "scan" else 0)
+    if case == "scan":
+        out = []
+        for n, m in ((466, 45), (469, 42)):
+            out += [r.token_ids for r in engine.generate(
+                [[int(t) for t in rng.integers(0, 256, n)]],
+                max_new_tokens=m)]
+        return out
+    prompts = [[int(t) for t in rng.integers(0, 256, n)]
+               for n in (7, 100, 150)]
+    if case == "step":
+        return [r.token_ids for r in engine.generate(prompts)]
+    ids = [engine.submit(prompts[0], max_new_tokens=80,
+                         grammar=DFAGrammar(MIXED_SCHEMA, engine.tokenizer)),
+           engine.submit(prompts[1], max_new_tokens=60)]
+    res = {r.seq_id: r for r in engine.run_to_completion()}
+    return [res[i].token_ids for i in ids]
+
+
+# test_torch_engine's mixed schema (that module imports jax)
+MIXED_SCHEMA = {"type": "object", "properties": [
+    ("kind", {"enum": ["ConfigMap", "Job", "Pod", "Secret"]}),
+    ("count", {"type": "integer", "max_digits": 3}),
+    ("note", {"type": "string", "max_len": 24}),
+]}
+_GRAPH_KEYS = {"step": {("step",)},
+               "scan": {("scan", c) for c in (2, 4, 8, 16)},
+               "dfa": {("dfa", 16, 1024)}}
+
+
+@pytest.mark.parametrize("case", ["step", "scan", "dfa"])
+def test_graphed_streams_equal_eager(card, case):
+    """The graphed engine emits the eager engine's greedy tokens: the
+    single step, every scan bucket and the DFA scan over the padded
+    tables; each bucket is captured once and replayed after that."""
+    over = {"decode_chunk": 1} if case == "step" else {}
+    streams, keys = [], None
+    for graphs in (False, True):
+        engine = _tiny_engine(graphs, **over)
+        streams.append(_graph_workload(engine, case))
+        if graphs:
+            keys = set(engine.graphs.buckets)
+            c = engine._counts
+            assert c["engine.graph_captures"] == len(keys)
+            assert c["engine.graph_replays"] > 0
+        else:
+            assert engine.graphs is None
+    assert streams[1] == streams[0]
+    assert _GRAPH_KEYS[case] <= keys
+
+
+def test_graph_replays_account_for_every_launch_counter(card):
+    """int4 weights under fused_quant_matmul over an int4 pool (kn, nk,
+    quantized paged attention, flash): the graphed engine's launch
+    counters equal the eager engine's for the same work."""
+    from k8s_llm_rca_tpu_torch.engine.graphs import launch_counters
+
+    counts = []
+    for graphs in (False, True):
+        engine = _tiny_engine(graphs, bits=4, kv="int4")
+        before = [getattr(f, a) for f, a in launch_counters()]
+        _graph_workload(engine, "scan")
+        counts.append([getattr(f, a) - b for (f, a), b in
+                       zip(launch_counters(), before)])
+        assert (engine._counts.get("engine.graph_replays", 0) > 0) == graphs
+    assert counts[1] == counts[0]
+    assert sum(counts[1]) > 0 and all(n >= 0 for n in counts[1])
+
+
+def test_failed_capture_raises_naming_the_bucket(card):
+    """A function that syncs with the host cannot be captured: the runner
+    raises, naming the bucket, and the card stays usable."""
+    from k8s_llm_rca_tpu_torch.engine.graphs import DecodeGraphs
+
+    graphs = DecodeGraphs(torch.device("cuda"), None, lambda *a: None)
+    x = torch.ones(4, device="cuda")
+    with pytest.raises(RuntimeError, match=r"capture of decode bucket "
+                                           r"\('scan', 8\)"):
+        graphs.run(("scan", 8), lambda: (x * 2).sum().item())
+    assert (x + 1).sum().item() == 8.0
+
+
+def test_graph_pool_is_freed_with_the_engine(card):
+    """An engine's graphs and their memory pool go with the engine: the
+    runner is collected and no segment of its pool is left on the card."""
+    import gc
+    import weakref
+
+    engine = _tiny_engine(True)
+    _graph_workload(engine, "scan")
+    runner = weakref.ref(engine.graphs)
+    pool = tuple(engine.graphs._pool)
+    assert engine.graphs.pool_bytes > 0
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert runner() is None
+    assert not any(tuple(seg.get("segment_pool_id", ())) == pool
+                   for seg in torch.cuda.memory_snapshot())

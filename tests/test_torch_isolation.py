@@ -146,8 +146,6 @@ def test_params_on_another_device_are_refused():
 
 
 UNPORTED = [
-    ({"prefix_cache": True}, "Queue 1 item 3"),
-    ({"prefill_chunk_budget": 64}, "Queue 1 item 3"),
     ({"speculative_k": 2}, "Queue 1 item 3"),
     ({"host_overlap": True}, "Queue 1 item 3"),
     ({"max_spilled_pages": 8}, "Queue 1 item 3"),
@@ -169,14 +167,29 @@ def test_unported_engine_knob_raises(over, item):
                     device="cpu")
 
 
-@pytest.mark.parametrize("kv", ["int8", "int4"])
-def test_ported_engine_knob_is_accepted(kv):
-    """``kv_cache_dtype`` int8/int4 quantize the pool (it used to raise)."""
+@pytest.mark.parametrize("over", [
+    {"kv_cache_dtype": "int8"}, {"kv_cache_dtype": "int4"},
+    {"prefix_cache": True}, {"prefill_chunk_budget": 16},
+], ids=["int8", "int4", "prefix_cache", "prefill_chunk_budget"])
+def test_ported_engine_knob_is_accepted(over):
+    """Knobs that used to raise: ``kv_cache_dtype`` int8/int4 quantize the
+    pool, ``prefix_cache`` builds the prefix cache, and a 40-token prompt
+    under ``prefill_chunk_budget`` 16 prefills in three chunks."""
     cfg, ecfg, params, tok = _tiny_engine_args(max_new_tokens=3)
-    engine = make_engine(cfg, dataclasses.replace(ecfg, kv_cache_dtype=kv),
-                         params, tok, device="cpu")
-    assert engine.pool.quantized
-    assert len(engine.generate([[1, 2, 3]])[0].token_ids) == 3
+    engine = make_engine(cfg, dataclasses.replace(ecfg, **over), params, tok,
+                         device="cpu")
+    assert engine.pool.quantized == ("kv_cache_dtype" in over)
+    assert (engine.prefix_cache is not None) == ("prefix_cache" in over)
+    assert len(engine.generate([list(range(1, 41))])[0].token_ids) == 3
+    chunks = engine._counts.get("engine.prefill_chunks", 0)
+    assert chunks == (3 if "prefill_chunk_budget" in over else 0)
+
+
+def test_chunk_budget_off_the_page_grid_raises_like_jax():
+    cfg, ecfg, params, tok = _tiny_engine_args()
+    with pytest.raises(ValueError, match="multiple of page_size=16"):
+        make_engine(cfg, dataclasses.replace(ecfg, prefill_chunk_budget=24),
+                    params, tok, device="cpu")
 
 
 def test_kv_cache_dtype_fp8_raises_like_jax():
