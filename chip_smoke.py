@@ -54,8 +54,9 @@ count the launches a replay makes.
    (``cuda_graphs=False``) and once on a graphed one, same weights, each
    warmed by one short request first; the greedy tokens must be equal.
    For each: TTFT, decode tok/s, the engine's own decode step at batch 4
-   (wall ms per step; device ms, kernels and busy share of one profiled
-   step), graph captures, replays, capture seconds and pool bytes; the
+   (wall ms per step; device ms and kernels of one profiled step, and
+   that device time over the wall time, the busy share), graph captures,
+   replays, capture seconds and pool bytes; the
    paged and flash kernels' launch counters must be 32 x (decode steps)
    and 32 x (prefill dispatches).
 5b. int4 slice: the same with int4 weights, ``fused_quant_matmul`` and an
@@ -1044,22 +1045,21 @@ def watch_logits():
     """Record, on the device and without a sync, whether every logits
     tensor the engine samples from is finite: each sample folds into one
     flag in place, so a sample recorded in a CUDA graph folds in again at
-    every replay.  Yields [flag, Python-side sample calls]."""
+    every replay.  Yields the flag."""
     import torch
 
     from k8s_llm_rca_tpu_torch.engine import paged
 
     sample = paged.sample_tokens
-    watch = [torch.ones((), dtype=torch.bool, device="cuda"), 0]
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
 
     def watched(logits, generator, params):
-        watch[0].logical_and_(torch.isfinite(logits).all())
-        watch[1] += 1
+        finite.logical_and_(torch.isfinite(logits).all())
         return sample(logits, generator, params)
 
     paged.sample_tokens = watched
     try:
-        yield watch
+        yield finite
     finally:
         paged.sample_tokens = sample
 
@@ -1150,7 +1150,7 @@ def serve_four(engine, cfg, kv, bits) -> dict:
     runs = []
     reset_counts()
     t_submit = time.perf_counter()
-    with watch_logits() as watch:
+    with watch_logits() as finite:
         # one token per byte: the template around an empty message, + BOS
         overhead = len(render_prompt(
             asst, Thread("t", [Message("m", "user", "", 0.0)]))) + 1
@@ -1170,7 +1170,7 @@ def serve_four(engine, cfg, kv, bits) -> dict:
         raise SystemExit(f"runs did not complete: {[r.status for r in runs]}")
     if any(u["completion_tokens"] <= 0 for u in usage):
         raise SystemExit("a reply has no tokens")
-    if not bool(watch[0]):
+    if not bool(finite):
         raise SystemExit("non-finite logits on the slice run")
     expect = expected_counts(cfg, c, kv is not None, bits)
     if counts != expect:
@@ -1183,7 +1183,7 @@ def serve_four(engine, cfg, kv, bits) -> dict:
             "prefill_dispatches": int(c["engine.prefill_dispatches"]),
             "decode_steps": int(c["engine.decode_steps"]),
             "dispatches": int(c["engine.dispatches"]),
-            "sampled_calls": watch[1], "ttft_s": stamps[0] - t_submit,
+            "ttft_s": stamps[0] - t_submit,
             "decode_tok_per_s": (completion - len(runs)) / (t_end - stamps[0]),
             "total_s": t_end - t_submit}
 
@@ -1295,7 +1295,9 @@ def phase_slice(phase: str, name: str, bits=None, kv=None) -> dict:
 def prefix_prompts(tok) -> list:
     """Four prompts sharing exactly 1536 tokens (24 pages of 64), BOS
     included, with tails of 400, 550, 700 and 800 tokens."""
-    rng = __import__("random").Random(0)
+    import random
+
+    rng = random.Random(0)
     shared = incident_text(1535)
     tails = ["".join(rng.choice("abcdefghij klmnop") for _ in range(n))
              for n in (400, 550, 700, 800)]

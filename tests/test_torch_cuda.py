@@ -983,6 +983,27 @@ def test_failed_capture_raises_naming_the_bucket(card):
     assert (x + 1).sum().item() == 8.0
 
 
+def test_graph_replays_advance_the_generator(card):
+    """A graph that samples registers the engine's generator: each replay
+    draws new numbers, and a sampling engine (temperature 1) scans
+    through its graphs."""
+    from k8s_llm_rca_tpu_torch.engine.graphs import DecodeGraphs
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    graphs = DecodeGraphs(torch.device("cuda"), gen, lambda *a: None)
+
+    def draw():
+        return torch.empty(8, device="cuda").exponential_(1.0, generator=gen)
+
+    draws = [graphs.run(("scan", 2), draw).clone() for _ in range(3)]
+    assert not torch.equal(draws[1], draws[2])
+    assert not torch.equal(draws[0], draws[1])
+    engine = _tiny_engine(True, temperature=1.0)
+    res = engine.generate([[5, 6, 7]] * 2, max_new_tokens=40)
+    assert all(len(r.token_ids) > 0 for r in res)
+    assert engine._counts["engine.graph_replays"] > 0
+
+
 def test_graph_pool_is_freed_with_the_engine(card):
     """An engine's graphs and their memory pool go with the engine: the
     runner is collected and no segment of its pool is left on the card."""
