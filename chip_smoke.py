@@ -55,7 +55,9 @@ count the launches a replay makes.
    warmed by one short request first; the greedy tokens must be equal.
    For each: TTFT, decode tok/s, the engine's own decode step at batch 4
    (wall ms per step; device ms and kernels of one profiled step, and
-   that device time over the wall time, the busy share), graph captures,
+   that device time over the wall time, the busy share; the port's
+   kernels in that profile, by name, must equal what the launch counters
+   gained over the step, replayed or not), graph captures,
    replays, capture seconds and pool bytes; the
    paged and flash kernels' launch counters must be 32 x (decode steps)
    and 32 x (prefill dispatches).
@@ -74,8 +76,9 @@ count the launches a replay makes.
    (graphed): four prompts share exactly 1536 tokens (24 pages), BOS
    included; one goes alone, then the other three together, which must
    hit 3 x 1536 tokens in one batched chunk prefill.  Then the same with
-   ``prefill_chunk_budget`` 512.  Each wave's TTFT, the prefix and chunk
-   counters; flash counts the miss dispatches only.
+   ``prefill_chunk_budget`` 512, and with the prefix cache off (all
+   misses, the TTFT the cache is measured against).  Each wave's TTFT,
+   the prefix and chunk counters; flash counts the miss dispatches only.
 6. rca: the agent loop at full width.  Llama-3-8B in bf16 (seeded random
    weights) behind the soak engine (max_seq_len 2560, one 2560 bucket,
    page 64, 168 pages, decode_chunk 16, greedy) runs the four fixture
@@ -112,6 +115,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -1044,8 +1048,9 @@ def _to_cuda(w):
 def watch_logits():
     """Record, on the device and without a sync, whether every logits
     tensor the engine samples from is finite: each sample folds into one
-    flag in place, so a sample recorded in a CUDA graph folds in again at
-    every replay.  Yields the flag."""
+    flag in place.  A CUDA graph captured inside the ``with`` records the
+    fold, so each of its replays folds in again, after the ``with`` too:
+    the flag must live as long as such a graph.  Yields the flag."""
     import torch
 
     from k8s_llm_rca_tpu_torch.engine import paged
@@ -1132,13 +1137,11 @@ def serve_four(engine, cfg, kv, bits) -> dict:
     )
     from k8s_llm_rca_tpu_torch.serve.backend import EngineBackend, GenOptions
 
-    before = warm_engine(engine)
     service = AssistantService(EngineBackend(engine))
     asst = service.create_assistant(
         "You are the root-cause analyst for a Kubernetes cluster.",
         "analyst", gen=GenOptions(max_new_tokens=64))
     stamps, results = [], []
-    stamp_first_tokens(engine, stamps)
     step = engine.step
 
     def recorded():
@@ -1146,11 +1149,16 @@ def serve_four(engine, cfg, kv, bits) -> dict:
         results.extend(out)
         return out
 
-    engine.step = recorded
     runs = []
-    reset_counts()
-    t_submit = time.perf_counter()
     with watch_logits() as finite:
+        # warmed inside the watch: the scan graph it captures folds every
+        # replay's logits into the flag, which lives with the engine
+        before = warm_engine(engine)
+        engine.logits_finite = finite
+        stamp_first_tokens(engine, stamps)
+        engine.step = recorded
+        reset_counts()
+        t_submit = time.perf_counter()
         # one token per byte: the template around an empty message, + BOS
         overhead = len(render_prompt(
             asst, Thread("t", [Message("m", "user", "", 0.0)]))) + 1
@@ -1225,10 +1233,12 @@ def decode_step_times(engine, steps: int = 8) -> dict:
         step()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    counted = read_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
+    gain = {k: v - counted[k] for k, v in read_counts().items()}
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -1237,9 +1247,54 @@ def decode_step_times(engine, steps: int = 8) -> dict:
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
     device_ms = sum(dev_us(e) for e in events) / 1e3
+    seen = profiled_launches(events)
+    want = counted_launches(gain)
+    if seen != want:
+        mode = "eager" if engine.graphs is None else "graphed"
+        raise SystemExit(f"one {mode} decode step: the profiler saw the "
+                         f"port's kernels {seen}, the launch counters "
+                         f"gained {want}")
     return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
             "kernels_per_step": sum(e.count for e in events),
+            "port_kernels_per_step": seen,
             "device_busy_share": device_ms / wall_ms}
+
+
+# a port kernel's name in a profile (demangled ``kn_gemv_mma_kernel<4,
+# ...`` or mangled ``kn_gemv_mma_kernelILi4E...``): its body and, for the
+# matmuls, the weight bits (the first template argument)
+PORT_KERNEL = re.compile(r"(?<![A-Za-z_])(paged_decode_kernel"
+                         r"|flash_(?:fma|wgmma)_kernel|kn_\w*?kernel"
+                         r"|nk_(?:mma_)?kernel)(?:(?:<|ILi)(\d+))?")
+
+
+def profiled_launches(events) -> dict:
+    """The port's kernels among a profile's CUDA events, one count per
+    wrapper call: paged attention (bf16 or quantized pools), flash, and the
+    kn (dense and expert) and nk (head) matmuls by weight bits.  The kn
+    split-K reduction follows its body in the same call, so it is not
+    counted."""
+    seen = {}
+    for e in events:
+        m = PORT_KERNEL.search(e.key)
+        if m is None or m.group(1) == "kn_reduce_kernel":
+            continue
+        body = m.group(1)
+        group = ("paged" if body == "paged_decode_kernel" else
+                 "flash" if body.startswith("flash_") else
+                 f"{body[:2]}{m.group(2)}")
+        seen[group] = seen.get(group, 0) + e.count
+    return seen
+
+
+def counted_launches(gain: dict) -> dict:
+    """The launch counters' gain, in ``profiled_launches``' groups."""
+    want = {"paged": gain["paged"] + gain["paged_quant"],
+            "flash": gain["flash"],
+            "kn4": gain["qmm"] + gain["qmm_experts"],
+            "kn8": gain["qmm8"] + gain["qmm_experts8"],
+            "nk4": gain["qmm_head"], "nk8": gain["qmm_head8"]}
+    return {k: v for k, v in want.items() if v}
 
 
 def phase_slice(phase: str, name: str, bits=None, kv=None) -> dict:
@@ -1312,8 +1367,10 @@ def phase_prefix() -> dict:
     on (the port's default), graphed.  Four requests share a 1536-token
     prefix: one goes alone, then the other three together, which hit its
     24 pages (one batched chunk prefill of their suffixes).  Then the same
-    four on a fresh engine with ``prefill_chunk_budget`` 512.  Prints each
-    wave's TTFT and the prefix and chunk counters; launches exact."""
+    four on a fresh engine with ``prefill_chunk_budget`` 512, and on one
+    with the prefix cache off (every wave a flash miss), the yardstick of
+    the cache's TTFT.  Prints each wave's TTFT and the prefix and chunk
+    counters; launches exact."""
     import torch
 
     from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
@@ -1326,9 +1383,9 @@ def phase_prefix() -> dict:
     tok = get_tokenizer(vocab_size=cfg.vocab_size)
     prompts = prefix_prompts(tok)
     out = {}
-    for budget in (0, 512):
+    for cached, budget in ((True, 0), (True, 512), (False, 0)):
         engine = make_engine(cfg, slice_engine_config(
-            prefix_cache=True, prefill_chunk_budget=budget), params, tok)
+            prefix_cache=cached, prefill_chunk_budget=budget), params, tok)
         before = warm_engine(engine)
         stamps = []
         stamp_first_tokens(engine, stamps)
@@ -1358,26 +1415,29 @@ def phase_prefix() -> dict:
                "decode_steps": int(c.get("engine.decode_steps", 0)),
                "launches": counts, "expected_launches": expect,
                **graph_stats(engine)}
-        out[budget] = (run, tokens)
-        emit("prefix", model=cfg.name, prefill_chunk_budget=budget,
+        out[cached, budget] = (run, tokens)
+        emit("prefix", model=cfg.name, prefix_cache=cached,
+             prefill_chunk_budget=budget,
              prompt_tokens=[len(p) for p in prompts],
              completion_tokens=[len(t) for t in tokens], **run,
              nvidia_smi=nvidia_smi_name_power())
-        if run["prefix_hit_tokens"] != 3 * 1536:
-            raise SystemExit(f"prefix phase (budget {budget}): "
-                             f"{run['prefix_hit_tokens']} hit tokens, "
-                             f"expected {3 * 1536}")
-        if budget == 0 and run["prefix_batch_hit_admissions"] != 3:
-            raise SystemExit("prefix phase: the three hits did not admit "
-                             "as one batch")
+        label = f"prefix phase (cache {cached}, budget {budget})"
+        if run["prefix_hit_tokens"] != (3 * 1536 if cached else 0):
+            raise SystemExit(f"{label}: {run['prefix_hit_tokens']} hit "
+                             f"tokens")
+        if (cached and budget == 0
+                and run["prefix_batch_hit_admissions"] != 3):
+            raise SystemExit(f"{label}: the three hits did not admit as "
+                             f"one batch")
         if counts != expect:
-            raise SystemExit(f"prefix phase (budget {budget}): launch "
-                             f"counts {counts} != expected {expect}")
+            raise SystemExit(f"{label}: launch counts {counts} != expected "
+                             f"{expect}")
         del engine
         free_card()
     emit("prefix", model=cfg.name,
-         chunked_tokens_equal=out[512][1] == out[0][1])
-    return out[0][0]["launches"]
+         chunked_tokens_equal=out[True, 512][1] == out[True, 0][1],
+         uncached_tokens_equal=out[False, 0][1] == out[True, 0][1])
+    return out[True, 0][0]["launches"]
 
 
 @contextlib.contextmanager

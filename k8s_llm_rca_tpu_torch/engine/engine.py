@@ -266,13 +266,14 @@ class EngineBase:
         Distinct compiled grammars fuse into one state space: each table's
         states shift by a fixed offset, the [S_i, V] tables stack along
         the state axis and each slot's state carries its table's offset.
-        The stack pads with dead rows (never indexed) to a multiple of
-        ``_DFA_FUSE_BUCKET`` states, as in JAX: distinct combinations then
-        share one table shape, so the paged engine's captured DFA scans
-        are keyed by the padded size, not by the combination.  The device
-        tensors are built once per combination of tables (an LRU of 4).
-        Returns ((allow, next, dist, close, complete) on the device,
-        states [B] int32, remaining [B] int32), both on the host."""
+        The stack pads with dead rows (zero, never indexed) to a multiple
+        of ``_DFA_FUSE_BUCKET`` states, as in JAX: distinct combinations
+        then share one table shape.  The tables live once on the device,
+        in one set of buffers per padded size (``_dfa_static``), which
+        the paged engine's captured DFA scans read in place; a buffer is
+        rewritten when another combination of its size comes.  Returns
+        ((allow, next, dist, close, complete) on the device, states [B]
+        int32, remaining [B] int32), both on the host."""
         tabs, seen = [], set()
         for st in self._active.values():
             if st.grammar is not None:
@@ -283,48 +284,38 @@ class EngineBase:
         if not tabs:
             return None
         tabs.sort(key=id)
+        n = sum(t.n_states for t in tabs)
+        size = -(-n // self._DFA_FUSE_BUCKET) * self._DFA_FUSE_BUCKET
         key = tuple(id(t) for t in tabs)
-        cache = self._dfa_fused
-        entry = cache.get(key)
-        if entry is not None:
-            cache[key] = cache.pop(key)       # LRU refresh
-        else:
-            offsets, off = {}, 0
-            allow, nxt, dist, close, complete = [], [], [], [], []
+        entry = self._dfa_static.get(size)
+        if entry is None or entry[1] != key:
+            offsets, off, bufs = {}, 0, None if entry is None else entry[0]
             for t in tabs:
                 offsets[id(t)] = off
-                allow.append(t.allow)
-                nxt.append(t.token_next.astype(np.int32) + np.int32(off))
-                dist.append(t.dist)
-                close.append(t.close_tok)
-                complete.append(t.complete)
+                rows = [torch.from_numpy(a) for a in (
+                    t.allow, t.token_next.astype(np.int32) + np.int32(off),
+                    t.dist, t.close_tok, t.complete)]
+                if bufs is None:
+                    bufs = tuple(torch.zeros((size,) + r.shape[1:],
+                                             dtype=r.dtype, device=self.device)
+                                 for r in rows)
+                for dst, src in zip(bufs, rows):
+                    dst[off:off + t.n_states].copy_(src)
                 off += t.n_states
-            v = allow[0].shape[1]
-            pad = -(-off // self._DFA_FUSE_BUCKET) * self._DFA_FUSE_BUCKET \
-                - off
-            if pad:
-                allow.append(np.zeros((pad, v), bool))
-                nxt.append(np.zeros((pad, v), np.int32))
-                dist.append(np.zeros((pad,), np.int32))
-                close.append(np.zeros((pad,), np.int32))
-                complete.append(np.zeros((pad,), bool))
-            dev = tuple(torch.from_numpy(np.concatenate(a)).to(self.device)
-                        for a in (allow, nxt, dist, close, complete))
+            for dst in bufs:
+                dst[off:].zero_()
             # the kept tabs tuple pins the id()s of the key
-            entry = (dev, offsets, tabs[0].free_state, tuple(tabs))
-            while len(cache) >= 4:
-                cache.pop(next(iter(cache)))
-            cache[key] = entry
-        dev, offsets, free, _pin = entry
+            entry = self._dfa_static[size] = (bufs, key, offsets, tuple(tabs))
+        bufs, _, offsets, _ = entry
         b = self.engine_cfg.max_batch
-        states = np.full((b,), free, np.int32)
+        states = np.full((b,), tabs[0].free_state, np.int32)
         remaining = np.full((b,), np.int32(1 << 30), np.int32)
         for slot, st in self._active.items():
             if st.grammar is not None:
                 states[slot] = (offsets[id(st.grammar.tables)]
                                 + st.grammar.state)
                 remaining[slot] = self._budget_remaining(st)
-        return dev, states, remaining
+        return bufs, states, remaining
 
     def _grammar_post_commit(self, slot: int, token: int) -> None:
         """Keep host grammar FSMs in lockstep with scan-emitted tokens."""

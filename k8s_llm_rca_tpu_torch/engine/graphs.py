@@ -12,9 +12,10 @@ replays it after that, one host call per step or scan.
 - The function captured reads only tensors that stay put: the engine's
   static operand buffers (tokens, lengths, block tables, DFA states and
   budgets, the padded DFA tables), the KV pool (written in place) and the
-  params.  Its outputs live in the graph's memory pool and are
-  overwritten by the next replay of the same graph, so the engine reads
-  them before it replays again.
+  params.  Its outputs live in the runner's shared memory pool, where
+  any other graph of the runner may use the same bytes as scratch: they
+  hold only until the next replay of any graph in the runner, so the
+  engine reads them before it replays again.
 - A bucket's first call runs the function once on a side stream (the
   warm-up: the kernels' first launches set their shared-memory
   attributes and fill their occupancy tables, which must not happen

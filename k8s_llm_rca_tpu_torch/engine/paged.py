@@ -582,7 +582,6 @@ class PagedInferenceEngine(EngineBase):
         self._buckets = tuple(
             s for s in sorted(set(engine_cfg.prefill_buckets))
             if s <= engine_cfg.max_seq_len) or (engine_cfg.max_seq_len,)
-        self._dfa_fused: Dict[tuple, tuple] = {}   # _scan_dfa_setup's LRU
         # the decode operands (tokens, lengths, block tables, DFA states
         # and budgets) in static device buffers, filled each tick from
         # staging buffers (pinned on the card), so a captured graph reads
@@ -594,9 +593,9 @@ class PagedInferenceEngine(EngineBase):
         self._operands = tuple(torch.zeros(s, dtype=torch.int32,
                                            device=self.device)
                                for s in shapes)
-        # padded DFA table size -> (static table buffers, the fused tables
-        # they hold)
-        self._dfa_static: Dict[int, list] = {}
+        # padded DFA table size -> (static table buffers, the key, offsets
+        # and tables of the combination they hold): _scan_dfa_setup's
+        self._dfa_static: Dict[int, tuple] = {}
         self.graphs = (DecodeGraphs(self.device,
                                     None if self.sampling.greedy
                                     else self._gen, self._count)
@@ -626,20 +625,6 @@ class PagedInferenceEngine(EngineBase):
         if self.graphs is None:
             return fn()
         return self.graphs.run(key, fn)
-
-    def _dfa_tables(self, tables: tuple) -> tuple:
-        """The fused DFA tables as the static buffers of their padded size
-        (``graphs`` only): copied in when another combination held them."""
-        n = tables[0].shape[0]
-        entry = self._dfa_static.get(n)
-        if entry is None:
-            entry = self._dfa_static[n] = [
-                tuple(torch.empty_like(t) for t in tables), None]
-        if entry[1] is not tables:
-            for dst, src in zip(entry[0], tables):
-                dst.copy_(src)
-            entry[1] = tables
-        return entry[0]
 
     # ------------------------------------------------------------- tick
 
@@ -796,8 +781,6 @@ class PagedInferenceEngine(EngineBase):
             tables, states, remaining = setup
             states_d = self._upload(3, states)
             remaining_d = self._upload(4, remaining)
-            if self.graphs is not None:
-                tables = self._dfa_tables(tables)
             toks = self._decode(
                 ("dfa", chunk, tables[0].shape[0]),
                 lambda: paged_decode_scan_dfa(

@@ -9,6 +9,7 @@ Greedy streams and the prefix and prefill counters must equal JAX's."""
 
 import numpy as np
 import pytest
+import torch
 
 from k8s_llm_rca_tpu.engine import engine as jengine
 from k8s_llm_rca_tpu.engine.constrain import DFAGrammar as JDFAGrammar
@@ -177,3 +178,42 @@ def test_padded_dfa_tables_match_jax():
             np.testing.assert_array_equal(rows_t, rows_j)
     for b in tt:
         assert not b[~used].any()
+
+
+def test_dfa_tables_live_once_per_padded_size():
+    """Two grammar combinations of one padded size share one set of table
+    buffers: switching combinations rewrites them in place (the buffers a
+    captured DFA scan reads), and each switch gives the tables a fresh
+    fusion would, dead rows zero."""
+    schemas = (MIXED_SCHEMA, {"type": "object", "properties": [
+        ("ok", {"enum": ["yes", "no"]})]})
+    _, te = engines()
+    grammars = [DFAGrammar(s, te.tokenizer) for s in schemas]
+
+    def fuse(*slots_grammars):
+        te._active.clear()
+        for slot, g in slots_grammars:
+            te._active[slot] = tengine._Active(seq_id=slot, slot=slot,
+                                               prompt_tokens=10,
+                                               max_new_tokens=50, grammar=g)
+        tables, states, _ = te._scan_dfa_setup()
+        return tables, states, [t.clone() for t in tables]
+
+    first, s1, snap1 = fuse((0, grammars[0]))
+    second, s2, snap2 = fuse((0, grammars[1]))
+    assert first[0].shape == second[0].shape == (1024, first[0].shape[1])
+    assert all(a is b for a, b in zip(first, second))
+    assert len(te._dfa_static) == 1
+    for (g, s, snap) in ((grammars[0], s1, snap1), (grammars[1], s2, snap2)):
+        n = g.tables.n_states
+        t = g.tables
+        for got, want in zip(snap, (t.allow, t.token_next, t.dist,
+                                    t.close_tok, t.complete)):
+            np.testing.assert_array_equal(got[:n].numpy(), want)
+            assert not got[n:].any()
+        assert int(s[0]) == g.state
+    again, _, snap3 = fuse((0, grammars[0]))
+    assert all(a is b for a, b in zip(first, again))
+    for a, b in zip(snap3, snap1):
+        assert torch.equal(a, b)
+    te._active.clear()
