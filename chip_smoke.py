@@ -25,8 +25,14 @@ prints one JSON line; any failure exits non-zero without the result line.
    int8 and int4 [32000, 4096]), and the int8 matmul (wq at decode and
    prefill, the router at N = 8 and 4, and the int4 one at those widths)
    and the int8 and int4 stacked-expert matmuls in both einsum forms at
-   decode and prefill (int8 at all three buckets; slice 3).  Every matmul
-   case names the kn or nk body it took.
+   decode and prefill (int8 at all three buckets; slice 3); attention over
+   KV pages (``engine/paged.py::attend_over_pages``: the pages gathered
+   into a buffer indexed by position, then the flash kernel) at three
+   batched prefix hits (512-token chunks over 1536 cached tokens) and at
+   a speculative verify step (T = 5 at lengths 400-2300), with the
+   gather's time apart and masked SDPA over the same buffers; and the
+   int4 and int8 kn and the int4 head at the verify step's M = 20
+   (slice 11).  Every matmul case names the kn or nk body it took.
 The engines on the card replay CUDA graphs of their decode step and
 scans (``engine/graphs.py``) unless built with ``cuda_graphs=False``, which
 only phases 5-5d do, for their eager half; every phase's launch counters
@@ -42,12 +48,18 @@ count the launches a replay makes.
    Then TINY with the prefix cache on, four prompts sharing four pages in
    three waves (a seed, one hit alone, two hits batched), with
    ``prefill_chunk_budget`` 0 and 32: equal tokens and equal prefix
-   counters.  Then the RCA sweep on TINY (fp32, the soak engine, two incidents at
-   concurrency 2) on the card and on the CPU with the same weights: at
-   vocab 512 every grammar compiles to DFA tables, so the card runs the
-   constrained scan (``paged_decode_scan_dfa``, a graph over the padded
-   tables); the report bytes must be equal, with no failed incident and
-   the engine left clean.
+   counters.  Then TINY at decode_chunk 1 with ``speculative_k`` 4 against
+   plain greedy, free and under a DFA grammar (verified on the device in
+   the verify graph), and against the CPU's speculative run; and
+   ``host_overlap`` on against off: equal streams, or a first differing
+   token whose logit margin is at most 1e-3 (printed).  Then the RCA
+   sweep on TINY (fp32, the soak engine, two incidents at concurrency 2)
+   on the card and on the CPU with the same weights: at vocab 512 every
+   grammar compiles to DFA tables, so the card runs the constrained scan
+   (``paged_decode_scan_dfa``, a graph over the padded tables); the
+   report bytes must be equal, with no failed incident and the engine
+   left clean; and the card's sweep with ``speculative_k`` 4 must give
+   the same bytes.
 5. slice: Llama-3-8B at full depth and width in bf16 (seeded random
    weights) behind ``AssistantService`` answers four requests of ~400,
    900, 1500 and 2300 prompt tokens, once on an eager engine
@@ -61,6 +73,12 @@ count the launches a replay makes.
    replays, capture seconds and pool bytes; the
    paged and flash kernels' launch counters must be 32 x (decode steps)
    and 32 x (prefill dispatches).
+   Then, on the same weights and graphed: the four requests with
+   ``speculative_k`` 4 (drafts, acceptance, tokens per dispatch, the share
+   of tokens before the stream parts from the plain run's at a bf16
+   near-tie, the verify step's wall and device ms), and at
+   ``decode_chunk`` 1 with ``host_overlap`` off and on (tok/s, device
+   syncs per token); flash counts 32 per verify step.
 5b. int4 slice: the same with int4 weights, ``fused_quant_matmul`` and an
    int4 KV pool; quant_matmul launches 224 x (decode steps + prefill
    dispatches), quant_matmul_head 1 x that, paged_attention_quant 32 x
@@ -78,7 +96,8 @@ count the launches a replay makes.
    hit 3 x 1536 tokens in one batched chunk prefill.  Then the same with
    ``prefill_chunk_budget`` 512, and with the prefix cache off (all
    misses, the TTFT the cache is measured against).  Each wave's TTFT,
-   the prefix and chunk counters; flash counts the miss dispatches only.
+   the prefix and chunk counters; flash counts the miss dispatches and,
+   since slice 11, the hit and chunk prefills over their gathered pages.
 6. rca: the agent loop at full width.  Llama-3-8B in bf16 (seeded random
    weights) behind the soak engine (max_seq_len 2560, one 2560 bucket,
    page 64, 168 pages, decode_chunk 16, greedy) runs the four fixture
@@ -95,12 +114,15 @@ count the launches a replay makes.
    skeleton grammar needs is refused (``BudgetError``) and falls back to
    the compiled query, as in the JAX pipeline: the phase counts the
    cypher replies parsed and the stages refused, one or the other for
-   each analysis.
+   each analysis.  Then the same sweep with ``speculative_k`` 4, which
+   must complete the same way; both print drafts and acceptance.
 
 Then the kernel table (one JSON line), the ``nvidia-smi`` name and power
 limit line, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
-``--profile-decode`` runs only a profile of one decode step at the slice's
+``--spec`` builds every source and runs only the attention-over-pages
+cases of phase 3 and the speculative, overlap and TINY sweep cases of
+phase 4 (no result line).  ``--profile-decode`` runs only a profile of one decode step at the slice's
 shapes (Llama-3-8B bf16 and int4, Mixtral-8x7B int8), and the host time
 per call of the int4 step's extra eager work (the sources of PERF.md's
 decode-step breakdowns), and prints no result line.  ``--paged`` builds
@@ -379,6 +401,91 @@ def flash_kernels(table, dtype_name, gen) -> None:
         torch.cuda.empty_cache()
 
 
+def pages_cases(dtype, gen):
+    """Llama-3-8B's attention over KV pages (one layer of a 168-page pool
+    of page 64, shuffled page ids): "hit", three batched prefix hits of
+    512-token chunks over the same 24 cached pages (1536 tokens, the
+    table padded to 32 pages) with their fresh K/V; "verify", four slots
+    verifying T = 5 tokens at lengths 400 / 900 / 1500 / 2300 (already in
+    the pool) over 40-page tables.  Returns {case: (q, pool, tables,
+    q_offset, seq_lens, fresh, n_pages)}."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine.paged import PagePool
+
+    h, n_kv, d, page, n_pages = 32, 8, 128, 64, 168
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def ints(vals):
+        return torch.tensor(vals, dtype=torch.int32, device="cuda")
+
+    pool = PagePool(rnd(1, n_pages, page, n_kv * d),
+                    rnd(1, n_pages, page, n_kv * d))
+    ids = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1)
+    hit_tables = torch.zeros((3, 32), dtype=torch.int32, device="cuda")
+    hit_tables[:, :24] = ids[:24].int()
+    hit = (rnd(3, 512, h, d), pool, hit_tables, ints([1536] * 3),
+           ints([2048] * 3), (rnd(3, 512, n_kv, d), rnd(3, 512, n_kv, d)),
+           None)
+    lengths, t = [400, 900, 1500, 2300], 5
+    tables = torch.zeros((4, 40), dtype=torch.int32, device="cuda")
+    used = 24
+    for i, n in enumerate(lengths):
+        n_p = -(-(n + t) // page)
+        tables[i, :n_p] = ids[used:used + n_p].int()
+        used += n_p
+    verify = (rnd(4, t, h, d), pool, tables, ints(lengths),
+              ints([n + t for n in lengths]), None, 40)
+    return {"hit": hit, "verify": verify}
+
+
+def pages_kernels(table, dtype_name, gen) -> None:
+    """``attend_over_pages`` on the card (the gather into a buffer indexed
+    by position, then the flash kernel) against its plain version on the
+    same pages, at the hit and verify shapes: the helper's time, the
+    gather's and the kernel's apart, the kernel's operations bound and
+    masked SDPA over the same gathered buffers."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.engine.paged import (
+        attend_over_pages, attend_over_pages_plain, pages_to_buffer,
+    )
+    from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
+
+    dtype = getattr(torch, dtype_name)
+    cfg = LLAMA3_8B.replace(dtype=dtype_name)
+    for case, (q, pool, tabs, off, lens, fresh, n_p) in pages_cases(
+            dtype, gen).items():
+        rec = held_record(
+            "flash_attention", dtype_name,
+            attend_over_pages(cfg, q, pool, 0, tabs, off, lens, fresh, n_p),
+            attend_over_pages_plain(cfg, q, pool, 0, tabs, off, lens, fresh),
+            case=case, shapes=f"q {list(q.shape)} tables {list(tabs.shape)} "
+            f"q_offset {off.tolist()} seq_lens {lens.tolist()} fresh "
+            f"{fresh is not None}")
+        kb, vb = pages_to_buffer(cfg, pool, 0, tabs, off, fresh, n_p)
+        rec["buffer"] = list(kb.shape)
+        rec["helper_ms"] = time_ms(lambda: attend_over_pages(
+            cfg, q, pool, 0, tabs, off, lens, fresh, n_p), 20)
+        rec["gather_ms"] = time_ms(lambda: pages_to_buffer(
+            cfg, pool, 0, tabs, off, fresh, n_p), 20)
+        rec["kernel_ms"] = time_ms(
+            lambda: flash_attention(q, kb, vb, lens, off), 20)
+        rec["plain_ms"] = time_ms(lambda: attend_over_pages_plain(
+            cfg, q, pool, 0, tabs, off, lens, fresh), 3)
+        rec["library_ms"] = time_ms(flash_library_fn(q, kb, vb, lens, off),
+                                    20)
+        rec["bound_ms"], rec["bound_by"] = flash_bound(q, kb, lens, off,
+                                                       dtype_name)
+        emit("kernels", **rec)
+        table[("flash_attention", dtype_name, case)] = rec
+        del q, pool, kb, vb
+        torch.cuda.empty_cache()
+
+
 def quant_weight(gen, k, n, axis=-1, bits=4, experts=0):
     """A weight quantized as the model's (bf16 scales) from N(0, 1/K)
     values, so outputs are of order one: [K, N] (axis -1), [N, K] (axis 0)
@@ -490,6 +597,7 @@ def slice3_kernels(table, ws, dtype_name, gen, flush) -> None:
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     kn = [("quant_matmul_int8", "wq8", "decode", 4, 200, 20),
+          ("quant_matmul_int8", "wq8", "verify", 20, 200, 20),
           ("quant_matmul_int8", "wq8", "prefill", 5120, 5, 3)]
     for name, bits in (("quant_matmul_int8", 8), ("quant_matmul", 4)):
         for n in (8, 4):
@@ -502,7 +610,7 @@ def slice3_kernels(table, ws, dtype_name, gen, flush) -> None:
         n = w.shape[1]
         bits = 8 if "int8" in name else 4
         w_dense = dq(w, dtype).to(dtype)
-        fl = flush if m == 4 else 0
+        fl = flush if m <= 20 else 0
         timed_case(table, (name, dtype_name, case), name, dtype_name,
                    lambda: quant_matmul(x, w),
                    quant_matmul_plain(x.float(), w),
@@ -571,9 +679,10 @@ def head_body(bits, m, k, v, dtype):
 
 
 def head_kernels(table, ws, dtype_name, gen, flush) -> None:
-    """Each head at decode, x [4, 4096], against the plain version on the
-    same values in fp32, with the body it took, L2 flushed before each
-    launch as in a decode step."""
+    """Each head at decode, x [4, 4096], and the 8B int4 head at the
+    verify step's M = 20 (speculative_k 4 at batch 4), against the plain
+    version on the same values in fp32, with the body it took, L2 flushed
+    before each launch as in a decode step."""
     import torch
 
     from k8s_llm_rca_tpu_torch.models.quant import QuantTensor4, dq
@@ -586,17 +695,21 @@ def head_kernels(table, ws, dtype_name, gen, flush) -> None:
         bits = 4 if isinstance(w, QuantTensor4) else 8
         name = "quant_matmul_head" + ("" if bits == 4 else "_int8")
         v = w.shape[0]
-        x = torch.randn((4, 4096), generator=gen, device="cuda").to(dtype)
         w_dense = dq(w, dtype).to(dtype)    # dequantized before timing
-        timed_case(table, (name, dtype_name, case), name, dtype_name,
-                   lambda: quant_matmul_head(x, w),
-                   quant_matmul_head_plain(x.float(), w),
-                   lambda: quant_matmul_head_plain(x, w),
-                   lambda: torch.matmul(x, w_dense.t()),
-                   weight_bound(w, x, 4 * v, 2 * 4 * 4096 * v, dtype_name),
-                   50, 5, flush, case=case,
-                   body=head_body(bits, 4, 4096, v, dtype),
-                   shapes=f"x [4, 4096] @ int{bits} [{v}, 4096]^T")
+        for m in ((4, 20) if case == "llama3-8b int4" else (4,)):
+            x = torch.randn((m, 4096), generator=gen,
+                            device="cuda").to(dtype)
+            label = case if m == 4 else f"{case} verify"
+            timed_case(table, (name, dtype_name, label), name, dtype_name,
+                       lambda: quant_matmul_head(x, w),
+                       quant_matmul_head_plain(x.float(), w),
+                       lambda: quant_matmul_head_plain(x, w),
+                       lambda: torch.matmul(x, w_dense.t()),
+                       weight_bound(w, x, m * v, 2 * m * 4096 * v,
+                                    dtype_name),
+                       50, 5, flush, case=label,
+                       body=head_body(bits, m, 4096, v, dtype),
+                       shapes=f"x [{m}, 4096] @ int{bits} [{v}, 4096]^T")
         del w_dense
         torch.cuda.empty_cache()
 
@@ -677,11 +790,13 @@ def phase_kernels() -> dict:
         dtype = getattr(torch, dtype_name)
         paged_kernels(table, dtype_name, gen, flush)
         flash_kernels(table, dtype_name, gen)
+        pages_kernels(table, dtype_name, gen)
 
         # decode: one weight stream per call, cold in L2 as in a decode
-        # step; prefill: the 512 and 1024 buckets and two 2560-token
-        # prompts batched
+        # step; verify: speculative_k 4 at batch 4 (M = 20); prefill: the
+        # 512 and 1024 buckets and two 2560-token prompts batched
         for case, m, iters, plain_iters in (("decode", 4, 200, 20),
+                                            ("verify", 20, 200, 20),
                                             ("prefill 512", 512, 20, 3),
                                             ("prefill 1024", 1024, 20, 3),
                                             ("prefill", 5120, 5, 3)):
@@ -691,7 +806,7 @@ def phase_kernels() -> dict:
                               quant_matmul_plain(x, w_mlp), case=case,
                               body=kn_body(4, m, 4096, 14336),
                               shapes=f"x [{m}, 4096] @ int4 [4096, 14336]")
-            fl = flush if case == "decode" else 0
+            fl = flush if m <= 20 else 0
             rec["kernel_ms"] = time_ms(lambda: quant_matmul(x, w_mlp), iters,
                                        flush_bytes=fl)
             rec["plain_ms"] = time_ms(lambda: quant_matmul_plain(x, w_mlp),
@@ -749,20 +864,23 @@ def read_counts() -> dict:
 def expected_counts(cfg, c: dict, quantized_kv: bool, bits=None) -> dict:
     """The launches an engine run with the counters ``c`` (an engine's
     ``_counts``, or their gain over a window) must have made: per layer,
-    one decode attention per decode step and one flash prefill per prefill
-    dispatch of a miss (a chunk prefill, of a prefix hit or a chunked
-    prompt, attends in plain torch, as in JAX); under fused_quant_matmul
-    over ``bits``-wide weights, per layer and per decode step or dispatch
-    of either prefill 7 kn matmuls (dense) or 5 kn matmuls (4 projections
-    and the router) and 3 expert matmuls (MoE), and one head per decode
-    step and per prefill dispatch of either kind.  Replayed CUDA graphs
-    count their launches at every replay."""
+    one decode attention per single-token decode step, and one flash call
+    per prefill dispatch of a miss, per chunk prefill (a prefix hit or a
+    chunked prompt, over its gathered pages) and per speculative verify
+    step (T queries over the gathered pages); under fused_quant_matmul
+    over ``bits``-wide weights, per layer and per decode or verify step or
+    dispatch of either prefill 7 kn matmuls (dense) or 5 kn matmuls (4
+    projections and the router) and 3 expert matmuls (MoE), and one head
+    per step and per prefill dispatch of either kind.  Replayed CUDA
+    graphs count their launches at every replay."""
     steps = int(c.get("engine.decode_steps", 0))
+    verify = int(c.get("engine.verify_steps", 0))
     prefills = int(c.get("engine.prefill_dispatches", 0))
     chunks = int(c.get("engine.chunk_prefill_dispatches", 0))
     counts = {k: 0 for k in launch_counters()}
-    counts["paged_quant" if quantized_kv else "paged"] = cfg.n_layers * steps
-    counts["flash"] = cfg.n_layers * prefills
+    counts["paged_quant" if quantized_kv else "paged"] = (
+        cfg.n_layers * (steps - verify))
+    counts["flash"] = cfg.n_layers * (prefills + chunks + verify)
     if cfg.fused_quant_matmul:
         sfx = "8" if bits == 8 else ""
         calls = cfg.n_layers * (steps + prefills + chunks)
@@ -854,6 +972,7 @@ def phase_cross_device() -> None:
     retired_slot_case()
     for budget in (0, 32):
         prefix_case(budget)
+    spec_overlap_case()
     sweep_case()
 
 
@@ -911,6 +1030,168 @@ def sweep_case() -> None:
                          f"{expect}")
     if not any(k[0] == "dfa" for k in engine.graphs.buckets):
         raise SystemExit("TINY sweep: no DFA scan ran as a CUDA graph")
+    # the same sweep with speculative_k 4: greedy-exact, so the same bytes
+    reset_counts()
+    spec = run_pipelined_sweep(backend="engine", n_incidents=2,
+                               concurrency=2, model_cfg=cfg,
+                               params=gpu_params,
+                               engine_overrides={"speculative_k": 4})
+    torch.cuda.synchronize()
+    counts = read_counts()
+    engine = spec["engines"][0]
+    c = engine._counts
+    expect = expected_counts(cfg, c, False)
+    same = report_bytes(spec["report"]) == report_bytes(cpu["report"])
+    emit("cross_device", model="tiny-rca-sweep-speculative", incidents=2,
+         concurrency=2, speculative_k=4, equal_report_bytes=same,
+         completed=spec["report"]["completed"],
+         engine_clean=spec["report"]["engine_clean"],
+         spec_drafted=int(c.get("engine.spec_drafted", 0)),
+         spec_accepted=int(c.get("engine.spec_accepted", 0)),
+         verify_steps=int(c.get("engine.verify_steps", 0)),
+         decode_steps=int(c["engine.decode_steps"]),
+         dispatches=int(c["engine.dispatches"]),
+         graph_keys=sorted(map(str, engine.graphs.buckets)),
+         launches=counts, expected_launches=expect, **graph_stats(engine))
+    if not same:
+        raise SystemExit("TINY sweep, speculative_k 4: report bytes differ "
+                         "from the plain sweep's and the CPU's")
+    if counts != expect:
+        raise SystemExit(f"TINY speculative sweep: launch counts {counts} "
+                         f"!= expected {expect}")
+
+
+SPEC_SCHEMA = {"type": "object", "properties": [
+    ("kind", {"enum": ["ConfigMap", "Job", "Pod", "Secret"]}),
+    ("count", {"type": "integer", "max_digits": 3}),
+    ("note", {"type": "string", "max_len": 24}),
+]}
+
+
+def first_divergence(cfg, params, prompt, a, b) -> dict:
+    """Where two greedy streams of one prompt part: the position, both
+    tokens, and the logit margin between them after the common prefix
+    (the CPU's plain fp32 prefill of prompt + common tokens)."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.models.llama import prefill_kv
+
+    j = next(k for k in range(min(len(a), len(b))) if a[k] != b[k])
+    ctx = list(prompt) + list(a[:j])
+    _, _, logits = prefill_kv(cfg, params, torch.tensor([ctx]), len(ctx))
+    return {"token": j, "a": a[j], "b": b[j],
+            "logit_margin": abs(float(logits[0, a[j]] - logits[0, b[j]]))}
+
+
+def equal_or_near_tie(label, cfg, cpu_params, prompts, want, got) -> None:
+    """Hold two runs' streams equal; where one differs, print its first
+    differing token with the logit margin, and fail unless that margin is
+    at most 1e-3 (a near-tie that fp32 rounding may flip: verification
+    attends through flash, the plain step through the paged kernel)."""
+    for i, (a, b) in enumerate(zip(want, got)):
+        if a == b:
+            continue
+        div = first_divergence(cfg, cpu_params, prompts[i], a, b)
+        emit("cross_device", model=label, seq=i, first_divergence=div)
+        if div["logit_margin"] > 1e-3:
+            raise SystemExit(f"{label}: seq {i} differs at token "
+                             f"{div['token']} with logit margin "
+                             f"{div['logit_margin']}")
+
+
+def spec_overlap_case() -> None:
+    """TINY (fp32, x3 projections, page 64, decode_chunk 1) on the card:
+    speculative_k 4 (one-token n-grams, so random-weight slots draft too)
+    against plain greedy, without a grammar and with a DFA grammar slot
+    (verified on the device inside the graph), the speculative run also
+    against the CPU's; host_overlap on against off.  Equal streams (or a
+    near-tie, ``equal_or_near_tie``), exact launches, drafts verified, and
+    under the grammar accepted."""
+    import numpy as np
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import TINY, EngineConfig
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.engine.constrain import DFAGrammar
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cpu_params, gpu_params = x3_params(TINY)
+    tok = get_tokenizer(vocab_size=TINY.vocab_size)
+    rng = np.random.default_rng(4)
+    example = ('{"kind": "Pod", "count": 12, "note": "crash loop"} '
+               '{"kind": "Job", "count": 3, "note": "oom killed"} ')
+    prompts = [tok.encode(example * 2, add_bos=True),
+               list(range(5, 25)) * 6] + [
+        [int(t) for t in rng.integers(0, 256, n)] for n in (130, 300)]
+
+    def run(device, params, grammar=False, **over):
+        ecfg = EngineConfig(**{**dict(
+            max_batch=4, max_seq_len=512, prefill_buckets=(128, 256),
+            max_new_tokens=40, paged=True, page_size=64, num_pages=48,
+            prefix_cache=False, decode_chunk=1, speculative_ngram=1),
+            **over})
+        engine = make_engine(TINY, ecfg, params, tok, device=device)
+        reset_counts()
+        ids = [engine.submit(p, grammar=DFAGrammar(SPEC_SCHEMA, tok)
+                             if grammar and i == 0 else None)
+               for i, p in enumerate(prompts)]
+        res = {r.seq_id: r.token_ids for r in engine.run_to_completion()}
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return engine, [res[i] for i in ids], read_counts()
+
+    for grammar in (False, True):
+        label = "tiny-speculative" + ("-dfa" if grammar else "")
+        _, plain, _ = run(None, gpu_params, grammar)
+        engine, spec, counts = run(None, gpu_params, grammar,
+                                   speculative_k=4)
+        _, spec_cpu, _ = run("cpu", cpu_params, grammar, speculative_k=4)
+        c = engine._counts
+        expect = expected_counts(TINY, c, False)
+        emit("cross_device", model=label, equal_to_plain=[
+            a == b for a, b in zip(plain, spec)],
+             equal_to_cpu=[a == b for a, b in zip(spec_cpu, spec)],
+             spec_drafted=int(c.get("engine.spec_drafted", 0)),
+             spec_accepted=int(c.get("engine.spec_accepted", 0)),
+             verify_steps=int(c.get("engine.verify_steps", 0)),
+             dispatches=int(c["engine.dispatches"]),
+             decode_tokens=int(c["engine.decode_tokens"]),
+             graph_keys=sorted(map(str, engine.graphs.buckets)),
+             launches=counts, expected_launches=expect,
+             **graph_stats(engine))
+        equal_or_near_tie(label, TINY, cpu_params, prompts, plain, spec)
+        equal_or_near_tie(label + "-cpu", TINY, cpu_params, prompts,
+                          spec_cpu, spec)
+        if counts != expect:
+            raise SystemExit(f"{label}: launch counts {counts} != "
+                             f"expected {expect}")
+        if not c.get("engine.spec_drafted") or (
+                grammar and not c.get("engine.spec_accepted")):
+            raise SystemExit(f"{label}: no draft was verified (or, under "
+                             f"the grammar, accepted)")
+        if grammar and not any(k[0] == "multi-dfa"
+                               for k in engine.graphs.buckets):
+            raise SystemExit(f"{label}: the DFA verify ran outside a graph")
+    _, plain, _ = run(None, gpu_params)
+    engine, over, counts = run(None, gpu_params, host_overlap=True)
+    c = engine._counts
+    expect = expected_counts(TINY, c, False)
+    emit("cross_device", model="tiny-host-overlap",
+         equal_to_plain=[a == b for a, b in zip(plain, over)],
+         d2h_syncs=int(c["engine.d2h_syncs"]),
+         h2d_uploads=int(c["engine.h2d_uploads"]),
+         dispatches=int(c["engine.dispatches"]),
+         decode_tokens=int(c["engine.decode_tokens"]),
+         graph_keys=sorted(map(str, engine.graphs.buckets)),
+         launches=counts, expected_launches=expect, **graph_stats(engine))
+    equal_or_near_tie("tiny-host-overlap", TINY, cpu_params, prompts, plain,
+                      over)
+    if counts != expect:
+        raise SystemExit(f"host overlap: launch counts {counts} != "
+                         f"expected {expect}")
+    if ("overlap",) not in engine.graphs.buckets:
+        raise SystemExit("host overlap: the overlapped step ran outside a "
+                         "graph")
 
 
 def retired_slot_case() -> None:
@@ -1191,31 +1472,44 @@ def serve_four(engine, cfg, kv, bits) -> dict:
             "prefill_dispatches": int(c["engine.prefill_dispatches"]),
             "decode_steps": int(c["engine.decode_steps"]),
             "dispatches": int(c["engine.dispatches"]),
+            **{k.split(".")[1]: int(c.get(k, 0)) for k in (
+                "engine.verify_steps", "engine.spec_drafted",
+                "engine.spec_accepted", "engine.decode_tokens",
+                "engine.d2h_syncs", "engine.h2d_uploads")},
             "ttft_s": stamps[0] - t_submit,
             "decode_tok_per_s": (completion - len(runs)) / (t_end - stamps[0]),
             "total_s": t_end - t_submit}
 
 
-def decode_step_times(engine, steps: int = 8) -> dict:
+def decode_step_times(engine, steps: int = 8, verify_t: int = 0) -> dict:
     """The engine's own decode step (its static operands, then the eager
     step or the step graph's replay) at the slice's decode shapes: batch 4
-    at 400/900/1500/2300 cached tokens over pages of the engine's pool.
-    Wall ms per step over ``steps`` steps, the device ms and kernel
-    launches of one profiled step, and the device's busy share: that
-    device time over the unprofiled wall time (the profiler's own host
-    work would stretch a profiled step)."""
+    at 400/900/1500/2300 cached tokens over pages of the engine's pool;
+    with ``verify_t`` the speculative verify step of T = ``verify_t``
+    tokens a slot (``paged_decode_multi``, its graph) at 400/900/1500/
+    2290.  Wall ms per step
+    over ``steps`` steps, the device ms and kernel launches of one
+    profiled step, and the device's busy share: that device time over the
+    unprofiled wall time (the profiler's own host work would stretch a
+    profiled step)."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from k8s_llm_rca_tpu_torch.engine.paged import paged_decode_step
+    from k8s_llm_rca_tpu_torch.engine.paged import (
+        paged_decode_multi, paged_decode_step,
+    )
 
-    lens = [400, 900, 1500, 2300]
+    # the verify step's T writes must fit the slot's current page (the
+    # engine's _spec_room_ok): its longest slot sits at 2290, not 2300
+    lens = [400, 900, 1500, 2290 if verify_t else 2300]
     engine.lengths[:] = lens
     engine.cur_tokens[:] = 0
     engine.block_tables[:] = 0
     used = 1
     for i, n in enumerate(lens):
-        n_p = -(-(n + 1) // engine.page_size)
+        assert not verify_t or engine._spec_room_ok(i, verify_t)
+        n_p = -(-(n + max(1, verify_t)) // engine.page_size)
         engine.block_tables[i, :n_p] = range(used, used + n_p)
         used += n_p
     cfg, params, pool = engine.model_cfg, engine.params, engine.pool
@@ -1224,6 +1518,18 @@ def decode_step_times(engine, steps: int = 8) -> dict:
         cur, lengths, tables = engine._device_state()
         return engine._decode(("step",), lambda: paged_decode_step(
             cfg, params, pool, cur, lengths, tables)[1])
+
+    if verify_t:
+        drafts = np.zeros((len(lens), verify_t), np.int32)
+        n_pages = engine._verify_pages(range(len(lens)), verify_t)
+
+        def step():                                   # noqa: F811
+            toks = engine._multi_tokens_buffer(drafts)
+            lengths = engine._upload(1, engine.lengths)
+            tables = engine._upload(2, engine.block_tables)
+            return engine._decode(
+                ("multi", verify_t, n_pages), lambda: paged_decode_multi(
+                    cfg, params, pool, toks, lengths, tables, n_pages)[1:])
 
     for _ in range(2):
         step()
@@ -1249,14 +1555,30 @@ def decode_step_times(engine, steps: int = 8) -> dict:
     device_ms = sum(dev_us(e) for e in events) / 1e3
     seen = profiled_launches(events)
     want = counted_launches(gain)
-    if seen != want:
-        mode = "eager" if engine.graphs is None else "graphed"
+    # the device time between CUDA events around the step, the host's
+    # enqueue covered by a device sleep (``time_ms``): it needs no trace
+    events_ms = time_ms(step, steps)
+    mode = "eager" if engine.graphs is None else "graphed"
+    if verify_t:
+        # the verify graph holds more nodes than the plain step's, and
+        # the profiler reported only some of a replay's kernels there
+        # (11 of 32 flash calls in one run): its device time comes from
+        # the events, and its profile may show fewer port kernels than
+        # counted, never more, and none that was not counted
+        if any(n > want.get(k, 0) for k, n in seen.items()) \
+                or set(want) - set(seen):
+            raise SystemExit(f"one {mode} verify step: the profiler saw "
+                             f"the port's kernels {seen}, the launch "
+                             f"counters gained {want}")
+        device_ms = events_ms
+    elif seen != want:
         raise SystemExit(f"one {mode} decode step: the profiler saw the "
                          f"port's kernels {seen}, the launch counters "
                          f"gained {want}")
     return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+            "event_device_ms_per_step": events_ms,
             "kernels_per_step": sum(e.count for e in events),
-            "port_kernels_per_step": seen,
+            "port_kernels_per_step": seen, "counted_per_step": want,
             "device_busy_share": device_ms / wall_ms}
 
 
@@ -1344,7 +1666,76 @@ def phase_slice(phase: str, name: str, bits=None, kv=None) -> dict:
         raise SystemExit(f"{phase}: eager and graphed tokens differ")
     if not graphed["graph_replays"]:
         raise SystemExit(f"{phase}: the graphed engine replayed nothing")
-    return graphed["launches"]
+    out = {phase: graphed["launches"]}
+    if cfg.n_experts == 0:
+        out[phase + "_spec"] = speculative_runs(phase, cfg, ecfg, params,
+                                                tok, kv, bits, graphed)
+    return out
+
+
+def common_share(want: list, got: list) -> float:
+    """The share of ``want``'s tokens that ``got`` repeats before the two
+    streams part, over all sequences."""
+    same = 0
+    for a, b in zip(want, got):
+        n = 0
+        while n < min(len(a), len(b)) and a[n] == b[n]:
+            n += 1
+        same += n
+    return same / max(1, sum(len(a) for a in want))
+
+
+def speculative_runs(phase, cfg, ecfg, params, tok, kv, bits,
+                     graphed) -> dict:
+    """The Llama slices' engine features on the same weights, graphed:
+    the four requests with ``speculative_k`` 4 (drafts, acceptance,
+    tokens per dispatch, the verify step's wall and device ms beside the
+    decode step's), then at ``decode_chunk`` 1 with ``host_overlap`` off
+    and on (decode tok/s, device syncs per token).  bf16 verification
+    takes other matmul and attention shapes than the plain step, so its
+    tokens may part from the plain run's at a near-tie: the phase reports
+    the share of tokens before the streams part.  Returns the speculative
+    run's launch counts."""
+    import dataclasses
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+
+    engine = make_engine(cfg, dataclasses.replace(ecfg, speculative_k=4),
+                         params, tok)
+    spec = serve_four(engine, cfg, kv, bits)
+    spec.update(graph_stats(engine))
+    spec.update({f"verify_{k}": v for k, v in
+                 decode_step_times(engine, verify_t=5).items()})
+    del engine
+    free_card()
+    if not spec["verify_steps"]:
+        raise SystemExit(f"{phase}: speculative_k 4 verified nothing")
+    chunk1 = {}
+    for overlap in (False, True):
+        engine = make_engine(cfg, dataclasses.replace(
+            ecfg, decode_chunk=1, host_overlap=overlap), params, tok)
+        run = serve_four(engine, cfg, kv, bits)
+        run.update(graph_stats(engine))
+        chunk1["overlap" if overlap else "plain"] = run
+        del engine
+        free_card()
+    emit(phase + "_spec", model=cfg.name,
+         weights=f"int{bits}" if bits else "bfloat16", kv_cache_dtype=kv,
+         speculative_k=4,
+         equal_token_share=common_share(graphed["tokens"], spec["tokens"]),
+         tokens_per_dispatch=spec["decode_tokens"] / spec["dispatches"],
+         graphed_step_wall_ms=graphed["wall_ms_per_step"],
+         graphed_step_device_ms=graphed["device_ms_per_step"],
+         **{f"spec_{k}": v for k, v in spec.items() if k != "tokens"},
+         **{f"chunk1_{mode}_{k}": v for mode, run in chunk1.items()
+            for k, v in run.items() if k != "tokens"},
+         chunk1_d2h_per_token={
+             mode: run["d2h_syncs"] / max(1, run["decode_tokens"])
+             for mode, run in chunk1.items()},
+         overlap_equal_tokens=(chunk1["plain"]["tokens"]
+                               == chunk1["overlap"]["tokens"]),
+         nvidia_smi=nvidia_smi_name_power())
+    return spec["launches"]
 
 
 def prefix_prompts(tok) -> list:
@@ -1444,12 +1835,15 @@ def phase_prefix() -> dict:
 def watch_grammars(kinds: dict, host_s: list):
     """Tally the grammar class each run's ``GenOptions.grammar`` compiles
     to, and add up the host seconds the engine spends building the
-    stepwise ticks' constraints (the interpreted grammars' masks)."""
+    stepwise ticks' constraints and, on verify ticks, applying them to
+    each position's logits (the interpreted grammars' masks)."""
+    from k8s_llm_rca_tpu_torch.engine.engine import EngineBase
     from k8s_llm_rca_tpu_torch.engine.paged import PagedInferenceEngine
     from k8s_llm_rca_tpu_torch.serve import backend
 
     make = backend.make_grammar
     constraints = PagedInferenceEngine._tick_constraints
+    greedy = EngineBase._greedy_with_grammar
 
     def counted(spec, tokenizer):
         g = make(spec, tokenizer)
@@ -1458,20 +1852,24 @@ def watch_grammars(kinds: dict, host_s: list):
             kinds[name] = kinds.get(name, 0) + 1
         return g
 
-    def timed(self, *args):
-        t0 = time.perf_counter()
-        try:
-            return constraints(self, *args)
-        finally:
-            host_s[0] += time.perf_counter() - t0
+    def timer(fn):
+        def timed(self, *args):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *args)
+            finally:
+                host_s[0] += time.perf_counter() - t0
+        return timed
 
     backend.make_grammar = counted
-    PagedInferenceEngine._tick_constraints = timed
+    PagedInferenceEngine._tick_constraints = timer(constraints)
+    EngineBase._greedy_with_grammar = timer(greedy)
     try:
         yield kinds
     finally:
         backend.make_grammar = make
         PagedInferenceEngine._tick_constraints = constraints
+        EngineBase._greedy_with_grammar = greedy
 
 
 @contextlib.contextmanager
@@ -1540,13 +1938,12 @@ def stage_replies_parse(report: dict, cypher_parsed: int,
 def phase_rca() -> dict:
     """Phase 6: Llama-3-8B bf16 (seeded random weights) runs the four
     fixture incidents at concurrency 4 through the RCA pipeline on the
-    soak engine.  Returns the run's launch counts."""
+    soak engine, then again with ``speculative_k`` 4.  Returns each run's
+    launch counts, by phase name."""
     import torch
 
     from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
-    from k8s_llm_rca_tpu_torch.faults.soak import run_pipelined_sweep
     from k8s_llm_rca_tpu_torch.models.llama import init_params
-    from k8s_llm_rca_tpu_torch.utils.logging import METRICS
 
     cfg = LLAMA3_8B
     torch.cuda.reset_peak_memory_stats()
@@ -1554,15 +1951,32 @@ def phase_rca() -> dict:
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    out = {}
+    for name, spec_k in (("rca", 0), ("rca_spec", 4)):
+        out[name] = rca_sweep(cfg, params, spec_k, init_s)
+        free_card()
+    return out
+
+
+def rca_sweep(cfg, params, spec_k: int, init_s: float) -> dict:
+    """One four-incident sweep of phase 6 with ``speculative_k`` spec_k;
+    prints its record and returns its launch counts."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.faults.soak import run_pipelined_sweep
+    from k8s_llm_rca_tpu_torch.utils.logging import METRICS
+
     kinds, host_s, cypher_parsed, cypher_refused = {}, [0.0], [0], [0]
-    n_before = METRICS.timings["rca.incident"].count
+    timer = METRICS.timings["rca.incident"]
+    n_before = timer.count
     reset_counts()
     t1 = time.perf_counter()
     with watch_grammars(kinds, host_s), \
             watch_cypher(cypher_parsed, cypher_refused):
-        out = run_pipelined_sweep(backend="engine", n_incidents=4,
-                                  concurrency=4, model_cfg=cfg,
-                                  params=params)
+        out = run_pipelined_sweep(
+            backend="engine", n_incidents=4, concurrency=4, model_cfg=cfg,
+            params=params,
+            engine_overrides={"speculative_k": spec_k} if spec_k else None)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t1
     counts = read_counts()
@@ -1570,11 +1984,12 @@ def phase_rca() -> dict:
     c = engine._counts
     report = out["report"]
     expect = expected_counts(cfg, c, False)
-    timer = METRICS.timings["rca.incident"]
     incident_s = sorted(timer.window()[-(timer.count - n_before):])
     parsed = stage_replies_parse(report, cypher_parsed[0],
                                  cypher_refused[0])
+    label = "rca" + (f" (speculative_k {spec_k})" if spec_k else "")
     emit("rca", model=cfg.name, layers=cfg.n_layers, vocab=cfg.vocab_size,
+         speculative_k=spec_k,
          incidents=report["n_incidents"], concurrency=4,
          completed=report["completed"], failed=report["failed"],
          engine_clean=report["engine_clean"], replies_parsed=parsed,
@@ -1583,6 +1998,9 @@ def phase_rca() -> dict:
          incident_max_s=max(incident_s), total_s=total_s, init_s=init_s,
          decode_steps=int(c["engine.decode_steps"]),
          dispatches=int(c["engine.dispatches"]),
+         verify_steps=int(c.get("engine.verify_steps", 0)),
+         spec_drafted=int(c.get("engine.spec_drafted", 0)),
+         spec_accepted=int(c.get("engine.spec_accepted", 0)),
          prefill_dispatches=int(c["engine.prefill_dispatches"]),
          completion_tokens=int(c["engine.decode_tokens"]),
          graph_keys=sorted(map(str, engine.graphs.buckets)),
@@ -1598,19 +2016,22 @@ def phase_rca() -> dict:
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
          nvidia_smi=nvidia_smi_name_power())
     if report["failed"] or report["completed"] != 4:
-        raise SystemExit(f"rca: {report['completed']} of 4 incidents "
+        raise SystemExit(f"{label}: {report['completed']} of 4 incidents "
                          f"completed, {report['failed']} failed: "
                          f"{[r.get('error') for r in report['incidents']]}")
     if not report["engine_clean"]:
-        raise SystemExit("rca: the engine was not left clean")
+        raise SystemExit(f"{label}: the engine was not left clean")
     if not parsed:
-        raise SystemExit(f"rca: a stage reply did not parse (cypher: "
+        raise SystemExit(f"{label}: a stage reply did not parse (cypher: "
                          f"{cypher_parsed[0]} parsed, {cypher_refused[0]} "
                          f"refused by their budget)")
     if counts != expect:
-        raise SystemExit(f"rca: launch counts {counts} != expected {expect}")
+        raise SystemExit(f"{label}: launch counts {counts} != expected "
+                         f"{expect}")
     if not c.get("engine.graph_replays"):
-        raise SystemExit("rca: the engine replayed no CUDA graph")
+        raise SystemExit(f"{label}: the engine replayed no CUDA graph")
+    if spec_k and not c.get("engine.verify_steps"):
+        raise SystemExit(f"{label}: no verify step ran")
     return counts
 
 
@@ -1854,6 +2275,15 @@ def main(argv) -> int:
          ptxas={name: ptxas_summary(rep) for name, rep in reports.items()},
          sass=kn_sass(build))
 
+    if "--spec" in argv:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for dtype_name in ("bfloat16", "float32"):
+            pages_kernels({}, dtype_name, gen)
+        spec_overlap_case()
+        sweep_case()
+        return 0
     if "--profile-decode" in argv:
         for name, bits, kv in (("llama3-8b", None, None),
                                ("llama3-8b", 4, "int4"),
@@ -1872,54 +2302,60 @@ def main(argv) -> int:
                                    "int8"),
                                   ("slice_mixtral_int4", "mixtral-8x7b", 4,
                                    "int4")):
-        runs[phase] = phase_slice(phase, name, bits, kv)
+        runs.update(phase_slice(phase, name, bits, kv))
         free_card()                   # one model on the card at a time
     runs["prefix"] = phase_prefix()
     free_card()
-    runs["rca"] = phase_rca()
+    runs.update(phase_rca())
     free_card()
 
     rows = []
-    for name, src, replaces, key, phase, count in (
+    # launches: the main paths' runs of each kernel, summed (flash now
+    # also attends the prefix hits, chunks and verify steps)
+    for name, src, replaces, key, phases, count in (
             ("paged_attention", PAGED_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:90",
-             ("paged_attention", "bfloat16", "mixed"), "slice", "paged"),
+             ("paged_attention", "bfloat16", "mixed"),
+             ("slice", "slice_spec", "prefix", "rca", "rca_spec"), "paged"),
             ("flash_attention", FLASH_SRC,
              "k8s_llm_rca_tpu/ops/flash_attention.py:31",
-             ("flash_attention", "bfloat16", "full"), "slice", "flash"),
+             ("flash_attention", "bfloat16", "full"),
+             ("slice", "slice_spec", "prefix", "rca", "rca_spec"), "flash"),
             ("quant_matmul", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:137",
-             ("quant_matmul", "bfloat16", "decode"), "slice_int4", "qmm"),
+             ("quant_matmul", "bfloat16", "decode"),
+             ("slice_int4", "slice_int4_spec"), "qmm"),
             ("quant_matmul_head", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:177",
              ("quant_matmul_head", "bfloat16", "llama3-8b int4"),
-             "slice_int4", "qmm_head"),
+             ("slice_int4", "slice_int4_spec"), "qmm_head"),
             ("paged_attention_quant", PAGED_QUANT_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:141",
-             ("paged_attention_quant", "bfloat16", "int4"), "slice_int4",
-             "paged_quant"),
+             ("paged_attention_quant", "bfloat16", "int4"),
+             ("slice_int4", "slice_int4_spec"), "paged_quant"),
             ("quant_matmul_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:120",
              ("quant_matmul_int8", "bfloat16", "decode"),
-             "slice_mixtral_int8", "qmm8"),
+             ("slice_mixtral_int8",), "qmm8"),
             ("quant_matmul_head_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:159",
              ("quant_matmul_head_int8", "bfloat16", "mixtral-8x7b int8"),
-             "slice_mixtral_int8", "qmm_head8"),
+             ("slice_mixtral_int8",), "qmm_head8"),
             ("quant_matmul_experts_int8", EKN_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:201",
              ("quant_matmul_experts_int8", "bfloat16", "3d decode"),
-             "slice_mixtral_int8", "qmm_experts8"),
+             ("slice_mixtral_int8",), "qmm_experts8"),
             ("quant_matmul_experts_int4", EKN_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:218",
              ("quant_matmul_experts_int4", "bfloat16", "3d decode"),
-             "slice_mixtral_int4", "qmm_experts")):
+             ("slice_mixtral_int4",), "qmm_experts")):
         rec = table[key]
         # the absolute error over the main path's dtype (bf16), every case
         err = max(r["max_abs_err"] for k, r in table.items()
                   if k[0] == name and k[1] == "bfloat16")
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": runs[phase][count],
+                     "replaces": replaces,
+                     "launches": sum(runs[p][count] for p in phases),
                      "max_abs_err": err, "ms": rec["kernel_ms"],
                      "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                      "bound_by": rec["bound_by"],

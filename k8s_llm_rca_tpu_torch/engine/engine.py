@@ -6,11 +6,13 @@ finish reasons and stop-string trimming, the chunk choice of the scanned
 decode tick, the commit loop that trims after EOS and the grammar paths
 (per-slot constraints of a stepwise tick, the constrained first token, the
 fused DFA tables of a constrained scan and its device step
-``dfa_scan_step``) all follow the JAX engine line for line, so the two
-packages emit equal greedy token streams.  Host-overlap, speculative
-decoding, snapshot/restore and fault injection are not ported (ROADMAP
-Queue 1 item 3); the paged engine refuses the knobs that would turn them
-on.
+``dfa_scan_step``), n-gram speculative decoding (drafts, the greedy-exact
+verify-and-commit loop, its grammar paths and the device step
+``dfa_greedy_multi``) and the overlapped host loop (the one-tick-lagged
+commit of ``host_overlap``) all follow the JAX engine line for line, so
+the two packages emit equal greedy token streams.  Draft-model
+speculation, snapshot/restore and fault injection are not ported (ROADMAP
+Queue 1 items 9 and 3).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from k8s_llm_rca_tpu_torch.config import EngineConfig, ModelConfig
 from k8s_llm_rca_tpu_torch.engine.sampling import (
     SamplingParams, sample_tokens_masked,
 )
+from k8s_llm_rca_tpu_torch.engine.speculative import ngram_draft
 from k8s_llm_rca_tpu_torch.obs import trace as obs_trace
 from k8s_llm_rca_tpu_torch.utils.logging import METRICS, get_logger
 from k8s_llm_rca_tpu_torch.utils.tokenizer import Tokenizer
@@ -79,6 +82,17 @@ class EngineBase:
     _deadlines: Optional[Dict[int, float]] = None
     # per-engine mirror of the engine.* METRICS counters
     _counts: Optional[Dict[str, float]] = None
+    # the overlapped hot loop (``host_overlap``).  _inflight: dispatched
+    # but uncommitted fast-path ticks, oldest first, each {"slots":
+    # [(slot, seq_id)...], "toks": device [B], "admits": deferred first
+    # tokens}; _admit_pending: admissions whose sampled first token has
+    # not crossed to the host yet; _flushed_out: results of a flush made
+    # outside a tick (cancel, deadlines), surfaced by the next tick.
+    _overlap: bool = False
+    _overlap_lag: int = 2
+    _inflight: Optional[List[dict]] = None
+    _admit_pending: Optional[list] = None
+    _flushed_out: Optional[list] = None
 
     def _now(self) -> float:
         return self.clock.time() if self.clock is not None else time.time()
@@ -150,6 +164,9 @@ class EngineBase:
             return []
         now = self._now()
         expired = [sid for sid, dl in self._deadlines.items() if now >= dl]
+        if not expired:
+            return []
+        self._overlap_barrier()   # commit in-flight tokens before retiring
         out: List[SequenceResult] = []
         for seq_id in expired:
             self._deadlines.pop(seq_id, None)
@@ -205,6 +222,7 @@ class EngineBase:
         """Abort a sequence now: a queued one leaves the queue, an active
         one retires its slot (and frees its pages).  Returns whether it
         was still live."""
+        self._overlap_barrier()   # commit in-flight tokens before retiring
         if self._drop_pending(seq_id):
             if self._deadlines:
                 self._deadlines.pop(seq_id, None)
@@ -323,6 +341,111 @@ class EngineBase:
         if st is not None and st.grammar is not None:
             st.grammar.advance(token)
 
+    # --------------------------------------------- speculative decoding
+
+    def _speculation_applies(self) -> bool:
+        """Speculate only where the result is exactly greedy decoding's
+        and every slot has room for the T = k + 1 token write (the
+        subclass's ``_spec_room_ok``)."""
+        k = self.engine_cfg.speculative_k
+        if k <= 0 or self.engine_cfg.temperature != 0.0:
+            return False
+        return all(self._spec_room_ok(s, k + 1) for s in self._active)
+
+    def _greedy_with_grammar(self, st: _Active, greedy_token: int,
+                             logits_row) -> int:
+        """The token a plain greedy tick would commit: the grammar's forced
+        token, or its allow mask applied to the argmax."""
+        if st.grammar is None:
+            return greedy_token
+        c = st.grammar.constraint(self._budget_remaining(st))
+        if c.force is not None:
+            return c.force
+        if c.allow is not None:
+            masked = np.where(np.asarray(c.allow), logits_row, -np.inf)
+            return int(np.argmax(masked))
+        return greedy_token
+
+    def _build_drafts(self, active_slots, cur_host
+                      ) -> Tuple[np.ndarray, Dict[int, List[int]]]:
+        """Per-slot n-gram drafts: (tokens_in [B, k + 1] int32, {slot:
+        draft}); row ``slot`` is the current token, then its draft."""
+        k_spec = self.engine_cfg.speculative_k
+        tokens_in = np.zeros((self.engine_cfg.max_batch, k_spec + 1),
+                             np.int32)
+        drafts: Dict[int, List[int]] = {}
+        for slot in active_slots:
+            st = self._active[slot]
+            # _stop_context: a resumed sequence's tokens from before its
+            # preemption keep the lookup context contiguous
+            ctx = self._prompts.get(st.seq_id, []) + self._stop_context(st)
+            d = ngram_draft(ctx, self.engine_cfg.speculative_ngram, k_spec)
+            drafts[slot] = d
+            tokens_in[slot, 0] = cur_host[slot]
+            tokens_in[slot, 1:1 + len(d)] = d
+        return tokens_in, drafts
+
+    def _uniform_dfa_tables(self):
+        """The one compiled DFA table set every grammar slot shares, or
+        None (no grammar slot, an interpreted grammar, or mixed tables)."""
+        tables = None
+        for st in self._active.values():
+            if st.grammar is None:
+                continue
+            t = getattr(st.grammar, "tables", None)
+            if t is None or (tables is not None and t is not tables):
+                return None
+            tables = t
+        return tables
+
+    def _verify_and_commit(self, active_slots, drafts, greedy_host,
+                           logits_host, post_commit=None,
+                           constrained: bool = False
+                           ) -> List[SequenceResult]:
+        """Commit the longest prefix of each slot's draft that agrees with
+        the model's own greedy (grammar-constrained) choice, plus one
+        bonus token from the first disagreeing position: greedy-exact by
+        construction.  ``constrained``: the device already applied the
+        grammar (``dfa_greedy_multi``); the FSM still advances per
+        commit."""
+        finished: List[SequenceResult] = []
+        for slot in active_slots:
+            st = self._active[slot]
+            draft = drafts[slot]
+            base_len = st.prompt_tokens + len(st.generated)
+            committed: List[int] = []
+            reason = None
+            for j in range(len(draft) + 1):
+                if constrained:
+                    token = int(greedy_host[slot, j])
+                else:
+                    token = self._greedy_with_grammar(
+                        st, int(greedy_host[slot, j]),
+                        logits_host[slot, j]
+                        if logits_host is not None else None)
+                st.generated.append(token)
+                if st.grammar is not None:
+                    st.grammar.advance(token)
+                committed.append(token)
+                if post_commit is not None:
+                    post_commit(slot, token)
+                reason = self._finish_reason(st, token, base_len + j)
+                if not (reason is None and j < len(draft)
+                        and token == draft[j]):
+                    break
+            self._count("engine.decode_tokens", len(committed))
+            self._count("engine.spec_drafted", len(draft))
+            self._count("engine.spec_accepted", max(0, len(committed) - 1))
+            if reason is not None:
+                finished.append(self._retire(slot, reason))
+        return finished
+
+    def _need_spec_logits(self, active_slots) -> bool:
+        """[B, T, V] logits matter only when a grammar slot is active."""
+        return any(self._active[s].grammar is not None
+                   for s in active_slots)
+
+    # -------------------------------------------------- tick + counters
     # -------------------------------------------------- tick + counters
 
     def _count(self, name: str, value: float = 1.0) -> None:
@@ -334,11 +457,139 @@ class EngineBase:
         c[name] = c.get(name, 0.0) + value
 
     def _fetch(self, *tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
-        """One device->host sync point for the given tensors (counted as
-        ``engine.d2h_syncs`` when any lives on the card)."""
-        if any(t.device.type != "cpu" for t in tensors):
+        """One device->host sync point for the given tensors, counted as
+        ``engine.d2h_syncs`` when any is a tensor (as the JAX engine counts
+        any device array, also on its CPU backend); host arrays pass
+        through uncounted."""
+        if any(isinstance(t, torch.Tensor) for t in tensors):
             self._count("engine.d2h_syncs")
-        return tuple(t.cpu().numpy() for t in tensors)
+        return tuple(t.cpu().numpy() if isinstance(t, torch.Tensor) else t
+                     for t in tensors)
+
+    # ------------------------------------------ overlapped hot loop
+    #
+    # Invariants, as in the JAX engine:
+    #  - host commit order per sequence is the plain engine's (admission
+    #    first token, then decode tokens in dispatch order);
+    #  - _inflight entries exist only across fast-path ticks; every other
+    #    path (grammar, speculation, the scan, cancel, deadlines) flushes
+    #    first and so sees committed state;
+    #  - a slot retired or preempted while its tokens were in flight drops
+    #    them at the flush (the seq_id guard): greedy re-prefill
+    #    regenerates the same tokens.
+
+    def _overlap_fast(self) -> bool:
+        """Whether this tick may dispatch without waiting to commit (the
+        one-tick-lagged fast path): only at ``decode_chunk`` 1, without
+        speculation and with no grammar live or queued."""
+        if not self._overlap:
+            return False
+        cfg = self.engine_cfg
+        if cfg.decode_chunk > 1 or cfg.speculative_k > 0:
+            return False
+        if any(st.grammar is not None for st in self._active.values()):
+            return False
+        return not any(r.grammar is not None for r in self._pending)
+
+    def _take_admit_pending(self) -> list:
+        pend, self._admit_pending = self._admit_pending, []
+        return pend
+
+    def _note_first_token(self, slot: int, token: int,
+                          update_dev: bool) -> None:
+        """Subclass hook: reflect an admission's committed first token in
+        the engine's token state (``update_dev`` False at a lagged flush:
+        the device tokens already moved past it)."""
+
+    def _commit_first(self, st: _Active, token: int,
+                      update_dev: bool = True) -> Optional[SequenceResult]:
+        """Commit an admission's first token; it may already finish the
+        sequence.  A slot preempted before the token reached the host
+        drops it: the requeued prompt re-prefills and greedily samples
+        the same token again."""
+        if self._active.get(st.slot) is not st:
+            return None
+        st.generated.append(token)
+        self._note_first_token(st.slot, token, update_dev)
+        reason = self._finish_reason(st, token, st.prompt_tokens)
+        if reason is not None:
+            return self._retire(st.slot, reason)
+        return None
+
+    def _drain_admission_commits(self) -> List[SequenceResult]:
+        """Fetch every deferred admission first token in ONE sync and
+        commit them in admission order."""
+        pend = self._take_admit_pending()
+        if not pend:
+            return []
+        uniq: Dict[int, int] = {}
+        order: List[torch.Tensor] = []
+        for _, t, _ in pend:
+            if id(t) not in uniq:
+                uniq[id(t)] = len(order)
+                order.append(t)
+        hosts = self._fetch(*order)
+        out: List[SequenceResult] = []
+        for st, t, i in pend:
+            done = self._commit_first(st, int(hosts[uniq[id(t)]][i]))
+            if done is not None:
+                out.append(done)
+        return out
+
+    def _note_flush_entry(self, entry: dict) -> None:
+        """Subclass hook, called once per flushed entry before its commits
+        (the paged engine counts down its per-slot in-flight steps)."""
+
+    def _overlap_post_commit(self, slot: int, token: int) -> None:
+        """Subclass hook: the host mirrors' update per token committed at
+        a lagged flush."""
+
+    def _overlap_flush(self) -> List[SequenceResult]:
+        """Commit every in-flight fast-path tick: one fetch for all the
+        entries' tokens and deferred first tokens, then the plain commit
+        loop per entry in dispatch order.  A no-op with nothing in
+        flight."""
+        entries, self._inflight = self._inflight, []
+        finished: List[SequenceResult] = []
+        if entries:
+            uniq: Dict[int, int] = {}
+            order: List[torch.Tensor] = []
+            for e in entries:
+                for t in [e["toks"]] + [rec[1] for rec in e["admits"]]:
+                    if id(t) not in uniq:
+                        uniq[id(t)] = len(order)
+                        order.append(t)
+            hosts = self._fetch(*order)
+            for e in entries:
+                self._note_flush_entry(e)
+                for st, t, i in e["admits"]:
+                    done = self._commit_first(
+                        st, int(hosts[uniq[id(t)]][i]), update_dev=False)
+                    if done is not None:
+                        finished.append(done)
+                toks_host = hosts[uniq[id(e["toks"])]]
+                # only slots still held by the sequence dispatched commit
+                slots = [s for s, sid in e["slots"]
+                         if s in self._active
+                         and self._active[s].seq_id == sid]
+                finished.extend(self._commit_scanned(
+                    slots, toks_host[None, :], 1,
+                    self._overlap_post_commit))
+        finished.extend(self._drain_admission_commits())
+        return finished
+
+    def _overlap_barrier(self) -> None:
+        """Flush outside a tick (cancel, deadlines); the results surface at
+        the next tick."""
+        if self._inflight or self._admit_pending:
+            out = self._overlap_flush()
+            if out:
+                self._flushed_out.extend(out)
+            self._invalidate_device_state()
+
+    def _invalidate_device_state(self) -> None:
+        """Subclass hook: the host mirrors changed behind the resident
+        device operands; upload them before the next dispatch."""
 
     def step(self) -> List[SequenceResult]:
         """One engine tick, wrapped in an ``engine.tick`` span when a
@@ -495,3 +746,31 @@ def dfa_scan_step(logits: torch.Tensor, cur: torch.Tensor,
     states = torch.where(step_dfa, next_t[idx, nxt.long()], states)
     remaining = remaining - advance.to(remaining.dtype)
     return cur, lens, newly_done, states, remaining
+
+
+def dfa_greedy_multi(logits: torch.Tensor, states: torch.Tensor,
+                     remaining: torch.Tensor, eos_id: int,
+                     allow_t: torch.Tensor, next_t: torch.Tensor,
+                     dist_t: torch.Tensor, close_t: torch.Tensor,
+                     complete_t: torch.Tensor) -> torch.Tensor:
+    """Grammar-constrained greedy over a verification step's T positions,
+    on the logits' device (the port of ``k8s_llm_rca_tpu/engine/engine.py::
+    dfa_greedy_multi``): logits [B, T, V], states/remaining [B] int32
+    (the FREE row for slots without a grammar, whose result is the plain
+    argmax).  The DFA advances along the constrained choices: on the
+    accepted draft prefix they are the draft, and the host never commits
+    a position after the first disagreement.  Returns tokens [B, T]."""
+    st = states.long()
+    rem = remaining
+    toks = []
+    for j in range(logits.shape[1]):
+        nxt_states = next_t[st]                                    # [B, V]
+        fits = dist_t[nxt_states.long()] <= (rem - 2)[:, None]
+        rows = allow_t[st] & fits
+        tok = logits[:, j].masked_fill(~rows, float("-inf")).argmax(dim=-1)
+        tok = torch.where(rows.any(dim=-1), tok, close_t[st].long())
+        tok = torch.where(complete_t[st], torch.full_like(tok, eos_id), tok)
+        st = torch.where(tok != eos_id, next_t[st, tok].long(), st)
+        rem = rem - 1
+        toks.append(tok)
+    return torch.stack(toks, dim=1)

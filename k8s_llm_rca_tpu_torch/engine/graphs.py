@@ -1,18 +1,25 @@
 """CUDA graphs over the paged engine's decode shapes: the port's
 counterpart of the JAX engine's jitted ``paged_decode_step``,
-``paged_decode_scan`` and ``paged_decode_scan_dfa``.
+``paged_decode_scan``, ``paged_decode_scan_dfa``, ``paged_overlap_step``
+and the speculative verify step (``paged_decode_multi``, with
+``dfa_greedy_multi`` under a compiled grammar).
 
 JAX compiles each decode step and scan into one XLA program that the
 device runs without the host; eagerly, PyTorch issues every one of a
 step's thousands of launches from Python.  ``DecodeGraphs`` records a
 decode function once per bucket (the single step, a scan of each chunk
 length, a DFA scan of each chunk length and padded table size) and
-replays it after that, one host call per step or scan.
+replays it after that, one host call per step or scan.  The engine's
+keys: ("step",), ("scan", chunk), ("dfa", chunk, padded states),
+("overlap",), ("multi", T, pages gathered) and ("multi-dfa", T, pages
+gathered, padded states).
 
 - The function captured reads only tensors that stay put: the engine's
   static operand buffers (tokens, lengths, block tables, DFA states and
-  budgets, the padded DFA tables), the KV pool (written in place) and the
-  params.  Its outputs live in the runner's shared memory pool, where
+  budgets, the verify step's [B, T] tokens, the padded DFA tables), the
+  KV pool (written in place) and the params.  The overlapped step also
+  writes its next tokens and lengths into those operand buffers, in
+  place.  Its outputs live in the runner's shared memory pool, where
   any other graph of the runner may use the same bytes as scratch: they
   hold only until the next replay of any graph in the runner, so the
   engine reads them before it replays again.

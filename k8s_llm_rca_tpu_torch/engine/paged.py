@@ -29,13 +29,24 @@
 
 - The prefix cache (``engine/prefix.py``) shares the KV pages of a cached
   prompt prefix: a hit prefills only its suffix, attending over the
-  gathered prefix pages (``paged_prefill_chunk_batch``, plain torch as in
-  JAX).  ``prefill_chunk_budget`` prefills a long prompt one page-aligned
-  chunk per tick through the same function.
+  gathered prefix pages (``paged_prefill_chunk_batch``).
+  ``prefill_chunk_budget`` prefills a long prompt one page-aligned chunk
+  per tick through the same function.
+- ``speculative_k`` verifies n-gram drafts (``engine/speculative.py``)
+  with one multi-token step (``paged_decode_multi``) and commits the
+  longest agreeing prefix plus one token: greedy-exact.
+- Hits, chunks and verification attend through ``attend_over_pages``: on
+  the card the pages gather into a contiguous buffer indexed by absolute
+  position and ``ops.flash_attention`` attends a query chunk at a per-row
+  offset over it; on the CPU the plain version the JAX package computes
+  in ``jnp``.
+- ``host_overlap`` keeps the decode operands resident on the device and
+  commits each step one tick late (``paged_overlap_step``), so the host
+  syncs once per two steps at ``decode_chunk`` 1.
 
 Not ported yet, and refused loudly when configured: the prefix cache's
-store tiers, speculative decoding, host overlap, KV spill and the
-TP/PP/CP/EP/FSDP meshes (ROADMAP Queue 1).
+store tiers, KV spill, draft-model speculation and the TP/PP/CP/EP/FSDP
+meshes (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -48,16 +59,21 @@ import torch
 
 from k8s_llm_rca_tpu_torch.config import EngineConfig, ModelConfig
 from k8s_llm_rca_tpu_torch.engine.engine import (
-    EngineBase, SequenceResult, _Active, _Pending, dfa_scan_step,
+    EngineBase, SequenceResult, _Active, _Pending, dfa_greedy_multi,
+    dfa_scan_step,
 )
 from k8s_llm_rca_tpu_torch.engine.graphs import DecodeGraphs
 from k8s_llm_rca_tpu_torch.engine.prefix import PrefixCache
+from k8s_llm_rca_tpu_torch.engine.speculative import DRAFT_MODEL_ITEM
 from k8s_llm_rca_tpu_torch.engine.sampling import (
     SamplingParams, sample_tokens, sample_tokens_masked,
 )
 from k8s_llm_rca_tpu_torch.models import llama
 from k8s_llm_rca_tpu_torch.models.quant import gather_rows, quantize_kv
-from k8s_llm_rca_tpu_torch.ops.attention import NEG_INF, repeat_kv
+from k8s_llm_rca_tpu_torch.ops.attention import (
+    NEG_INF, decode_attention_multi, repeat_kv,
+)
+from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
 from k8s_llm_rca_tpu_torch.ops.norms import rms_norm
 from k8s_llm_rca_tpu_torch.ops.paged_attention import (
     gather_dequant_pages, paged_attention, paged_attention_quant,
@@ -279,25 +295,117 @@ def _chunk_attention(cfg: ModelConfig, q: torch.Tensor, k_all: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
 
 
+def _gather_layer(cfg: ModelConfig, pool: PagePool, li: int,
+                  tables: torch.Tensor, dtype):
+    """Layer ``li``'s pages of ``tables`` [N, P] as dense [N, P * page,
+    n_kv, d] K and V in ``dtype`` (dequantized from a quantized pool)."""
+    packed = _pool_packed(cfg, pool)
+    scales = ((pool.k_scale[li], pool.v_scale[li]) if pool.quantized
+              else (None, None))
+    return tuple(gather_dequant_pages(pages[li], sc, tables, cfg.n_kv_heads,
+                                      cfg.head_dim, dtype, packed)
+                 for pages, sc in zip((pool.k, pool.v), scales))
+
+
+def pages_to_buffer(cfg: ModelConfig, pool: PagePool, li: int,
+                    tables: torch.Tensor, q_offset: torch.Tensor,
+                    fresh: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    n_pages: Optional[int] = None):
+    """The card half of ``attend_over_pages`` before the kernel: layer
+    ``li``'s pages of the first ``n_pages`` (all when None) columns of
+    ``tables`` gathered into contiguous [N, S, n_kv, d] K and V in the
+    model dtype, buffer index = absolute position, with ``fresh`` (k, v)
+    scattered to [q_offset, q_offset + C) of each row (the buffer grows by
+    C zero rows to hold it)."""
+    dtype = llama.torch_dtype(cfg.dtype)
+    if n_pages is not None:
+        tables = tables[:, :n_pages]
+    kb, vb = _gather_layer(cfg, pool, li, tables, dtype)
+    if fresh is None:
+        return kb, vb
+    n, c = fresh[0].shape[:2]
+    dev = kb.device
+    rows = torch.arange(n, device=dev)[:, None]
+    pos = q_offset.long()[:, None] + torch.arange(c, device=dev)[None, :]
+    pad = torch.zeros((n, c) + kb.shape[2:], dtype=dtype, device=dev)
+    kb, vb = torch.cat([kb, pad], dim=1), torch.cat([vb, pad], dim=1)
+    kb[rows, pos] = fresh[0].to(dtype)
+    vb[rows, pos] = fresh[1].to(dtype)
+    return kb, vb
+
+
+def attend_over_pages_plain(cfg: ModelConfig, q: torch.Tensor,
+                            pool: PagePool, li: int, tables: torch.Tensor,
+                            q_offset: torch.Tensor, seq_lens: torch.Tensor,
+                            fresh: Optional[Tuple[torch.Tensor,
+                                                  torch.Tensor]] = None
+                            ) -> torch.Tensor:
+    """``attend_over_pages``' plain version, on any device: what the JAX
+    package computes in ``jnp``.  With ``fresh``, the chunk attention over
+    (gathered prefix + chunk) with its mask in absolute positions (the
+    prefix is padded to a page count, so a buffer index is not a position);
+    without, ``decode_attention_multi`` over the whole gathered table."""
+    dtype = llama.torch_dtype(cfg.dtype)
+    kp, vp = _gather_layer(cfg, pool, li, tables, dtype)
+    if fresh is None:
+        return decode_attention_multi(q, kp, vp, q_offset + 1)
+    n, c_pad = q.shape[:2]
+    dev = q.device
+    prefix_lens = q_offset.long()
+    positions = prefix_lens[:, None] + torch.arange(c_pad, device=dev)[None]
+    pre = torch.arange(kp.shape[1], device=dev)[None, :]
+    k_abs = torch.cat([pre.expand(n, -1), positions], dim=1)       # [N, S]
+    k_valid = torch.cat([
+        pre < prefix_lens[:, None],
+        positions < seq_lens.long()[:, None]], dim=1)
+    mask = ((positions[:, :, None] >= k_abs[:, None, :])
+            & k_valid[:, None, :])                                 # [N, C, S]
+    return _chunk_attention(cfg, q, torch.cat([kp, fresh[0]], dim=1),
+                            torch.cat([vp, fresh[1]], dim=1), mask)
+
+
+def attend_over_pages(cfg: ModelConfig, q: torch.Tensor, pool: PagePool,
+                      li: int, tables: torch.Tensor, q_offset: torch.Tensor,
+                      seq_lens: torch.Tensor,
+                      fresh: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      n_pages: Optional[int] = None) -> torch.Tensor:
+    """Causal attention of a query chunk over K/V held in pages: q [N, C,
+    n_heads, d] at absolute positions ``q_offset + i`` sees the keys at
+    positions <= its own and < ``seq_lens`` [N].  ``tables`` [N, P] holds
+    the page ids of positions [0, P * page).  ``fresh`` (k, v) [N, C, n_kv,
+    d] are the chunk's own unquantized K/V at positions ``q_offset + i``,
+    not in the pool (prefix hits and chunked prefill); without it the pool
+    already holds every key (speculative verification, after the T new
+    tokens were written).  Returns [N, C, n_heads, d] in q's dtype.
+
+    On the card the pages gather into one contiguous buffer whose index is
+    the absolute position (``pages_to_buffer``; ``n_pages`` bounds the
+    gather to each row's first pages) and the flash kernel attends over it
+    with ``q_offset`` and ``seq_lens``; a call the kernel refuses raises.
+    On the CPU it runs ``attend_over_pages_plain``.  No row may have
+    ``seq_lens`` 0 (the kernel returns 0 there, the plain version the mean
+    of v)."""
+    if q.device.type == "cpu":
+        return attend_over_pages_plain(cfg, q, pool, li, tables, q_offset,
+                                       seq_lens, fresh)
+    kb, vb = pages_to_buffer(cfg, pool, li, tables, q_offset, fresh, n_pages)
+    return flash_attention(q, kb, vb, seq_lens.to(torch.int32),
+                           q_offset.to(torch.int32))
+
+
 def _chunk_layer(cfg: ModelConfig, layer, x: torch.Tensor,
                  angles: torch.Tensor, positions: torch.Tensor,
-                 mask: torch.Tensor, pool: PagePool, li: int,
-                 prefix_tables: torch.Tensor, dtype, packed: bool):
-    """One layer of chunked prefill: gather and dequantize the layer's
-    cached prefix pages, attend chunk over (prefix + chunk), finish the
-    block.  Returns (x', k, v), k/v the chunk's new KV [N, C, n_kv, d]
-    (the caller writes them into the pool after the last layer)."""
+                 prefix_lens: torch.Tensor, seq_lens: torch.Tensor,
+                 pool: PagePool, li: int, prefix_tables: torch.Tensor):
+    """One layer of chunked prefill: attend chunk over (cached prefix +
+    chunk) through ``attend_over_pages``, finish the block.  Returns (x',
+    k, v), k/v the chunk's new KV [N, C, n_kv, d] (the caller writes them
+    into the pool after the last layer)."""
     n, c_pad = x.shape[:2]
     h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
     q, k, v = llama._qkv(cfg, layer, h, angles, positions)
-    scales = ((pool.k_scale[li], pool.v_scale[li]) if pool.quantized
-              else (None, None))
-    kp, vp = (gather_dequant_pages(pages[li], sc, prefix_tables,
-                                   cfg.n_kv_heads, cfg.head_dim, dtype,
-                                   packed)
-              for pages, sc in zip((pool.k, pool.v), scales))
-    attn = _chunk_attention(cfg, q, torch.cat([kp, k], dim=1),
-                            torch.cat([vp, v], dim=1), mask)
+    attn = attend_over_pages(cfg, q, pool, li, prefix_tables, prefix_lens,
+                             seq_lens, fresh=(k, v))
     x = x + llama._w_mm(cfg, attn.reshape(n, c_pad, cfg.q_dim), layer["wo"])
     hm = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
     return x + llama._mlp(cfg, layer, hm), k, v
@@ -324,9 +432,11 @@ def paged_prefill_chunk_batch(cfg: ModelConfig, params, pool: PagePool,
                               prefix_lens: torch.Tensor,
                               prefix_tables: torch.Tensor,
                               page_maps: torch.Tensor):
-    """Chunked prefill of N suffixes in ONE dispatch, in plain torch (the
-    JAX function is ``jnp`` outside any Pallas kernel; its projections and
-    head go through ``qmm``/``qmm_head`` under ``fused_quant_matmul``).
+    """Chunked prefill of N suffixes in ONE dispatch.  Attention runs
+    through ``attend_over_pages`` (the flash kernel over the gathered pages
+    on the card; the plain masked attention on the CPU, which the JAX
+    function computes in ``jnp`` outside any Pallas kernel); projections
+    and head go through ``qmm``/``qmm_head`` under ``fused_quant_matmul``.
 
     tokens [N, C_pad] right-padded (C_pad a page multiple), chunk_lens [N]
     valid tokens, prefix_lens [N] cached tokens, absolute positions
@@ -338,27 +448,17 @@ def paged_prefill_chunk_batch(cfg: ModelConfig, params, pool: PagePool,
     n, c_pad = tokens.shape
     page_size = pool.page_size
     assert c_pad % page_size == 0, (c_pad, page_size)
-    s_prefix = prefix_tables.shape[1] * page_size
     dtype = llama.torch_dtype(cfg.dtype)
-    packed = _pool_packed(cfg, pool)
     dev = tokens.device
     angles = llama._angles(cfg, dev)
     positions = (prefix_lens.long()[:, None]
                  + torch.arange(c_pad, device=dev)[None, :])       # [N, C]
+    seq_lens = prefix_lens + chunk_lens
     x = gather_rows(params["embedding"], tokens, dtype).to(dtype)
-    # per-row causal + validity mask in absolute positions
-    pre = torch.arange(s_prefix, device=dev)[None, :]
-    k_abs = torch.cat([pre.expand(n, s_prefix), positions], dim=1)  # [N, S]
-    k_valid = torch.cat([
-        pre < prefix_lens.long()[:, None],
-        torch.arange(c_pad, device=dev)[None, :] < chunk_lens.long()[:, None]],
-        dim=1)
-    mask = ((positions[:, :, None] >= k_abs[:, None, :])
-            & k_valid[:, None, :])                                 # [N, C, S]
     ks, vs = [], []
     for li, layer in enumerate(params["layers"]):
-        x, k, v = _chunk_layer(cfg, layer, x, angles, positions, mask, pool,
-                               li, prefix_tables, dtype, packed)
+        x, k, v = _chunk_layer(cfg, layer, x, angles, positions, prefix_lens,
+                               seq_lens, pool, li, prefix_tables)
         ks.append(k.reshape(n * c_pad, cfg.kv_dim))
         vs.append(v.reshape(n * c_pad, cfg.kv_dim))
     pool = _write_pool_pages(cfg, pool, torch.stack(ks), torch.stack(vs),
@@ -408,6 +508,72 @@ def paged_decode_step(cfg: ModelConfig, params, pool: PagePool,
         x = llama._decode_finish(cfg, layer, x,
                                  attn.reshape(b, 1, cfg.q_dim))
     return pool, llama._logits(cfg, params, x)[:, 0]
+
+
+def paged_decode_multi(cfg: ModelConfig, params, pool: PagePool,
+                       tokens: torch.Tensor, lengths: torch.Tensor,
+                       block_tables: torch.Tensor,
+                       n_pages: Optional[int] = None):
+    """Multi-token paged decode (speculative verification): tokens [B, T],
+    tokens[b, 0] the current token and the rest drafts, at positions
+    ``lengths[b] + i``.  All T writes of a slot land in ONE page (the
+    engine bounds T by each slot's room in its current page), quantized
+    per token for an int8/int4 pool; then each layer attends T queries
+    over the slot's pages through ``attend_over_pages`` (``n_pages``: the
+    pages the card gathers per row, enough for every ``lengths + T``).
+    Returns (pool, greedy [B, T], logits [B, T, V])."""
+    b, t = tokens.shape
+    page_size = pool.page_size
+    packed = _pool_packed(cfg, pool)
+    dev = tokens.device
+    lens = lengths.long()
+    angles = llama._angles(cfg, dev)
+    dtype = llama.torch_dtype(cfg.dtype)
+    steps = torch.arange(t, device=dev)[None, :]
+    positions = lens[:, None] + steps                              # [B, T]
+    x = gather_rows(params["embedding"], tokens.long(), dtype).to(dtype)
+    page_ids = block_tables.long().gather(1, (lens // page_size)[:, None])
+    pages2d = page_ids.expand(b, t)                                # [B, T]
+    offsets = (lens % page_size)[:, None] + steps
+    seq_lens = lengths + t
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = llama._decode_qkv(cfg, layer, x, angles, positions)
+        k_tok = k.reshape(b, t, cfg.kv_dim)
+        v_tok = v.reshape(b, t, cfg.kv_dim)
+        if pool.quantized:
+            k_tok, ks = quantize_kv(k_tok, packed)
+            v_tok, vs = quantize_kv(v_tok, packed)
+            pool.k_scale[li, pages2d, offsets] = ks.float()
+            pool.v_scale[li, pages2d, offsets] = vs.float()
+        pool.k[li, pages2d, offsets] = k_tok
+        pool.v[li, pages2d, offsets] = v_tok
+        attn = attend_over_pages(cfg, q, pool, li, block_tables, lengths,
+                                 seq_lens, n_pages=n_pages)
+        x = llama._decode_finish(cfg, layer, x,
+                                 attn.reshape(b, t, cfg.q_dim))
+    logits = llama._logits(cfg, params, x)                         # [B, T, V]
+    return pool, logits.argmax(dim=-1), logits
+
+
+def paged_overlap_step(cfg: ModelConfig, params, pool: PagePool,
+                       cur_tokens: torch.Tensor, lengths: torch.Tensor,
+                       block_tables: torch.Tensor,
+                       generator: Optional[torch.Generator],
+                       sampling: SamplingParams, cap: int):
+    """One step of the overlapped hot loop: decode, sample, and advance
+    every slot's length (clamped at ``cap``, the last in-table position),
+    all on the device.  ``cur_tokens`` and ``lengths`` are the engine's
+    resident operand buffers and take the new tokens and lengths IN PLACE,
+    so the next step reads them where this one left them and the host
+    never touches them between ticks.  A slot the host already retired
+    decodes garbage into the trash page until the lagged commit drops
+    its tokens.  Returns (pool, next_tokens [B], lengths)."""
+    pool, logits = paged_decode_step(cfg, params, pool, cur_tokens, lengths,
+                                     block_tables)
+    nxt = sample_tokens(logits, generator, sampling)
+    cur_tokens.copy_(nxt)
+    lengths.copy_(torch.clamp(lengths + 1, max=cap))
+    return pool, nxt, lengths
 
 
 def paged_decode_scan(cfg: ModelConfig, params, pool: PagePool,
@@ -468,9 +634,6 @@ _REST_OF_ENGINE = "Queue 1 item 3, the rest of the paged engine"
 _UNPORTED_KNOBS = (
     # (EngineConfig field, its only supported value, what it turns on,
     #  the ROADMAP item that ports it)
-    ("speculative_k", 0, "speculative decoding (engine/speculative.py)",
-     _REST_OF_ENGINE),
-    ("host_overlap", False, "the overlapped host loop", _REST_OF_ENGINE),
     ("max_spilled_pages", 0, "KV spill-to-host preemption", _REST_OF_ENGINE),
     ("prefix_host_pages", 0, "the tiered prefix store", _REST_OF_ENGINE),
     ("prefix_disk_dir", None, "the tiered prefix store", _REST_OF_ENGINE),
@@ -499,6 +662,12 @@ def check_engine_config(engine_cfg: EngineConfig) -> None:
             f"per-tick chunk scatters whole pages, so its growing "
             f"prefix stays page-aligned for the next chunk's "
             f"gather")
+    k = engine_cfg.speculative_k
+    if k > 0 and k + 1 > engine_cfg.page_size:
+        raise ValueError(
+            f"speculative_k={k} needs k+1 <= page_size="
+            f"{engine_cfg.page_size} (all verify-step writes must fit one "
+            f"page)")
 
 
 def _pow2_at_least(n: int) -> int:
@@ -523,8 +692,14 @@ class PagedInferenceEngine(EngineBase):
 
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
                  params, tokenizer: Tokenizer, device=None, *,
-                 cuda_graphs: bool = True, tp_mesh=None, cp_mesh=None,
-                 ep_mesh=None, pp_mesh=None, fsdp_mesh=None):
+                 cuda_graphs: bool = True, draft_model=None, tp_mesh=None,
+                 cp_mesh=None, ep_mesh=None, pp_mesh=None, fsdp_mesh=None):
+        if draft_model is not None:
+            raise NotImplementedError(
+                f"draft-model speculation (draft_model=) runs its draft on "
+                f"the contiguous engine, which is not ported yet (ROADMAP "
+                f"{DRAFT_MODEL_ITEM}); n-gram drafts (speculative_k > 0) "
+                f"are")
         if any(m is not None for m in (tp_mesh, cp_mesh, ep_mesh, pp_mesh,
                                        fsdp_mesh)):
             raise NotImplementedError(
@@ -596,6 +771,19 @@ class PagedInferenceEngine(EngineBase):
         # padded DFA table size -> (static table buffers, the key, offsets
         # and tables of the combination they hold): _scan_dfa_setup's
         self._dfa_static: Dict[int, tuple] = {}
+        # T -> (staging, device) [B, T] token buffers of the verify step
+        self._multi_tokens: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        # the overlapped hot loop: with host_overlap the operand buffers
+        # stay resident between ticks (uploaded only when _dev_dirty, then
+        # edited slot by slot); _inflight_n counts each slot's dispatched
+        # but uncommitted steps, so growth covers the device's length
+        self._overlap = engine_cfg.host_overlap
+        self._inflight = []
+        self._flushed_out = []
+        self._inflight_n: Dict[int, int] = {}
+        self._dev_dirty = True
+        # the overlapped step's clamp: the last in-table position
+        self._dev_cap = self.pages_per_seq * self.page_size - 1
         self.graphs = (DecodeGraphs(self.device,
                                     None if self.sampling.greedy
                                     else self._gen, self._count)
@@ -613,11 +801,74 @@ class PagedInferenceEngine(EngineBase):
 
     def _device_state(self):
         """The decode operands (tokens, lengths, block tables) as the
-        engine's static int32 device buffers."""
+        engine's static int32 device buffers.  Without ``host_overlap``
+        every call uploads the three host mirrors; with it they upload only
+        when dirty (the host changed them wholesale), and the slot edits
+        below keep them current in between."""
+        if self._overlap and not self._dev_dirty:
+            return self._operands[:3]
         self._count("engine.h2d_uploads", 3)
-        return (self._upload(0, self.cur_tokens),
-                self._upload(1, self.lengths),
-                self._upload(2, self.block_tables))
+        out = (self._upload(0, self.cur_tokens),
+               self._upload(1, self.lengths),
+               self._upload(2, self.block_tables))
+        if self._overlap:
+            self._dev_dirty = False
+            # deferred first tokens exist only on the device so far
+            for st, t, i in self._admit_pending:
+                if self._active.get(st.slot) is st:
+                    out[0][st.slot] = t[i]
+        return out
+
+    def _invalidate_device_state(self) -> None:
+        self._dev_dirty = True
+
+    def _dev_edit_token(self, slot: int, token) -> None:
+        """Mirror one ``cur_tokens`` write (a host int or a device scalar)
+        into the resident operand."""
+        if self._overlap and not self._dev_dirty:
+            self._operands[0][slot] = token
+
+    def _dev_edit_len(self, slot: int, n: int) -> None:
+        if self._overlap and not self._dev_dirty:
+            self._operands[1][slot] = n
+
+    def _dev_edit_bt_row(self, slot: int) -> None:
+        """Mirror one block-table row (growth, admission, retirement): a
+        freed slot's row back at the trash page is what keeps the
+        overlapped step's garbage writes out of live pages."""
+        if self._overlap and not self._dev_dirty:
+            row = torch.from_numpy(self.block_tables[slot])
+            if self.device.type == "cuda":
+                # pinned and asynchronous: a pageable copy would wait for
+                # the step in flight (the caching host allocator keeps the
+                # pinned block until the copy has run)
+                row = row.pin_memory()
+            self._operands[2][slot].copy_(row, non_blocking=True)
+
+    def _covered_len(self, slot: int) -> int:
+        """The slot's length with its dispatched but uncommitted steps:
+        what growth must cover, since the next dispatch writes there."""
+        return int(self.lengths[slot]) + self._inflight_n.get(slot, 0)
+
+    def _note_flush_entry(self, entry: dict) -> None:
+        for s, _ in entry["slots"]:
+            n = self._inflight_n.get(s, 0) - 1
+            if n > 0:
+                self._inflight_n[s] = n
+            else:
+                self._inflight_n.pop(s, None)
+
+    def _overlap_post_commit(self, slot: int, token: int) -> None:
+        # the host mirrors catch up with the device: the resident state
+        # stays clean
+        self.lengths[slot] += 1
+        self.cur_tokens[slot] = token
+
+    def _note_first_token(self, slot: int, token: int,
+                          update_dev: bool) -> None:
+        self.cur_tokens[slot] = token
+        if update_dev:
+            self._dev_edit_token(slot, token)
 
     def _decode(self, key: tuple, fn):
         """Run a decode function: eagerly, or through its bucket's CUDA
@@ -630,24 +881,43 @@ class PagedInferenceEngine(EngineBase):
 
     def _tick(self) -> List[SequenceResult]:
         finished: List[SequenceResult] = self._reap_deadlines()
+        if self._flushed_out:
+            # results of a flush made outside a tick (cancel, deadlines)
+            finished.extend(self._flushed_out)
+            self._flushed_out = []
+        fast = self._overlap_fast()
+        if self._inflight and not fast:
+            # a synchronous path runs this tick: commit the lag first
+            finished.extend(self._overlap_flush())
         if self._prefilling:
             # every chunked prefill advances one chunk BEFORE admission, so
             # it makes progress while new admissions compete for pages
             finished.extend(self._tick_prefill_chunks())
         if self._pending and self._free_slots:
             finished.extend(self._tick_admission())
-        # one fetch commits every first token sampled at admission
-        finished.extend(self._drain_admission_commits())
+        if not fast:
+            # one fetch commits every first token sampled at admission
+            finished.extend(self._drain_admission_commits())
         if not self._active:
+            finished.extend(self._overlap_flush())
             return finished
         self._tick_growth()
         active_slots = sorted(self._active)
         if not active_slots:
+            finished.extend(self._overlap_flush())
+            return finished
+
+        if self._speculation_applies():
+            finished.extend(self._speculative_tick(active_slots))
             return finished
 
         chunk = self._scan_chunk()
         if chunk > 1:
             finished.extend(self._scan_tick(chunk, active_slots))
+            return finished
+
+        if fast:
+            finished.extend(self._overlap_step_tick(active_slots))
             return finished
 
         forced, allow = self._tick_constraints(
@@ -678,7 +948,124 @@ class PagedInferenceEngine(EngineBase):
             reason = self._finish_reason(st, token, int(self.lengths[slot]))
             if reason is not None:
                 finished.append(self._retire(slot, reason))
+        # the host commit is authoritative: re-upload before the next step
+        self._invalidate_device_state()
         return finished
+
+    def _overlap_step_tick(self, active_slots) -> List[SequenceResult]:
+        """The overlapped fast path: ONE dispatch over the resident
+        operands (``paged_overlap_step``), no fetch; the token vector
+        joins ``_inflight`` and commits when the lag flushes
+        (``decode_tokens`` count there, as on the plain path)."""
+        # the device state first: a dirty upload re-applies the deferred
+        # first tokens, so take them only after it
+        cur_d, lens_d, bt_d = self._device_state()
+        admits = self._take_admit_pending()
+        slots = [(s, self._active[s].seq_id) for s in active_slots]
+        self._count("engine.dispatches")
+        self._count("engine.decode_steps")
+        cfg, params, pool = self.model_cfg, self.params, self.pool
+        gen, sampling, cap = self._gen, self.sampling, self._dev_cap
+        nxt = self._decode(("overlap",), lambda: paged_overlap_step(
+            cfg, params, pool, cur_d, lens_d, bt_d, gen, sampling, cap)[1])
+        # a graph's output is rewritten by its next replay: keep a copy
+        # until the lagged flush reads it
+        toks = nxt.clone() if self.graphs is not None else nxt
+        for s in active_slots:
+            self._inflight_n[s] = self._inflight_n.get(s, 0) + 1
+        self._inflight.append({"slots": slots, "toks": toks,
+                               "admits": admits})
+        if len(self._inflight) >= self._overlap_lag:
+            return self._overlap_flush()
+        return []
+
+    # ------------------------------------------------ speculative decoding
+
+    def _spec_room_ok(self, slot: int, t: int) -> bool:
+        # all T writes land in the slot's CURRENT page, under the cap
+        length = int(self.lengths[slot])
+        return (length % self.page_size + t <= self.page_size
+                and length + t <= self.engine_cfg.max_seq_len)
+
+    def _multi_tokens_buffer(self, tokens_in: np.ndarray) -> torch.Tensor:
+        """``tokens_in`` [B, T] in the verify step's static device buffer
+        of its T (staging pinned on the card, as ``_upload``'s)."""
+        t = tokens_in.shape[1]
+        if t not in self._multi_tokens:
+            pin = self.device.type == "cuda"
+            self._multi_tokens[t] = (
+                torch.zeros(tokens_in.shape, dtype=torch.int32,
+                            pin_memory=pin),
+                torch.zeros(tokens_in.shape, dtype=torch.int32,
+                            device=self.device))
+        staging, dev = self._multi_tokens[t]
+        staging.numpy()[...] = tokens_in
+        return dev.copy_(staging, non_blocking=True)
+
+    def _verify_pages(self, active_slots, t: int) -> int:
+        """Pages per row the card's verify attention gathers: enough for
+        the batch's longest ``lengths + T``, rounded up to a power of two
+        (one graph per bucket) and capped at the table."""
+        need = max(int(self.lengths[s]) + t for s in active_slots)
+        return min(_pow2_at_least(-(-need // self.page_size)),
+                   self.pages_per_seq)
+
+    def _speculative_tick(self, active_slots) -> List[SequenceResult]:
+        """Verification tick: the n-gram drafts scored by ONE
+        ``paged_decode_multi``, committed through ``_verify_and_commit``.
+        Grammar slots sharing one compiled DFA verify constrained on the
+        device (``dfa_greedy_multi``, inside the same graph); an
+        interpreted grammar or mixed tables take [B, T, V] logits to the
+        host."""
+        tokens_in, drafts = self._build_drafts(active_slots, self.cur_tokens)
+        t = tokens_in.shape[1]
+        n_pages = self._verify_pages(active_slots, t)
+        need_logits = self._need_spec_logits(active_slots)
+        setup = (self._scan_dfa_setup()
+                 if need_logits and self._uniform_dfa_tables() is not None
+                 else None)
+        # the [B, T] tokens are the verify step's own operand; lengths and
+        # block tables are the uploads it pays
+        self._count("engine.h2d_uploads", 2)
+        toks_d = self._multi_tokens_buffer(tokens_in)
+        lens_d = self._upload(1, self.lengths)
+        bt_d = self._upload(2, self.block_tables)
+        self._count("engine.dispatches")
+        self._count("engine.decode_steps")
+        self._count("engine.verify_steps")
+        cfg, params, pool = self.model_cfg, self.params, self.pool
+        logits_host = None
+        if setup is None:
+            greedy, logits = self._decode(
+                ("multi", t, n_pages), lambda: paged_decode_multi(
+                    cfg, params, pool, toks_d, lens_d, bt_d, n_pages)[1:])
+            if need_logits:
+                greedy_host, logits_host = self._fetch(greedy, logits)
+            else:
+                (greedy_host,) = self._fetch(greedy)
+        else:
+            tables, states, remaining = setup
+            states_d = self._upload(3, states)
+            remaining_d = self._upload(4, remaining)
+            eos = self.tokenizer.eos_id
+            greedy = self._decode(
+                ("multi-dfa", t, n_pages, tables[0].shape[0]),
+                lambda: dfa_greedy_multi(
+                    paged_decode_multi(cfg, params, pool, toks_d, lens_d,
+                                       bt_d, n_pages)[2],
+                    states_d, remaining_d, eos, *tables))
+            (greedy_host,) = self._fetch(greedy)
+
+        def post_commit(slot: int, token: int) -> None:
+            self.lengths[slot] += 1
+            self.cur_tokens[slot] = token
+
+        out = self._verify_and_commit(active_slots, drafts, greedy_host,
+                                      logits_host, post_commit,
+                                      constrained=setup is not None)
+        # the host mirrors moved by a per-slot accepted count
+        self._invalidate_device_state()
+        return out
 
     def _tick_admission(self) -> List[SequenceResult]:
         """Admit pending requests into free slots until the queue, the
@@ -728,7 +1115,9 @@ class PagedInferenceEngine(EngineBase):
         for slot in sorted(self._active):
             if slot not in self._active:
                 continue     # evicted by an earlier slot's preemption
-            if int(self.lengths[slot]) % self.page_size == 0:
+            # the covered length: with a lagged commit the next dispatch
+            # writes at the device's length, ahead of the host mirror
+            if self._covered_len(slot) % self.page_size == 0:
                 while slot in self._active:
                     try:
                         self._grow(slot)
@@ -740,9 +1129,10 @@ class PagedInferenceEngine(EngineBase):
         if chunk_goal > 1:
             for slot in sorted(self._active):
                 st = self._active[slot]
-                pos = int(self.lengths[slot])
+                pos = self._covered_len(slot)
                 last = min(pos + chunk_goal - 1,
                            self.pages_per_seq * self.page_size - 1)
+                grew = False
                 for idx in range(pos // self.page_size + 1,
                                  last // self.page_size + 1):
                     if self.block_tables[slot, idx] != TRASH_PAGE:
@@ -753,6 +1143,9 @@ class PagedInferenceEngine(EngineBase):
                     except OutOfPages:
                         break
                     self.block_tables[slot, idx] = page
+                    grew = True
+                if grew:
+                    self._dev_edit_bt_row(slot)
 
     def _chunk_bound(self, slot: int) -> int:
         """The slot's contiguous allocated run from its current position:
@@ -774,18 +1167,25 @@ class PagedInferenceEngine(EngineBase):
         cfg, params, pool = self.model_cfg, self.params, self.pool
         gen, sampling, eos = self._gen, self.sampling, self.tokenizer.eos_id
         if setup is None:
-            toks = self._decode(("scan", chunk), lambda: paged_decode_scan(
-                cfg, params, pool, cur_d, lens_d, bt_d, gen, chunk, sampling,
-                eos)[1])
+            toks, lens = self._decode(
+                ("scan", chunk), lambda: paged_decode_scan(
+                    cfg, params, pool, cur_d, lens_d, bt_d, gen, chunk,
+                    sampling, eos)[1:])
         else:
             tables, states, remaining = setup
             states_d = self._upload(3, states)
             remaining_d = self._upload(4, remaining)
-            toks = self._decode(
+            toks, lens = self._decode(
                 ("dfa", chunk, tables[0].shape[0]),
                 lambda: paged_decode_scan_dfa(
                     cfg, params, pool, cur_d, lens_d, bt_d, gen, chunk,
-                    sampling, eos, states_d, remaining_d, *tables)[1])
+                    sampling, eos, states_d, remaining_d, *tables)[1:3])
+        if self._overlap:
+            # the surviving slots' host mirrors advance to exactly these
+            # values in the commit below (a slot that stops short retires),
+            # so the resident operands stay clean for the next dispatch
+            cur_d.copy_(toks[-1])
+            lens_d.copy_(lens)
         (toks_host,) = self._fetch(toks)                # [chunk, B]
 
         def post_commit(slot: int, token: int) -> None:
@@ -946,8 +1346,9 @@ class PagedInferenceEngine(EngineBase):
             return self._activate_now(req, slot, table, n_cp,
                                       logits[idx:idx + 1],
                                       int(self._fetch(first)[0][idx]))
-        self._admit_pending.append(
-            (self._activate(req, slot, table, n_cp), first, idx))
+        st = self._activate(req, slot, table, n_cp)
+        self._dev_edit_token(slot, first[idx])
+        self._admit_pending.append((st, first, idx))
         return None
 
     def _admit_chunked(self, req: _Pending) -> Optional[SequenceResult]:
@@ -1034,6 +1435,7 @@ class PagedInferenceEngine(EngineBase):
         if st["pages"]:
             self.allocator.free(st["pages"], owner=seq_id)
         self.block_tables[slot] = TRASH_PAGE
+        self._dev_edit_bt_row(slot)
         self._free_slots.append(slot)
         self._prompts.pop(seq_id, None)
         self._resumed.pop(seq_id, None)
@@ -1172,8 +1574,9 @@ class PagedInferenceEngine(EngineBase):
                     finished.append(early)
             return finished
         for i, req in enumerate(reqs):
-            self._admit_pending.append(
-                (self._activate(req, slots[i], tables[i], n_cp), firsts, i))
+            st = self._activate(req, slots[i], tables[i], n_cp)
+            self._dev_edit_token(slots[i], firsts[i])
+            self._admit_pending.append((st, firsts, i))
         return finished
 
     def _activate(self, req: _Pending, slot: int, table: np.ndarray,
@@ -1192,6 +1595,8 @@ class PagedInferenceEngine(EngineBase):
                      n_shared=n_shared, priority=req.priority)
         self._active[slot] = st
         self.lengths[slot] = len(req.prompt_ids)
+        self._dev_edit_len(slot, len(req.prompt_ids))
+        self._dev_edit_bt_row(slot)
         return st
 
     def _activate_now(self, req: _Pending, slot: int, table: np.ndarray,
@@ -1210,49 +1615,18 @@ class PagedInferenceEngine(EngineBase):
             st.grammar.advance(token)
         return self._commit_first(st, token)
 
-    def _commit_first(self, st: _Active,
-                      token: int) -> Optional[SequenceResult]:
-        """Commit an admission's first token; it may already finish the
-        sequence."""
-        st.generated.append(token)
-        self.cur_tokens[st.slot] = token
-        reason = self._finish_reason(st, token, st.prompt_tokens)
-        if reason is not None:
-            return self._retire(st.slot, reason)
-        return None
-
-    def _drain_admission_commits(self) -> List[SequenceResult]:
-        """Fetch every admission's first token in ONE sync and commit them
-        in admission order (the first token may already finish a
-        sequence)."""
-        pend, self._admit_pending = self._admit_pending, []
-        if not pend:
-            return []
-        uniq: Dict[int, int] = {}
-        order: List[torch.Tensor] = []
-        for _, t, _ in pend:
-            if id(t) not in uniq:
-                uniq[id(t)] = len(order)
-                order.append(t)
-        hosts = self._fetch(*order)
-        out: List[SequenceResult] = []
-        for st, t, i in pend:
-            done = self._commit_first(st, int(hosts[uniq[id(t)]][i]))
-            if done is not None:
-                out.append(done)
-        return out
-
     # ------------------------------------------------ growth / preemption
 
     def _grow(self, slot: int) -> None:
         st = self._active[slot]
-        idx = int(self.lengths[slot]) // self.page_size
+        idx = self._covered_len(slot) // self.page_size
         if idx >= self.pages_per_seq:
             return                              # at cap; finish_reason handles
         if self.block_tables[slot, idx] != TRASH_PAGE:
             return                              # page already present
         (page,) = self._alloc_with_evict(1, owner=st.seq_id)
         self.block_tables[slot, idx] = page
+        self._dev_edit_bt_row(slot)
 
     def _preempt_victim(self, exclude: Optional[int] = None) -> bool:
         """Evict one active sequence: the lowest priority class first,
@@ -1283,6 +1657,7 @@ class PagedInferenceEngine(EngineBase):
         st = self._active.pop(slot)
         self._release_slot_pages(slot, st)
         self.block_tables[slot] = TRASH_PAGE
+        self._dev_edit_bt_row(slot)     # contain in-flight garbage writes
         self.lengths[slot] = 0     # the scan advances idle slots too
         self._free_slots.append(slot)
         prefix = self._resumed.get(st.seq_id, []) + st.generated
@@ -1305,6 +1680,7 @@ class PagedInferenceEngine(EngineBase):
         self._release_slot_pages(slot, st)
         self.allocator.check()
         self.block_tables[slot] = TRASH_PAGE
+        self._dev_edit_bt_row(slot)     # contain in-flight garbage writes
         self.lengths[slot] = 0     # the scan advances idle slots too
         self._free_slots.append(slot)
         # report against the ORIGINAL prompt, with any pre-preemption

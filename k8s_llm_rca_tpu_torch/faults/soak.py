@@ -24,12 +24,17 @@ from typing import Any, Dict, List
 from k8s_llm_rca_tpu_torch.faults.plan import VirtualClock
 
 
-def _build_engine_service(clock, model_cfg=None, params=None, device=None):
+def _build_engine_service(clock, model_cfg=None, params=None, device=None,
+                          engine_overrides=None):
     """The soak's engine stack: TINY with max_seq_len 2560 by default, one
     prefill bucket, page 64, 168 pages, decode_chunk 16, 96 new tokens,
-    greedy, no prefix cache.  ``params`` must already live on ``device``
-    (``None`` = the card); when omitted, seeded port weights are made
-    there.  Returns (service, engine)."""
+    greedy, no prefix cache; ``engine_overrides`` replaces EngineConfig
+    fields (speculative decoding, host overlap, the prefix cache ...).
+    ``params`` must already live on ``device`` (``None`` = the card); when
+    omitted, seeded port weights are made there.  Returns (service,
+    engine)."""
+    import dataclasses
+
     import torch
 
     from k8s_llm_rca_tpu_torch.config import TINY, EngineConfig
@@ -52,6 +57,8 @@ def _build_engine_service(clock, model_cfg=None, params=None, device=None):
                         max_new_tokens=96, temperature=0.0,
                         paged=True, page_size=64, num_pages=168,
                         prefix_cache=False, decode_chunk=16)
+    if engine_overrides:
+        ecfg = dataclasses.replace(ecfg, **engine_overrides)
     engine = make_engine(cfg, ecfg, params, tok, device)
     # deadlines on the sweep's virtual clock: on wall time the first
     # prefill alone could pass the 1.5 s run deadline
@@ -101,14 +108,15 @@ _ITEMS = {
     "durable_dir": "Queue 1 item 4, serve/journal.py",
     "cluster_replicas": "Queue 1 item 11, fleet",
     **dict.fromkeys(("seed", "run_timeout_s", "incidents", "tracer",
-                     "engine_overrides", "rca_overrides"),
+                     "rca_overrides"),
                     "Queue 1 item 5, the port's bench"),
 }
 
 
 def run_pipelined_sweep(n_incidents: int = 10, backend: str = "engine",
                         concurrency: int = 4, model_cfg=None, params=None,
-                        device=None, **unported) -> Dict[str, Any]:
+                        device=None, engine_overrides=None,
+                        **unported) -> Dict[str, Any]:
     """Plan-free pipelined RCA sweep: ``concurrency`` incidents in flight
     over one shared backend (``rca/scheduler.py::SweepScheduler``), the
     fixture corpus cycled ``n_incidents`` times.
@@ -118,8 +126,8 @@ def run_pipelined_sweep(n_incidents: int = 10, backend: str = "engine",
     run id), so ``report_bytes(out["report"])`` is the parity surface;
     pump counts and inflight samples go to ``out["stats"]``.
     ``backend``: "engine" (``_build_engine_service`` over ``model_cfg``,
-    ``params`` and ``device``) or "oracle" (the scripted backend, no
-    model).  Any other option of the JAX sweep raises
+    ``params``, ``device`` and ``engine_overrides``, EngineConfig field
+    overrides) or "oracle" (the scripted backend, no model).  Any other option of the JAX sweep raises
     ``NotImplementedError`` naming its ROADMAP item.  Returns
     ``{"report", "stats", "service", "engines"}``."""
     from k8s_llm_rca_tpu_torch.config import RCAConfig
@@ -145,7 +153,7 @@ def run_pipelined_sweep(n_incidents: int = 10, backend: str = "engine",
     clock = VirtualClock()
     if backend == "engine":
         service, engine = _build_engine_service(clock, model_cfg, params,
-                                                device)
+                                                device, engine_overrides)
         engines = [engine]
     elif backend == "oracle":
         service = _build_oracle_service(clock)

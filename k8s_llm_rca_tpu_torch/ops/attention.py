@@ -6,6 +6,8 @@
   ``ops/flash_attention.py``'s kernel.
 - ``decode_attention``: one query per slot over a dense [B, S_max] cache
   with per-slot valid lengths.
+- ``decode_attention_multi``: T queries per slot over that cache, query i
+  seeing one more position than query i - 1 (speculative verification).
 
 Masked scores are ``NEG_INF = -1e30``, not ``-inf``, as in the JAX
 package, so a fully masked row stays finite.
@@ -81,6 +83,35 @@ def decode_attention(
     k_pos = torch.arange(s_max, device=dev)[None, None, :]       # [1, 1, S]
     limit = lengths.to(dev)[:, None, None]                       # [B, 1, 1]
     mask = (k_pos < limit)[:, None]                              # [B, 1, 1, S]
+    logits = torch.where(mask, logits, torch.tensor(NEG_INF, device=dev))
+    probs = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
+    probs = probs / torch.sum(probs, dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def decode_attention_multi(
+    q: torch.Tensor,          # [B, T, n_heads, d] queries at lengths - 1 + i
+    k_cache: torch.Tensor,    # [B, S_max, n_kv, d]
+    v_cache: torch.Tensor,    # [B, S_max, n_kv, d]
+    lengths: torch.Tensor,    # [B] tokens valid incl. the FIRST query token
+) -> torch.Tensor:
+    """Multi-token decode attention (speculative verification): query i of
+    slot b attends to cache positions < lengths[b] + i.  [B, T, n_heads, d]
+    (``k8s_llm_rca_tpu/ops/attention.py::decode_attention_multi``)."""
+    s_max, n_kv, d = k_cache.shape[1:]
+    t, n_heads = q.shape[1], q.shape[2]
+    n_rep = n_heads // n_kv
+    k = repeat_kv(k_cache, n_rep)
+    v = repeat_kv(v_cache, n_rep)
+
+    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    dev = q.device
+    k_pos = torch.arange(s_max, device=dev)[None, None, :]       # [1, 1, S]
+    limit = (lengths.to(dev)[:, None, None]
+             + torch.arange(t, device=dev)[None, :, None])       # [B, T, 1]
+    mask = (k_pos < limit)[:, None]                              # [B, 1, T, S]
     logits = torch.where(mask, logits, torch.tensor(NEG_INF, device=dev))
     probs = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
     probs = probs / torch.sum(probs, dim=-1, keepdim=True)

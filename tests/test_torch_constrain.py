@@ -9,6 +9,7 @@ and the force-close path are compared too."""
 
 import numpy as np
 import pytest
+import torch
 
 from k8s_llm_rca_tpu.engine import constrain as jc
 from k8s_llm_rca_tpu.rca.auditor import report_schema as j_report
@@ -18,6 +19,11 @@ from k8s_llm_rca_tpu_torch.engine import constrain as tc
 from k8s_llm_rca_tpu_torch.rca.auditor import report_schema
 from k8s_llm_rca_tpu_torch.rca.locator import plan_schema
 from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+# One intra-op thread: the tier-1 run puts six pytest workers on the
+# host's cores, and an oversubscribed OpenMP pool spins through every
+# small op (a TINY engine case ran ~30x slower under that load).
+torch.set_num_threads(1)
 
 KINDS = ["ConfigMap", "Job", "Namespace", "Pod", "Secret"]
 SCHEMAS = {"report": (j_report, report_schema, ()),

@@ -1021,3 +1021,116 @@ def test_graph_pool_is_freed_with_the_engine(card):
     assert runner() is None
     assert not any(tuple(seg.get("segment_pool_id", ())) == pool
                    for seg in torch.cuda.memory_snapshot())
+
+
+# ------------------------------------------ attention over KV pages (flash)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["hit", "verify"])
+@pytest.mark.parametrize("shape", ["tiny", "8b"])
+def test_attend_over_pages_matches_plain(card, shape, case, dtype):
+    """``attend_over_pages`` on the card (the pages gathered into a buffer
+    indexed by position, then one flash launch) against its plain version:
+    "hit", two chunks over cached prefixes of different lengths with their
+    fresh K/V, padded queries past a row's chunk length; "verify", T = 5
+    queries at per-row lengths over the pool, one row on a page edge.  At
+    TINY's heads (4 over 2, d 32, page 16) and Llama-3-8B's (32 over 8, d
+    128, page 64)."""
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B, TINY
+    from k8s_llm_rca_tpu_torch.engine.paged import (
+        PagePool, attend_over_pages, attend_over_pages_plain,
+    )
+
+    base, page = (TINY, 16) if shape == "tiny" else (LLAMA3_8B, 64)
+    cfg = base.replace(dtype="float32" if dtype == torch.float32
+                       else "bfloat16")
+    h, n_kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def rnd(*s):
+        return torch.randn(s, generator=card, device="cuda").to(dtype)
+
+    def ints(v):
+        return torch.tensor(v, dtype=torch.int32, device="cuda")
+
+    n_pages = 48
+    pool = PagePool(rnd(1, n_pages, page, n_kv * d),
+                    rnd(1, n_pages, page, n_kv * d))
+    ids = torch.randperm(n_pages - 1, generator=card, device="cuda") + 1
+    if case == "hit":
+        c = 2 * page
+        tables = torch.zeros((2, 8), dtype=torch.int32, device="cuda")
+        tables[0, :3] = ids[:3].int()
+        tables[1, :5] = ids[3:8].int()
+        off = ints([3 * page, 5 * page])
+        lens = off + ints([c, page + 3])
+        q = rnd(2, c, h, d)
+        fresh, n_p = (rnd(2, c, n_kv, d), rnd(2, c, n_kv, d)), None
+    else:
+        lengths, t = [3, page - 5, 3 * page + 1], 5
+        tables = torch.zeros((3, 6), dtype=torch.int32, device="cuda")
+        used = 0
+        for i, n in enumerate(lengths):
+            k = -(-(n + t) // page)
+            tables[i, :k] = ids[used:used + k].int()
+            used += k
+        off, lens = ints(lengths), ints([n + t for n in lengths])
+        q, fresh, n_p = rnd(3, t, h, d), None, 5
+    before = flash_attention.launches
+    out = attend_over_pages(cfg, q, pool, 0, tables, off, lens, fresh, n_p)
+    assert flash_attention.launches == before + 1
+    ref = attend_over_pages_plain(cfg, q, pool, 0, tables, off, lens, fresh)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    if case == "hit":        # row 1's padded queries need only be finite
+        assert _err(out[1, :page + 3], ref[1, :page + 3]) <= TOL[dtype]
+        out, ref = out[0], ref[0]
+    assert _err(out, ref) <= TOL[dtype]
+
+
+_FEATURES = {"speculative": {"speculative_k": 4, "speculative_ngram": 1},
+             "speculative-dfa": {"speculative_k": 4,
+                                 "speculative_ngram": 1},
+             "overlap": {"host_overlap": True}}
+
+
+@pytest.mark.parametrize("feature", list(_FEATURES))
+def test_verify_and_overlap_graphs_replay_with_launch_counts(card, feature):
+    """The verify step ("multi", and "multi-dfa" under a DFA grammar) and
+    the overlapped step ("overlap") replay as graphs: their streams equal
+    the eager engine's and every kernel's launch counter gains what the
+    eager engine's does for the same work (flash per verify step, paged
+    per overlapped step)."""
+    from k8s_llm_rca_tpu_torch.engine.constrain import DFAGrammar
+    from k8s_llm_rca_tpu_torch.engine.graphs import launch_counters
+
+    over = dict(_FEATURES[feature], decode_chunk=1, page_size=64,
+                num_pages=48)
+    rng = np.random.default_rng(2)
+    prompts = [list(range(5, 25)) * 5] + [
+        [int(t) for t in rng.integers(0, 256, n)] for n in (40, 130)]
+    streams, counts = [], []
+    for graphs in (False, True):
+        engine = _tiny_engine(graphs, **over)
+        before = [getattr(f, a) for f, a in launch_counters()]
+        ids = [engine.submit(p, grammar=DFAGrammar(MIXED_SCHEMA,
+                                                   engine.tokenizer)
+                             if feature.endswith("dfa") and i == 0
+                             else None)
+               for i, p in enumerate(prompts)]
+        res = {r.seq_id: r.token_ids for r in engine.run_to_completion()}
+        streams.append([res[i] for i in ids])
+        counts.append([(f.__name__, a, getattr(f, a) - b) for (f, a), b in
+                       zip(launch_counters(), before)])
+        if graphs:
+            keys = {k[0] for k in engine.graphs.buckets}
+            want = {"speculative": "multi", "speculative-dfa": "multi-dfa",
+                    "overlap": "overlap"}[feature]
+            assert want in keys, keys
+            assert engine._counts["engine.graph_replays"] > 0
+    assert streams[1] == streams[0]
+    assert counts[1] == counts[0]
+    by_name = {n: c for n, a, c in counts[1] if a == "launches"}
+    assert by_name["flash_attention"] > 0
+    if feature != "overlap":
+        assert engine._counts["engine.verify_steps"] > 0

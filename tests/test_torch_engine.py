@@ -14,6 +14,7 @@ token.  On a mismatch, check the logit margin before calling it a bug
 import jax
 import numpy as np
 import pytest
+import torch
 
 from k8s_llm_rca_tpu.config import TINY as J_TINY
 from k8s_llm_rca_tpu.config import EngineConfig as JEngineConfig
@@ -24,6 +25,11 @@ from k8s_llm_rca_tpu_torch.config import TINY, EngineConfig
 from k8s_llm_rca_tpu_torch.engine import make_engine
 from k8s_llm_rca_tpu_torch.models.llama import params_from_numpy
 from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+# One intra-op thread: the tier-1 run puts six pytest workers on the
+# host's cores, and an oversubscribed OpenMP pool spins through every
+# small op (a TINY engine case ran ~30x slower under that load).
+torch.set_num_threads(1)
 
 PROMPT_LENS = (5, 60, 130, 300)
 

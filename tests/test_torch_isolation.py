@@ -20,6 +20,11 @@ from k8s_llm_rca_tpu_torch.models.quant import quantize_params
 from k8s_llm_rca_tpu_torch.serve.backend import EngineBackend, GenOptions
 from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
+# One intra-op thread: the tier-1 run puts six pytest workers on the
+# host's cores, and an oversubscribed OpenMP pool spins through every
+# small op (a TINY engine case ran ~30x slower under that load).
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "k8s_llm_rca_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -105,6 +110,14 @@ def test_sources_cover_the_rca_slice():
             "utils/fenced.py"} <= names
 
 
+def test_sources_cover_the_speculative_slice():
+    """``ngram_draft`` is the port's own copy, though the JAX module that
+    holds it imports no jax at its top."""
+    names = {p.relative_to(PORT).as_posix() for p in SOURCES if PORT in
+             p.parents}
+    assert {"engine/speculative.py", "engine/graphs.py"} <= names
+
+
 def test_every_kernel_source_has_a_loader():
     """Each CUDA source under csrc/ is loaded by name from a port module
     (and so built by chip_smoke.py's KERNELS)."""
@@ -146,8 +159,6 @@ def test_params_on_another_device_are_refused():
 
 
 UNPORTED = [
-    ({"speculative_k": 2}, "Queue 1 item 3"),
-    ({"host_overlap": True}, "Queue 1 item 3"),
     ({"max_spilled_pages": 8}, "Queue 1 item 3"),
     ({"prefix_host_pages": 8}, "Queue 1 item 3"),
     ({"prefix_disk_dir": "store"}, "Queue 1 item 3"),
@@ -170,11 +181,15 @@ def test_unported_engine_knob_raises(over, item):
 @pytest.mark.parametrize("over", [
     {"kv_cache_dtype": "int8"}, {"kv_cache_dtype": "int4"},
     {"prefix_cache": True}, {"prefill_chunk_budget": 16},
-], ids=["int8", "int4", "prefix_cache", "prefill_chunk_budget"])
+    {"speculative_k": 2}, {"host_overlap": True},
+], ids=["int8", "int4", "prefix_cache", "prefill_chunk_budget",
+        "speculative_k", "host_overlap"])
 def test_ported_engine_knob_is_accepted(over):
     """Knobs that used to raise: ``kv_cache_dtype`` int8/int4 quantize the
-    pool, ``prefix_cache`` builds the prefix cache, and a 40-token prompt
-    under ``prefill_chunk_budget`` 16 prefills in three chunks."""
+    pool, ``prefix_cache`` builds the prefix cache, a 40-token prompt
+    under ``prefill_chunk_budget`` 16 prefills in three chunks,
+    ``speculative_k`` verifies n-gram drafts and ``host_overlap`` keeps the
+    decode operands resident."""
     cfg, ecfg, params, tok = _tiny_engine_args(max_new_tokens=3)
     engine = make_engine(cfg, dataclasses.replace(ecfg, **over), params, tok,
                          device="cpu")
@@ -183,6 +198,21 @@ def test_ported_engine_knob_is_accepted(over):
     assert len(engine.generate([list(range(1, 41))])[0].token_ids) == 3
     chunks = engine._counts.get("engine.prefill_chunks", 0)
     assert chunks == (3 if "prefill_chunk_budget" in over else 0)
+
+
+def test_draft_model_raises_naming_item_9():
+    cfg, ecfg, params, tok = _tiny_engine_args(speculative_k=2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        make_engine(cfg, ecfg, params, tok, device="cpu",
+                    draft_model=(cfg, params))
+
+
+def test_speculative_k_past_the_page_raises_like_jax():
+    """All k + 1 verify writes must fit one page (JAX paged engine)."""
+    cfg, ecfg, params, tok = _tiny_engine_args()
+    with pytest.raises(ValueError, match="page_size=16"):
+        make_engine(cfg, dataclasses.replace(ecfg, speculative_k=16),
+                    params, tok, device="cpu")
 
 
 def test_chunk_budget_off_the_page_grid_raises_like_jax():

@@ -17,6 +17,11 @@ from k8s_llm_rca_tpu_torch.engine.paged import TRASH_PAGE
 from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
 from k8s_llm_rca_tpu_torch.ops.paged_attention import paged_attention
 
+# One intra-op thread: the tier-1 run puts six pytest workers on the
+# host's cores, and an oversubscribed OpenMP pool spins through every
+# small op (a TINY engine case ran ~30x slower under that load).
+torch.set_num_threads(1)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 ATOL = 1e-5
 

@@ -21,6 +21,11 @@ from k8s_llm_rca_tpu_torch.config import TINY
 from k8s_llm_rca_tpu_torch.engine import paged as tpaged
 from k8s_llm_rca_tpu_torch.models import llama as tllama
 
+# One intra-op thread: the tier-1 run puts six pytest workers on the
+# host's cores, and an oversubscribed OpenMP pool spins through every
+# small op (a TINY engine case ran ~30x slower under that load).
+torch.set_num_threads(1)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 

@@ -47,6 +47,11 @@ from k8s_llm_rca_tpu_torch.models import quant as tquant
 from k8s_llm_rca_tpu_torch.ops import quant_matmul as tqmm
 from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
+# One intra-op thread: the tier-1 run puts six pytest workers on the
+# host's cores, and an oversubscribed OpenMP pool spins through every
+# small op (a TINY engine case ran ~30x slower under that load).
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 ROW_TOL = 2 ** -6
 

@@ -22,6 +22,11 @@ from k8s_llm_rca_tpu_torch.engine.prefix import PrefixCache
 
 from test_torch_engine import MIXED_SCHEMA, engines
 
+# One intra-op thread: the tier-1 run puts six pytest workers on the
+# host's cores, and an oversubscribed OpenMP pool spins through every
+# small op (a TINY engine case ran ~30x slower under that load).
+torch.set_num_threads(1)
+
 COUNTERS = ("engine.prefix_hit_tokens", "engine.prefix_batch_hit_admissions",
             "engine.prefill_tokens", "engine.prefill_chunks",
             "engine.preemptions")

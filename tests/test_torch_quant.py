@@ -35,6 +35,11 @@ from k8s_llm_rca_tpu_torch.models import llama as tllama
 from k8s_llm_rca_tpu_torch.models import quant as tquant
 from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
+# One intra-op thread: the tier-1 run puts six pytest workers on the
+# host's cores, and an oversubscribed OpenMP pool spins through every
+# small op (a TINY engine case ran ~30x slower under that load).
+torch.set_num_threads(1)
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 

@@ -42,6 +42,11 @@ from k8s_llm_rca_tpu_torch.ops.paged_attention import (
     paged_attention_quant, paged_attention_quant_plain,
 )
 
+# One intra-op thread: the tier-1 run puts six pytest workers on the
+# host's cores, and an oversubscribed OpenMP pool spins through every
+# small op (a TINY engine case ran ~30x slower under that load).
+torch.set_num_threads(1)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 ATOL = 1e-5
 ROW_TOL = 2 ** -6

@@ -3,6 +3,7 @@ assistants, threads and messages give equal reply text and token usage.
 Engines as in test_torch_engine (TINY, paged, greedy, weights x3)."""
 
 import pytest
+import torch
 
 from k8s_llm_rca_tpu.serve.api import AssistantService as JService
 from k8s_llm_rca_tpu.serve.api import run_reply_text as j_reply
@@ -11,6 +12,11 @@ from k8s_llm_rca_tpu.serve.backend import GenOptions as JGen
 from k8s_llm_rca_tpu_torch.serve.api import AssistantService, run_reply_text
 from k8s_llm_rca_tpu_torch.serve.backend import EngineBackend, GenOptions
 from test_torch_engine import engines
+
+# One intra-op thread: the tier-1 run puts six pytest workers on the
+# host's cores, and an oversubscribed OpenMP pool spins through every
+# small op (a TINY engine case ran ~30x slower under that load).
+torch.set_num_threads(1)
 
 CONVERSATION = [
     # (assistant, thread, user message)
