@@ -974,6 +974,7 @@ def phase_cross_device() -> None:
         prefix_case(budget)
     spec_overlap_case()
     sweep_case()
+    memory_tier_cases()
 
 
 def sweep_case() -> None:
@@ -1291,6 +1292,178 @@ def prefix_case(budget: int) -> None:
     if counts != expect:
         raise SystemExit(f"prefix case (budget {budget}): launch counts "
                          f"{counts} != expected {expect}")
+
+
+MEMORY_COUNTERS = ("engine.spilled_pages", "engine.restored_pages",
+                   "engine.preemptions", "engine.spill_budget_fallbacks",
+                   "engine.crash_evictions", "engine.prefix_demotions",
+                   "engine.prefix_hits_l0", "engine.prefix_hits_l1",
+                   "engine.prefix_hits_l2", "engine.prefix_promoted_pages",
+                   "engine.prefix_bytes_restored",
+                   "engine.prefix_snapshot_published",
+                   "engine.prefill_tokens", "engine.d2h_syncs")
+
+
+def memory_case(label: str, run) -> dict:
+    """One memory-tier case of phase 4 on TINY (fp32, x3 projections),
+    on the CPU and on the card: ``run(params, device, tmpdir)`` returns
+    (engines, tokens).  Tokens and the memory counters must be equal on
+    both, the card's launches exact, its allocator the native one and
+    whole.  Returns the card's counters."""
+    import tempfile
+
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import TINY
+
+    cpu_params, gpu_params = x3_params(TINY)
+    out = []
+    for params, device in ((cpu_params, "cpu"), (gpu_params, None)):
+        with tempfile.TemporaryDirectory() as d:
+            reset_counts()
+            engines, tokens = run(params, device, d)
+            if device is None:
+                torch.cuda.synchronize()
+            counts = read_counts()
+        counters = {k: 0 for k in MEMORY_COUNTERS}
+        for engine in engines:
+            engine.allocator.check()
+            for k in MEMORY_COUNTERS:
+                counters[k] += int(engine._counts.get(k, 0))
+        out.append((engines, tokens, counts, counters))
+    (_, cpu_tokens, _, cpu_c), (engines, gpu_tokens, counts, gpu_c) = out
+    expect = {k: 0 for k in launch_counters()}
+    for engine in engines:
+        for k, v in expected_counts(TINY, engine._counts, False).items():
+            expect[k] += v
+    allocators = sorted({type(e.allocator).__name__ for e in engines})
+    emit("cross_device", model=f"tiny-{label}",
+         equal_streams=[a == b for a, b in zip(cpu_tokens, gpu_tokens)],
+         counters=gpu_c, cpu_counters=cpu_c, allocator=allocators,
+         launches=counts, expected_launches=expect,
+         **graph_stats(engines[-1]))
+    if gpu_tokens != cpu_tokens or gpu_c != cpu_c:
+        raise SystemExit(f"{label}: card and CPU differ: counters {gpu_c} "
+                         f"vs {cpu_c}")
+    if counts != expect:
+        raise SystemExit(f"{label}: launch counts {counts} != expected "
+                         f"{expect}")
+    if allocators != ["NativePageAllocator"]:
+        raise SystemExit(f"{label}: the engine built {allocators}, not the "
+                         f"native allocator")
+    return gpu_c
+
+
+def memory_tier_cases() -> None:
+    """Phase 4's memory tiers, TINY, card against CPU (``memory_case``):
+    KV spill under a "preempt" tick fault (``max_spilled_pages`` 64); the
+    prefix cache's host (L1) and disk (L2) tiers, every resident page
+    demoted by ``evict(10**6)`` and the prompts served again from the
+    promoted pages; a snapshot taken mid-decode and restored into a fresh
+    engine sharing the store; and ``run_chaos_soak(backend="engine")``,
+    whose report bytes must be equal."""
+    import numpy as np
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import TINY, EngineConfig
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.faults import inject
+    from k8s_llm_rca_tpu_torch.faults.plan import Fault, FaultPlan
+    from k8s_llm_rca_tpu_torch.faults.soak import (
+        default_plan_spec, report_bytes, run_chaos_soak,
+    )
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    tok = get_tokenizer(vocab_size=TINY.vocab_size)
+    base = dict(max_batch=4, max_seq_len=512, prefill_buckets=(128, 256),
+                max_new_tokens=32, paged=True, page_size=16, num_pages=168,
+                prefix_cache=False, decode_chunk=16)
+    rng = np.random.default_rng(0)
+    mixed = [[int(t) for t in rng.integers(0, 256, n)]
+             for n in (7, 100, 150, 300)]
+    rng = np.random.default_rng(5)
+    common = [int(t) for t in rng.integers(0, 256, 64)]
+    shared = [common + [int(t) for t in rng.integers(0, 256, n)]
+              for n in (20, 35, 50, 27)]
+
+    def spill(params, device, d):
+        engine = make_engine(TINY, EngineConfig(**base, max_spilled_pages=64),
+                             params, tok, device=device)
+        with inject.armed(FaultPlan([Fault(inject.SITE_ENGINE_TICK, 1,
+                                           "preempt", wave=2)])):
+            tokens = [r.token_ids for r in engine.generate(mixed)]
+        return [engine], tokens
+
+    c = memory_case("spill", spill)
+    if not c["engine.restored_pages"] or c["engine.spill_budget_fallbacks"]:
+        raise SystemExit(f"tiny spill: nothing spilled and restored: {c}")
+
+    for tier, store in (("l1", {"prefix_host_pages": 64}),
+                        ("l2", {"prefix_host_pages": 0})):
+        def tiers(params, device, d, store=store):
+            over = dict(base, prefix_cache=True, **store)
+            if tier == "l2":
+                over["prefix_disk_dir"] = d
+            engine = make_engine(TINY, EngineConfig(**over), params, tok,
+                                 device=device)
+            tokens = []
+            for _ in range(2):
+                tokens += [r.token_ids for w in (shared[:1], shared[1:])
+                           for r in engine.generate(w)]
+                engine.prefix_cache.evict(10 ** 6)
+            return [engine], tokens
+
+        c = memory_case(f"prefix-{tier}", tiers)
+        if not c[f"engine.prefix_hits_{tier}"]:
+            raise SystemExit(f"tiny {tier}: no page was promoted: {c}")
+
+    def snapshot(params, device, d):
+        cfg = EngineConfig(**dict(base, prefix_cache=True,
+                                  prefix_host_pages=64))
+        first = make_engine(TINY, cfg, params, tok, device=device)
+        for p in mixed:
+            first.submit(p)
+        first.step()
+        snap = first.snapshot_sequences()
+        fresh = make_engine(TINY, cfg, params, tok, device=device,
+                            prefix_store=first.prefix_store)
+        fresh.restore_sequences(snap)
+        res = {r.seq_id: r.token_ids for r in fresh.run_to_completion()}
+        return [first, fresh], [res[i] for i in sorted(res)]
+
+    c = memory_case("snapshot", snapshot)
+    if not c["engine.prefix_promoted_pages"]:
+        raise SystemExit(f"tiny snapshot: no published page was promoted: "
+                         f"{c}")
+
+    cfg = TINY.replace(max_seq_len=2560)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu_params = {k: ([{n: _to_cuda(t) for n, t in layer.items()}
+                       for layer in v] if k == "layers" else _to_cuda(v))
+                  for k, v in cpu_params.items()}
+    spec = default_plan_spec()
+    spec[inject.SITE_ENGINE_TICK] = {
+        "indices": {3: "preempt", 9: "oom", 15: "crash", 21: "stall"},
+        "delay_s": 0.01}
+    reports = []
+    for params, device in ((cpu_params, "cpu"), (gpu_params, None)):
+        t0 = time.perf_counter()
+        reports.append((run_chaos_soak(
+            backend="engine", n_incidents=1, plan_spec=spec, model_cfg=cfg,
+            params=params, device=device,
+            engine_overrides={"max_spilled_pages": 64}),
+            time.perf_counter() - t0))
+    (cpu_r, cpu_s), (gpu_r, gpu_s) = reports
+    same = report_bytes(gpu_r) == report_bytes(cpu_r)
+    emit("cross_device", model="tiny-chaos-soak", equal_report_bytes=same,
+         completed=gpu_r["completed"], degraded=gpu_r["degraded"],
+         failed=gpu_r["failed"], engine_clean=gpu_r["engine_clean"],
+         fired=gpu_r["faults"]["fired"], retries=gpu_r["retries"],
+         cpu_s=cpu_s, gpu_s=gpu_s)
+    if not same or gpu_r["failed"] or not gpu_r["engine_clean"]:
+        raise SystemExit("tiny chaos soak: card and CPU reports differ or "
+                         "an incident failed")
 
 
 def x3_params(cfg, bits=None):
@@ -1828,7 +2001,402 @@ def phase_prefix() -> dict:
     emit("prefix", model=cfg.name,
          chunked_tokens_equal=out[True, 512][1] == out[True, 0][1],
          uncached_tokens_equal=out[False, 0][1] == out[True, 0][1])
-    return out[True, 0][0]["launches"]
+    counts = dict(out[True, 0][0]["launches"])
+    for tier in ("l1", "l2"):
+        for k, v in prefix_tier_run(cfg, params, tok, prompts, tier,
+                                    out[True, 0][1]).items():
+            counts[k] += v
+        free_card()
+    return counts
+
+
+# the PCIe Gen5 x16 host link of an H100 SXM, one direction (bytes/s)
+PCIE_BYTES_PER_S = 64e9
+
+
+@contextlib.contextmanager
+def watch_page_moves(moves: list):
+    """Time every page gather and restore the engines make: the card
+    synchronised before each, the host clock around it (a gather ends in
+    its own sync, a restore is followed by one).  Each restore's pages are
+    held byte-equal (``torch.equal``) to the record it wrote, after the
+    timed window.  Appends (kind, pages, bytes, seconds, equal, seconds
+    the check took) to ``moves``."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import paged
+    from k8s_llm_rca_tpu_torch.utils.pages import pool_fields, record_nbytes
+
+    gather, restore = paged.gather_pages, paged.restore_pages
+
+    def timed_gather(pool, fetch, ids):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = gather(pool, fetch, ids)
+        moves.append(("gather", len(ids), record_nbytes(rec),
+                      time.perf_counter() - t0, True, 0.0))
+        return rec
+
+    def timed_restore(pool, rec, ids):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = restore(pool, rec, ids)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        equal = all(torch.equal(getattr(pool, f)[:, list(ids)].cpu(),
+                                rec[f].cpu()) for f in pool_fields(pool))
+        moves.append(("restore", len(ids), record_nbytes(rec), t1 - t0,
+                      equal, time.perf_counter() - t1))
+        return out
+
+    paged.gather_pages, paged.restore_pages = timed_gather, timed_restore
+    try:
+        yield moves
+    finally:
+        paged.gather_pages, paged.restore_pages = gather, restore
+
+
+def move_stats(moves: list, kind: str) -> dict:
+    """Pages, bytes, seconds and GB/s of one kind of page move, beside the
+    least time the PCIe link could take for those bytes."""
+    sel = [m for m in moves if m[0] == kind]
+    nbytes = sum(m[2] for m in sel)
+    secs = sum(m[3] for m in sel)
+    return {f"{kind}_calls": len(sel), f"{kind}_pages": sum(m[1] for m in sel),
+            f"{kind}_bytes": nbytes, f"{kind}_ms": secs * 1e3,
+            f"{kind}_gb_per_s": nbytes / secs / 1e9 if secs else None,
+            f"{kind}_pcie_bound_ms": nbytes / PCIE_BYTES_PER_S * 1e3,
+            f"{kind}_equal": all(m[4] for m in sel)}
+
+
+def prefix_tier_run(cfg, params, tok, prompts, tier: str,
+                    l0_tokens: list) -> dict:
+    """Phase 5e's tiers: the lone prompt admits (a miss), then every
+    resident page is evicted into the store (``prefix_host_pages`` 64: host
+    RAM, L1; 0 with a disk directory: L2, one fsynced file per page), and
+    the three batched hits come back from the promoted pages.  Tokens must
+    equal the L0-hit run's.  Prints the hits' TTFT, the pages promoted, the
+    bytes restored and the promotion scatter's GB/s, the demotion's gather
+    and, for L2, the write seconds per page.  Returns the launch counts."""
+    import tempfile
+
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+
+    with tempfile.TemporaryDirectory() as d:
+        store = ({"prefix_host_pages": 64} if tier == "l1"
+                 else {"prefix_host_pages": 0, "prefix_disk_dir": d})
+        engine = make_engine(cfg, slice_engine_config(prefix_cache=True,
+                                                      **store), params, tok)
+        before = warm_engine(engine)
+        stamps, moves, ttft, tokens = [], [], [], []
+        stamp_first_tokens(engine, stamps)
+        reset_counts()
+        with watch_page_moves(moves):
+            for i, wave in enumerate((prompts[:1], prompts[1:])):
+                if i:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    demoted = engine.prefix_cache.evict(10 ** 6)
+                    evict_s = time.perf_counter() - t0
+                stamps.clear()
+                checked = sum(m[5] for m in moves)
+                t0 = time.perf_counter()
+                ids = [engine.submit(p) for p in wave]
+                res = {r.seq_id: r for r in engine.run_to_completion()}
+                # the promotion's byte check ran before the first token
+                ttft.append(stamps[0] - t0
+                            - (sum(m[5] for m in moves) - checked))
+                tokens += [res[i].token_ids for i in ids]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        c = counts_since(engine, before)
+        engine.allocator.check()
+        expect = expected_counts(cfg, c, False)
+        run = {"ttft_s": ttft, "demoted_pages": demoted, "evict_s": evict_s,
+               **{k.split(".")[1]: int(c.get(k, 0)) for k in (
+                   "engine.prefix_hits_l0", "engine.prefix_hits_l1",
+                   "engine.prefix_hits_l2", "engine.prefix_promoted_pages",
+                   "engine.prefix_bytes_restored",
+                   "engine.prefix_hit_tokens",
+                   "engine.prefix_batch_hit_admissions")},
+               **move_stats(moves, "gather"), **move_stats(moves, "restore"),
+               "allocator": type(engine.allocator).__name__,
+               "launches": counts, "expected_launches": expect,
+               **graph_stats(engine)}
+        if tier == "l2":
+            run["l2_write_s_per_page"] = evict_s / max(1, demoted)
+        same = tokens == l0_tokens
+        emit("prefix_tiers", model=cfg.name, tier=tier,
+             prefix_host_pages=store["prefix_host_pages"],
+             disk=tier == "l2", equal_tokens_to_l0=same, **run,
+             nvidia_smi=nvidia_smi_name_power())
+        label = f"prefix tiers ({tier})"
+        if not same:
+            raise SystemExit(f"{label}: tokens differ from the L0 hits'")
+        if not run[f"prefix_hits_{tier}"] or not run["restore_equal"]:
+            raise SystemExit(f"{label}: no page promoted, or a restored "
+                             f"page differs from its record")
+        if counts != expect:
+            raise SystemExit(f"{label}: launch counts {counts} != expected "
+                             f"{expect}")
+        if run["allocator"] != "NativePageAllocator":
+            raise SystemExit(f"{label}: {run['allocator']} in use")
+        del engine
+    return counts
+
+
+def card_divergence(cfg, params, prompt, a, b) -> dict:
+    """Where two greedy streams of one prompt part (``first_divergence``
+    on the card: its bf16 prefill of prompt + the common tokens)."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.models.llama import prefill_kv
+
+    j = next(k for k in range(min(len(a), len(b))) if a[k] != b[k])
+    ctx = list(prompt) + list(a[:j])
+    padded = torch.zeros((1, -(-len(ctx) // 64) * 64), dtype=torch.int32,
+                         device=params["final_norm"].device)
+    padded[0, :len(ctx)] = torch.tensor(ctx, dtype=torch.int32)
+    _, _, logits = prefill_kv(cfg, params, padded, len(ctx))
+    return {"seq": None, "token": j, "a": a[j], "b": b[j],
+            "logit_margin": abs(float(logits[0, a[j]] - logits[0, b[j]]))}
+
+
+def divergences(cfg, params, prompts, want, got) -> list:
+    """``card_divergence`` of every sequence whose streams part."""
+    out = []
+    for i, (a, b) in enumerate(zip(want, got)):
+        n = min(len(a), len(b))
+        if a[:n] != b[:n]:
+            out.append(dict(card_divergence(cfg, params, prompts[i], a, b),
+                            seq=i))
+    return out
+
+
+def page_record_round_trip(engine, gen) -> bool:
+    """Four pages of random bytes through gather -> host -> encode ->
+    decode -> restore into four other page ids of the engine's pool:
+    byte-equal (``torch.equal``)."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.utils import pages
+
+    pool = engine.pool
+    ids = engine.allocator.alloc(8, owner=-7)
+    src, dst = ids[:4], ids[4:]
+    for f in pages.pool_fields(pool):
+        t = getattr(pool, f)
+        t[:, src] = torch.randint(-100, 100, t[:, src].shape,
+                                  device=t.device, generator=gen).to(t.dtype)
+    rec = pages.gather_pages(pool, pages.to_host, src)
+    back = pages.stack_pages(
+        [pages.decode_page_record(pages.encode_page_record(r))
+         for r in pages.split_pages(rec)], pin=pool.k.is_cuda)
+    pages.restore_pages(pool, back, dst)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(getattr(pool, f)[:, dst], getattr(pool, f)[:, src])
+                for f in pages.pool_fields(pool))
+    engine.allocator.free(ids, owner=-7)
+    return equal
+
+
+def gather_twice(engine, n_pages: int) -> dict:
+    """Two gathers of the same ``n_pages`` pages, the first record freed
+    before the second: the first pays a fresh pinned host block, the
+    second reuses it from the caching host allocator, so the two times
+    split allocation from the copy."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.utils import pages
+
+    ids = engine.allocator.alloc(n_pages, owner=-7)
+    out = {}
+    for name in ("first", "second"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = pages.gather_pages(engine.pool, pages.to_host, ids)
+        out[f"gather_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        nbytes = pages.record_nbytes(rec)
+        del rec
+    engine.allocator.free(ids, owner=-7)
+    out["gather_twice_bytes"] = nbytes
+    out["gather_second_gb_per_s"] = nbytes / out["gather_second_ms"] / 1e6
+    return out
+
+
+def memory_prompts(tok) -> list:
+    """The slice's four prompts (~400, 900, 1500 and 2300 tokens, BOS
+    included)."""
+    return [tok.encode(incident_text(n - 1), add_bos=True)
+            for n in (400, 900, 1500, 2300)]
+
+
+def phase_memory(phase: str, name: str, bits=None, kv=None) -> dict:
+    """Phase 7: the slice's engine (batch 4, page 64, 168 pages,
+    decode_chunk 16, graphed) at full depth and width serves the four
+    prompts uninterrupted, then under a FaultPlan that preempts the
+    youngest sequence at tick 2 with spill on (its pages gather to pinned
+    host memory and come back by an in-place restore) and with spill off
+    (re-prefill).  Prints spilled and restored pages, the gather and
+    restore ms and GB/s against the PCIe bound, TTFT and total s, and each
+    run's token agreement with the uninterrupted run (share before the
+    streams part; the logit margin where they part).  Requires restored
+    pages byte-equal to the gathered record, a page-record round trip
+    through the disk codec byte-equal, the native allocator, its check
+    clean after every run, and exact launches.  For bf16 also a snapshot
+    mid-decode restored into a fresh engine on the same store.  Returns
+    the summed launch counts."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.faults import inject
+    from k8s_llm_rca_tpu_torch.faults.plan import Fault, FaultPlan
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg, transform = slice_model(name, bits)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=transform)
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    prompts = memory_prompts(tok)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    total = {k: 0 for k in launch_counters()}
+    runs = {}
+    for mode, spill in (("uninterrupted", 0), ("spill", 168),
+                        ("re_prefill", 0)):
+        engine = make_engine(cfg, slice_engine_config(
+            kv_cache_dtype=kv, max_spilled_pages=spill), params, tok)
+        before = warm_engine(engine)
+        stamps, moves = [], []
+        stamp_first_tokens(engine, stamps)
+        plan = FaultPlan([] if mode == "uninterrupted" else
+                         [Fault(inject.SITE_ENGINE_TICK, 2, "preempt")])
+        reset_counts()
+        t0 = time.perf_counter()
+        with watch_page_moves(moves), inject.armed(plan):
+            res = engine.generate(prompts)
+        torch.cuda.synchronize()
+        # the restores' byte checks are not the engine's work
+        check_s = sum(m[5] for m in moves)
+        total_s = time.perf_counter() - t0 - check_s
+        counts = read_counts()
+        c = counts_since(engine, before)
+        engine.allocator.check()
+        expect = expected_counts(cfg, c, kv is not None, bits)
+        run = {"tokens": [r.token_ids for r in res],
+               "ttft_s": stamps[0] - t0, "total_s": total_s,
+               "check_s": check_s,
+               **{k.split(".")[1]: int(c.get(k, 0)) for k in (
+                   "engine.preemptions", "engine.spilled_pages",
+                   "engine.restored_pages", "engine.prefill_dispatches",
+                   "engine.prefill_tokens", "engine.decode_steps")},
+               **move_stats(moves, "gather"), **move_stats(moves, "restore"),
+               "allocator": type(engine.allocator).__name__,
+               "launches": counts, "expected_launches": expect,
+               **graph_stats(engine)}
+        if mode == "spill":
+            run["round_trip_equal"] = page_record_round_trip(engine, gen)
+            run.update(gather_twice(engine, run["spilled_pages"]))
+            engine.allocator.check()
+        runs[mode] = run
+        for k, v in counts.items():
+            total[k] += v
+        label = f"{phase} ({mode})"
+        if counts != expect:
+            raise SystemExit(f"{label}: launch counts {counts} != expected "
+                             f"{expect}")
+        if run["allocator"] != "NativePageAllocator":
+            raise SystemExit(f"{label}: {run['allocator']} in use")
+        del engine
+        free_card()
+    base = runs["uninterrupted"]["tokens"]
+    for mode in ("spill", "re_prefill"):
+        run = runs[mode]
+        run["equal_token_share"] = common_share(base, run["tokens"])
+        run["divergences"] = divergences(cfg, params, prompts, base,
+                                         run["tokens"])
+    spill = runs["spill"]
+    if not (spill["restored_pages"] and spill["restored_pages"]
+            == spill["spilled_pages"] and spill["restore_equal"]
+            and spill["round_trip_equal"]):
+        raise SystemExit(f"{phase}: spill/restore check failed: "
+                         f"{ {k: spill[k] for k in ('spilled_pages', 'restored_pages', 'restore_equal', 'round_trip_equal')} }")
+    if runs["re_prefill"]["spilled_pages"] or not runs["re_prefill"][
+            "preemptions"]:
+        raise SystemExit(f"{phase}: the re-prefill run did not re-prefill")
+    snap = (memory_snapshot(cfg, params, tok, prompts, base, total)
+            if bits is None else None)
+    emit(phase, model=cfg.name, weights=f"int{bits}" if bits else "bfloat16",
+         kv_cache_dtype=kv, prompt_tokens=[len(p) for p in prompts],
+         **{f"{mode}_{k}": v for mode, run in runs.items()
+            for k, v in run.items() if k != "tokens"},
+         snapshot=snap, nvidia_smi=nvidia_smi_name_power())
+    return total
+
+
+def memory_snapshot(cfg, params, tok, prompts, base, total) -> dict:
+    """An engine with the prefix cache and a 256-page host store decodes
+    the four prompts for two ticks, snapshots (publishing its sequences'
+    written pages into the store) and is dropped; a fresh engine on the
+    same store restores the snapshot and finishes.  Returns TTFT of the
+    restored sequences, pages promoted against tokens re-prefilled, and
+    the token agreement with the uninterrupted run; adds its launches to
+    ``total``."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+
+    ecfg = slice_engine_config(prefix_cache=True, prefix_host_pages=256)
+    first = make_engine(cfg, ecfg, params, tok)
+    before = warm_engine(first)
+    reset_counts()
+    for p in prompts:
+        first.submit(p)
+    first.step()
+    first.step()
+    t0 = time.perf_counter()
+    snap = first.snapshot_sequences()
+    snapshot_s = time.perf_counter() - t0
+    published = int(first._counts.get("engine.prefix_snapshot_published", 0))
+    counts = read_counts()
+    expect = expected_counts(cfg, counts_since(first, before), False)
+    store = first.prefix_store
+    del first
+    free_card()
+    fresh = make_engine(cfg, ecfg, params, tok, prefix_store=store)
+    before = warm_engine(fresh)
+    stamps = []
+    stamp_first_tokens(fresh, stamps)
+    reset_counts()
+    t0 = time.perf_counter()
+    fresh.restore_sequences(snap)
+    res = {r.seq_id: r.token_ids for r in fresh.run_to_completion()}
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts2 = read_counts()
+    c = counts_since(fresh, before)
+    fresh.allocator.check()
+    expect2 = expected_counts(cfg, c, False)
+    tokens = [res[i] for i in sorted(res)]
+    out = {"published_pages": published, "snapshot_s": snapshot_s,
+           "ttft_s": stamps[0] - t0, "total_s": total_s,
+           "promoted_pages": int(c.get("engine.prefix_promoted_pages", 0)),
+           "prefix_hit_tokens": int(c.get("engine.prefix_hit_tokens", 0)),
+           "reprefilled_tokens": int(c.get("engine.prefill_tokens", 0)),
+           "equal_token_share": common_share(base, tokens),
+           "launches": counts2, "expected_launches": expect2}
+    for k in total:
+        total[k] += counts[k] + counts2[k]
+    if counts != expect or counts2 != expect2:
+        raise SystemExit(f"memory snapshot: launch counts {counts} / "
+                         f"{counts2} != expected {expect} / {expect2}")
+    if not out["promoted_pages"]:
+        raise SystemExit("memory snapshot: no published page was promoted")
+    del fresh
+    free_card()
+    return out
 
 
 @contextlib.contextmanager
@@ -1845,8 +2413,8 @@ def watch_grammars(kinds: dict, host_s: list):
     constraints = PagedInferenceEngine._tick_constraints
     greedy = EngineBase._greedy_with_grammar
 
-    def counted(spec, tokenizer):
-        g = make(spec, tokenizer)
+    def counted(spec, tokenizer, **kw):
+        g = make(spec, tokenizer, **kw)
         if g is not None:
             name = type(g).__name__
             kinds[name] = kinds.get(name, 0) + 1
@@ -1955,7 +2523,53 @@ def phase_rca() -> dict:
     for name, spec_k in (("rca", 0), ("rca_spec", 4)):
         out[name] = rca_sweep(cfg, params, spec_k, init_s)
         free_card()
+    out["rca_resilient"] = rca_resilient(cfg, params)
+    free_card()
     return out
+
+
+def rca_resilient(cfg, params) -> dict:
+    """Phase 6's resilient sweep: two incidents at concurrency 1 with the
+    degradation ladder (``run_pipelined_sweep(resilience=True)``) under an
+    armed plan that fails graph queries 4-15: every incident completes,
+    the degraded stages annotated.  Returns the launch counts."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.faults import inject
+    from k8s_llm_rca_tpu_torch.faults.plan import FaultPlan
+    from k8s_llm_rca_tpu_torch.faults.soak import run_pipelined_sweep
+
+    plan = FaultPlan.from_spec(0, {inject.SITE_GRAPH: {
+        "indices": {i: "error" for i in range(4, 16)}}})
+    reset_counts()
+    t0 = time.perf_counter()
+    with inject.armed(plan):
+        out = run_pipelined_sweep(backend="engine", n_incidents=2,
+                                  concurrency=1, model_cfg=cfg,
+                                  params=params, resilience=True)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts()
+    engine = out["engines"][0]
+    report = out["report"]
+    expect = expected_counts(cfg, engine._counts, False)
+    emit("rca_resilient", model=cfg.name, incidents=report["n_incidents"],
+         concurrency=1, completed=report["completed"],
+         resolved=report["resolved"], degraded=report["degraded"],
+         failed=report["failed"], engine_clean=report["engine_clean"],
+         annotations=[row.get("degraded") for row in report["incidents"]],
+         fired=plan.snapshot()["fired"], policy=out["stats"]["policy"],
+         total_s=total_s, allocator=type(engine.allocator).__name__,
+         launches=counts, expected_launches=expect,
+         nvidia_smi=nvidia_smi_name_power())
+    if report["completed"] != 2 or report["failed"] or not report["degraded"]:
+        raise SystemExit(f"rca resilient sweep: {report['completed']} of 2 "
+                         f"completed, {report['degraded']} degraded")
+    if not report["engine_clean"] or counts != expect:
+        raise SystemExit(f"rca resilient sweep: engine clean "
+                         f"{report['engine_clean']}, launches {counts} vs "
+                         f"{expect}")
+    return counts
 
 
 def rca_sweep(cfg, params, spec_k: int, init_s: float) -> dict:
@@ -2274,6 +2888,26 @@ def main(argv) -> int:
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={name: ptxas_summary(rep) for name, rep in reports.items()},
          sass=kn_sass(build))
+    # the host library (page allocator, JSON grammar): g++ into
+    # build/native/; a card machine without g++ fails here
+    from k8s_llm_rca_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.load_library()
+    emit("build_native", seconds=time.perf_counter() - t0,
+         library=str(native.library_path().relative_to(ROOT)))
+
+    if "--tiers" in argv:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        memory_tier_cases()
+        phase_prefix()
+        free_card()
+        for phase, bits, kv in (("memory", None, None),
+                                ("memory_int4", 4, "int4")):
+            phase_memory(phase, "llama3-8b", bits, kv)
+            free_card()
+        return 0
 
     if "--spec" in argv:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2306,6 +2940,10 @@ def main(argv) -> int:
         free_card()                   # one model on the card at a time
     runs["prefix"] = phase_prefix()
     free_card()
+    for phase, bits, kv in (("memory", None, None),
+                            ("memory_int4", 4, "int4")):
+        runs[phase] = phase_memory(phase, "llama3-8b", bits, kv)
+        free_card()
     runs.update(phase_rca())
     free_card()
 
@@ -2316,23 +2954,27 @@ def main(argv) -> int:
             ("paged_attention", PAGED_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:90",
              ("paged_attention", "bfloat16", "mixed"),
-             ("slice", "slice_spec", "prefix", "rca", "rca_spec"), "paged"),
+             ("slice", "slice_spec", "prefix", "memory", "rca", "rca_spec",
+              "rca_resilient"), "paged"),
             ("flash_attention", FLASH_SRC,
              "k8s_llm_rca_tpu/ops/flash_attention.py:31",
              ("flash_attention", "bfloat16", "full"),
-             ("slice", "slice_spec", "prefix", "rca", "rca_spec"), "flash"),
+             ("slice", "slice_spec", "prefix", "memory", "memory_int4",
+              "rca", "rca_spec", "rca_resilient"), "flash"),
             ("quant_matmul", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:137",
              ("quant_matmul", "bfloat16", "decode"),
-             ("slice_int4", "slice_int4_spec"), "qmm"),
+             ("slice_int4", "slice_int4_spec", "memory_int4"), "qmm"),
             ("quant_matmul_head", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:177",
              ("quant_matmul_head", "bfloat16", "llama3-8b int4"),
-             ("slice_int4", "slice_int4_spec"), "qmm_head"),
+             ("slice_int4", "slice_int4_spec", "memory_int4"),
+             "qmm_head"),
             ("paged_attention_quant", PAGED_QUANT_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:141",
              ("paged_attention_quant", "bfloat16", "int4"),
-             ("slice_int4", "slice_int4_spec"), "paged_quant"),
+             ("slice_int4", "slice_int4_spec", "memory_int4"),
+             "paged_quant"),
             ("quant_matmul_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:120",
              ("quant_matmul_int8", "bfloat16", "decode"),

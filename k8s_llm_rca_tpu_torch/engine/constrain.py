@@ -1053,15 +1053,14 @@ def _template_text_len(node) -> int:
     return len(_json.dumps(node, default=str))
 
 
-def make_grammar(name, tokenizer: Tokenizer):
+def make_grammar(name, tokenizer: Tokenizer, prefer_native: bool = True):
     """GenOptions.grammar -> FSM instance (None = unconstrained).
 
     ``name`` may be the string "json" (any-JSON grammar: the bounded DFA,
-    else the Python ``JsonGrammar``; mask computation is O(V·len) per
-    tick) or a schema dict (SchemaGrammar structured output).  The JAX
-    package's C++ ``NativeJsonGrammar`` step between the two is not ported
-    (``native/``, ROADMAP Queue 1 item 3): it is mask-for-mask equal to
-    ``JsonGrammar`` (the JAX package's tests/test_native.py)."""
+    else the C++ ``NativeJsonGrammar`` of ``native/`` with
+    ``prefer_native``, else the Python ``JsonGrammar``; the last two are
+    mask for mask equal, and their mask is O(V·len) per tick) or a schema
+    dict (SchemaGrammar structured output)."""
     if name is None:
         return None
     if isinstance(name, dict):
@@ -1124,6 +1123,10 @@ def make_grammar(name, tokenizer: Tokenizer):
             get_logger(__name__).info(
                 "bounded-json DFA unavailable (%s); using the unbounded "
                 "host grammar", e)
+        if prefer_native:
+            from k8s_llm_rca_tpu_torch import native
+            if native.available():
+                return native.NativeJsonGrammar(tokenizer)
         return JsonGrammar(tokenizer)
     raise ValueError(f"unknown grammar {name!r} (supported: 'json' or a "
                      f"schema dict)")

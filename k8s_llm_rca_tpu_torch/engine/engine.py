@@ -10,13 +10,17 @@ fused DFA tables of a constrained scan and its device step
 verify-and-commit loop, its grammar paths and the device step
 ``dfa_greedy_multi``) and the overlapped host loop (the one-tick-lagged
 commit of ``host_overlap``) all follow the JAX engine line for line, so
-the two packages emit equal greedy token streams.  Draft-model
-speculation, snapshot/restore and fault injection are not ported (ROADMAP
-Queue 1 items 9 and 3).
+the two packages emit equal greedy token streams.  So do snapshot/restore
+(``snapshot_sequences`` exports every live sequence's token record,
+``restore_sequences`` re-admits it through a normal prefill) and the
+engine tick's fault site (``faults/inject.py``: ``step`` polls an armed
+plan before the tick).  Draft-model speculation is not ported (ROADMAP
+Queue 1 item 9).
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -29,7 +33,9 @@ from k8s_llm_rca_tpu_torch.engine.sampling import (
     SamplingParams, sample_tokens_masked,
 )
 from k8s_llm_rca_tpu_torch.engine.speculative import ngram_draft
+from k8s_llm_rca_tpu_torch.faults import inject
 from k8s_llm_rca_tpu_torch.obs import trace as obs_trace
+from k8s_llm_rca_tpu_torch.utils.pages import to_host
 from k8s_llm_rca_tpu_torch.utils.logging import METRICS, get_logger
 from k8s_llm_rca_tpu_torch.utils.tokenizer import Tokenizer
 
@@ -77,7 +83,8 @@ class EngineBase:
     model_cfg: ModelConfig
     engine_cfg: EngineConfig
     tokenizer: Tokenizer
-    # injectable time() source for deadlines; None = wall time
+    # injectable time() source for deadlines; None = the armed fault
+    # plan's VirtualClock when there is one, else wall time
     clock = None
     _deadlines: Optional[Dict[int, float]] = None
     # per-engine mirror of the engine.* METRICS counters
@@ -95,7 +102,11 @@ class EngineBase:
     _flushed_out: Optional[list] = None
 
     def _now(self) -> float:
-        return self.clock.time() if self.clock is not None else time.time()
+        if self.clock is not None:
+            return self.clock.time()
+        if inject._ARMED is not None:
+            return inject._ARMED.clock.time()
+        return time.time()
 
     # -------------------------------------------------------- shared api
 
@@ -143,10 +154,13 @@ class EngineBase:
                                tuple(stop_strings), grammar,
                                priority=int(priority)))
         if deadline_s is not None:
-            if self._deadlines is None:
-                self._deadlines = {}
-            self._deadlines[seq_id] = self._now() + float(deadline_s)
+            self._deadline_set(seq_id, self._now() + float(deadline_s))
         return seq_id
+
+    def _deadline_set(self, seq_id: int, deadline: float) -> None:
+        if self._deadlines is None:
+            self._deadlines = {}
+        self._deadlines[seq_id] = float(deadline)
 
     def _enqueue(self, req: _Pending, front: bool = False) -> None:
         """Stable priority insert: FIFO within a class, lower ints first;
@@ -199,6 +213,7 @@ class EngineBase:
                 del self._pending[i]
                 if expired is not None:
                     expired.append(self._expired_result(seq_id, req))
+                self._drop_spill(seq_id)
                 self._resumed.pop(seq_id, None)
                 self._prompts.pop(seq_id, None)
                 return True
@@ -214,6 +229,10 @@ class EngineBase:
             text=self._final_text(gen, "expired", req.stop_strings),
             finish_reason="expired", prompt_tokens=len(prompt),
             completion_tokens=len(gen))
+
+    def _drop_spill(self, seq_id: int) -> None:
+        """Subclass hook: discard a queued sequence's host-spilled KV
+        record (cancel, deadline expiry)."""
 
     def _register(self, seq_id: int, prompt_ids: List[int]) -> None:
         self._prompts[seq_id] = list(prompt_ids)
@@ -232,6 +251,151 @@ class EngineBase:
                 self._retire(slot, "cancelled")
                 return True
         return False
+
+    # ------------------------------------------------- snapshot / restore
+
+    def _snapshot_entry(self, seq_id: int, prompt: List[int],
+                        generated: List[int], remaining: int,
+                        stop_strings, grammar, priority: int
+                        ) -> Dict[str, object]:
+        return {
+            "seq_id": seq_id,
+            "prompt_ids": prompt,
+            "generated": generated,
+            "remaining_new_tokens": remaining,
+            "stop_strings": list(stop_strings),
+            "grammar": grammar is not None,
+            "priority": priority,
+            "deadline": (self._deadlines or {}).get(seq_id),
+        }
+
+    def snapshot_sequences(self) -> Dict[str, object]:
+        """Export every live sequence's durable state: original prompt,
+        every generated token (those before a preemption too), remaining
+        budget, stop strings, a grammar marker, priority and deadline, plus
+        the sampling generator's state.  KV is not exported (device memory
+        laid out per engine); ``restore_sequences`` re-admits each sequence
+        through a normal prefill, a prefix-cache hit where pages survive.
+        Order: active sequences by seq_id, then the pending queue front to
+        back, as in the JAX engine (whose ``sequences`` list this equals on
+        the same run).  ``rng_key`` is the port generator's state as a list
+        of ints: the port's random bits never matched JAX's."""
+        self._overlap_barrier()
+        resumed = self._resumed
+        seqs = []
+        for st in sorted(self._active.values(), key=lambda s: s.seq_id):
+            gen = list(resumed.get(st.seq_id, [])) + list(st.generated)
+            # a sequence at its budget retires within its tick, so between
+            # ticks remaining >= 1; max() mirrors _preempt_slot's clamp
+            seqs.append(self._snapshot_entry(
+                st.seq_id, list(self._prompts.get(st.seq_id, [])), gen,
+                max(1, st.max_new_tokens - len(st.generated)),
+                st.stop_strings, st.grammar, st.priority))
+        for req in self._pending:
+            # a preempted (or KV-spilled) request's prompt_ids carry its
+            # generated prefix: the ORIGINAL prompt is in _prompts
+            seqs.append(self._snapshot_entry(
+                req.seq_id,
+                list(self._prompts.get(req.seq_id, req.prompt_ids)),
+                list(resumed.get(req.seq_id, ())), req.max_new_tokens,
+                req.stop_strings, req.grammar, req.priority))
+        return {"rng_key": [int(x) for x in self._gen.get_state()],
+                "sequences": seqs}
+
+    def restore_sequences(self, snap: Dict[str, object],
+                          grammars: Optional[Dict[int, object]] = None
+                          ) -> List[int]:
+        """Re-admit sequences exported by ``snapshot_sequences``, into this
+        engine or a fresh one of the same model: each queues for a prefill
+        of prompt + generated-so-far (the preemption resume path), so it
+        finishes with the tokens an uninterrupted greedy run produces.
+        ``grammars``: freshly compiled FSMs by seq_id for sequences
+        snapshotted with ``grammar: true``, advanced here over the
+        generated tokens; a missing one raises.  Returns the seq_ids."""
+        self._overlap_barrier()
+        cap = self.engine_cfg.max_seq_len
+        restored: List[int] = []
+        max_seen = -1
+        for s in snap["sequences"]:
+            seq_id = int(s["seq_id"])
+            if (seq_id in self._prompts
+                    or any(r.seq_id == seq_id for r in self._pending)):
+                raise ValueError(
+                    f"restore collision: seq {seq_id} is already live in "
+                    f"this engine")
+            prompt = [int(t) for t in s["prompt_ids"]]
+            gen = [int(t) for t in s["generated"]]
+            remaining = int(s["remaining_new_tokens"])
+            room = cap - len(prompt) - len(gen) - 1
+            if room < 1:
+                raise ValueError(
+                    f"seq {seq_id} needs {len(prompt) + len(gen) + 2} "
+                    f"cache positions but this engine caps at {cap}; "
+                    f"restore into an engine with max_seq_len >= the "
+                    f"snapshotting engine's")
+            remaining = min(remaining, room)
+            g = (grammars or {}).get(seq_id)
+            if s.get("grammar") and g is None:
+                raise ValueError(
+                    f"seq {seq_id} was grammar-constrained; pass a "
+                    f"freshly compiled FSM via grammars={{{seq_id}: fsm}} "
+                    f"(FSM state is rebuilt by advancing over the "
+                    f"generated tokens, never serialized)")
+            if g is not None:
+                for t in gen:
+                    g.advance(t)
+            self._register(seq_id, prompt)
+            if gen:
+                self._resumed[seq_id] = list(gen)
+            self._enqueue(_Pending(
+                seq_id, prompt + gen, remaining,
+                tuple(s["stop_strings"]), g,
+                priority=int(s.get("priority", 1))))
+            if s.get("deadline") is not None:
+                self._deadline_set(seq_id, float(s["deadline"]))
+            restored.append(seq_id)
+            max_seen = max(max_seen, seq_id)
+        # later submits must not reuse a restored id
+        nxt = next(self._seq_counter)
+        self._seq_counter = itertools.count(max(nxt, max_seen + 1))
+        key = snap.get("rng_key")
+        if key is not None:
+            state = torch.tensor(key, dtype=torch.uint8)
+            n_state = self._gen.get_state().numel()
+            if state.numel() != n_state:
+                raise ValueError(
+                    f"rng_key holds {state.numel()} values, not this "
+                    f"engine's generator state ({n_state} bytes): restore "
+                    f"a snapshot of a port engine on the same device type, "
+                    f"or pass rng_key None")
+            self._gen.set_state(state)
+        return restored
+
+    # ------------------------------------------------------ fault injection
+
+    FAULT_SITE = inject.SITE_ENGINE_TICK
+
+    def _tick_fault(self) -> None:
+        """Apply this tick's scheduled fault (``faults/plan.py``), between
+        ticks on the host; called only behind ``inject._ARMED is not None``
+        at the top of ``step``."""
+        plan = inject._ARMED
+        if plan is None:
+            return
+        fault = plan.poll(self.FAULT_SITE)
+        if fault is not None:
+            # kinds that preempt or crash slots must see committed state
+            self._overlap_barrier()
+            self._apply_tick_fault(fault, plan)
+
+    def _apply_tick_fault(self, fault, plan) -> None:
+        """Base tick faults: a host stall (virtual-clock delay).  The paged
+        engine adds allocator exhaustion, preemption waves and crashes."""
+        if fault.kind in ("stall", "slow"):
+            plan.clock.sleep(fault.delay_s or 0.05)
+        else:
+            log.warning("tick fault %r not applicable to engine ticks",
+                        fault.kind)
 
     # ------------------------------------------------ grammar application
 
@@ -456,6 +620,14 @@ class EngineBase:
             c = self._counts = {}
         c[name] = c.get(name, 0.0) + value
 
+    def _fetch_host(self, *tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """``_fetch`` for page records: one sync, counted as
+        ``engine.d2h_syncs``, the results kept as CPU tensors in their own
+        dtype (bf16 has no numpy dtype); on the card one pinned buffer
+        (``utils/pages.py::to_host``)."""
+        self._count("engine.d2h_syncs")
+        return to_host(*tensors)
+
     def _fetch(self, *tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
         """One device->host sync point for the given tensors, counted as
         ``engine.d2h_syncs`` when any is a tensor (as the JAX engine counts
@@ -592,8 +764,11 @@ class EngineBase:
         device operands; upload them before the next dispatch."""
 
     def step(self) -> List[SequenceResult]:
-        """One engine tick, wrapped in an ``engine.tick`` span when a
-        tracer is active."""
+        """One engine tick: apply an armed plan's tick fault first, then
+        the tick, wrapped in an ``engine.tick`` span when a tracer is
+        active."""
+        if inject._ARMED is not None:          # disarmed cost: this check
+            self._tick_fault()
         tr = obs_trace._ACTIVE
         if tr is None:
             return self._tick()

@@ -43,10 +43,28 @@
 - ``host_overlap`` keeps the decode operands resident on the device and
   commits each step one tick late (``paged_overlap_step``), so the host
   syncs once per two steps at ``decode_chunk`` 1.
+- Memory tiers.  ``max_spilled_pages`` turns preemption into a host round
+  trip: the victim's written pages gather to the host in one sync
+  (``utils/pages.py``) and come back by an in-place write when it
+  resumes, instead of a re-prefill.  ``prefix_host_pages`` /
+  ``prefix_disk_dir`` / ``prefix_disk_pages`` (or a shared
+  ``prefix_store``) give the prefix cache host-RAM and disk tiers:
+  evicted prefix pages demote there and a later match promotes them back;
+  ``prefix_hbm_watermark`` demotes ahead of pressure and
+  ``prefix_store_writethrough`` publishes resident chains every tick they
+  grow.  Every restore writes the pool IN PLACE, so the captured graphs
+  read the restored pages.
+- ``EngineConfig.native`` builds the C++ page allocator (``native/``),
+  counted as ``engine.allocator_native`` (the Python one, where the
+  library cannot be built, as ``engine.allocator_python``).
+- Tick faults (``faults/inject.py``): "preempt" waves through the spill
+  path, "crash" drops every active sequence's KV for re-prefill, "oom"
+  takes the whole free list for one tick, "stall" advances the clock;
+  all between ticks, on the host, outside any captured region.
 
-Not ported yet, and refused loudly when configured: the prefix cache's
-store tiers, KV spill, draft-model speculation and the TP/PP/CP/EP/FSDP
-meshes (ROADMAP Queue 1).
+Not ported yet, and refused loudly when asked for: draft-model
+speculation and the TP/PP/CP/EP/FSDP meshes (ROADMAP Queue 1), and the
+disaggregated handoff's ``export_run``/``adopt_run`` (item 11).
 """
 
 from __future__ import annotations
@@ -63,7 +81,9 @@ from k8s_llm_rca_tpu_torch.engine.engine import (
     dfa_scan_step,
 )
 from k8s_llm_rca_tpu_torch.engine.graphs import DecodeGraphs
-from k8s_llm_rca_tpu_torch.engine.prefix import PrefixCache
+from k8s_llm_rca_tpu_torch.engine.prefix import (
+    CACHE_OWNER, PrefixCache, PrefixStore, _page_keys,
+)
 from k8s_llm_rca_tpu_torch.engine.speculative import DRAFT_MODEL_ITEM
 from k8s_llm_rca_tpu_torch.engine.sampling import (
     SamplingParams, sample_tokens, sample_tokens_masked,
@@ -80,11 +100,19 @@ from k8s_llm_rca_tpu_torch.ops.paged_attention import (
 )
 from k8s_llm_rca_tpu_torch.utils.device import resolve_device
 from k8s_llm_rca_tpu_torch.utils.logging import get_logger
+from k8s_llm_rca_tpu_torch.utils.pages import (
+    gather_pages, record_nbytes, records_compatible, restore_pages,
+    split_pages, stack_pages, suffix_bucket,
+)
 from k8s_llm_rca_tpu_torch.utils.tokenizer import Tokenizer
 
 log = get_logger(__name__)
 
 TRASH_PAGE = 0
+
+# allocator owner tag for pages taken by an injected "oom" tick fault
+# (sequence ids are >= 0; the prefix cache owns -2)
+FAULT_OWNER = -3
 
 
 class AllocatorError(RuntimeError):
@@ -112,6 +140,9 @@ class PageAllocator:
     @property
     def n_free(self) -> int:
         return len(self._free)
+
+    def pages_of(self, owner: int) -> List[int]:
+        return [p for p, o in self._owner.items() if o == owner]
 
     def alloc(self, n: int, owner: int) -> List[int]:
         if n > len(self._free):
@@ -163,6 +194,19 @@ class PageAllocator:
         if free | owned != universe:
             raise AllocatorError(
                 f"leaked pages: {sorted(universe - free - owned)}")
+
+
+def make_allocator(n_pages: int, prefer_native: bool = True):
+    """The page allocator: the C++ one (``native/``) when ``prefer_native``
+    and the library builds, else the Python one (logged), with the same
+    interface and invariants."""
+    if prefer_native:
+        from k8s_llm_rca_tpu_torch import native
+        if native.available():
+            return native.NativePageAllocator(n_pages)
+        log.warning("serving with the Python page allocator: the native "
+                    "library is unavailable")
+    return PageAllocator(n_pages)
 
 
 # ---------------------------------------------------------------------------
@@ -630,30 +674,66 @@ def paged_decode_scan_dfa(cfg: ModelConfig, params, pool: PagePool,
 # engine
 # ---------------------------------------------------------------------------
 
-_REST_OF_ENGINE = "Queue 1 item 3, the rest of the paged engine"
-_UNPORTED_KNOBS = (
-    # (EngineConfig field, its only supported value, what it turns on,
-    #  the ROADMAP item that ports it)
-    ("max_spilled_pages", 0, "KV spill-to-host preemption", _REST_OF_ENGINE),
-    ("prefix_host_pages", 0, "the tiered prefix store", _REST_OF_ENGINE),
-    ("prefix_disk_dir", None, "the tiered prefix store", _REST_OF_ENGINE),
-    ("prefix_disk_pages", 0, "the tiered prefix store", _REST_OF_ENGINE),
-    ("prefix_hbm_watermark", 0, "pressure-driven prefix demotion",
-     _REST_OF_ENGINE),
-    ("prefix_store_writethrough", False, "prefix store write-through",
-     _REST_OF_ENGINE),
-)
-
-
-def check_engine_config(engine_cfg: EngineConfig) -> None:
-    """Refuse every EngineConfig knob this port does not have yet, and a
-    chunk budget the JAX engine refuses."""
-    for name, supported, what, item in _UNPORTED_KNOBS:
-        value = getattr(engine_cfg, name)
-        if value != supported:
-            raise NotImplementedError(
-                f"EngineConfig.{name}={value!r} turns on {what}, which is not "
-                f"ported yet (ROADMAP {item}); set {name}={supported!r}")
+def check_engine_config(engine_cfg: EngineConfig,
+                        shared_store: bool = False) -> None:
+    """Refuse what the JAX engine refuses: a negative or inconsistent
+    tier or spill knob, a chunk budget off the page grid, a speculative
+    draft past the page.  ``shared_store``: a ``PrefixStore`` is passed
+    to the engine (it makes the cache tiered as the knobs do)."""
+    msp = engine_cfg.max_spilled_pages
+    if msp < 0:
+        raise ValueError(
+            f"max_spilled_pages={msp} must be >= 0 (0 disables "
+            f"KV spill-to-host preemption)")
+    tiered = bool(engine_cfg.prefix_host_pages or engine_cfg.prefix_disk_dir
+                  or engine_cfg.prefix_disk_pages or shared_store)
+    if tiered:
+        if engine_cfg.prefix_host_pages < 0:
+            raise ValueError(
+                f"prefix_host_pages={engine_cfg.prefix_host_pages} "
+                f"must be >= 0 (0 disables the host-RAM prefix tier)")
+        if engine_cfg.prefix_disk_pages < 0:
+            raise ValueError(
+                f"prefix_disk_pages={engine_cfg.prefix_disk_pages} "
+                f"must be >= 0 (0 with prefix_disk_dir = unbounded)")
+        if engine_cfg.prefix_disk_pages and not engine_cfg.prefix_disk_dir:
+            raise ValueError(
+                f"prefix_disk_pages={engine_cfg.prefix_disk_pages} "
+                f"needs prefix_disk_dir: the cap bounds a disk tier "
+                f"that does not exist without a directory")
+        if not engine_cfg.prefix_cache:
+            raise ValueError(
+                "the tiered prefix cache (prefix_host_pages / "
+                "prefix_disk_dir / prefix_disk_pages / a shared "
+                "prefix_store) requires prefix_cache=True: the tiers "
+                "demote FROM and promote INTO the resident L0 chain "
+                "— without it there is nothing to key pages by")
+    wm = engine_cfg.prefix_hbm_watermark
+    if wm:
+        if wm < 0:
+            raise ValueError(
+                f"prefix_hbm_watermark={wm} must be >= 0 "
+                f"(0 disables pressure-driven demotion)")
+        if not engine_cfg.prefix_cache:
+            raise ValueError(
+                "prefix_hbm_watermark requires prefix_cache=True: "
+                "pressure-driven demotion frees refcount-0 PREFIX "
+                "pages — without a prefix cache there is nothing "
+                "evictable to demote")
+        if wm >= engine_cfg.num_pages:
+            raise ValueError(
+                f"prefix_hbm_watermark={wm} is over capacity "
+                f"(num_pages={engine_cfg.num_pages}): a watermark at "
+                f"or above the whole pool demotes every cached page "
+                f"the moment one sequence admits; pick a watermark "
+                f"below num_pages")
+    if engine_cfg.prefix_store_writethrough and not tiered:
+        raise ValueError(
+            "prefix_store_writethrough=True without a store "
+            "(prefix_host_pages / prefix_disk_dir / prefix_disk_pages "
+            "/ a shared prefix_store): write-through publishes "
+            "resident chains TO a store — with nowhere to write it "
+            "is a config bug, not a degraded mode")
     pcb = engine_cfg.prefill_chunk_budget
     if pcb and (pcb < 0 or pcb % engine_cfg.page_size):
         raise ValueError(
@@ -693,7 +773,8 @@ class PagedInferenceEngine(EngineBase):
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
                  params, tokenizer: Tokenizer, device=None, *,
                  cuda_graphs: bool = True, draft_model=None, tp_mesh=None,
-                 cp_mesh=None, ep_mesh=None, pp_mesh=None, fsdp_mesh=None):
+                 cp_mesh=None, ep_mesh=None, pp_mesh=None, fsdp_mesh=None,
+                 prefix_store: Optional[PrefixStore] = None):
         if draft_model is not None:
             raise NotImplementedError(
                 f"draft-model speculation (draft_model=) runs its draft on "
@@ -705,7 +786,7 @@ class PagedInferenceEngine(EngineBase):
             raise NotImplementedError(
                 "device meshes (TP/CP/EP/PP/FSDP) are not ported yet (ROADMAP "
                 "Queue 1 item 10, multi-GPU)")
-        check_engine_config(engine_cfg)
+        check_engine_config(engine_cfg, prefix_store is not None)
         self.device = resolve_device(device)
         for leaf in _leaves(params):
             if leaf.device != self.device:
@@ -733,10 +814,42 @@ class PagedInferenceEngine(EngineBase):
         self.pool = init_paged_cache(model_cfg, engine_cfg.num_pages,
                                      self.page_size, self.device,
                                      kv_dtype=engine_cfg.kv_cache_dtype)
-        self.allocator = PageAllocator(engine_cfg.num_pages)
-        self.prefix_cache = (PrefixCache(self.allocator, self.page_size,
-                                         count=self._count)
-                             if engine_cfg.prefix_cache else None)
+        self.allocator = make_allocator(engine_cfg.num_pages,
+                                        engine_cfg.native)
+        self._count("engine.allocator_native"
+                    if type(self.allocator) is not PageAllocator
+                    else "engine.allocator_python")
+        # the tiered prefix cache: a passed store is SHARED (a restarted
+        # engine warm-starts from it); otherwise the tier knobs build a
+        # private one
+        self.prefix_store = prefix_store
+        if self.prefix_store is None and (engine_cfg.prefix_host_pages
+                                          or engine_cfg.prefix_disk_dir
+                                          or engine_cfg.prefix_disk_pages):
+            self.prefix_store = PrefixStore(
+                host_pages=engine_cfg.prefix_host_pages,
+                disk_dir=engine_cfg.prefix_disk_dir,
+                disk_pages=engine_cfg.prefix_disk_pages)
+        self.prefix_cache = (
+            PrefixCache(self.allocator, self.page_size,
+                        store=self.prefix_store,
+                        demote=self._demote_prefix_pages,
+                        promote=self._promote_prefix_records,
+                        count=self._count)
+            if engine_cfg.prefix_cache else None)
+        # watermark demotion and write-through, at tick boundaries;
+        # _wt_resident: the resident count of the last flush
+        self._hbm_watermark = int(engine_cfg.prefix_hbm_watermark)
+        self._writethrough = bool(engine_cfg.prefix_store_writethrough
+                                  and self.prefix_store is not None)
+        self._wt_resident = 0
+        # pages taken by an injected "oom" tick fault (one tick)
+        self._fault_pages: List[int] = []
+        # KV spill: seq_id -> host record {k, v, [k_scale, v_scale] (CPU
+        # tensors [L, n, page, ...]), n_pages, n_shared, shared_pages,
+        # length, cur_token}; the sequence itself waits in _pending
+        self._spilled: Dict[int, Dict[str, object]] = {}
+        self._spilled_pages_total = 0
         self.block_tables = np.full((b, self.pages_per_seq), TRASH_PAGE,
                                     np.int32)
         self.lengths = np.zeros((b,), np.int64)
@@ -901,6 +1014,7 @@ class PagedInferenceEngine(EngineBase):
         if not self._active:
             finished.extend(self._overlap_flush())
             return finished
+        self._tick_pressure()
         self._tick_growth()
         active_slots = sorted(self._active)
         if not active_slots:
@@ -1078,6 +1192,17 @@ class PagedInferenceEngine(EngineBase):
         finished: List[SequenceResult] = []
         budget = self.engine_cfg.prefill_chunk_budget
         while self._pending and self._free_slots:
+            if self._spilled and self._pending[0].seq_id in self._spilled:
+                # a KV-spilled sequence resumes by restoring its pages: no
+                # prefill, the decode state of the moment it left
+                try:
+                    self._admit_spilled(self._pending[0])
+                except OutOfPages:
+                    # the record stays; retirements refill the pool
+                    self._count("engine.admission_rejections")
+                    break
+                del self._pending[:1]
+                continue
             if budget and len(self._pending[0].prompt_ids) > budget:
                 try:
                     early = self._admit_chunked(self._pending[0])
@@ -1205,13 +1330,6 @@ class PagedInferenceEngine(EngineBase):
                 return -(-b // self.page_size) * self.page_size
         return self.pages_per_seq * self.page_size
 
-    def _suffix_bucket(self, rest_len: int, n_shared: int) -> Tuple[int, int]:
-        """(bucket tokens, pages) of a prompt suffix that starts after
-        ``n_shared`` held pages, capped at the table room past them."""
-        bucket = min(self._bucket(rest_len),
-                     (self.pages_per_seq - n_shared) * self.page_size)
-        return bucket, bucket // self.page_size
-
     def _alloc_with_evict(self, n: int, owner: int) -> List[int]:
         """Allocate, evicting refcount-0 prefix-cache pages on pressure."""
         try:
@@ -1309,7 +1427,8 @@ class PagedInferenceEngine(EngineBase):
         cached_pages, n_cached = matched
         n_cp = len(cached_pages)
         rest = req.prompt_ids[n_cached:]
-        bucket, n_pages = self._suffix_bucket(len(rest), n_cp)
+        bucket, n_pages = suffix_bucket(self._bucket, len(rest), n_cp,
+                                        self.page_size, self.pages_per_seq)
         try:
             pages = self._alloc_with_evict(n_pages, owner=req.seq_id)
         except OutOfPages:
@@ -1366,7 +1485,8 @@ class PagedInferenceEngine(EngineBase):
         if len(rest) <= self.engine_cfg.prefill_chunk_budget:
             return self._admit(req, matched)
         n_cp = len(cached_pages)
-        _, n_pages = self._suffix_bucket(len(rest), n_cp)
+        _, n_pages = suffix_bucket(self._bucket, len(rest), n_cp,
+                                   self.page_size, self.pages_per_seq)
         try:
             pages = self._alloc_with_evict(n_pages, owner=req.seq_id)
         except OutOfPages:
@@ -1472,8 +1592,9 @@ class PagedInferenceEngine(EngineBase):
         n_cached = matches[0][1]
         n_cp = len(matches[0][0])
         rests = [r.prompt_ids[n_cached:] for r in reqs]
-        bucket, n_pages = self._suffix_bucket(max(len(r) for r in rests),
-                                              n_cp)
+        bucket, n_pages = suffix_bucket(
+            self._bucket, max(len(r) for r in rests), n_cp, self.page_size,
+            self.pages_per_seq)
         n = len(reqs)
         allocated: List[List[int]] = []
         try:
@@ -1522,8 +1643,9 @@ class PagedInferenceEngine(EngineBase):
         padded to a power of two by repeating the last real row's tokens
         AND pages (the duplicate page writes are identical)."""
         n = len(reqs)
-        bucket, n_pages = self._suffix_bucket(
-            max(len(r.prompt_ids) for r in reqs), 0)
+        bucket, n_pages = suffix_bucket(
+            self._bucket, max(len(r.prompt_ids) for r in reqs), 0,
+            self.page_size, self.pages_per_seq)
         allocated: List[List[int]] = []
         try:
             for r in reqs:
@@ -1628,15 +1750,17 @@ class PagedInferenceEngine(EngineBase):
         self.block_tables[slot, idx] = page
         self._dev_edit_bt_row(slot)
 
-    def _preempt_victim(self, exclude: Optional[int] = None) -> bool:
+    def _preempt_victim(self, exclude: Optional[int] = None,
+                        spill: bool = True) -> bool:
         """Evict one active sequence: the lowest priority class first,
-        the youngest within it."""
+        the youngest within it.  ``spill=False`` forces the free-and-
+        re-prefill path even with spill on (the "crash" tick fault)."""
         candidates = [s for s in self._active if s != exclude]
         if not candidates:
             return False
         slot = max(candidates, key=lambda s: (self._active[s].priority,
                                               self._active[s].seq_id))
-        self._preempt_slot(slot)
+        self._preempt_slot(slot, spill=spill)
         return True
 
     def _release_slot_pages(self, slot: int, st: _Active) -> None:
@@ -1650,12 +1774,16 @@ class PagedInferenceEngine(EngineBase):
         if private:
             self.allocator.free(private, owner=st.seq_id)
 
-    def _preempt_slot(self, slot: int) -> None:
-        """Free a slot's pages and requeue its sequence at the front of its
-        class with prompt + generated so far as the new prompt; re-prefill
-        resumes it."""
+    def _preempt_slot(self, slot: int, spill: bool = True) -> None:
+        """Take a slot's sequence off the card and requeue it at the front
+        of its class with prompt + generated so far as the new prompt.  Its
+        KV spills to the host when ``_maybe_spill`` takes it (it then
+        resumes by a page restore), else its pages are freed and a
+        re-prefill resumes it."""
         st = self._active.pop(slot)
-        self._release_slot_pages(slot, st)
+        spilled = spill and self._maybe_spill(slot, st)
+        if not spilled:
+            self._release_slot_pages(slot, st)
         self.block_tables[slot] = TRASH_PAGE
         self._dev_edit_bt_row(slot)     # contain in-flight garbage writes
         self.lengths[slot] = 0     # the scan advances idle slots too
@@ -1664,14 +1792,300 @@ class PagedInferenceEngine(EngineBase):
         self._resumed[st.seq_id] = prefix
         resumed_prompt = self._prompts[st.seq_id] + prefix
         remaining = max(1, st.max_new_tokens - len(st.generated))
-        log.info("preempting seq %d (slot %d, %d tokens) to free pages",
-                 st.seq_id, slot, len(resumed_prompt))
+        log.info("preempting seq %d (slot %d, %d tokens, %s) to free pages",
+                 st.seq_id, slot, len(resumed_prompt),
+                 "kv spilled" if spilled else "re-prefill")
         self._count("engine.preemptions", 1)
         # the grammar FSM rides along: its state already reflects every
         # generated token now baked into the resume prompt
         self._enqueue(_Pending(st.seq_id, resumed_prompt, remaining,
                                st.stop_strings, st.grammar,
                                priority=st.priority), front=True)
+
+    # ------------------------------------------------------- memory tiers
+
+    def _maybe_spill(self, slot: int, st: _Active) -> bool:
+        """Spill a preempted slot's written private pages to the host (ONE
+        gather, one sync) so it resumes by a page restore instead of a
+        re-prefill.  Returns False, leaving the caller on the re-prefill
+        path, when spill is off, the slot's first token has not committed
+        (a deferred admission: its covered length is ambiguous), a written
+        page is the trash page, or the ``max_spilled_pages`` budget would
+        be exceeded (counted as ``engine.spill_budget_fallbacks``).  On
+        success the private pages go back to the allocator; the shared
+        prefix pages keep their references (held by the record, handed
+        back to the slot at restore), so they cannot be evicted meanwhile."""
+        if not self.engine_cfg.max_spilled_pages:
+            return False
+        prefix = self._resumed.get(st.seq_id, []) + st.generated
+        if not prefix:
+            return False
+        # committed state: lengths == prompt_tokens + len(generated) - 1
+        length = int(self.lengths[slot])
+        if length + 1 != st.prompt_tokens + len(st.generated):
+            return False
+        ps = self.page_size
+        n_written = -(-length // ps)
+        table = self.block_tables[slot]
+        shared = [int(p) for p in table[:st.n_shared]]
+        spill_idx = [int(p) for p in table[st.n_shared:n_written]]
+        if any(p == TRASH_PAGE for p in spill_idx):
+            return False
+        if (self._spilled_pages_total + len(spill_idx)
+                > self.engine_cfg.max_spilled_pages):
+            self._count("engine.spill_budget_fallbacks")
+            return False
+        extra = [int(p) for p in table[n_written:] if p != TRASH_PAGE]
+        rec: Dict[str, object] = {
+            "n_pages": len(spill_idx), "n_shared": st.n_shared,
+            "shared_pages": shared, "length": length,
+            "cur_token": int(self.cur_tokens[slot]),
+        }
+        if spill_idx:
+            # on the card the gather runs on the engine's stream after
+            # every dispatched step, so it sees their writes
+            rec.update(gather_pages(self.pool, self._fetch_host, spill_idx))
+        self._spilled[st.seq_id] = rec
+        self._spilled_pages_total += len(spill_idx)
+        self._count("engine.spilled_pages", len(spill_idx))
+        if spill_idx or extra:
+            self.allocator.free(spill_idx + extra, owner=st.seq_id)
+        return True
+
+    def _admit_spilled(self, req: _Pending) -> None:
+        """Resume a KV-spilled sequence: a fresh page run (the bucket math
+        of a re-prefill, so allocator state evolves alike either way), its
+        pages written back IN PLACE, and the slot registered at its exact
+        preemption state: no prefill, no re-sampled token."""
+        rec = self._spilled[req.seq_id]
+        ps = self.page_size
+        n_shared = int(rec["n_shared"])
+        length = int(rec["length"])
+        # the resume prompt is prompt + generated: length + 1 tokens (the
+        # last generated one is the current token, its KV not yet written)
+        resume_len = length + 1
+        assert resume_len == len(req.prompt_ids), (resume_len,
+                                                   len(req.prompt_ids))
+        _, n_pages = suffix_bucket(self._bucket, resume_len - n_shared * ps,
+                                   n_shared, ps, self.pages_per_seq)
+        pages = self._alloc_with_evict(n_pages, owner=req.seq_id)
+        n_spill = int(rec["n_pages"])
+        if n_spill:
+            restore_pages(self.pool, rec, pages[:n_spill])
+        slot = self._free_slots.pop(0)
+        table = np.full((self.pages_per_seq,), TRASH_PAGE, np.int32)
+        table[:n_shared] = rec["shared_pages"]
+        table[n_shared:n_shared + n_pages] = pages
+        self.block_tables[slot] = table
+        # prompt_tokens counts the RESUME prompt, as a re-prefill's does;
+        # the shared pages' references pass from the record to the slot
+        st = _Active(seq_id=req.seq_id, slot=slot, prompt_tokens=resume_len,
+                     max_new_tokens=req.max_new_tokens,
+                     stop_strings=req.stop_strings, grammar=req.grammar,
+                     n_shared=n_shared, priority=req.priority)
+        self._active[slot] = st
+        self.lengths[slot] = length
+        self.cur_tokens[slot] = int(rec["cur_token"])
+        self._dev_edit_len(slot, length)
+        self._dev_edit_token(slot, int(rec["cur_token"]))
+        self._dev_edit_bt_row(slot)
+        del self._spilled[req.seq_id]
+        self._spilled_pages_total -= n_spill
+        self._count("engine.restored_pages", n_spill)
+
+    def _drop_spill(self, seq_id: int) -> None:
+        """Discard a spill record (cancel, deadline expiry while queued):
+        its host copies go, and the shared-prefix references it held are
+        released."""
+        rec = self._spilled.pop(seq_id, None)
+        if rec is None:
+            return
+        self._spilled_pages_total -= int(rec["n_pages"])
+        if rec["shared_pages"] and self.prefix_cache is not None:
+            self.prefix_cache.release(rec["shared_pages"])
+
+    def _demote_prefix_pages(self, pages: List[int]
+                             ) -> Optional[List[Dict[str, object]]]:
+        """PrefixCache demote hook: ONE gather of resident prefix pages to
+        the host, split into per-page store records (counted per page as
+        ``engine.prefix_demotions``).  Demoted pages live under the store's
+        own caps; ``max_spilled_pages`` governs spilled sequences only."""
+        rec = gather_pages(self.pool, self._fetch_host, pages)
+        self._count("engine.prefix_demotions", len(pages))
+        return split_pages(rec)
+
+    def _promote_prefix_records(self, recs: List[Dict[str, object]]
+                                ) -> Optional[List[int]]:
+        """PrefixCache promote hook: fresh ``CACHE_OWNER`` pages with the
+        records written into them in place.  Returns the page ids, or None
+        (a cold miss) when a record does not fit this pool (a store shared
+        across configs) or the allocator has no room; allocation never
+        evicts (demoting L0 to promote L1 inside a match gains nothing)."""
+        if not recs or not all(records_compatible(self.pool, r)
+                               for r in recs):
+            return None
+        try:
+            pages = self.allocator.alloc(len(recs), owner=CACHE_OWNER)
+        except OutOfPages:
+            return None
+        rec = stack_pages(recs, pin=self.device.type == "cuda")
+        restore_pages(self.pool, rec, pages)
+        self._count("engine.prefix_promoted_pages", len(pages))
+        self._count("engine.prefix_bytes_restored", record_nbytes(rec))
+        return pages
+
+    def flush_prefix_store(self, limit: Optional[int] = None) -> int:
+        """Publish resident prefix pages into the store WITHOUT freeing
+        them (one gather; digests the store holds are skipped), so an
+        engine sharing the store promotes instead of re-prefilling.
+        Returns the pages copied; 0 without a store."""
+        if self.prefix_cache is None or self.prefix_store is None:
+            return 0
+        self._overlap_barrier()
+        return self.prefix_cache.flush_to_store(limit)
+
+    def _publish_sequence_pages(self) -> int:
+        """Push every ACTIVE sequence's full written pages (prompt AND
+        generated so far) into the store, keyed by the chained digests
+        ``PrefixCache.match`` probes, so whoever restores a snapshot of
+        this engine promotes them and re-prefills only the sub-page tail.
+        One gather for the whole set; digests the store holds and pages
+        shared between sequences are skipped.  Returns the pages
+        published (``engine.prefix_snapshot_published``)."""
+        if self.prefix_cache is None or self.prefix_store is None:
+            return 0
+        self._overlap_barrier()
+        P = self.page_size
+        pend_pages: List[int] = []
+        pend_keys: List[bytes] = []
+        seen = set()
+        for slot in sorted(self._active):
+            st = self._active[slot]
+            n_full = int(self.lengths[slot]) // P
+            if n_full <= 0:
+                continue
+            tokens = (list(self._prompts.get(st.seq_id, []))
+                      + list(self._resumed.get(st.seq_id, ()))
+                      + list(st.generated))
+            if len(tokens) < n_full * P:
+                continue            # defensive: mirrors out of sync
+            table = self.block_tables[slot]
+            for i, key in enumerate(_page_keys(tokens, n_full, P)):
+                page = int(table[i])
+                if page == TRASH_PAGE or key in seen:
+                    continue
+                seen.add(key)
+                if self.prefix_store.contains(key):
+                    continue
+                pend_pages.append(page)
+                pend_keys.append(key)
+        if not pend_pages:
+            return 0
+        rec = gather_pages(self.pool, self._fetch_host, pend_pages)
+        for key, page_rec in zip(pend_keys, split_pages(rec)):
+            self.prefix_store.put(key, page_rec)
+        self._count("engine.prefix_snapshot_published", len(pend_keys))
+        return len(pend_keys)
+
+    def _tick_pressure(self) -> None:
+        """The prefix cache's tick-boundary policies.  Watermark: when the
+        free count dips below ``prefix_hbm_watermark``, refcount-0 prefix
+        pages demote through ``evict`` (oldest first) until the mark holds
+        or nothing is evictable, so this tick's growth already sees the
+        pages.  Write-through: when the resident set changed since the last
+        flush, new chains publish to the store without being freed.
+        Prefix pages are read-only, so no overlap barrier is needed."""
+        if self.prefix_cache is None:
+            return
+        if self._hbm_watermark:
+            deficit = self._hbm_watermark - self.allocator.n_free
+            if deficit > 0:
+                demoted = self.prefix_cache.evict(deficit)
+                if demoted:
+                    self._count("engine.prefix_watermark_demotions",
+                                demoted)
+        if self._writethrough:
+            resident = self.prefix_cache.n_resident
+            if resident != self._wt_resident:
+                flushed = self.prefix_cache.flush_to_store()
+                self._wt_resident = resident
+                if flushed:
+                    self._count("engine.prefix_writethrough_pages",
+                                flushed)
+
+    def snapshot_sequences(self) -> Dict[str, object]:
+        """``EngineBase.snapshot_sequences`` aware of chunked prefills: a
+        mid-prefill sequence exports as a pending entry (original prompt,
+        nothing generated), between the active sequences and the queue.
+        With a store attached, the active sequences' written pages publish
+        first (``_publish_sequence_pages``), so a restore promotes them."""
+        self._publish_sequence_pages()
+        snap = super().snapshot_sequences()
+        if not self._prefilling:
+            return snap
+        pre = []
+        for slot in sorted(self._prefilling):
+            req = self._prefilling[slot]["req"]
+            pre.append(self._snapshot_entry(
+                req.seq_id,
+                list(self._prompts.get(req.seq_id, req.prompt_ids)),
+                list(self._resumed.get(req.seq_id, ())),
+                req.max_new_tokens, req.stop_strings, req.grammar,
+                req.priority))
+        seqs = snap["sequences"]
+        n_active = len(self._active)
+        snap["sequences"] = seqs[:n_active] + pre + seqs[n_active:]
+        return snap
+
+    def export_run(self, *args, **kwargs):
+        raise NotImplementedError(
+            "export_run/adopt_run (the disaggregated KV handoff) serve "
+            "cluster/disagg.py, which is not ported yet (ROADMAP Queue 1 "
+            "item 11, fleet)")
+
+    adopt_run = export_run
+
+    # -------------------------------------------------------- tick faults
+
+    def _tick_fault(self) -> None:
+        # pages taken by the previous tick's "oom" come back first, so the
+        # exhaustion lasts one tick
+        self._release_fault_pages()
+        super()._tick_fault()
+
+    def _release_fault_pages(self) -> None:
+        if self._fault_pages:
+            self.allocator.free(self._fault_pages, owner=FAULT_OWNER)
+            self._fault_pages = []
+
+    def _apply_tick_fault(self, fault, plan) -> None:
+        """Paged tick faults: "preempt" evicts the ``wave`` youngest
+        sequences through the normal victim path, spill included;
+        "crash" drops every active sequence's device KV (youngest first,
+        so the oldest ends at the queue's head) for re-prefill, never
+        spilling; "oom" takes the whole free list for one tick, so that
+        tick's growth runs the real pool-pressure path; the rest as the
+        base engine."""
+        if fault.kind == "preempt":
+            for _ in range(max(1, fault.wave)):
+                if not self._preempt_victim():
+                    break
+        elif fault.kind == "crash":
+            n = 0
+            while self._preempt_victim(spill=False):
+                n += 1
+            log.warning("tick fault 'crash': dropped device KV of %d "
+                        "active sequence(s); all requeued for re-prefill",
+                        n)
+            self._count("engine.crash_evictions", n)
+        elif fault.kind == "oom":
+            n = self.allocator.n_free
+            if n:
+                self._fault_pages = self.allocator.alloc(n,
+                                                         owner=FAULT_OWNER)
+                plan.add_cleanup(self._release_fault_pages)
+        else:
+            super()._apply_tick_fault(fault, plan)
 
     def _retire(self, slot: int, reason: str) -> SequenceResult:
         st = self._active.pop(slot)

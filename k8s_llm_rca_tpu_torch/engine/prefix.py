@@ -1,5 +1,5 @@
-"""Page-granular prefix cache: the port of
-``k8s_llm_rca_tpu/engine/prefix.py`` without its store tiers.
+"""Page-granular prefix cache, tiered HBM (L0) -> host RAM (L1) -> disk
+(L2): the port of ``k8s_llm_rca_tpu/engine/prefix.py``.
 
 The RCA agent threads grow monotonically: every retry and every
 per-entity audit re-submits the thread's whole history, so consecutive
@@ -21,21 +21,33 @@ page-aligned prompt prefixes between sequences.
   page whose key is already chained to a different page (a concurrent
   duplicate prefill), which stays private to its sequence.
 
-The JAX cache can demote evicted pages into a host/disk ``PrefixStore``
-and promote them back on a later match; those tiers are not ported
-(ROADMAP Queue 1 item 3), so eviction here discards, as the JAX cache
-does without a store.
+Tiers: with a ``PrefixStore`` attached, ``evict`` DEMOTES the victims'
+KV into the store (one gather through the engine's hook, the page-record
+layout of KV spill, ``utils/pages.py``) before freeing them, and
+``match`` extends past the resident chain into the store, PROMOTING hits
+back into fresh pages (one in-place write).  Entries are keyed by the same
+chained digests, so a promoted page holds the bytes eviction demoted and a
+promoted hit runs the prefix-hit prefill path of an L0 hit.  The store is
+shareable across engines: a restarted engine promotes the pages its
+predecessor published (``flush_to_store``, ``snapshot_sequences``).
+Without a store, eviction discards.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from k8s_llm_rca_tpu_torch.utils.logging import METRICS
+from k8s_llm_rca_tpu_torch.utils.logging import METRICS, get_logger
+from k8s_llm_rca_tpu_torch.utils.pages import (
+    decode_page_record, encode_page_record,
+)
+
+log = get_logger(__name__)
 
 # allocator owner tag for shared pages (sequence ids are >= 0)
 CACHE_OWNER = -2
@@ -56,18 +68,191 @@ def _page_keys(prompt_ids: Sequence[int], n_pages: int,
     return keys
 
 
+class PrefixStore:
+    """Host-RAM (L1) + disk (L2) tiers of demoted prefix-page KV.
+
+    Entries are per-page records (utils/pages.py layout, page axis length
+    1) keyed by the chain digest of the page they held.  L1 is an LRU
+    ``OrderedDict`` capped at ``host_pages``; overflow (and every put
+    when ``host_pages == 0``) lands on disk when ``disk_dir`` is set,
+    else is dropped (plain discard — exactly the pre-tier behavior).
+
+    Disk entries are written with the WAL atomic recipe (utils/wal.py
+    ``scan_wal``'s temp + fsync + ``os.replace``): a crash mid-write
+    leaves either no file or a whole file, and the CRC frame catches a
+    torn/corrupt one at load — ``get`` then answers None (silent cold
+    miss) and drops the entry, never raising.  A fresh store pointed at
+    an existing ``disk_dir`` re-indexes the surviving ``*.page`` files,
+    which is how a restarted process (or a new replica handed the same
+    directory) warm-starts across process death.
+
+    The store is engine-agnostic and shareable: it never touches a page
+    allocator or device memory — engines gather INTO it and scatter OUT
+    of it through their own hooks.  Single-threaded by design, like the
+    cluster pump that shares it.
+    """
+
+    def __init__(self, host_pages: int = 0,
+                 disk_dir: Optional[str] = None,
+                 disk_pages: int = 0):
+        if host_pages < 0:
+            raise ValueError(f"host_pages={host_pages} must be >= 0")
+        if disk_pages < 0:
+            raise ValueError(f"disk_pages={disk_pages} must be >= 0")
+        if disk_pages and not disk_dir:
+            raise ValueError(
+                f"disk_pages={disk_pages} needs disk_dir: the cap bounds "
+                f"a disk tier that does not exist without a directory")
+        self.host_pages = host_pages
+        self.disk_dir = disk_dir
+        self.disk_pages = disk_pages
+        self._l1: "OrderedDict[bytes, Dict[str, object]]" = OrderedDict()
+        self._l2: "OrderedDict[bytes, str]" = OrderedDict()
+        if disk_dir:
+            os.makedirs(disk_dir, exist_ok=True)
+            # deterministic re-index order (sorted names, not mtime):
+            # LRU age across a restart is unknowable anyway, and sorted
+            # keeps which-entry-gets-capped a pure function of the set
+            for name in sorted(os.listdir(disk_dir)):
+                if name.endswith(".page"):
+                    try:
+                        key = bytes.fromhex(name[:-len(".page")])
+                    except ValueError:
+                        continue        # foreign file, not an entry
+                    self._l2[key] = os.path.join(disk_dir, name)
+
+    # ------------------------------------------------------------- stats
+
+    @property
+    def n_host(self) -> int:
+        return len(self._l1)
+
+    @property
+    def n_disk(self) -> int:
+        return len(self._l2)
+
+    def contains(self, key: bytes) -> bool:
+        """Cheap probe (no load, no LRU touch): either tier holds it."""
+        return key in self._l1 or key in self._l2
+
+    # --------------------------------------------------------------- put
+
+    def put(self, key: bytes, rec: Dict[str, object]) -> None:
+        """Admit one demoted page record under its chain digest.  L1
+        first; overflow demotes the LRU L1 entry to disk.  Re-putting a
+        present key only refreshes recency — the digest pins the bytes,
+        so rewriting them is pure waste."""
+        if key in self._l1:
+            self._l1.move_to_end(key)
+            return
+        if self.host_pages > 0:
+            self._l1[key] = rec
+            self._l1.move_to_end(key)
+            while len(self._l1) > self.host_pages:
+                old_key, old_rec = self._l1.popitem(last=False)
+                self._to_disk(old_key, old_rec)
+        else:
+            self._to_disk(key, rec)
+
+    def _to_disk(self, key: bytes, rec: Dict[str, object]) -> None:
+        """Persist one record as ``<digest hex>.page`` with the atomic
+        temp + fsync + ``os.replace`` recipe; without a ``disk_dir`` the
+        record is dropped (legacy discard).  A record too large for the
+        WAL frame is dropped too — persistence is best-effort, parity
+        never depends on it (a missing entry is just a cold miss)."""
+        if not self.disk_dir:
+            return
+        if key in self._l2:
+            self._l2.move_to_end(key)
+            return
+        path = os.path.join(self.disk_dir, key.hex() + ".page")
+        try:
+            frame = encode_page_record(rec)
+        except ValueError:
+            return
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(frame)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        self._l2[key] = path
+        while self.disk_pages and len(self._l2) > self.disk_pages:
+            self._drop_disk(*self._l2.popitem(last=False))
+
+    @staticmethod
+    def _drop_disk(key: bytes, path: str) -> None:
+        try:
+            os.remove(path)
+        except OSError:
+            pass                        # already gone: cap still holds
+
+    # --------------------------------------------------------------- get
+
+    def get(self, key: bytes
+            ) -> Optional[Tuple[Dict[str, object], int]]:
+        """Fetch one record; returns ``(record, tier)`` with tier 1 (host
+        RAM) or 2 (disk), or None.  A disk hit is CRC-verified and
+        re-admitted to L1 (it may overflow another entry back to disk);
+        any torn/corrupt/missing file drops the index entry and answers
+        None — the caller re-prefills, exactly the cold path."""
+        rec = self._l1.get(key)
+        if rec is not None:
+            self._l1.move_to_end(key)
+            return rec, 1
+        path = self._l2.get(key)
+        if path is None:
+            return None
+        try:
+            with open(path, "rb") as f:
+                data = f.read()
+        except OSError:
+            data = b""
+        rec = decode_page_record(data)
+        if rec is None:
+            self._l2.pop(key, None)
+            self._drop_disk(key, path)
+            log.warning("prefix store: corrupt/unreadable disk entry "
+                        "%s dropped (cold miss)", os.path.basename(path))
+            return None
+        self._l2.move_to_end(key)
+        if self.host_pages > 0:
+            # promote into L1 without re-writing the (present) disk copy
+            self._l1[key] = rec
+            while len(self._l1) > self.host_pages:
+                old_key, old_rec = self._l1.popitem(last=False)
+                self._to_disk(old_key, old_rec)
+        return rec, 2
+
+
 class PrefixCache:
     """Host-side index of shared prompt-prefix pages.
 
     The allocator stays the single owner-of-record of page ids; this class
     only re-tags ownership (sequence <-> ``CACHE_OWNER`` via ``transfer``)
-    and decides which refcount-0 pages to evict.  ``count`` is the engine's
-    counter (``EngineBase._count``)."""
+    and decides which refcount-0 pages to evict.
+
+    Tier hooks (wired by the paged engine when a ``PrefixStore`` is
+    attached; without them eviction discards):
+
+    - ``demote(pages) -> per-page records | None``: ONE gather of resident
+      pages to the host (``_demote_prefix_pages``);
+    - ``promote(records) -> page ids | None``: allocate ``CACHE_OWNER``
+      pages and write the records into them (``_promote_prefix_records``);
+      None (no room, incompatible records) is a cold miss;
+    - ``count(name, value)``: the engine's counter (``EngineBase._count``).
+    """
 
     def __init__(self, allocator, page_size: int,
+                 store: Optional[PrefixStore] = None,
+                 demote: Optional[Callable] = None,
+                 promote: Optional[Callable] = None,
                  count: Optional[Callable] = None):
         self.allocator = allocator
         self.page_size = page_size
+        self.store = store
+        self._demote = demote
+        self._promote = promote
         self._count = count or (
             lambda name, value=1.0: METRICS.inc(name, value))
         self._chain: Dict[bytes, int] = {}           # prefix digest -> page
@@ -84,34 +269,69 @@ class PrefixCache:
         return len(self._lru)
 
     def match(self, prompt_ids: Sequence[int]) -> Tuple[List[int], int]:
-        """Longest chained page-aligned prefix of ``prompt_ids``: (pages,
-        n_cached_tokens), each returned page's refcount bumped.  Reuse
-        stops at the last FULL page strictly before the prompt's end, so
-        at least one token is re-prefilled (the sampler needs its
-        logits)."""
+        """Longest chained page-aligned prefix of ``prompt_ids``, extended
+        into the store: where the resident (L0) chain ends, store hits for
+        the next keys are promoted into fresh pages and chained, so the
+        caller sees one contiguous shared run.  Returns (pages,
+        n_cached_tokens), each page's refcount bumped.  Reuse stops at the
+        last FULL page strictly before the prompt's end, so at least one
+        token is re-prefilled (the sampler needs its logits)."""
         P = self.page_size
         limit = (len(prompt_ids) - 1) // P
+        keys = _page_keys(prompt_ids, limit, P)
         pages: List[int] = []
-        for key in _page_keys(prompt_ids, limit, P):
+        for key in keys:
             page = self._chain.get(key)
             if page is None:
                 break
             pages.append(page)
         if pages:
             self._count("engine.prefix_hits_l0", len(pages))
+        pages += self._match_store(keys[len(pages):])
         for p in pages:
             self._acquire(p)
         return pages, len(pages) * P
 
+    def _match_store(self, keys: Sequence[bytes]) -> List[int]:
+        """Promote the store's run of consecutive key hits past the
+        resident chain; returns the newly chained page ids ([] without a
+        store, hooks, hits or room).  Promotion allocates WITHOUT evicting
+        (no demotion inside a match); out of pages, the suffix re-prefills."""
+        if self.store is None or self._promote is None or not keys:
+            return []
+        recs: List[Dict[str, object]] = []
+        tiers: List[int] = []
+        for key in keys:
+            got = self.store.get(key)
+            if got is None:
+                break
+            recs.append(got[0])
+            tiers.append(got[1])
+        if not recs:
+            return []
+        new_pages = self._promote(recs)
+        if new_pages is None:
+            return []
+        assert len(new_pages) == len(recs)
+        for key, page, tier in zip(keys, new_pages, tiers):
+            self._chain[key] = page
+            self._key_of[page] = key
+            self._ref[page] = 0
+            self._lru[page] = None      # _acquire pops it right after
+            self._count(f"engine.prefix_hits_l{tier}", 1)
+        return new_pages
+
     def has_prefix(self, prompt_ids: Sequence[int]) -> bool:
         """Non-acquiring probe: would ``match`` return any pages?  Checks
-        the first page's digest only, enough for admission grouping to
-        route hits away from a miss batch."""
+        the first page's digest (resident or in the store) only, enough
+        for admission grouping to route hits away from a miss batch."""
         P = self.page_size
         if (len(prompt_ids) - 1) // P < 1:
             return False
         (key,) = _page_keys(prompt_ids, 1, P)
-        return key in self._chain
+        if key in self._chain:
+            return True
+        return self.store is not None and self.store.contains(key)
 
     def _acquire(self, page: int) -> None:
         if self._ref.get(page, 0) == 0:
@@ -163,15 +383,42 @@ class PrefixCache:
 
     def evict(self, n: int) -> int:
         """Free up to ``n`` least-recently-used refcount-0 pages back to
-        the allocator; returns how many were freed."""
+        the allocator, demoting their KV into the store first when one is
+        attached (one gather of the whole victim set, one ``put`` per
+        page).  Returns how many pages were freed."""
         victims: List[int] = []
         while len(victims) < n and self._lru:
             victims.append(self._lru.popitem(last=False)[0])
+        if not victims:
+            return 0
+        if self.store is not None and self._demote is not None:
+            page_recs = self._demote(victims)
+            if page_recs is not None:
+                for page, rec in zip(victims, page_recs):
+                    self.store.put(self._key_of[page], rec)
         for page in victims:
             key = self._key_of.pop(page)
             del self._chain[key]
             del self._ref[page]
             self.allocator.free([page], CACHE_OWNER)
-        if victims:
-            METRICS.inc("engine.prefix_evicted_pages", len(victims))
+        METRICS.inc("engine.prefix_evicted_pages", len(victims))
         return len(victims)
+
+    def flush_to_store(self, limit: Optional[int] = None) -> int:
+        """Copy up to ``limit`` resident pages into the store WITHOUT
+        freeing them (refcounts, chain and LRU untouched), skipping digests
+        the store holds.  Returns the number of pages copied."""
+        if self.store is None or self._demote is None:
+            return 0
+        pending = [(p, k) for p, k in self._key_of.items()
+                   if not self.store.contains(k)]
+        if limit is not None:
+            pending = pending[:limit]
+        if not pending:
+            return 0
+        page_recs = self._demote([p for p, _ in pending])
+        if page_recs is None:
+            return 0
+        for (_, key), rec in zip(pending, page_recs):
+            self.store.put(key, rec)
+        return len(pending)

@@ -5,22 +5,25 @@ Graph — the hermetic default.  ``Neo4jQueryExecutor`` is a thin param-safe
 bolt client equivalent to the reference's (common/neo4j_query_executor.py:6-24),
 import-gated so the hermetic path never touches the neo4j driver.
 
-A copy of ``k8s_llm_rca_tpu/graph/executor.py`` without its armed-fault
-branch: fault injection (``faults/inject.py``) is not ported yet (ROADMAP
-Queue 1 item 3).  ``fault_site`` stays as the ``graph.query`` span's
-``site`` label.
+The port of ``k8s_llm_rca_tpu/graph/executor.py``.  Both backends carry
+the same fault-injection point (``faults/inject.py``): when a FaultPlan is
+armed, each ``run_query`` polls its ``fault_site`` before executing, so a
+chaos run can schedule query failures, timeouts, slow calls, empty result
+sets and poisoned payloads deterministically.  Disarmed, the check is one
+module-attribute ``is None`` test.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Protocol
 
+from k8s_llm_rca_tpu_torch.faults import inject
 from k8s_llm_rca_tpu_torch.graph import cypher
 from k8s_llm_rca_tpu_torch.graph.cypher import CypherSyntaxError  # noqa: F401 (re-export)
 from k8s_llm_rca_tpu_torch.graph.store import Graph, Record
 from k8s_llm_rca_tpu_torch.obs import trace as obs_trace
 
-SITE_GRAPH = "graph.query"
+SITE_GRAPH = inject.SITE_GRAPH
 
 
 class GraphQueryExecutor(Protocol):
@@ -42,6 +45,13 @@ class InMemoryGraphExecutor:
                   parameters: Optional[Dict[str, Any]] = None) -> List[Record]:
         with obs_trace.span("graph.query", cat="graph",
                             site=self.fault_site, query=query[:80]):
+            if inject._ARMED is not None:
+                fault = inject._ARMED.poll(self.fault_site)
+                if fault is not None:
+                    return inject.apply_query_fault(
+                        fault, inject._ARMED,
+                        lambda: cypher.run_query(self.graph, query,
+                                                 parameters))
             return cypher.run_query(self.graph, query, parameters)
 
     def close(self) -> None:
@@ -69,6 +79,12 @@ class Neo4jQueryExecutor:
                   parameters: Optional[Dict[str, Any]] = None):
         with obs_trace.span("graph.query", cat="graph",
                             site=self.fault_site, query=query[:80]):
+            if inject._ARMED is not None:
+                fault = inject._ARMED.poll(self.fault_site)
+                if fault is not None:
+                    return inject.apply_query_fault(
+                        fault, inject._ARMED,
+                        lambda: self._run(query, parameters))
             return self._run(query, parameters)
 
     def close(self) -> None:

@@ -9,11 +9,14 @@ statepath audit -> per-incident result dict with time_cost and windowed
 token usage (the exact batch-driver output schema,
 test_with_file.py:67-204).
 
-The port of ``k8s_llm_rca_tpu/rca/pipeline.py`` without its two optional
-attachments: the resilience policy's degradation ladder (``faults/policy.py``,
-ROADMAP Queue 1 item 3) and the embedding reranker (``rca/rerank.py``, Queue
-1 item 7).  Passing either raises ``NotImplementedError``; without them the
-control flow is the JAX package's fail-fast one above, line for line.
+The port of ``k8s_llm_rca_tpu/rca/pipeline.py``.  With a ``resilience``
+policy attached (``faults/policy.py::ResiliencePolicy``) every stage walks
+a graceful-degradation ladder (full engine run -> one reduced-token-budget
+attempt -> scripted-oracle fallback -> annotated partial result) and the
+incident dict carries a ``degraded`` list naming every rung drop; without
+one, the control flow is the fail-fast one above.  The JAX pipeline's
+embedding reranker (``rca/rerank.py``) is not ported (ROADMAP Queue 1 item
+7): passing one raises ``NotImplementedError``.
 
 The incident is a **resumable state machine**: ``incident_steps`` is a
 generator that SUBMITS every LLM run and yields it instead of blocking in
@@ -30,6 +33,7 @@ reports — scheduling is latency-only.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import json
 import time
 from dataclasses import dataclass, field
@@ -56,9 +60,13 @@ class RCAPipeline:
     state_executor: Any
     cfg: RCAConfig = field(default_factory=RCAConfig)
     sweep: SweepConfig = field(default_factory=SweepConfig)
-    # the JAX pipeline's embedding reranker and resilience policy; both
-    # unported, so anything but None raises
+    # the JAX pipeline's embedding reranker: unported, None only
     reranker: Optional[Any] = None
+    # optional faults.policy.ResiliencePolicy: every stage then runs a
+    # graceful-degradation ladder (full engine run -> reduced token budget
+    # -> scripted-oracle fallback -> annotated partial result) and the
+    # incident dict carries a "degraded" annotation list.  None (the
+    # default) keeps the reference-faithful fail-fast behavior unchanged.
     resilience: Optional[Any] = None
 
     def __post_init__(self):
@@ -66,10 +74,6 @@ class RCAPipeline:
             raise NotImplementedError(
                 "RCAPipeline(reranker=...) needs rca/rerank.py, which is not "
                 "ported yet (ROADMAP Queue 1 item 7, rerank and loading)")
-        if self.resilience is not None:
-            raise NotImplementedError(
-                "RCAPipeline(resilience=...) needs faults/policy.py, which is "
-                "not ported yet (ROADMAP Queue 1 item 3, fault injection)")
         # vocabulary first: the locator's structured-output schema constrains
         # every kind field to it (locator.plan_schema)
         self.native_kinds, self.external_kinds = \
@@ -141,6 +145,36 @@ class RCAPipeline:
         raise RuntimeError(
             f"destKind planning failed after "
             f"{self.cfg.locator_max_attempts} attempts") from last_err
+
+    def _plan_reduced(self, error_message: str,
+                      src_kind: str) -> (Dict[str, Any], int):
+        """Degradation rung 2: ONE planning attempt at a reduced token
+        budget (resilience.reduced_tokens).  The same schema grammar still
+        applies, so a budget below its minimal document raises BudgetError
+        immediately and the ladder falls through to the scripted rung."""
+        return drive_steps(self._plan_reduced_steps(error_message, src_kind),
+                           self.service)
+
+    def _plan_reduced_steps(self, error_message: str, src_kind: str):
+        import dataclasses as _dc
+
+        from k8s_llm_rca_tpu_torch.serve.api import RunStatus, run_reply_text
+        from k8s_llm_rca_tpu_torch.utils.fenced import extract_json
+
+        gen = _dc.replace(self.locator.assistant.gen,
+                          max_new_tokens=self.resilience.reduced_tokens)
+        prompt = self.prompt_template.format(error_message=error_message,
+                                             involved_object=src_kind)
+        self.locator.add_message(prompt)
+        self.locator.run_assistant(gen=gen)
+        run = self.locator.run
+        yield run
+        if run.status != RunStatus.COMPLETED:
+            raise RuntimeError(
+                f"reduced-budget locator run ended in state {run.status}")
+        plan = extract_json(run_reply_text(self.service, run))
+        plan["DestinationKind"]        # missing key -> next rung
+        return plan, 1
 
     # ------------------------------------------------------------ stage 2
 
@@ -249,6 +283,34 @@ class RCAPipeline:
             if tr is not None:
                 tr.add_span(name, t0, tr.now(), cat="rca", args=dict(args))
 
+    def _ladder_steps(self, stage: str, rungs):
+        """Generator twin of ResiliencePolicy.ladder (faults/policy.py:
+        219-237): same rung order, same degradation bookkeeping, same
+        terminal raise — but a rung returning a generator is delegated to,
+        so its pending runs yield through to the driver."""
+        from k8s_llm_rca_tpu_torch.faults.policy import StageDegradation
+
+        res = self.resilience
+        last: Optional[BaseException] = None
+        for i, (name, fn) in enumerate(rungs):
+            try:
+                out = fn()
+                if inspect.isgenerator(out):
+                    out = yield from out
+            except Exception as e:  # noqa: BLE001 — each rung may fail
+                log.warning("stage %s rung %s failed: %s", stage, name, e)
+                last = e
+                continue
+            if i > 0:
+                res.degradations.append(
+                    StageDegradation(stage, name, str(last)))
+                res.counters["degraded_stages"] += 1
+                obs_trace.event("resilience.degraded", stage=stage,
+                                rung=name)
+            return out
+        raise last if last is not None else RuntimeError(
+            f"stage {stage}: empty ladder")
+
     def _track(self, gen, run_ids: List[str]):
         """yield-from with run-id capture: every Run the inner step
         generator yields is recorded, giving the incident the exact set of
@@ -267,7 +329,7 @@ class RCAPipeline:
                        pipelined: bool = False):
         """Resumable incident state machine: locate -> metapath -> per-
         metapath cypher -> per-record audits, with the retry-with-feedback
-        loops intact — every LLM step SUBMITS
+        loops and resilience-ladder rungs intact — every LLM step SUBMITS
         its run and yields it instead of waiting.  The caller resumes the
         generator once the yielded run is terminal; ``StopIteration.value``
         is the incident result dict.
@@ -280,18 +342,51 @@ class RCAPipeline:
         run_ids: List[str] = []
         if self.cfg.fresh_threads:
             self.reset_threads()
+        res = self.resilience
+        if res is not None:
+            res.begin_incident()
         result: IncidentResult = {"error_message": error_message}
         tracer = obs_trace.active()
         mark = tracer.mark() if tracer is not None else None
         with METRICS.timer("rca.incident"), \
                 self._stage_span("rca.incident", pipelined,
                                  incident=error_message[:60]):
+            # stage 1 runs the degradation ladder under a resilience
+            # policy: full engine run (which already retries with
+            # feedback) -> ONE reduced-budget attempt -> scripted-oracle
+            # plan -> (srcKind only) the Pod default.  Every rung drop is
+            # annotated in result["degraded"].
             with METRICS.timer("rca.stage.locate"), \
                     self._stage_span("rca.stage.locate", pipelined):
-                src_kind = locator.find_srcKind(self.state_executor,
-                                                error_message)
-                plan, attempts = yield from self._track(
-                    self._plan_steps(error_message, src_kind), run_ids)
+                if res is None:
+                    src_kind = locator.find_srcKind(self.state_executor,
+                                                    error_message)
+                    plan, attempts = yield from self._track(
+                        self._plan_steps(error_message, src_kind), run_ids)
+                else:
+                    from k8s_llm_rca_tpu_torch.rca.oracle import scripted_plan
+
+                    src_kind = yield from self._track(
+                        self._ladder_steps("locate.srcKind", [
+                            ("full", lambda: locator.find_srcKind(
+                                self.state_executor, error_message)),
+                            # the stategraph is down/degraded: Pod is the
+                            # kind every incident fixture's Event hangs
+                            # off, the least wrong starting point a blind
+                            # planner can pick
+                            ("default-Pod", lambda: "Pod"),
+                        ]), run_ids)
+                    plan, attempts = yield from self._track(
+                        self._ladder_steps("locate.plan", [
+                            ("full", lambda: self._plan_steps(
+                                error_message, src_kind)),
+                            ("reduced-budget", lambda:
+                             self._plan_reduced_steps(error_message,
+                                                      src_kind)),
+                            ("scripted-oracle", lambda: (scripted_plan(
+                                error_message, src_kind, self.native_kinds,
+                                self.external_kinds), 0)),
+                        ]), run_ids)
             result["locator_attempts"] = attempts
 
             dest_kind = plan["DestinationKind"]
@@ -300,11 +395,21 @@ class RCAPipeline:
             intermediate = [x for x in relevant
                             if x not in (src_kind, dest_kind) and x in known]
 
-            with METRICS.timer("rca.stage.metapath"), \
-                    self._stage_span("rca.stage.metapath", pipelined):
-                metapaths = locator.find_metapath(
+            def _metapaths():
+                return locator.find_metapath(
                     self.meta_executor, src_kind, dest_kind, intermediate,
                     self.cfg.metapath_max_hops)
+
+            with METRICS.timer("rca.stage.metapath"), \
+                    self._stage_span("rca.stage.metapath", pipelined):
+                if res is None:
+                    metapaths = _metapaths()
+                else:
+                    metapaths = yield from self._track(
+                        self._ladder_steps("locate.metapath", [
+                            ("full", _metapaths),
+                            ("skipped", lambda: []),
+                        ]), run_ids)
 
             result["analysis"] = []
             for metapath in metapaths:
@@ -314,23 +419,44 @@ class RCAPipeline:
                 with METRICS.timer("rca.stage.cypher"), \
                         self._stage_span("rca.stage.cypher", pipelined,
                                          metapath=metapath_str[:60]):
-                    records = yield from self._track(
-                        self._cypher_steps(metapath_str, error_message,
-                                           analysis), run_ids)
+                    if res is None:
+                        records = yield from self._track(
+                            self._cypher_steps(metapath_str, error_message,
+                                               analysis), run_ids)
+                    else:
+                        records = yield from self._track(
+                            self._ladder_steps("cypher", [
+                                ("full", lambda: self._cypher_steps(
+                                    metapath_str, error_message, analysis)),
+                                ("skipped", lambda: []),
+                            ]), run_ids)
                 analysis["statepath"] = []
                 for record in records:
+                    def _audit_steps(record=record):
+                        return auditor.check_statepath_steps(
+                            self.state_executor, self.analyzer, record,
+                            concurrent=self.cfg.concurrent_audits,
+                            fields_top_k=self.cfg.rerank_fields_top_k)
+
                     with METRICS.timer("rca.stage.audit"), \
                             self._stage_span("rca.stage.audit", pipelined):
-                        report, clues = yield from self._track(
-                            auditor.check_statepath_steps(
-                                self.state_executor, self.analyzer, record,
-                                concurrent=self.cfg.concurrent_audits,
-                                fields_top_k=self.cfg.rerank_fields_top_k),
-                            run_ids)
+                        if res is None:
+                            report, clues = yield from self._track(
+                                _audit_steps(), run_ids)
+                        else:
+                            report, clues = yield from self._track(
+                                self._ladder_steps("audit", [
+                                    ("full", _audit_steps),
+                                    ("skipped", lambda: (
+                                        None,
+                                        {"degraded": "audit skipped"})),
+                                ]), run_ids)
                     analysis["statepath"].append(
                         {"report": report, "clue": clues})
                 result["analysis"].append(analysis)
 
+        if res is not None:
+            result["degraded"] = res.incident_snapshot()
         t1 = time.time()
         result["time_cost"] = t1 - t0
         if usage_by_runs:

@@ -142,13 +142,26 @@ class SweepScheduler:
 
     def run(self, error_messages: Sequence[str],
             fault_plan: Optional[Any] = None) -> List[Any]:
-        """``fault_plan``: the JAX scheduler refuses an armed FaultPlan at
-        concurrency > 1; the port has no fault injection to arm, so any
-        plan raises."""
+        """Drive every incident to its result.  ``fault_plan``: a
+        ``faults.plan.FaultPlan`` armed for this run and disarmed after it
+        (a plan armed by the caller applies as well).  A plan with
+        scheduled faults needs concurrency 1, as in the JAX scheduler:
+        faults are attributed to incidents by poll order, which
+        interleaving changes."""
+        from k8s_llm_rca_tpu_torch.faults import inject
+
         if fault_plan is not None:
-            raise NotImplementedError(
-                "a FaultPlan needs faults/inject.py, which is not ported yet "
-                "(ROADMAP Queue 1 item 3, fault injection)")
+            with inject.armed(fault_plan):
+                return self.run(error_messages)
+        plan = inject.active()
+        if (plan is not None and self.concurrency > 1
+                and getattr(plan, "has_faults", True)):
+            raise ValueError(
+                "chaos sweep with concurrency > 1 is not supported: an "
+                "armed FaultPlan attributes scheduled faults to incidents "
+                "by poll order, which is interleaving-dependent — run "
+                "chaos soaks at concurrency=1 (an armed but EMPTY plan "
+                "is fine: poll counters are per-site sums)")
         self.stats = st = SweepStats()
         results: List[Any] = [None] * len(error_messages)
         queue = deque(enumerate(error_messages))

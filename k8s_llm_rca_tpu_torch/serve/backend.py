@@ -6,18 +6,20 @@ share decode steps.  The fence opener of a run (``forced_prefix``) is
 appended to its prompt and the closing fence is a stop string.  A
 ``GenOptions.grammar`` ("json" or a schema dict) compiles through
 ``engine/constrain.py::make_grammar`` and constrains the body; a budget
-below the grammar's minimal document raises ``BudgetError``.  The JAX
-backend's fault-injection site, snapshot/adopt and export/adopt handoff
-are not ported (ROADMAP Queue 1 items 3 and 11).
+below the grammar's minimal document raises ``BudgetError``.  An armed
+FaultPlan is polled at every ``start`` (``faults/inject.py``
+``SITE_BACKEND``).  The JAX backend's snapshot/adopt and export/adopt
+handoff are not ported (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass
-from typing import Dict, Optional, Protocol, Tuple
+from typing import Dict, Optional, Protocol, Set, Tuple
 
 from k8s_llm_rca_tpu_torch.engine.constrain import make_grammar
+from k8s_llm_rca_tpu_torch.faults import inject
 from k8s_llm_rca_tpu_torch.obs import trace as obs_trace
 from k8s_llm_rca_tpu_torch.utils.tokenizer import Tokenizer
 
@@ -77,7 +79,13 @@ class LMBackend(Protocol):
 class EngineBackend:
     """Continuous-batching engine behind the assistants API.  Cancelling a
     live run retires its engine sequence at once, freeing its slot and
-    pages."""
+    pages.
+
+    Fault injection: with a plan armed, every ``start`` polls
+    ``SITE_BACKEND``: "error" fails the run at the next pump, "budget"
+    raises ``BudgetError`` at submission, "stall" accepts the run and
+    never progresses it (a hung engine), so only the serve deadline ends
+    it."""
 
     def __init__(self, engine):
         self.engine = engine
@@ -87,11 +95,36 @@ class EngineBackend:
         self._handle_seq: Dict[int, int] = {}
         self._opts: Dict[int, GenOptions] = {}
         self._live: Dict[int, bool] = {}
+        self._failed: Dict[int, str] = {}    # injected run failures
+        self._stalled: Set[int] = set()      # injected stalls (no result)
 
     def start(self, prompt: str, opts: GenOptions) -> int:
+        fault = None
+        if inject._ARMED is not None:
+            fault = inject._ARMED.poll(inject.SITE_BACKEND)
+        if fault is not None and fault.kind == "budget":
+            raise BudgetError(
+                f"injected budget fault at {fault.site}[{fault.index}]: "
+                f"no valid output exists under this budget")
+        if fault is not None and fault.kind == "error":
+            # fails engine-side: BackendResult.error at the next pump
+            handle = next(self._handles)
+            self._failed[handle] = (
+                f"injected engine-run failure at "
+                f"{fault.site}[{fault.index}]")
+            self._live[handle] = True
+            return handle
+        if fault is not None and fault.kind == "stall":
+            # accepted, never progressed: nothing reaches the engine, so
+            # the stall cannot change its ticks
+            handle = next(self._handles)
+            self._stalled.add(handle)
+            self._live[handle] = True
+            return handle
         handle = next(self._handles)
         ids = self.tokenizer.encode(prompt + opts.forced_prefix, add_bos=True)
-        grammar = make_grammar(opts.grammar, self.tokenizer)
+        grammar = make_grammar(opts.grammar, self.tokenizer,
+                               prefer_native=self.engine.engine_cfg.native)
         min_budget = getattr(grammar, "min_budget", None)
         if min_budget is not None:
             # the budget AFTER engine clamping: a long prompt shrinks
@@ -124,6 +157,15 @@ class EngineBackend:
 
     def pump(self) -> Dict[int, BackendResult]:
         results: Dict[int, BackendResult] = {}
+        for handle in list(self._failed):
+            msg = self._failed.pop(handle)
+            if self._live.pop(handle, False):
+                results[handle] = BackendResult("", 0, error=msg)
+        if self._stalled and inject._ARMED is not None:
+            # a stalled run ends only at the serve deadline: advance the
+            # plan's virtual clock, so it comes after a fixed number of
+            # pumps
+            inject._ARMED.clock.sleep(0.05)
         if not self.engine.has_work:
             if self._live:
                 # pumped with live handles but nothing decodable
@@ -154,8 +196,10 @@ class EngineBackend:
         return self._live.get(handle, False)
 
     def cancel(self, handle: int) -> None:
-        if handle not in self._live:
+        if handle not in self._live and handle not in self._failed:
             return
+        self._failed.pop(handle, None)
+        self._stalled.discard(handle)
         self._live.pop(handle, None)
         self._opts.pop(handle, None)
         seq_id = self._handle_seq.pop(handle, None)

@@ -1134,3 +1134,68 @@ def test_verify_and_overlap_graphs_replay_with_launch_counts(card, feature):
     assert by_name["flash_attention"] > 0
     if feature != "overlap":
         assert engine._counts["engine.verify_steps"] > 0
+
+
+# ------------------------------------------------------ memory tiers
+
+
+@pytest.mark.parametrize("kv", [None, "int8", "int4"])
+def test_pinned_gather_restores_byte_equal(card, kv):
+    """``gather_pages`` on the card lands in one pinned buffer (one sync);
+    encode -> decode -> restore into other page ids writes the same
+    bytes back, for a bf16 pool and the int8 and int4 pools."""
+    from k8s_llm_rca_tpu_torch.config import TINY
+    from k8s_llm_rca_tpu_torch.engine.paged import init_paged_cache
+    from k8s_llm_rca_tpu_torch.utils import pages
+
+    cfg = TINY.replace(dtype="bfloat16")
+    pool = init_paged_cache(cfg, 24, 16, "cuda", kv_dtype=kv)
+    for t in pool:
+        if t is not None:
+            t.copy_(torch.randint(-100, 100, t.shape, device="cuda",
+                                  generator=card).to(t.dtype))
+    ids = [3, 17, 5, 9]
+    rec = pages.gather_pages(pool, pages.to_host, ids)
+    for f in pages.pool_fields(pool):
+        assert rec[f].device.type == "cpu" and rec[f].is_pinned()
+        assert torch.equal(rec[f], getattr(pool, f)[:, ids].cpu())
+    back = pages.stack_pages(
+        [pages.decode_page_record(pages.encode_page_record(r))
+         for r in pages.split_pages(rec)], pin=True)
+    k_ptr = pool.k.data_ptr()
+    pages.restore_pages(pool, back, [20, 21, 22, 23])
+    torch.cuda.synchronize()
+    assert pool.k.data_ptr() == k_ptr
+    for f in pages.pool_fields(pool):
+        t = getattr(pool, f)
+        assert torch.equal(t[:, [20, 21, 22, 23]], t[:, ids])
+
+
+@pytest.mark.parametrize("kv", [None, "int4"])
+def test_restore_in_place_keeps_a_captured_graph_right(card, kv):
+    """A graphed engine captures its scans, a "preempt" tick fault spills
+    the youngest sequence and the next admission restores its pages into
+    other page ids: the replayed graphs read the restored pages, so the
+    streams equal the eager engine's under the same fault."""
+    from k8s_llm_rca_tpu_torch.faults import inject
+    from k8s_llm_rca_tpu_torch.faults.plan import Fault, FaultPlan
+
+    rng = np.random.default_rng(3)
+    prompts = [[int(t) for t in rng.integers(0, 256, n)]
+               for n in (30, 100, 150, 200)]
+    streams = []
+    for graphs in (False, True):
+        engine = _tiny_engine(graphs, bits=4 if kv else None, kv=kv,
+                              max_spilled_pages=64)
+        engine.generate(prompts[:1], max_new_tokens=40)   # capture first
+        plan = FaultPlan([Fault(inject.SITE_ENGINE_TICK, 2, "preempt",
+                                wave=2)])
+        with inject.armed(plan):
+            streams.append([r.token_ids for r in engine.generate(prompts)])
+        c = engine._counts
+        assert c["engine.restored_pages"] == c["engine.spilled_pages"] > 0
+        if graphs:
+            assert c["engine.graph_replays"] > 0
+        engine.allocator.check()
+        assert type(engine.allocator).__name__ == "NativePageAllocator"
+    assert streams[1] == streams[0]

@@ -110,6 +110,20 @@ def test_sources_cover_the_rca_slice():
             "utils/fenced.py"} <= names
 
 
+def test_sources_cover_the_tiers_slice():
+    """The memory tiers, the native library and fault injection are the
+    port's own copies, the C++ source among them (built by
+    ``native/__init__.py``, not by the CUDA kernels' loader)."""
+    names = {p.relative_to(PORT).as_posix() for p in SOURCES if PORT in
+             p.parents}
+    assert {"utils/wal.py", "utils/pages.py", "engine/prefix.py",
+            "native/__init__.py", "faults/plan.py", "faults/inject.py",
+            "faults/policy.py", "faults/soak.py"} <= names
+    assert (PORT / "csrc" / "native.cpp").is_file()
+    native_src = (PORT / "native" / "__init__.py").read_text()
+    assert '"native.cpp"' in native_src and '"build"' in native_src
+
+
 def test_sources_cover_the_speculative_slice():
     """``ngram_draft`` is the port's own copy, though the JAX module that
     holds it imports no jax at its top."""
@@ -159,12 +173,6 @@ def test_params_on_another_device_are_refused():
 
 
 UNPORTED = [
-    ({"max_spilled_pages": 8}, "Queue 1 item 3"),
-    ({"prefix_host_pages": 8}, "Queue 1 item 3"),
-    ({"prefix_disk_dir": "store"}, "Queue 1 item 3"),
-    ({"prefix_disk_pages": 8}, "Queue 1 item 3"),
-    ({"prefix_hbm_watermark": 4}, "Queue 1 item 3"),
-    ({"prefix_store_writethrough": True}, "Queue 1 item 3"),
     ({"paged": False}, "Queue 1 item 9"),
 ]
 
@@ -178,23 +186,38 @@ def test_unported_engine_knob_raises(over, item):
                     device="cpu")
 
 
+_TIERED = {"prefix_cache": True}
+
+
 @pytest.mark.parametrize("over", [
     {"kv_cache_dtype": "int8"}, {"kv_cache_dtype": "int4"},
     {"prefix_cache": True}, {"prefill_chunk_budget": 16},
     {"speculative_k": 2}, {"host_overlap": True},
+    {"max_spilled_pages": 8}, {**_TIERED, "prefix_host_pages": 8},
+    {**_TIERED, "prefix_disk_dir": "store"},
+    {**_TIERED, "prefix_disk_dir": "store", "prefix_disk_pages": 8},
+    {**_TIERED, "prefix_hbm_watermark": 4},
+    {**_TIERED, "prefix_host_pages": 8, "prefix_store_writethrough": True},
 ], ids=["int8", "int4", "prefix_cache", "prefill_chunk_budget",
-        "speculative_k", "host_overlap"])
-def test_ported_engine_knob_is_accepted(over):
+        "speculative_k", "host_overlap", "max_spilled_pages",
+        "prefix_host_pages", "prefix_disk_dir", "prefix_disk_pages",
+        "prefix_hbm_watermark", "prefix_store_writethrough"])
+def test_ported_engine_knob_is_accepted(over, tmp_path):
     """Knobs that used to raise: ``kv_cache_dtype`` int8/int4 quantize the
     pool, ``prefix_cache`` builds the prefix cache, a 40-token prompt
     under ``prefill_chunk_budget`` 16 prefills in three chunks,
-    ``speculative_k`` verifies n-gram drafts and ``host_overlap`` keeps the
-    decode operands resident."""
+    ``speculative_k`` verifies n-gram drafts, ``host_overlap`` keeps the
+    decode operands resident, and the spill and prefix-store knobs build
+    their tiers (a disk directory under the test's own)."""
+    if "prefix_disk_dir" in over:
+        over = {**over, "prefix_disk_dir": str(tmp_path / "store")}
     cfg, ecfg, params, tok = _tiny_engine_args(max_new_tokens=3)
     engine = make_engine(cfg, dataclasses.replace(ecfg, **over), params, tok,
                          device="cpu")
     assert engine.pool.quantized == ("kv_cache_dtype" in over)
     assert (engine.prefix_cache is not None) == ("prefix_cache" in over)
+    assert (engine.prefix_store is not None) == any(
+        k in over for k in ("prefix_host_pages", "prefix_disk_dir"))
     assert len(engine.generate([list(range(1, 41))])[0].token_ids) == 3
     chunks = engine._counts.get("engine.prefill_chunks", 0)
     assert chunks == (3 if "prefill_chunk_budget" in over else 0)

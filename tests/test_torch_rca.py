@@ -74,11 +74,11 @@ def test_engine_sweep_report_bytes_equal_jax(jax_engine_sweep):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"resilience": True}, "Queue 1 item 3"),
+    ({"rca_overrides": {}}, "Queue 1 item 5"),
     ({"durable_dir": "wal"}, "Queue 1 item 4"),
     ({"backend": "cluster-oracle"}, "Queue 1 item 11"),
     ({"tracer": object()}, "Queue 1 item 5"),
-], ids=["resilience", "durable_dir", "cluster", "tracer"])
+], ids=["rca_overrides", "durable_dir", "cluster", "tracer"])
 def test_unported_sweep_options_raise(kw, item):
     kw = {"backend": "oracle", "n_incidents": 1, **kw}
     with pytest.raises(NotImplementedError, match=item):
@@ -100,6 +100,7 @@ def test_engine_overrides_reach_the_engine():
 
 
 def test_unported_pipeline_attachments_raise():
+    from k8s_llm_rca_tpu_torch.faults.plan import Fault, FaultPlan
     from k8s_llm_rca_tpu_torch.graph import InMemoryGraphExecutor
     from k8s_llm_rca_tpu_torch.graph.fixtures import (
         build_metagraph, build_stategraph,
@@ -113,12 +114,16 @@ def test_unported_pipeline_attachments_raise():
     svc = AssistantService(OracleBackend(get_tokenizer()))
     meta = InMemoryGraphExecutor(build_metagraph())
     state = InMemoryGraphExecutor(build_stategraph())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        RCAPipeline(svc, meta, state, resilience=object())
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         RCAPipeline(svc, meta, state, reranker=object())
-    sched = SweepScheduler([RCAPipeline(svc, meta, state)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        sched.run(["x"], fault_plan=object())
+    # a plan with scheduled faults needs concurrency 1, as in JAX
+    from k8s_llm_rca_tpu_torch.config import RCAConfig
+
+    cfg = RCAConfig(fresh_threads=True)
+    sched = SweepScheduler([RCAPipeline(svc, meta, state, cfg)
+                            for _ in range(2)])
+    with pytest.raises(ValueError, match="concurrency > 1"):
+        sched.run(["x"], fault_plan=FaultPlan([Fault("graph.query", 0,
+                                                     "error")]))
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         svc.usage_for_runs([], critical_path=True)
