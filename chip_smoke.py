@@ -115,7 +115,16 @@ count the launches a replay makes.
    the compiled query, as in the JAX pipeline: the phase counts the
    cypher replies parsed and the stages refused, one or the other for
    each analysis.  Then the same sweep with ``speculative_k`` 4, which
-   must complete the same way; both print drafts and acceptance.
+   must complete the same way; both print drafts and acceptance.  Then
+   two incidents at concurrency 1 on the degradation ladder
+   (``resilience=True``): with no fault plan no stage may degrade and no
+   query retry; under a plan failing graph queries 4-15 both incidents
+   complete and every degraded stage is a graph stage dropped to its
+   graph rung (``locate.srcKind`` to the Pod default, ``locate.metapath``
+   skipped), so an engine stage that raises fails the phase instead of
+   hiding behind the ladder's fallbacks.  The phase first prints the
+   host's state (threads, tracked objects, resident and pinned memory,
+   load), since its time is mostly host time.
 
 Then the kernel table (one JSON line), the ``nvidia-smi`` name and power
 limit line, and the result line
@@ -128,7 +137,10 @@ per call of the int4 step's extra eager work (the sources of PERF.md's
 decode-step breakdowns), and prints no result line.  ``--paged`` builds
 the two paged sources and runs only phase 3's paged cases (their build
 report and times), and ``--heads`` the two matmul sources with a head and
-only phase 3's head cases; neither prints a result line.
+only phase 3's head cases; neither prints a result line.  ``--rca``
+builds every source and the native library and runs only phase 6, in a
+fresh process (with ``--after-memory``, after phase 7's bf16 half), and
+prints no result line.
 """
 
 
@@ -137,6 +149,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -175,6 +188,9 @@ TOL = {"bfloat16": 2 ** -6, "float32": 1e-4}
 
 
 def emit(phase: str, **fields) -> None:
+    """Print one record; every record carries the card's name and power
+    limit, read when the record is made unless the caller read them."""
+    fields.setdefault("nvidia_smi", nvidia_smi_name_power())
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -1341,7 +1357,7 @@ def memory_case(label: str, run) -> dict:
          equal_streams=[a == b for a, b in zip(cpu_tokens, gpu_tokens)],
          counters=gpu_c, cpu_counters=cpu_c, allocator=allocators,
          launches=counts, expected_launches=expect,
-         **graph_stats(engines[-1]))
+         nvidia_smi=nvidia_smi_name_power(), **graph_stats(engines[-1]))
     if gpu_tokens != cpu_tokens or gpu_c != cpu_c:
         raise SystemExit(f"{label}: card and CPU differ: counters {gpu_c} "
                          f"vs {cpu_c}")
@@ -1460,7 +1476,7 @@ def memory_tier_cases() -> None:
          completed=gpu_r["completed"], degraded=gpu_r["degraded"],
          failed=gpu_r["failed"], engine_clean=gpu_r["engine_clean"],
          fired=gpu_r["faults"]["fired"], retries=gpu_r["retries"],
-         cpu_s=cpu_s, gpu_s=gpu_s)
+         cpu_s=cpu_s, gpu_s=gpu_s, nvidia_smi=nvidia_smi_name_power())
     if not same or gpu_r["failed"] or not gpu_r["engine_clean"]:
         raise SystemExit("tiny chaos soak: card and CPU reports differ or "
                          "an incident failed")
@@ -2514,6 +2530,7 @@ def phase_rca() -> dict:
     from k8s_llm_rca_tpu_torch.models.llama import init_params
 
     cfg = LLAMA3_8B
+    emit("rca_host", **host_state())
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
@@ -2528,22 +2545,83 @@ def phase_rca() -> dict:
     return out
 
 
+def host_state() -> dict:
+    """What the host carries into a phase whose time is mostly host time:
+    live threads, objects the collector tracks, resident and pinned
+    memory, and the load average."""
+    import threading
+
+    import torch
+
+    rss_kb = 0
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                rss_kb = int(line.split()[1])
+    stats = torch.cuda.host_memory_stats() if hasattr(
+        torch.cuda, "host_memory_stats") else {}
+    return {"threads": threading.active_count(),
+            "gc_objects": len(gc.get_objects()),
+            "rss_gb": rss_kb / 2 ** 20,
+            "pinned_reserved_gb": stats.get("reserved_bytes.current",
+                                            0) / 2 ** 30,
+            "loadavg": list(os.getloadavg()),
+            "torch_threads": torch.get_num_threads()}
+
+
+# The stages whose only dependency is the graph, and the rung each drops
+# to: a failed graph query may degrade these and nothing else.  A drop
+# of ``locate.plan``, ``cypher`` or ``audit`` means an engine stage
+# raised, which the ladder would otherwise hide behind its fallbacks.
+GRAPH_STAGE_RUNGS = {"locate.srcKind": "default-Pod",
+                     "locate.metapath": "skipped"}
+
+
 def rca_resilient(cfg, params) -> dict:
-    """Phase 6's resilient sweep: two incidents at concurrency 1 with the
-    degradation ladder (``run_pipelined_sweep(resilience=True)``) under an
-    armed plan that fails graph queries 4-15: every incident completes,
-    the degraded stages annotated.  Returns the launch counts."""
+    """Phase 6's resilient sweeps: two incidents at concurrency 1 with the
+    degradation ladder (``run_pipelined_sweep(resilience=True)``), first
+    with no plan armed, where no stage may degrade and no query retry,
+    then under an armed plan that fails graph queries 4-15, where every
+    incident completes and every degraded stage is a graph stage dropped
+    to its graph rung.  Returns the launch counts of both sweeps."""
+    from k8s_llm_rca_tpu_torch.faults import inject
+    from k8s_llm_rca_tpu_torch.faults.plan import FaultPlan
+
+    control, counts = resilient_sweep(cfg, params, None)
+    if (control["annotations"] != [[], []] or control["degraded"]
+            or control["policy"]["counters"] != {"retries": 0,
+                                                 "degraded_stages": 0}):
+        raise SystemExit(f"rca resilient sweep, no faults: "
+                         f"{control['annotations']}, policy "
+                         f"{control['policy']}")
+    plan = FaultPlan.from_spec(0, {inject.SITE_GRAPH: {
+        "indices": {i: "error" for i in range(4, 16)}}})
+    faulted, more = resilient_sweep(cfg, params, plan)
+    drops = [(a["stage"], a["rung"]) for row in faulted["annotations"]
+             for a in row]
+    if (not faulted["degraded"] or not faulted["fired"]
+            or any(GRAPH_STAGE_RUNGS.get(stage) != rung
+                   for stage, rung in drops)):
+        raise SystemExit(f"rca resilient sweep, graph faults: "
+                         f"{faulted['annotations']}, fired "
+                         f"{faulted['fired']}")
+    return {k: counts[k] + more[k] for k in counts}
+
+
+def resilient_sweep(cfg, params, plan) -> tuple:
+    """One resilient two-incident sweep, under ``plan`` when it is given:
+    prints its record and fails unless both incidents complete on a clean
+    engine with the expected launches.  Returns the record and the
+    launch counts."""
     import torch
 
     from k8s_llm_rca_tpu_torch.faults import inject
-    from k8s_llm_rca_tpu_torch.faults.plan import FaultPlan
     from k8s_llm_rca_tpu_torch.faults.soak import run_pipelined_sweep
 
-    plan = FaultPlan.from_spec(0, {inject.SITE_GRAPH: {
-        "indices": {i: "error" for i in range(4, 16)}}})
     reset_counts()
     t0 = time.perf_counter()
-    with inject.armed(plan):
+    with (inject.armed(plan) if plan is not None
+          else contextlib.nullcontext()):
         out = run_pipelined_sweep(backend="engine", n_incidents=2,
                                   concurrency=1, model_cfg=cfg,
                                   params=params, resilience=True)
@@ -2553,23 +2631,26 @@ def rca_resilient(cfg, params) -> dict:
     engine = out["engines"][0]
     report = out["report"]
     expect = expected_counts(cfg, engine._counts, False)
-    emit("rca_resilient", model=cfg.name, incidents=report["n_incidents"],
-         concurrency=1, completed=report["completed"],
-         resolved=report["resolved"], degraded=report["degraded"],
-         failed=report["failed"], engine_clean=report["engine_clean"],
-         annotations=[row.get("degraded") for row in report["incidents"]],
-         fired=plan.snapshot()["fired"], policy=out["stats"]["policy"],
-         total_s=total_s, allocator=type(engine.allocator).__name__,
-         launches=counts, expected_launches=expect,
-         nvidia_smi=nvidia_smi_name_power())
-    if report["completed"] != 2 or report["failed"] or not report["degraded"]:
+    record = dict(
+        model=cfg.name, faults=plan is not None,
+        incidents=report["n_incidents"], concurrency=1,
+        completed=report["completed"], resolved=report["resolved"],
+        degraded=report["degraded"], failed=report["failed"],
+        engine_clean=report["engine_clean"],
+        annotations=[row.get("degraded") for row in report["incidents"]],
+        fired=plan.snapshot()["fired"] if plan is not None else [],
+        policy=out["stats"]["policy"], total_s=total_s,
+        allocator=type(engine.allocator).__name__, launches=counts,
+        expected_launches=expect, nvidia_smi=nvidia_smi_name_power())
+    emit("rca_resilient", **record)
+    if report["completed"] != 2 or report["failed"]:
         raise SystemExit(f"rca resilient sweep: {report['completed']} of 2 "
-                         f"completed, {report['degraded']} degraded")
+                         f"completed, {report['failed']} failed")
     if not report["engine_clean"] or counts != expect:
         raise SystemExit(f"rca resilient sweep: engine clean "
                          f"{report['engine_clean']}, launches {counts} vs "
                          f"{expect}")
-    return counts
+    return record, counts
 
 
 def rca_sweep(cfg, params, spec_k: int, init_s: float) -> dict:
@@ -2907,6 +2988,15 @@ def main(argv) -> int:
                                 ("memory_int4", 4, "int4")):
             phase_memory(phase, "llama3-8b", bits, kv)
             free_card()
+        return 0
+
+    if "--rca" in argv:
+        # phase 6 alone, in a fresh process: ``--after-memory`` runs
+        # phase 7's bf16 half before it, as the whole script does
+        if "--after-memory" in argv:
+            phase_memory("memory", "llama3-8b", None, None)
+            free_card()
+        phase_rca()
         return 0
 
     if "--spec" in argv:

@@ -47,7 +47,9 @@ TIER_COUNTERS = ("engine.prefix_demotions", "engine.prefix_hits_l0",
                  "engine.prefix_hits_l1", "engine.prefix_hits_l2",
                  "engine.prefix_promoted_pages",
                  "engine.prefix_bytes_restored", "engine.spilled_pages",
-                 "engine.restored_pages", "engine.d2h_syncs")
+                 "engine.restored_pages", "engine.d2h_syncs",
+                 "engine.prefix_watermark_demotions",
+                 "engine.prefix_writethrough_pages")
 
 
 @pytest.fixture(scope="module")
@@ -186,6 +188,52 @@ def test_gather_split_stack_restore_round_trip():
             assert torch.equal(t[:, [9, 10, 11]], t[:, ids])
 
 
+def _paged_record(kind):
+    """A three-page record of 4-token pages: fp32 pages, or int8 pages
+    with their per-token scales."""
+    rng = np.random.default_rng(2)
+    if kind == "fp32":
+        return {"n_pages": 3,
+                "k": rng.standard_normal((2, 3, 4, 8)).astype(np.float32),
+                "v": rng.standard_normal((2, 3, 4, 8)).astype(np.float32)}
+    return {"n_pages": 3,
+            "k": rng.integers(-128, 128, (2, 3, 4, 8), dtype=np.int8),
+            "v": rng.integers(-128, 128, (2, 3, 4, 8), dtype=np.int8),
+            "k_scale": rng.random((2, 3, 4), dtype=np.float32),
+            "v_scale": rng.random((2, 3, 4), dtype=np.float32)}
+
+
+@pytest.mark.parametrize("kind", ["fp32", "int8"])
+@pytest.mark.parametrize("length,dst", [(12, 4), (9, 8), (11, 3), (1, 16),
+                                        (12, 12)])
+def test_convert_page_record_matches_jax(kind, length, dst):
+    """Re-chunking a record onto another page size gives JAX's arrays,
+    zero tail included."""
+    rec = _paged_record(kind)
+    want = jpages.convert_page_record(rec, length, dst)
+    got = pages.convert_page_record(
+        {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+         for k, v in rec.items()}, length, dst)
+    assert got["n_pages"] == want["n_pages"]
+    assert pages.record_fields(got) == jpages.record_fields(want)
+    for f in pages.record_fields(got):
+        assert got[f].dtype == torch.from_numpy(want[f]).dtype
+        assert np.array_equal(got[f].numpy(), want[f])
+
+
+@pytest.mark.parametrize("length,dst,claim", [
+    (0, 8, 3), (13, 8, 3), (12, 0, 3), (12, 8, 2)],
+    ids=["empty", "past-end", "no-page-size", "torn"])
+def test_convert_page_record_refuses_like_jax(length, dst, claim):
+    rec = dict(_paged_record("fp32"), n_pages=claim)
+    with pytest.raises(ValueError, match="convert_page_record"):
+        jpages.convert_page_record(rec, length, dst)
+    with pytest.raises(ValueError, match="convert_page_record"):
+        pages.convert_page_record(
+            {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+             for k, v in rec.items()}, length, dst)
+
+
 # --------------------------------------------------------- prefix store
 
 
@@ -250,6 +298,9 @@ MATRIX = {
     "l1_l2": dict(prefix_host_pages=4, disk=True),
     "l1_all": dict(prefix_host_pages=64, decode_chunk=1, host_overlap=True,
                    prefill_chunk_budget=32, max_spilled_pages=64),
+    "watermark_writethrough": dict(prefix_host_pages=64,
+                                   prefix_hbm_watermark=30,
+                                   prefix_store_writethrough=True),
 }
 
 
@@ -281,6 +332,9 @@ def test_tiered_streams_and_counters_match_jax(setup, tmp_path, feature):
     assert warm == cold
     hits = counts["engine.prefix_hits_l1"] + counts["engine.prefix_hits_l2"]
     assert hits > 0 and counts["engine.prefix_promoted_pages"] == hits
+    if "prefix_hbm_watermark" in MATRIX[feature]:
+        assert counts["engine.prefix_watermark_demotions"] > 0
+        assert counts["engine.prefix_writethrough_pages"] > 0
 
 
 def test_shared_store_warm_starts_a_fresh_engine(setup, tmp_path):
