@@ -32,7 +32,10 @@ prints one JSON line; any failure exits non-zero without the result line.
    a speculative verify step (T = 5 at lengths 400-2300), with the
    gather's time apart and masked SDPA over the same buffers; and the
    int4 and int8 kn and the int4 head at the verify step's M = 20
-   (slice 11).  Every matmul case names the kn or nk body it took.
+   (slice 11); paged attention at the CLI engine's shapes (B=8, page 16,
+   1024 pages, tables 160 wide) and flash at its 1024 bucket of four
+   prompts and at two prefix hits over 16-token pages (slice 13).  Every
+   matmul case names the kn or nk body it took.
 The engines on the card replay CUDA graphs of their decode step and
 scans (``engine/graphs.py``) unless built with ``cuda_graphs=False``, which
 only phases 5-5d do, for their eager half; every phase's launch counters
@@ -126,6 +129,37 @@ count the launches a replay makes.
    host's state (threads, tracked objects, resident and pinned memory,
    load), since its time is mostly host time.
 
+7. memory: the slice engine on Llama-3-8B bf16 and int4 serves the four
+   prompts uninterrupted, spilled to host memory and restored, and
+   re-prefilled under a preempt fault (``phase_memory``).
+8. durable: serving durability and the drivers.  (a) On the slice engine
+   (batch 4, max_seq_len 2560, page 64, 168 pages, greedy) with
+   Llama-3-8B bf16 and with int4 weights over an int4 pool, the four
+   requests go through ``AssistantService`` with a ``RunJournal``; once
+   every sequence has decoded a few tokens the stack is torn down as
+   ``CrashSupervisor.crash_restart`` does (journal closed, live handles
+   cancelled) and ``recover_service`` resubmits the runs onto a fresh
+   backend: with the prefix cache off the replies must be byte-equal to
+   the uninterrupted run's; with it on the resubmissions must hit (the
+   share of tokens before the streams part and the margin where they do
+   are printed).  Records, journal bytes, ms per fsync'd append, TTFT of
+   the resubmitted runs, prefix-hit tokens and exact launch counts; the
+   native allocator's check and every page free at the end.  (b) The CLI
+   (``python -m k8s_llm_rca_tpu_torch.sweeps.run_file --backend engine
+   --paged --model llama3-8b --max-seq-len 2560 --fresh-threads
+   --concurrency 4 --slice 0:4``; the default EngineConfig otherwise:
+   batch 8, page 16, 1024 pages, prefix cache on) through
+   ``run_file.main`` in this process: 4 incidents, no failure, 4
+   records, ``decode_tokens_per_sec`` and the memory keys in its summary,
+   and the launches its engine's counters require (phase 3 holds the
+   paged and flash kernels at this engine's shapes too).  (c) ``run_file`` on TINY with 4 workers over 3x the
+   corpus, SIGKILLed once 4 records have landed, then ``--resume``: the
+   final records are the input as a multiset.  (d) The TINY engine chaos
+   soak (seed 5, 3 incidents) with a supervised crash after incident 1
+   on the card: report bytes equal to the unsupervised soak's on the card
+   and on the CPU.  (e) The recovered service's Prometheus text parses
+   line by line and carries the engine's phase timers and gauges.
+
 Then the kernel table (one JSON line), the ``nvidia-smi`` name and power
 limit line, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -140,7 +174,8 @@ report and times), and ``--heads`` the two matmul sources with a head and
 only phase 3's head cases; neither prints a result line.  ``--rca``
 builds every source and the native library and runs only phase 6, in a
 fresh process (with ``--after-memory``, after phase 7's bf16 half), and
-prints no result line.
+prints no result line.  ``--durable`` builds every source and the native
+library and runs only phase 8 (no result line).
 """
 
 
@@ -239,16 +274,24 @@ def time_ms(fn, iters: int, flush_bytes: int = 0) -> float:
 
 
 PAGED_LENGTHS = {"mixed": [1, 64, 65, 2400], "long": [2400] * 4}
+# the CLI's engine (phase 8b, the default EngineConfig at max_seq_len
+# 2560): batch 8, page 16, 1024 pages, tables 160 wide; lengths across
+# page edges and up to 2500
+CLI_PAGED = {"lengths": [1, 16, 17, 250, 700, 1100, 1800, 2500],
+             "page": 16, "n_pages": 1024, "pps": 160}
 
 
-def paged_case(dtype, gen, lengths=PAGED_LENGTHS["mixed"]):
+def paged_case(dtype, gen, lengths=PAGED_LENGTHS["mixed"], page=64,
+               n_pages=168, pps=40):
     """The decode shapes of the slice: B=4, 32 heads over 8 kv-heads,
     d=128, page 64, over shuffled page ids of a 168-page pool (table width
     40 = 2560 / 64); lengths 1 / 64 / 65 / 2400 (a new request beside long
-    ones) or 2400 x 4 (a batch of long RCA prompts in steady state)."""
+    ones) or 2400 x 4 (a batch of long RCA prompts in steady state).  The
+    batch is ``len(lengths)``; ``page``, ``n_pages`` and ``pps`` give
+    another engine's pool (``CLI_PAGED``)."""
     import torch
 
-    b, h, n_kv, d, page, n_pages, pps = 4, 32, 8, 128, 64, 168, 40
+    b, h, n_kv, d = len(lengths), 32, 8, 128
     q = torch.randn((b, h, d), generator=gen, device="cuda").to(dtype)
     kp = torch.randn((n_pages, page, n_kv * d), generator=gen,
                      device="cuda").to(dtype)
@@ -346,7 +389,15 @@ def flash_cases(dtype, gen):
              ints(2400), ints(1800))
     batch2 = (rnd(2, s, h, d), rnd(2, s, n_kv, d), rnd(2, s, n_kv, d),
               ints(1500, 2300), None)
-    return {"full": full, "chunk": chunk, "batch2": batch2}
+    # the CLI's engine (page 16, buckets up to 1024): four prompts in the
+    # 1024 bucket; two prefix hits of a 64-token suffix bucket over 93
+    # and 25 cached 16-token pages, gathered to 93 * 16 + 64 = 1552 keys
+    cli_bucket = (rnd(4, 1024, h, d), rnd(4, 1024, n_kv, d),
+                  rnd(4, 1024, n_kv, d), ints(300, 700, 1000, 1024), None)
+    cli_hit = (rnd(2, 64, h, d), rnd(2, 1552, n_kv, d), rnd(2, 1552, n_kv, d),
+               ints(1500, 452), ints(1488, 400))
+    return {"full": full, "chunk": chunk, "batch2": batch2,
+            "cli_bucket": cli_bucket, "cli_hit": cli_hit}
 
 
 def flash_bound(q, k, seq_lens, q_offset, dtype_name):
@@ -741,13 +792,17 @@ def paged_kernels(table, dtype_name, gen, flush) -> None:
     )
 
     dtype = getattr(torch, dtype_name)
-    for lens_name, lengths in PAGED_LENGTHS.items():
-        args = paged_case(dtype, gen, lengths)
+    cases = {name: dict(lengths=lengths, page=64, n_pages=168, pps=40)
+             for name, lengths in PAGED_LENGTHS.items()}
+    cases["cli"] = CLI_PAGED
+    for lens_name, shape in cases.items():
+        args = paged_case(dtype, gen, **shape)
         rec = held_record(
             "paged_attention", dtype_name, paged_attention(*args),
             paged_attention_plain(*args), case=lens_name,
-            shapes="B=4 H=32 n_kv=8 d=128 page=64 lens="
-            + ",".join(map(str, lengths)),
+            shapes=f"B={len(shape['lengths'])} H=32 n_kv=8 d=128 "
+            f"page={shape['page']} pages={shape['n_pages']} "
+            f"pps={shape['pps']} lens=" + ",".join(map(str, shape["lengths"])),
             splits=launched_splits(args[0], args[1], args[4]))
         rec["kernel_ms"] = time_ms(lambda: paged_attention(*args), 200,
                                    flush_bytes=flush)
@@ -2730,6 +2785,481 @@ def rca_sweep(cfg, params, spec_k: int, init_s: float) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ phase 8
+
+
+DURABLE_DIR = ROOT / "build" / "chip_smoke_durable"
+
+
+def durable_service(engine, journal=None):
+    """A service over ``engine`` (journaled when ``journal`` is given) and
+    its analyst assistant (64 new tokens)."""
+    from k8s_llm_rca_tpu_torch.serve.api import AssistantService
+    from k8s_llm_rca_tpu_torch.serve.backend import EngineBackend, GenOptions
+
+    svc = AssistantService(EngineBackend(engine), journal=journal)
+    asst = svc.create_assistant(
+        "You are the root-cause analyst for a Kubernetes cluster.",
+        "analyst", gen=GenOptions(max_new_tokens=64))
+    return svc, asst
+
+
+def submit_four(svc, asst) -> list:
+    """The slice's four requests (~400, 900, 1500 and 2300 prompt tokens),
+    one thread each; returns the run ids."""
+    from k8s_llm_rca_tpu_torch.serve.api import Message, Thread, render_prompt
+
+    overhead = len(render_prompt(
+        asst, Thread("t", [Message("m", "user", "", 0.0)]))) + 1
+    ids = []
+    for target in (400, 900, 1500, 2300):
+        thread = svc.create_thread()
+        svc.add_message(thread.id, incident_text(target - overhead))
+        ids.append(svc.create_run(thread.id, asst.id).id)
+    return ids
+
+
+def run_seqs(svc, run_ids) -> list:
+    """The engine sequence of each run (read while the runs are live)."""
+    return [svc.backend._handle_seq[svc.runs[r].backend_handle]
+            for r in run_ids]
+
+
+def drain_runs(svc, run_ids) -> None:
+    from k8s_llm_rca_tpu_torch.serve.api import RunStatus
+
+    while any(svc.runs[r].status not in RunStatus.TERMINAL for r in run_ids):
+        svc.pump_once()
+
+
+def record_results(engine) -> dict:
+    """Every SequenceResult the engine returns, by sequence id."""
+    results, step = {}, engine.step
+
+    def recorded():
+        out = step()
+        results.update((r.seq_id, r) for r in out)
+        return out
+
+    engine.step = recorded
+    return results
+
+
+def timed_appends(journal) -> list:
+    """Seconds of each ``journal.append`` (its fsync included)."""
+    times, append = [], journal.append
+
+    def timed(kind, **fields):
+        t0 = time.perf_counter()
+        append(kind, **fields)
+        times.append(time.perf_counter() - t0)
+
+    journal.append = timed
+    return times
+
+
+def crash_and_recover(engine, results, stamps, path: Path) -> dict:
+    """Phase 8a's cycle on ``engine``: the four requests through a
+    journaled service, pumped until every sequence has decoded 4 tokens;
+    then the teardown of ``CrashSupervisor.crash_restart`` (the journal
+    closed, every live handle cancelled, the service's in-flight map
+    dropped) and ``recover_service`` onto a fresh backend, drained.
+    Returns the recovered runs' tokens, replies and prompts, the
+    journal's records, bytes and ms per append, the resubmissions' TTFT
+    and the prefix-hit tokens of the recovery."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.serve.api import RunStatus, run_reply_text
+    from k8s_llm_rca_tpu_torch.serve.backend import EngineBackend
+    from k8s_llm_rca_tpu_torch.serve.journal import RunJournal, read_journal
+    from k8s_llm_rca_tpu_torch.serve.recover import recover_service
+
+    if path.exists():
+        path.unlink()
+    journal = RunJournal(str(path))
+    appends = timed_appends(journal)
+    svc, asst = durable_service(engine, journal)
+    ids = submit_four(svc, asst)
+    seqs = set(run_seqs(svc, ids))
+    for _ in range(200):
+        svc.pump_once()
+        gen = {st.seq_id: len(st.generated) for st in engine._active.values()}
+        if all(gen.get(s, 0) >= 4 for s in seqs):
+            break
+    else:
+        raise SystemExit(f"durable: the runs did not all decode 4 tokens: "
+                         f"{gen}")
+    if any(svc.runs[r].status in RunStatus.TERMINAL for r in ids):
+        raise SystemExit("durable: a run settled before the crash")
+    decoded_before = sorted(gen[s] for s in seqs)
+    journal.close()
+    backend = svc.backend
+    for handle in list(backend._live):
+        backend.cancel(handle)
+    svc._inflight.clear()
+    if engine.has_work:
+        raise SystemExit("durable: the torn-down engine still has work")
+    hits0 = engine._counts.get("engine.prefix_hit_tokens", 0)
+    n_stamps = len(stamps)
+    t0 = time.perf_counter()
+    rec_svc, report = recover_service(str(path), EngineBackend(engine))
+    if report["resubmitted"] != ids:
+        raise SystemExit(f"durable: resubmitted {report['resubmitted']} "
+                         f"!= {ids}")
+    rseqs = run_seqs(rec_svc, ids)
+    drain_runs(rec_svc, ids)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    if any(rec_svc.runs[r].status != RunStatus.COMPLETED for r in ids):
+        raise SystemExit(f"durable: recovered runs did not complete: "
+                         f"{[rec_svc.runs[r].status for r in ids]}")
+    prompts = [r["prompt"] for r in read_journal(str(path))[0]
+               if r["kind"] == "run_submit"]
+    return {"service": rec_svc,
+            "tokens": [results[s].token_ids for s in rseqs],
+            "replies": [run_reply_text(rec_svc, rec_svc.runs[r])
+                        for r in ids],
+            "prompts": prompts,
+            "records": len(read_journal(str(path))[0]),
+            "journal_bytes": path.stat().st_size,
+            "appends": len(appends),
+            "append_ms_mean": 1e3 * statistics.mean(appends),
+            "append_ms_max": 1e3 * max(appends),
+            "decoded_before_crash": decoded_before,
+            "resubmit_ttft_s": stamps[n_stamps] - t0,
+            "recovery_total_s": total_s,
+            "prefix_hit_tokens": int(engine._counts.get(
+                "engine.prefix_hit_tokens", 0) - hits0)}
+
+
+def durable_engine(cfg, params, tok, kv, cache: bool):
+    """A slice engine (graphed, warmed) with the result recorder and the
+    first-token stamps installed."""
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+
+    engine = make_engine(cfg, slice_engine_config(
+        kv_cache_dtype=kv, prefix_cache=cache), params, tok)
+    before = warm_engine(engine)
+    results, stamps = record_results(engine), []
+    stamp_first_tokens(engine, stamps)
+    return engine, before, results, stamps
+
+
+def engine_left_clean(label: str, engine) -> None:
+    """The native allocator's check passes and every page is free (cached
+    prefix pages evicted first)."""
+    engine.allocator.check()
+    if engine.prefix_cache is not None:
+        engine.prefix_cache.evict(10 ** 6)
+    engine.allocator.check()
+    if engine.allocator.n_free != engine.engine_cfg.num_pages - 1:
+        raise SystemExit(f"{label}: {engine.allocator.n_free} pages free of "
+                         f"{engine.engine_cfg.num_pages - 1}")
+
+
+SAMPLE = re.compile(r'[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-z_]+="[^"]*"\})? '
+                    r'-?[0-9][0-9.e+-]*')
+
+
+def scrape_case(service) -> dict:
+    """Phase 8e: the Prometheus text of a recovered service parses line
+    by line and carries the engine's phase timers and gauges."""
+    text = service.prometheus_metrics()
+    families = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ")
+            families[name] = kind
+        elif not line.startswith("# HELP ") and not SAMPLE.fullmatch(line):
+            raise SystemExit(f"scrape: unparsable line {line!r}")
+    want = {"k8s_llm_rca_engine_decode_step_seconds": "summary",
+            "k8s_llm_rca_engine_prefill_seconds": "summary",
+            "k8s_llm_rca_engine_free_pages": "gauge",
+            "k8s_llm_rca_engine_running_seqs": "gauge",
+            "k8s_llm_rca_serve_journal_records_total": "counter"}
+    missing = {k: v for k, v in want.items() if families.get(k) != v}
+    if missing:
+        raise SystemExit(f"scrape: missing families {missing}")
+    return {"families": len(families), "bytes": len(text),
+            "engine_timers": sorted(k for k, v in families.items()
+                                    if k.startswith("k8s_llm_rca_engine")
+                                    and v == "summary")}
+
+
+def durable_recovery(name: str, bits, kv) -> tuple:
+    """Phase 8a on one model: the uninterrupted replies, then the crash
+    and recovery with the prefix cache off (replies byte-equal required)
+    and on (the resubmissions hit; tokens before the streams part and the
+    margin where they do).  Returns (launch counts, the cached recovered
+    service)."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.serve.api import run_reply_text
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    label = "durable" if bits is None else f"durable_int{bits}"
+    cfg, transform = slice_model(name, bits)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=transform)
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    DURABLE_DIR.mkdir(parents=True, exist_ok=True)
+    total = {k: 0 for k in launch_counters()}
+    out, service = {}, None
+    for cache in (False, True):
+        engine, before, results, stamps = durable_engine(cfg, params, tok, kv,
+                                                         cache)
+        reset_counts()
+        if not cache:
+            svc, asst = durable_service(engine)
+            ids = submit_four(svc, asst)
+            seqs = run_seqs(svc, ids)
+            drain_runs(svc, ids)
+            ref_tokens = [results[s].token_ids for s in seqs]
+            ref_replies = [run_reply_text(svc, svc.runs[r]) for r in ids]
+        rec = crash_and_recover(engine, results, stamps,
+                                DURABLE_DIR / f"{label}-{cache}.wal")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect = expected_counts(cfg, counts_since(engine, before),
+                                 kv is not None, bits)
+        if counts != expect:
+            raise SystemExit(f"{label} (cache {cache}): launch counts "
+                             f"{counts} != expected {expect}")
+        for k, v in counts.items():
+            total[k] += v
+        engine_left_clean(f"{label} (cache {cache})", engine)
+        mode = "cached" if cache else "uncached"
+        run = {k: v for k, v in rec.items()
+               if k not in ("service", "tokens", "replies", "prompts")}
+        run["equal_replies"] = rec["replies"] == ref_replies
+        run["equal_token_share"] = common_share(ref_tokens, rec["tokens"])
+        ids_of = [tok.encode(p, add_bos=True) for p in rec["prompts"]]
+        run["divergences"] = divergences(cfg, params, ids_of, ref_tokens,
+                                         rec["tokens"])
+        run["allocator"] = type(engine.allocator).__name__
+        run.update(graph_stats(engine))
+        out[mode] = run
+        if cache:
+            service = rec["service"]
+        # the services and the recorder hold the engine: drop them all
+        svc = rec = results = engine = None
+        free_card()
+    emit(label, model=cfg.name, weights=f"int{bits}" if bits else "bfloat16",
+         kv_cache_dtype=kv,
+         **{f"{mode}_{k}": v for mode, run in out.items()
+            for k, v in run.items()},
+         launches=total, nvidia_smi=nvidia_smi_name_power())
+    un, ca = out["uncached"], out["cached"]
+    if not (un["equal_replies"] and un["equal_token_share"] == 1.0):
+        raise SystemExit(f"{label}: the uncached recovery's replies differ "
+                         f"from the uninterrupted run's: {un['divergences']}")
+    if not ca["prefix_hit_tokens"]:
+        raise SystemExit(f"{label}: the cached resubmissions did not hit")
+    if {un["allocator"], ca["allocator"]} != {"NativePageAllocator"}:
+        raise SystemExit(f"{label}: an engine does not use the native "
+                         f"allocator: {un['allocator']}, {ca['allocator']}")
+    return total, service
+
+
+def cli_sweep_case() -> dict:
+    """Phase 8b: the CLI on the card at full width (Llama-3-8B bf16, four
+    incidents at concurrency 4), ``run_file.main`` in this process on a
+    fresh output file, between ``reset_counts()`` and ``read_counts()``:
+    its summary line, 4 records that parse, and the launches its engine's
+    counters require.  Returns the launch counts."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.sweeps import run_file
+    from k8s_llm_rca_tpu_torch.utils.logging import METRICS
+
+    out = DURABLE_DIR / "cli-8b.json"
+    if out.exists():
+        out.unlink()
+    argv = ["--backend", "engine", "--paged", "--model", "llama3-8b",
+            "--max-seq-len", "2560", "--fresh-threads", "--concurrency", "4",
+            "--slice", "0:4", "--input", str(ROOT / "data" / "incidents.csv"),
+            "--output", str(out)]
+    services, build = [], run_file.build_service
+
+    def built(*args, **kwargs):
+        services.append(build(*args, **kwargs))
+        return services[-1]
+
+    run_file.build_service = built
+    METRICS.reset()               # the summary's rates read this run alone
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        summary = run_file.main(argv)
+    finally:
+        run_file.build_service = build
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    (service,) = services
+    engine = service.backend.engine
+    expect = expected_counts(engine.model_cfg, engine._counts, False)
+    records, _ = run_file.scan_output(str(out))
+    chip = summary["chip"]
+    ecfg = engine.engine_cfg
+    emit("durable_cli", command="python -m k8s_llm_rca_tpu_torch.sweeps."
+         "run_file " + " ".join(argv), seconds=seconds,
+         engine={"max_batch": ecfg.max_batch, "page_size": ecfg.page_size,
+                 "num_pages": ecfg.num_pages,
+                 "pages_per_seq": engine.pages_per_seq,
+                 "prefix_cache": ecfg.prefix_cache,
+                 "allocator": type(engine.allocator).__name__},
+         incidents=summary["incidents"], failures=summary["failures"],
+         wall_s=summary["wall_s"],
+         p50_incident_s=summary["p50_incident_s"], chip=chip,
+         sweep_sched=summary.get("sweep_sched"), records=len(records),
+         launches=counts, **graph_stats(engine),
+         nvidia_smi=nvidia_smi_name_power())
+    if (summary["incidents"], summary["failures"], len(records)) != (4, 0, 4):
+        raise SystemExit(f"cli: {summary['incidents']} incidents, "
+                         f"{summary['failures']} failures, {len(records)} "
+                         f"records")
+    if chip["decode_tokens_per_sec"] is None or "hbm_bytes_in_use" not in chip:
+        raise SystemExit(f"cli: chip metrics incomplete: {chip}")
+    if counts != expect or not (counts["paged"] and counts["flash"]):
+        raise SystemExit(f"cli: launch counts {counts} != expected {expect}")
+    return counts
+
+
+def kill_resume_case() -> dict:
+    """Phase 8c: ``run_file`` on TINY on the card with 4 workers over 3x
+    the corpus, SIGKILLed once 4 records have landed, then rerun with
+    ``--resume``: the final records are the input as a multiset."""
+    import signal
+    from collections import Counter
+
+    from k8s_llm_rca_tpu_torch.sweeps.run_file import (
+        load_corpus, scan_output, write_default_corpus,
+    )
+
+    inp, out = DURABLE_DIR / "kill.csv", DURABLE_DIR / "kill.json"
+    for p in (inp, out):
+        if p.exists():
+            p.unlink()
+    write_default_corpus(str(inp), repeat=3)
+    corpus = load_corpus(str(inp))
+    cmd = [sys.executable, "-m", "k8s_llm_rca_tpu_torch.sweeps.run_file",
+           "--backend", "engine", "--paged", "--model", "tiny",
+           "--fresh-threads", "--workers", "4", "--input", str(inp),
+           "--output", str(out)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
+    try:
+        deadline = time.time() + 300
+        while time.time() < deadline and proc.poll() is None:
+            if len(scan_output(str(out))[0]) >= 4:
+                break
+            time.sleep(0.05)
+        killed = proc.poll() is None
+        if killed:
+            proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    survivors = len(scan_output(str(out))[0])
+    resumed = subprocess.run(cmd + ["--resume"], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if resumed.returncode != 0:
+        raise SystemExit(f"kill/resume: the resumed run exited "
+                         f"{resumed.returncode}: {resumed.stderr[-3000:]}")
+    summary = json.loads(resumed.stdout.strip().splitlines()[-1])
+    final, _ = scan_output(str(out))
+    same = Counter(final) == Counter(corpus)
+    emit("durable_kill_resume", corpus=len(corpus), killed=killed,
+         survivors=survivors, resumed_incidents=summary["incidents"],
+         final=len(final), multiset_equal=same, seconds=seconds,
+         nvidia_smi=nvidia_smi_name_power())
+    if not (killed and 0 < survivors < len(corpus) and same
+            and summary["incidents"] == len(corpus) - survivors):
+        raise SystemExit("kill/resume: the sweep was not killed mid-flight "
+                         "or the resumed records are not the input")
+    return summary
+
+
+def supervised_case() -> None:
+    """Phase 8d: ``run_chaos_soak(seed=5, n_incidents=3, backend="engine")``
+    on TINY with a supervised crash after incident 1, on the card, against
+    the same soak unsupervised on the card and on the CPU (same seeded
+    weights): equal report bytes."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import TINY
+    from k8s_llm_rca_tpu_torch.faults import inject
+    from k8s_llm_rca_tpu_torch.faults.plan import Fault, FaultPlan
+    from k8s_llm_rca_tpu_torch.faults.soak import report_bytes, run_chaos_soak
+    from k8s_llm_rca_tpu_torch.faults.supervisor import CrashSupervisor
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+
+    cfg = TINY.replace(max_seq_len=2560)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu_params = {k: ([{n: _to_cuda(t) for n, t in layer.items()}
+                       for layer in v] if k == "layers" else _to_cuda(v))
+                  for k, v in cpu_params.items()}
+    wal_dir = DURABLE_DIR / "soak"
+    if (wal_dir / "serve.wal").exists():
+        (wal_dir / "serve.wal").unlink()
+    sup = CrashSupervisor(FaultPlan([Fault(inject.SITE_PROCESS, 1, "crash")]),
+                          str(wal_dir / "serve.wal"))
+    reports, seconds = {}, {}
+    for mode, params, device, kw in (
+            ("cpu", cpu_params, "cpu", {}),
+            ("card", gpu_params, None, {}),
+            ("card_supervised", gpu_params, None,
+             {"durable_dir": str(wal_dir), "supervisor": sup})):
+        t0 = time.perf_counter()
+        reports[mode] = run_chaos_soak(seed=5, n_incidents=3,
+                                       backend="engine", model_cfg=cfg,
+                                       params=params, device=device, **kw)
+        seconds[mode] = time.perf_counter() - t0
+    sup_r = reports["card_supervised"]
+    same = (report_bytes(sup_r) == report_bytes(reports["card"])
+            == report_bytes(reports["cpu"]))
+    emit("durable_supervised", model="tiny-chaos-soak", seed=5,
+         incidents=3, equal_report_bytes=same, crashes=sup.crashes,
+         recoveries=sup.recoveries, completed=sup_r["completed"],
+         failed=sup_r["failed"], engine_clean=sup_r["engine_clean"],
+         seconds=seconds, nvidia_smi=nvidia_smi_name_power())
+    if not same or sup.crashes != 1 or sup_r["failed"] \
+            or not sup_r["engine_clean"]:
+        raise SystemExit("supervised soak: report bytes differ, or no "
+                         "crash, a failed incident or an unclean engine")
+
+
+def phase_durable() -> dict:
+    """Phase 8: serving durability and the drivers.  Returns the launch
+    counts of 8a and 8b by run ("durable", "durable_int4",
+    "durable_cli")."""
+    t0 = time.perf_counter()
+    runs = {}
+    runs["durable"], service = durable_recovery("llama3-8b", None, None)
+    emit("durable_scrape", **scrape_case(service),
+         nvidia_smi=nvidia_smi_name_power())
+    del service
+    free_card()
+    runs["durable_int4"], service = durable_recovery("llama3-8b", 4, "int4")
+    del service
+    free_card()
+    runs["durable_cli"] = cli_sweep_case()
+    free_card()
+    kill_resume_case()
+    supervised_case()
+    emit("durable_done", seconds=time.perf_counter() - t0,
+         nvidia_smi=nvidia_smi_name_power())
+    return runs
+
+
 def phase_profile_decode(name: str, bits=None, kv=None,
                          steps: int = 8) -> None:
     """Where one decode step's time goes at the slice's shapes (Llama-3-8B
@@ -2990,6 +3520,11 @@ def main(argv) -> int:
             free_card()
         return 0
 
+    if "--durable" in argv:
+        # phase 8 alone
+        phase_durable()
+        return 0
+
     if "--rca" in argv:
         # phase 6 alone, in a fresh process: ``--after-memory`` runs
         # phase 7's bf16 half before it, as the whole script does
@@ -3036,6 +3571,8 @@ def main(argv) -> int:
         free_card()
     runs.update(phase_rca())
     free_card()
+    runs.update(phase_durable())
+    free_card()
 
     rows = []
     # launches: the main paths' runs of each kernel, summed (flash now
@@ -3045,26 +3582,28 @@ def main(argv) -> int:
              "k8s_llm_rca_tpu/ops/paged_attention.py:90",
              ("paged_attention", "bfloat16", "mixed"),
              ("slice", "slice_spec", "prefix", "memory", "rca", "rca_spec",
-              "rca_resilient"), "paged"),
+              "rca_resilient", "durable", "durable_cli"), "paged"),
             ("flash_attention", FLASH_SRC,
              "k8s_llm_rca_tpu/ops/flash_attention.py:31",
              ("flash_attention", "bfloat16", "full"),
              ("slice", "slice_spec", "prefix", "memory", "memory_int4",
-              "rca", "rca_spec", "rca_resilient"), "flash"),
+              "rca", "rca_spec", "rca_resilient", "durable",
+              "durable_int4", "durable_cli"), "flash"),
             ("quant_matmul", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:137",
              ("quant_matmul", "bfloat16", "decode"),
-             ("slice_int4", "slice_int4_spec", "memory_int4"), "qmm"),
+             ("slice_int4", "slice_int4_spec", "memory_int4",
+              "durable_int4"), "qmm"),
             ("quant_matmul_head", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:177",
              ("quant_matmul_head", "bfloat16", "llama3-8b int4"),
-             ("slice_int4", "slice_int4_spec", "memory_int4"),
-             "qmm_head"),
+             ("slice_int4", "slice_int4_spec", "memory_int4",
+              "durable_int4"), "qmm_head"),
             ("paged_attention_quant", PAGED_QUANT_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:141",
              ("paged_attention_quant", "bfloat16", "int4"),
-             ("slice_int4", "slice_int4_spec", "memory_int4"),
-             "paged_quant"),
+             ("slice_int4", "slice_int4_spec", "memory_int4",
+              "durable_int4"), "paged_quant"),
             ("quant_matmul_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:120",
              ("quant_matmul_int8", "bfloat16", "decode"),

@@ -98,6 +98,7 @@ from k8s_llm_rca_tpu_torch.ops.norms import rms_norm
 from k8s_llm_rca_tpu_torch.ops.paged_attention import (
     gather_dequant_pages, paged_attention, paged_attention_quant,
 )
+from k8s_llm_rca_tpu_torch.runtime.profiling import annotate
 from k8s_llm_rca_tpu_torch.utils.device import resolve_device
 from k8s_llm_rca_tpu_torch.utils.logging import get_logger
 from k8s_llm_rca_tpu_torch.utils.pages import (
@@ -1007,15 +1008,17 @@ class PagedInferenceEngine(EngineBase):
             # it makes progress while new admissions compete for pages
             finished.extend(self._tick_prefill_chunks())
         if self._pending and self._free_slots:
-            finished.extend(self._tick_admission())
+            with annotate("engine.tick.admission"):
+                finished.extend(self._tick_admission())
         if not fast:
             # one fetch commits every first token sampled at admission
             finished.extend(self._drain_admission_commits())
         if not self._active:
             finished.extend(self._overlap_flush())
             return finished
-        self._tick_pressure()
-        self._tick_growth()
+        with annotate("engine.tick.eviction"):
+            self._tick_pressure()
+            self._tick_growth()
         active_slots = sorted(self._active)
         if not active_slots:
             finished.extend(self._overlap_flush())
@@ -1038,17 +1041,19 @@ class PagedInferenceEngine(EngineBase):
             active_slots, self.engine_cfg.max_batch,
             self.model_cfg.vocab_size)
         cur_d, lens_d, bt_d = self._device_state()
-        self._count("engine.dispatches")
-        self._count("engine.decode_steps")
         cfg, params, pool = self.model_cfg, self.params, self.pool
-        logits = self._decode(("step",), lambda: paged_decode_step(
-            cfg, params, pool, cur_d, lens_d, bt_d)[1])
-        if allow is not None:
-            next_tokens = sample_tokens_masked(
-                logits, self._gen, self.sampling,
-                torch.from_numpy(allow).to(self.device))
-        else:
-            next_tokens = sample_tokens(logits, self._gen, self.sampling)
+        with annotate("engine.decode_step"):
+            self._count("engine.dispatches")
+            self._count("engine.decode_steps")
+            logits = self._decode(("step",), lambda: paged_decode_step(
+                cfg, params, pool, cur_d, lens_d, bt_d)[1])
+            if allow is not None:
+                next_tokens = sample_tokens_masked(
+                    logits, self._gen, self.sampling,
+                    torch.from_numpy(allow).to(self.device))
+            else:
+                next_tokens = sample_tokens(logits, self._gen,
+                                            self.sampling)
         self._count("engine.decode_tokens", len(active_slots))
         (host_next,) = self._fetch(next_tokens)
         for slot in active_slots:
@@ -1076,12 +1081,14 @@ class PagedInferenceEngine(EngineBase):
         cur_d, lens_d, bt_d = self._device_state()
         admits = self._take_admit_pending()
         slots = [(s, self._active[s].seq_id) for s in active_slots]
-        self._count("engine.dispatches")
-        self._count("engine.decode_steps")
         cfg, params, pool = self.model_cfg, self.params, self.pool
         gen, sampling, cap = self._gen, self.sampling, self._dev_cap
-        nxt = self._decode(("overlap",), lambda: paged_overlap_step(
-            cfg, params, pool, cur_d, lens_d, bt_d, gen, sampling, cap)[1])
+        with annotate("engine.decode_step"):
+            self._count("engine.dispatches")
+            self._count("engine.decode_steps")
+            nxt = self._decode(("overlap",), lambda: paged_overlap_step(
+                cfg, params, pool, cur_d, lens_d, bt_d, gen, sampling,
+                cap)[1])
         # a graph's output is rewritten by its next replay: keep a copy
         # until the lagged flush reads it
         toks = nxt.clone() if self.graphs is not None else nxt
@@ -1144,31 +1151,33 @@ class PagedInferenceEngine(EngineBase):
         toks_d = self._multi_tokens_buffer(tokens_in)
         lens_d = self._upload(1, self.lengths)
         bt_d = self._upload(2, self.block_tables)
-        self._count("engine.dispatches")
-        self._count("engine.decode_steps")
-        self._count("engine.verify_steps")
         cfg, params, pool = self.model_cfg, self.params, self.pool
         logits_host = None
-        if setup is None:
-            greedy, logits = self._decode(
-                ("multi", t, n_pages), lambda: paged_decode_multi(
-                    cfg, params, pool, toks_d, lens_d, bt_d, n_pages)[1:])
-            if need_logits:
-                greedy_host, logits_host = self._fetch(greedy, logits)
+        with annotate("engine.decode_step"):
+            self._count("engine.dispatches")
+            self._count("engine.decode_steps")
+            self._count("engine.verify_steps")
+            if setup is None:
+                greedy, logits = self._decode(
+                    ("multi", t, n_pages), lambda: paged_decode_multi(
+                        cfg, params, pool, toks_d, lens_d, bt_d,
+                        n_pages)[1:])
+                if need_logits:
+                    greedy_host, logits_host = self._fetch(greedy, logits)
+                else:
+                    (greedy_host,) = self._fetch(greedy)
             else:
+                tables, states, remaining = setup
+                states_d = self._upload(3, states)
+                remaining_d = self._upload(4, remaining)
+                eos = self.tokenizer.eos_id
+                greedy = self._decode(
+                    ("multi-dfa", t, n_pages, tables[0].shape[0]),
+                    lambda: dfa_greedy_multi(
+                        paged_decode_multi(cfg, params, pool, toks_d,
+                                           lens_d, bt_d, n_pages)[2],
+                        states_d, remaining_d, eos, *tables))
                 (greedy_host,) = self._fetch(greedy)
-        else:
-            tables, states, remaining = setup
-            states_d = self._upload(3, states)
-            remaining_d = self._upload(4, remaining)
-            eos = self.tokenizer.eos_id
-            greedy = self._decode(
-                ("multi-dfa", t, n_pages, tables[0].shape[0]),
-                lambda: dfa_greedy_multi(
-                    paged_decode_multi(cfg, params, pool, toks_d, lens_d,
-                                       bt_d, n_pages)[2],
-                    states_d, remaining_d, eos, *tables))
-            (greedy_host,) = self._fetch(greedy)
 
         def post_commit(slot: int, token: int) -> None:
             self.lengths[slot] += 1
@@ -1287,24 +1296,29 @@ class PagedInferenceEngine(EngineBase):
         fused grammar DFA inside it when a DFA slot is active."""
         setup = self._scan_dfa_setup()
         cur_d, lens_d, bt_d = self._device_state()
-        self._count("engine.dispatches")
-        self._count("engine.decode_steps", chunk)
         cfg, params, pool = self.model_cfg, self.params, self.pool
         gen, sampling, eos = self._gen, self.sampling, self.tokenizer.eos_id
         if setup is None:
-            toks, lens = self._decode(
-                ("scan", chunk), lambda: paged_decode_scan(
-                    cfg, params, pool, cur_d, lens_d, bt_d, gen, chunk,
-                    sampling, eos)[1:])
+            with annotate("engine.decode_step"):
+                self._count("engine.dispatches")
+                self._count("engine.decode_steps", chunk)
+                toks, lens = self._decode(
+                    ("scan", chunk), lambda: paged_decode_scan(
+                        cfg, params, pool, cur_d, lens_d, bt_d, gen, chunk,
+                        sampling, eos)[1:])
         else:
             tables, states, remaining = setup
             states_d = self._upload(3, states)
             remaining_d = self._upload(4, remaining)
-            toks, lens = self._decode(
-                ("dfa", chunk, tables[0].shape[0]),
-                lambda: paged_decode_scan_dfa(
-                    cfg, params, pool, cur_d, lens_d, bt_d, gen, chunk,
-                    sampling, eos, states_d, remaining_d, *tables)[1:3])
+            with annotate("engine.decode_step"):
+                self._count("engine.dispatches")
+                self._count("engine.decode_steps", chunk)
+                toks, lens = self._decode(
+                    ("dfa", chunk, tables[0].shape[0]),
+                    lambda: paged_decode_scan_dfa(
+                        cfg, params, pool, cur_d, lens_d, bt_d, gen, chunk,
+                        sampling, eos, states_d, remaining_d,
+                        *tables)[1:3])
         if self._overlap:
             # the surviving slots' host mirrors advance to exactly these
             # values in the commit below (a slot that stops short retires),
@@ -1440,18 +1454,20 @@ class PagedInferenceEngine(EngineBase):
         self.block_tables[slot] = table
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :len(rest)] = rest
-        if n_cached:
-            logits = self._prefill_chunk(padded, len(rest), n_cached, table,
-                                         table[n_cp:n_cp + n_pages])
-            self._count("engine.prefix_hit_tokens", n_cached)
-        else:
-            self._count("engine.dispatches")
-            self._count("engine.prefill_dispatches")
-            self.pool, logits = paged_prefill(
-                self.model_cfg, self.params, self.pool,
-                self._to_device(padded), len(rest),
-                self._to_device(table[:n_pages]))
-        first = sample_tokens(logits, self._gen, self.sampling)
+        with annotate("engine.prefill"):
+            if n_cached:
+                logits = self._prefill_chunk(padded, len(rest), n_cached,
+                                             table,
+                                             table[n_cp:n_cp + n_pages])
+                self._count("engine.prefix_hit_tokens", n_cached)
+            else:
+                self._count("engine.dispatches")
+                self._count("engine.prefill_dispatches")
+                self.pool, logits = paged_prefill(
+                    self.model_cfg, self.params, self.pool,
+                    self._to_device(padded), len(rest),
+                    self._to_device(table[:n_pages]))
+            first = sample_tokens(logits, self._gen, self.sampling)
         self._count("engine.prefill_tokens", len(rest))
         return self._activate_first(req, slot, table, n_cp, logits, first)
 
@@ -1523,9 +1539,10 @@ class PagedInferenceEngine(EngineBase):
         page_map = np.full((budget // ps,), TRASH_PAGE, np.int32)
         n_chunk_pages = -(-chunk_len // ps)
         page_map[:n_chunk_pages] = table[n_pre:n_pre + n_chunk_pages]
-        self._count("engine.prefill_chunks")
-        logits = self._prefill_chunk(padded, chunk_len, done, table,
-                                     page_map)
+        with annotate("engine.tick.prefill_chunk"):
+            self._count("engine.prefill_chunks")
+            logits = self._prefill_chunk(padded, chunk_len, done, table,
+                                         page_map)
         self._count("engine.prefill_tokens", chunk_len)
         st["done"] = done + chunk_len
         if st["done"] < total:
@@ -1625,13 +1642,14 @@ class PagedInferenceEngine(EngineBase):
             self.block_tables[slots[i]] = tables[i]
         for a in (tokens, clens, ptabs, maps):
             a[n:] = a[n - 1]
-        self._count("engine.dispatches")
-        self._count("engine.chunk_prefill_dispatches")
-        self.pool, logits = paged_prefill_chunk_batch(
-            self.model_cfg, self.params, self.pool,
-            *(self._to_device(a) for a in (tokens, clens, plens, ptabs,
-                                           maps)))
-        firsts = sample_tokens(logits, self._gen, self.sampling)
+        with annotate("engine.prefill"):
+            self._count("engine.dispatches")
+            self._count("engine.chunk_prefill_dispatches")
+            self.pool, logits = paged_prefill_chunk_batch(
+                self.model_cfg, self.params, self.pool,
+                *(self._to_device(a) for a in (tokens, clens, plens, ptabs,
+                                               maps)))
+            firsts = sample_tokens(logits, self._gen, self.sampling)
         self._count("engine.prefill_tokens", sum(len(r) for r in rests))
         self._count("engine.prefix_hit_tokens", n_cached * n)
         self._count("engine.prefix_batch_hit_admissions", n)
@@ -1669,12 +1687,13 @@ class PagedInferenceEngine(EngineBase):
             self.block_tables[slots[i]] = tables[i]
         for a in (tokens, lens, maps):
             a[n:] = a[n - 1]
-        self._count("engine.dispatches")
-        self._count("engine.prefill_dispatches")
-        self.pool, logits = paged_prefill_batch(
-            self.model_cfg, self.params, self.pool,
-            *(self._to_device(a) for a in (tokens, lens, maps)))
-        firsts = sample_tokens(logits, self._gen, self.sampling)
+        with annotate("engine.prefill"):
+            self._count("engine.dispatches")
+            self._count("engine.prefill_dispatches")
+            self.pool, logits = paged_prefill_batch(
+                self.model_cfg, self.params, self.pool,
+                *(self._to_device(a) for a in (tokens, lens, maps)))
+            firsts = sample_tokens(logits, self._gen, self.sampling)
         self._count("engine.prefill_tokens", int(lens[:n].sum()))
         self._count("engine.batched_admissions", n)
         return self._activate_group(reqs, slots, tables, 0, logits, firsts)
@@ -1836,18 +1855,20 @@ class PagedInferenceEngine(EngineBase):
             self._count("engine.spill_budget_fallbacks")
             return False
         extra = [int(p) for p in table[n_written:] if p != TRASH_PAGE]
-        rec: Dict[str, object] = {
-            "n_pages": len(spill_idx), "n_shared": st.n_shared,
-            "shared_pages": shared, "length": length,
-            "cur_token": int(self.cur_tokens[slot]),
-        }
-        if spill_idx:
-            # on the card the gather runs on the engine's stream after
-            # every dispatched step, so it sees their writes
-            rec.update(gather_pages(self.pool, self._fetch_host, spill_idx))
-        self._spilled[st.seq_id] = rec
-        self._spilled_pages_total += len(spill_idx)
-        self._count("engine.spilled_pages", len(spill_idx))
+        with annotate("engine.spill"):
+            rec: Dict[str, object] = {
+                "n_pages": len(spill_idx), "n_shared": st.n_shared,
+                "shared_pages": shared, "length": length,
+                "cur_token": int(self.cur_tokens[slot]),
+            }
+            if spill_idx:
+                # on the card the gather runs on the engine's stream after
+                # every dispatched step, so it sees their writes
+                rec.update(gather_pages(self.pool, self._fetch_host,
+                                        spill_idx))
+            self._spilled[st.seq_id] = rec
+            self._spilled_pages_total += len(spill_idx)
+            self._count("engine.spilled_pages", len(spill_idx))
         if spill_idx or extra:
             self.allocator.free(spill_idx + extra, owner=st.seq_id)
         return True
@@ -1870,28 +1891,31 @@ class PagedInferenceEngine(EngineBase):
                                    n_shared, ps, self.pages_per_seq)
         pages = self._alloc_with_evict(n_pages, owner=req.seq_id)
         n_spill = int(rec["n_pages"])
-        if n_spill:
-            restore_pages(self.pool, rec, pages[:n_spill])
-        slot = self._free_slots.pop(0)
-        table = np.full((self.pages_per_seq,), TRASH_PAGE, np.int32)
-        table[:n_shared] = rec["shared_pages"]
-        table[n_shared:n_shared + n_pages] = pages
-        self.block_tables[slot] = table
-        # prompt_tokens counts the RESUME prompt, as a re-prefill's does;
-        # the shared pages' references pass from the record to the slot
-        st = _Active(seq_id=req.seq_id, slot=slot, prompt_tokens=resume_len,
-                     max_new_tokens=req.max_new_tokens,
-                     stop_strings=req.stop_strings, grammar=req.grammar,
-                     n_shared=n_shared, priority=req.priority)
-        self._active[slot] = st
-        self.lengths[slot] = length
-        self.cur_tokens[slot] = int(rec["cur_token"])
-        self._dev_edit_len(slot, length)
-        self._dev_edit_token(slot, int(rec["cur_token"]))
-        self._dev_edit_bt_row(slot)
-        del self._spilled[req.seq_id]
-        self._spilled_pages_total -= n_spill
-        self._count("engine.restored_pages", n_spill)
+        with annotate("engine.restore"):
+            if n_spill:
+                restore_pages(self.pool, rec, pages[:n_spill])
+            slot = self._free_slots.pop(0)
+            table = np.full((self.pages_per_seq,), TRASH_PAGE, np.int32)
+            table[:n_shared] = rec["shared_pages"]
+            table[n_shared:n_shared + n_pages] = pages
+            self.block_tables[slot] = table
+            # prompt_tokens counts the RESUME prompt, as a re-prefill's
+            # does; the shared pages' references pass from the record to
+            # the slot
+            st = _Active(seq_id=req.seq_id, slot=slot,
+                         prompt_tokens=resume_len,
+                         max_new_tokens=req.max_new_tokens,
+                         stop_strings=req.stop_strings, grammar=req.grammar,
+                         n_shared=n_shared, priority=req.priority)
+            self._active[slot] = st
+            self.lengths[slot] = length
+            self.cur_tokens[slot] = int(rec["cur_token"])
+            self._dev_edit_len(slot, length)
+            self._dev_edit_token(slot, int(rec["cur_token"]))
+            self._dev_edit_bt_row(slot)
+            del self._spilled[req.seq_id]
+            self._spilled_pages_total -= n_spill
+            self._count("engine.restored_pages", n_spill)
 
     def _drop_spill(self, seq_id: int) -> None:
         """Discard a spill record (cancel, deadline expiry while queued):
@@ -1910,9 +1934,10 @@ class PagedInferenceEngine(EngineBase):
         the host, split into per-page store records (counted per page as
         ``engine.prefix_demotions``).  Demoted pages live under the store's
         own caps; ``max_spilled_pages`` governs spilled sequences only."""
-        rec = gather_pages(self.pool, self._fetch_host, pages)
-        self._count("engine.prefix_demotions", len(pages))
-        return split_pages(rec)
+        with annotate("engine.prefix_demote"):
+            rec = gather_pages(self.pool, self._fetch_host, pages)
+            self._count("engine.prefix_demotions", len(pages))
+            return split_pages(rec)
 
     def _promote_prefix_records(self, recs: List[Dict[str, object]]
                                 ) -> Optional[List[int]]:
@@ -1928,10 +1953,11 @@ class PagedInferenceEngine(EngineBase):
             pages = self.allocator.alloc(len(recs), owner=CACHE_OWNER)
         except OutOfPages:
             return None
-        rec = stack_pages(recs, pin=self.device.type == "cuda")
-        restore_pages(self.pool, rec, pages)
-        self._count("engine.prefix_promoted_pages", len(pages))
-        self._count("engine.prefix_bytes_restored", record_nbytes(rec))
+        with annotate("engine.prefix_promote"):
+            rec = stack_pages(recs, pin=self.device.type == "cuda")
+            restore_pages(self.pool, rec, pages)
+            self._count("engine.prefix_promoted_pages", len(pages))
+            self._count("engine.prefix_bytes_restored", record_nbytes(rec))
         return pages
 
     def flush_prefix_store(self, limit: Optional[int] = None) -> int:
@@ -1981,9 +2007,10 @@ class PagedInferenceEngine(EngineBase):
                 pend_keys.append(key)
         if not pend_pages:
             return 0
-        rec = gather_pages(self.pool, self._fetch_host, pend_pages)
-        for key, page_rec in zip(pend_keys, split_pages(rec)):
-            self.prefix_store.put(key, page_rec)
+        with annotate("engine.prefix_publish"):
+            rec = gather_pages(self.pool, self._fetch_host, pend_pages)
+            for key, page_rec in zip(pend_keys, split_pages(rec)):
+                self.prefix_store.put(key, page_rec)
         self._count("engine.prefix_snapshot_published", len(pend_keys))
         return len(pend_keys)
 

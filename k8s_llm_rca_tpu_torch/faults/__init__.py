@@ -4,8 +4,9 @@
 points (``faults.inject``: graph executors, ``EngineBackend``, the engine
 tick), the retry, breaker and degradation ladder (``faults.policy``) and
 the sweeps (``faults.soak``, imported lazily: it pulls in the RCA
-pipeline).  The JAX package's process supervisor and network faults are
-not ported (ROADMAP Queue 1 items 4 and 11)."""
+pipeline) and the crash supervisor (``faults.supervisor``, likewise).
+The JAX package's replica, process, network, handoff and store killers
+and its network faults are not ported (ROADMAP Queue 1 item 11)."""
 
 from k8s_llm_rca_tpu_torch.faults.plan import (  # noqa: F401
     FAULT_KINDS, Fault, FaultPlan, VirtualClock,

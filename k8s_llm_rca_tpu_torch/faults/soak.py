@@ -18,15 +18,20 @@ incidents and the config: greedy decode on a fresh engine, deadlines on a
 ``VirtualClock``, and only scheduling-invariant fields in the report.  On
 the same weights the port's report bytes equal the JAX package's.
 
-Only the ``engine`` and ``oracle`` backends are ported.  The run journal,
-the crash supervisor, replica killers, self-healing, the store fabric and
-the cluster backends are not (ROADMAP Queue 1 items 4 and 11); asking for
-them raises ``NotImplementedError``.
+Both take ``durable_dir``, where every service mutation goes to the run
+journal ``serve.wal`` (``serve/journal.py``) without changing the report,
+and the chaos soak takes a ``faults/supervisor.py::CrashSupervisor`` that
+kills the serving stack at incident boundaries and recovers it from that
+journal, again with the same report bytes.  Only the ``engine`` and
+``oracle`` backends are ported.  Replica killers, self-healing, the store
+fabric and the cluster backends are not (ROADMAP Queue 1 item 11); asking
+for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 from typing import Any, Dict, List, Optional
 
 from k8s_llm_rca_tpu_torch.faults import inject
@@ -77,14 +82,16 @@ def _slot_policy(policy: ResiliencePolicy) -> ResiliencePolicy:
 
 def _build_engine_service(clock, model_cfg=None, params=None, device=None,
                           engine_overrides=None,
-                          run_timeout_s: float = 1.5):
+                          run_timeout_s: float = 1.5, journal=None):
     """The soak's engine stack: TINY with max_seq_len 2560 by default, one
     prefill bucket, page 64, 168 pages, decode_chunk 16, 96 new tokens,
     greedy, no prefix cache; ``engine_overrides`` replaces EngineConfig
     fields (speculative decoding, host overlap, the prefix cache ...).
     ``params`` must already live on ``device`` (``None`` = the card); when
-    omitted, seeded port weights are made there.  Returns (service,
-    engine)."""
+    omitted, seeded port weights are made there.  ``journal``: the
+    service's RunJournal.  Returns (service, engine, backend factory); the
+    factory hands the SAME engine to a restarted backend, standing in for
+    the restarted worker's engine on identical weights."""
     import dataclasses
 
     import torch
@@ -115,18 +122,27 @@ def _build_engine_service(clock, model_cfg=None, params=None, device=None,
     # deadlines on the sweep's virtual clock: on wall time the first
     # prefill alone could pass the 1.5 s run deadline
     engine.clock = clock
-    return (AssistantService(EngineBackend(engine),
-                             run_timeout_s=run_timeout_s, clock=clock),
-            engine)
+
+    def factory():
+        return EngineBackend(engine)
+
+    return (AssistantService(factory(), run_timeout_s=run_timeout_s,
+                             clock=clock, journal=journal),
+            engine, factory)
 
 
-def _build_oracle_service(clock, run_timeout_s: float = 1.5):
+def _build_oracle_service(clock, run_timeout_s: float = 1.5, journal=None):
+    """(service, None, backend factory) of the scripted oracle."""
     from k8s_llm_rca_tpu_torch.rca.oracle import OracleBackend
     from k8s_llm_rca_tpu_torch.serve.api import AssistantService
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    return AssistantService(OracleBackend(get_tokenizer()),
-                            run_timeout_s=run_timeout_s, clock=clock)
+    def factory():
+        return OracleBackend(get_tokenizer())
+
+    return (AssistantService(factory(), run_timeout_s=run_timeout_s,
+                             clock=clock, journal=journal),
+            None, factory)
 
 
 def _engine_clean(engines) -> bool:
@@ -168,8 +184,6 @@ def report_bytes(report: Dict[str, Any]) -> bytes:
 
 # the JAX sweeps' options that the port does not take yet, by ROADMAP item
 _ITEMS = {
-    "durable_dir": "Queue 1 item 4, serve/journal.py",
-    "supervisor": "Queue 1 item 4, faults/supervisor.py",
     **dict.fromkeys(("cluster_replicas", "killer", "selfheal", "tier_split",
                      "handoff_plan", "fleet_telemetry", "store_fabric"),
                     "Queue 1 item 11, fleet"),
@@ -191,15 +205,19 @@ def _refuse_unported(fn: str, unported: Dict[str, Any]) -> None:
 
 
 def _build_service(backend: str, clock, model_cfg, params, device,
-                   engine_overrides, run_timeout_s: float = 1.5):
-    """(service, engines) of an ``engine`` or ``oracle`` backend."""
+                   engine_overrides, run_timeout_s: float = 1.5,
+                   journal=None):
+    """(service, engines, backend factory) of an ``engine`` or ``oracle``
+    backend."""
     if backend == "engine":
-        service, engine = _build_engine_service(
+        service, engine, factory = _build_engine_service(
             clock, model_cfg, params, device, engine_overrides,
-            run_timeout_s)
-        return service, [engine]
+            run_timeout_s, journal)
+        return service, [engine], factory
     if backend == "oracle":
-        return _build_oracle_service(clock, run_timeout_s), []
+        service, _, factory = _build_oracle_service(clock, run_timeout_s,
+                                                    journal)
+        return service, [], factory
     if backend in _CLUSTER_BACKENDS:
         raise NotImplementedError(
             f"backend={backend!r} is not ported yet (ROADMAP "
@@ -207,11 +225,32 @@ def _build_service(backend: str, clock, model_cfg, params, device,
     raise ValueError(f"unknown backend {backend!r}")
 
 
+def _open_journal(durable_dir: Optional[str]):
+    """The run journal ``serve.wal`` under ``durable_dir`` (None without
+    one)."""
+    if durable_dir is None:
+        return None
+    from k8s_llm_rca_tpu_torch.serve.journal import RunJournal
+
+    os.makedirs(durable_dir, exist_ok=True)
+    return RunJournal(os.path.join(durable_dir, "serve.wal"))
+
+
+def _close_journal(service) -> None:
+    """Close the service's CURRENT journal (a supervised crash may have
+    swapped in one reopened on the same path)."""
+    journal = getattr(service, "_journal", None)
+    if journal is not None:
+        journal.close()
+
+
 def run_chaos_soak(seed: int = 0, n_incidents: int = 3,
                    backend: str = "engine",
                    plan_spec: Optional[Dict[str, Any]] = None,
                    concurrency: int = 1, model_cfg=None, params=None,
                    device=None, engine_overrides=None,
+                   durable_dir: Optional[str] = None,
+                   supervisor: Optional[Any] = None,
                    **unported) -> Dict[str, Any]:
     """Drive ``n_incidents`` of the fixture corpus through the resilient
     pipeline under an armed FaultPlan (``plan_spec``, default
@@ -222,8 +261,13 @@ def run_chaos_soak(seed: int = 0, n_incidents: int = 3,
     ``engine_overrides``: tick faults and stalls bite) or "oracle" (the
     scripted backend: graph and backend faults).  ``concurrency`` > 1 runs
     the pipelined scheduler and needs a plan with no scheduled fault, as in
-    the JAX soak.  The JAX soak's journal, supervisor, killers, self-heal,
-    store fabric, tracer and cluster backends raise
+    the JAX soak.  ``durable_dir``: a directory for the run journal
+    (``serve.wal``); the report is the same with or without it.
+    ``supervisor``: a ``faults/supervisor.py::CrashSupervisor`` (requires
+    ``durable_dir``) polled once at every incident boundary; on its
+    scheduled "crash" the serving stack dies and is recovered from the
+    journal, and the report is still the same.  The JAX soak's killers,
+    self-heal, store fabric, tracer and cluster backends raise
     ``NotImplementedError`` naming their ROADMAP item."""
     from k8s_llm_rca_tpu_torch.config import RCAConfig
     from k8s_llm_rca_tpu_torch.graph import InMemoryGraphExecutor
@@ -249,9 +293,21 @@ def run_chaos_soak(seed: int = 0, n_incidents: int = 3,
             "could never match the sequential run.  Run chaos at "
             "concurrency=1, or pass an empty plan_spec (plan-free "
             "pipelined sweeps: run_pipelined_sweep)")
+    if concurrency > 1 and supervisor is not None:
+        raise ValueError(
+            "the crash supervisor polls once per incident BOUNDARY; a "
+            "pipelined sweep has no global incident order, so "
+            "concurrency > 1 requires supervisor=None")
+    if supervisor is not None and durable_dir is None:
+        raise ValueError("supervisor requires durable_dir: the run "
+                         "journal is the only recovery source a crash "
+                         "leaves behind")
     policy = _resilience_policy(seed, clock)
-    service, engines = _build_service(backend, clock, model_cfg, params,
-                                      device, engine_overrides)
+    run_timeout_s = 1.5
+    journal = _open_journal(durable_dir)
+    service, engines, factory = _build_service(
+        backend, clock, model_cfg, params, device, engine_overrides,
+        run_timeout_s, journal)
     meta = ResilientExecutor(InMemoryGraphExecutor(build_metagraph()),
                              policy, dep="graph.meta")
     state = ResilientExecutor(InMemoryGraphExecutor(build_stategraph()),
@@ -283,6 +339,14 @@ def run_chaos_soak(seed: int = 0, n_incidents: int = 3,
                     # is a soak FAILURE the tests assert against
                     results.append(IncidentFailure(
                         message, f"{type(e).__name__}: {e}"))
+                if supervisor is not None:
+                    # the incident boundary, one poll per incident on
+                    # either outcome: the supervisor's own plan decides
+                    # whether the "process" dies here; the recovered
+                    # service replaces ours (the pipeline rebound inside)
+                    service = supervisor.checkpoint(
+                        pipeline, service, factory, run_timeout_s, clock)
+    _close_journal(service)
     for message, result in zip(messages, results):
         if isinstance(result, IncidentFailure):
             incidents.append({"error_message": message, "status": "failed",
@@ -320,6 +384,7 @@ def run_pipelined_sweep(n_incidents: int = 10, backend: str = "engine",
                         concurrency: int = 4, model_cfg=None, params=None,
                         device=None, engine_overrides=None, seed: int = 0,
                         resilience: bool = False,
+                        durable_dir: Optional[str] = None,
                         **unported) -> Dict[str, Any]:
     """Plan-free pipelined RCA sweep: ``concurrency`` incidents in flight
     over one shared backend (``rca/scheduler.py::SweepScheduler``), the
@@ -335,7 +400,9 @@ def run_pipelined_sweep(n_incidents: int = 10, backend: str = "engine",
     ``resilience``: the graph executors behind ``ResilientExecutor`` and
     every slot's pipeline on the degradation ladder (the chaos soak's
     policy constants, retry jitter seeded by ``seed``); the summed ladder
-    counters go to ``stats["policy"]``.  A FaultPlan armed by the caller
+    counters go to ``stats["policy"]``.  ``durable_dir``: a directory for
+    the run journal (``serve.wal``; the report does not change), closed
+    when the sweep ends.  A FaultPlan armed by the caller
     applies (at concurrency 1 when it schedules faults).  Any other option
     of the JAX sweep raises ``NotImplementedError`` naming its ROADMAP
     item.  Returns ``{"report", "stats", "service", "engines"}``."""
@@ -354,8 +421,9 @@ def run_pipelined_sweep(n_incidents: int = 10, backend: str = "engine",
         raise ValueError(f"concurrency must be >= 1, got {concurrency}")
 
     clock = VirtualClock()
-    service, engines = _build_service(backend, clock, model_cfg, params,
-                                      device, engine_overrides)
+    service, engines, _ = _build_service(
+        backend, clock, model_cfg, params, device, engine_overrides,
+        journal=_open_journal(durable_dir))
 
     meta: Any = InMemoryGraphExecutor(build_metagraph())
     state: Any = InMemoryGraphExecutor(build_stategraph())
@@ -380,6 +448,7 @@ def run_pipelined_sweep(n_incidents: int = 10, backend: str = "engine",
                 for i in range(n_incidents)]
     sched = SweepScheduler(pipelines)
     results = sched.run(messages)
+    _close_journal(service)
 
     rows: List[Dict[str, Any]] = []
     n_resolved = n_degraded = n_failed = 0

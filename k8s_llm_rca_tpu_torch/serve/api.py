@@ -5,10 +5,13 @@ The run-state machine (``queued | in_progress | completed | cancelled |
 failed | expired``), the prompt rendering, the usage accounting (windowed
 and by run id), the newest-first listings, ``drive_steps`` and the
 reference-compatible ``GenericAssistant`` client are the JAX package's, so
-the same calls give the same replies and token usage.  The run journal,
-the Prometheus surface and session save/load come with a later slice
-(ROADMAP Queue 1 item 4).  The service is thread-safe: one re-entrant
-lock serializes every public method and the backend pump.
+the same calls give the same replies and token usage.  With a
+``serve/journal.py::RunJournal`` every mutation is appended (fsync'd)
+before it is acknowledged, so ``serve/recover.py`` can rebuild the
+service after a crash; without one each hook costs one ``is None`` test.
+``prometheus_metrics`` is the scrape surface and ``save_service_state`` /
+``load_service_state`` checkpoint the store.  The service is thread-safe:
+one re-entrant lock serializes every public method and the backend pump.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 from k8s_llm_rca_tpu_torch.obs import trace as obs_trace
 from k8s_llm_rca_tpu_torch.serve.backend import GenOptions, LMBackend
+from k8s_llm_rca_tpu_torch.serve.journal import encode_gen
 from k8s_llm_rca_tpu_torch.utils.logging import METRICS, get_logger
 
 log = get_logger(__name__)
@@ -131,7 +135,9 @@ class AssistantService:
     ``clock``: injectable time source for run timestamps and deadlines."""
 
     def __init__(self, backend: LMBackend, run_timeout_s: float = 600.0,
-                 clock=None):
+                 clock=None, journal=None):
+        # ``journal``: an optional serve.journal.RunJournal; each mutation
+        # hook below is one ``is None`` test when it is absent
         self.backend = backend
         self.run_timeout_s = run_timeout_s
         self._clock = clock if clock is not None else time
@@ -143,6 +149,7 @@ class AssistantService:
         self._ids = itertools.count()
         self._lock = threading.RLock()
         self._waiters = 0       # concurrent wait_run count (handoff sleep)
+        self._journal = journal
 
     @_locked
     def _next_id(self, prefix: str) -> str:
@@ -157,6 +164,10 @@ class AssistantService:
         a = Assistant(self._next_id("asst"), name, instructions, model,
                       gen or GenOptions())
         self.assistants[a.id] = a
+        if self._journal is not None:
+            self._journal.append("create_assistant", id=a.id, name=a.name,
+                                 instructions=a.instructions, model=a.model,
+                                 gen=encode_gen(a.gen))
         return a
 
     @_locked
@@ -168,6 +179,8 @@ class AssistantService:
         t = Thread(self._next_id("thread"))
         self.threads[t.id] = t
         self._thread_runs[t.id] = []
+        if self._journal is not None:
+            self._journal.append("create_thread", id=t.id)
         return t
 
     @_locked
@@ -179,6 +192,10 @@ class AssistantService:
                     role: str = "user") -> Message:
         m = Message(self._next_id("msg"), role, content, time.time())
         self.threads[thread_id].messages.append(m)
+        if self._journal is not None:
+            self._journal.append("add_message", thread_id=thread_id,
+                                 id=m.id, role=m.role, content=m.raw_content,
+                                 created_at=m.created_at)
         return m
 
     @_locked
@@ -207,6 +224,14 @@ class AssistantService:
         run.backend_handle = self.backend.start(prompt, opts)
         run.status = RunStatus.IN_PROGRESS
         self._inflight[run.backend_handle] = run.id
+        if self._journal is not None:
+            # after backend.start: a submission the backend refused
+            # (BudgetError) never reaches the journal
+            self._journal.append(
+                "run_submit", id=run.id, thread_id=thread_id,
+                assistant_id=assistant_id, created_at=run.created_at,
+                instructions=instructions, gen=encode_gen(gen),
+                prompt=prompt)
         METRICS.inc("serve.runs_started")
         obs_trace.event("serve.run_started", run=run.id,
                         assistant=assistant.name)
@@ -240,6 +265,8 @@ class AssistantService:
             run.status = RunStatus.FAILED
             run.error = "backend dropped the run"
             self._inflight.pop(run.backend_handle, None)
+            if self._journal is not None:
+                self._journal_settle(run)
         return run
 
     @_locked
@@ -250,8 +277,26 @@ class AssistantService:
             run.status = RunStatus.CANCELLED
             run.completed_at = int(self._clock.time())
             self._inflight.pop(run.backend_handle, None)
+            if self._journal is not None:
+                self._journal_settle(run)
             self._trace_run_settled(run)
         return run
+
+    def _journal_settle(self, run: Run) -> None:
+        """Append the run's terminal transition (only ever called behind
+        ``self._journal is not None``)."""
+        response = None
+        if run.response_message_id is not None:
+            for m in self.threads[run.thread_id].messages:
+                if m.id == run.response_message_id:
+                    response = {"id": m.id, "role": m.role,
+                                "content": m.raw_content,
+                                "created_at": m.created_at}
+                    break
+        self._journal.append(
+            "run_settle", id=run.id, status=run.status,
+            completed_at=run.completed_at, usage=dict(run.usage),
+            error=run.error, response=response)
 
     def _trace_run_settled(self, run: Run) -> None:
         """Record the run's lifetime as one explicit-times 'serve.run'
@@ -327,6 +372,23 @@ class AssistantService:
             msgs = msgs[:limit]
         return MessageList(data=msgs)
 
+    # -------------------------------------------------------- observability
+
+    @_locked
+    def prometheus_metrics(self) -> str:
+        """Prometheus text exposition of the global METRICS store (the
+        counters and phase-timer summaries) and, when the backend carries
+        an engine, its live gauges (``obs/export.py::prometheus_text``).
+        A cluster router backend (``queue_depths``) comes with ROADMAP
+        Queue 1 item 11 and raises there."""
+        from k8s_llm_rca_tpu_torch.obs.export import prometheus_text
+
+        router = (self.backend
+                  if hasattr(self.backend, "queue_depths") else None)
+        return prometheus_text(METRICS,
+                               engine=getattr(self.backend, "engine", None),
+                               router=router, tracer=obs_trace._ACTIVE)
+
     # ------------------------------------------------------------ execution
 
     @_locked
@@ -357,12 +419,16 @@ class AssistantService:
                     run.usage["prompt_tokens"] + res.completion_tokens)
                 run.completed_at = int(self._clock.time())
                 del self._inflight[handle]
+                if self._journal is not None:
+                    self._journal_settle(run)
                 self._trace_run_settled(run)
             elif run.deadline is not None and now > run.deadline:
                 self.backend.cancel(run.backend_handle)
                 run.status = RunStatus.EXPIRED
                 run.completed_at = int(self._clock.time())
                 del self._inflight[handle]
+                if self._journal is not None:
+                    self._journal_settle(run)
                 self._trace_run_settled(run)
         if results:
             obs_trace.event("serve.settled", n=len(results))
@@ -392,6 +458,8 @@ class AssistantService:
                 if not self.backend.busy(run.backend_handle):
                     run.status = RunStatus.FAILED
                     run.error = "backend dropped the run"
+                    if self._journal is not None:
+                        self._journal_settle(run)
                     break
                 if (timeout_s is not None
                         and self._clock.time() - t0 > timeout_s):
@@ -399,6 +467,8 @@ class AssistantService:
                     self._inflight.pop(run.backend_handle, None)
                     run.status = RunStatus.EXPIRED
                     run.completed_at = int(self._clock.time())
+                    if self._journal is not None:
+                        self._journal_settle(run)
                     self._trace_run_settled(run)
                     break
             # with peer waiters a real sleep hands the lock over
@@ -514,3 +584,105 @@ class GenericAssistant:
                 for k in usage:
                     usage[k] += run.usage[k]
         return usage
+
+
+# ---------------------------------------------------------------------------
+# persistence (session checkpoint/resume)
+# ---------------------------------------------------------------------------
+
+
+def save_service_state(service: AssistantService, path: str) -> None:
+    """Persist assistants, threads (full message history) and TERMINAL runs
+    to a JSON file.
+
+    The file is the JAX package's format, so either package loads the
+    other's.  In-flight runs are not persisted (their engine state is not
+    serializable mid-decode); callers should drain first.
+    """
+    import json
+
+    # peek the id counter without consuming (itertools.count can only be
+    # advanced, so re-seed it with the observed value)
+    next_id = next(service._ids)
+    service._ids = itertools.count(next_id)
+    state = {
+        "next_id": next_id,              # keeps restored ids collision-free
+        "assistants": [
+            {"id": a.id, "name": a.name, "instructions": a.instructions,
+             "model": a.model,
+             "gen": {"max_new_tokens": a.gen.max_new_tokens,
+                     "stop": list(a.gen.stop),
+                     "forced_prefix": a.gen.forced_prefix,
+                     "suffix": a.gen.suffix,
+                     "grammar": a.gen.grammar}}
+            for a in service.assistants.values()
+        ],
+        "threads": [
+            {"id": t.id,
+             "messages": [
+                 {"id": m.id, "role": m.role, "content": m.raw_content,
+                  "created_at": m.created_at}
+                 for m in t.messages
+             ]}
+            for t in service.threads.values()
+        ],
+        "runs": [
+            {"id": r.id, "thread_id": r.thread_id,
+             "assistant_id": r.assistant_id, "status": r.status,
+             "created_at": r.created_at, "completed_at": r.completed_at,
+             "usage": r.usage, "error": r.error,
+             "response_message_id": r.response_message_id}
+            for r in service.runs.values() if r.status in RunStatus.TERMINAL
+        ],
+        "thread_runs": service._thread_runs,
+    }
+    with open(path, "w") as f:
+        json.dump(state, f)
+
+
+def load_service_state(path: str, backend: LMBackend,
+                       run_timeout_s: float = 600.0) -> AssistantService:
+    """Rebuild an AssistantService from ``save_service_state`` output.
+
+    Restored threads keep their ids, so stage code holding thread/assistant
+    ids across a process restart resumes transparently (and
+    ``get_token_usage`` windows over past runs still answer correctly).
+    """
+    import json
+
+    with open(path) as f:
+        state = json.load(f)
+
+    service = AssistantService(backend, run_timeout_s=run_timeout_s)
+    service._ids = itertools.count(state["next_id"])
+    for a in state["assistants"]:
+        g = a.get("gen", {})
+        gen = GenOptions(
+            max_new_tokens=g.get("max_new_tokens", 256),
+            stop=tuple(g.get("stop", ())),
+            forced_prefix=g.get("forced_prefix", ""),
+            suffix=g.get("suffix", ""),
+            grammar=g.get("grammar"))
+        service.assistants[a["id"]] = Assistant(
+            a["id"], a["name"], a["instructions"], a["model"], gen)
+    for t in state["threads"]:
+        thread = Thread(t["id"], [
+            Message(m["id"], m["role"], m["content"], m["created_at"])
+            for m in t["messages"]
+        ])
+        service.threads[thread.id] = thread
+    for r in state["runs"]:
+        run = Run(r["id"], r["thread_id"], r["assistant_id"],
+                  status=r["status"], created_at=r["created_at"],
+                  completed_at=r["completed_at"], usage=r["usage"],
+                  error=r["error"])
+        run.response_message_id = r["response_message_id"]
+        service.runs[run.id] = run
+    terminal = set(service.runs)
+    service._thread_runs = {
+        tid: [rid for rid in rids if rid in terminal]
+        for tid, rids in state["thread_runs"].items()
+    }
+    for tid in service.threads:
+        service._thread_runs.setdefault(tid, [])
+    return service

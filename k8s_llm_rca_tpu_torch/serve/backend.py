@@ -212,22 +212,15 @@ class EngineBackend:
 
 
 class EchoBackend:
-    """Deterministic test backend: replies with a prompt-derived string
-    after ``delay_pumps`` pump calls (to exercise the run-state machine's
-    in_progress window).  The JAX backend's fixed ``reply`` and ``fail``
-    options raise: the journal and recovery tests that set them come with
-    ROADMAP Queue 1 item 4."""
+    """Deterministic test backend: replies with a fixed (``reply``) or a
+    prompt-derived string after ``delay_pumps`` pump calls (to exercise the
+    run-state machine's in_progress window); ``fail`` fails every run."""
 
-    def __init__(self, tokenizer: Tokenizer, delay_pumps: int = 0,
-                 **unported):
-        for name in unported:
-            if name not in ("reply", "fail"):
-                raise TypeError(f"EchoBackend() got an unexpected keyword "
-                                f"argument {name!r}")
-            raise NotImplementedError(
-                f"EchoBackend({name}=...) is not ported yet (ROADMAP "
-                f"Queue 1 item 4, serve/journal.py and serve/recover.py)")
+    def __init__(self, tokenizer: Tokenizer, reply: Optional[str] = None,
+                 delay_pumps: int = 0, fail: bool = False):
         self.tokenizer = tokenizer
+        self.reply = reply
+        self.fail = fail
         self.delay_pumps = delay_pumps
         self._handles = itertools.count()
         self._inflight: Dict[int, Tuple[str, GenOptions, int]] = {}
@@ -245,7 +238,13 @@ class EchoBackend:
                 self._inflight[handle] = (prompt, opts, remaining - 1)
                 continue
             del self._inflight[handle]
-            text = opts.forced_prefix + f"echo: {prompt[-64:]}" + opts.suffix
+            if self.fail:
+                results[handle] = BackendResult("", 0,
+                                                error="echo backend failure")
+                continue
+            text = (self.reply if self.reply is not None
+                    else f"echo: {prompt[-64:]}")
+            text = opts.forced_prefix + text + opts.suffix
             results[handle] = BackendResult(
                 text=text, completion_tokens=self.tokenizer.count(text))
         return results

@@ -1,11 +1,12 @@
 """Logger factory, process-local counters and phase timers (the parts of
-the JAX package's ``utils/logging.py`` that the serving path and the RCA
-pipeline use)."""
+the JAX package's ``utils/logging.py`` that the serving path, the RCA
+pipeline, the sweep drivers and the Prometheus export use)."""
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import statistics
 import threading
 import time
 from collections import defaultdict
@@ -24,6 +25,10 @@ def get_logger(name: str = "k8s_llm_rca_tpu_torch") -> logging.Logger:
         logger.setLevel(logging.INFO)
         logger.propagate = False
     return logger
+
+
+def _median(xs: List[float]) -> float:
+    return float(statistics.median(xs)) if xs else 0.0
 
 
 # retained samples per timer name: a newest-sample window, while total
@@ -86,6 +91,31 @@ class Metrics:
     def count(self, name: str) -> float:
         with self._lock:
             return self.counters.get(name, 0.0)
+
+    def total(self, name: str) -> float:
+        """Summed seconds of a timer phase over its whole life (0 if never
+        timed)."""
+        with self._lock:
+            r = self.timings.get(name)
+            return r.total if r is not None else 0.0
+
+    def snapshot(self) -> Dict[str, float]:
+        """Counters, and per timer ``.total_s``, ``.count`` and ``.p50_s``."""
+        with self._lock:
+            out = dict(self.counters)
+            timings = {k: (v.total, v.count, v.window())
+                       for k, v in self.timings.items()}
+        for k, (total, count, window) in timings.items():
+            out[f"{k}.total_s"] = total
+            out[f"{k}.count"] = float(count)
+            out[f"{k}.p50_s"] = _median(window)
+        return out
+
+    def reset(self) -> None:
+        """Drop every counter and timer."""
+        with self._lock:
+            self.counters.clear()
+            self.timings.clear()
 
 
 METRICS = Metrics()

@@ -56,16 +56,15 @@ def pack_record(payload: bytes) -> bytes:
     return _HEADER.pack(len(payload), zlib.crc32(payload)) + payload
 
 
-def append_record(f: BinaryIO, payload: bytes, fsync: bool = True) -> int:
+def append_record(f: BinaryIO, payload: bytes) -> int:
     """Append one framed record and force it to disk.  Returns the number
-    of bytes written.  ``fsync=True`` is the durability contract: after
-    this returns, the record survives a process kill (the reader may still
-    drop it on a KERNEL crash, which is the strongest single-fsync gives)."""
+    of bytes written.  The fsync is the durability contract: after this
+    returns, the record survives a process kill (the reader may still drop
+    it on a KERNEL crash, which is the strongest single-fsync gives)."""
     frame = pack_record(payload)
     f.write(frame)
     f.flush()
-    if fsync:
-        os.fsync(f.fileno())
+    os.fsync(f.fileno())
     return len(frame)
 
 

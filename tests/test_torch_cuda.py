@@ -1199,3 +1199,80 @@ def test_restore_in_place_keeps_a_captured_graph_right(card, kv):
         engine.allocator.check()
         assert type(engine.allocator).__name__ == "NativePageAllocator"
     assert streams[1] == streams[0]
+
+
+def test_recovered_engine_run_on_the_card_equals_the_cpu(card, tmp_path):
+    """Slice 13: a journaled run interrupted mid-decode (its sequence
+    cancelled, as a kill does) and recovered onto a fresh backend of the
+    same TINY engine replies on the card as the uninterrupted run does on
+    the CPU, on the same seeded weights."""
+    from k8s_llm_rca_tpu_torch.config import TINY, EngineConfig
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.serve.api import AssistantService, RunStatus
+    from k8s_llm_rca_tpu_torch.serve.backend import EngineBackend, GenOptions
+    from k8s_llm_rca_tpu_torch.serve.journal import RunJournal
+    from k8s_llm_rca_tpu_torch.serve.recover import recover_service
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg = TINY.replace(max_seq_len=64)
+    ecfg = EngineConfig(max_batch=4, max_seq_len=64, paged=True,
+                        page_size=8, num_pages=24, prefill_buckets=(16, 32),
+                        max_new_tokens=8, temperature=0.0, decode_chunk=1,
+                        prefix_cache=False)
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def lifecycle(service):
+        a = service.create_assistant("test", "t")
+        th = service.create_thread()
+        service.add_message(th.id, "pod crashloop")
+        return service.create_run(th.id, a.id,
+                                  gen=GenOptions(max_new_tokens=8))
+
+    def reply(service, run):
+        return service.list_messages(run.thread_id).data[0].raw_content
+
+    cpu_eng = make_engine(cfg, ecfg, cpu_params, tok, device="cpu")
+    cpu_svc = AssistantService(EngineBackend(cpu_eng))
+    want = reply(cpu_svc, cpu_svc.wait_run(lifecycle(cpu_svc).id))
+
+    card_params = {k: ([{n: _card_leaf(t) for n, t in layer.items()}
+                        for layer in v] if k == "layers" else _card_leaf(v))
+                   for k, v in cpu_params.items()}
+    eng = make_engine(cfg, ecfg, card_params, tok)
+    path = str(tmp_path / "serve.wal")
+    backend = EngineBackend(eng)
+    service = AssistantService(backend, journal=RunJournal(path))
+    run = lifecycle(service)
+    service.retrieve_run(run.id)
+    assert service.runs[run.id].status == RunStatus.IN_PROGRESS
+    service._journal.close()
+    for handle in list(backend._live):
+        backend.cancel(handle)
+    svc, report = recover_service(path, EngineBackend(eng))
+    assert report["resubmitted"] == [run.id]
+    got = svc.wait_run(run.id)
+    assert got.status == RunStatus.COMPLETED
+    assert reply(svc, got) == want
+    eng.allocator.check()
+    assert eng.allocator.n_free == ecfg.num_pages - 1
+
+
+def test_cli_engine_defaults_to_the_card(card):
+    """The sweep drivers' ``--device`` is ``cuda`` unless given: the
+    engine they build lives on the card."""
+    import argparse
+
+    from k8s_llm_rca_tpu_torch.sweeps.common import (
+        add_common_args, build_service,
+    )
+
+    parser = argparse.ArgumentParser()
+    add_common_args(parser)
+    args = parser.parse_args(["--backend", "engine", "--paged", "--model",
+                              "tiny", "--max-seq-len", "256"])
+    assert args.device == "cuda"
+    engine = build_service(args).backend.engine
+    assert engine.device.type == "cuda"
+    assert engine.params["final_norm"].is_cuda

@@ -132,6 +132,18 @@ def test_sources_cover_the_speculative_slice():
     assert {"engine/speculative.py", "engine/graphs.py"} <= names
 
 
+def test_sources_cover_the_durability_slice():
+    """Serving durability and the sweep drivers are the port's own copies
+    (the import test above holds them to no jax and no JAX package)."""
+    names = {p.relative_to(PORT).as_posix() for p in SOURCES if PORT in
+             p.parents}
+    assert {f"sweeps/{m}.py" for m in ("common", "run_file", "run_all",
+                                        "stage")} <= names
+    assert {"serve/journal.py", "serve/recover.py", "obs/export.py",
+            "faults/supervisor.py", "runtime/profiling.py",
+            "utils/wal.py"} <= names
+
+
 def test_every_kernel_source_has_a_loader():
     """Each CUDA source under csrc/ is loaded by name from a port module
     (and so built by chip_smoke.py's KERNELS)."""

@@ -75,12 +75,20 @@ def test_engine_sweep_report_bytes_equal_jax(jax_engine_sweep):
 
 @pytest.mark.parametrize("kw,item", [
     ({"rca_overrides": {}}, "Queue 1 item 5"),
-    ({"durable_dir": "wal"}, "Queue 1 item 4"),
+    ({"durable_dir": "wal"}, None),
     ({"backend": "cluster-oracle"}, "Queue 1 item 11"),
     ({"tracer": object()}, "Queue 1 item 5"),
 ], ids=["rca_overrides", "durable_dir", "cluster", "tracer"])
-def test_unported_sweep_options_raise(kw, item):
+def test_unported_sweep_options_raise(kw, item, tmp_path):
+    """Options not ported raise naming their ROADMAP item; ``durable_dir``
+    (Queue 1 item 4, which it used to name) is ported and journals the
+    sweep into ``serve.wal``."""
     kw = {"backend": "oracle", "n_incidents": 1, **kw}
+    if item is None:
+        kw["durable_dir"] = str(tmp_path / kw["durable_dir"])
+        assert run_pipelined_sweep(**kw)["report"]["completed"] == 1
+        assert (tmp_path / "wal" / "serve.wal").stat().st_size > 0
+        return
     with pytest.raises(NotImplementedError, match=item):
         run_pipelined_sweep(**kw)
 

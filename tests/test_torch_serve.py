@@ -161,11 +161,24 @@ def test_traced_run_records_engine_ticks_and_the_run_span():
 @pytest.mark.parametrize("kw", [{"reply": "the answer"}, {"fail": True}],
                          ids=["reply", "fail"])
 def test_echo_backend_unported_options_raise(kw):
-    from k8s_llm_rca_tpu_torch.serve.backend import EchoBackend
+    """``reply`` and ``fail`` used to raise naming Queue 1 item 4; since
+    that item they are ported and the echo backend's results equal the
+    JAX backend's."""
+    from k8s_llm_rca_tpu.serve.backend import EchoBackend as JEcho
+    from k8s_llm_rca_tpu.serve.backend import GenOptions as JGen
+    from k8s_llm_rca_tpu.utils.tokenizer import get_tokenizer as j_tok
+    from k8s_llm_rca_tpu_torch.serve.backend import EchoBackend, GenOptions
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        EchoBackend(get_tokenizer(), **kw)
+    port = EchoBackend(get_tokenizer(), delay_pumps=1, **kw)
+    ref = JEcho(j_tok(), delay_pumps=1, **kw)
+    h = port.start("pod down", GenOptions(forced_prefix="<", suffix=">"))
+    jh = ref.start("pod down", JGen(forced_prefix="<", suffix=">"))
+    assert port.pump() == ref.pump() == {} and port.busy(h)
+    res, jres = port.pump()[h], ref.pump()[jh]
+    assert (res.text, res.completion_tokens, res.error) == (
+        jres.text, jres.completion_tokens, jres.error)
+    assert not port.busy(h)
 
 
 def test_generic_assistant_over_echo_matches_jax():
