@@ -160,6 +160,34 @@ count the launches a replay makes.
    and on the CPU.  (e) The recovered service's Prometheus text parses
    line by line and carries the engine's phase timers and gauges.
 
+9. rerank: rerank, loading and the contiguous engine (``--rerank`` runs
+   it alone, after the build, with no result line).  (a) Llama-3-8B at
+   full width cut to 2 layers (bf16, seeded) exported through
+   ``llama_params_to_hf`` into a two-shard dir with its
+   ``model.safetensors.index.json`` and loaded back by ``load_llama``:
+   every tensor bit-equal and the last-position logits of a 64-token
+   prompt equal; e5-large at full size through an HF BERT state dict
+   (``bert.`` prefix) and ``load_encoder``: bit-equal, equal embeddings;
+   write and read GB/s and the peak host RSS of each load.  (b) e5-large
+   bf16: ms per batch of 32 and passages/s at buckets 128 and 512; bf16
+   against an fp32 copy of the same weights (least cosine, rerank top-1);
+   TINY_ENCODER on the card against the CPU (max abs error, at most
+   1e-4).  (c) phase 6's sweep (8B bf16, the soak engine, four incidents
+   at concurrency 4) with ``Reranker(Embedder(E5_LARGE))`` and
+   ``rerank_fields_top_k`` 2, then without a reranker: both complete on a
+   clean engine with exact launches, and the analyzer's audit runs read
+   fewer prompt tokens with the reranker; the encoder's seconds.  (d) the
+   contiguous engine (``EngineConfig(paged=False)``, eager) serves the
+   slice's four requests on 8B bf16 and on int4 weights over an int4
+   cache (exact launches: flash per prefill, the int4 matmuls and head
+   per step and prefill; decode attention is plain torch), against the
+   paged engine on the same weights (equal tokens, or each first
+   divergence with its logit margin); TTFT, decode tok/s, eager step ms,
+   peak GB; then ``draft_model=`` (a seeded 2-layer draft at the 8B's
+   widths, ``speculative_k`` 4) against plain greedy (equal, or parting
+   only at a near-tie, ``NEAR_TIE``) with its acceptance; then the CLI
+   without ``--paged`` on 8B, one incident.
+
 Then the kernel table (one JSON line), the ``nvidia-smi`` name and power
 limit line, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -932,13 +960,17 @@ def read_counts() -> dict:
             launch_counters().items()}
 
 
-def expected_counts(cfg, c: dict, quantized_kv: bool, bits=None) -> dict:
+def expected_counts(cfg, c: dict, quantized_kv: bool, bits=None,
+                    contiguous: bool = False) -> dict:
     """The launches an engine run with the counters ``c`` (an engine's
     ``_counts``, or their gain over a window) must have made: per layer,
     one decode attention per single-token decode step, and one flash call
     per prefill dispatch of a miss, per chunk prefill (a prefix hit or a
     chunked prompt, over its gathered pages) and per speculative verify
-    step (T queries over the gathered pages); under fused_quant_matmul
+    step (T queries over the gathered pages).  The ``contiguous`` engine
+    (``InferenceEngine``) attends its decode and verify steps in plain
+    torch over its cache rows: only its prefills launch flash.  Under
+    fused_quant_matmul
     over ``bits``-wide weights, per layer and per decode or verify step or
     dispatch of either prefill 7 kn matmuls (dense) or 5 kn matmuls (4
     projections and the router) and 3 expert matmuls (MoE), and one head
@@ -950,8 +982,9 @@ def expected_counts(cfg, c: dict, quantized_kv: bool, bits=None) -> dict:
     chunks = int(c.get("engine.chunk_prefill_dispatches", 0))
     counts = {k: 0 for k in launch_counters()}
     counts["paged_quant" if quantized_kv else "paged"] = (
-        cfg.n_layers * (steps - verify))
-    counts["flash"] = cfg.n_layers * (prefills + chunks + verify)
+        0 if contiguous else cfg.n_layers * (steps - verify))
+    counts["flash"] = cfg.n_layers * (prefills + chunks
+                                      + (0 if contiguous else verify))
     if cfg.fused_quant_matmul:
         sfx = "8" if bits == 8 else ""
         calls = cfg.n_layers * (steps + prefills + chunks)
@@ -1575,10 +1608,11 @@ def watch_logits():
     tensor the engine samples from is finite: each sample folds into one
     flag in place.  A CUDA graph captured inside the ``with`` records the
     fold, so each of its replays folds in again, after the ``with`` too:
-    the flag must live as long as such a graph.  Yields the flag."""
+    the flag must live as long as such a graph.  Both engines' samplers
+    (the paged and the contiguous one) are watched.  Yields the flag."""
     import torch
 
-    from k8s_llm_rca_tpu_torch.engine import paged
+    from k8s_llm_rca_tpu_torch.engine import engine as contiguous, paged
 
     sample = paged.sample_tokens
     finite = torch.ones((), dtype=torch.bool, device="cuda")
@@ -1587,11 +1621,11 @@ def watch_logits():
         finite.logical_and_(torch.isfinite(logits).all())
         return sample(logits, generator, params)
 
-    paged.sample_tokens = watched
+    paged.sample_tokens = contiguous.sample_tokens = watched
     try:
         yield finite
     finally:
-        paged.sample_tokens = sample
+        paged.sample_tokens = contiguous.sample_tokens = sample
 
 
 def incident_text(n_chars: int) -> str:
@@ -1666,22 +1700,29 @@ def serve_four(engine, cfg, kv, bits) -> dict:
     asst = service.create_assistant(
         "You are the root-cause analyst for a Kubernetes cluster.",
         "analyst", gen=GenOptions(max_new_tokens=64))
-    stamps, results = [], []
-    step = engine.step
+    stamps, results, prompts = [], [], {}
+    step, register = engine.step, engine._register
 
     def recorded():
         out = step()
         results.extend(out)
         return out
 
+    def registered(seq_id, prompt_ids):
+        prompts[seq_id] = list(prompt_ids)
+        register(seq_id, prompt_ids)
+
     runs = []
     with watch_logits() as finite:
         # warmed inside the watch: the scan graph it captures folds every
         # replay's logits into the flag, which lives with the engine
         before = warm_engine(engine)
+        draft = engine._draft
+        draft_before = draft.prefills if draft is not None else 0
         engine.logits_finite = finite
         stamp_first_tokens(engine, stamps)
         engine.step = recorded
+        engine._register = registered
         reset_counts()
         t_submit = time.perf_counter()
         # one token per byte: the template around an empty message, + BOS
@@ -1705,11 +1746,18 @@ def serve_four(engine, cfg, kv, bits) -> dict:
         raise SystemExit("a reply has no tokens")
     if not bool(finite):
         raise SystemExit("non-finite logits on the slice run")
-    expect = expected_counts(cfg, c, kv is not None, bits)
+    expect = expected_counts(cfg, c, kv is not None, bits,
+                             contiguous=not engine.engine_cfg.paged)
+    if draft is not None:
+        # a draft model's re-prefills attend through flash too
+        expect["flash"] += draft.cfg.n_layers * (draft.prefills
+                                                 - draft_before)
     if counts != expect:
         raise SystemExit(f"launch counts {counts} != expected {expect}")
     return {"tokens": [r.token_ids for r in
                        sorted(results, key=lambda r: r.seq_id)],
+            "prompts": [prompts[r.seq_id] for r in
+                        sorted(results, key=lambda r: r.seq_id)],
             "prompt_tokens": [u["prompt_tokens"] for u in usage],
             "completion_tokens": [u["completion_tokens"] for u in usage],
             "launches": counts, "expected_launches": expect,
@@ -1903,7 +1951,7 @@ def phase_slice(phase: str, name: str, bits=None, kv=None) -> dict:
          completion_tokens=graphed["completion_tokens"],
          equal_tokens=same, init_s=init_s,
          **{f"{mode}_{k}": v for mode, run in runs.items()
-            for k, v in run.items() if k != "tokens"},
+            for k, v in run.items() if k not in ("tokens", "prompts")},
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
          nvidia_smi=nvidia_smi_name_power())
     if not same:
@@ -1970,9 +2018,10 @@ def speculative_runs(phase, cfg, ecfg, params, tok, kv, bits,
          tokens_per_dispatch=spec["decode_tokens"] / spec["dispatches"],
          graphed_step_wall_ms=graphed["wall_ms_per_step"],
          graphed_step_device_ms=graphed["device_ms_per_step"],
-         **{f"spec_{k}": v for k, v in spec.items() if k != "tokens"},
+         **{f"spec_{k}": v for k, v in spec.items()
+            if k not in ("tokens", "prompts")},
          **{f"chunk1_{mode}_{k}": v for mode, run in chunk1.items()
-            for k, v in run.items() if k != "tokens"},
+            for k, v in run.items() if k not in ("tokens", "prompts")},
          chunk1_d2h_per_token={
              mode: run["d2h_syncs"] / max(1, run["decode_tokens"])
              for mode, run in chunk1.items()},
@@ -3360,6 +3409,637 @@ def phase_host_costs(calls: int = 2000) -> None:
     emit("host_costs", calls=calls, **out)
 
 
+# ------------------------------------------------------------------ phase 9
+
+
+LOAD_DIR = ROOT / "build" / "chip_smoke_load"
+# the passages a rerank orders in 9b (BASELINE config[4]: evidence of an
+# incident against its error message)
+RERANK_PASSAGES = [
+    "pod web-1 is pending: secret db-cred not found",
+    "node ip-10-0-3-7 reports memory pressure",
+    "configmap es-gen-white-list-configmap does not exist",
+    "deployment payment has 3 replicas available",
+    "service frontend selects no endpoints",
+    "persistent volume claim data-0 is bound",
+    "MountVolume.SetUp failed for volume pvc-f3788c43: nfs path missing",
+    "container app exited with code 137 (OOMKilled)",
+]
+RERANK_QUERY = ('MountVolume.SetUp failed for volume "pvc-f3788c43" : mount '
+                'failed: exit status 32')
+
+
+def _tensors(tree):
+    """Every tensor of a param tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
+
+
+def bit_equal(a, b) -> bool:
+    """Two param trees hold the same bits, tensor by tensor."""
+    import torch
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    ta, tb = _tensors(a), _tensors(b)
+    return len(ta) == len(tb) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(bits(x), bits(y)) for x, y in zip(ta, tb))
+
+
+@contextlib.contextmanager
+def peak_rss():
+    """Sample the process's resident memory every 5 ms in a thread; yields
+    a dict whose ``peak_gb`` holds the largest sample when the ``with``
+    ends."""
+    import threading
+
+    out, stop = {"peak_gb": 0.0}, threading.Event()
+
+    def rss_gb() -> float:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 2 ** 20
+        return 0.0
+
+    def sample():
+        while not stop.is_set():
+            out["peak_gb"] = max(out["peak_gb"], rss_gb())
+            stop.wait(0.005)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    out["before_gb"] = rss_gb()
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join()
+        out["peak_gb"] = max(out["peak_gb"], rss_gb())
+
+
+def encoder_state_dict(params) -> dict:
+    """An e5 tree as an HF BERT state dict under the ``bert.`` prefix
+    (the inverse of ``loader.encoder_params_from_hf``): CPU tensors,
+    projections back to [out, in]."""
+    def host(t, transpose=False):
+        t = t.detach()
+        return (t.transpose(-2, -1) if transpose else t).contiguous().cpu()
+
+    e = "bert.embeddings."
+    sd = {e + "word_embeddings.weight": host(params["word_embedding"]),
+          e + "position_embeddings.weight": host(params["position_embedding"]),
+          e + "token_type_embeddings.weight": host(params["type_embedding"]),
+          e + "LayerNorm.weight": host(params["embed_ln_w"]),
+          e + "LayerNorm.bias": host(params["embed_ln_b"])}
+    names = {"wq": "attention.self.query", "wk": "attention.self.key",
+             "wv": "attention.self.value", "wo": "attention.output.dense",
+             "w_in": "intermediate.dense", "w_out": "output.dense"}
+    biases = {"bq": "wq", "bk": "wk", "bv": "wv", "bo": "wo", "b_in": "w_in",
+              "b_out": "w_out"}
+    norms = {"attn_ln": "attention.output.LayerNorm",
+             "mlp_ln": "output.LayerNorm"}
+    for i, layer in enumerate(params["layers"]):
+        p = f"bert.encoder.layer.{i}."
+        for k, name in names.items():
+            sd[p + name + ".weight"] = host(layer[k], True)
+        for k, w in biases.items():
+            sd[p + names[w] + ".bias"] = host(layer[k])
+        for k, name in norms.items():
+            sd[p + name + ".weight"] = host(layer[k + "_w"])
+            sd[p + name + ".bias"] = host(layer[k + "_b"])
+    return sd
+
+
+def load_case(label: str, params, write, load, compare) -> dict:
+    """Write ``params`` to ``LOAD_DIR / label`` (``write``), load it back
+    onto the card (``load``) under ``peak_rss``, and hold the loaded tree
+    bit-equal to the written one and ``compare(params, loaded)`` (a pair
+    of outputs) equal.  Returns the record."""
+    import shutil
+
+    import torch
+
+    path = LOAD_DIR / label
+    shutil.rmtree(path, ignore_errors=True)
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    t0 = time.perf_counter()
+    write(str(path))
+    write_s = time.perf_counter() - t0
+    files = list(path.iterdir())
+    file_bytes = sum(f.stat().st_size for f in files)
+    gc.collect()
+    with peak_rss() as rss:
+        t0 = time.perf_counter()
+        loaded = load(str(path))
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+    equal = bit_equal(params, loaded)
+    want, got = compare(params, loaded)
+    same_out = bool(torch.equal(want, got))
+    shutil.rmtree(path, ignore_errors=True)
+    record = {"label": label, "param_gb": nbytes / 1e9,
+              "file_gb": file_bytes / 1e9, "files": len(files),
+              "write_s": write_s,
+              "write_gb_per_s": file_bytes / 1e9 / write_s,
+              "read_s": read_s, "read_gb_per_s": file_bytes / 1e9 / read_s,
+              "host_rss_before_gb": rss["before_gb"],
+              "host_rss_peak_gb": rss["peak_gb"], "bit_equal": equal,
+              "outputs_equal": same_out,
+              "max_abs_out_diff": (want.float() - got.float()).abs()
+              .max().item()}
+    if not (equal and same_out):
+        raise SystemExit(f"load {label}: bit-equal {equal}, outputs equal "
+                         f"{same_out}")
+    return record, loaded
+
+
+def phase_load():
+    """9a: Llama-3-8B at full width cut to 2 layers (bf16, seeded) through
+    ``llama_params_to_hf`` into a two-shard dir with its index, then
+    ``load_llama`` onto the card: bit-equal tensors and equal last-position
+    logits of a 64-token prompt; e5-large at full size through an HF BERT
+    state dict (``bert.`` prefix) and ``load_encoder``: bit-equal tensors
+    and equal embeddings.  Write and read GB/s and the peak host RSS
+    during each load.  Returns the loaded e5-large tree (9b's)."""
+    import dataclasses
+
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import E5_LARGE, LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.models import encoder, llama, loader
+
+    cfg = LLAMA3_8B.replace(n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = llama.init_params(cfg, gen)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 64), generator=gen,
+                           device="cuda", dtype=torch.int32)
+
+    def write_llama(path):
+        loader.write_sharded_safetensors(
+            path, loader.llama_params_to_hf(cfg, params), 2)
+
+    def logits(a, b):
+        return (llama.prefill_kv(cfg, a, prompt, 64)[2],
+                llama.prefill_kv(cfg, b, prompt, 64)[2])
+
+    rec_llama, loaded = load_case(
+        "llama3-8b-2-layers", params, write_llama,
+        lambda path: loader.load_llama(cfg, path, "cuda"), logits)
+    del params, loaded
+    free_card()
+
+    enc = E5_LARGE
+    e5 = encoder.init_params(enc, torch.Generator(device="cuda")
+                             .manual_seed(0))
+    tokens = torch.randint(0, enc.vocab_size, (8, 128), generator=gen,
+                           device="cuda", dtype=torch.int32)
+
+    def write_e5(path):
+        os.makedirs(path)
+        loader.write_safetensors(os.path.join(path, "model.safetensors"),
+                                 encoder_state_dict(e5))
+
+    def embeddings(a, b):
+        return encoder.embed(enc, a, tokens), encoder.embed(enc, b, tokens)
+
+    rec_e5, e5_loaded = load_case(
+        "e5-large", e5, write_e5,
+        lambda path: loader.load_encoder(enc, path, "cuda"), embeddings)
+    emit("load", llama=dict(rec_llama, model=cfg.name, layers=cfg.n_layers,
+                            dtype=cfg.dtype),
+         e5=dict(rec_e5, model=enc.name, layers=enc.n_layers,
+                 dtype=enc.dtype),
+         encoder_config=dataclasses.asdict(enc),
+         nvidia_smi=nvidia_smi_name_power())
+    del e5
+    return e5_loaded
+
+
+def phase_encoder(e5) -> None:
+    """9b: ``encoder.embed`` on e5-large bf16 (the loaded seeded weights)
+    at buckets 128 and 512, batch 32: ms per batch (CUDA events) and
+    passages per second; an fp32 copy of the same weights against bf16 on
+    the card (the least cosine over 33 texts, and whether a rerank's
+    top-1 agrees); TINY_ENCODER on the card against the CPU (fp32, TF32
+    off): max abs error of the embeddings."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import E5_LARGE, TINY_ENCODER
+    from k8s_llm_rca_tpu_torch.models import encoder
+    from k8s_llm_rca_tpu_torch.rca.rerank import Embedder, Reranker
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = E5_LARGE
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    timing = {}
+    for bucket in (128, 512):
+        tokens = torch.randint(0, cfg.vocab_size, (32, bucket), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        ms = time_ms(lambda: encoder.embed(cfg, e5, tokens), 10)
+        timing[bucket] = {"ms_per_batch": ms,
+                          "passages_per_s": 32 * 1e3 / ms}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    e5_32 = _float_tree(e5)
+    texts = RERANK_PASSAGES * 4 + [RERANK_QUERY]
+    bf16 = Embedder(cfg, e5).encode(texts)
+    fp32 = Embedder(cfg32, e5_32).encode(texts)
+    cosines = np.sum(bf16 * fp32, axis=-1)
+    top = [Reranker(Embedder(c, p)).rerank(RERANK_QUERY, RERANK_PASSAGES)
+           for c, p in ((cfg, e5), (cfg32, e5_32))]
+    del e5_32
+    tiny_cpu = encoder.init_params(TINY_ENCODER,
+                                   torch.Generator().manual_seed(0), "cpu")
+    tiny_gpu = _float_tree(tiny_cpu, "cuda")
+    toks = torch.randint(0, TINY_ENCODER.vocab_size, (4, 64),
+                         generator=torch.Generator().manual_seed(2))
+    lens = torch.tensor([64, 40, 9, 1])
+    want = encoder.embed(TINY_ENCODER, tiny_cpu, toks, lens)
+    got = encoder.embed(TINY_ENCODER, tiny_gpu, toks.cuda(), lens.cuda())
+    tiny_err = (got.cpu() - want).abs().max().item()
+    emit("encoder", model=cfg.name, batch=32, timing=timing,
+         bf16_vs_fp32_min_cosine=float(cosines.min()),
+         top1_bf16=top[0][0], top1_fp32=top[1][0],
+         top1_agrees=top[0][0][0] == top[1][0][0],
+         tiny_card_vs_cpu_max_abs_err=tiny_err, tiny_tol=1e-4,
+         nvidia_smi=nvidia_smi_name_power())
+    if tiny_err > 1e-4 or not np.all(np.isfinite(bf16)):
+        raise SystemExit(f"encoder: TINY card vs CPU {tiny_err}, finite "
+                         f"{bool(np.all(np.isfinite(bf16)))}")
+
+
+def _float_tree(tree, device=None):
+    """A copy of a param tree in fp32 (on ``device`` when given)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _float_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_float_tree(v, device) for v in tree]
+    dtype = torch.float32 if tree.is_floating_point() else tree.dtype
+    return tree.to(device=device or tree.device, dtype=dtype)
+
+
+def rerank_sweep(label: str, cfg, params, reranker, fields_top_k: int
+                 ) -> dict:
+    """Phase 6's sweep (the soak engine, four fixture incidents at
+    concurrency 4, fresh threads) with ``reranker`` on every pipeline and
+    ``rerank_fields_top_k``: prints incidents completed, p50 s, the
+    analyzer's prompt tokens, the encoder's seconds and the launches
+    (exact, from the engine's counters).  Returns the record."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import RCAConfig
+    from k8s_llm_rca_tpu_torch.faults.plan import VirtualClock
+    from k8s_llm_rca_tpu_torch.faults.soak import (
+        _build_service, _engine_clean,
+    )
+    from k8s_llm_rca_tpu_torch.graph import InMemoryGraphExecutor
+    from k8s_llm_rca_tpu_torch.graph.fixtures import (
+        INCIDENTS, build_metagraph, build_stategraph,
+    )
+    from k8s_llm_rca_tpu_torch.rca import RCAPipeline
+    from k8s_llm_rca_tpu_torch.rca.scheduler import (
+        IncidentFailure, SweepScheduler,
+    )
+    from k8s_llm_rca_tpu_torch.utils.logging import METRICS
+
+    encode_s = [0.0, 0]
+    if reranker is not None:
+        encode = reranker.embedder.encode
+
+        def timed(texts):
+            t0 = time.perf_counter()
+            out = encode(texts)          # ends in a host copy: synced
+            encode_s[0] += time.perf_counter() - t0
+            encode_s[1] += 1
+            return out
+
+        reranker.embedder.encode = timed
+    service, engines, _ = _build_service("engine", VirtualClock(), cfg,
+                                         params, None, None)
+    meta = InMemoryGraphExecutor(build_metagraph())
+    state = InMemoryGraphExecutor(build_stategraph())
+    rca = RCAConfig(locator_max_new_tokens=192, cypher_max_new_tokens=96,
+                    analyzer_max_new_tokens=96, fresh_threads=True,
+                    rerank_fields_top_k=fields_top_k)
+    pipelines = [RCAPipeline(service, meta, state, rca, reranker=reranker)
+                 for _ in range(4)]
+    # the audit runs (one STATE node's fields a prompt, what the field
+    # rerank cuts) apart from the report runs that read their replies
+    analyzers = {p.analyzer.assistant.id for p in pipelines}
+    reporters = {p.analyzer.reporter.assistant.id for p in pipelines
+                 if getattr(p.analyzer, "reporter", None) is not None}
+    timer = METRICS.timings["rca.incident"]
+    n_before = timer.count
+    reset_counts()
+    t0 = time.perf_counter()
+    results = SweepScheduler(pipelines).run(
+        [INCIDENTS[i].message for i in range(4)])
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts()
+    (engine,) = engines
+    expect = expected_counts(cfg, engine._counts, False)
+    incident_s = sorted(timer.window()[-(timer.count - n_before):])
+    failed = [r.error for r in results if isinstance(r, IncidentFailure)]
+    clean = _engine_clean(engines)
+    record = dict(
+        label=label, model=cfg.name, reranker=None if reranker is None
+        else reranker.embedder.cfg.name, rerank_fields_top_k=fields_top_k,
+        incidents=4, concurrency=4, completed=4 - len(failed),
+        failed=failed, engine_clean=clean, incident_p50_s=statistics.median(incident_s),
+        incident_s=incident_s, total_s=total_s,
+        analyzer_prompt_tokens=sum(
+            r.usage["prompt_tokens"] for r in service.runs.values()
+            if r.assistant_id in analyzers),
+        analyzer_runs=sum(r.assistant_id in analyzers
+                          for r in service.runs.values()),
+        reporter_prompt_tokens=sum(
+            r.usage["prompt_tokens"] for r in service.runs.values()
+            if r.assistant_id in reporters),
+        prompt_tokens=sum(r.usage["prompt_tokens"]
+                          for r in service.runs.values()),
+        encoder_s=encode_s[0], encoder_calls=encode_s[1],
+        rerank_scores=[a.get("rerank_scores") for r in results
+                       if not isinstance(r, IncidentFailure)
+                       for a in r.get("analysis", [])],
+        launches=counts, expected_launches=expect,
+        nvidia_smi=nvidia_smi_name_power())
+    emit("rerank_rca", **record)
+    if failed or not clean or counts != expect or not (counts["paged"]
+                                                       and counts["flash"]):
+        raise SystemExit(f"{label}: failed {failed}, launches {counts} vs "
+                         f"{expect}")
+    return record
+
+
+def phase_rerank_rca(e5) -> dict:
+    """9c: Llama-3-8B bf16 (seeded) on the soak engine, the four fixture
+    incidents at concurrency 4, with ``Reranker(Embedder(E5_LARGE))`` and
+    ``rerank_fields_top_k`` 2, then without a reranker (the yardstick):
+    both complete, and the reranked sweep's analyzer reads fewer prompt
+    tokens.  Returns each sweep's launch counts."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import E5_LARGE, LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.rca.rerank import Embedder, Reranker
+
+    cfg = LLAMA3_8B
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    runs = {}
+    for label, reranker, k in (
+            ("rerank", Reranker(Embedder(E5_LARGE, e5)), 2),
+            ("no_rerank", None, 0)):
+        runs[label] = rerank_sweep(label, cfg, params, reranker, k)
+        free_card()
+    with_r, without = runs["rerank"], runs["no_rerank"]
+    emit("rerank_rca_summary",
+         analyzer_prompt_tokens={k: r["analyzer_prompt_tokens"]
+                                 for k, r in runs.items()},
+         incident_p50_s={k: r["incident_p50_s"] for k, r in runs.items()},
+         encoder_s=with_r["encoder_s"], nvidia_smi=nvidia_smi_name_power())
+    if not with_r["analyzer_prompt_tokens"] < \
+            without["analyzer_prompt_tokens"]:
+        raise SystemExit(f"rerank: the analyzer read "
+                         f"{with_r['analyzer_prompt_tokens']} prompt tokens "
+                         f"with the reranker, "
+                         f"{without['analyzer_prompt_tokens']} without")
+    return {"rerank_rca": with_r["launches"],
+            "rerank_rca_yardstick": without["launches"]}
+
+
+def contiguous_step_ms(engine, steps: int = 8) -> dict:
+    """The contiguous engine's eager decode step at batch 4 over 400, 900,
+    1500 and 2300 cached tokens of its own cache rows: wall ms per step
+    (host clock around ``steps`` steps ending in a sync) and the device
+    ms between CUDA events (``time_ms``).  The rows' contents are left
+    as they were: the engine is not used after."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.models import llama
+
+    engine.lengths[:] = [400, 900, 1500, 2300]
+    engine.cur_tokens[:] = 0
+    cur, lens = engine._device_state()
+    cfg, params = engine.model_cfg, engine.params
+
+    def step():
+        return llama.decode_step(cfg, params, engine.cache, cur, lens)[1]
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    engine.lengths[:] = 0
+    return {"step_wall_ms": wall_ms, "step_device_ms": time_ms(step, steps)}
+
+
+def draft_case(cfg, params, tok, plain) -> dict:
+    """``draft_model=`` on the contiguous engine: a 2-layer draft at the
+    8B's widths (bf16, its own seed), ``speculative_k`` 4, the four
+    requests; the streams against the plain engine's (``plain``), with
+    the first divergence's logit margin where they part."""
+    import dataclasses
+
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+
+    dcfg = cfg.replace(n_layers=2)
+    dparams = init_params(dcfg, torch.Generator(device="cuda").manual_seed(7))
+    ecfg = slice_engine_config(paged=False, speculative_k=4, decode_chunk=1)
+    engine = make_engine(cfg, ecfg, params, tok, draft_model=(dcfg, dparams))
+    run = serve_four(engine, cfg, None, None)
+    c = engine._counts
+    divs = divergences(cfg, params, plain["prompts"], plain["tokens"],
+                       run["tokens"])
+    out = {"draft_layers": dcfg.n_layers,
+           "equal_tokens": run["tokens"] == plain["tokens"],
+           "equal_token_share": common_share(plain["tokens"], run["tokens"]),
+           "divergences": divs,
+           "verify_steps": int(c.get("engine.verify_steps", 0)),
+           "spec_drafted": int(c.get("engine.spec_drafted", 0)),
+           "spec_accepted": int(c.get("engine.spec_accepted", 0)),
+           "draft_prefills": engine._draft.prefills,
+           "ttft_s": run["ttft_s"], "decode_tok_per_s":
+           run["decode_tok_per_s"], "total_s": run["total_s"]}
+    out["acceptance"] = out["spec_accepted"] / max(1, out["spec_drafted"])
+    del engine, dparams
+    free_card()
+    return out
+
+
+# a first differing token of two bf16 runs of the 8B whose logit margin is
+# at most this is a near-tie (two ulps of bf16 at logits of 8-16): the
+# verify step and the plain step compute other matmul shapes
+NEAR_TIE = 2 ** -3
+
+
+def phase_contiguous() -> dict:
+    """9d: the contiguous engine (``EngineConfig(paged=False)``, eager) on
+    Llama-3-8B bf16 and on int4 weights over an int4 cache, the slice's
+    four requests (400-2300 tokens, batch 4, max_seq_len 2560, 64 new
+    tokens) behind AssistantService, exact launches; then the paged
+    engine on the same weights: equal tokens, or the first divergence
+    with its logit margin.  TTFT, decode tok/s, step ms, peak GB.  In bf16
+    also ``draft_model=`` (tokens equal plain greedy's, or a near-tie),
+    and the CLI without ``--paged``.  Returns the launch counts."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import InferenceEngine, make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    out = {}
+    for phase, bits, kv in (("contiguous", None, None),
+                            ("contiguous_int4", 4, "int4")):
+        cfg, transform = slice_model("llama3-8b", bits)
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), tensor_transform=transform)
+        tok = get_tokenizer(vocab_size=cfg.vocab_size)
+        engine = make_engine(cfg, slice_engine_config(paged=False,
+                                                      kv_cache_dtype=kv),
+                             params, tok)
+        if not isinstance(engine, InferenceEngine):
+            raise SystemExit(f"{phase}: make_engine built {type(engine)}")
+        run = serve_four(engine, cfg, kv, bits)
+        run.update(contiguous_step_ms(engine))
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        del engine
+        free_card()
+        paged = serve_four(make_engine(cfg, slice_engine_config(
+            kv_cache_dtype=kv), params, tok), cfg, kv, bits)
+        free_card()
+        divs = divergences(cfg, params, run["prompts"], paged["tokens"],
+                           run["tokens"])
+        record = dict(
+            model=cfg.name, weights=f"int{bits}" if bits else "bfloat16",
+            kv_cache_dtype=kv, fused_quant_matmul=cfg.fused_quant_matmul,
+            prompt_tokens=run["prompt_tokens"],
+            completion_tokens=run["completion_tokens"],
+            equal_tokens_vs_paged=run["tokens"] == paged["tokens"],
+            equal_token_share_vs_paged=common_share(paged["tokens"],
+                                                    run["tokens"]),
+            divergences_vs_paged=divs,
+            **{k: v for k, v in run.items()
+               if k not in ("tokens", "prompts", "prompt_tokens",
+                            "completion_tokens")},
+            paged_ttft_s=paged["ttft_s"],
+            paged_decode_tok_per_s=paged["decode_tok_per_s"],
+            peak_mem_gb=peak_gb)
+        counts = run["launches"]
+        need = ["flash"] + (["qmm", "qmm_head"] if bits else [])
+        if not all(counts[k] for k in need):
+            raise SystemExit(f"{phase}: no launches of {need}: {counts}")
+        if bits is None:
+            record["draft"] = draft_case(cfg, params, tok, run)
+            bad = [d for d in record["draft"]["divergences"]
+                   if d["logit_margin"] > NEAR_TIE]
+            if bad or not record["draft"]["verify_steps"]:
+                emit(phase, **record, nvidia_smi=nvidia_smi_name_power())
+                raise SystemExit(f"{phase}: draft speculation parts from "
+                                 f"greedy beyond a near-tie: {bad}")
+        emit(phase, **record, near_tie=NEAR_TIE,
+             nvidia_smi=nvidia_smi_name_power())
+        out[phase] = counts
+        del params
+        free_card()
+    out["contiguous_cli"] = contiguous_cli_case()
+    free_card()
+    return out
+
+
+def contiguous_cli_case() -> dict:
+    """The CLI without ``--paged`` (the contiguous engine, the default
+    EngineConfig otherwise: batch 8) on Llama-3-8B bf16, one incident,
+    ``run_file.main`` in this process: one record, no failure, the
+    launches its engine's counters require.  Returns the counts."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.sweeps import run_file
+    from k8s_llm_rca_tpu_torch.utils.logging import METRICS
+
+    out = LOAD_DIR / "cli-contiguous.json"
+    os.makedirs(LOAD_DIR, exist_ok=True)
+    if out.exists():
+        out.unlink()
+    argv = ["--backend", "engine", "--model", "llama3-8b", "--max-seq-len",
+            "2560", "--fresh-threads", "--slice", "0:1", "--input",
+            str(ROOT / "data" / "incidents.csv"), "--output", str(out)]
+    services, build = [], run_file.build_service
+
+    def built(*args, **kwargs):
+        services.append(build(*args, **kwargs))
+        return services[-1]
+
+    run_file.build_service = built
+    METRICS.reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        summary = run_file.main(argv)
+    finally:
+        run_file.build_service = build
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    (service,) = services
+    engine = service.backend.engine
+    expect = expected_counts(engine.model_cfg, engine._counts, False,
+                             contiguous=True)
+    records, _ = run_file.scan_output(str(out))
+    emit("contiguous_cli", command="python -m k8s_llm_rca_tpu_torch.sweeps."
+         "run_file " + " ".join(argv), seconds=seconds,
+         engine=type(engine).__name__,
+         max_batch=engine.engine_cfg.max_batch,
+         incidents=summary["incidents"], failures=summary["failures"],
+         wall_s=summary["wall_s"], p50_incident_s=summary["p50_incident_s"],
+         chip=summary["chip"], records=len(records),
+         decode_steps=int(engine._counts.get("engine.decode_steps", 0)),
+         launches=counts, expected_launches=expect,
+         nvidia_smi=nvidia_smi_name_power())
+    if (summary["incidents"], summary["failures"], len(records)) != (1, 0, 1):
+        raise SystemExit(f"contiguous cli: {summary['incidents']} "
+                         f"incidents, {summary['failures']} failures, "
+                         f"{len(records)} records")
+    if type(engine).__name__ != "InferenceEngine" or counts != expect \
+            or not counts["flash"]:
+        raise SystemExit(f"contiguous cli: {type(engine).__name__}, "
+                         f"launches {counts} vs {expect}")
+    return counts
+
+
+def phase_rerank() -> dict:
+    """Phase 9: 9a loading, 9b the encoder, 9c rerank in the RCA loop,
+    9d the contiguous engine, one model on the card at a time.  Returns
+    the launch counts of 9c and 9d, by name."""
+    e5 = phase_load()
+    free_card()
+    phase_encoder(e5)
+    free_card()
+    out = phase_rerank_rca(e5)
+    del e5
+    free_card()
+    out.update(phase_contiguous())
+    return out
+
+
 def ptxas_summary(report: str) -> list:
     """One line per kernel of a ``ptxas -v`` report: its name (demangled
     by ``c++filt`` where the toolchain has it, up to its parameter list),
@@ -3525,6 +4205,13 @@ def main(argv) -> int:
         phase_durable()
         return 0
 
+    if "--rerank" in argv:
+        # phase 9 alone
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        phase_rerank()
+        return 0
+
     if "--rca" in argv:
         # phase 6 alone, in a fresh process: ``--after-memory`` runs
         # phase 7's bf16 half before it, as the whole script does
@@ -3573,6 +4260,8 @@ def main(argv) -> int:
     free_card()
     runs.update(phase_durable())
     free_card()
+    runs.update(phase_rerank())
+    free_card()
 
     rows = []
     # launches: the main paths' runs of each kernel, summed (flash now
@@ -3582,23 +4271,26 @@ def main(argv) -> int:
              "k8s_llm_rca_tpu/ops/paged_attention.py:90",
              ("paged_attention", "bfloat16", "mixed"),
              ("slice", "slice_spec", "prefix", "memory", "rca", "rca_spec",
-              "rca_resilient", "durable", "durable_cli"), "paged"),
+              "rca_resilient", "durable", "durable_cli", "rerank_rca",
+              "rerank_rca_yardstick"), "paged"),
             ("flash_attention", FLASH_SRC,
              "k8s_llm_rca_tpu/ops/flash_attention.py:31",
              ("flash_attention", "bfloat16", "full"),
              ("slice", "slice_spec", "prefix", "memory", "memory_int4",
               "rca", "rca_spec", "rca_resilient", "durable",
-              "durable_int4", "durable_cli"), "flash"),
+              "durable_int4", "durable_cli", "rerank_rca",
+              "rerank_rca_yardstick", "contiguous", "contiguous_int4",
+              "contiguous_cli"), "flash"),
             ("quant_matmul", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:137",
              ("quant_matmul", "bfloat16", "decode"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
-              "durable_int4"), "qmm"),
+              "durable_int4", "contiguous_int4"), "qmm"),
             ("quant_matmul_head", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:177",
              ("quant_matmul_head", "bfloat16", "llama3-8b int4"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
-              "durable_int4"), "qmm_head"),
+              "durable_int4", "contiguous_int4"), "qmm_head"),
             ("paged_attention_quant", PAGED_QUANT_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:141",
              ("paged_attention_quant", "bfloat16", "int4"),

@@ -108,6 +108,35 @@ MODEL_REGISTRY = {
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """Bidirectional encoder config (e5 family) for embedding/rerank."""
+
+    name: str = "tiny-encoder"
+    vocab_size: int = 512
+    hidden_size: int = 128
+    n_layers: int = 2
+    n_heads: int = 4
+    intermediate_size: int = 256
+    max_seq_len: int = 512
+    layer_norm_eps: float = 1e-12
+    dtype: str = "float32"
+
+
+TINY_ENCODER = EncoderConfig()
+
+E5_LARGE = EncoderConfig(
+    name="e5-large",
+    vocab_size=30522,
+    hidden_size=1024,
+    n_layers=24,
+    n_heads=16,
+    intermediate_size=4096,
+    max_seq_len=512,
+    dtype="bfloat16",
+)
+
+
+@dataclass(frozen=True)
 class EngineConfig:
     """Inference-engine config: batching, KV cache, sampling, limits."""
 

@@ -1,5 +1,5 @@
-"""Continuous-batching engine surface: the port of ``EngineBase`` from
-``k8s_llm_rca_tpu/engine/engine.py``, the parts the paged engine uses.
+"""Continuous-batching engines: the port of ``EngineBase`` and the
+contiguous-slot ``InferenceEngine`` from ``k8s_llm_rca_tpu/engine/engine.py``.
 
 Submission and prompt clamping, the priority queue, deadlines, cancel,
 finish reasons and stop-string trimming, the chunk choice of the scanned
@@ -14,8 +14,24 @@ the two packages emit equal greedy token streams.  So do snapshot/restore
 (``snapshot_sequences`` exports every live sequence's token record,
 ``restore_sequences`` re-admits it through a normal prefill) and the
 engine tick's fault site (``faults/inject.py``: ``step`` polls an armed
-plan before the tick).  Draft-model speculation is not ported (ROADMAP
-Queue 1 item 9).
+plan before the tick).  Drafts come from n-gram lookup or a draft model
+(``engine/speculative.py::ModelDraft``).
+
+``InferenceEngine`` is the contiguous-slot engine (the JAX package's
+default, ``EngineConfig.paged=False``): one [max_seq_len] KV row per slot
+(``models.llama.KVCache``), no page pool, no preemption.  Prefill attends
+through ``ops.flash_attention`` (the CUDA kernel on the card) and decode
+through the plain ``ops.attention.decode_attention(_multi)`` over the
+whole row, as JAX computes it outside any kernel; the projections and the
+lm head take the int8/int4 kernels under ``ModelConfig.fused_quant_matmul``.
+Its steps run eagerly on the card (no CUDA graphs yet).  A tick follows
+JAX's: admission (one prefill, or one batched prefill of a same-bucket
+run), then speculation, a chunked scan (``decode_scan``, with the grammar
+DFA inside it under ``decode_scan_dfa``), the overlapped step
+(``overlap_step``) or one stepwise decode.  The host keeps the tokens and
+lengths (numpy mirrors, uploaded into static device operands per
+dispatch); ``host_overlap`` keeps them resident instead and commits one
+tick late.  The device meshes raise (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -30,11 +46,14 @@ import torch
 
 from k8s_llm_rca_tpu_torch.config import EngineConfig, ModelConfig
 from k8s_llm_rca_tpu_torch.engine.sampling import (
-    SamplingParams, sample_tokens_masked,
+    SamplingParams, sample_tokens, sample_tokens_masked,
 )
-from k8s_llm_rca_tpu_torch.engine.speculative import ngram_draft
+from k8s_llm_rca_tpu_torch.engine.speculative import ngram_draft, setup_draft
 from k8s_llm_rca_tpu_torch.faults import inject
+from k8s_llm_rca_tpu_torch.models import llama
 from k8s_llm_rca_tpu_torch.obs import trace as obs_trace
+from k8s_llm_rca_tpu_torch.runtime.profiling import annotate
+from k8s_llm_rca_tpu_torch.utils.device import resolve_device
 from k8s_llm_rca_tpu_torch.utils.pages import to_host
 from k8s_llm_rca_tpu_torch.utils.logging import METRICS, get_logger
 from k8s_llm_rca_tpu_torch.utils.tokenizer import Tokenizer
@@ -100,6 +119,9 @@ class EngineBase:
     _inflight: Optional[List[dict]] = None
     _admit_pending: Optional[list] = None
     _flushed_out: Optional[list] = None
+    # a draft model's speculation state (speculative.ModelDraft), or None
+    # for n-gram drafts
+    _draft = None
 
     def _now(self) -> float:
         if self.clock is not None:
@@ -532,12 +554,25 @@ class EngineBase:
 
     def _build_drafts(self, active_slots, cur_host
                       ) -> Tuple[np.ndarray, Dict[int, List[int]]]:
-        """Per-slot n-gram drafts: (tokens_in [B, k + 1] int32, {slot:
-        draft}); row ``slot`` is the current token, then its draft."""
+        """Per-slot drafts, from the draft model when one is attached, else
+        n-gram lookup: (tokens_in [B, k + 1] int32, {slot: draft}); row
+        ``slot`` is the current token, then its draft."""
         k_spec = self.engine_cfg.speculative_k
         tokens_in = np.zeros((self.engine_cfg.max_batch, k_spec + 1),
                              np.int32)
         drafts: Dict[int, List[int]] = {}
+        if self._draft is not None:
+            for slot in active_slots:
+                st = self._active[slot]
+                ctx = (self._prompts.get(st.seq_id, [])
+                       + self._stop_context(st))
+                self._draft.sync(slot, st.seq_id, ctx)
+            drafts = self._draft.draft(active_slots, k_spec,
+                                       self.tokenizer.eos_id)
+            for slot in active_slots:
+                tokens_in[slot, 0] = cur_host[slot]
+                tokens_in[slot, 1:1 + len(drafts[slot])] = drafts[slot]
+            return tokens_in, drafts
         for slot in active_slots:
             st = self._active[slot]
             # _stop_context: a resumed sequence's tokens from before its
@@ -602,6 +637,8 @@ class EngineBase:
             self._count("engine.spec_accepted", max(0, len(committed) - 1))
             if reason is not None:
                 finished.append(self._retire(slot, reason))
+            elif self._draft is not None:
+                self._draft.advance(slot, st.seq_id, committed)
         return finished
 
     def _need_spec_logits(self, active_slots) -> bool:
@@ -609,7 +646,6 @@ class EngineBase:
         return any(self._active[s].grammar is not None
                    for s in active_slots)
 
-    # -------------------------------------------------- tick + counters
     # -------------------------------------------------- tick + counters
 
     def _count(self, name: str, value: float = 1.0) -> None:
@@ -667,11 +703,40 @@ class EngineBase:
         pend, self._admit_pending = self._admit_pending, []
         return pend
 
+    # Both engines keep host mirrors of the tokens and lengths
+    # (``cur_tokens``, ``lengths``) and static int32 device operands
+    # (``_operands``, filled from ``_staging``: 0 tokens, 1 lengths); with
+    # ``host_overlap`` the operands stay resident between ticks and are
+    # edited slot by slot until ``_dev_dirty`` asks for a full upload.
+
+    def _upload(self, i: int, array: np.ndarray) -> torch.Tensor:
+        """Copy a host array into static operand ``i``.  The copy is
+        asynchronous on the card: the staging buffer is rewritten only
+        after the tick's fetch, which waits for it."""
+        self._staging[i].numpy()[...] = array
+        return self._operands[i].copy_(self._staging[i], non_blocking=True)
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _dev_edit_token(self, slot: int, token) -> None:
+        """Mirror one ``cur_tokens`` write (a host int or a device scalar)
+        into the resident operand."""
+        if self._overlap and not self._dev_dirty:
+            self._operands[0][slot] = token
+
+    def _dev_edit_len(self, slot: int, n: int) -> None:
+        if self._overlap and not self._dev_dirty:
+            self._operands[1][slot] = n
+
     def _note_first_token(self, slot: int, token: int,
                           update_dev: bool) -> None:
-        """Subclass hook: reflect an admission's committed first token in
-        the engine's token state (``update_dev`` False at a lagged flush:
-        the device tokens already moved past it)."""
+        """Reflect an admission's committed first token in the token
+        mirror (and the resident operand, unless ``update_dev`` is False
+        at a lagged flush: the device tokens already moved past it)."""
+        self.cur_tokens[slot] = token
+        if update_dev:
+            self._dev_edit_token(slot, token)
 
     def _commit_first(self, st: _Active, token: int,
                       update_dev: bool = True) -> Optional[SequenceResult]:
@@ -713,8 +778,10 @@ class EngineBase:
         (the paged engine counts down its per-slot in-flight steps)."""
 
     def _overlap_post_commit(self, slot: int, token: int) -> None:
-        """Subclass hook: the host mirrors' update per token committed at
-        a lagged flush."""
+        """A token committed at a lagged flush: the host mirrors catch up
+        with the device, so the resident state stays clean."""
+        self.lengths[slot] += 1
+        self.cur_tokens[slot] = token
 
     def _overlap_flush(self) -> List[SequenceResult]:
         """Commit every in-flight fast-path tick: one fetch for all the
@@ -760,8 +827,9 @@ class EngineBase:
             self._invalidate_device_state()
 
     def _invalidate_device_state(self) -> None:
-        """Subclass hook: the host mirrors changed behind the resident
-        device operands; upload them before the next dispatch."""
+        """The host mirrors changed behind the resident device operands;
+        upload them before the next dispatch."""
+        self._dev_dirty = True
 
     def step(self) -> List[SequenceResult]:
         """One engine tick: apply an armed plan's tick fault first, then
@@ -949,3 +1017,536 @@ def dfa_greedy_multi(logits: torch.Tensor, states: torch.Tensor,
         rem = rem - 1
         toks.append(tok)
     return torch.stack(toks, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the contiguous-slot engine and its device loops
+# ---------------------------------------------------------------------------
+
+MESH_ITEM = "ROADMAP Queue 1 item 10, multi-GPU"
+
+
+def _leaves(tree):
+    """Every tensor of a param tree (a quantized weight's q and scale)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield from (tree if isinstance(tree, tuple) else (tree,))
+
+
+def check_params_device(params, device: torch.device) -> None:
+    for leaf in _leaves(params):
+        if leaf.device != device:
+            raise ValueError(f"params live on {leaf.device}, the engine "
+                             f"on {device}")
+
+
+def overlap_step(cfg: ModelConfig, params, cache, cur_tokens: torch.Tensor,
+                 lengths: torch.Tensor, generator: Optional[torch.Generator],
+                 sampling: SamplingParams, cap: int):
+    """One step of the overlapped hot loop: decode, sample, and advance
+    every slot's length (clamped at ``cap``, the last cache row), all on
+    the device; ``cur_tokens``/``lengths`` are the engine's resident
+    operands and take the new values IN PLACE.  A slot the host already
+    retired decodes garbage into its own row until the lagged commit drops
+    its tokens.  Returns (cache, next_tokens [B], lengths)."""
+    cache, logits = llama.decode_step(cfg, params, cache, cur_tokens, lengths)
+    nxt = sample_tokens(logits, generator, sampling)
+    cur_tokens.copy_(nxt)
+    lengths.copy_(torch.clamp(lengths + 1, max=cap))
+    return cache, nxt, lengths
+
+
+def decode_scan(cfg: ModelConfig, params, cache, cur_tokens: torch.Tensor,
+                lengths: torch.Tensor, generator: Optional[torch.Generator],
+                n_steps: int, sampling: SamplingParams = SamplingParams(),
+                eos_id: int = -1):
+    """``n_steps`` decode steps for the whole batch with no host sync.
+    Slots that hit ``eos_id`` stop advancing (their token repeats; the
+    host trims).  Returns (cache, tokens [n_steps, B], lengths)."""
+    cur, lens = cur_tokens, lengths
+    done = torch.zeros_like(cur_tokens, dtype=torch.bool)
+    toks = []
+    for _ in range(n_steps):
+        cache, logits = llama.decode_step(cfg, params, cache, cur, lens)
+        nxt = sample_tokens(logits, generator, sampling)
+        advance = ~done
+        done = done | (nxt == eos_id)
+        cur = torch.where(advance, nxt, cur)
+        lens = lens + advance.to(lens.dtype)
+        toks.append(cur)
+    return cache, torch.stack(toks), lens
+
+
+def decode_scan_dfa(cfg: ModelConfig, params, cache,
+                    cur_tokens: torch.Tensor, lengths: torch.Tensor,
+                    generator: Optional[torch.Generator], n_steps: int,
+                    sampling: SamplingParams, eos_id: int,
+                    states: torch.Tensor, remaining: torch.Tensor,
+                    allow_t: torch.Tensor, next_t: torch.Tensor,
+                    dist_t: torch.Tensor, close_t: torch.Tensor,
+                    complete_t: torch.Tensor):
+    """``decode_scan`` with the compiled grammar DFA riding inside the loop
+    (``dfa_scan_step``).  Returns (cache, tokens [n_steps, B], lengths,
+    states)."""
+    cur, lens = cur_tokens, lengths
+    done = torch.zeros_like(cur_tokens, dtype=torch.bool)
+    toks = []
+    for _ in range(n_steps):
+        cache, logits = llama.decode_step(cfg, params, cache, cur, lens)
+        cur, lens, done, states, remaining = dfa_scan_step(
+            logits, cur, lens, done, states, remaining, generator, sampling,
+            eos_id, allow_t, next_t, dist_t, close_t, complete_t)
+        toks.append(cur)
+    return cache, torch.stack(toks), lens, states
+
+
+def _check_contiguous_config(engine_cfg: EngineConfig, prefix_store) -> None:
+    """Refuse, as the JAX engine does, what needs a page pool."""
+    if engine_cfg.prefill_chunk_budget:
+        raise ValueError(
+            "prefill_chunk_budget is a paged-engine feature: the "
+            "contiguous cache has no chunked prefix-prefill path to "
+            "spread a prompt across ticks (its prefill writes one "
+            "monolithic slot slice).  Use paged=True "
+            "(PagedInferenceEngine) or prefill_chunk_budget=0")
+    if engine_cfg.max_spilled_pages:
+        raise ValueError(
+            "max_spilled_pages (KV spill-to-host preemption) requires "
+            "the paged engine: the contiguous cache has no page pool "
+            "to spill from and never preempts.  Use paged=True "
+            "(PagedInferenceEngine) or max_spilled_pages=0")
+    if (engine_cfg.prefix_host_pages or engine_cfg.prefix_disk_dir
+            or engine_cfg.prefix_disk_pages or prefix_store is not None):
+        raise ValueError(
+            "the tiered prefix cache (prefix_host_pages / "
+            "prefix_disk_dir / prefix_disk_pages / a shared "
+            "prefix_store) requires the paged engine: the contiguous "
+            "cache has no page pool to demote prefix pages from or "
+            "promote them into.  Use paged=True "
+            "(PagedInferenceEngine) or leave the tier knobs unset")
+    if engine_cfg.prefix_hbm_watermark:
+        raise ValueError(
+            "prefix_hbm_watermark (pressure-driven prefix demotion) "
+            "requires the paged engine: the contiguous cache has no "
+            "page allocator whose free count could dip below a "
+            "watermark.  Use paged=True (PagedInferenceEngine) or "
+            "prefix_hbm_watermark=0")
+    if engine_cfg.prefix_store_writethrough:
+        raise ValueError(
+            "prefix_store_writethrough requires the paged engine "
+            "and a store: the contiguous cache has no prefix pages "
+            "to publish.  Use paged=True (PagedInferenceEngine) or "
+            "prefix_store_writethrough=False")
+    if engine_cfg.kv_cache_dtype not in (None, "int8", "int4"):
+        raise ValueError(
+            f"unsupported kv_cache_dtype {engine_cfg.kv_cache_dtype!r} "
+            f"(None, 'int8' or 'int4')")
+
+
+class InferenceEngine(EngineBase):
+    """Continuous batching over the contiguous cache: each slot owns one
+    [max_seq_len] KV row; a sequence keeps its slot until it retires.
+    Runs on ``device`` (``None`` = the card); ``params`` must live there.
+    ``draft_model=(cfg, params)`` of a small Llama with the same
+    vocabulary drafts for ``speculative_k`` instead of n-gram lookup."""
+
+    def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
+                 params, tokenizer: Tokenizer, device=None, *,
+                 draft_model=None, tp_mesh=None, cp_mesh=None, ep_mesh=None,
+                 pp_mesh=None, fsdp_mesh=None, sp: bool = False,
+                 prefix_store=None):
+        if sp or any(m is not None for m in (tp_mesh, cp_mesh, ep_mesh,
+                                             pp_mesh, fsdp_mesh)):
+            raise NotImplementedError(
+                f"device meshes (TP/CP/EP/PP/FSDP, sp) are not ported yet "
+                f"({MESH_ITEM})")
+        _check_contiguous_config(engine_cfg, prefix_store)
+        self.device = resolve_device(device)
+        check_params_device(params, self.device)
+        self.model_cfg = model_cfg
+        self.engine_cfg = engine_cfg
+        self.params = params
+        self.tokenizer = tokenizer
+        self.sampling = SamplingParams(temperature=engine_cfg.temperature,
+                                       top_k=engine_cfg.top_k,
+                                       top_p=engine_cfg.top_p)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(engine_cfg.seed)
+        self._draft = setup_draft(draft_model, model_cfg, engine_cfg,
+                                  self.device)
+        if self._draft is not None:
+            # the draft scan's token fetch is one of this engine's syncs
+            self._draft.on_sync = lambda: self._count("engine.d2h_syncs")
+
+        b = engine_cfg.max_batch
+        self.cache = llama.init_cache(model_cfg, b, engine_cfg.max_seq_len,
+                                      engine_cfg.kv_cache_dtype, self.device)
+        self.lengths = np.zeros((b,), np.int64)
+        self.cur_tokens = np.zeros((b,), np.int64)
+        self._free_slots = list(range(b))
+        self._active: Dict[int, _Active] = {}
+        self._pending: List[_Pending] = []
+        self._seq_counter = itertools.count()
+        self._prompts: Dict[int, List[int]] = {}   # seq_id -> ORIGINAL prompt
+        # tokens generated before a crash restore (restore_sequences); the
+        # contiguous engine never preempts
+        self._resumed: Dict[int, List[int]] = {}
+        self._buckets = tuple(
+            s for s in sorted(set(engine_cfg.prefill_buckets))
+            if s <= engine_cfg.max_seq_len) or (engine_cfg.max_seq_len,)
+        # the decode operands (tokens, lengths, DFA states and budgets) in
+        # static int32 device buffers, filled from staging buffers (pinned
+        # on the card)
+        pin = self.device.type == "cuda"
+        self._staging = tuple(torch.zeros((b,), dtype=torch.int32,
+                                          pin_memory=pin) for _ in range(4))
+        self._operands = tuple(torch.zeros((b,), dtype=torch.int32,
+                                           device=self.device)
+                               for _ in range(4))
+        self._dfa_static: Dict[int, tuple] = {}
+        # the overlapped hot loop: the operands stay resident between
+        # ticks (uploaded only when dirty, then edited slot by slot)
+        self._overlap = engine_cfg.host_overlap
+        self._inflight = []
+        self._admit_pending = []
+        self._flushed_out = []
+        self._dev_dirty = True
+        self._overlap_cap = engine_cfg.max_seq_len - 1
+
+    # --------------------------------------------- device-side operands
+
+    def _device_state(self):
+        """(tokens, lengths) as the static device operands: uploaded from
+        the host mirrors every call, or with ``host_overlap`` only when
+        dirty (slot edits keep them current in between)."""
+        if self._overlap and not self._dev_dirty:
+            return self._operands[:2]
+        self._count("engine.h2d_uploads", 2)
+        out = (self._upload(0, self.cur_tokens), self._upload(1, self.lengths))
+        if self._overlap:
+            self._dev_dirty = False
+            # deferred first tokens exist only on the device so far
+            for st, t, i in self._admit_pending:
+                if self._active.get(st.slot) is st:
+                    out[0][st.slot] = t[i]
+        return out
+
+    def _spec_room_ok(self, slot: int, t: int) -> bool:
+        return int(self.lengths[slot]) + t <= self.engine_cfg.max_seq_len
+
+    # ------------------------------------------------------------- tick
+
+    def _tick(self) -> List[SequenceResult]:
+        """Admit pending requests into free slots, then one decode
+        dispatch for every active slot (speculative verify, a scan chunk,
+        the overlapped step or one step); returns the sequences finished
+        this tick."""
+        finished: List[SequenceResult] = self._reap_deadlines()
+        if self._flushed_out:
+            finished.extend(self._flushed_out)
+            self._flushed_out = []
+        fast = self._overlap_fast()
+        if self._inflight and not fast:
+            finished.extend(self._overlap_flush())
+        while self._pending and self._free_slots:
+            group = self._admission_group()
+            if len(group) == 1:
+                early = self._admit(group[0])
+                if early is not None:    # first token already terminal
+                    finished.append(early)
+            else:
+                finished.extend(self._admit_batch(group))
+        if not fast:
+            # one fetch commits every first token sampled at admission
+            finished.extend(self._drain_admission_commits())
+        if not self._active:
+            finished.extend(self._overlap_flush())
+            return finished
+
+        if self._speculation_applies():
+            finished.extend(self._speculative_tick())
+            return finished
+
+        chunk = self._scan_chunk()
+        if chunk > 1:
+            finished.extend(self._scan_tick(chunk))
+            return finished
+
+        if fast:
+            finished.extend(self._overlap_step_tick())
+            return finished
+
+        active_slots = list(self._active)
+        forced, allow = self._tick_constraints(
+            active_slots, self.engine_cfg.max_batch,
+            self.model_cfg.vocab_size)
+        cur_d, lens_d = self._device_state()
+        with annotate("engine.decode_step"):
+            self._count("engine.dispatches")
+            self._count("engine.decode_steps")
+            self.cache, logits = llama.decode_step(
+                self.model_cfg, self.params, self.cache, cur_d, lens_d)
+            if allow is not None:
+                next_tokens = sample_tokens_masked(
+                    logits, self._gen, self.sampling,
+                    torch.from_numpy(allow).to(self.device))
+            else:
+                next_tokens = sample_tokens(logits, self._gen, self.sampling)
+        self._count("engine.decode_tokens", len(active_slots))
+        (host_next,) = self._fetch(next_tokens)
+        for slot in active_slots:
+            self.lengths[slot] += 1
+            st = self._active[slot]
+            token = forced.get(slot, int(host_next[slot]))
+            self.cur_tokens[slot] = token
+            st.generated.append(token)
+            if st.grammar is not None:
+                st.grammar.advance(token)
+            reason = self._finish_reason(st, token, int(self.lengths[slot]))
+            if reason is not None:
+                finished.append(self._retire(slot, reason))
+        self._invalidate_device_state()
+        return finished
+
+    def _overlap_step_tick(self) -> List[SequenceResult]:
+        """The overlapped fast path: one dispatch over the resident
+        operands (``overlap_step``), no fetch; its tokens commit when the
+        lag flushes."""
+        # the device state first: a dirty upload re-applies the deferred
+        # first tokens, so take them only after it
+        cur_d, lens_d = self._device_state()
+        admits = self._take_admit_pending()
+        slots = [(s, self._active[s].seq_id) for s in sorted(self._active)]
+        with annotate("engine.decode_step"):
+            self._count("engine.dispatches")
+            self._count("engine.decode_steps")
+            self.cache, nxt, _ = overlap_step(
+                self.model_cfg, self.params, self.cache, cur_d, lens_d,
+                self._gen, self.sampling, self._overlap_cap)
+        self._inflight.append({"slots": slots, "toks": nxt,
+                               "admits": admits})
+        if len(self._inflight) >= self._overlap_lag:
+            return self._overlap_flush()
+        return []
+
+    def _scan_tick(self, chunk: int) -> List[SequenceResult]:
+        """Commit ``chunk`` decode steps run in one device loop, with the
+        fused grammar DFA inside it when a DFA slot is active."""
+        active_slots = list(self._active)
+        setup = self._scan_dfa_setup()
+        cur_d, lens_d = self._device_state()
+        cfg, params, eos = self.model_cfg, self.params, self.tokenizer.eos_id
+        with annotate("engine.decode_step"):
+            self._count("engine.dispatches")
+            self._count("engine.decode_steps", chunk)
+            if setup is None:
+                self.cache, toks, lens = decode_scan(
+                    cfg, params, self.cache, cur_d, lens_d, self._gen, chunk,
+                    self.sampling, eos)
+            else:
+                tables, states, remaining = setup
+                self.cache, toks, lens, _ = decode_scan_dfa(
+                    cfg, params, self.cache, cur_d, lens_d, self._gen, chunk,
+                    self.sampling, eos, self._upload(2, states),
+                    self._upload(3, remaining), *tables)
+        if self._overlap:
+            # the surviving slots' host mirrors advance to exactly these
+            # values in the commit below, so the resident operands stay
+            # clean
+            cur_d.copy_(toks[-1])
+            lens_d.copy_(lens)
+        (toks_host,) = self._fetch(toks)                # [chunk, B]
+
+        def post_commit(slot: int, token: int) -> None:
+            self.lengths[slot] += 1
+            self.cur_tokens[slot] = token
+            self._grammar_post_commit(slot, token)
+
+        return self._commit_scanned(active_slots, toks_host, chunk,
+                                    post_commit)
+
+    def _speculative_tick(self) -> List[SequenceResult]:
+        """Verification tick: the drafts scored by ONE ``decode_multi``,
+        committed through ``_verify_and_commit``.  Grammar slots sharing
+        one compiled DFA verify constrained on the device
+        (``dfa_greedy_multi``); otherwise [B, T, V] logits go to the host
+        for the grammar slots."""
+        active_slots = list(self._active)
+        tokens_in, drafts = self._build_drafts(active_slots, self.cur_tokens)
+        need_logits = self._need_spec_logits(active_slots)
+        setup = (self._scan_dfa_setup()
+                 if need_logits and self._uniform_dfa_tables() is not None
+                 else None)
+        self._count("engine.h2d_uploads", 2)
+        toks_d = self._to_device(tokens_in)
+        lens_d = self._upload(1, self.lengths)
+        logits_host = None
+        with annotate("engine.decode_step"):
+            self._count("engine.dispatches")
+            self._count("engine.decode_steps")
+            self._count("engine.verify_steps")
+            self.cache, logits = llama.decode_multi(
+                self.model_cfg, self.params, self.cache, toks_d, lens_d)
+            if setup is None:
+                greedy = logits.argmax(dim=-1)
+                if need_logits:
+                    greedy_host, logits_host = self._fetch(greedy, logits)
+                else:
+                    (greedy_host,) = self._fetch(greedy)
+            else:
+                tables, states, remaining = setup
+                greedy = dfa_greedy_multi(
+                    logits, self._upload(2, states),
+                    self._upload(3, remaining), self.tokenizer.eos_id,
+                    *tables)
+                (greedy_host,) = self._fetch(greedy)
+
+        def post_commit(slot: int, token: int) -> None:
+            self.lengths[slot] += 1
+            self.cur_tokens[slot] = token
+
+        out = self._verify_and_commit(active_slots, drafts, greedy_host,
+                                      logits_host, post_commit,
+                                      constrained=setup is not None)
+        self._invalidate_device_state()
+        return out
+
+    # ------------------------------------------------------- admission
+
+    def _bucket(self, n: int) -> int:
+        for b in self._buckets:
+            if n <= b:
+                return b
+        return self.engine_cfg.max_seq_len
+
+    def _admission_group(self) -> List[_Pending]:
+        """Pop a FIFO run of pending requests sharing one prefill bucket,
+        bounded by the free slots and 8: one batched prefill."""
+        group = [self._pending.pop(0)]
+        b0 = self._bucket(len(group[0].prompt_ids))
+        while (self._pending and len(group) < len(self._free_slots)
+               and len(group) < 8
+               and self._bucket(len(self._pending[0].prompt_ids)) == b0):
+            group.append(self._pending.pop(0))
+        return group
+
+    def _admit(self, req: _Pending) -> Optional[SequenceResult]:
+        """Prefill one sequence into the first free slot.  A grammar
+        sequence commits its constrained first token now; others at the
+        tick's drain."""
+        slot = self._free_slots.pop(0)
+        n = len(req.prompt_ids)
+        padded = np.zeros((1, self._bucket(n)), np.int64)
+        padded[0, :n] = req.prompt_ids
+        with annotate("engine.prefill"):
+            self._count("engine.dispatches")
+            self._count("engine.prefill_dispatches")
+            self.cache, logits = llama.prefill(
+                self.model_cfg, self.params, self.cache,
+                self._to_device(padded), n, slot)
+            first = sample_tokens(logits, self._gen, self.sampling)
+        self._count("engine.prefill_tokens", n)
+        if req.grammar is not None:
+            return self._activate(req, slot, logits,
+                                  int(self._fetch(first)[0][0]))
+        st = self._preactivate(req, slot)
+        self._dev_edit_token(slot, first[0])
+        self._admit_pending.append((st, first, 0))
+        return None
+
+    def _admit_batch(self, reqs: List[_Pending]) -> List[SequenceResult]:
+        """Admit N same-bucket sequences with one batched prefill, padded
+        to a power of two by repeating the last row (same slot: the
+        duplicate writes are equal)."""
+        n = len(reqs)
+        bucket = self._bucket(max(len(r.prompt_ids) for r in reqs))
+        n_pad = 1
+        while n_pad < n:
+            n_pad *= 2
+        slots = [self._free_slots.pop(0) for _ in range(n)]
+        tokens = np.zeros((n_pad, bucket), np.int64)
+        lens = np.zeros((n_pad,), np.int32)
+        slot_arr = np.zeros((n_pad,), np.int64)
+        for i, r in enumerate(reqs):
+            tokens[i, :len(r.prompt_ids)] = r.prompt_ids
+            lens[i] = len(r.prompt_ids)
+            slot_arr[i] = slots[i]
+        for a in (tokens, lens, slot_arr):
+            a[n:] = a[n - 1]
+        with annotate("engine.prefill"):
+            self._count("engine.dispatches")
+            self._count("engine.prefill_dispatches")
+            self.cache, logits = llama.prefill_batch(
+                self.model_cfg, self.params, self.cache,
+                *(self._to_device(a) for a in (tokens, lens, slot_arr)))
+            firsts = sample_tokens(logits, self._gen, self.sampling)
+        self._count("engine.prefill_tokens", int(lens[:n].sum()))
+        self._count("engine.batched_admissions", n)
+        if any(r.grammar is not None for r in reqs):
+            # a grammar member makes the whole group synchronous
+            finished: List[SequenceResult] = []
+            (firsts_host,) = self._fetch(firsts)
+            for i, req in enumerate(reqs):
+                early = self._activate(req, slots[i], logits[i:i + 1],
+                                       int(firsts_host[i]))
+                if early is not None:
+                    finished.append(early)
+            return finished
+        for i, req in enumerate(reqs):
+            st = self._preactivate(req, slots[i])
+            self._dev_edit_token(slots[i], firsts[i])
+            self._admit_pending.append((st, firsts, i))
+        return []
+
+    def _preactivate(self, req: _Pending, slot: int) -> _Active:
+        """Register the slot and its length (the first token commits
+        separately)."""
+        n = len(req.prompt_ids)
+        st = _Active(seq_id=req.seq_id, slot=slot, prompt_tokens=n,
+                     max_new_tokens=req.max_new_tokens,
+                     stop_strings=req.stop_strings, grammar=req.grammar,
+                     priority=req.priority)
+        self._active[slot] = st
+        self.lengths[slot] = n
+        self._dev_edit_len(slot, n)
+        return st
+
+    def _activate(self, req: _Pending, slot: int, logits_1v,
+                  first_token: int) -> Optional[SequenceResult]:
+        """Synchronous activation: grammar-constrain the first token,
+        register the slot, retire at once if it is already terminal."""
+        st = self._preactivate(req, slot)
+        token = first_token
+        if st.grammar is not None:
+            remaining = min(st.max_new_tokens,
+                            self.engine_cfg.max_seq_len
+                            - st.prompt_tokens - 1)
+            token = self._grammar_first_token(st.grammar, logits_1v, token,
+                                              remaining)
+            st.grammar.advance(token)
+        return self._commit_first(st, token)
+
+    def _retire(self, slot: int, reason: str) -> SequenceResult:
+        st = self._active.pop(slot)
+        if self._deadlines:
+            self._deadlines.pop(st.seq_id, None)
+        self._free_slots.append(slot)
+        # a freed slot's length goes back to 0 (the scan advances idle
+        # slots too; writes past the row clamp to its last position)
+        self.lengths[slot] = 0
+        self._dev_edit_len(slot, 0)
+        # a crash-restored sequence's prompt carried its earlier tokens:
+        # report against the ORIGINAL prompt with them stitched back
+        orig_prompt = self._prompts.pop(st.seq_id, None)
+        generated = self._resumed.pop(st.seq_id, []) + st.generated
+        return SequenceResult(
+            seq_id=st.seq_id, token_ids=list(generated),
+            text=self._final_text(generated, reason, st.stop_strings),
+            finish_reason=reason,
+            prompt_tokens=(len(orig_prompt) if orig_prompt is not None
+                           else st.prompt_tokens),
+            completion_tokens=len(generated))

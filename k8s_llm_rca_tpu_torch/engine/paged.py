@@ -32,9 +32,10 @@
   gathered prefix pages (``paged_prefill_chunk_batch``).
   ``prefill_chunk_budget`` prefills a long prompt one page-aligned chunk
   per tick through the same function.
-- ``speculative_k`` verifies n-gram drafts (``engine/speculative.py``)
-  with one multi-token step (``paged_decode_multi``) and commits the
-  longest agreeing prefix plus one token: greedy-exact.
+- ``speculative_k`` verifies n-gram drafts, or a draft model's
+  (``draft_model=``, ``engine/speculative.py::ModelDraft``), with one
+  multi-token step (``paged_decode_multi``) and commits the longest
+  agreeing prefix plus one token: greedy-exact.
 - Hits, chunks and verification attend through ``attend_over_pages``: on
   the card the pages gather into a contiguous buffer indexed by absolute
   position and ``ops.flash_attention`` attends a query chunk at a per-row
@@ -62,8 +63,8 @@
   takes the whole free list for one tick, "stall" advances the clock;
   all between ticks, on the host, outside any captured region.
 
-Not ported yet, and refused loudly when asked for: draft-model
-speculation and the TP/PP/CP/EP/FSDP meshes (ROADMAP Queue 1), and the
+Not ported yet, and refused loudly when asked for: the TP/PP/CP/EP/FSDP
+meshes (ROADMAP Queue 1 item 10), and the
 disaggregated handoff's ``export_run``/``adopt_run`` (item 11).
 """
 
@@ -77,14 +78,14 @@ import torch
 
 from k8s_llm_rca_tpu_torch.config import EngineConfig, ModelConfig
 from k8s_llm_rca_tpu_torch.engine.engine import (
-    EngineBase, SequenceResult, _Active, _Pending, dfa_greedy_multi,
-    dfa_scan_step,
+    EngineBase, SequenceResult, _Active, _Pending, check_params_device,
+    dfa_greedy_multi, dfa_scan_step,
 )
 from k8s_llm_rca_tpu_torch.engine.graphs import DecodeGraphs
 from k8s_llm_rca_tpu_torch.engine.prefix import (
     CACHE_OWNER, PrefixCache, PrefixStore, _page_keys,
 )
-from k8s_llm_rca_tpu_torch.engine.speculative import DRAFT_MODEL_ITEM
+from k8s_llm_rca_tpu_torch.engine.speculative import setup_draft
 from k8s_llm_rca_tpu_torch.engine.sampling import (
     SamplingParams, sample_tokens, sample_tokens_masked,
 )
@@ -776,12 +777,6 @@ class PagedInferenceEngine(EngineBase):
                  cuda_graphs: bool = True, draft_model=None, tp_mesh=None,
                  cp_mesh=None, ep_mesh=None, pp_mesh=None, fsdp_mesh=None,
                  prefix_store: Optional[PrefixStore] = None):
-        if draft_model is not None:
-            raise NotImplementedError(
-                f"draft-model speculation (draft_model=) runs its draft on "
-                f"the contiguous engine, which is not ported yet (ROADMAP "
-                f"{DRAFT_MODEL_ITEM}); n-gram drafts (speculative_k > 0) "
-                f"are")
         if any(m is not None for m in (tp_mesh, cp_mesh, ep_mesh, pp_mesh,
                                        fsdp_mesh)):
             raise NotImplementedError(
@@ -789,10 +784,7 @@ class PagedInferenceEngine(EngineBase):
                 "Queue 1 item 10, multi-GPU)")
         check_engine_config(engine_cfg, prefix_store is not None)
         self.device = resolve_device(device)
-        for leaf in _leaves(params):
-            if leaf.device != self.device:
-                raise ValueError(f"params live on {leaf.device}, the engine "
-                                 f"on {self.device}")
+        check_params_device(params, self.device)
         self.model_cfg = model_cfg
         self.engine_cfg = engine_cfg
         self.params = params
@@ -802,6 +794,11 @@ class PagedInferenceEngine(EngineBase):
                                        top_p=engine_cfg.top_p)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(engine_cfg.seed)
+        self._draft = setup_draft(draft_model, model_cfg, engine_cfg,
+                                  self.device)
+        if self._draft is not None:
+            # the draft scan's token fetch is one of this engine's syncs
+            self._draft.on_sync = lambda: self._count("engine.d2h_syncs")
 
         b = engine_cfg.max_batch
         self.page_size = engine_cfg.page_size
@@ -906,13 +903,6 @@ class PagedInferenceEngine(EngineBase):
 
     # --------------------------------------------- device-side operands
 
-    def _upload(self, i: int, array: np.ndarray) -> torch.Tensor:
-        """Copy a host array into static operand ``i``.  The copy is
-        asynchronous on the card: the staging buffer is rewritten only
-        after the tick's fetch, which waits for it."""
-        self._staging[i].numpy()[...] = array
-        return self._operands[i].copy_(self._staging[i], non_blocking=True)
-
     def _device_state(self):
         """The decode operands (tokens, lengths, block tables) as the
         engine's static int32 device buffers.  Without ``host_overlap``
@@ -932,19 +922,6 @@ class PagedInferenceEngine(EngineBase):
                 if self._active.get(st.slot) is st:
                     out[0][st.slot] = t[i]
         return out
-
-    def _invalidate_device_state(self) -> None:
-        self._dev_dirty = True
-
-    def _dev_edit_token(self, slot: int, token) -> None:
-        """Mirror one ``cur_tokens`` write (a host int or a device scalar)
-        into the resident operand."""
-        if self._overlap and not self._dev_dirty:
-            self._operands[0][slot] = token
-
-    def _dev_edit_len(self, slot: int, n: int) -> None:
-        if self._overlap and not self._dev_dirty:
-            self._operands[1][slot] = n
 
     def _dev_edit_bt_row(self, slot: int) -> None:
         """Mirror one block-table row (growth, admission, retirement): a
@@ -971,18 +948,6 @@ class PagedInferenceEngine(EngineBase):
                 self._inflight_n[s] = n
             else:
                 self._inflight_n.pop(s, None)
-
-    def _overlap_post_commit(self, slot: int, token: int) -> None:
-        # the host mirrors catch up with the device: the resident state
-        # stays clean
-        self.lengths[slot] += 1
-        self.cur_tokens[slot] = token
-
-    def _note_first_token(self, slot: int, token: int,
-                          update_dev: bool) -> None:
-        self.cur_tokens[slot] = token
-        if update_dev:
-            self._dev_edit_token(slot, token)
 
     def _decode(self, key: tuple, fn):
         """Run a decode function: eagerly, or through its bucket's CUDA
@@ -1411,9 +1376,6 @@ class PagedInferenceEngine(EngineBase):
         table[:len(cached)] = cached
         table[len(cached):len(cached) + len(pages)] = pages
         return table
-
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
 
     def _prefill_chunk(self, tokens: np.ndarray, chunk_len: int,
                        prefix_len: int, table: np.ndarray,
@@ -2134,13 +2096,3 @@ class PagedInferenceEngine(EngineBase):
             finish_reason=reason, prompt_tokens=len(orig_prompt),
             completion_tokens=len(generated))
 
-
-def _leaves(tree):
-    """Every tensor of a param tree (a quantized weight's q and scale)."""
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield from (tree if isinstance(tree, tuple) else (tree,))

@@ -19,7 +19,7 @@ every token and the top-k router weights zeroing the rest, as in JAX.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +27,10 @@ import torch.nn.functional as F
 
 from k8s_llm_rca_tpu_torch.config import ModelConfig
 from k8s_llm_rca_tpu_torch.models.quant import (
-    QuantTensor, QuantTensor4, gather_rows,
+    QuantTensor, QuantTensor4, dequant_kv, gather_rows, quantize_kv,
+)
+from k8s_llm_rca_tpu_torch.ops.attention import (
+    decode_attention, decode_attention_multi,
 )
 from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
 from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
@@ -308,3 +311,220 @@ def _prefill_batch_kv(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         vs.append(v.reshape(n, s_pad, cfg.kv_dim))
     last = x[torch.arange(n, device=dev), lengths.long() - 1][:, None]
     return torch.stack(ks), torch.stack(vs), _logits(cfg, params, last)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# the contiguous KV cache (InferenceEngine's): one [S] row per slot
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    """k/v [L, B, S, kv_dim] (int4: [L, B, S, kv_dim / 2], split-half
+    packed), with per-token scales [L, B, S] in the model dtype when
+    quantized.  The port's functions write it IN PLACE and return it, for
+    the JAX call shape."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def max_seq_len(self) -> int:
+        return self.k.shape[2]
+
+
+def init_cache(cfg: ModelConfig, n_slots: int,
+               max_seq_len: Optional[int] = None,
+               kv_dtype: Optional[str] = None, device=None) -> KVCache:
+    """A zeroed contiguous cache on ``device`` (``None`` = the card):
+    ``kv_dtype`` None (the model dtype), "int8" or "int4" (per-token
+    scales, as JAX's)."""
+    device = resolve_device(device)
+    s = max_seq_len or cfg.max_seq_len
+    if s > cfg.max_seq_len:
+        # positions past the RoPE table would clamp to its last row
+        raise ValueError(
+            f"cache max_seq_len {s} exceeds model max_seq_len {cfg.max_seq_len}")
+    if kv_dtype not in (None, "int8", "int4"):
+        raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (None, 'int8' "
+                         f"or 'int4')")
+    dtype = torch_dtype(cfg.dtype)
+    shape = (cfg.n_layers, n_slots, s, cfg.kv_dim)
+    if kv_dtype is None:
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device))
+    if kv_dtype == "int4":
+        if cfg.kv_dim % 2:
+            raise ValueError(f"int4 KV needs an even kv_dim, not {cfg.kv_dim}")
+        shape = (*shape[:3], cfg.kv_dim // 2)
+
+    def zeros(sh, dt):
+        return torch.zeros(sh, dtype=dt, device=device)
+
+    return KVCache(k=zeros(shape, torch.int8), v=zeros(shape, torch.int8),
+                   k_scale=zeros(shape[:3], dtype),
+                   v_scale=zeros(shape[:3], dtype))
+
+
+def _kv_packed(cfg: ModelConfig, cache: KVCache) -> bool:
+    """True when the cache stores nibble-packed int4 KV (kv_dim halved)."""
+    return cache.k.shape[-1] != cfg.kv_dim
+
+
+def _store_kv(cfg: ModelConfig, cache: KVCache, li, index,
+              k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+    """Write new k/v rows ([..., kv_dim], model dtype) into layer(s) ``li``
+    of the cache at ``index`` (a tuple indexing the [B, S] axes),
+    quantizing per token when the cache is int8/int4."""
+    if cache.quantized:
+        packed = _kv_packed(cfg, cache)
+        k_new, ks = quantize_kv(k_new, packed)
+        v_new, vs = quantize_kv(v_new, packed)
+        cache.k_scale[(li,) + index] = ks
+        cache.v_scale[(li,) + index] = vs
+    cache.k[(li,) + index] = k_new
+    cache.v[(li,) + index] = v_new
+
+
+def _write_prefill_kv(cfg: ModelConfig, cache: KVCache, new_k: torch.Tensor,
+                      new_v: torch.Tensor, slot: int) -> KVCache:
+    """Write one sequence's full-depth prefill KV (new_k [L, S_pad, n_kv,
+    d]) into cache slot ``slot`` at offset 0."""
+    n_layers, s_pad = new_k.shape[:2]
+    _store_kv(cfg, cache, slice(None), (int(slot), slice(0, s_pad)),
+              new_k.reshape(n_layers, s_pad, cfg.kv_dim),
+              new_v.reshape(n_layers, s_pad, cfg.kv_dim))
+    return cache
+
+
+def prefill(cfg: ModelConfig, params: Params, cache: KVCache,
+            tokens: torch.Tensor, length: int, slot: int
+            ) -> Tuple[KVCache, torch.Tensor]:
+    """Prefill ONE right-padded sequence (tokens [1, S_pad], ``length``
+    valid) into cache slot ``slot``; attention is ``ops.flash_attention``
+    (the kernel on the card).  Returns (cache, logits [1, V] of the last
+    valid token)."""
+    new_k, new_v, logits = prefill_kv(cfg, params, tokens, length)
+    return _write_prefill_kv(cfg, cache, new_k, new_v, slot), logits
+
+
+def prefill_batch(cfg: ModelConfig, params: Params, cache: KVCache,
+                  tokens: torch.Tensor, lengths: torch.Tensor,
+                  slots: torch.Tensor) -> Tuple[KVCache, torch.Tensor]:
+    """Prefill N right-padded sequences (tokens [N, S_pad], lengths [N])
+    into cache slots ``slots`` [N] in one batched forward.  Duplicate
+    slots are allowed only for identical rows (the admission batcher pads
+    a batch by repeating its last row: the duplicate writes are equal).
+    Returns (cache, logits [N, V] at each row's last valid token)."""
+    s_pad = tokens.shape[1]
+    new_k, new_v, logits = _prefill_batch_kv(cfg, params, tokens, lengths)
+    _store_kv(cfg, cache, slice(None), (slots.long(), slice(0, s_pad)),
+              new_k, new_v)
+    return cache, logits
+
+
+def _token_index(cache: KVCache, lengths: torch.Tensor, t: int = 1):
+    """(slot, position) index of each slot's next ``t`` cache rows.  A
+    position past the cache writes its last row instead, as a JAX
+    ``dynamic_update_slice`` clamps its start: only slots that are not
+    live reach it, and the row is rewritten before it is attended."""
+    b = lengths.shape[0]
+    s_max = cache.max_seq_len
+    start = torch.clamp(lengths.long(), max=s_max - t)
+    rows = torch.arange(b, device=lengths.device)[:, None]
+    return rows, start[:, None] + torch.arange(t, device=lengths.device)
+
+
+def _cached_layer(cfg: ModelConfig, cache: KVCache, li: int, dtype):
+    """Layer ``li``'s K and V as [B, S, n_kv, d] in ``dtype`` (dequantized
+    from an int8/int4 cache, as JAX's ``_dequant_layer`` at the read)."""
+    b, s = cache.k.shape[1:3]
+    packed = _kv_packed(cfg, cache)
+    scales = ((None, None) if not cache.quantized
+              else (cache.k_scale[li], cache.v_scale[li]))
+    return tuple(
+        dequant_kv(kv[li], sc, dtype, packed).reshape(
+            b, s, cfg.n_kv_heads, cfg.head_dim)
+        for kv, sc in zip((cache.k, cache.v), scales))
+
+
+def decode_multi(cfg: ModelConfig, params: Params, cache: KVCache,
+                 tokens: torch.Tensor, lengths: torch.Tensor
+                 ) -> Tuple[KVCache, torch.Tensor]:
+    """Multi-token decode step (speculative verification): tokens [B, T],
+    tokens[b, 0] the current token and the rest drafts, written at
+    lengths[b]..lengths[b] + T - 1 before attention; query i attends to
+    lengths[b] + 1 + i positions (``ops.attention.decode_attention_multi``,
+    plain torch as JAX computes it outside any kernel).  Rejected drafts
+    need no rollback: attention masks by length.  Returns (cache, logits
+    [B, T, V])."""
+    b, t = tokens.shape
+    dev = tokens.device
+    dtype = torch_dtype(cfg.dtype)
+    angles = _angles(cfg, dev)
+    positions = lengths.long()[:, None] + torch.arange(t, device=dev)[None, :]
+    x = gather_rows(params["embedding"], tokens.long(), dtype).to(dtype)
+    index = _token_index(cache, lengths, t)
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = _decode_qkv(cfg, layer, x, angles, positions)
+        _store_kv(cfg, cache, li, index, k.reshape(b, t, cfg.kv_dim),
+                  v.reshape(b, t, cfg.kv_dim))
+        k_all, v_all = _cached_layer(cfg, cache, li, dtype)
+        attn = decode_attention_multi(q, k_all, v_all, lengths + 1)
+        x = _decode_finish(cfg, layer, x, attn.reshape(b, t, cfg.q_dim))
+    return cache, _logits(cfg, params, x)
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: KVCache,
+                tokens: torch.Tensor, lengths: torch.Tensor
+                ) -> Tuple[KVCache, torch.Tensor]:
+    """One decode step for ALL slots: tokens [B] current tokens, lengths
+    [B] tokens already cached; the new token's KV is written at
+    lengths[b] and attends to lengths[b] + 1 positions
+    (``ops.attention.decode_attention``).  Returns (cache, logits [B, V])."""
+    b = tokens.shape[0]
+    dev = tokens.device
+    dtype = torch_dtype(cfg.dtype)
+    angles = _angles(cfg, dev)
+    x = gather_rows(params["embedding"], tokens.long()[:, None], dtype).to(dtype)
+    index = _token_index(cache, lengths)
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = _decode_qkv(cfg, layer, x, angles, lengths.long()[:, None])
+        _store_kv(cfg, cache, li, index, k.reshape(b, 1, cfg.kv_dim),
+                  v.reshape(b, 1, cfg.kv_dim))
+        k_all, v_all = _cached_layer(cfg, cache, li, dtype)
+        attn = decode_attention(q, k_all, v_all, lengths + 1)
+        x = _decode_finish(cfg, layer, x, attn.reshape(b, 1, cfg.q_dim))
+    return cache, _logits(cfg, params, x)[:, 0]
+
+
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scoring forward: tokens [B, S] -> logits [B, S, V] (fp32), causal
+    attention through ``ops.flash_attention``."""
+    b, s = tokens.shape
+    dev = tokens.device
+    if seq_lens is None:
+        seq_lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+    angles = _angles(cfg, dev)
+    positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+    dtype = torch_dtype(cfg.dtype)
+    x = gather_rows(params["embedding"], tokens, dtype).to(dtype)
+    for layer in params["layers"]:
+        x, _, _ = _block_prefill(cfg, layer, x, angles, positions, seq_lens)
+    return _logits(cfg, params, x)
+
+
+def prefill_cp(*args, **kwargs):
+    """Context-parallel prefill over a device mesh: not ported."""
+    raise NotImplementedError(
+        "context-parallel prefill (prefill_cp) needs a device mesh, which is "
+        "not ported yet (ROADMAP Queue 1 item 10, multi-GPU)")
+
+
+prefill_kv_cp = prefill_cp

@@ -142,6 +142,7 @@ def gather_rows(w: Any, idx: torch.Tensor,
 
 
 # weights quantized per row (axis 0): their channel axis is the vocab row
+# (any key containing one of these names)
 _ROW_QUANT = ("embedding", "lm_head")
 
 
@@ -169,7 +170,9 @@ def quantize_params(params: Any, compute_dtype=torch.bfloat16,
         if (not isinstance(node, torch.Tensor) or node.dim() < 2
                 or not node.is_floating_point()):
             return node
-        if any(name in path for name in _ROW_QUANT):
+        # a key CONTAINING a row-quant name (JAX matches against the
+        # path's repr): the encoder's word/position/type embeddings too
+        if any(name in key for key in path for name in _ROW_QUANT):
             axis = 0
         elif node.dim() >= 3:
             axis = (0, -1)

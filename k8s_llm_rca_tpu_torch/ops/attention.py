@@ -70,24 +70,9 @@ def decode_attention(
     v_cache: torch.Tensor,    # [B, S_max, n_kv, d]
     lengths: torch.Tensor,    # [B] tokens valid in cache (incl. current)
 ) -> torch.Tensor:
-    """Single-step decode attention over a dense cache.  [B, 1, n_heads, d]."""
-    s_max, n_kv, d = k_cache.shape[1:]
-    n_heads = q.shape[2]
-    n_rep = n_heads // n_kv
-    k = repeat_kv(k_cache, n_rep)
-    v = repeat_kv(v_cache, n_rep)
-
-    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32))
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    dev = q.device
-    k_pos = torch.arange(s_max, device=dev)[None, None, :]       # [1, 1, S]
-    limit = lengths.to(dev)[:, None, None]                       # [B, 1, 1]
-    mask = (k_pos < limit)[:, None]                              # [B, 1, 1, S]
-    logits = torch.where(mask, logits, torch.tensor(NEG_INF, device=dev))
-    probs = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
-    probs = probs / torch.sum(probs, dim=-1, keepdim=True)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
-    return out.to(q.dtype)
+    """Single-step decode attention over a dense cache.  [B, 1, n_heads, d].
+    The T = 1 case of ``decode_attention_multi``, as in JAX."""
+    return decode_attention_multi(q, k_cache, v_cache, lengths)
 
 
 def decode_attention_multi(
@@ -98,22 +83,27 @@ def decode_attention_multi(
 ) -> torch.Tensor:
     """Multi-token decode attention (speculative verification): query i of
     slot b attends to cache positions < lengths[b] + i.  [B, T, n_heads, d]
-    (``k8s_llm_rca_tpu/ops/attention.py::decode_attention_multi``)."""
-    s_max, n_kv, d = k_cache.shape[1:]
+    (``k8s_llm_rca_tpu/ops/attention.py::decode_attention_multi``).  The
+    query heads of one kv head attend as a group (head g * n_rep + r reads
+    kv head g, as ``repeat_kv`` lays them out), so the cache is not copied
+    n_rep times: only once, to fp32, where JAX computes."""
+    b, s_max, n_kv, d = k_cache.shape
     t, n_heads = q.shape[1], q.shape[2]
     n_rep = n_heads // n_kv
-    k = repeat_kv(k_cache, n_rep)
-    v = repeat_kv(v_cache, n_rep)
 
     scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32))
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    qg = q.float().reshape(b, t, n_kv, n_rep, d)
+    logits = torch.einsum("btgrd,bsgd->bgrts", qg,
+                          k_cache.float()) * scale          # [B,G,R,T,S]
     dev = q.device
     k_pos = torch.arange(s_max, device=dev)[None, None, :]       # [1, 1, S]
     limit = (lengths.to(dev)[:, None, None]
              + torch.arange(t, device=dev)[None, :, None])       # [B, T, 1]
-    mask = (k_pos < limit)[:, None]                              # [B, 1, T, S]
-    logits = torch.where(mask, logits, torch.tensor(NEG_INF, device=dev))
+    mask = (k_pos < limit)[:, None, None]                        # [B,1,1,T,S]
+    # a Python scalar, not a device tensor made from one: that copy from
+    # pageable memory would synchronize the stream at every layer
+    logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
     probs = probs / torch.sum(probs, dim=-1, keepdim=True)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
-    return out.to(q.dtype)
+    out = torch.einsum("bgrts,bsgd->btgrd", probs, v_cache.float())
+    return out.reshape(b, t, n_heads, d).to(q.dtype)

@@ -11,3 +11,15 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     normed = xf * torch.reciprocal(torch.sqrt(var + eps))
     return (normed * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-12) -> torch.Tensor:
+    """LayerNorm over the last axis with fp32 statistics (biased variance,
+    as ``jnp.var``), cast back to x's dtype."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+    normed = (xf - mean) * torch.reciprocal(torch.sqrt(var + eps))
+    out = normed * weight.float() + bias.float()
+    return out.to(x.dtype)

@@ -14,9 +14,11 @@ policy attached (``faults/policy.py::ResiliencePolicy``) every stage walks
 a graceful-degradation ladder (full engine run -> one reduced-token-budget
 attempt -> scripted-oracle fallback -> annotated partial result) and the
 incident dict carries a ``degraded`` list naming every rung drop; without
-one, the control flow is the fail-fast one above.  The JAX pipeline's
-embedding reranker (``rca/rerank.py``) is not ported (ROADMAP Queue 1 item
-7): passing one raises ``NotImplementedError``.
+one, the control flow is the fail-fast one above.  With a ``reranker``
+(``rca/rerank.py::Reranker``) each metapath's records are ordered by
+embedding relevance to the error message (``analysis["rerank_scores"]``,
+capped at ``RCAConfig.rerank_top_k``) and the audits keep each STATE
+node's ``rerank_fields_top_k`` most relevant fields.
 
 The incident is a **resumable state machine**: ``incident_steps`` is a
 generator that SUBMITS every LLM run and yields it instead of blocking in
@@ -60,7 +62,8 @@ class RCAPipeline:
     state_executor: Any
     cfg: RCAConfig = field(default_factory=RCAConfig)
     sweep: SweepConfig = field(default_factory=SweepConfig)
-    # the JAX pipeline's embedding reranker: unported, None only
+    # optional rca.rerank.Reranker: orders statepath records by embedding
+    # relevance and shapes the audit prompts' field projection
     reranker: Optional[Any] = None
     # optional faults.policy.ResiliencePolicy: every stage then runs a
     # graceful-degradation ladder (full engine run -> reduced token budget
@@ -70,10 +73,6 @@ class RCAPipeline:
     resilience: Optional[Any] = None
 
     def __post_init__(self):
-        if self.reranker is not None:
-            raise NotImplementedError(
-                "RCAPipeline(reranker=...) needs rca/rerank.py, which is not "
-                "ported yet (ROADMAP Queue 1 item 7, rerank and loading)")
         # vocabulary first: the locator's structured-output schema constrains
         # every kind field to it (locator.plan_schema)
         self.native_kinds, self.external_kinds = \
@@ -430,12 +429,19 @@ class RCAPipeline:
                                     metapath_str, error_message, analysis)),
                                 ("skipped", lambda: []),
                             ]), run_ids)
+                if self.reranker is not None and len(records) > 1:
+                    top_k = self.cfg.rerank_top_k or None
+                    ranked = self.reranker.rerank_records(
+                        error_message, records, top_k)
+                    records = [r for r, _ in ranked]
+                    analysis["rerank_scores"] = [s for _, s in ranked]
                 analysis["statepath"] = []
                 for record in records:
                     def _audit_steps(record=record):
                         return auditor.check_statepath_steps(
                             self.state_executor, self.analyzer, record,
                             concurrent=self.cfg.concurrent_audits,
+                            reranker=self.reranker,
                             fields_top_k=self.cfg.rerank_fields_top_k)
 
                     with METRICS.timer("rca.stage.audit"), \

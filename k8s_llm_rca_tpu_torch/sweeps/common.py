@@ -44,8 +44,7 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                              "stepwise)")
     parser.add_argument("--paged", action="store_true",
                         help="paged KV cache engine (preemption + prefix "
-                             "caching); the contiguous-slot engine is not "
-                             "ported yet")
+                             "caching)")
     quant = parser.add_mutually_exclusive_group()
     quant.add_argument("--int8", action="store_true",
                        help="weight-only int8 quantization")
@@ -56,7 +55,7 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         help="quantized KV cache (default: model dtype)")
     parser.add_argument("--weights", default=None,
                         help="HF safetensors file/dir to load real weights "
-                             "from (not ported yet; default: random init)")
+                             "from (default: random init)")
     parser.add_argument("--neo4j-meta", default=None,
                         help="bolt://host:port for a live metagraph "
                              "(default: canned in-memory fixture)")
@@ -73,21 +72,13 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
 
 
 def build_service(args, device=None) -> AssistantService:
-    """The service of ``--backend``: the scripted oracle, or the paged
-    engine on seeded random weights on ``device`` (default ``--device``).
-    The engine's byte tokenizer spans the model's vocabulary, as the
-    soak engine's does."""
+    """The service of ``--backend``: the scripted oracle, or the engine
+    (paged with ``--paged``, else the contiguous-slot engine) on
+    ``--weights`` or seeded random weights, on ``device`` (default
+    ``--device``).  The engine's byte tokenizer spans the model's
+    vocabulary, as the soak engine's does."""
     if args.backend == "oracle":
         return AssistantService(OracleBackend(get_tokenizer()))
-    if not getattr(args, "paged", False):
-        raise NotImplementedError(
-            "--backend engine without --paged builds the contiguous-slot "
-            "engine, which is not ported yet (ROADMAP Queue 1 item 9); "
-            "pass --paged")
-    if getattr(args, "weights", None):
-        raise NotImplementedError(
-            "--weights loads HF safetensors, which is not ported yet "
-            "(ROADMAP Queue 1 item 7, rerank and loading)")
     import torch
 
     from k8s_llm_rca_tpu_torch.engine import make_engine
@@ -97,8 +88,13 @@ def build_service(args, device=None) -> AssistantService:
 
     dev = resolve_device(device if device is not None else args.device)
     model_cfg = MODEL_REGISTRY.get(args.model, TINY)
-    params = llama.init_params(
-        model_cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if getattr(args, "weights", None):
+        from k8s_llm_rca_tpu_torch.models.loader import load_llama
+
+        params = load_llama(model_cfg, args.weights, dev)
+    else:
+        params = llama.init_params(
+            model_cfg, torch.Generator(device=dev).manual_seed(0), dev)
     if getattr(args, "int8", False) or getattr(args, "int4", False):
         from k8s_llm_rca_tpu_torch.models.quant import quantize_params
 
@@ -111,7 +107,8 @@ def build_service(args, device=None) -> AssistantService:
         log.warning("clamping --max-seq-len %d to %s's model maximum %d",
                     args.max_seq_len, model_cfg.name, max_seq)
     ecfg_kw = dict(max_batch=args.max_batch, max_seq_len=max_seq,
-                   paged=True, kv_cache_dtype=getattr(args, "kv_dtype", None))
+                   paged=getattr(args, "paged", False),
+                   kv_cache_dtype=getattr(args, "kv_dtype", None))
     if getattr(args, "decode_chunk", None) is not None:
         ecfg_kw["decode_chunk"] = args.decode_chunk   # else EngineConfig's
     engine = make_engine(model_cfg, EngineConfig(**ecfg_kw), params,

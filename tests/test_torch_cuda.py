@@ -1276,3 +1276,117 @@ def test_cli_engine_defaults_to_the_card(card):
     engine = build_service(args).backend.engine
     assert engine.device.type == "cuda"
     assert engine.params["final_norm"].is_cuda
+
+
+# ------------------------------------------------------------ slice 14
+
+
+def _card_tree(tree):
+    """A param tree on the card (quantized leaves field by field)."""
+    if isinstance(tree, dict):
+        return {k: _card_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_card_tree(v) for v in tree]
+    return _card_leaf(tree)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encoder_on_the_card_equals_the_cpu(card, dtype):
+    """Slice 14: TINY_ENCODER's embeddings on the card against the CPU on
+    the same seeded weights (fp32 atol 1e-4, TF32 off; bf16 cosine above
+    0.999), padded rows masked."""
+    import dataclasses
+
+    from k8s_llm_rca_tpu_torch.config import TINY_ENCODER
+    from k8s_llm_rca_tpu_torch.models import encoder
+
+    cfg = dataclasses.replace(TINY_ENCODER, dtype=dtype)
+    cpu = encoder.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (3, 40),
+                         generator=torch.Generator().manual_seed(1))
+    lens = torch.tensor([40, 17, 1])
+    want = encoder.embed(cfg, cpu, toks, lens)
+    got = encoder.embed(cfg, _card_tree(cpu), toks.cuda(), lens.cuda()).cpu()
+    if dtype == "float32":
+        assert (got - want).abs().max().item() <= 1e-4
+    else:
+        assert (got * want).sum(-1).min().item() > 0.999
+
+
+@pytest.mark.parametrize("kv", [None, "int8", "int4"])
+def test_contiguous_engine_on_the_card_equals_the_cpu(card, kv):
+    """Slice 14: the contiguous-slot engine (TINY fp32, its projections
+    x3, stepwise and at decode_chunk 8) gives the CPU engine's greedy
+    streams on the card, with one flash launch per layer and prefill
+    dispatch and no paged-attention launch."""
+    from k8s_llm_rca_tpu_torch.config import TINY, EngineConfig
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cpu = init_params(TINY, torch.Generator().manual_seed(0), "cpu")
+    for layer in cpu["layers"]:
+        for name in layer:
+            if name.startswith("w"):
+                layer[name] = layer[name] * 3.0
+    prompts = [list(range(1, n)) for n in (6, 40, 130, 70)]
+    tok = get_tokenizer(vocab_size=TINY.vocab_size)
+    for chunk in (1, 8):
+        ecfg = EngineConfig(max_batch=4, max_seq_len=256, max_new_tokens=20,
+                            prefill_buckets=(64, 128, 256), decode_chunk=chunk,
+                            kv_cache_dtype=kv)
+        want = [r.token_ids for r in make_engine(
+            TINY, ecfg, cpu, tok, device="cpu").generate(prompts)]
+        flash0, paged0 = flash_attention.launches, paged_attention.launches
+        eng = make_engine(TINY, ecfg, _card_tree(cpu), tok)
+        got = [r.token_ids for r in eng.generate(prompts)]
+        assert got == want
+        assert flash_attention.launches - flash0 == TINY.n_layers * int(
+            eng._counts["engine.prefill_dispatches"])
+        assert paged_attention.launches == paged0
+
+
+def test_draft_model_on_the_card_equals_greedy(card):
+    """Slice 14: ``draft_model=`` (the target itself, every draft
+    accepted) on the card's contiguous and paged engines gives plain
+    greedy's streams."""
+    from k8s_llm_rca_tpu_torch.config import TINY, EngineConfig
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    params = init_params(TINY, torch.Generator(device="cuda").manual_seed(0))
+    tok = get_tokenizer(vocab_size=TINY.vocab_size)
+    prompts = [list(range(1, n)) for n in (6, 40, 70)]
+    kw = dict(max_batch=4, max_seq_len=256, max_new_tokens=20,
+              decode_chunk=1, page_size=16, num_pages=64,
+              prefix_cache=False)
+    plain = [r.token_ids for r in make_engine(
+        TINY, EngineConfig(**kw), params, tok).generate(prompts)]
+    for paged in (False, True):
+        eng = make_engine(TINY, EngineConfig(**kw, paged=paged,
+                                             speculative_k=3), params, tok,
+                          draft_model=(TINY, params))
+        assert [r.token_ids for r in eng.generate(prompts)] == plain
+        assert eng._counts["engine.spec_accepted"] > 0
+
+
+def test_load_llama_onto_the_card_is_bit_equal(card, tmp_path):
+    """Slice 14: a bf16 tree exported to a two-shard HF dir and loaded onto
+    the card comes back bit-equal, every projection contiguous."""
+    from k8s_llm_rca_tpu_torch.config import TINY
+    from k8s_llm_rca_tpu_torch.models import llama, loader
+
+    cfg = TINY.replace(dtype="bfloat16", tie_embeddings=False)
+    params = llama.init_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(0))
+    loader.write_sharded_safetensors(str(tmp_path / "ck"),
+                                     loader.llama_params_to_hf(cfg, params), 2)
+    back = loader.load_llama(cfg, str(tmp_path / "ck"))
+    for name in ("embedding", "lm_head", "final_norm"):
+        assert torch.equal(back[name].view(torch.int16),
+                           params[name].view(torch.int16))
+    for a, b in zip(params["layers"], back["layers"]):
+        for k in a:
+            assert b[k].is_cuda and b[k].is_contiguous()
+            assert torch.equal(a[k].view(torch.int16), b[k].view(torch.int16))

@@ -132,6 +132,17 @@ def test_sources_cover_the_speculative_slice():
     assert {"engine/speculative.py", "engine/graphs.py"} <= names
 
 
+def test_sources_cover_the_loading_slice():
+    """Rerank, loading and the contiguous engine are the port's own
+    copies (the import test above holds them to no jax and no JAX
+    package)."""
+    names = {p.relative_to(PORT).as_posix() for p in SOURCES if PORT in
+             p.parents}
+    assert {"models/encoder.py", "models/loader.py", "rca/rerank.py",
+            "utils/checkpoint.py", "utils/tokenizer.py",
+            "engine/engine.py", "engine/speculative.py"} <= names
+
+
 def test_sources_cover_the_durability_slice():
     """Serving durability and the sweep drivers are the port's own copies
     (the import test above holds them to no jax and no JAX package)."""
@@ -185,17 +196,22 @@ def test_params_on_another_device_are_refused():
 
 
 UNPORTED = [
-    ({"paged": False}, "Queue 1 item 9"),
+    ({"paged": False}, {"tp_mesh": object()}, "Queue 1 item 10"),
 ]
 
 
-@pytest.mark.parametrize("over,item", UNPORTED,
-                         ids=[next(iter(o)) for o, _ in UNPORTED])
-def test_unported_engine_knob_raises(over, item):
+@pytest.mark.parametrize("over,kw,item", UNPORTED,
+                         ids=[next(iter(o)) for o, _, _ in UNPORTED])
+def test_unported_engine_knob_raises(over, kw, item):
+    """``paged=False`` builds the contiguous-slot engine (it raised
+    naming Queue 1 item 9 before that engine was ported); its device
+    meshes still raise, naming item 10."""
     cfg, ecfg, params, tok = _tiny_engine_args()
+    ecfg = dataclasses.replace(ecfg, **over)
+    assert type(make_engine(cfg, ecfg, params, tok, device="cpu")).__name__ \
+        == "InferenceEngine"
     with pytest.raises(NotImplementedError, match=item):
-        make_engine(cfg, dataclasses.replace(ecfg, **over), params, tok,
-                    device="cpu")
+        make_engine(cfg, ecfg, params, tok, device="cpu", **kw)
 
 
 _TIERED = {"prefix_cache": True}
@@ -236,10 +252,65 @@ def test_ported_engine_knob_is_accepted(over, tmp_path):
 
 
 def test_draft_model_raises_naming_item_9():
+    """``draft_model=`` raised naming Queue 1 item 9 until the contiguous
+    engine was ported; now the paged engine drafts with the model (here
+    the target itself, so every draft is accepted) and a draft with
+    another vocabulary is refused."""
     cfg, ecfg, params, tok = _tiny_engine_args(speculative_k=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    engine = make_engine(cfg, ecfg, params, tok, device="cpu",
+                         draft_model=(cfg, params))
+    plain = make_engine(cfg, dataclasses.replace(ecfg, speculative_k=0),
+                        params, tok, device="cpu")
+    prompt = [list(range(1, 30))]
+    assert engine.generate(prompt, 12)[0].token_ids == \
+        plain.generate(prompt, 12)[0].token_ids
+    assert engine._counts["engine.spec_accepted"] > 0
+    with pytest.raises(ValueError, match="draft vocab"):
         make_engine(cfg, ecfg, params, tok, device="cpu",
-                    draft_model=(cfg, params))
+                    draft_model=(cfg.replace(vocab_size=1024), params))
+
+
+def test_loading_needs_no_ml_dtypes_safetensors_or_orbax(tmp_path):
+    """The loader and the checkpoints run with ``ml_dtypes``,
+    ``safetensors``, ``orbax``, ``tokenizers`` and ``transformers``
+    blocked, as on the card machine: a bf16 safetensors round trip and a
+    param checkpoint round trip, in a fresh interpreter."""
+    script = f"""
+import importlib.abc, sys
+
+BLOCKED = ("jax", "jaxlib", "k8s_llm_rca_tpu", "ml_dtypes", "safetensors",
+           "orbax", "tokenizers", "transformers")
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == r or name.startswith(r + ".") for r in BLOCKED):
+            raise ImportError("blocked import of " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import torch
+from k8s_llm_rca_tpu_torch.config import TINY
+from k8s_llm_rca_tpu_torch.models import llama, loader
+from k8s_llm_rca_tpu_torch.models.quant import quantize_params
+from k8s_llm_rca_tpu_torch.utils import checkpoint
+cfg = TINY.replace(dtype="bfloat16", tie_embeddings=False)
+p = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+loader.write_sharded_safetensors({str(tmp_path / "ck")!r},
+                                 loader.llama_params_to_hf(cfg, p), 2)
+back = loader.load_llama(cfg, {str(tmp_path / "ck")!r}, "cpu")
+assert torch.equal(back["layers"][1]["wq"].view(torch.int16),
+                   p["layers"][1]["wq"].view(torch.int16))
+q = quantize_params(p, bits=4)
+checkpoint.save_params({str(tmp_path / "params")!r}, q)
+r = checkpoint.restore_params({str(tmp_path / "params")!r})
+assert torch.equal(r["layers"][0]["w_up"].q, q["layers"][0]["w_up"].q)
+print("ok")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
 
 
 def test_speculative_k_past_the_page_raises_like_jax():

@@ -122,8 +122,11 @@ def test_unported_pipeline_attachments_raise():
     svc = AssistantService(OracleBackend(get_tokenizer()))
     meta = InMemoryGraphExecutor(build_metagraph())
     state = InMemoryGraphExecutor(build_stategraph())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        RCAPipeline(svc, meta, state, reranker=object())
+    # a reranker raised naming Queue 1 item 7 until rerank was ported;
+    # now the pipeline keeps it (tests/test_torch_encoder.py runs it)
+    reranker = object()
+    assert RCAPipeline(svc, meta, state, reranker=reranker).reranker \
+        is reranker
     # a plan with scheduled faults needs concurrency 1, as in JAX
     from k8s_llm_rca_tpu_torch.config import RCAConfig
 

@@ -24,6 +24,7 @@ from k8s_llm_rca_tpu.sweeps import run_file as j_run_file
 from k8s_llm_rca_tpu_torch.models import llama
 from k8s_llm_rca_tpu_torch.models.llama import params_from_numpy
 from k8s_llm_rca_tpu_torch.sweeps import run_all, run_file, stage
+from k8s_llm_rca_tpu_torch.utils.logging import METRICS
 
 # One intra-op thread: the tier-1 run puts six pytest workers on the
 # host's cores, and an oversubscribed OpenMP pool spins through every
@@ -31,6 +32,17 @@ from k8s_llm_rca_tpu_torch.sweeps import run_all, run_file, stage
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True)
+def _fresh_metrics():
+    """``METRICS`` is process-global and every port engine test records
+    ``engine.decode_step``: a worker that ran another port file first would
+    hand its timers to ``chip_metrics``.  Each test starts and ends with an
+    empty store (``run_file.main`` does not reset it, as JAX's does not)."""
+    METRICS.reset()
+    yield
+    METRICS.reset()
 
 
 def _records(path):
@@ -230,19 +242,68 @@ def test_engine_sweep_on_the_cpu(tmp_path, monkeypatch):
     assert port == jax_
 
 
-def test_engine_without_paged_raises_naming_item_9(tmp_path):
+def _jax_cli_weights():
+    """The JAX CLI's engine weights (TINY, ``PRNGKey(0)``) as a JAX tree."""
+    return j_llama.init_params(J_TINY, jax.random.PRNGKey(0))
+
+
+def test_engine_without_paged_raises_naming_item_9(tmp_path, monkeypatch):
+    """``--backend engine`` without ``--paged`` raised naming Queue 1 item
+    9 until the contiguous-slot engine was ported.  Now it builds that
+    engine, as the JAX CLI does: on the JAX CLI's weights, one incident's
+    records, ``time_cost`` aside, equal the JAX CLI's."""
     inp = str(tmp_path / "incidents.csv")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        run_file.main(["--input", inp, "--output", str(tmp_path / "o.json"),
-                       "--backend", "engine", "--device", "cpu"])
+    out, j_out = str(tmp_path / "port.json"), str(tmp_path / "jax.json")
+    args = ["--input", inp, "--slice", "0:1", "--backend", "engine",
+            "--model", "tiny", "--max-seq-len", "1024", "--fresh-threads"]
+    j_summary = j_run_file.main(args + ["--output", j_out])
+    assert (j_summary["incidents"], j_summary["failures"]) == (1, 0)
+    weights = params_from_numpy(jax.tree.map(np.asarray, _jax_cli_weights()),
+                                "cpu")
+    monkeypatch.setattr(llama, "init_params",
+                        lambda cfg, generator, device: weights)
+    from k8s_llm_rca_tpu_torch.engine import engine as port_engine
+
+    built = []
+    init = port_engine.InferenceEngine.__init__
+
+    def record(self, *a, **kw):
+        built.append(self)
+        init(self, *a, **kw)
+
+    monkeypatch.setattr(port_engine.InferenceEngine, "__init__", record)
+    summary = run_file.main(args + ["--output", out, "--device", "cpu"])
+    assert (summary["incidents"], summary["failures"]) == (1, 0)
+    assert len(built) == 1 and summary["chip"]["decode_tokens_per_sec"] > 0
+    port, jax_ = _records(out), _records(j_out)
+    for r in port + jax_:
+        r.pop("time_cost")
+    assert port == jax_
 
 
 def test_weights_raise_naming_item_7(tmp_path):
+    """``--weights`` raised naming Queue 1 item 7 until loading was
+    ported.  Now both CLIs load the same safetensors file (the JAX CLI's
+    weights, exported by the JAX package) into the paged engine, and one
+    incident's records, ``time_cost`` aside, are equal."""
+    from k8s_llm_rca_tpu.models import loader as j_loader
+
+    weights = str(tmp_path / "model.safetensors")
+    j_loader.write_safetensors(
+        weights, j_loader.llama_params_to_hf(J_TINY, _jax_cli_weights()))
     inp = str(tmp_path / "incidents.csv")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        run_file.main(["--input", inp, "--output", str(tmp_path / "o.json"),
-                       "--backend", "engine", "--paged", "--device", "cpu",
-                       "--weights", "model.safetensors"])
+    out, j_out = str(tmp_path / "port.json"), str(tmp_path / "jax.json")
+    args = ["--input", inp, "--slice", "0:1", "--backend", "engine",
+            "--paged", "--model", "tiny", "--max-seq-len", "1024",
+            "--fresh-threads", "--weights", weights]
+    j_summary = j_run_file.main(args + ["--output", j_out])
+    summary = run_file.main(args + ["--output", out, "--device", "cpu"])
+    assert (summary["incidents"], summary["failures"]) == \
+        (j_summary["incidents"], j_summary["failures"]) == (1, 0)
+    port, jax_ = _records(out), _records(j_out)
+    for r in port + jax_:
+        r.pop("time_cost")
+    assert port == jax_
 
 
 def test_engine_device_defaults_to_the_card(tmp_path):
