@@ -34,8 +34,14 @@ prints one JSON line; any failure exits non-zero without the result line.
    int4 and int8 kn and the int4 head at the verify step's M = 20
    (slice 11); paged attention at the CLI engine's shapes (B=8, page 16,
    1024 pages, tables 160 wide) and flash at its 1024 bucket of four
-   prompts and at two prefix hits over 16-token pages (slice 13).  Every
-   matmul case names the kn or nk body it took.
+   prompts and at two prefix hits over 16-token pages (slice 13); in bf16
+   at a mesh rank's shapes (slice 15, ``shard_kernels``): paged attention
+   over a TP-2 and TP-4 rank's 16/4 and 8/2 heads (bf16, int8 and a
+   per-rank int4 pool), flash with 16/4 heads, the int4 kn on a rank's
+   grouped-repacked column block of w_gate and row block of w_down at
+   decode and M = 5120, the int4 head on a rank's hidden block, and the
+   int8 experts on a local stack of 4 and 2 experts in the per-expert
+   form.  Every matmul case names the kn or nk body it took.
 The engines on the card replay CUDA graphs of their decode step and
 scans (``engine/graphs.py``) unless built with ``cuda_graphs=False``, which
 only phases 5-5d do, for their eager half; every phase's launch counters
@@ -188,6 +194,22 @@ count the launches a replay makes.
    only at a near-tie, ``NEAR_TIE``) with its acceptance; then the CLI
    without ``--paged`` on 8B, one incident.
 
+10. mesh: tensor and expert parallelism (slice 15; ``--mesh`` runs it
+   alone after phase 3's mesh-rank cases, with no result line) under a
+   1-rank nccl process group.  (a) Llama-3-8B bf16 on the slice engine
+   with the prefix cache on, the unsharded graphed engine and then
+   ``make_engine(..., tp_mesh=)`` on the rank's shard (the tree itself):
+   equal streams or a near-tie (``NEAR_TIE``, margins printed), the
+   launches and the collectives the layer count requires (per forward 2
+   sum all-reduces a layer, one for the logits, one all-gather), the
+   graphed step's wall ms beside the unsharded one's; (b) the same with
+   int4 weights over an int4 pool (2 max all-reduces a layer per step for
+   the KV scales); (c) Mixtral-8x7B int8 over an int8 pool, dense and
+   through ``mixtral.make_ep_engine`` (2 all-to-alls and one all-gather a
+   layer), no token dropped; (d) Llama-3-8B cut to 2 layers at TP = 2 as
+   two processes on the one card over gloo (eager), held to the same
+   model on the 1-rank mesh.
+
 Then the kernel table (one JSON line), the ``nvidia-smi`` name and power
 limit line, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -310,16 +332,17 @@ CLI_PAGED = {"lengths": [1, 16, 17, 250, 700, 1100, 1800, 2500],
 
 
 def paged_case(dtype, gen, lengths=PAGED_LENGTHS["mixed"], page=64,
-               n_pages=168, pps=40):
+               n_pages=168, pps=40, heads=(32, 8)):
     """The decode shapes of the slice: B=4, 32 heads over 8 kv-heads,
     d=128, page 64, over shuffled page ids of a 168-page pool (table width
     40 = 2560 / 64); lengths 1 / 64 / 65 / 2400 (a new request beside long
     ones) or 2400 x 4 (a batch of long RCA prompts in steady state).  The
     batch is ``len(lengths)``; ``page``, ``n_pages`` and ``pps`` give
-    another engine's pool (``CLI_PAGED``)."""
+    another engine's pool (``CLI_PAGED``), ``heads`` (query, kv) a TP
+    rank's share of them."""
     import torch
 
-    b, h, n_kv, d = len(lengths), 32, 8, 128
+    b, (h, n_kv), d = len(lengths), heads, 128
     q = torch.randn((b, h, d), generator=gen, device="cuda").to(dtype)
     kp = torch.randn((n_pages, page, n_kv * d), generator=gen,
                      device="cuda").to(dtype)
@@ -466,16 +489,17 @@ def flash_library_fn(q, k, v, seq_lens, q_offset):
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
-def flash_kernels(table, dtype_name, gen) -> None:
-    """Each flash case against the plain version, timed with its SDPA
-    yardstick and bound."""
+def flash_kernels(table, dtype_name, gen, cases=None) -> None:
+    """Each flash case (``flash_cases`` unless ``cases`` are given) against
+    the plain version, timed with its SDPA yardstick and bound."""
     import torch
 
     from k8s_llm_rca_tpu_torch.ops.attention import causal_attention
     from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
 
     dtype = getattr(torch, dtype_name)
-    for case, (q, k, v, lens, off) in flash_cases(dtype, gen).items():
+    cases = flash_cases(dtype, gen) if cases is None else cases
+    for case, (q, k, v, lens, off) in cases.items():
         rec = held_record(
             "flash_attention", dtype_name,
             flash_attention(q, k, v, lens, off),
@@ -809,9 +833,13 @@ def head_kernels(table, ws, dtype_name, gen, flush) -> None:
         torch.cuda.empty_cache()
 
 
-def paged_kernels(table, dtype_name, gen, flush) -> None:
+def paged_kernels(table, dtype_name, gen, flush, heads=(32, 8),
+                  label: str = "") -> None:
     """The paged cases of phase 3: the bf16 or fp32 pool at the mixed and
-    the long lengths, the int8 and int4 pools at the mixed lengths."""
+    the long lengths, the int8 and int4 pools at the mixed lengths.  With
+    ``heads`` (query, kv) a TP rank's share, only the mixed lengths, the
+    cases named ``label``, ``label int8`` and ``label int4`` (an int4 pool
+    packed over the rank's own lanes, as the engine's is)."""
     import torch
 
     from k8s_llm_rca_tpu_torch.ops.paged_attention import (
@@ -821,14 +849,17 @@ def paged_kernels(table, dtype_name, gen, flush) -> None:
 
     dtype = getattr(torch, dtype_name)
     cases = {name: dict(lengths=lengths, page=64, n_pages=168, pps=40)
-             for name, lengths in PAGED_LENGTHS.items()}
-    cases["cli"] = CLI_PAGED
+             for name, lengths in PAGED_LENGTHS.items()
+             if not label or name == "mixed"}
+    if not label:
+        cases["cli"] = CLI_PAGED
+    h, n_kv = heads
     for lens_name, shape in cases.items():
-        args = paged_case(dtype, gen, **shape)
+        args = paged_case(dtype, gen, heads=heads, **shape)
         rec = held_record(
             "paged_attention", dtype_name, paged_attention(*args),
-            paged_attention_plain(*args), case=lens_name,
-            shapes=f"B={len(shape['lengths'])} H=32 n_kv=8 d=128 "
+            paged_attention_plain(*args), case=label or lens_name,
+            shapes=f"B={len(shape['lengths'])} H={h} n_kv={n_kv} d=128 "
             f"page={shape['page']} pages={shape['n_pages']} "
             f"pps={shape['pps']} lens=" + ",".join(map(str, shape["lengths"])),
             splits=launched_splits(args[0], args[1], args[4]))
@@ -841,16 +872,17 @@ def paged_kernels(table, dtype_name, gen, flush) -> None:
         rec["bound_ms"], rec["bound_by"] = paged_bound(args[0], args[1],
                                                        args[3], dtype_name)
         emit("kernels", **rec)
-        table[("paged_attention", dtype_name, lens_name)] = rec
+        table[("paged_attention", dtype_name, label or lens_name)] = rec
         if lens_name != "mixed":
             continue
         for packed, kind in ((False, "int8"), (True, "int4")):
             qargs = paged_quant_case(args, packed)
+            kind = f"{label} {kind}".strip()
             rec = held_record(
                 "paged_attention_quant", dtype_name,
                 paged_attention_quant(*qargs, packed=packed),
                 paged_attention_quant_plain(*qargs, packed=packed),
-                case=kind, shapes="B=4 H=32 n_kv=8 d=128 page=64 "
+                case=kind, shapes=f"B=4 H={h} n_kv={n_kv} d=128 page=64 "
                 "lens=1,64,65,2400",
                 splits=launched_splits(qargs[0], qargs[1], qargs[6], packed))
             rec["kernel_ms"] = time_ms(
@@ -921,6 +953,7 @@ def phase_kernels() -> dict:
 
         head_kernels(table, heads, dtype_name, gen, flush)
         slice3_kernels(table, ws, dtype_name, gen, flush)
+    shard_kernels(table, ws, heads, w_mlp, gen, flush)
     return table
 
 
@@ -930,7 +963,8 @@ def phase_kernels() -> dict:
 def launch_counters():
     """Every kernel's launch counter, by the short name the phases report:
     (wrapper, attribute); the matmul wrappers count int4 launches in
-    ``launches`` and int8 launches in ``launches_int8``."""
+    ``launches`` and int8 launches in ``launches_int8``.  The collectives
+    of a mesh (``runtime/mesh.py``) count their calls under their names."""
     from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
     from k8s_llm_rca_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_quant,
@@ -938,8 +972,10 @@ def launch_counters():
     from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
         quant_matmul, quant_matmul_experts, quant_matmul_head,
     )
+    from k8s_llm_rca_tpu_torch.runtime.mesh import COLLECTIVES
 
-    return {"paged": (paged_attention, "launches"),
+    return {**{fn.__name__: (fn, "calls") for fn in COLLECTIVES},
+            "paged": (paged_attention, "launches"),
             "flash": (flash_attention, "launches"),
             "paged_quant": (paged_attention_quant, "launches"),
             "qmm": (quant_matmul, "launches"),
@@ -975,7 +1011,13 @@ def expected_counts(cfg, c: dict, quantized_kv: bool, bits=None,
     dispatch of either prefill 7 kn matmuls (dense) or 5 kn matmuls (4
     projections and the router) and 3 expert matmuls (MoE), and one head
     per step and per prefill dispatch of either kind.  Replayed CUDA
-    graphs count their launches at every replay."""
+    graphs count their launches at every replay.  Under a mesh (``cfg`` a
+    rank's config) every forward (decode step or either prefill dispatch)
+    calls, with TP, 2 sum all-reduces a layer (wo, w_down), one for the
+    logits and one all-gather (the embedding), and over a quantized pool 2
+    max all-reduces a layer per decode step and 2 per prefill dispatch
+    (the k and v scales); with EP, 2 all-to-alls and one all-gather a
+    layer."""
     steps = int(c.get("engine.decode_steps", 0))
     verify = int(c.get("engine.verify_steps", 0))
     prefills = int(c.get("engine.prefill_dispatches", 0))
@@ -992,6 +1034,16 @@ def expected_counts(cfg, c: dict, quantized_kv: bool, bits=None,
         counts["qmm" + sfx] = (5 if moe else 7) * calls
         counts["qmm_experts" + sfx] = 3 * calls if moe else 0
         counts["qmm_head" + sfx] = steps + prefills + chunks
+    fwd = steps + prefills + chunks
+    if getattr(cfg, "tp", None) is not None:
+        counts["all_reduce_sum"] = (2 * cfg.n_layers + 1) * fwd
+        counts["all_gather"] = fwd
+        if quantized_kv:
+            counts["all_reduce_max"] = 2 * (cfg.n_layers * steps + prefills
+                                            + chunks)
+    if getattr(cfg, "ep", None) is not None:
+        counts["all_to_all"] = 2 * cfg.n_layers * fwd
+        counts["all_gather"] += cfg.n_layers * fwd
     return counts
 
 
@@ -1746,7 +1798,7 @@ def serve_four(engine, cfg, kv, bits) -> dict:
         raise SystemExit("a reply has no tokens")
     if not bool(finite):
         raise SystemExit("non-finite logits on the slice run")
-    expect = expected_counts(cfg, c, kv is not None, bits,
+    expect = expected_counts(engine.model_cfg, c, kv is not None, bits,
                              contiguous=not engine.engine_cfg.paged)
     if draft is not None:
         # a draft model's re-prefills attend through flash too
@@ -1773,7 +1825,8 @@ def serve_four(engine, cfg, kv, bits) -> dict:
             "total_s": t_end - t_submit}
 
 
-def decode_step_times(engine, steps: int = 8, verify_t: int = 0) -> dict:
+def decode_step_times(engine, steps: int = 8, verify_t: int = 0,
+                      profiled: bool = True) -> dict:
     """The engine's own decode step (its static operands, then the eager
     step or the step graph's replay) at the slice's decode shapes: batch 4
     at 400/900/1500/2300 cached tokens over pages of the engine's pool;
@@ -1783,7 +1836,8 @@ def decode_step_times(engine, steps: int = 8, verify_t: int = 0) -> dict:
     over ``steps`` steps, the device ms and kernel launches of one
     profiled step, and the device's busy share: that device time over the
     unprofiled wall time (the profiler's own host work would stretch a
-    profiled step)."""
+    profiled step).  ``profiled=False`` skips the profile: wall ms and the
+    CUDA events' device ms only."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1831,6 +1885,10 @@ def decode_step_times(engine, steps: int = 8, verify_t: int = 0) -> dict:
         step()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    if not profiled:
+        # the mesh phases: the device time between CUDA events only
+        return {"wall_ms_per_step": wall_ms,
+                "event_device_ms_per_step": time_ms(step, steps)}
     counted = read_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4040,6 +4098,348 @@ def phase_rerank() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 10
+
+
+def shard_kernels(table, ws, heads, w_mlp, gen, flush) -> None:
+    """Phase 3 at a mesh rank's shapes, bf16 (TP over t = 2 and 4 ranks of
+    Llama-3-8B, EP over 2 and 4 of Mixtral-8x7B): paged attention over the
+    rank's 32/t query and 8/t kv heads (bf16, int8 and an int4 pool
+    packed over the rank's own lanes), flash with 16/4 heads, the int4 kn
+    on the rank's column block of w_gate [4096, 14336/t] (repacked per
+    group and handed over as a plain int4 weight,
+    ``runtime.sharding.leaf_block``) and on its row block of w_down
+    [14336/t, 4096], the int4 head on its hidden block [128256, 4096/t],
+    and the int8 experts on a local stack of 8/p experts in the per-expert
+    form of ``parallel/moe.py`` ([1, 8 slots, 8/p, 4096]), each against its
+    plain version, timed beside its bound and library call."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.models.quant import dq
+    from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
+        kn_body, quant_matmul, quant_matmul_experts,
+        quant_matmul_experts_plain, quant_matmul_head,
+        quant_matmul_head_plain, quant_matmul_plain,
+    )
+    from k8s_llm_rca_tpu_torch.runtime.sharding import leaf_block
+
+    dn, dtype = "bfloat16", torch.bfloat16
+    for t in (2, 4):
+        paged_kernels(table, dn, gen, flush, heads=(32 // t, 8 // t),
+                      label=f"tp{t}")
+        torch.cuda.empty_cache()
+
+    # flash: the 2560 bucket at seq_len 2300 over a TP-2 rank's 16/4 heads
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    flash_kernels(table, dn, gen, {"tp2 full": (
+        rnd(1, 2560, 16, 128), rnd(1, 2560, 4, 128), rnd(1, 2560, 4, 128),
+        torch.tensor([2300], dtype=torch.int32, device="cuda"), None)})
+
+    w_down = quant_weight(gen, 14336, 4096)
+    for t in (2, 4):
+        col = leaf_block(w_mlp, ((1, 0), (t, 0)))       # w_gate's block
+        row = leaf_block(w_down, ((t, 0), (1, 0)))      # w_down's block
+        cases = [("col", col, 4096, 14336 // t, m) for m in (4, 5120)]
+        cases += [("row", row, 14336 // t, 4096, m) for m in (4, 5120)]
+        for kind, w, kk, n, m in cases:
+            x = torch.randn((m, kk), generator=gen, device="cuda").to(dtype)
+            w_dense = dq(w, dtype).to(dtype)
+            case = f"tp{t} {kind} M={m}"
+            timed_case(table, ("quant_matmul", dn, case), "quant_matmul", dn,
+                       lambda: quant_matmul(x, w),
+                       quant_matmul_plain(x, w),
+                       lambda: quant_matmul_plain(x, w),
+                       lambda: torch.matmul(x, w_dense),
+                       weight_bound(w, x, m * n, 2 * m * kk * n, dn),
+                       200 if m <= 20 else 10, 20 if m <= 20 else 3,
+                       flush if m <= 20 else 0, case=case,
+                       body=kn_body(4, m, kk, n),
+                       shapes=f"x [{m}, {kk}] @ int4 [{kk}, {n}]")
+            del w_dense
+        head = leaf_block(heads["llama3-8b int4"], ((1, 0), (t, 0)))
+        kk, vv = 4096 // t, head.shape[0]
+        x = torch.randn((4, kk), generator=gen, device="cuda").to(dtype)
+        w_dense = dq(head, dtype).to(dtype)
+        case = f"tp{t} llama3-8b int4"
+        timed_case(table, ("quant_matmul_head", dn, case),
+                   "quant_matmul_head", dn, lambda: quant_matmul_head(x, head),
+                   quant_matmul_head_plain(x.float(), head),
+                   lambda: quant_matmul_head_plain(x, head),
+                   lambda: torch.matmul(x, w_dense.t()),
+                   weight_bound(head, x, 4 * vv, 2 * 4 * kk * vv, dn),
+                   50, 5, flush, case=case,
+                   body=head_body(4, 4, kk, vv, dtype),
+                   shapes=f"x [4, {kk}] @ int4 [{vv}, {kk}]^T")
+        del w_dense, head, col, row
+        torch.cuda.empty_cache()
+
+    gate = ws["gate8"]
+    for p in (2, 4):
+        w = leaf_block(gate, ((p, 0), (1, 0), (1, 0)))  # this rank's experts
+        e, kk, n = w.shape
+        x = torch.randn((1, 8, e, kk), generator=gen, device="cuda").to(dtype)
+        w_dense = dq(w, dtype).to(dtype)
+        xt = x[0].transpose(0, 1).contiguous()
+        case = f"ep{p} per-expert M=8"
+        timed_case(table, ("quant_matmul_experts_int8", dn, case),
+                   "quant_matmul_experts_int8", dn,
+                   lambda: quant_matmul_experts(x, w),
+                   quant_matmul_experts_plain(x.float(), w),
+                   lambda: quant_matmul_experts_plain(x, w),
+                   lambda: torch.bmm(xt, w_dense),
+                   weight_bound(w, x, 8 * e * n, 2 * 8 * e * kk * n, dn),
+                   50, 5, flush, case=case,
+                   body=kn_body(8, 8, kk, n, experts=True),
+                   shapes=f"x {list(x.shape)} @ int8 [{e}, {kk}, {n}]")
+        del w, w_dense
+        torch.cuda.empty_cache()
+
+
+def mesh_engine_config(**over):
+    """The slice engine with the prefix cache on, as ``EngineConfig()``
+    has it."""
+    return slice_engine_config(prefix_cache=True, **over)
+
+
+def mesh_run(engine, cfg, kv, bits) -> dict:
+    """``serve_four`` and the decode step's times on a mesh engine or its
+    unsharded yardstick."""
+    run = serve_four(engine, cfg, kv, bits)
+    run.update(graph_stats(engine))
+    run.update(decode_step_times(engine, profiled=False))
+    return run
+
+
+def mesh_compare(phase, cfg, params, base, run, **record) -> None:
+    """Emit the mesh run beside its unsharded yardstick; fail unless the
+    streams are equal or part only at a near-tie (``NEAR_TIE``), and
+    unless the graphed run replayed."""
+    divs = divergences(cfg, params, run["prompts"], base["tokens"],
+                       run["tokens"])
+    bad = [d for d in divs if d["logit_margin"] > NEAR_TIE]
+    keep = ("ttft_s", "decode_tok_per_s", "total_s", "wall_ms_per_step",
+            "event_device_ms_per_step",
+            "graph_captures", "graph_replays", "prefill_dispatches",
+            "decode_steps")
+    emit(phase, model=cfg.name, **record,
+         prompt_tokens=run["prompt_tokens"],
+         completion_tokens=run["completion_tokens"],
+         equal_tokens=run["tokens"] == base["tokens"],
+         equal_token_share=common_share(base["tokens"], run["tokens"]),
+         divergences=divs, near_tie=NEAR_TIE,
+         collectives={k: run["launches"][k] for k in (
+             "all_reduce_sum", "all_reduce_max", "all_gather", "all_to_all")},
+         launches=run["launches"],
+         **{f"mesh_{k}": run[k] for k in keep},
+         **{f"unsharded_{k}": base[k] for k in keep},
+         nvidia_smi=nvidia_smi_name_power())
+    if bad:
+        raise SystemExit(f"{phase}: the mesh engine's streams part from the "
+                         f"unsharded engine's beyond a near-tie: {bad}")
+    if not run["graph_replays"]:
+        raise SystemExit(f"{phase}: the graphed mesh engine replayed nothing")
+
+
+def mesh_tp_case(phase, mesh, name, bits, kv) -> dict:
+    """10a/10b: a slice model served by the unsharded graphed engine and by
+    ``make_engine(..., tp_mesh=mesh)`` on the same weights (the rank's
+    shard of a 1-rank mesh is the tree itself, no copy): equal streams
+    (or a near-tie), the collectives the layer count requires (checked
+    with the launches by ``serve_four``), step ms both ways."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.rules import flatten_with_names
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        llama_param_specs, shard_params,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg, transform = slice_model(name, bits)
+    ecfg = mesh_engine_config(kv_cache_dtype=kv)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=transform)
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    base = mesh_run(make_engine(cfg, ecfg, params, tok), cfg, kv, bits)
+    free_card()
+    shard = shard_params(params, llama_param_specs(cfg), mesh)
+    copies = sum(a.data_ptr() != b.data_ptr() for (_, a), (_, b) in zip(
+        flatten_with_names(_tensors_tree(params)),
+        flatten_with_names(_tensors_tree(shard))))
+    engine = make_engine(cfg, ecfg, shard, tok, tp_mesh=mesh)
+    run = mesh_run(engine, cfg, kv, bits)
+    mesh_compare(phase, cfg, params, base, run, mesh="tp 1 rank (nccl)",
+                 weights=f"int{bits}" if bits else "bfloat16",
+                 kv_cache_dtype=kv, shard_copies=copies,
+                 pool_lanes=engine.pool.k.shape[-1])
+    del engine, shard, params
+    return run["launches"]
+
+
+def _tensors_tree(tree):
+    """A param tree with each quantized leaf split into its q and scale."""
+    if isinstance(tree, dict):
+        return {k: _tensors_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tensors_tree(v) for v in tree]
+    if isinstance(tree, tuple):
+        return {f: getattr(tree, f) for f in tree._fields}
+    return tree
+
+
+def mesh_ep_case(mesh) -> dict:
+    """10c: Mixtral-8x7B int8 (int8 pool) by the dense graphed engine and by
+    ``mixtral.make_ep_engine`` on a 1-rank mesh: equal streams (or a
+    near-tie), no token dropped (lossless capacity, counted on the
+    device), the ekn launches and all-to-alls counted."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models import mixtral
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    phase = "mesh_mixtral"
+    cfg, transform = slice_model("mixtral-8x7b", 8)
+    ecfg = mesh_engine_config(kv_cache_dtype="int8")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=transform)
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    base = mesh_run(make_engine(cfg, ecfg, params, tok), cfg, "int8", 8)
+    free_card()
+    engine = mixtral.make_ep_engine(cfg, ecfg, params, tok, mesh=mesh)
+    run = mesh_run(engine, cfg, "int8", 8)
+    dropped = int(engine.model_cfg.ep.drops)
+    mesh_compare(phase, cfg, params, base, run, mesh="ep 1 rank (nccl)",
+                 weights="int8", kv_cache_dtype="int8", dropped=dropped)
+    if dropped or not run["launches"]["qmm_experts8"]:
+        raise SystemExit(f"{phase}: {dropped} tokens dropped, "
+                         f"{run['launches']['qmm_experts8']} ekn launches")
+    del engine, params
+    return run["launches"]
+
+
+def mesh_prompts(tok) -> list:
+    """Four prompts of the slice's lengths (400-2300 tokens)."""
+    return [tok.encode(incident_text(n - 1), add_bos=True)
+            for n in (400, 900, 1500, 2300)]
+
+
+def tp2_rank(rank: int, n_layers: int, max_new: int) -> dict:
+    """One of two ranks on the one card (gloo collectives over CUDA
+    tensors): Llama-3-8B cut to ``n_layers`` layers, seeded as the parent
+    seeds it, this rank's TP shard, the eager engine over four prompts."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.mesh import (
+        collective_counts, local_mesh,
+    )
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        llama_param_specs, shard_params,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg = LLAMA3_8B.replace(n_layers=n_layers)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    mesh = local_mesh(model=2)
+    shard = shard_params(params, llama_param_specs(cfg), mesh)
+    del params
+    torch.cuda.empty_cache()
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    engine = make_engine(cfg, mesh_engine_config(), shard, tok,
+                         cuda_graphs=False, tp_mesh=mesh)
+    t0 = time.perf_counter()
+    res = engine.generate(mesh_prompts(tok), max_new_tokens=max_new)
+    torch.cuda.synchronize()
+    engine.allocator.check()
+    return {"tokens": [r.token_ids for r in res],
+            "seconds": time.perf_counter() - t0,
+            "collectives": collective_counts(),
+            "pool_lanes": engine.pool.k.shape[-1]}
+
+
+def mesh_tp2_case(mesh) -> None:
+    """10d: Llama-3-8B cut to 2 layers at TP = 2 as two processes on the one
+    card over gloo (``run_ranks``), eager, held to the same model served
+    on the 1-rank nccl mesh, eager: equal streams or a near-tie, and both
+    ranks' streams equal."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.mesh import run_ranks
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        llama_param_specs, shard_params,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    n_layers, max_new = 2, 32
+    cfg = LLAMA3_8B.replace(n_layers=n_layers)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    prompts = mesh_prompts(tok)
+    one = make_engine(cfg, mesh_engine_config(),
+                      shard_params(params, llama_param_specs(cfg), mesh),
+                      tok, cuda_graphs=False, tp_mesh=mesh)
+    want = [r.token_ids for r in one.generate(prompts,
+                                              max_new_tokens=max_new)]
+    del one
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp2_rank, 2, str(ROOT / "build" / "mesh_ranks"),
+                      args=(n_layers, max_new), timeout_s=600,
+                      device="cuda-gloo")
+    wall = time.perf_counter() - t0
+    divs = divergences(cfg, params, prompts, want, ranks[0]["tokens"])
+    bad = [d for d in divs if d["logit_margin"] > NEAR_TIE]
+    emit("mesh_tp2", model=cfg.name, layers=n_layers, ranks=2,
+         backend="gloo", cuda_graphs=False,
+         equal_tokens=ranks[0]["tokens"] == want,
+         equal_token_share=common_share(want, ranks[0]["tokens"]),
+         ranks_equal=ranks[0]["tokens"] == ranks[1]["tokens"],
+         divergences=divs, near_tie=NEAR_TIE,
+         rank_seconds=[r["seconds"] for r in ranks], wall_s=wall,
+         collectives=[r["collectives"] for r in ranks],
+         pool_lanes=[r["pool_lanes"] for r in ranks],
+         nvidia_smi=nvidia_smi_name_power())
+    if ranks[0]["tokens"] != ranks[1]["tokens"] or bad:
+        raise SystemExit(f"mesh_tp2: ranks equal "
+                         f"{ranks[0]['tokens'] == ranks[1]['tokens']}, "
+                         f"beyond a near-tie {bad}")
+    del params
+
+
+def phase_mesh() -> dict:
+    """Phase 10 under a 1-rank nccl process group (destroyed after).
+    Returns the launch counts of 10a-10c."""
+    from k8s_llm_rca_tpu_torch.runtime import mesh as rmesh
+
+    t0 = time.perf_counter()
+    rmesh.initialize_distributed()
+    out = {}
+    try:
+        mesh = rmesh.local_mesh()
+        for phase, bits, kv in (("mesh", None, None),
+                                ("mesh_int4", 4, "int4")):
+            out[phase] = mesh_tp_case(phase, mesh, "llama3-8b", bits, kv)
+            free_card()
+        out["mesh_mixtral"] = mesh_ep_case(mesh)
+        free_card()
+        mesh_tp2_case(mesh)
+        free_card()
+    finally:
+        rmesh.shutdown_distributed()
+    emit("mesh_phase", seconds=time.perf_counter() - t0)
+    return out
+
+
 def ptxas_summary(report: str) -> list:
     """One line per kernel of a ``ptxas -v`` report: its name (demangled
     by ``c++filt`` where the toolchain has it, up to its parameter list),
@@ -4205,6 +4605,17 @@ def main(argv) -> int:
         phase_durable()
         return 0
 
+    if "--mesh" in argv:
+        # phase 3's mesh-rank shapes and phase 10 alone
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        shard_kernels({}, slice3_weights(gen), head_weights(gen),
+                      quant_weight(gen, 4096, 14336), gen, 256 << 20)
+        free_card()
+        phase_mesh()
+        return 0
+
     if "--rerank" in argv:
         # phase 9 alone
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4262,6 +4673,8 @@ def main(argv) -> int:
     free_card()
     runs.update(phase_rerank())
     free_card()
+    runs.update(phase_mesh())
+    free_card()
 
     rows = []
     # launches: the main paths' runs of each kernel, summed (flash now
@@ -4272,7 +4685,7 @@ def main(argv) -> int:
              ("paged_attention", "bfloat16", "mixed"),
              ("slice", "slice_spec", "prefix", "memory", "rca", "rca_spec",
               "rca_resilient", "durable", "durable_cli", "rerank_rca",
-              "rerank_rca_yardstick"), "paged"),
+              "rerank_rca_yardstick", "mesh"), "paged"),
             ("flash_attention", FLASH_SRC,
              "k8s_llm_rca_tpu/ops/flash_attention.py:31",
              ("flash_attention", "bfloat16", "full"),
@@ -4280,34 +4693,35 @@ def main(argv) -> int:
               "rca", "rca_spec", "rca_resilient", "durable",
               "durable_int4", "durable_cli", "rerank_rca",
               "rerank_rca_yardstick", "contiguous", "contiguous_int4",
-              "contiguous_cli"), "flash"),
+              "contiguous_cli", "mesh", "mesh_int4", "mesh_mixtral"),
+             "flash"),
             ("quant_matmul", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:137",
              ("quant_matmul", "bfloat16", "decode"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
-              "durable_int4", "contiguous_int4"), "qmm"),
+              "durable_int4", "contiguous_int4", "mesh_int4"), "qmm"),
             ("quant_matmul_head", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:177",
              ("quant_matmul_head", "bfloat16", "llama3-8b int4"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
-              "durable_int4", "contiguous_int4"), "qmm_head"),
+              "durable_int4", "contiguous_int4", "mesh_int4"), "qmm_head"),
             ("paged_attention_quant", PAGED_QUANT_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:141",
              ("paged_attention_quant", "bfloat16", "int4"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
-              "durable_int4"), "paged_quant"),
+              "durable_int4", "mesh_int4", "mesh_mixtral"), "paged_quant"),
             ("quant_matmul_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:120",
              ("quant_matmul_int8", "bfloat16", "decode"),
-             ("slice_mixtral_int8",), "qmm8"),
+             ("slice_mixtral_int8", "mesh_mixtral"), "qmm8"),
             ("quant_matmul_head_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:159",
              ("quant_matmul_head_int8", "bfloat16", "mixtral-8x7b int8"),
-             ("slice_mixtral_int8",), "qmm_head8"),
+             ("slice_mixtral_int8", "mesh_mixtral"), "qmm_head8"),
             ("quant_matmul_experts_int8", EKN_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:201",
              ("quant_matmul_experts_int8", "bfloat16", "3d decode"),
-             ("slice_mixtral_int8",), "qmm_experts8"),
+             ("slice_mixtral_int8", "mesh_mixtral"), "qmm_experts8"),
             ("quant_matmul_experts_int4", EKN_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:218",
              ("quant_matmul_experts_int4", "bfloat16", "3d decode"),

@@ -137,6 +137,44 @@ E5_LARGE = EncoderConfig(
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Logical device-mesh shape.  Axis names are load-bearing throughout:
+
+    - ``data``   — DP: batch sharding
+    - ``fsdp``   — FSDP: parameter sharding with all-gather-on-use (weights
+                   split along their non-TP dim; runtime/rules.py SpecLayout
+                   decides which params land on it)
+    - ``model``  — TP: attention heads / MLP hidden dim
+    - ``expert`` — EP: MoE experts (all-to-all token dispatch)
+    - ``seq``    — SP/CP: sequence sharding (ring attention / Ulysses)
+    - ``stage``  — PP: pipeline stages
+    """
+
+    data: int = 1
+    fsdp: int = 1
+    model: int = 1
+    expert: int = 1
+    seq: int = 1
+    stage: int = 1
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("data", "fsdp", "model", "expert", "seq", "stage")
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.data, self.fsdp, self.model, self.expert, self.seq,
+                self.stage)
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+@dataclass(frozen=True)
 class EngineConfig:
     """Inference-engine config: batching, KV cache, sampling, limits."""
 

@@ -1026,6 +1026,65 @@ def dfa_greedy_multi(logits: torch.Tensor, states: torch.Tensor,
 MESH_ITEM = "ROADMAP Queue 1 item 10, multi-GPU"
 
 
+def _mesh_axis(mesh, axis: str) -> int:
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"the mesh needs a '{axis}' axis, has {names}")
+    return int(mesh.mesh.shape[names.index(axis)])
+
+
+def validate_tp_mesh(tp_mesh, model_cfg: ModelConfig) -> None:
+    """TP serving preconditions: whole GQA groups per shard (both head
+    counts divide the "model" axis) and a merged kv axis that splits into
+    whole heads, packed int4 pairs included."""
+    if tp_mesh is None:
+        return
+    _mesh_axis(tp_mesh, "data")
+    n_tp = _mesh_axis(tp_mesh, "model")
+    if model_cfg.n_heads % n_tp or model_cfg.n_kv_heads % n_tp:
+        raise ValueError(
+            f"paged attention under TP needs n_heads={model_cfg.n_heads} "
+            f"and n_kv={model_cfg.n_kv_heads} divisible by the head axis "
+            f"size {n_tp} (GQA groups must stay whole per shard)")
+    if model_cfg.kv_dim % (2 * n_tp):
+        # the factor 2 keeps the nibble-packed int4 layout shardable too
+        raise ValueError(f"kv_dim={model_cfg.kv_dim} not shardable over "
+                         f"model axis {n_tp}")
+
+
+def validate_ep_mesh(ep_mesh, model_cfg: ModelConfig,
+                     engine_cfg: EngineConfig) -> None:
+    """EP serving preconditions: an MoE model; experts divide the "expert"
+    axis; the decode batch, the prefill buckets and (with the prefix
+    cache) a page divide the token sharding ("data" x "expert")."""
+    if ep_mesh is None:
+        return
+    if model_cfg.n_experts <= 0:
+        raise ValueError("ep_mesh requires an MoE model (n_experts > 0)")
+    n_ep = _mesh_axis(ep_mesh, "expert")
+    p_tok = _mesh_axis(ep_mesh, "data") * n_ep
+    if model_cfg.n_experts % n_ep:
+        raise ValueError(
+            f"n_experts={model_cfg.n_experts} not divisible by expert "
+            f"axis {n_ep}")
+    if engine_cfg.max_batch % p_tok:
+        raise ValueError(
+            f"max_batch={engine_cfg.max_batch} not divisible by "
+            f"data*expert={p_tok} (decode tokens shard over both)")
+    for b in tuple(engine_cfg.prefill_buckets) + (engine_cfg.max_seq_len,):
+        if b % p_tok:
+            raise ValueError(
+                f"prefill bucket {b} not divisible by the prefill token "
+                f"sharding {p_tok}")
+    if engine_cfg.paged and engine_cfg.prefix_cache \
+            and engine_cfg.page_size % p_tok:
+        raise ValueError(
+            f"page_size={engine_cfg.page_size} not divisible by "
+            f"data*expert={p_tok}: the prefix-cache chunked prefill can "
+            f"emit any page-multiple width; use a larger page_size or "
+            f"prefix_cache=False")
+
+
 def _leaves(tree):
     """Every tensor of a param tree (a quantized weight's q and scale)."""
     if isinstance(tree, dict):
@@ -1162,8 +1221,9 @@ class InferenceEngine(EngineBase):
         if sp or any(m is not None for m in (tp_mesh, cp_mesh, ep_mesh,
                                              pp_mesh, fsdp_mesh)):
             raise NotImplementedError(
-                f"device meshes (TP/CP/EP/PP/FSDP, sp) are not ported yet "
-                f"({MESH_ITEM})")
+                f"the contiguous engine's device meshes (TP/CP/EP/PP/FSDP, "
+                f"sp) are not ported yet ({MESH_ITEM}); the paged engine "
+                f"serves tp_mesh and ep_mesh")
         _check_contiguous_config(engine_cfg, prefix_store)
         self.device = resolve_device(device)
         check_params_device(params, self.device)

@@ -50,7 +50,9 @@ import torch
 
 
 def launch_counters() -> List[Tuple[object, str]]:
-    """Every kernel wrapper's launch counter, as (wrapper, attribute)."""
+    """Every kernel wrapper's launch counter and every collective's call
+    counter (``runtime/mesh.py``), as (function, attribute): a replay of
+    a graph captured under a mesh repeats its collectives."""
     from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
     from k8s_llm_rca_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_quant,
@@ -58,9 +60,11 @@ def launch_counters() -> List[Tuple[object, str]]:
     from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
         quant_matmul, quant_matmul_experts, quant_matmul_head,
     )
+    from k8s_llm_rca_tpu_torch.runtime.mesh import COLLECTIVES
 
     out = [(paged_attention, "launches"), (paged_attention_quant, "launches"),
            (flash_attention, "launches")]
+    out += [(fn, "calls") for fn in COLLECTIVES]
     for fn in (quant_matmul, quant_matmul_head, quant_matmul_experts):
         out += [(fn, "launches"), (fn, "launches_int8")]
     return out

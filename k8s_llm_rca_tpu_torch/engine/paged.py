@@ -63,8 +63,23 @@
   takes the whole free list for one tick, "stall" advances the clock;
   all between ticks, on the host, outside any captured region.
 
-Not ported yet, and refused loudly when asked for: the TP/PP/CP/EP/FSDP
-meshes (ROADMAP Queue 1 item 10), and the
+- ``tp_mesh`` / ``ep_mesh`` (``runtime/mesh.py``): every rank runs this
+  engine on its shard of the params (``runtime.sharding.shard_params``)
+  with its own pool, [L, n_pages, page, n_kv*d/t] (the rank's lanes of
+  ``rules.paged_pool_specs``; an int4 pool packs the rank's lanes
+  split-half on their own, the PP x TP layout of JAX; scale pools whole
+  on every rank).  The host loop (admission, allocator, prefix cache,
+  scheduling) runs identically on every rank; the logits are all-reduced,
+  so every rank commits the same tokens.  Decode attention runs the
+  kernels over the rank's heads (``paged_attention_sharded``,
+  ``paged_attention_quant_sharded``), the MoE MLP under EP the
+  all-to-all of ``parallel/moe.py``.  On the card the graphs capture the
+  collectives (nccl); gloo cannot be captured and needs
+  ``cuda_graphs=False``.
+
+Not ported yet, and refused loudly when asked for: the CP/PP/FSDP meshes,
+and under a mesh the memory tiers (spill, snapshot/restore, the prefix
+store), ``host_overlap`` and speculation (ROADMAP Queue 1 item 10); the
 disaggregated handoff's ``export_run``/``adopt_run`` (item 11).
 """
 
@@ -78,8 +93,9 @@ import torch
 
 from k8s_llm_rca_tpu_torch.config import EngineConfig, ModelConfig
 from k8s_llm_rca_tpu_torch.engine.engine import (
-    EngineBase, SequenceResult, _Active, _Pending, check_params_device,
-    dfa_greedy_multi, dfa_scan_step,
+    MESH_ITEM, EngineBase, SequenceResult, _Active, _Pending,
+    check_params_device, dfa_greedy_multi, dfa_scan_step, validate_ep_mesh,
+    validate_tp_mesh,
 )
 from k8s_llm_rca_tpu_torch.engine.graphs import DecodeGraphs
 from k8s_llm_rca_tpu_torch.engine.prefix import (
@@ -90,16 +106,17 @@ from k8s_llm_rca_tpu_torch.engine.sampling import (
     SamplingParams, sample_tokens, sample_tokens_masked,
 )
 from k8s_llm_rca_tpu_torch.models import llama
-from k8s_llm_rca_tpu_torch.models.quant import gather_rows, quantize_kv
+from k8s_llm_rca_tpu_torch.models.quant import quantize_kv
 from k8s_llm_rca_tpu_torch.ops.attention import (
     NEG_INF, decode_attention_multi, repeat_kv,
 )
-from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
 from k8s_llm_rca_tpu_torch.ops.norms import rms_norm
 from k8s_llm_rca_tpu_torch.ops.paged_attention import (
     gather_dequant_pages, paged_attention, paged_attention_quant,
+    paged_attention_quant_sharded, paged_attention_sharded,
 )
 from k8s_llm_rca_tpu_torch.runtime.profiling import annotate
+from k8s_llm_rca_tpu_torch.runtime.sharding import rank_config
 from k8s_llm_rca_tpu_torch.utils.device import resolve_device
 from k8s_llm_rca_tpu_torch.utils.logging import get_logger
 from k8s_llm_rca_tpu_torch.utils.pages import (
@@ -283,8 +300,9 @@ def _write_pool_pages(cfg: ModelConfig, pool: PagePool, new_k: torch.Tensor,
     new_v = new_v.reshape(new_v.shape[0], n_seq_pages, page_size, cfg.kv_dim)
     if pool.quantized:
         packed = _pool_packed(cfg, pool)
-        new_k, ks = quantize_kv(new_k, packed)
-        new_v, vs = quantize_kv(new_v, packed)
+        group = llama.kv_group(cfg)
+        new_k, ks = quantize_kv(new_k, packed, group)
+        new_v, vs = quantize_kv(new_v, packed, group)
         pool.k_scale[:, idx] = ks.float()
         pool.v_scale[:, idx] = vs.float()
     pool.k[:, idx] = new_k
@@ -435,8 +453,8 @@ def attend_over_pages(cfg: ModelConfig, q: torch.Tensor, pool: PagePool,
         return attend_over_pages_plain(cfg, q, pool, li, tables, q_offset,
                                        seq_lens, fresh)
     kb, vb = pages_to_buffer(cfg, pool, li, tables, q_offset, fresh, n_pages)
-    return flash_attention(q, kb, vb, seq_lens.to(torch.int32),
-                           q_offset.to(torch.int32))
+    return llama.prefill_attention(cfg, q, kb, vb, seq_lens.to(torch.int32),
+                                   q_offset.to(torch.int32))
 
 
 def _chunk_layer(cfg: ModelConfig, layer, x: torch.Tensor,
@@ -452,7 +470,7 @@ def _chunk_layer(cfg: ModelConfig, layer, x: torch.Tensor,
     q, k, v = llama._qkv(cfg, layer, h, angles, positions)
     attn = attend_over_pages(cfg, q, pool, li, prefix_tables, prefix_lens,
                              seq_lens, fresh=(k, v))
-    x = x + llama._w_mm(cfg, attn.reshape(n, c_pad, cfg.q_dim), layer["wo"])
+    x = x + llama._row_mm(cfg, attn.reshape(n, c_pad, cfg.q_dim), layer["wo"])
     hm = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
     return x + llama._mlp(cfg, layer, hm), k, v
 
@@ -494,13 +512,12 @@ def paged_prefill_chunk_batch(cfg: ModelConfig, params, pool: PagePool,
     n, c_pad = tokens.shape
     page_size = pool.page_size
     assert c_pad % page_size == 0, (c_pad, page_size)
-    dtype = llama.torch_dtype(cfg.dtype)
     dev = tokens.device
     angles = llama._angles(cfg, dev)
     positions = (prefix_lens.long()[:, None]
                  + torch.arange(c_pad, device=dev)[None, :])       # [N, C]
     seq_lens = prefix_lens + chunk_lens
-    x = gather_rows(params["embedding"], tokens, dtype).to(dtype)
+    x = llama.embed(cfg, params, tokens)
     ks, vs = [], []
     for li, layer in enumerate(params["layers"]):
         x, k, v = _chunk_layer(cfg, layer, x, angles, positions, prefix_lens,
@@ -513,6 +530,33 @@ def paged_prefill_chunk_batch(cfg: ModelConfig, params, pool: PagePool,
     last = x[torch.arange(n, device=dev),
              (chunk_lens.long() - 1).clamp(min=0)][:, None]        # [N,1,H]
     return pool, llama._logits(cfg, params, last)[:, 0]
+
+
+def _decode_attention(cfg: ModelConfig, q: torch.Tensor, pool: PagePool,
+                      li: int, attn_lens: torch.Tensor,
+                      block_tables: torch.Tensor, packed: bool
+                      ) -> torch.Tensor:
+    """Layer ``li``'s decode attention: ``paged_attention`` or
+    ``paged_attention_quant``, under TP their sharded wrappers over the
+    rank's heads.  An int4 pool under TP is packed per rank over its own
+    lanes (a whole pool of the rank's heads), so it runs
+    ``paged_attention_quant`` itself."""
+    tp = llama._tp(cfg)
+    if tp is not None:
+        heads = dict(mesh=tp.mesh, global_heads=(tp.n_heads, tp.n_kv_heads))
+        if not pool.quantized:
+            return paged_attention_sharded(q, pool.k[li], pool.v[li],
+                                           attn_lens, block_tables, **heads)
+        if not packed:
+            return paged_attention_quant_sharded(
+                q, pool.k[li], pool.v[li], pool.k_scale[li],
+                pool.v_scale[li], attn_lens, block_tables, **heads)
+    if pool.quantized:
+        return paged_attention_quant(
+            q, pool.k[li], pool.v[li], pool.k_scale[li], pool.v_scale[li],
+            attn_lens, block_tables, packed=packed)
+    return paged_attention(q, pool.k[li], pool.v[li], attn_lens,
+                           block_tables)
 
 
 def paged_decode_step(cfg: ModelConfig, params, pool: PagePool,
@@ -528,8 +572,7 @@ def paged_decode_step(cfg: ModelConfig, params, pool: PagePool,
     packed = _pool_packed(cfg, pool)
     lens = lengths.long()
     angles = llama._angles(cfg, tokens.device)
-    dtype = llama.torch_dtype(cfg.dtype)
-    x = gather_rows(params["embedding"], tokens.long()[:, None], dtype).to(dtype)
+    x = llama.embed(cfg, params, tokens.long()[:, None])
     page_ids = block_tables.long().gather(1, (lens // page_size)[:, None])[:, 0]
     offsets = lens % page_size
     attn_lens = (lengths + 1).to(torch.int32)
@@ -538,19 +581,14 @@ def paged_decode_step(cfg: ModelConfig, params, pool: PagePool,
         k_tok = k[:, 0].reshape(b, cfg.kv_dim)
         v_tok = v[:, 0].reshape(b, cfg.kv_dim)
         if pool.quantized:
-            k_tok, ks = quantize_kv(k_tok, packed)
-            v_tok, vs = quantize_kv(v_tok, packed)
+            k_tok, ks = quantize_kv(k_tok, packed, llama.kv_group(cfg))
+            v_tok, vs = quantize_kv(v_tok, packed, llama.kv_group(cfg))
             pool.k_scale[li, page_ids, offsets] = ks.float()
             pool.v_scale[li, page_ids, offsets] = vs.float()
         pool.k[li, page_ids, offsets] = k_tok
         pool.v[li, page_ids, offsets] = v_tok
-        if pool.quantized:
-            attn = paged_attention_quant(
-                q[:, 0], pool.k[li], pool.v[li], pool.k_scale[li],
-                pool.v_scale[li], attn_lens, block_tables, packed=packed)
-        else:
-            attn = paged_attention(q[:, 0], pool.k[li], pool.v[li],
-                                   attn_lens, block_tables)
+        attn = _decode_attention(cfg, q[:, 0], pool, li, attn_lens,
+                                 block_tables, packed)
         x = llama._decode_finish(cfg, layer, x,
                                  attn.reshape(b, 1, cfg.q_dim))
     return pool, llama._logits(cfg, params, x)[:, 0]
@@ -574,10 +612,9 @@ def paged_decode_multi(cfg: ModelConfig, params, pool: PagePool,
     dev = tokens.device
     lens = lengths.long()
     angles = llama._angles(cfg, dev)
-    dtype = llama.torch_dtype(cfg.dtype)
     steps = torch.arange(t, device=dev)[None, :]
     positions = lens[:, None] + steps                              # [B, T]
-    x = gather_rows(params["embedding"], tokens.long(), dtype).to(dtype)
+    x = llama.embed(cfg, params, tokens.long())
     page_ids = block_tables.long().gather(1, (lens // page_size)[:, None])
     pages2d = page_ids.expand(b, t)                                # [B, T]
     offsets = (lens % page_size)[:, None] + steps
@@ -587,8 +624,8 @@ def paged_decode_multi(cfg: ModelConfig, params, pool: PagePool,
         k_tok = k.reshape(b, t, cfg.kv_dim)
         v_tok = v.reshape(b, t, cfg.kv_dim)
         if pool.quantized:
-            k_tok, ks = quantize_kv(k_tok, packed)
-            v_tok, vs = quantize_kv(v_tok, packed)
+            k_tok, ks = quantize_kv(k_tok, packed, llama.kv_group(cfg))
+            v_tok, vs = quantize_kv(v_tok, packed, llama.kv_group(cfg))
             pool.k_scale[li, pages2d, offsets] = ks.float()
             pool.v_scale[li, pages2d, offsets] = vs.float()
         pool.k[li, pages2d, offsets] = k_tok
@@ -752,6 +789,63 @@ def check_engine_config(engine_cfg: EngineConfig,
             f"page)")
 
 
+def check_meshes(model_cfg: ModelConfig, engine_cfg: EngineConfig, params,
+                 device: torch.device, cuda_graphs: bool, draft_model,
+                 prefix_store, tp_mesh, cp_mesh, ep_mesh, pp_mesh,
+                 fsdp_mesh):
+    """Refuse the meshes and the mesh features not ported (naming ROADMAP
+    Queue 1 item 10) and a misconfigured TP or EP mesh; returns the mesh
+    the engine runs on (None without one)."""
+    for name, mesh in (("cp_mesh", cp_mesh), ("pp_mesh", pp_mesh),
+                       ("fsdp_mesh", fsdp_mesh)):
+        if mesh is not None:
+            raise NotImplementedError(
+                f"{name} is not ported yet ({MESH_ITEM}); the paged engine "
+                f"serves tp_mesh and ep_mesh")
+    if tp_mesh is not None and ep_mesh is not None:
+        raise NotImplementedError(
+            f"tp_mesh with ep_mesh (TP x EP) is not ported yet "
+            f"({MESH_ITEM})")
+    validate_tp_mesh(tp_mesh, model_cfg)
+    validate_ep_mesh(ep_mesh, model_cfg, engine_cfg)
+    mesh = tp_mesh if tp_mesh is not None else ep_mesh
+    if mesh is None:
+        return None
+    refused = [name for name, on in (
+        ("max_spilled_pages (KV spill)", engine_cfg.max_spilled_pages),
+        ("the prefix store tiers (prefix_host_pages / prefix_disk_dir / "
+         "prefix_disk_pages / prefix_store)",
+         engine_cfg.prefix_host_pages or engine_cfg.prefix_disk_dir
+         or engine_cfg.prefix_disk_pages or prefix_store is not None),
+        ("host_overlap", engine_cfg.host_overlap),
+        ("speculative_k / draft_model",
+         engine_cfg.speculative_k or draft_model is not None)) if on]
+    if refused:
+        raise NotImplementedError(
+            f"under a device mesh {', '.join(refused)} is not ported yet "
+            f"({MESH_ITEM})")
+    if (cuda_graphs and device.type == "cuda"
+            and torch.distributed.get_backend() != "nccl"):
+        raise ValueError(
+            f"cuda_graphs=True under a mesh needs nccl collectives, which a "
+            f"CUDA graph captures; the group's backend is "
+            f"{torch.distributed.get_backend()!r}, whose collectives sync "
+            f"with the host (pass cuda_graphs=False)")
+    for m, axis, key, dim, total in (
+            (tp_mesh, "model", "wq", -1, model_cfg.q_dim),
+            (ep_mesh, "expert", "w_gate", 0, model_cfg.n_experts)):
+        if m is None:
+            continue
+        want = total // int(m.mesh.shape[m.mesh_dim_names.index(axis)])
+        got = params["layers"][0][key].shape[dim]
+        if got != want:
+            raise ValueError(
+                f"the {axis} axis needs this rank's shard of the params "
+                f"(runtime.sharding.shard_params): {key} has {got} along "
+                f"dim {dim}, the rank's share is {want}")
+    return mesh
+
+
 def _pow2_at_least(n: int) -> int:
     p = 1
     while p < n:
@@ -777,14 +871,17 @@ class PagedInferenceEngine(EngineBase):
                  cuda_graphs: bool = True, draft_model=None, tp_mesh=None,
                  cp_mesh=None, ep_mesh=None, pp_mesh=None, fsdp_mesh=None,
                  prefix_store: Optional[PrefixStore] = None):
-        if any(m is not None for m in (tp_mesh, cp_mesh, ep_mesh, pp_mesh,
-                                       fsdp_mesh)):
-            raise NotImplementedError(
-                "device meshes (TP/CP/EP/PP/FSDP) are not ported yet (ROADMAP "
-                "Queue 1 item 10, multi-GPU)")
         check_engine_config(engine_cfg, prefix_store is not None)
         self.device = resolve_device(device)
         check_params_device(params, self.device)
+        self.mesh = check_meshes(model_cfg, engine_cfg, params, self.device,
+                                 cuda_graphs, draft_model, prefix_store,
+                                 tp_mesh, cp_mesh, ep_mesh, pp_mesh,
+                                 fsdp_mesh)
+        if self.mesh is not None:
+            # this rank's model: its heads, the collectives' groups
+            model_cfg = rank_config(model_cfg, tp_mesh, ep_mesh,
+                                    self.device)
         self.model_cfg = model_cfg
         self.engine_cfg = engine_cfg
         self.params = params
@@ -2002,12 +2099,23 @@ class PagedInferenceEngine(EngineBase):
                     self._count("engine.prefix_writethrough_pages",
                                 flushed)
 
+    def _refuse_under_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} under a device mesh is not ported yet "
+                f"({MESH_ITEM})")
+
+    def restore_sequences(self, snap: Dict[str, object], *args, **kwargs):
+        self._refuse_under_mesh("restore_sequences")
+        return super().restore_sequences(snap, *args, **kwargs)
+
     def snapshot_sequences(self) -> Dict[str, object]:
         """``EngineBase.snapshot_sequences`` aware of chunked prefills: a
         mid-prefill sequence exports as a pending entry (original prompt,
         nothing generated), between the active sequences and the queue.
         With a store attached, the active sequences' written pages publish
         first (``_publish_sequence_pages``), so a restore promotes them."""
+        self._refuse_under_mesh("snapshot_sequences")
         self._publish_sequence_pages()
         snap = super().snapshot_sequences()
         if not self._prefilling:

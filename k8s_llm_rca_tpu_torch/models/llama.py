@@ -14,6 +14,17 @@ the CPU).  ``n_experts > 0`` (Mixtral) swaps the MLP for the dense
 soft-dispatch MoE block (``_moe_mlp``): ``router`` [H, E] and stacked
 ``w_gate``/``w_up`` [E, H, I], ``w_down`` [E, I, H], every expert run on
 every token and the top-k router weights zeroing the rest, as in JAX.
+
+Under a mesh every rank runs the same functions on its own shard with a
+``runtime.sharding.RankModelConfig`` (this rank's head counts, the
+collectives' groups), the manual-TP bodies of JAX's
+``parallel/pipeline.py`` (``_block_prefill_tp``, ``_decode_finish_tp``):
+column-parallel wq/wk/wv/w_gate/w_up give the rank's heads and MLP
+columns, row-parallel wo/w_down end in one sum all-reduce each, the
+hidden-sharded embedding in one all-gather along hidden, the lm head over
+the rank's hidden slice in a sum all-reduce of the logits, and quantized
+KV takes the max over the group so every rank writes the full-row scale.
+With ``ep`` the MoE MLP dispatches through ``parallel.moe``'s all-to-all.
 """
 
 from __future__ import annotations
@@ -27,18 +38,22 @@ import torch.nn.functional as F
 
 from k8s_llm_rca_tpu_torch.config import ModelConfig
 from k8s_llm_rca_tpu_torch.models.quant import (
-    QuantTensor, QuantTensor4, dequant_kv, gather_rows, quantize_kv,
+    QuantTensor, QuantTensor4, QuantTensor4Grouped, dequant_kv, gather_rows,
+    quantize_kv,
 )
 from k8s_llm_rca_tpu_torch.ops.attention import (
     decode_attention, decode_attention_multi,
 )
-from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
+from k8s_llm_rca_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_sharded,
+)
 from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
     qmm, qmm_experts, qmm_head, quant_matmul_experts_plain,
     quant_matmul_head_plain, quant_matmul_plain,
 )
 from k8s_llm_rca_tpu_torch.ops.norms import rms_norm
 from k8s_llm_rca_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from k8s_llm_rca_tpu_torch.runtime.mesh import all_gather, all_reduce_sum
 from k8s_llm_rca_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -123,12 +138,10 @@ def _quant_leaf(tree, device) -> "QuantTensor | QuantTensor4":
     for byte.  int4 is told by the class name or, for per-column scales, by
     the packed axis being half the scale's."""
     kind = type(tree).__name__
-    if kind == "QuantTensor4Grouped":
-        raise ValueError("grouped int4 (QuantTensor4Grouped) is a shard-local "
-                         "layout of PP x TP, not ported (ROADMAP Queue 1 "
-                         "item 10)")
     q = _tensor_from_numpy(tree.q, device, None)
     scale = _tensor_from_numpy(tree.scale, device, None)
+    if kind == "QuantTensor4Grouped":
+        return QuantTensor4Grouped(q=q, scale=scale)
     packed = kind == "QuantTensor4" or (scale.shape[-1] > 1 and
                                         scale.shape[-1] == 2 * q.shape[-1])
     return (QuantTensor4 if packed else QuantTensor)(q=q, scale=scale)
@@ -164,6 +177,52 @@ def _w_mm(cfg: ModelConfig, x: torch.Tensor, w) -> torch.Tensor:
     return quant_matmul_plain(x, w)
 
 
+def _tp(cfg: ModelConfig):
+    """The rank's TP axis (``RankModelConfig.tp``), None without one."""
+    return getattr(cfg, "tp", None)
+
+
+def kv_group(cfg: ModelConfig):
+    """The group whose max gives a quantized KV row its full-row scale
+    (the TP group; None unsharded)."""
+    tp = _tp(cfg)
+    return None if tp is None else tp.group
+
+
+def _row_mm(cfg: ModelConfig, x: torch.Tensor, w) -> torch.Tensor:
+    """A row-parallel matmul (wo, w_down): under TP each rank's partial
+    product over its rows, summed over the group (JAX's ``psum``)."""
+    out = _w_mm(cfg, x, w)
+    tp = _tp(cfg)
+    return out if tp is None else all_reduce_sum(out, tp.group)
+
+
+def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor
+          ) -> torch.Tensor:
+    """The embedding lookup in the model dtype; under TP the table is
+    hidden-sharded, each rank gathers its slice and one all-gather along
+    hidden rebuilds the rows."""
+    dtype = torch_dtype(cfg.dtype)
+    x = gather_rows(params["embedding"], tokens, dtype).to(dtype)
+    tp = _tp(cfg)
+    if tp is not None:
+        x = all_gather(x, tp.group, dim=-1).contiguous()
+    return x
+
+
+def prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, seq_lens: torch.Tensor,
+                      q_offset: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Causal attention of a prefill: ``ops.flash_attention``, under TP its
+    sharded wrapper over the rank's heads."""
+    tp = _tp(cfg)
+    if tp is None:
+        return flash_attention(q, k, v, seq_lens, q_offset)
+    return flash_attention_sharded(q, k, v, seq_lens, tp.mesh, q_offset,
+                                   global_heads=(tp.n_heads, tp.n_kv_heads))
+
+
 def _qkv(cfg: ModelConfig, layer: Params, x: torch.Tensor,
          angles: torch.Tensor, positions: torch.Tensor):
     """x [B, S, H] -> q [B, S, n_heads, d], k/v [B, S, n_kv, d] (roped q, k)."""
@@ -176,9 +235,13 @@ def _qkv(cfg: ModelConfig, layer: Params, x: torch.Tensor,
 
 def _mlp(cfg: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.n_experts > 0:
+        if getattr(cfg, "ep", None) is not None:
+            from k8s_llm_rca_tpu_torch.parallel.moe import moe_mlp_ep
+
+            return moe_mlp_ep(cfg, layer, x)
         return _moe_mlp(cfg, layer, x)
     gate = F.silu(_w_mm(cfg, x, layer["w_gate"]))
-    return _w_mm(cfg, gate * _w_mm(cfg, x, layer["w_up"]), layer["w_down"])
+    return _row_mm(cfg, gate * _w_mm(cfg, x, layer["w_up"]), layer["w_down"])
 
 
 def _moe_route(router_logits: torch.Tensor, k: int
@@ -210,7 +273,10 @@ def _moe_mlp(cfg: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(experts(x, layer["w_gate"]))
     h.mul_(experts(x, layer["w_up"]))
     per_expert = experts(h, layer["w_down"])                     # [B,S,E,H]
-    return torch.einsum("bseh,bse->bsh", per_expert, dense_w.to(x.dtype))
+    out = torch.einsum("bseh,bse->bsh", per_expert, dense_w.to(x.dtype))
+    tp = _tp(cfg)
+    # under TP the experts' inner dim is the rank's: partial sums
+    return out if tp is None else all_reduce_sum(out, tp.group)
 
 
 def _block_prefill(cfg: ModelConfig, layer: Params, x: torch.Tensor,
@@ -220,9 +286,9 @@ def _block_prefill(cfg: ModelConfig, layer: Params, x: torch.Tensor,
     runs through ``ops.flash_attention``."""
     h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
     q, k, v = _qkv(cfg, layer, h, angles, positions)
-    attn = flash_attention(q, k, v, seq_lens)
+    attn = prefill_attention(cfg, q, k, v, seq_lens)
     b, s = attn.shape[:2]
-    x = x + _w_mm(cfg, attn.reshape(b, s, cfg.q_dim), layer["wo"])
+    x = x + _row_mm(cfg, attn.reshape(b, s, cfg.q_dim), layer["wo"])
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
     return x + _mlp(cfg, layer, h), k, v
 
@@ -238,17 +304,25 @@ def _decode_finish(cfg: ModelConfig, layer: Params, x: torch.Tensor,
                    attn: torch.Tensor) -> torch.Tensor:
     """Decode-block back half: output projection + residual + MLP.
     ``attn`` is already [B, T, q_dim]."""
-    x = x + _w_mm(cfg, attn, layer["wo"])
+    x = x + _row_mm(cfg, attn, layer["wo"])
     return x + _mlp(cfg, layer,
                     rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps))
 
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """fp32 logits; under TP the head is hidden-sharded: each rank's
+    partial logits over its hidden slice, summed over the group."""
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
+    tp = _tp(cfg)
+    if tp is not None:
+        h = x.shape[-1] // tp.size
+        x = x[..., tp.rank * h:(tp.rank + 1) * h].contiguous()
     if cfg.fused_quant_matmul:
-        return qmm_head(x, head).float()
-    return quant_matmul_head_plain(x, head).float()
+        logits = qmm_head(x, head).float()
+    else:
+        logits = quant_matmul_head_plain(x, head).float()
+    return logits if tp is None else all_reduce_sum(logits, tp.group)
 
 
 # ---------------------------------------------------------------------------
@@ -281,8 +355,7 @@ def prefill_kv(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     angles = _angles(cfg, dev)
     positions = torch.arange(s_pad, device=dev)[None, :]
     seq_lens = torch.tensor([int(length)], dtype=torch.int32, device=dev)
-    dtype = torch_dtype(cfg.dtype)
-    x = gather_rows(params["embedding"], tokens, dtype).to(dtype)
+    x = embed(cfg, params, tokens)
     ks, vs = [], []
     for layer in params["layers"]:
         x, k, v = _block_prefill(cfg, layer, x, angles, positions, seq_lens)
@@ -302,8 +375,7 @@ def _prefill_batch_kv(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     n, s_pad = tokens.shape
     angles = _angles(cfg, dev)
     positions = torch.arange(s_pad, device=dev)[None, :].expand(n, s_pad)
-    dtype = torch_dtype(cfg.dtype)
-    x = gather_rows(params["embedding"], tokens, dtype).to(dtype)
+    x = embed(cfg, params, tokens)
     ks, vs = [], []
     for layer in params["layers"]:
         x, k, v = _block_prefill(cfg, layer, x, angles, positions, lengths)
@@ -468,7 +540,7 @@ def decode_multi(cfg: ModelConfig, params: Params, cache: KVCache,
     dtype = torch_dtype(cfg.dtype)
     angles = _angles(cfg, dev)
     positions = lengths.long()[:, None] + torch.arange(t, device=dev)[None, :]
-    x = gather_rows(params["embedding"], tokens.long(), dtype).to(dtype)
+    x = embed(cfg, params, tokens.long())
     index = _token_index(cache, lengths, t)
     for li, layer in enumerate(params["layers"]):
         q, k, v = _decode_qkv(cfg, layer, x, angles, positions)
@@ -491,7 +563,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: KVCache,
     dev = tokens.device
     dtype = torch_dtype(cfg.dtype)
     angles = _angles(cfg, dev)
-    x = gather_rows(params["embedding"], tokens.long()[:, None], dtype).to(dtype)
+    x = embed(cfg, params, tokens.long()[:, None])
     index = _token_index(cache, lengths)
     for li, layer in enumerate(params["layers"]):
         q, k, v = _decode_qkv(cfg, layer, x, angles, lengths.long()[:, None])
@@ -513,8 +585,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         seq_lens = torch.full((b,), s, dtype=torch.int32, device=dev)
     angles = _angles(cfg, dev)
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
-    dtype = torch_dtype(cfg.dtype)
-    x = gather_rows(params["embedding"], tokens, dtype).to(dtype)
+    x = embed(cfg, params, tokens)
     for layer in params["layers"]:
         x, _, _ = _block_prefill(cfg, layer, x, angles, positions, seq_lens)
     return _logits(cfg, params, x)

@@ -41,8 +41,6 @@ from k8s_llm_rca_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
 
-MESH_ITEM = "ROADMAP Queue 1 item 10, multi-GPU"
-
 _DTYPES = {
     "F64": torch.float64,
     "F32": torch.float32,
@@ -95,6 +93,51 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
             out[name] = raw.view(_DTYPES[info["dtype"]]).reshape(
                 info["shape"])
     return out
+
+
+# numpy carriers of each file dtype (bf16 rides as its 16-bit pattern)
+_NP = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
+       "BF16": np.int16, "I64": np.int64, "I32": np.int32, "I16": np.int16,
+       "I8": np.int8, "U8": np.uint8, "BOOL": np.bool_}
+
+
+class LazyTensor:
+    """One tensor of a .safetensors file, read on demand: ``block(parts)``
+    maps the file and copies only the block (``parts`` as
+    ``runtime.sharding.dim_parts`` gives them; ``()`` = all of it)."""
+
+    def __init__(self, path: str, offset: int, dtype: str, shape):
+        self.path, self.offset, self.dtype = path, offset, dtype
+        self.shape = tuple(shape)
+
+    def block(self, parts) -> torch.Tensor:
+        if 0 in self.shape:
+            return torch.empty(self.shape, dtype=_DTYPES[self.dtype])
+        idx = []
+        for d, (n, i) in enumerate(parts):
+            if self.shape[d] % n:
+                raise ValueError(f"dimension {d} of {self.shape} does not "
+                                 f"split into {n} equal parts")
+            size = self.shape[d] // n
+            idx.append(slice(i * size, (i + 1) * size))
+        mm = np.memmap(self.path, dtype=_NP[self.dtype], mode="r",
+                       offset=self.offset, shape=self.shape)
+        # only the block's pages of the file are read
+        out = torch.from_numpy(np.array(mm[tuple(idx)]))
+        del mm
+        return out.view(_DTYPES[self.dtype])
+
+
+def read_safetensors_lazy(path: str) -> Dict[str, LazyTensor]:
+    """The tensors of one .safetensors file as ``LazyTensor``s (the header
+    only is read)."""
+    with open(path, "rb") as f:
+        (header_len,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(header_len))
+    base = 8 + header_len
+    return {name: LazyTensor(path, base + info["data_offsets"][0],
+                             info["dtype"], info["shape"])
+            for name, info in header.items() if name != "__metadata__"}
 
 
 def write_safetensors(path: str, tensors: Dict[str, Any]) -> None:
@@ -153,23 +196,26 @@ def write_sharded_safetensors(directory: str, tensors: Dict[str, Any],
     return paths
 
 
-def load_checkpoint_tensors(path: str) -> Dict[str, torch.Tensor]:
+def load_checkpoint_tensors(path: str, lazy: bool = False
+                            ) -> Dict[str, torch.Tensor]:
     """Load a checkpoint: a single .safetensors file, or an HF model dir
     (one ``model.safetensors`` or shards named by
-    ``model.safetensors.index.json``)."""
+    ``model.safetensors.index.json``).  ``lazy``: ``LazyTensor``s that read
+    their data on demand."""
+    reader = read_safetensors_lazy if lazy else read_safetensors
     if os.path.isfile(path):
-        return read_safetensors(path)
+        return reader(path)
     index = os.path.join(path, "model.safetensors.index.json")
     if os.path.exists(index):
         with open(index) as f:
             weight_map: Dict[str, str] = json.load(f)["weight_map"]
         tensors: Dict[str, torch.Tensor] = {}
         for shard in sorted(set(weight_map.values())):
-            tensors.update(read_safetensors(os.path.join(path, shard)))
+            tensors.update(reader(os.path.join(path, shard)))
         return tensors
     single = os.path.join(path, "model.safetensors")
     if os.path.exists(single):
-        return read_safetensors(single)
+        return reader(single)
     raise FileNotFoundError(f"no safetensors checkpoint under {path}")
 
 
@@ -202,72 +248,135 @@ def _cast(t: torch.Tensor, dtype: torch.dtype, device: torch.device,
     return t.transpose(-2, -1).contiguous() if transpose else t
 
 
+class _Block:
+    """Reads this rank's block of each checkpoint tensor: ``specs`` the
+    port tree's PartitionSpecs (``runtime/rules.py``), ``mesh`` the rank's
+    mesh.  A checkpoint tensor lazily mapped from its file
+    (``LazyTensor``) reads only the rows its block covers."""
+
+    def __init__(self, specs, mesh):
+        from k8s_llm_rca_tpu_torch.runtime.rules import flatten_with_names
+
+        self.specs = dict(flatten_with_names(specs))
+        self.mesh = mesh
+
+    def parts(self, path: str):
+        from k8s_llm_rca_tpu_torch.runtime.sharding import dim_parts
+
+        if path not in self.specs:
+            raise ValueError(f"no partition rule matches param '{path}'")
+        return dim_parts(self.specs[path], self.mesh)
+
+    @staticmethod
+    def read(t, parts) -> torch.Tensor:
+        """``parts`` of ``t`` (in the file's layout) as a CPU tensor."""
+        from k8s_llm_rca_tpu_torch.runtime.sharding import local_block
+
+        if isinstance(t, LazyTensor):
+            return t.block(parts)
+        return local_block(_host(t), parts).contiguous()
+
+
+def _full(t) -> torch.Tensor:
+    return t.block(()) if isinstance(t, LazyTensor) else _host(t)
+
+
 def llama_params_from_hf(cfg: ModelConfig, tensors: Dict[str, Any],
-                         device=None) -> Params:
+                         device=None, block: Optional[_Block] = None
+                         ) -> Params:
     """Map an HF Llama/TinyLlama/Mixtral state dict onto
     ``models/llama.py``'s tree on ``device`` (Mixtral when
-    ``cfg.n_experts > 0``).  Tensors leave ``tensors`` as they are mapped."""
+    ``cfg.n_experts > 0``).  Tensors leave ``tensors`` as they are mapped.
+    With ``block`` every leaf is this rank's block of it (``load_llama``
+    with a mesh)."""
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     if cfg.tie_embeddings and "lm_head.weight" in tensors:
         embed = tensors.get("model.embed_tokens.weight")
-        if embed is None or not torch.equal(_host(tensors["lm_head.weight"]),
-                                            _host(embed)):
+        if embed is None or not torch.equal(_full(tensors["lm_head.weight"]),
+                                            _full(embed)):
             raise ValueError(
                 "checkpoint has a distinct lm_head.weight but the config "
                 "ties embeddings — loading would silently discard the "
                 "output head; use a config with tie_embeddings=False")
 
-    def take(name: str, transpose: bool = False) -> torch.Tensor:
-        return _cast(_take(tensors, name), dt, device, transpose)
+    def take(name: str, path: str, transpose: bool = False,
+             parts=None, keep: bool = False) -> torch.Tensor:
+        t = _get(tensors, name) if keep else _take(tensors, name)
+        if block is not None:
+            parts = block.parts(path) if parts is None else parts
+            # the file holds [out, in]: its parts are the port's reversed
+            t = block.read(t, parts[::-1] if transpose else parts)
+        return _cast(t, dt, device, transpose)
+
+    def experts(names: List[str], path: str) -> torch.Tensor:
+        """The stacked [E, ., .] leaf from one file tensor per expert: this
+        rank's experts only, each its block."""
+        if block is None:
+            return torch.stack([take(n, path, True) for n in names])
+        (n_e, i_e), *rest = block.parts(path)
+        per = len(names) // n_e
+        mine = set(range(i_e * per, (i_e + 1) * per))
+        out = []
+        for e, name in enumerate(names):
+            if e in mine:
+                out.append(take(name, path, True, parts=tuple(rest)))
+            else:
+                del tensors[name]
+        return torch.stack(out)
 
     layers: List[Params] = []
     for i in range(cfg.n_layers):
         p = f"model.layers.{i}."
+        q = f"layers/{i}/"
         layer: Params = {
-            "attn_norm": take(p + "input_layernorm.weight"),
-            "mlp_norm": take(p + "post_attention_layernorm.weight"),
-            "wq": take(p + "self_attn.q_proj.weight", True),
-            "wk": take(p + "self_attn.k_proj.weight", True),
-            "wv": take(p + "self_attn.v_proj.weight", True),
-            "wo": take(p + "self_attn.o_proj.weight", True),
+            "attn_norm": take(p + "input_layernorm.weight", q + "attn_norm"),
+            "mlp_norm": take(p + "post_attention_layernorm.weight",
+                             q + "mlp_norm"),
+            "wq": take(p + "self_attn.q_proj.weight", q + "wq", True),
+            "wk": take(p + "self_attn.k_proj.weight", q + "wk", True),
+            "wv": take(p + "self_attn.v_proj.weight", q + "wv", True),
+            "wo": take(p + "self_attn.o_proj.weight", q + "wo", True),
         }
         if cfg.n_experts > 0:
             moe = p + "block_sparse_moe."
-            layer["router"] = take(moe + "gate.weight", True)
-            experts = [f"{moe}experts.{e}." for e in range(cfg.n_experts)]
+            layer["router"] = take(moe + "gate.weight", q + "router", True)
+            names = [f"{moe}experts.{e}." for e in range(cfg.n_experts)]
             # w1 gate [H, I], w2 down [I, H], w3 up [H, I] after transpose
-            layer["w_gate"] = torch.stack(
-                [take(ep + "w1.weight", True) for ep in experts])
-            layer["w_down"] = torch.stack(
-                [take(ep + "w2.weight", True) for ep in experts])
-            layer["w_up"] = torch.stack(
-                [take(ep + "w3.weight", True) for ep in experts])
+            layer["w_gate"] = experts([n + "w1.weight" for n in names],
+                                      q + "w_gate")
+            layer["w_down"] = experts([n + "w2.weight" for n in names],
+                                      q + "w_down")
+            layer["w_up"] = experts([n + "w3.weight" for n in names],
+                                    q + "w_up")
         else:
-            layer["w_gate"] = take(p + "mlp.gate_proj.weight", True)
-            layer["w_up"] = take(p + "mlp.up_proj.weight", True)
-            layer["w_down"] = take(p + "mlp.down_proj.weight", True)
+            layer["w_gate"] = take(p + "mlp.gate_proj.weight", q + "w_gate",
+                                   True)
+            layer["w_up"] = take(p + "mlp.up_proj.weight", q + "w_up", True)
+            layer["w_down"] = take(p + "mlp.down_proj.weight", q + "w_down",
+                                   True)
         layers.append(layer)
 
     params: Params = {
-        "final_norm": _cast(_get(tensors, "model.norm.weight"), dt, device),
+        "final_norm": take("model.norm.weight", "final_norm", keep=True),
         "layers": layers,
     }
     if not cfg.tie_embeddings:
         # tied checkpoints (some TinyLlama exports) omit lm_head
         if "lm_head.weight" in tensors:
-            params["lm_head"] = take("lm_head.weight")
+            params["lm_head"] = take("lm_head.weight", "lm_head")
         else:
-            params["lm_head"] = _cast(
-                _get(tensors, "model.embed_tokens.weight"), dt, device)
-    params["embedding"] = take("model.embed_tokens.weight")
+            params["lm_head"] = take("model.embed_tokens.weight", "lm_head",
+                                     keep=True)
+    params["embedding"] = take("model.embed_tokens.weight", "embedding")
     return params
 
 
 def encoder_params_from_hf(cfg: EncoderConfig, tensors: Dict[str, Any],
-                           device=None) -> Params:
+                           device=None, block: Optional[_Block] = None
+                           ) -> Params:
     """Map an HF BERT-family (e5) state dict onto ``models/encoder.py``'s
-    tree on ``device``."""
+    tree on ``device``; with ``block`` each leaf is this rank's block."""
     device = resolve_device(device)
     # some exports nest everything under a "bert." module prefix
     if ("embeddings.word_embeddings.weight" not in tensors
@@ -276,36 +385,44 @@ def encoder_params_from_hf(cfg: EncoderConfig, tensors: Dict[str, Any],
                    if k.startswith("bert.")}
     dt = torch_dtype(cfg.dtype)
 
-    def take(name: str, transpose: bool = False) -> torch.Tensor:
-        return _cast(_take(tensors, name), dt, device, transpose)
+    def take(name: str, path: str, transpose: bool = False) -> torch.Tensor:
+        t = _take(tensors, name)
+        if block is not None:
+            parts = block.parts(path)
+            t = block.read(t, parts[::-1] if transpose else parts)
+        return _cast(t, dt, device, transpose)
 
     layers: List[Params] = []
     for i in range(cfg.n_layers):
         p = f"encoder.layer.{i}."
-        layers.append({
-            "wq": take(p + "attention.self.query.weight", True),
-            "bq": take(p + "attention.self.query.bias"),
-            "wk": take(p + "attention.self.key.weight", True),
-            "bk": take(p + "attention.self.key.bias"),
-            "wv": take(p + "attention.self.value.weight", True),
-            "bv": take(p + "attention.self.value.bias"),
-            "wo": take(p + "attention.output.dense.weight", True),
-            "bo": take(p + "attention.output.dense.bias"),
-            "attn_ln_w": take(p + "attention.output.LayerNorm.weight"),
-            "attn_ln_b": take(p + "attention.output.LayerNorm.bias"),
-            "w_in": take(p + "intermediate.dense.weight", True),
-            "b_in": take(p + "intermediate.dense.bias"),
-            "w_out": take(p + "output.dense.weight", True),
-            "b_out": take(p + "output.dense.bias"),
-            "mlp_ln_w": take(p + "output.LayerNorm.weight"),
-            "mlp_ln_b": take(p + "output.LayerNorm.bias"),
-        })
+        q = f"layers/{i}/"
+        names = (("wq", "attention.self.query.weight", True),
+                 ("bq", "attention.self.query.bias", False),
+                 ("wk", "attention.self.key.weight", True),
+                 ("bk", "attention.self.key.bias", False),
+                 ("wv", "attention.self.value.weight", True),
+                 ("bv", "attention.self.value.bias", False),
+                 ("wo", "attention.output.dense.weight", True),
+                 ("bo", "attention.output.dense.bias", False),
+                 ("attn_ln_w", "attention.output.LayerNorm.weight", False),
+                 ("attn_ln_b", "attention.output.LayerNorm.bias", False),
+                 ("w_in", "intermediate.dense.weight", True),
+                 ("b_in", "intermediate.dense.bias", False),
+                 ("w_out", "output.dense.weight", True),
+                 ("b_out", "output.dense.bias", False),
+                 ("mlp_ln_w", "output.LayerNorm.weight", False),
+                 ("mlp_ln_b", "output.LayerNorm.bias", False))
+        layers.append({key: take(p + hf, q + key, tr)
+                       for key, hf, tr in names})
     return {
-        "word_embedding": take("embeddings.word_embeddings.weight"),
-        "position_embedding": take("embeddings.position_embeddings.weight"),
-        "type_embedding": take("embeddings.token_type_embeddings.weight"),
-        "embed_ln_w": take("embeddings.LayerNorm.weight"),
-        "embed_ln_b": take("embeddings.LayerNorm.bias"),
+        "word_embedding": take("embeddings.word_embeddings.weight",
+                               "word_embedding"),
+        "position_embedding": take("embeddings.position_embeddings.weight",
+                                   "position_embedding"),
+        "type_embedding": take("embeddings.token_type_embeddings.weight",
+                               "type_embedding"),
+        "embed_ln_w": take("embeddings.LayerNorm.weight", "embed_ln_w"),
+        "embed_ln_b": take("embeddings.LayerNorm.bias", "embed_ln_b"),
         "layers": layers,
     }
 
@@ -346,27 +463,45 @@ def llama_params_to_hf(cfg: ModelConfig, params: Params
     return out
 
 
-def _refuse_mesh(mesh, layout) -> None:
-    if mesh is not None or layout is not None:
-        raise NotImplementedError(
-            f"loading onto a device mesh (mesh=/layout=) is not ported yet "
-            f"({MESH_ITEM})")
-
-
 def load_llama(cfg: ModelConfig, path: str, device=None,
                mesh: Optional[Any] = None,
                layout: Optional[Any] = None) -> Params:
     """Load a Llama/Mixtral-family checkpoint file or dir onto ``device``
-    (``None`` = the card)."""
-    _refuse_mesh(mesh, layout)
+    (``None`` = the card).  With ``mesh`` the result is THIS rank's shard
+    under ``runtime.rules.llama_rules(cfg, layout)`` (the tree
+    ``runtime.sharding.shard_params`` gives), and each rank reads only the
+    rows of the files its blocks cover (the files are mapped, not read
+    whole)."""
     device = resolve_device(device)
-    return llama_params_from_hf(cfg, load_checkpoint_tensors(path), device)
+    if mesh is None:
+        return llama_params_from_hf(cfg, load_checkpoint_tensors(path),
+                                    device)
+    from k8s_llm_rca_tpu_torch.runtime.rules import (
+        llama_param_template, llama_rules, match_partition_rules,
+    )
+
+    specs = match_partition_rules(llama_rules(cfg, layout),
+                                  llama_param_template(cfg), table="llama")
+    return llama_params_from_hf(cfg, load_checkpoint_tensors(path, lazy=True),
+                                device, _Block(specs, mesh))
 
 
 def load_encoder(cfg: EncoderConfig, path: str, device=None,
                  mesh: Optional[Any] = None,
                  layout: Optional[Any] = None) -> Params:
-    """Load a BERT/e5-family checkpoint file or dir onto ``device``."""
-    _refuse_mesh(mesh, layout)
+    """Load a BERT/e5-family checkpoint file or dir onto ``device``; with
+    ``mesh`` THIS rank's shard under ``runtime.rules.encoder_rules``."""
     device = resolve_device(device)
-    return encoder_params_from_hf(cfg, load_checkpoint_tensors(path), device)
+    if mesh is None:
+        return encoder_params_from_hf(cfg, load_checkpoint_tensors(path),
+                                      device)
+    from k8s_llm_rca_tpu_torch.runtime.rules import (
+        encoder_param_template, encoder_rules, match_partition_rules,
+    )
+
+    specs = match_partition_rules(encoder_rules(cfg, layout),
+                                  encoder_param_template(cfg),
+                                  table="encoder")
+    return encoder_params_from_hf(cfg,
+                                  load_checkpoint_tensors(path, lazy=True),
+                                  device, _Block(specs, mesh))

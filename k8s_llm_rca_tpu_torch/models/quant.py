@@ -21,9 +21,14 @@ quantized and full-precision params run the same model code; under
 instead.  Both take the dtype of the consumer: inside the JAX engine's
 jitted steps XLA keeps ``q * scale`` at f32 precision when an f32
 activation consumes it (excess precision), and rounds it to bf16 only for
-a bf16 one; ``dq(w, x.dtype)`` computes exactly that.  The grouped int4
-layout of the JAX package (``QuantTensor4Grouped``) serves PP x TP only and
-is not ported (ROADMAP Queue 1 item 10).
+a bf16 one; ``dq(w, x.dtype)`` computes exactly that.
+
+- ``QuantTensor4Grouped``: int4 whose packed axis is split-half WITHIN
+  each contiguous column group (``repack_nibbles_grouped``), the layout
+  that lets a column shard of an int4 weight be a plain ``QuantTensor4``
+  of its own columns.  Only a shard is meaningful: ``dq``/``gather_rows``
+  refuse the whole tensor (``_reject_grouped``), and
+  ``runtime/sharding.py`` hands each rank its group as a ``QuantTensor4``.
 """
 
 from __future__ import annotations
@@ -52,6 +57,24 @@ class QuantTensor4(NamedTuple):
     """Nibble-packed int4 weight + per-channel scale (logical channel size)."""
 
     q: torch.Tensor        # int8, logical shape with the last dim halved
+    scale: torch.Tensor    # compute dtype, 1s except the channel axes
+
+    @property
+    def shape(self):
+        return (*self.q.shape[:-1], self.q.shape[-1] * 2)
+
+    @property
+    def ndim(self):
+        return self.q.dim()
+
+
+class QuantTensor4Grouped(NamedTuple):
+    """A ``repack_nibbles_grouped`` result: nibble-packed int4 whose packed
+    axis is split-half WITHIN each contiguous column group, not globally.
+    The distinct type is the guard: a global ``dq``/``gather_rows`` of it
+    raises instead of interleaving columns wrongly."""
+
+    q: torch.Tensor        # int8, grouped split-half packing, last dim halved
     scale: torch.Tensor    # compute dtype, 1s except the channel axes
 
     @property
@@ -105,6 +128,41 @@ def quantize(w: torch.Tensor, axis=-1,
     return QuantTensor(q=q, scale=scale.to(compute_dtype))
 
 
+def repack_nibbles_grouped(w: QuantTensor4, groups: int
+                           ) -> "QuantTensor4 | QuantTensor4Grouped":
+    """Re-pack a split-half ``QuantTensor4`` so each of ``groups``
+    CONTIGUOUS column groups is split-half packed within the group ("shard
+    first, pack second"): after the packed last axis splits into
+    ``groups`` equal blocks, each block unpacks to exactly its group's
+    columns, in order, and the per-column scale's matching block goes with
+    it.  Global split-half packing does not have this property (byte i
+    pairs columns i and i + C/2).  ``groups`` <= 1 returns ``w``."""
+    if groups <= 1:
+        return w
+    c = w.shape[-1]                               # logical column count
+    if c % (2 * groups):
+        raise ValueError(
+            f"int4 per-shard packing needs the channel dim {c} divisible "
+            f"by 2*groups={2 * groups} (each shard packs its own "
+            f"split-half pairs)")
+    unpacked = _unpack_nibbles(w.q)               # int8 [..., C]
+    g = c // groups
+    grouped = unpacked.reshape(*unpacked.shape[:-1], groups, g)
+    packed = _pack_nibbles(grouped)               # [..., groups, g/2]
+    return QuantTensor4Grouped(q=packed.reshape(*w.q.shape), scale=w.scale)
+
+
+def _reject_grouped(w: Any, op: str) -> None:
+    if isinstance(w, QuantTensor4Grouped):
+        raise ValueError(
+            f"{op} on a grouped-repacked int4 tensor "
+            f"(QuantTensor4Grouped {tuple(w.q.shape)}): its packed axis is "
+            f"split-half WITHIN each shard group, so a global unpack "
+            f"interleaves columns wrongly.  Consume it shard-locally "
+            f"(runtime.sharding.shard_params hands each rank its group as "
+            f"a plain QuantTensor4) or keep the plain QuantTensor4 layout")
+
+
 def _dequant_dtype(scale: torch.Tensor, dtype) -> torch.dtype:
     return scale.dtype if dtype is None else torch.promote_types(scale.dtype,
                                                                  dtype)
@@ -113,7 +171,9 @@ def _dequant_dtype(scale: torch.Tensor, dtype) -> torch.dtype:
 def dq(w: Any, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Dequantize a QuantTensor/QuantTensor4 in the scale's dtype (JAX's
     ``dq``), or, for a consumer of ``dtype``, in its promotion with the
-    scale's; plain tensors pass through."""
+    scale's; plain tensors pass through.  A grouped-repacked int4 tensor
+    raises (its layout is only meaningful per shard)."""
+    _reject_grouped(w, "global dq()")
     if isinstance(w, (QuantTensor, QuantTensor4)):
         rt = _dequant_dtype(w.scale, dtype)
         q = _unpack_nibbles(w.q) if isinstance(w, QuantTensor4) else w.q
@@ -125,7 +185,9 @@ def gather_rows(w: Any, idx: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Row gather (embedding lookup) without dequantizing the whole table:
     gathers the int8 rows and their row scales, dequantized as ``dq``
-    does.  A quantized table must have per-row scales (``axis=0``)."""
+    does.  A quantized table must have per-row scales (``axis=0``); a
+    grouped-repacked one raises."""
+    _reject_grouped(w, "global gather_rows()")
     idx = idx.long()
     if isinstance(w, (QuantTensor, QuantTensor4)):
         if w.scale.shape[0] != w.q.shape[0]:
@@ -199,15 +261,24 @@ def quantizing_transform(compute_dtype=torch.bfloat16, bits: int = 8):
 # --------------------------------------------------------------------------
 
 
-def quantize_kv(kv: torch.Tensor, packed: bool = False
+def quantize_kv(kv: torch.Tensor, packed: bool = False, group=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token int8 (or split-half int4 when ``packed``) of
     ``llama._quantize_kv``: kv [..., kv_dim] -> (int8 [..., kv_dim] or
     packed [..., kv_dim/2], scale [...] in kv's dtype).  ``q`` uses the f32
-    scale; the returned scale is cast to kv's dtype, as in JAX."""
+    scale; the returned scale is cast to kv's dtype, as in JAX.
+
+    ``group`` (the TP group, JAX's ``axis_name``): each rank holds only its
+    lanes of the row; the max of the local amax over the group is the
+    FULL-row scale, so every rank quantizes its lanes as the unsharded
+    path quantizes the whole row and writes the same scale."""
     qmax = 7.0 if packed else 127.0
     kf = kv.float()
     amax = kf.abs().amax(dim=-1)
+    if group is not None:
+        from k8s_llm_rca_tpu_torch.runtime.mesh import all_reduce_max
+
+        amax = all_reduce_max(amax, group)
     scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
     q = torch.clamp(torch.round(kf / scale[..., None]), -qmax,
                     qmax).to(torch.int8)

@@ -112,3 +112,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            seq_lens: torch.Tensor, mesh,
+                            q_offset: Optional[torch.Tensor] = None,
+                            head_axis: str = "model",
+                            global_heads=None) -> torch.Tensor:
+    """``flash_attention`` under tensor parallelism, on THIS rank's shard:
+    q [B, S_q, n_heads/t, d] and k/v [B, S_k, n_kv/t, d] are its heads
+    (column-parallel wq/wk/wv give them so), the kernel runs over them and
+    the result is its [B, S_q, n_heads/t, d].  ``global_heads`` (n_heads,
+    n_kv) are the model's counts, which must both divide the
+    ``head_axis`` size."""
+    from k8s_llm_rca_tpu_torch.runtime.mesh import axis_size
+
+    n_tp = axis_size(mesh, head_axis)
+    n_heads, n_kv = global_heads or (q.shape[2] * n_tp, k.shape[2] * n_tp)
+    if n_heads % n_tp or n_kv % n_tp:
+        raise ValueError(f"heads {n_heads}/{n_kv} not divisible by "
+                         f"{head_axis}={n_tp}")
+    if (q.shape[2], k.shape[2]) != (n_heads // n_tp, n_kv // n_tp):
+        raise ValueError(f"this rank holds {q.shape[2]}/{k.shape[2]} heads, "
+                         f"not its share of {n_heads}/{n_kv} over "
+                         f"{head_axis}={n_tp}")
+    return flash_attention(q, k, v, seq_lens, q_offset)

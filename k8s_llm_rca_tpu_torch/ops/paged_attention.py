@@ -327,3 +327,83 @@ def paged_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_attention_quant.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the kernel per head shard
+# ---------------------------------------------------------------------------
+
+
+def _validate_head_shard(n_heads: int, n_kv: int, n_tp: int) -> None:
+    if n_heads % n_tp or n_kv % n_tp:
+        raise ValueError(
+            f"paged attention under TP needs n_heads={n_heads} and "
+            f"n_kv={n_kv} divisible by the head axis size {n_tp} "
+            f"(GQA groups must stay whole per shard)")
+
+
+def _local_heads(q: torch.Tensor, lanes: int, mesh, head_axis: str,
+                 global_heads) -> None:
+    """Check this rank's shard against the model's head counts: both must
+    split whole GQA groups over ``head_axis`` and the shard must be this
+    rank's share of them."""
+    from k8s_llm_rca_tpu_torch.runtime.mesh import axis_size
+
+    n_tp = axis_size(mesh, head_axis)
+    h_local, kv_local = q.shape[1], lanes // q.shape[-1]
+    n_heads, n_kv = global_heads or (h_local * n_tp, kv_local * n_tp)
+    _validate_head_shard(n_heads, n_kv, n_tp)
+    if (h_local, kv_local) != (n_heads // n_tp, n_kv // n_tp):
+        raise ValueError(
+            f"this rank holds {h_local} query and {kv_local} kv heads, not "
+            f"its share {n_heads // n_tp}/{n_kv // n_tp} of {n_heads}/{n_kv} "
+            f"over {head_axis}={n_tp}")
+
+
+def paged_attention_sharded(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, lengths: torch.Tensor,
+                            block_tables: torch.Tensor, mesh,
+                            head_axis: str = "model",
+                            global_heads=None) -> torch.Tensor:
+    """``paged_attention`` under tensor parallelism, on THIS rank's shard.
+
+    Heads are independent, so each rank runs the kernel over its own
+    kv-head shard: q [B, n_heads/t, d] from its column-parallel wq, the
+    pool [n_pages, page, n_kv*d/t] holding its heads' lanes (the engine's
+    per-rank pool, ``rules.paged_pool_specs``), tables and lengths whole.
+    ``global_heads`` (n_heads, n_kv) are the model's counts: both must
+    divide the ``head_axis`` size (whole GQA groups per shard).  Returns
+    this rank's [B, n_heads/t, d] (JAX's ``shard_map`` out spec)."""
+    _local_heads(q, k_pages.shape[-1], mesh, head_axis, global_heads)
+    return paged_attention(q, k_pages, v_pages, lengths, block_tables)
+
+
+def paged_attention_quant_sharded(q: torch.Tensor, k_pages: torch.Tensor,
+                                  v_pages: torch.Tensor,
+                                  k_scales: torch.Tensor,
+                                  v_scales: torch.Tensor,
+                                  lengths: torch.Tensor,
+                                  block_tables: torch.Tensor, mesh,
+                                  head_axis: str = "model",
+                                  global_heads=None,
+                                  packed: bool = False) -> torch.Tensor:
+    """``paged_attention_quant`` under tensor parallelism (int8 pools), on
+    THIS rank's shard.  The per-token scale is the FULL-row scale (every
+    rank writes the max over the TP group, ``quantize_kv(group=...)``), so
+    the scale pools are whole on every rank and each shard's dequant is
+    exact.
+
+    A split-half int4 pool packed over ALL lanes is refused: byte i pairs
+    lane i with lane i + kv_dim/2, so a contiguous lane shard unpacks to
+    two unrelated head ranges.  The engine's int4 pool under TP is packed
+    per rank over the rank's own lanes (the PP x TP layout), a whole pool
+    of its heads, and runs ``paged_attention_quant`` itself."""
+    if packed:
+        raise ValueError(
+            "paged_attention_quant_sharded does not support packed int4 "
+            "pools (split-half packing does not commute with the head "
+            "shard); pack each rank's lanes on their own and call "
+            "paged_attention_quant")
+    _local_heads(q, k_pages.shape[-1], mesh, head_axis, global_heads)
+    return paged_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
+                                 lengths, block_tables)

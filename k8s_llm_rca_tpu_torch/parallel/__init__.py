@@ -1,0 +1,3 @@
+"""Parallel execution over a device mesh (``runtime/mesh.py``): expert
+parallelism (``moe.py``).  Tensor parallelism lives in the model itself
+(``models/llama.py`` under a ``runtime.sharding.RankModelConfig``)."""

@@ -1,0 +1,285 @@
+"""Device mesh, process groups and collectives: the port of
+``k8s_llm_rca_tpu/runtime/mesh.py``.
+
+JAX is single-controller: one process places every shard with
+``NamedSharding`` and GSPMD inserts the collectives.  PyTorch is SPMD: one
+process per rank, each holding only its shard, each calling the
+collectives itself.  So here a mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the default
+process group, shaped ``MeshConfig.shape`` with the JAX axis names
+(``data``, ``fsdp``, ``model``, ``expert``, ``seq``, ``stage``).  Axes of
+size 1 are kept, so a rule written for a wide mesh resolves unchanged on
+one rank.
+
+- ``initialize_distributed`` joins the default process group: ``nccl`` on
+  the card, ``gloo`` when the caller asks for the CPU, always with an
+  explicit timeout.  One rank needs no rendezvous (an in-memory store).
+- ``run_ranks`` runs a function on N local ranks (``torch.multiprocessing``
+  spawn, a ``file://`` rendezvous under a caller-given directory, a join
+  timeout that raises): the tests' and ``chip_smoke.py``'s stand-in for
+  JAX's ``cpu_mesh_for_tests``.
+- The collectives the sharded model calls (sum and max all-reduce,
+  all-gather along an axis, all-to-all) count their calls in ``.calls``,
+  as the kernel wrappers count launches, so a run can prove that the
+  sharded path ran.  They are called on every rank in the same order; a
+  size-1 group still calls the backend.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import time
+import uuid
+from typing import Any, Callable, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
+
+from k8s_llm_rca_tpu_torch.config import MeshConfig
+from k8s_llm_rca_tpu_torch.utils.device import resolve_device
+
+# seconds a collective (and a rendezvous) may wait before it raises
+DEFAULT_TIMEOUT_S = 60.0
+
+Axes = Union[str, Sequence[str]]
+
+
+def initialize_distributed(init_method: Optional[str] = None,
+                           world_size: int = 1, rank: int = 0, device=None,
+                           timeout_s: float = DEFAULT_TIMEOUT_S) -> bool:
+    """Join the default process group as ``rank`` of ``world_size``:
+    ``nccl`` when ``device`` is the card (``None``), ``gloo`` for the CPU.
+    ``init_method`` is the rendezvous (``file://...`` or
+    ``tcp://localhost:<port>``); one rank needs none.  Returns False when a
+    group already exists (nothing is changed)."""
+    if dist.is_initialized():
+        return False
+    dev = resolve_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    if init_method is None:
+        if world_size != 1:
+            raise ValueError(f"{world_size} ranks need an init_method "
+                             f"(file:// or tcp://localhost:<port>)")
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1, timeout=timeout)
+    else:
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
+                                world_size=world_size, timeout=timeout)
+    return True
+
+
+def shutdown_distributed() -> None:
+    """Destroy the default process group (and every mesh built on it)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def build_mesh(cfg: MeshConfig, ranks: Optional[Sequence[int]] = None,
+               device=None):
+    """The 6-axis mesh of ``cfg`` over ``ranks`` (default: every rank of the
+    default group, in order; the fastest-varying axes are the last ones,
+    as JAX lays devices out).  Every rank of the group must call it."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("build_mesh needs a process group: call "
+                           "initialize_distributed first (or run under "
+                           "run_ranks)")
+    ranks = list(range(dist.get_world_size()) if ranks is None else ranks)
+    if len(ranks) != cfg.n_devices:
+        raise ValueError(f"mesh {cfg.shape} needs {cfg.n_devices} devices, "
+                         f"have {len(ranks)}")
+    kind = "cpu" if dist.get_backend() == "gloo" else resolve_device(
+        device).type
+    return DeviceMesh(kind, torch.tensor(ranks).reshape(cfg.shape),
+                      mesh_dim_names=cfg.axis_names)
+
+
+def local_mesh(model: int = 1, data: int = 1, expert: int = 1, seq: int = 1,
+               stage: int = 1, fsdp: int = 1, device=None):
+    """A mesh from axis sizes over the ranks of the default group."""
+    return build_mesh(MeshConfig(data=data, fsdp=fsdp, model=model,
+                                 expert=expert, seq=seq, stage=stage),
+                      device=device)
+
+
+def single_device_mesh(device=None):
+    """A mesh of one rank, every axis of size 1 (specs still resolve)."""
+    return build_mesh(MeshConfig(), ranks=[dist.get_rank()], device=device)
+
+
+# ---------------------------------------------------------------------------
+# axes of a mesh
+# ---------------------------------------------------------------------------
+
+
+def _axes(axes: Axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def axis_size(mesh, axes: Axes) -> int:
+    """The number of ranks along ``axes`` (one name or several, flattened)."""
+    names = mesh.mesh_dim_names
+    n = 1
+    for a in _axes(axes):
+        if a not in names:
+            raise ValueError(f"mesh has no '{a}' axis (axes {names})")
+        n *= mesh.mesh.shape[names.index(a)]
+    return n
+
+
+def axis_rank(mesh, axes: Axes) -> int:
+    """This rank's index along ``axes`` (several axes flatten major to
+    minor, as a JAX spec entry ``("data", "expert")`` does)."""
+    names = mesh.mesh_dim_names
+    idx = 0
+    for a in _axes(axes):
+        idx = idx * mesh.mesh.shape[names.index(a)] + mesh.get_local_rank(a)
+    return idx
+
+
+def axis_group(mesh, axes: Axes):
+    """The process group of this rank's peers along ``axes``.  Several axes
+    make one group per combination of the other axes' coordinates; every
+    rank creates every such group the first time (in the same order, as
+    ``new_group`` needs), and the mesh keeps this rank's."""
+    axes = _axes(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    cache = mesh.__dict__.setdefault("_flat_groups", {})
+    if axes not in cache:
+        names = mesh.mesh_dim_names
+        dims = [names.index(a) for a in axes]
+        other = [i for i in range(len(names)) if i not in dims]
+        rows = mesh.mesh.permute(*other, *dims).reshape(
+            -1, axis_size(mesh, axes)).tolist()
+        me = dist.get_rank()
+        for row in rows:
+            group = dist.new_group(row)
+            if me in row:
+                cache[axes] = group
+    return cache[axes]
+
+
+# ---------------------------------------------------------------------------
+# collectives (each counts its calls in ``.calls``)
+# ---------------------------------------------------------------------------
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``x`` over ``group``, in place; returns ``x``."""
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    all_reduce_sum.calls += 1
+    return x
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise max of ``x`` over ``group``, in place; returns ``x``."""
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    all_reduce_max.calls += 1
+    return x
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in group-rank order
+    (a tiled ``jax.lax.all_gather``).  The list form: gloo takes it for
+    CUDA tensors too."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    all_gather.calls += 1
+    return torch.cat(parts, dim=dim)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Split ``x`` along dim 0 into one equal chunk per rank, send chunk j
+    to rank j, and return the chunks received, in rank order, along dim 0
+    (``all_to_all_single``)."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    all_to_all.calls += 1
+    return out
+
+
+COLLECTIVES = (all_reduce_sum, all_reduce_max, all_gather, all_to_all)
+for _fn in COLLECTIVES:
+    _fn.calls = 0
+
+
+def reset_collective_counts() -> None:
+    for fn in COLLECTIVES:
+        fn.calls = 0
+
+
+def collective_counts() -> dict:
+    """``{name: calls}`` of every collective."""
+    return {fn.__name__: fn.calls for fn in COLLECTIVES}
+
+
+# ---------------------------------------------------------------------------
+# N local ranks
+# ---------------------------------------------------------------------------
+
+
+def _rank_main(rank: int, fn: Callable, nprocs: int, init_file: str,
+               result_file: str, args: tuple, timeout_s: float,
+               device: str) -> None:
+    torch.set_num_threads(1)
+    if device == "cuda":            # nccl: one card per rank
+        device = f"cuda:{rank % torch.cuda.device_count()}"
+    initialize_distributed(f"file://{init_file}", nprocs, rank, device,
+                           timeout_s)
+    try:
+        out = fn(rank, *args)
+        torch.save(out, result_file.format(rank=rank))
+    finally:
+        shutdown_distributed()
+
+
+def run_ranks(fn: Callable[..., Any], nprocs: int, workdir: str,
+              args: tuple = (), timeout_s: float = DEFAULT_TIMEOUT_S,
+              device="cpu") -> list:
+    """Run ``fn(rank, *args)`` on ``nprocs`` spawned local ranks joined in
+    one process group and return each rank's result (``torch.save``-able),
+    in rank order.  ``device``: "cpu" (gloo), "cuda" (nccl, rank r on card
+    r, as many cards as ranks) or "cuda-gloo" (gloo over CUDA tensors,
+    every rank on the current card: several ranks on one card, which nccl
+    refuses).
+
+    ``fn`` must be importable by the spawned ranks (a module-level
+    function).  The rendezvous is a file under ``workdir``, so parallel
+    callers never race for a port.  If the ranks have not all returned
+    within ``timeout_s`` seconds (a hung collective) they are killed and
+    ``TimeoutError`` is raised; a rank that raises re-raises here."""
+    import torch.multiprocessing as mp
+
+    os.makedirs(workdir, exist_ok=True)
+    tag = uuid.uuid4().hex
+    init_file = os.path.join(workdir, f"pg-{tag}")
+    result_file = os.path.join(workdir, f"rank{{rank}}-{tag}.pt")
+    # the group's backend: gloo for "cpu" and "cuda-gloo" (CUDA tensors
+    # through gloo: several ranks on one card, which nccl refuses)
+    backend_device = "cpu" if device in ("cpu", "cuda-gloo") else device
+    ctx = mp.start_processes(
+        _rank_main, args=(fn, nprocs, init_file, result_file, args,
+                          timeout_s, backend_device),
+        nprocs=nprocs, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"{nprocs} ranks of {getattr(fn, '__name__', fn)} did "
+                    f"not finish within {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+    return [torch.load(result_file.format(rank=r), weights_only=False)
+            for r in range(nprocs)]

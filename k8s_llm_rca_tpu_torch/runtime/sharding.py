@@ -1,0 +1,237 @@
+"""Sharding specs and per-rank shards: the port of
+``k8s_llm_rca_tpu/runtime/sharding.py``.
+
+The specs are derived by matching ``runtime/rules.py``'s rule tables
+against a shape-only template of each model's tree, as in JAX:
+
+- wq/wk/wv  [H, heads*d]  -> P(None, "model")   (column parallel: heads)
+- wo        [heads*d, H]  -> P("model", None)   (row parallel: summed)
+- w_gate/w_up [H, I]      -> P(None, "model")
+- w_down    [I, H]        -> P("model", None)
+- embedding/lm_head [V, H] -> P(None, "model")  (hidden sharded)
+- MoE stacked experts take a leading "expert" axis.
+
+JAX places the whole tree with ``NamedSharding`` and lets GSPMD split it
+(``shard_pytree``).  Here every rank is its own process, so
+``shard_params`` takes the FULL tree (tensors on any device, or the numpy
+tree ``jax.tree.map(np.asarray, params)`` gives) and returns THIS rank's
+block of every leaf on the rank's device.  A quantized leaf's scale takes
+its weight's spec with every size-1 (reduced) dimension whole.  An int4
+leaf whose packed last axis is split is first repacked group-wise
+(``models.quant.repack_nibbles_grouped``: byte i of split-half packing
+pairs columns i and i + C/2, which a contiguous column block does not
+keep) and the rank's group is handed over as a plain ``QuantTensor4`` of
+its own columns, as JAX's ``parallel/pipeline.py::_stage_local_params``
+unwraps it inside a stage body.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from k8s_llm_rca_tpu_torch.config import ModelConfig
+from k8s_llm_rca_tpu_torch.models.quant import (
+    QuantTensor, QuantTensor4, QuantTensor4Grouped, repack_nibbles_grouped,
+)
+from k8s_llm_rca_tpu_torch.runtime.mesh import axis_rank, axis_size
+from k8s_llm_rca_tpu_torch.runtime.rules import (  # noqa: F401 (re-exports)
+    FSDP_LAYOUT, TP_LAYOUT, P, PartitionSpec, SpecLayout,
+    encoder_param_template, encoder_rules, kv_cache_specs,
+    llama_param_template, llama_rules, map_with_names, match_partition_rules,
+    paged_pool_specs, validate_layout,
+)
+
+PyTree = Any
+_QUANT = (QuantTensor, QuantTensor4, QuantTensor4Grouped)
+
+
+def llama_param_specs(cfg: ModelConfig,
+                      layout: Optional[SpecLayout] = None) -> Dict[str, Any]:
+    """PartitionSpec tree matching ``models/llama.init_params``, derived
+    from ``rules.llama_rules`` (dense + MoE) under ``layout``."""
+    return match_partition_rules(
+        llama_rules(cfg, layout), llama_param_template(cfg), table="llama")
+
+
+def encoder_param_specs(cfg,
+                        layout: Optional[SpecLayout] = None) -> Dict[str, Any]:
+    """PartitionSpec tree matching ``models/encoder.init_params``, derived
+    from ``rules.encoder_rules`` under ``layout``."""
+    return match_partition_rules(
+        encoder_rules(cfg, layout), encoder_param_template(cfg),
+        table="encoder")
+
+
+def dim_parts(spec: PartitionSpec, mesh) -> Tuple[Tuple[int, int], ...]:
+    """(parts, this rank's part) of each dimension ``spec`` names; a ``None``
+    entry is (1, 0)."""
+    return tuple((1, 0) if entry is None
+                 else (axis_size(mesh, entry), axis_rank(mesh, entry))
+                 for entry in spec)
+
+
+def local_block(x: torch.Tensor, parts) -> torch.Tensor:
+    """This rank's contiguous block of ``x`` (``parts`` from ``dim_parts``;
+    trailing dimensions past it are whole), as a view."""
+    for d, (n, i) in enumerate(parts):
+        if n <= 1:
+            continue
+        if x.shape[d] % n:
+            raise ValueError(f"dimension {d} of {tuple(x.shape)} does not "
+                             f"split into {n} equal parts")
+        size = x.shape[d] // n
+        x = x.narrow(d, i * size, size)
+    return x
+
+
+def _scale_parts(scale: torch.Tensor, parts):
+    """A scale splits where its weight does, except its size-1 dims."""
+    return tuple((n, i) if scale.shape[d] > 1 else (1, 0)
+                 for d, (n, i) in enumerate(parts))
+
+
+def _as_torch(leaf):
+    """A leaf of the numpy carry-over as a CPU tensor (quantized ones as the
+    port's quantized types); tensors pass through."""
+    if isinstance(leaf, np.ndarray) or np.isscalar(leaf):
+        from k8s_llm_rca_tpu_torch.models.llama import _tensor_from_numpy
+
+        return _tensor_from_numpy(leaf, "cpu", None)
+    if (getattr(leaf, "_fields", None) == ("q", "scale")
+            and not isinstance(leaf, _QUANT)):
+        from k8s_llm_rca_tpu_torch.models.llama import _quant_leaf
+
+        return _quant_leaf(leaf, "cpu")
+    return leaf
+
+
+def leaf_block(leaf, parts, device=None):
+    """The block ``parts`` (``dim_parts``) of one leaf on ``device``
+    (default: where the leaf lives), contiguous.  A block that is the whole
+    tensor on its device is the tensor itself (no copy).  An int4 leaf
+    whose packed last axis splits is repacked group-wise first and its
+    group handed over as a plain ``QuantTensor4``."""
+    leaf = _as_torch(leaf)
+    if leaf is None:
+        return None
+
+    def place(t, p):
+        t = local_block(t, p)
+        return t.to(device or t.device).contiguous()
+
+    if isinstance(leaf, QuantTensor4Grouped):
+        raise ValueError("shard_params takes the plain tree: a "
+                         "QuantTensor4Grouped leaf is already a repack "
+                         "for a fixed group count")
+    if isinstance(leaf, QuantTensor4) and len(parts) == leaf.ndim \
+            and parts[-1][0] > 1:
+        # the packed axis splits: repack per group, hand over the group
+        grouped = repack_nibbles_grouped(leaf, parts[-1][0])
+        return QuantTensor4(q=place(grouped.q, parts),
+                            scale=place(leaf.scale,
+                                        _scale_parts(leaf.scale, parts)))
+    if isinstance(leaf, (QuantTensor, QuantTensor4)):
+        return type(leaf)(q=place(leaf.q, parts),
+                          scale=place(leaf.scale,
+                                      _scale_parts(leaf.scale, parts)))
+    return place(leaf, parts)
+
+
+def shard_leaf(leaf, spec: PartitionSpec, mesh, device=None):
+    """This rank's block of one leaf under ``spec`` (``leaf_block``)."""
+    return leaf_block(leaf, dim_parts(spec, mesh), device)
+
+
+def shard_params(tree: PyTree, specs: PyTree, mesh, device=None) -> PyTree:
+    """THIS rank's shard of every leaf of ``tree`` under ``specs`` (a spec
+    tree of the same structure), on ``device`` (default: each leaf's own).
+    Every rank calls it with the same full tree and gets its own blocks;
+    nothing is communicated."""
+    flat_specs = dict(_flatten_specs(specs))
+
+    def one(name, leaf):
+        if name not in flat_specs:
+            raise ValueError(f"no spec for param '{name}'")
+        return shard_leaf(leaf, flat_specs[name], mesh, device)
+
+    return map_with_names(one, tree)
+
+
+def _flatten_specs(specs, prefix: str = ""):
+    if isinstance(specs, dict):
+        for k, v in specs.items():
+            yield from _flatten_specs(v, f"{prefix}{k}/")
+    elif isinstance(specs, list):
+        for i, v in enumerate(specs):
+            yield from _flatten_specs(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], specs
+
+
+# ---------------------------------------------------------------------------
+# the model as one rank runs it
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class TensorParallel:
+    """This rank's place on the TP axis ("model"): the mesh, the group its
+    all-reduces and all-gathers run over, its size and this rank's index,
+    and the model's head counts (all ranks together)."""
+
+    mesh: Any
+    group: Any
+    size: int
+    rank: int
+    n_heads: int
+    n_kv_heads: int
+
+
+@dataclass(frozen=True, eq=False)
+class ExpertParallel:
+    """This rank's EP: the mesh its MoE MLPs dispatch over (experts over
+    "expert", tokens over "data" x "expert") and ``drops``, a device
+    counter of the tokens the dispatch has dropped past capacity."""
+
+    mesh: Any
+    drops: Optional[torch.Tensor] = None
+
+
+@dataclass(frozen=True)
+class RankModelConfig(ModelConfig):
+    """A ``ModelConfig`` as one rank of a mesh runs it: ``n_heads`` and
+    ``n_kv_heads`` are this rank's share (so ``q_dim``/``kv_dim`` are its
+    lanes and its paged pool holds only its heads), and ``tp``/``ep``
+    carry the groups of the collectives the forward calls.  Everything
+    else is the model's."""
+
+    tp: Optional[TensorParallel] = None
+    ep: Optional[ExpertParallel] = None
+
+
+def rank_config(cfg: ModelConfig, tp_mesh=None, ep_mesh=None,
+                device=None) -> RankModelConfig:
+    """``cfg`` for this rank of ``tp_mesh`` (heads divided over "model") and
+    ``ep_mesh`` (experts over "expert", tokens over "data" x "expert"; the
+    drop counter on ``device``).  Every rank must call it at the same
+    point (it may create process groups)."""
+    from k8s_llm_rca_tpu_torch.runtime.mesh import axis_group
+
+    base = {f.name: getattr(cfg, f.name)
+            for f in dataclasses.fields(ModelConfig)}
+    tp = ep = None
+    if tp_mesh is not None:
+        n = axis_size(tp_mesh, "model")
+        tp = TensorParallel(tp_mesh, axis_group(tp_mesh, "model"), n,
+                            axis_rank(tp_mesh, "model"), cfg.n_heads,
+                            cfg.n_kv_heads)
+        base.update(n_heads=cfg.n_heads // n, n_kv_heads=cfg.n_kv_heads // n)
+    if ep_mesh is not None:
+        ep = ExpertParallel(ep_mesh, torch.zeros((), dtype=torch.int64,
+                                                 device=device))
+    return RankModelConfig(**base, tp=tp, ep=ep)

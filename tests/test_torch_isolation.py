@@ -143,6 +143,19 @@ def test_sources_cover_the_loading_slice():
             "engine/engine.py", "engine/speculative.py"} <= names
 
 
+def test_sources_cover_the_mesh_slice():
+    """The mesh, the partition rules, the rank shards and expert
+    parallelism are the port's own copies (no jax, no JAX package), and a
+    spawned rank's entry point imports neither either."""
+    names = {p.relative_to(PORT).as_posix() for p in SOURCES if PORT in
+             p.parents}
+    assert {"runtime/mesh.py", "runtime/rules.py", "runtime/sharding.py",
+            "parallel/__init__.py", "parallel/moe.py"} <= names
+    test_module = (ROOT / "tests" / "test_torch_parallel.py").read_text()
+    top = test_module.split("\ndef ", 1)[0]
+    assert "import jax" not in top and "k8s_llm_rca_tpu." not in top
+
+
 def test_sources_cover_the_durability_slice():
     """Serving durability and the sweep drivers are the port's own copies
     (the import test above holds them to no jax and no JAX package)."""
@@ -335,21 +348,98 @@ def test_kv_cache_dtype_fp8_raises_like_jax():
                     params, tok, device="cpu")
 
 
-@pytest.mark.parametrize("mesh", ["tp_mesh", "cp_mesh", "ep_mesh", "pp_mesh",
-                                  "fsdp_mesh"])
+@pytest.mark.parametrize("mesh", ["cp_mesh", "pp_mesh", "fsdp_mesh"])
 def test_meshes_raise(mesh):
     cfg, ecfg, params, tok = _tiny_engine_args()
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         make_engine(cfg, ecfg, params, tok, device="cpu", **{mesh: object()})
 
 
-@pytest.mark.parametrize("name,item", [
-    ("build_ep_mesh", "Queue 1 item 10"), ("shard_params_ep", "Queue 1 item 10"),
-    ("make_ep_engine", "Queue 1 item 10")])
-def test_unported_model_features_raise(name, item):
-    """MoE serves on one card; its expert-parallel assembly raises."""
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(mixtral, name)(config.TINY_MOE)
+@pytest.mark.parametrize("mesh", ["tp_mesh", "cp_mesh", "ep_mesh", "pp_mesh",
+                                  "fsdp_mesh"])
+def test_contiguous_engine_meshes_raise(mesh):
+    cfg, ecfg, params, tok = _tiny_engine_args()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        make_engine(cfg, dataclasses.replace(ecfg, paged=False), params, tok,
+                    device="cpu", **{mesh: object()})
+
+
+@pytest.fixture
+def one_rank_group():
+    """A 1-rank gloo process group in this process, destroyed after."""
+    from k8s_llm_rca_tpu_torch.runtime import mesh as rmesh
+
+    assert rmesh.initialize_distributed(device="cpu")
+    try:
+        yield rmesh
+    finally:
+        rmesh.shutdown_distributed()
+
+
+def _serves(engine, n_tokens=3) -> None:
+    tok = engine.tokenizer
+    out = engine.generate([tok.encode("pod pending", add_bos=True)],
+                          max_new_tokens=n_tokens)
+    assert len(out[0].token_ids) == n_tokens
+    engine.allocator.check()
+
+
+@pytest.mark.parametrize("mesh", ["tp_mesh", "ep_mesh"])
+def test_meshes_build_and_serve_on_one_rank(one_rank_group, mesh):
+    """tp_mesh and ep_mesh build the paged engine on a 1-rank gloo mesh and
+    serve through the sharded path (its collectives counted)."""
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        llama_param_specs, shard_params,
+    )
+
+    cfg, ecfg, params, tok = _tiny_engine_args()
+    if mesh == "ep_mesh":
+        cfg = config.TINY_MOE
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    m = one_rank_group.single_device_mesh(device="cpu")
+    one_rank_group.reset_collective_counts()
+    engine = make_engine(cfg, ecfg,
+                         shard_params(params, llama_param_specs(cfg), m),
+                         tok, device="cpu", **{mesh: m})
+    _serves(engine)
+    counts = one_rank_group.collective_counts()
+    key = "all_reduce_sum" if mesh == "tp_mesh" else "all_to_all"
+    assert counts[key] > 0, counts
+
+
+def test_validate_layout_on_one_rank(one_rank_group):
+    """``rules.validate_layout``: default mappings pass on size-1 axes, a
+    remapped one (fsdp) onto a size-1 axis and an axis the mesh lacks are
+    named ValueErrors, as in JAX."""
+    from k8s_llm_rca_tpu_torch.runtime import rules
+
+    m = one_rank_group.local_mesh(device="cpu")
+    assert rules.validate_layout(rules.TP_LAYOUT, m) is rules.TP_LAYOUT
+    with pytest.raises(ValueError, match="of size 1"):
+        rules.validate_layout(rules.FSDP_LAYOUT, m)
+    with pytest.raises(ValueError, match="undefined on a mesh"):
+        rules.validate_layout(rules.SpecLayout(tp="tensor"), m)
+
+
+@pytest.mark.parametrize("name", ["build_ep_mesh", "shard_params_ep",
+                                  "make_ep_engine"])
+def test_ep_assembly_builds_on_one_rank(one_rank_group, name):
+    """Mixtral's expert-parallel assembly builds on a 1-rank gloo mesh (and
+    the engine serves); the CP x EP mesh still raises."""
+    cfg, ecfg, _, tok = _tiny_engine_args()
+    moe = config.TINY_MOE
+    params = init_params(moe, torch.Generator().manual_seed(0), "cpu")
+    if name == "build_ep_mesh":
+        m = mixtral.build_ep_mesh(1, device="cpu")
+        assert m.mesh_dim_names == config.MeshConfig().axis_names
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+            mixtral.build_ep_mesh(1, n_seq=2, device="cpu")
+    elif name == "shard_params_ep":
+        m = mixtral.build_ep_mesh(1, device="cpu")
+        shard = mixtral.shard_params_ep(moe, params, m)
+        assert shard["layers"][0]["w_gate"] is params["layers"][0]["w_gate"]
+    else:
+        _serves(mixtral.make_ep_engine(moe, ecfg, params, tok, device="cpu"))
 
 
 @pytest.mark.parametrize("bits", [4, 8])

@@ -228,8 +228,8 @@ def test_tied_checkpoint_fallback_lm_head(tmp_path):
 
 
 def test_guards_raise_like_jax(tmp_path):
-    """A distinct lm_head under a tied config, a missing tensor (named),
-    a Mixtral export and a mesh all refuse."""
+    """A distinct lm_head under a tied config (loaded whole or onto a
+    mesh), a missing tensor (named) and a Mixtral export all refuse."""
     sd = synth_llama_sd(TINY, np.random.default_rng(8))
     sd["lm_head.weight"] = _rng_tensor(np.random.default_rng(9),
                                        TINY.vocab_size, TINY.hidden_size)
@@ -243,10 +243,11 @@ def test_guards_raise_like_jax(tmp_path):
         loader.llama_params_from_hf(TINY, {}, "cpu")
     with pytest.raises(NotImplementedError, match="dense Llama export"):
         loader.llama_params_to_hf(TINY_MOE, {})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    # the per-rank loader checks the checkpoint before any block is read
+    with pytest.raises(ValueError, match="tie_embeddings"):
         loader.load_llama(TINY, path, "cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        loader.load_encoder(TINY_ENCODER, path, "cpu", layout="fsdp")
+    with pytest.raises(KeyError, match="attention.self.query"):
+        loader.load_encoder(TINY_ENCODER, path, "cpu", mesh=object())
 
 
 def test_export_round_trip_equals_jax_export(tmp_path):

@@ -264,13 +264,14 @@ def test_init_params_moe_quantizes_each_expert_stack():
 
 
 def test_mixtral_module_reexports_and_refuses_ep():
+    """The presets and entry points re-export; the EP assembly refuses a
+    dense config (it builds on a mesh: ``test_torch_isolation.py``)."""
     assert mixtral.MIXTRAL_8X7B is config.MIXTRAL_8X7B
     assert config.MODEL_REGISTRY["mixtral-8x7b"].n_experts == 8
     assert mixtral.init_params is tllama.init_params
-    for fn in (mixtral.build_ep_mesh, mixtral.shard_params_ep,
-               mixtral.make_ep_engine):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            fn(TINY_MOE)
+    with pytest.raises(ValueError, match="not an MoE config"):
+        mixtral.make_ep_engine(config.TINY, config.EngineConfig(), {}, None,
+                               device="cpu")
 
 
 # ----------------------------------------------------------------- engine
