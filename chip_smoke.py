@@ -41,7 +41,11 @@ prints one JSON line; any failure exits non-zero without the result line.
    grouped-repacked column block of w_gate and row block of w_down at
    decode and M = 5120, the int4 head on a rank's hidden block, and the
    int8 experts on a local stack of 4 and 2 experts in the per-expert
-   form.  Every matmul case names the kn or nk body it took.
+   form; and in bf16 at a CP-2 rank's share (slice 16,
+   ``cp_lse_kernels``): paged attention over the bf16, int8 and int4
+   pools with ``return_lse`` over half of each 40-page table at both
+   length mixes and both ranks (lse held at atol 1e-3, timed with and
+   without it).  Every matmul case names the kn or nk body it took.
 The engines on the card replay CUDA graphs of their decode step and
 scans (``engine/graphs.py``) unless built with ``cuda_graphs=False``, which
 only phases 5-5d do, for their eager half; every phase's launch counters
@@ -209,6 +213,23 @@ count the launches a replay makes.
    layer), no token dropped; (d) Llama-3-8B cut to 2 layers at TP = 2 as
    two processes on the one card over gloo (eager), held to the same
    model on the 1-rank mesh.
+
+11. cp: context parallelism (slice 16; ``--cp`` runs it alone after
+   phase 3's CP-rank lse cases, with no result line) under a 1-rank nccl
+   process group, the slice engine (prefix cache off, as CP requires).
+   (a) Llama-3-8B bf16, the unsharded graphed engine and then
+   ``make_engine(..., cp_mesh=, cp_mode=)`` ring and Ulysses: equal
+   streams or a near-tie (``NEAR_TIE``, margins printed), the launches
+   and collectives the layer count requires (per prefill 2 all-gathers
+   and, a layer, 2 x P ring steps or 4 all-to-alls; per decode step one
+   all-gather a layer; flash only under Ulysses), TTFT, decode tok/s,
+   the graphed step's wall and event ms both ways; (b) int4 weights over
+   an int4 pool, ring (row 2 with ``return_lse``); (c) Llama-3-8B cut to
+   2 layers at CP = 2 as two gloo processes on the one card, eager, ring
+   and Ulysses: the ranks equal, and equal to the 1-rank run or parting
+   at a near-tie.  Every served run here and in phase 5 carries the
+   analytic model's fields (``runtime/profiling.py``, reported, not
+   gated): ``mfu``, ``decode_roofline_share``, ``ttft_roofline_share``.
 
 Then the kernel table (one JSON line), the ``nvidia-smi`` name and power
 limit line, and the result line
@@ -382,17 +403,19 @@ def bound(nbytes: int, flops: int, dtype_name: str):
                                        else "operations")
 
 
-def paged_bound(q, kp, lens, dtype_name, scale_bytes: int = 0):
+def paged_bound(q, kp, lens, dtype_name, scale_bytes: int = 0,
+                extra_bytes: int = 0):
     """Bytes: q and out, the pages' rows the lengths need (with
-    ``scale_bytes`` of scales per row and pool), lengths and table entries;
-    operations: q.k and p.v at 2 flops per MAC."""
+    ``scale_bytes`` of scales per row and pool), lengths and table entries
+    (and ``extra_bytes`` of further outputs: the lse); operations: q.k and
+    p.v at 2 flops per MAC."""
     b, h, d = q.shape
     page = kp.shape[1]
     tokens = int(lens.sum())
     pages_read = sum(-(-int(n) // page) for n in lens.tolist())
     row_bytes = kp.shape[2] * kp.element_size() + scale_bytes
     nbytes = (2 * b * h * d * q.element_size() + 2 * tokens * row_bytes
-              + 4 * b + 4 * pages_read)
+              + 4 * b + 4 * pages_read + extra_bytes)
     return bound(nbytes, 4 * tokens * h * d, dtype_name)
 
 
@@ -954,6 +977,7 @@ def phase_kernels() -> dict:
         head_kernels(table, heads, dtype_name, gen, flush)
         slice3_kernels(table, ws, dtype_name, gen, flush)
     shard_kernels(table, ws, heads, w_mlp, gen, flush)
+    cp_lse_kernels(table, gen, flush)
     return table
 
 
@@ -997,7 +1021,7 @@ def read_counts() -> dict:
 
 
 def expected_counts(cfg, c: dict, quantized_kv: bool, bits=None,
-                    contiguous: bool = False) -> dict:
+                    contiguous: bool = False, cp_mode=None) -> dict:
     """The launches an engine run with the counters ``c`` (an engine's
     ``_counts``, or their gain over a window) must have made: per layer,
     one decode attention per single-token decode step, and one flash call
@@ -1044,6 +1068,14 @@ def expected_counts(cfg, c: dict, quantized_kv: bool, bits=None,
     if getattr(cfg, "ep", None) is not None:
         counts["all_to_all"] = 2 * cfg.n_layers * fwd
         counts["all_gather"] += cfg.n_layers * fwd
+    cp = getattr(cfg, "cp", None)
+    if cp is not None:
+        counts["all_gather"] += 2 * prefills + cfg.n_layers * steps
+        if cp_mode == "ring":
+            counts["flash"] -= cfg.n_layers * prefills
+            counts["ppermute"] += 2 * cp.size * cfg.n_layers * prefills
+        else:
+            counts["all_to_all"] += 4 * cfg.n_layers * prefills
     return counts
 
 
@@ -1799,7 +1831,8 @@ def serve_four(engine, cfg, kv, bits) -> dict:
     if not bool(finite):
         raise SystemExit("non-finite logits on the slice run")
     expect = expected_counts(engine.model_cfg, c, kv is not None, bits,
-                             contiguous=not engine.engine_cfg.paged)
+                             contiguous=not engine.engine_cfg.paged,
+                             cp_mode=getattr(engine, "cp_mode", None))
     if draft is not None:
         # a draft model's re-prefills attend through flash too
         expect["flash"] += draft.cfg.n_layers * (draft.prefills
@@ -1840,7 +1873,7 @@ def decode_step_times(engine, steps: int = 8, verify_t: int = 0,
     CUDA events' device ms only."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from k8s_llm_rca_tpu_torch.engine.paged import (
         paged_decode_multi, paged_decode_step,
@@ -1889,19 +1922,30 @@ def decode_step_times(engine, steps: int = 8, verify_t: int = 0,
         # the mesh phases: the device time between CUDA events only
         return {"wall_ms_per_step": wall_ms,
                 "event_device_ms_per_step": time_ms(step, steps)}
-    counted = read_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # one warm-up step under the profiler, discarded, before the step it
+    # reports: a profile started cold missed the first kernels of an eager
+    # step (3 of 256 int8 matmuls and 1 of 32 paged calls in one run)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
         step()
         torch.cuda.synchronize()
+        prof.step()
+        counted = read_counts()
+        step()
+        torch.cuda.synchronize()
+        prof.step()
     gain = {k: v - counted[k] for k, v in read_counts().items()}
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
+    # the schedule's own ``ProfilerStep#`` range carries the device time of
+    # the whole step: kernels only
     events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
+              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0
+              and not e.key.startswith("ProfilerStep")]
     device_ms = sum(dev_us(e) for e in events) / 1e3
     seen = profiled_launches(events)
     want = counted_launches(gain)
@@ -1969,6 +2013,29 @@ def counted_launches(gain: dict) -> dict:
     return {k: v for k, v in want.items() if v}
 
 
+def roofline_fields(cfg, run: dict, bits=None, kv=None) -> dict:
+    """A served run against the analytic model (``runtime/profiling.py``,
+    the card's peaks): the MFU of its decode tok/s at the run's mean
+    decode context, that tok/s as a share of ``roofline_decode_tps`` at
+    the batch of four, and the least time the four prefills could take
+    (each prompt over ``roofline_prefill_tps``) as a share of the TTFT,
+    which covers them all.  Reported, not gated."""
+    from k8s_llm_rca_tpu_torch.runtime import profiling
+
+    prompts, comp = run["prompt_tokens"], run["completion_tokens"]
+    ctx = int(statistics.mean(p + c / 2 for p, c in zip(prompts, comp)))
+    kv_bits = {None: 16, "int8": 8, "int4": 4}[kv]
+    roof = profiling.roofline_decode_tps(cfg, ctx, len(prompts), bits or 16,
+                                         kv_bits)
+    prefill_s = sum(p / profiling.roofline_prefill_tps(cfg, p)
+                    for p in prompts)
+    return {"mfu": profiling.mfu(cfg, run["decode_tok_per_s"], ctx),
+            "roofline_context": ctx, "decode_roofline_tok_per_s": roof,
+            "decode_roofline_share": run["decode_tok_per_s"] / roof,
+            "ttft_roofline_s": prefill_s,
+            "ttft_roofline_share": prefill_s / run["ttft_s"]}
+
+
 def phase_slice(phase: str, name: str, bits=None, kv=None) -> dict:
     """A slice model behind AssistantService, four requests, served eagerly
     (``cuda_graphs=False``) and then through the engine's CUDA graphs, on
@@ -2010,6 +2077,8 @@ def phase_slice(phase: str, name: str, bits=None, kv=None) -> dict:
          equal_tokens=same, init_s=init_s,
          **{f"{mode}_{k}": v for mode, run in runs.items()
             for k, v in run.items() if k not in ("tokens", "prompts")},
+         **{f"{mode}_{k}": v for mode, run in runs.items()
+            for k, v in roofline_fields(cfg, run, bits, kv).items()},
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
          nvidia_smi=nvidia_smi_name_power())
     if not same:
@@ -4230,7 +4299,8 @@ def mesh_compare(phase, cfg, params, base, run, **record) -> None:
          equal_token_share=common_share(base["tokens"], run["tokens"]),
          divergences=divs, near_tie=NEAR_TIE,
          collectives={k: run["launches"][k] for k in (
-             "all_reduce_sum", "all_reduce_max", "all_gather", "all_to_all")},
+             "all_reduce_sum", "all_reduce_max", "all_gather", "all_to_all",
+             "ppermute")},
          launches=run["launches"],
          **{f"mesh_{k}": run[k] for k in keep},
          **{f"unsharded_{k}": base[k] for k in keep},
@@ -4440,6 +4510,235 @@ def phase_mesh() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 11
+
+
+def cp_lse_kernels(table, gen, flush) -> None:
+    """Phase 3 at a CP-2 rank's share, bf16: rows 1 and 2 with
+    ``return_lse`` (the rank-local decode of the page-sharded pool) over
+    one half of each 40-page table, each slot's length clamped to the
+    half's 1280 positions, at both length mixes and both ranks (rank 1's
+    share of the mixed mix is empty for three slots: lse -1e30, output
+    0), the bf16, int8 and int4 pools.  Out against the plain version
+    (``TOL``), lse at atol 1e-3, timed beside the same call without the
+    lse, its bound (the rank's rows, q, out and lse) and SDPA over the
+    rank's gathered pages."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_plain, paged_attention_quant,
+        paged_attention_quant_plain,
+    )
+
+    dn, span = "bfloat16", 20 * 64
+    for mix, lengths in PAGED_LENGTHS.items():
+        args = paged_case(torch.bfloat16, gen, lengths=lengths)
+        lens, tables = args[3], args[4]
+        for rank in (0, 1):
+            part = args[:3] + ((lens - rank * span).clamp(0, span)
+                               .to(torch.int32),
+                               tables[:, 20 * rank:20 * (rank + 1)]
+                               .contiguous())
+            for pool in ("bf16", "int8", "int4"):
+                if pool == "bf16":
+                    pargs, packed, kernel = part, None, "paged_attention"
+                    run = lambda: paged_attention(*pargs, return_lse=True)
+                    no_lse = lambda: paged_attention(*pargs)
+                    plain = lambda: paged_attention_plain(*pargs, True)
+                    library = paged_library_fn(*pargs)
+                else:
+                    packed = pool == "int4"
+                    pargs = paged_quant_case(part, packed)
+                    kernel = "paged_attention_quant"
+                    run = lambda: paged_attention_quant(
+                        *pargs, packed=packed, return_lse=True)
+                    no_lse = lambda: paged_attention_quant(*pargs,
+                                                           packed=packed)
+                    plain = lambda: paged_attention_quant_plain(
+                        *pargs, packed, True)
+                    library = paged_quant_library_fn(*pargs, packed)
+                out, lse = run()
+                ref, ref_lse = plain()
+                case = f"cp2 rank{rank} {mix} {pool} lse"
+                rec = held_record(kernel, dn, out, ref, case=case,
+                                  shapes=f"B=4 H=32 n_kv=8 d=128 page=64 "
+                                  f"pps=20 lens=" + ",".join(
+                                      map(str, part[3].tolist())))
+                rec["lse_max_abs_err"] = (lse - ref_lse).abs().max().item()
+                rec["lse_tol"] = 1e-3
+                if rec["lse_max_abs_err"] > 1e-3:
+                    emit("kernels", **rec)
+                    raise SystemExit(f"{kernel} {case}: lse off its plain "
+                                     f"version by {rec['lse_max_abs_err']}")
+                rec["kernel_ms"] = time_ms(run, 200, flush_bytes=flush)
+                rec["kernel_ms_without_lse"] = time_ms(no_lse, 200,
+                                                       flush_bytes=flush)
+                rec["plain_ms"] = time_ms(plain, 20, flush_bytes=flush)
+                rec["library_ms"] = time_ms(library, 200, flush_bytes=flush)
+                rec["bound_ms"], rec["bound_by"] = paged_bound(
+                    pargs[0], pargs[1], pargs[-2], dn,
+                    scale_bytes=0 if packed is None else 4,
+                    extra_bytes=4 * out.shape[0] * out.shape[1])
+                emit("kernels", **rec)
+                table[(kernel, dn, case)] = rec
+
+
+def cp_engine_case(phase, mesh, name, bits, kv, modes) -> dict:
+    """11a/11b: a slice model by the unsharded graphed engine and by
+    ``make_engine(..., cp_mesh=mesh, cp_mode=)`` in each of ``modes`` on
+    the same weights: equal streams (or a near-tie), the launches and the
+    collectives the layer count requires, the graphed step's ms both
+    ways, the analytic model's fields.  Returns the launches by phase."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg, transform = slice_model(name, bits)
+    ecfg = slice_engine_config(kv_cache_dtype=kv)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=transform)
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    base = mesh_run(make_engine(cfg, ecfg, params, tok), cfg, kv, bits)
+    free_card()
+    out = {}
+    for mode in modes:
+        engine = make_engine(cfg, ecfg, params, tok, cp_mesh=mesh,
+                             cp_mode=mode)
+        run = mesh_run(engine, cfg, kv, bits)
+        mesh_compare(f"{phase}_{mode}", cfg, params, base, run,
+                     mesh=f"cp {mode} 1 rank (nccl)",
+                     weights=f"int{bits}" if bits else "bfloat16",
+                     kv_cache_dtype=kv, pool_pages=engine.pool.k.shape[1],
+                     **{f"mesh_{k}": v for k, v in
+                        roofline_fields(cfg, run, bits, kv).items()},
+                     **{f"unsharded_{k}": v for k, v in
+                        roofline_fields(cfg, base, bits, kv).items()})
+        out[f"{phase}_{mode}"] = run["launches"]
+        del engine
+        free_card()
+    del params
+    return out
+
+
+def cp2_rank(rank: int, n_layers: int, max_new: int) -> dict:
+    """One of two ranks on the one card (gloo over CUDA tensors):
+    Llama-3-8B cut to ``n_layers`` layers, seeded as the parent seeds it,
+    on a seq = 2 mesh, the eager CP engine over four prompts, ring and
+    then Ulysses."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.mesh import (
+        collective_counts, local_mesh, reset_collective_counts,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg = LLAMA3_8B.replace(n_layers=n_layers)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    mesh = local_mesh(seq=2)
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    out = {}
+    for mode in ("ring", "ulysses"):
+        reset_collective_counts()
+        engine = make_engine(cfg, slice_engine_config(), params, tok,
+                             cuda_graphs=False, cp_mesh=mesh, cp_mode=mode)
+        t0 = time.perf_counter()
+        res = engine.generate(mesh_prompts(tok), max_new_tokens=max_new)
+        torch.cuda.synchronize()
+        engine.allocator.check()
+        out[mode] = {"tokens": [r.token_ids for r in res],
+                     "seconds": time.perf_counter() - t0,
+                     "collectives": collective_counts(),
+                     "pool_pages": engine.pool.k.shape[1]}
+        del engine
+    return out
+
+
+def cp_gloo_case(mesh) -> None:
+    """11c: Llama-3-8B cut to 2 layers at CP = 2 as two processes on the
+    one card over gloo (``run_ranks``), eager, ring and Ulysses, each held
+    to the same model on the 1-rank nccl mesh in the same mode, eager:
+    both ranks' streams equal, and equal to the 1-rank run's or parting
+    at a near-tie (``NEAR_TIE``)."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.mesh import run_ranks
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    n_layers, max_new = 2, 32
+    cfg = LLAMA3_8B.replace(n_layers=n_layers)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    prompts = mesh_prompts(tok)
+    want = {}
+    for mode in ("ring", "ulysses"):
+        one = make_engine(cfg, slice_engine_config(), params, tok,
+                          cuda_graphs=False, cp_mesh=mesh, cp_mode=mode)
+        want[mode] = [r.token_ids for r in one.generate(
+            prompts, max_new_tokens=max_new)]
+        del one
+    t0 = time.perf_counter()
+    ranks = run_ranks(cp2_rank, 2, str(ROOT / "build" / "cp_ranks"),
+                      args=(n_layers, max_new), timeout_s=600,
+                      device="cuda-gloo")
+    wall = time.perf_counter() - t0
+    failed = []
+    for mode in ("ring", "ulysses"):
+        got = [r[mode] for r in ranks]
+        divs = divergences(cfg, params, prompts, want[mode],
+                           got[0]["tokens"])
+        bad = [d for d in divs if d["logit_margin"] > NEAR_TIE]
+        equal_ranks = got[0]["tokens"] == got[1]["tokens"]
+        emit("cp_gloo", model=cfg.name, layers=n_layers, ranks=2,
+             cp_mode=mode, backend="gloo", cuda_graphs=False,
+             equal_tokens=got[0]["tokens"] == want[mode],
+             equal_token_share=common_share(want[mode], got[0]["tokens"]),
+             ranks_equal=equal_ranks, divergences=divs, near_tie=NEAR_TIE,
+             rank_seconds=[r["seconds"] for r in got], wall_s=wall,
+             collectives=[r["collectives"] for r in got],
+             pool_pages=[r["pool_pages"] for r in got],
+             nvidia_smi=nvidia_smi_name_power())
+        if not equal_ranks or bad:
+            failed.append((mode, equal_ranks, bad))
+    if failed:
+        raise SystemExit(f"cp_gloo: (mode, ranks equal, beyond a near-tie) "
+                         f"{failed}")
+    del params
+
+
+def phase_cp() -> dict:
+    """Phase 11 under a 1-rank nccl process group (destroyed after): 11a
+    Llama-3-8B bf16 ring and Ulysses, 11b int4 weights over an int4 pool
+    (ring), 11c CP = 2 over gloo.  Returns the launch counts of 11a-11b."""
+    from k8s_llm_rca_tpu_torch.runtime import mesh as rmesh
+
+    t0 = time.perf_counter()
+    rmesh.initialize_distributed()
+    out = {}
+    try:
+        mesh = rmesh.local_mesh()
+        out.update(cp_engine_case("cp", mesh, "llama3-8b", None, None,
+                                  ("ring", "ulysses")))
+        free_card()
+        out.update(cp_engine_case("cp_int4", mesh, "llama3-8b", 4, "int4",
+                                  ("ring",)))
+        free_card()
+        cp_gloo_case(mesh)
+        free_card()
+    finally:
+        rmesh.shutdown_distributed()
+    emit("cp_phase", seconds=time.perf_counter() - t0)
+    return out
+
+
 def ptxas_summary(report: str) -> list:
     """One line per kernel of a ``ptxas -v`` report: its name (demangled
     by ``c++filt`` where the toolchain has it, up to its parameter list),
@@ -4616,6 +4915,16 @@ def main(argv) -> int:
         phase_mesh()
         return 0
 
+    if "--cp" in argv:
+        # phase 3's CP-rank lse cases and phase 11 alone
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cp_lse_kernels({}, torch.Generator(device="cuda").manual_seed(0),
+                       256 << 20)
+        free_card()
+        phase_cp()
+        return 0
+
     if "--rerank" in argv:
         # phase 9 alone
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4675,6 +4984,8 @@ def main(argv) -> int:
     free_card()
     runs.update(phase_mesh())
     free_card()
+    runs.update(phase_cp())
+    free_card()
 
     rows = []
     # launches: the main paths' runs of each kernel, summed (flash now
@@ -4685,7 +4996,8 @@ def main(argv) -> int:
              ("paged_attention", "bfloat16", "mixed"),
              ("slice", "slice_spec", "prefix", "memory", "rca", "rca_spec",
               "rca_resilient", "durable", "durable_cli", "rerank_rca",
-              "rerank_rca_yardstick", "mesh"), "paged"),
+              "rerank_rca_yardstick", "mesh", "cp_ring", "cp_ulysses"),
+             "paged"),
             ("flash_attention", FLASH_SRC,
              "k8s_llm_rca_tpu/ops/flash_attention.py:31",
              ("flash_attention", "bfloat16", "full"),
@@ -4693,23 +5005,26 @@ def main(argv) -> int:
               "rca", "rca_spec", "rca_resilient", "durable",
               "durable_int4", "durable_cli", "rerank_rca",
               "rerank_rca_yardstick", "contiguous", "contiguous_int4",
-              "contiguous_cli", "mesh", "mesh_int4", "mesh_mixtral"),
-             "flash"),
+              "contiguous_cli", "mesh", "mesh_int4", "mesh_mixtral",
+              "cp_ulysses"), "flash"),
             ("quant_matmul", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:137",
              ("quant_matmul", "bfloat16", "decode"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
-              "durable_int4", "contiguous_int4", "mesh_int4"), "qmm"),
+              "durable_int4", "contiguous_int4", "mesh_int4",
+              "cp_int4_ring"), "qmm"),
             ("quant_matmul_head", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:177",
              ("quant_matmul_head", "bfloat16", "llama3-8b int4"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
-              "durable_int4", "contiguous_int4", "mesh_int4"), "qmm_head"),
+              "durable_int4", "contiguous_int4", "mesh_int4",
+              "cp_int4_ring"), "qmm_head"),
             ("paged_attention_quant", PAGED_QUANT_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:141",
              ("paged_attention_quant", "bfloat16", "int4"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
-              "durable_int4", "mesh_int4", "mesh_mixtral"), "paged_quant"),
+              "durable_int4", "mesh_int4", "mesh_mixtral", "cp_int4_ring"),
+             "paged_quant"),
             ("quant_matmul_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:120",
              ("quant_matmul_int8", "bfloat16", "decode"),

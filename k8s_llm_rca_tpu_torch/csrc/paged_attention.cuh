@@ -13,6 +13,10 @@
 //                  [n_pages, page, n_kv*d / 2]       int4, split-half
 //   k/v scales     [n_pages, page] f32               int8 / int4 only
 //   lengths [B] int32, block_tables [B, pages_per_seq] int32, out like q
+//   lse            [B, n_heads] f32, optional: each row's log-sum-exp of
+//                  its scaled scores (natural log), -1e30 for a row with
+//                  no key; what a context-parallel rank's partial output
+//                  merges by
 //
 // int4 packing is split-half over the whole merged row: byte i of a token
 // row holds lane i in its low nibble and lane i + n_kv*d/2 in its high
@@ -62,8 +66,10 @@
 // in shared memory (one __syncthreads), and the splits' states through
 // distributed shared memory: after cluster.sync() each busy block reads
 // every busy rank's (m, l, acc) in rank order and writes its share of the
-// n_rep x d outputs, acc / (l == 0 ? 1 : l); a second cluster barrier
-// keeps every block resident until the others have read it.  No atomics
+// n_rep x d outputs, acc / (l == 0 ? 1 : l), and with `lse` set the
+// thread of each row's first column writes (m + log2 l) * ln 2 (the scores
+// are in log2 units), -1e30 where l == 0; a second cluster barrier keeps
+// every block resident until the others have read it.  No atomics
 // and no global scratch: two launches give the same bits.
 
 #pragma once
@@ -83,6 +89,7 @@ constexpr int kMaxRep = 8;              // query rows per kv-head
 constexpr int kMaxSplits = 8;           // the portable cluster size
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -213,6 +220,7 @@ struct Args {
   const int* lengths;
   const int* tables;
   void* out;
+  float* lse;             // [B, n_heads] log-sum-exp, or nullptr
   unsigned row_stride;    // bytes between token rows of a pool
   int n_heads, n_kv, page_size, pps, n_split;
   int chunk;              // tokens per split, set by the launcher
@@ -586,6 +594,9 @@ paged_decode_kernel(const Args a) {
       asum = fmaf(ra[r], wt, asum);
     }
     out[i] = from_f<T>(__fdividef(asum, lsum == 0.f ? 1.f : lsum));
+    if (a.lse != nullptr && i % D == 0)
+      a.lse[(long long)b * a.n_heads + (long long)kvh * n_rep + h] =
+          lsum == 0.f ? kNegInf : (shift + __log2f(lsum)) * kLn2;
   }
   if (n_busy > 1) {
     // every rank's state is read before its block exits (the reads are

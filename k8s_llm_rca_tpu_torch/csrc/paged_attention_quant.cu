@@ -11,6 +11,7 @@
 //   k/v scales     [n_pages, page_size] float32
 //   lengths        [B] int32, block_tables [B, pages_per_seq] int32
 //   out            [B, n_heads, d] in q's type
+//   lse            [B, n_heads] float32, or null (each row's log-sum-exp)
 //
 // What bounds it on the H100: bytes, as for the bf16 pool, with a quarter
 // (int4) or half (int8) of the page bytes plus 8 bytes of scales a token.
@@ -29,14 +30,14 @@ namespace {
 // The launch, or with `splits` set only the split count it would take.
 int run(const void* q, const void* k_pages, const void* v_pages, const void* k_scale,
         const void* v_scale, const int* lengths, const int* block_tables, void* out,
-        int batch, int n_heads, int n_kv, int head_dim, int page_size, int pages_per_seq,
+        float* lse, int batch, int n_heads, int n_kv, int head_dim, int page_size, int pages_per_seq,
         int n_split, int packed, int dtype, cudaStream_t s, int* splits) {
   if (!paged::shapes_ok(batch, n_heads, n_kv, page_size, pages_per_seq, n_split))
     return (int)cudaErrorInvalidValue;
   const int kv_dim = n_kv * head_dim;
   const paged::Args a{q, (const uint8_t*)k_pages, (const uint8_t*)v_pages,
                       (const float*)k_scale, (const float*)v_scale, lengths, block_tables, out,
-                      (unsigned)(packed ? kv_dim / 2 : kv_dim), n_heads, n_kv, page_size,
+                      lse, (unsigned)(packed ? kv_dim / 2 : kv_dim), n_heads, n_kv, page_size,
                       pages_per_seq, n_split, 0, kv_dim / 2, paged::log2_exact(page_size)};
   if (dtype == 0 && !packed)
     return paged::launch_shape<float, paged::QuantPages<false>>(a, batch, head_dim, s, splits);
@@ -56,14 +57,16 @@ int run(const void* q, const void* k_pages, const void* v_pages, const void* k_s
 // n_split: 1 to 8 splits of the table, the most the launch takes (one
 // cluster of them per kv-head and sequence).  packed: 0 = int8 pages [..,
 // n_kv*head_dim], 1 = split-half int4 [.., n_kv*head_dim/2].  dtype (q and
-// out): 0 = float32, 1 = bfloat16.  The pools are 16-byte aligned.
-// Returns the CUDA error of the launch (0 on success).
+// out): 0 = float32, 1 = bfloat16.  The pools are 16-byte aligned.  lse
+// may be null.  Returns the CUDA error of the launch (0 on success).
 extern "C" int paged_attention_quant_launch(
     const void* q, const void* k_pages, const void* v_pages, const void* k_scale,
-    const void* v_scale, const int* lengths, const int* block_tables, void* out, int batch,
+    const void* v_scale, const int* lengths, const int* block_tables, void* out, float* lse,
+    int batch,
     int n_heads, int n_kv, int head_dim, int page_size, int pages_per_seq, int n_split,
     int packed, int dtype, void* stream) {
-  return run(q, k_pages, v_pages, k_scale, v_scale, lengths, block_tables, out, batch, n_heads,
+  return run(q, k_pages, v_pages, k_scale, v_scale, lengths, block_tables, out, lse, batch,
+             n_heads,
              n_kv, head_dim, page_size, pages_per_seq, n_split, packed, dtype,
              (cudaStream_t)stream, nullptr);
 }
@@ -72,7 +75,7 @@ extern "C" int paged_attention_quant_launch(
 extern "C" int paged_attention_quant_splits(int batch, int n_heads, int n_kv, int head_dim,
                                             int page_size, int pages_per_seq, int n_split,
                                             int packed, int dtype, int* splits) {
-  return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, batch,
-             n_heads, n_kv, head_dim, page_size, pages_per_seq, n_split, packed, dtype, nullptr,
+  return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+             batch, n_heads, n_kv, head_dim, page_size, pages_per_seq, n_split, packed, dtype, nullptr,
              splits);
 }

@@ -1033,14 +1033,44 @@ def _mesh_axis(mesh, axis: str) -> int:
     return int(mesh.mesh.shape[names.index(axis)])
 
 
-def validate_tp_mesh(tp_mesh, model_cfg: ModelConfig) -> None:
+def validate_cp_divisibility(cp_seq_axis: str, n_cp: int, sizes) -> None:
+    """CP prefill shards the padded sequence over the mesh axis: every
+    prefill bucket (and max_seq_len; paged callers pass page-rounded sizes)
+    must split evenly across it."""
+    bad = [s for s in sizes if s % n_cp]
+    if bad:
+        raise ValueError(
+            f"cp mesh axis '{cp_seq_axis}' size {n_cp} must divide "
+            f"every prefill bucket and max_seq_len; offending sizes: {bad}")
+
+
+def validate_tp_mesh(tp_mesh, model_cfg: ModelConfig, cp_mesh=None,
+                     cp_seq_axis: str = "seq") -> None:
     """TP serving preconditions: whole GQA groups per shard (both head
     counts divide the "model" axis) and a merged kv axis that splits into
-    whole heads, packed int4 pairs included."""
+    whole heads, packed int4 pairs included.
+
+    CP composes with TP only on ONE mesh carrying both axes (the pool is
+    sharded on pages over the seq axis and on lanes over "model", and the
+    ring or all-to-all runs per head shard); two different mesh objects
+    cannot both lay out the pool."""
     if tp_mesh is None:
         return
     _mesh_axis(tp_mesh, "data")
     n_tp = _mesh_axis(tp_mesh, "model")
+    if cp_mesh is not None:
+        if cp_mesh is not tp_mesh:
+            raise ValueError(
+                "cp_mesh and tp_mesh must be the SAME composed mesh "
+                "(one Mesh carrying 'data', 'model' and the seq axis); "
+                "two distinct meshes cannot both lay out the cache")
+        if cp_seq_axis not in tuple(tp_mesh.mesh_dim_names or ()):
+            raise ValueError(f"composed mesh lacks the '{cp_seq_axis}' axis")
+        if model_cfg.n_heads % n_tp or model_cfg.n_kv_heads % n_tp:
+            raise ValueError(
+                f"n_heads={model_cfg.n_heads}/n_kv_heads="
+                f"{model_cfg.n_kv_heads} not divisible by model axis "
+                f"{n_tp} (required for CP×TP prefill)")
     if model_cfg.n_heads % n_tp or model_cfg.n_kv_heads % n_tp:
         raise ValueError(
             f"paged attention under TP needs n_heads={model_cfg.n_heads} "
@@ -1053,14 +1083,24 @@ def validate_tp_mesh(tp_mesh, model_cfg: ModelConfig) -> None:
 
 
 def validate_ep_mesh(ep_mesh, model_cfg: ModelConfig,
-                     engine_cfg: EngineConfig) -> None:
+                     engine_cfg: EngineConfig, cp_mesh=None,
+                     cp_seq_axis: str = "seq") -> None:
     """EP serving preconditions: an MoE model; experts divide the "expert"
     axis; the decode batch, the prefill buckets and (with the prefix
-    cache) a page divide the token sharding ("data" x "expert")."""
+    cache) a page divide the token sharding ("data" x "expert").
+
+    CP composes with EP only on ONE mesh carrying "data", "expert" and the
+    seq axis; the CP prefill's MoE tokens (the padded sequence itself)
+    shard over (seq, expert), so the buckets divide by that product."""
     if ep_mesh is None:
         return
     if model_cfg.n_experts <= 0:
         raise ValueError("ep_mesh requires an MoE model (n_experts > 0)")
+    if cp_mesh is not None and cp_mesh is not ep_mesh:
+        raise ValueError(
+            "cp_mesh and ep_mesh must be the SAME composed mesh (one "
+            "Mesh carrying 'data', 'expert' and the seq axis); two "
+            "distinct meshes cannot both lay out the token sharding")
     n_ep = _mesh_axis(ep_mesh, "expert")
     p_tok = _mesh_axis(ep_mesh, "data") * n_ep
     if model_cfg.n_experts % n_ep:
@@ -1071,11 +1111,15 @@ def validate_ep_mesh(ep_mesh, model_cfg: ModelConfig,
         raise ValueError(
             f"max_batch={engine_cfg.max_batch} not divisible by "
             f"data*expert={p_tok} (decode tokens shard over both)")
+    # CP prefill is per sequence (B = 1): its MoE token dim is the padded
+    # sequence, sharded over (seq, expert)
+    p_pref = (_mesh_axis(ep_mesh, cp_seq_axis) * n_ep if cp_mesh is not None
+              else p_tok)
     for b in tuple(engine_cfg.prefill_buckets) + (engine_cfg.max_seq_len,):
-        if b % p_tok:
+        if b % p_pref:
             raise ValueError(
                 f"prefill bucket {b} not divisible by the prefill token "
-                f"sharding {p_tok}")
+                f"sharding {p_pref}")
     if engine_cfg.paged and engine_cfg.prefix_cache \
             and engine_cfg.page_size % p_tok:
         raise ValueError(
@@ -1223,7 +1267,7 @@ class InferenceEngine(EngineBase):
             raise NotImplementedError(
                 f"the contiguous engine's device meshes (TP/CP/EP/PP/FSDP, "
                 f"sp) are not ported yet ({MESH_ITEM}); the paged engine "
-                f"serves tp_mesh and ep_mesh")
+                f"serves tp_mesh, cp_mesh and ep_mesh")
         _check_contiguous_config(engine_cfg, prefix_store)
         self.device = resolve_device(device)
         check_params_device(params, self.device)

@@ -76,15 +76,32 @@
   all-to-all of ``parallel/moe.py``.  On the card the graphs capture the
   collectives (nccl); gloo cannot be captured and needs
   ``cuda_graphs=False``.
+- ``cp_mesh`` (context parallelism over its ``cp_seq_axis``, JAX's
+  long-context mode): the allocator partitions the page ids into one
+  contiguous range per rank of the axis (``PartitionedPageAllocator``, a
+  sequence's page j from the rank owning positions [j*page, (j+1)*page)),
+  and each rank's pool holds its partition's pages plus one sink page.
+  Admission prefills one sequence at a time with the sequence sharded
+  over the axis (``paged_prefill_cp``: ring or Ulysses attention); the
+  K/V blocks are all-gathered and each rank writes the pages it owns.  A
+  decode step writes each token on its page's owner (decided on the
+  device), runs the paged kernel over each rank's own positions with the
+  rows' log-sum-exp, all-gathers (out, lse) and merges.  With ``tp_mesh``
+  (the SAME mesh) the pool is also sharded on lanes over "model" and the
+  ring or all-to-all runs per head shard.  The prefix cache, chunked
+  prefill, ``host_overlap``, spill and the store tiers are refused with
+  the JAX engine's messages.
 
-Not ported yet, and refused loudly when asked for: the CP/PP/FSDP meshes,
-and under a mesh the memory tiers (spill, snapshot/restore, the prefix
-store), ``host_overlap`` and speculation (ROADMAP Queue 1 item 10); the
-disaggregated handoff's ``export_run``/``adopt_run`` (item 11).
+Not ported yet, and refused loudly when asked for: the PP/FSDP meshes, CP
+with EP, TP with EP, and under a mesh the memory tiers (spill,
+snapshot/restore, the prefix store), ``host_overlap`` and speculation
+(ROADMAP Queue 1 item 10); the disaggregated handoff's
+``export_run``/``adopt_run`` (item 11).
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 
@@ -94,8 +111,8 @@ import torch
 from k8s_llm_rca_tpu_torch.config import EngineConfig, ModelConfig
 from k8s_llm_rca_tpu_torch.engine.engine import (
     MESH_ITEM, EngineBase, SequenceResult, _Active, _Pending,
-    check_params_device, dfa_greedy_multi, dfa_scan_step, validate_ep_mesh,
-    validate_tp_mesh,
+    check_params_device, dfa_greedy_multi, dfa_scan_step,
+    validate_cp_divisibility, validate_ep_mesh, validate_tp_mesh,
 )
 from k8s_llm_rca_tpu_torch.engine.graphs import DecodeGraphs
 from k8s_llm_rca_tpu_torch.engine.prefix import (
@@ -112,9 +129,11 @@ from k8s_llm_rca_tpu_torch.ops.attention import (
 )
 from k8s_llm_rca_tpu_torch.ops.norms import rms_norm
 from k8s_llm_rca_tpu_torch.ops.paged_attention import (
-    gather_dequant_pages, paged_attention, paged_attention_quant,
-    paged_attention_quant_sharded, paged_attention_sharded,
+    gather_dequant_pages, merge_partials, paged_attention,
+    paged_attention_quant, paged_attention_quant_sharded,
+    paged_attention_sharded,
 )
+from k8s_llm_rca_tpu_torch.runtime.mesh import all_gather, axis_rank
 from k8s_llm_rca_tpu_torch.runtime.profiling import annotate
 from k8s_llm_rca_tpu_torch.runtime.sharding import rank_config
 from k8s_llm_rca_tpu_torch.utils.device import resolve_device
@@ -183,7 +202,7 @@ class PageAllocator:
                 raise AllocatorError(
                     f"page {p} owned by {got}, freed by {owner}")
             del self._owner[p]
-            self._free.append(p)
+            self._push_free(p)
 
     def transfer(self, pages: Sequence[int], from_owner: int,
                  to_owner: int) -> None:
@@ -201,18 +220,91 @@ class PageAllocator:
         for p in pages:
             self._owner[p] = to_owner
 
+    # free() and check() reach the free list through these two hooks, so
+    # the partitioned allocator keeps ONE implementation of the invariants
+    def _push_free(self, p: int) -> None:
+        self._free.append(p)
+
+    def _free_pages(self) -> List[int]:
+        return self._free
+
     def check(self) -> None:
         """Global invariant: free and owned pages partition 1..n_pages-1."""
-        free: Set[int] = set(self._free)
+        free_list = self._free_pages()
+        free: Set[int] = set(free_list)
         owned: Set[int] = set(self._owner)
         if free & owned:
             raise AllocatorError(f"pages both free and owned: {free & owned}")
-        if len(free) != len(self._free):
+        if len(free) != len(free_list):
             raise AllocatorError("duplicate entries in free list")
         universe = set(range(1, self.n_pages))
         if free | owned != universe:
             raise AllocatorError(
                 f"leaked pages: {sorted(universe - free - owned)}")
+
+
+class PartitionedPageAllocator(PageAllocator):
+    """Page allocator whose id space splits into ``n_parts`` CONTIGUOUS
+    partitions: the host-side twin of a pool whose page axis is sharded
+    over the CP ``seq`` axis (partition p's pages live on the ranks at
+    position p of the axis).  ``alloc`` takes one partition (a page that
+    covers sequence positions [j*page, (j+1)*page) must come from the rank
+    that owns that range, ``PagedInferenceEngine._page_part``); ``free``
+    and ``transfer`` return each page to the partition its id falls in.
+    The invariants (no double free, one owner, no leak) are
+    ``PageAllocator``'s, plus every free page in its own partition.  No
+    native twin: the C++ allocator is partition-blind."""
+
+    def __init__(self, n_pages: int, n_parts: int):
+        if n_pages % n_parts:
+            raise ValueError(
+                f"num_pages={n_pages} not divisible into {n_parts} "
+                f"partitions (pool page axis must shard evenly)")
+        super().__init__(n_pages)
+        self.n_parts = n_parts
+        per = n_pages // n_parts
+        # partition 0 loses page 0 (the reserved trash page)
+        self._free_parts: List[List[int]] = [
+            list(range(max(1, i * per), (i + 1) * per))
+            for i in range(n_parts)
+        ]
+        self._free = []          # the base free list is unused
+
+    def part_of(self, page: int) -> int:
+        return page * self.n_parts // self.n_pages
+
+    @property
+    def n_free(self) -> int:
+        return sum(len(p) for p in self._free_parts)
+
+    def alloc(self, n: int, owner: int, *, part: int) -> List[int]:
+        # ``part`` is required: a partition-blind caller falling through to
+        # the base signature would drain partition 0, which check() cannot
+        # see
+        free = self._free_parts[part]
+        if n > len(free):
+            raise OutOfPages(
+                f"need {n} pages in partition {part}, {len(free)} free "
+                f"(pool total free {self.n_free}/{self.n_pages})")
+        pages = [free.pop() for _ in range(n)]
+        for p in pages:
+            self._owner[p] = owner
+        return pages
+
+    def _push_free(self, p: int) -> None:
+        self._free_parts[self.part_of(p)].append(p)
+
+    def _free_pages(self) -> List[int]:
+        return [p for part in self._free_parts for p in part]
+
+    def check(self) -> None:
+        for i, part in enumerate(self._free_parts):
+            for p in part:
+                if self.part_of(p) != i:
+                    raise AllocatorError(
+                        f"page {p} in wrong partition {i} "
+                        f"(belongs to {self.part_of(p)})")
+        super().check()
 
 
 def make_allocator(n_pages: int, prefer_native: bool = True):
@@ -339,6 +431,43 @@ def paged_prefill_batch(cfg: ModelConfig, params, pool: PagePool,
         cfg, pool, new_k.reshape(cfg.n_layers, n * s_pad, cfg.kv_dim),
         new_v.reshape(cfg.n_layers, n * s_pad, cfg.kv_dim),
         page_maps.reshape(-1), n * (s_pad // page_size), page_size)
+    return pool, logits
+
+
+def cp_local_pages(pages: torch.Tensor, rank: int, per: int) -> torch.Tensor:
+    """Global page ids -> indices into a CP rank's pool: a page of the
+    rank's partition [rank * per, (rank + 1) * per) at its offset, any
+    other at ``per``, the rank's sink page (its pool has per + 1 pages;
+    the sink takes the writes of pages other ranks own and is never read
+    below a length).  Partition 0's offset 0 is the global trash page.
+    Decided on the device, so a captured step needs no host branch."""
+    lo = rank * per
+    own = (pages >= lo) & (pages < lo + per)
+    return torch.where(own, pages - lo, torch.full_like(pages, per))
+
+
+def paged_prefill_cp(cfg: ModelConfig, params, pool: PagePool,
+                     tokens: torch.Tensor, length: int,
+                     page_map: torch.Tensor, mesh, seq_axis: str = "seq",
+                     cp_mode: str = "ring", head_axis: Optional[str] = None,
+                     ep_mesh=None):
+    """Context-parallel paged prefill: ``llama.prefill_kv_cp`` (ring or
+    Ulysses attention, the sequence sharded over ``mesh[seq_axis]``) with
+    the page-scatter write.  ``pool`` is this rank's CP pool (its
+    partition's pages and the sink, ``cp_local_pages``); ``page_map``
+    holds global ids, and only the pages of this rank's partition land
+    (the gathered K/V of the others go to the sink).  Same contract as
+    ``paged_prefill``: (pool, logits [1, V]) on every rank."""
+    s_pad = tokens.shape[1]
+    page_size = pool.page_size
+    assert s_pad % page_size == 0, (s_pad, page_size)
+    new_k, new_v, logits = llama.prefill_kv_cp(cfg, params, tokens, length,
+                                               mesh, seq_axis, cp_mode,
+                                               head_axis, ep_mesh)
+    local = cp_local_pages(page_map.long(), axis_rank(mesh, seq_axis),
+                           pool.k.shape[1] - 1)
+    pool = _write_pool_pages(cfg, pool, new_k, new_v, local,
+                             s_pad // page_size, page_size)
     return pool, logits
 
 
@@ -534,16 +663,17 @@ def paged_prefill_chunk_batch(cfg: ModelConfig, params, pool: PagePool,
 
 def _decode_attention(cfg: ModelConfig, q: torch.Tensor, pool: PagePool,
                       li: int, attn_lens: torch.Tensor,
-                      block_tables: torch.Tensor, packed: bool
-                      ) -> torch.Tensor:
+                      block_tables: torch.Tensor, packed: bool,
+                      return_lse: bool = False):
     """Layer ``li``'s decode attention: ``paged_attention`` or
     ``paged_attention_quant``, under TP their sharded wrappers over the
-    rank's heads.  An int4 pool under TP is packed per rank over its own
-    lanes (a whole pool of the rank's heads), so it runs
-    ``paged_attention_quant`` itself."""
+    rank's heads (with ``return_lse`` also the rows' log-sum-exp).  An
+    int4 pool under TP is packed per rank over its own lanes (a whole pool
+    of the rank's heads), so it runs ``paged_attention_quant`` itself."""
     tp = llama._tp(cfg)
     if tp is not None:
-        heads = dict(mesh=tp.mesh, global_heads=(tp.n_heads, tp.n_kv_heads))
+        heads = dict(mesh=tp.mesh, global_heads=(tp.n_heads, tp.n_kv_heads),
+                     return_lse=return_lse)
         if not pool.quantized:
             return paged_attention_sharded(q, pool.k[li], pool.v[li],
                                            attn_lens, block_tables, **heads)
@@ -554,9 +684,39 @@ def _decode_attention(cfg: ModelConfig, q: torch.Tensor, pool: PagePool,
     if pool.quantized:
         return paged_attention_quant(
             q, pool.k[li], pool.v[li], pool.k_scale[li], pool.v_scale[li],
-            attn_lens, block_tables, packed=packed)
+            attn_lens, block_tables, packed=packed, return_lse=return_lse)
     return paged_attention(q, pool.k[li], pool.v[li], attn_lens,
-                           block_tables)
+                           block_tables, return_lse=return_lse)
+
+
+def _cp_rank_view(cp, pool: PagePool, attn_lens: torch.Tensor,
+                  block_tables: torch.Tensor):
+    """A CP rank's share of a decode step's attention: the block-table
+    columns of its position range [rank * span, (rank + 1) * span) as
+    indices into its pool, and each slot's length clamped to that range
+    (0 where the slot has not reached it: the rank adds nothing)."""
+    per = pool.k.shape[1] - 1
+    span_pages = block_tables.shape[1] // cp.size
+    span = span_pages * pool.page_size
+    cols = block_tables[:, cp.rank * span_pages:(cp.rank + 1) * span_pages]
+    tables = cp_local_pages(cols, cp.rank, per).to(torch.int32).contiguous()
+    lens = (attn_lens - cp.rank * span).clamp(0, span).to(torch.int32)
+    return lens, tables
+
+
+def _cp_decode_attention(cfg: ModelConfig, q: torch.Tensor, pool: PagePool,
+                         li: int, view, packed: bool) -> torch.Tensor:
+    """Decode attention over the CP-sharded pool: the paged kernel on this
+    rank's pages only, with the rows' log-sum-exp; one all-gather of
+    (out, lse) over the seq group; the merge (``merge_partials``, plain
+    torch: JAX leaves it to GSPMD outside any kernel)."""
+    cp = cfg.cp
+    lens, tables = view
+    out, lse = _decode_attention(cfg, q, pool, li, lens, tables, packed,
+                                 return_lse=True)
+    part = torch.cat([out.float(), lse[..., None]], dim=-1)     # [B, H, d+1]
+    parts = all_gather(part[None], cp.group, dim=0)             # [P, B, H, d+1]
+    return merge_partials(parts[..., :-1], parts[..., -1]).to(q.dtype)
 
 
 def paged_decode_step(cfg: ModelConfig, params, pool: PagePool,
@@ -566,7 +726,11 @@ def paged_decode_step(cfg: ModelConfig, params, pool: PagePool,
     already cached, block_tables [B, pages_per_seq] int32.  The new
     token's KV is written at position lengths[b] (page
     block_tables[b, lengths[b] // page], offset lengths[b] % page) BEFORE
-    attention runs over lengths + 1 tokens.  Returns (pool, logits [B, V])."""
+    attention runs over lengths + 1 tokens.  Under CP (``cfg.cp``) the pool
+    is this rank's and ``block_tables`` hold global ids: the write lands on
+    the page's owner (``cp_local_pages``) and attention runs over each
+    rank's own positions, merged (``_cp_decode_attention``).  Returns
+    (pool, logits [B, V])."""
     b = tokens.shape[0]
     page_size = pool.page_size
     packed = _pool_packed(cfg, pool)
@@ -576,6 +740,11 @@ def paged_decode_step(cfg: ModelConfig, params, pool: PagePool,
     page_ids = block_tables.long().gather(1, (lens // page_size)[:, None])[:, 0]
     offsets = lens % page_size
     attn_lens = (lengths + 1).to(torch.int32)
+    cp = getattr(cfg, "cp", None)
+    if cp is not None:
+        # the page's owner writes the token; the other ranks, the sink
+        page_ids = cp_local_pages(page_ids, cp.rank, pool.k.shape[1] - 1)
+        view = _cp_rank_view(cp, pool, attn_lens, block_tables)
     for li, layer in enumerate(params["layers"]):
         q, k, v = llama._decode_qkv(cfg, layer, x, angles, lens[:, None])
         k_tok = k[:, 0].reshape(b, cfg.kv_dim)
@@ -587,8 +756,11 @@ def paged_decode_step(cfg: ModelConfig, params, pool: PagePool,
             pool.v_scale[li, page_ids, offsets] = vs.float()
         pool.k[li, page_ids, offsets] = k_tok
         pool.v[li, page_ids, offsets] = v_tok
-        attn = _decode_attention(cfg, q[:, 0], pool, li, attn_lens,
-                                 block_tables, packed)
+        if cp is None:
+            attn = _decode_attention(cfg, q[:, 0], pool, li, attn_lens,
+                                     block_tables, packed)
+        else:
+            attn = _cp_decode_attention(cfg, q[:, 0], pool, li, view, packed)
         x = llama._decode_finish(cfg, layer, x,
                                  attn.reshape(b, 1, cfg.q_dim))
     return pool, llama._logits(cfg, params, x)[:, 0]
@@ -789,28 +961,104 @@ def check_engine_config(engine_cfg: EngineConfig,
             f"page)")
 
 
+def _check_cp_config(engine_cfg: EngineConfig, prefix_store, cp_mesh,
+                     cp_seq_axis: str) -> int:
+    """The CP paged engine's preconditions, with the JAX engine's messages;
+    returns the CP axis size.  Refused: the overlapped loop, chunked
+    prefill, KV spill, the prefix store tiers and the prefix cache (the
+    chunk-prefill path is not context-parallel).  Every page-rounded
+    prefill bucket and max_seq_len divides by the axis; above one rank,
+    so do pages_per_seq (page-aligned splits) and num_pages (the pool's
+    page axis shards evenly)."""
+    from k8s_llm_rca_tpu_torch.runtime.mesh import axis_size
+
+    if engine_cfg.host_overlap:
+        raise ValueError(
+            "host_overlap=True is unsupported with cp_mesh: CP admits "
+            "per-sequence through prefill_kv_cp and its multi-process "
+            "host_np collectives must line up SPMD-identically across "
+            "processes — a lagged commit would reorder them; serve CP "
+            "engines with host_overlap=False")
+    if engine_cfg.prefill_chunk_budget:
+        raise ValueError(
+            "prefill_chunk_budget is unsupported with cp_mesh "
+            "(the chunk-prefill path is not context-parallel; CP "
+            "prefills whole sequences through prefill_kv_cp)")
+    if engine_cfg.max_spilled_pages:
+        raise ValueError(
+            "max_spilled_pages (KV spill-to-host) is unsupported "
+            "with cp_mesh: the CP pool's PAGE axis is sequence-"
+            "sharded, so one logical page is not one host buffer "
+            "— a spill gather/restore scatter would reshard the "
+            "pool through host memory every preemption; serve CP "
+            "engines with max_spilled_pages=0 (free-and-re-"
+            "prefill)")
+    if (engine_cfg.prefix_host_pages or engine_cfg.prefix_disk_dir
+            or engine_cfg.prefix_disk_pages or prefix_store is not None):
+        raise ValueError(
+            "the tiered prefix cache is unsupported with cp_mesh: "
+            "the CP pool's PAGE axis is sequence-sharded, so one "
+            "logical page is not one host buffer — a demote "
+            "gather / promote scatter would reshard the pool "
+            "through host memory (and cp_mesh already requires "
+            "prefix_cache=False); serve CP engines without the "
+            "prefix tier knobs")
+    if engine_cfg.prefix_cache:
+        raise ValueError(
+            "cp_mesh requires prefix_cache=False (the chunked "
+            "prefix prefill path is not context-parallel)")
+    page = engine_cfg.page_size
+    n_cp = axis_size(cp_mesh, cp_seq_axis)
+    validate_cp_divisibility(
+        cp_seq_axis, n_cp,
+        [-(-s // page) * page           # page-rounded, as _bucket does
+         for s in tuple(engine_cfg.prefill_buckets)
+         + (engine_cfg.max_seq_len,)])
+    if n_cp > 1:
+        pages_per_seq = -(-engine_cfg.max_seq_len // page)
+        if pages_per_seq % n_cp:
+            raise ValueError(
+                f"max_seq_len={engine_cfg.max_seq_len} spans "
+                f"{pages_per_seq} pages, not divisible into "
+                f"{n_cp} CP partitions (page-aligned CP splits "
+                f"need pages_per_seq % n_cp == 0)")
+        if engine_cfg.num_pages % n_cp:
+            raise ValueError(
+                f"num_pages={engine_cfg.num_pages} not divisible "
+                f"by the CP axis {n_cp} (the pool page axis "
+                f"shards evenly)")
+    return n_cp
+
+
 def check_meshes(model_cfg: ModelConfig, engine_cfg: EngineConfig, params,
                  device: torch.device, cuda_graphs: bool, draft_model,
                  prefix_store, tp_mesh, cp_mesh, ep_mesh, pp_mesh,
-                 fsdp_mesh):
+                 fsdp_mesh, cp_seq_axis: str = "seq"):
     """Refuse the meshes and the mesh features not ported (naming ROADMAP
-    Queue 1 item 10) and a misconfigured TP or EP mesh; returns the mesh
-    the engine runs on (None without one)."""
-    for name, mesh in (("cp_mesh", cp_mesh), ("pp_mesh", pp_mesh),
-                       ("fsdp_mesh", fsdp_mesh)):
+    Queue 1 item 10) and a misconfigured TP, EP or CP mesh; returns (the
+    mesh the engine runs on, None without one; the CP axis size, 0
+    without CP)."""
+    for name, mesh in (("pp_mesh", pp_mesh), ("fsdp_mesh", fsdp_mesh)):
         if mesh is not None:
             raise NotImplementedError(
                 f"{name} is not ported yet ({MESH_ITEM}); the paged engine "
-                f"serves tp_mesh and ep_mesh")
+                f"serves tp_mesh, cp_mesh and ep_mesh")
+    if cp_mesh is not None and ep_mesh is not None:
+        raise NotImplementedError(
+            f"cp_mesh with ep_mesh (CP x EP) is not ported yet "
+            f"({MESH_ITEM})")
     if tp_mesh is not None and ep_mesh is not None:
         raise NotImplementedError(
             f"tp_mesh with ep_mesh (TP x EP) is not ported yet "
             f"({MESH_ITEM})")
-    validate_tp_mesh(tp_mesh, model_cfg)
+    validate_tp_mesh(tp_mesh, model_cfg, cp_mesh, cp_seq_axis)
     validate_ep_mesh(ep_mesh, model_cfg, engine_cfg)
-    mesh = tp_mesh if tp_mesh is not None else ep_mesh
+    n_cp = (_check_cp_config(engine_cfg, prefix_store, cp_mesh, cp_seq_axis)
+            if cp_mesh is not None else 0)
+    mesh = next((m for m in (tp_mesh, ep_mesh, cp_mesh) if m is not None),
+                None)
     if mesh is None:
-        return None
+        return None, 0
     refused = [name for name, on in (
         ("max_spilled_pages (KV spill)", engine_cfg.max_spilled_pages),
         ("the prefix store tiers (prefix_host_pages / prefix_disk_dir / "
@@ -843,7 +1091,7 @@ def check_meshes(model_cfg: ModelConfig, engine_cfg: EngineConfig, params,
                 f"the {axis} axis needs this rank's shard of the params "
                 f"(runtime.sharding.shard_params): {key} has {got} along "
                 f"dim {dim}, the rank's share is {want}")
-    return mesh
+    return mesh, n_cp
 
 
 def _pow2_at_least(n: int) -> int:
@@ -864,24 +1112,43 @@ class PagedInferenceEngine(EngineBase):
     ``prefill_chunk_budget`` a long prompt prefills one page-aligned chunk
     per tick.  On the card the decode step and scans replay CUDA graphs
     (``engine/graphs.py``) unless ``cuda_graphs=False``, which runs them
-    eagerly; on the CPU they always run eagerly."""
+    eagerly; on the CPU they always run eagerly.  ``tp_mesh``,
+    ``ep_mesh`` and ``cp_mesh`` (``cp_mode`` "ring" or "ulysses" over its
+    ``cp_seq_axis``) serve the model over a device mesh, one engine per
+    rank (module docstring)."""
 
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
                  params, tokenizer: Tokenizer, device=None, *,
                  cuda_graphs: bool = True, draft_model=None, tp_mesh=None,
-                 cp_mesh=None, ep_mesh=None, pp_mesh=None, fsdp_mesh=None,
-                 prefix_store: Optional[PrefixStore] = None):
+                 cp_mesh=None, cp_seq_axis: str = "seq",
+                 cp_mode: str = "ring", ep_mesh=None, pp_mesh=None,
+                 fsdp_mesh=None, prefix_store: Optional[PrefixStore] = None):
+        if cp_mode not in ("ring", "ulysses"):
+            raise ValueError(f"unknown cp_mode {cp_mode!r}")
         check_engine_config(engine_cfg, prefix_store is not None)
         self.device = resolve_device(device)
         check_params_device(params, self.device)
-        self.mesh = check_meshes(model_cfg, engine_cfg, params, self.device,
-                                 cuda_graphs, draft_model, prefix_store,
-                                 tp_mesh, cp_mesh, ep_mesh, pp_mesh,
-                                 fsdp_mesh)
+        self.mesh, n_cp = check_meshes(
+            model_cfg, engine_cfg, params, self.device, cuda_graphs,
+            draft_model, prefix_store, tp_mesh, cp_mesh, ep_mesh, pp_mesh,
+            fsdp_mesh, cp_seq_axis)
         if self.mesh is not None:
             # this rank's model: its heads, the collectives' groups
             model_cfg = rank_config(model_cfg, tp_mesh, ep_mesh,
-                                    self.device)
+                                    self.device, cp_mesh, cp_seq_axis)
+        # CP: the allocator partitions the page ids over the seq axis (above
+        # one rank, as JAX's), this rank's pool holds its partition and a
+        # sink page, and admission prefills one sequence at a time through
+        # the ring or the all-to-all
+        self._cp_parts = n_cp if n_cp > 1 else 0
+        self.cp_mode = cp_mode if cp_mesh is not None else None
+        self._batch_admission = cp_mesh is None
+        self._prefill_one = paged_prefill
+        if cp_mesh is not None:
+            self._prefill_one = functools.partial(
+                paged_prefill_cp, mesh=cp_mesh, seq_axis=cp_seq_axis,
+                cp_mode=cp_mode,
+                head_axis="model" if tp_mesh is not None else None)
         self.model_cfg = model_cfg
         self.engine_cfg = engine_cfg
         self.params = params
@@ -906,14 +1173,17 @@ class PagedInferenceEngine(EngineBase):
             raise ValueError(
                 f"num_pages={engine_cfg.num_pages} cannot hold one full "
                 f"sequence ({self.pages_per_seq} pages + trash page)")
-        self.pool = init_paged_cache(model_cfg, engine_cfg.num_pages,
-                                     self.page_size, self.device,
-                                     kv_dtype=engine_cfg.kv_cache_dtype)
-        self.allocator = make_allocator(engine_cfg.num_pages,
-                                        engine_cfg.native)
-        self._count("engine.allocator_native"
-                    if type(self.allocator) is not PageAllocator
-                    else "engine.allocator_python")
+        self.pool = init_paged_cache(
+            model_cfg, engine_cfg.num_pages // n_cp + 1 if n_cp
+            else engine_cfg.num_pages, self.page_size, self.device,
+            kv_dtype=engine_cfg.kv_cache_dtype)
+        self.allocator = (
+            PartitionedPageAllocator(engine_cfg.num_pages, self._cp_parts)
+            if self._cp_parts else make_allocator(engine_cfg.num_pages,
+                                                  engine_cfg.native))
+        self._count("engine.allocator_python"
+                    if isinstance(self.allocator, PageAllocator)
+                    else "engine.allocator_native")
         # the tiered prefix cache: a passed store is SHARED (a restarted
         # engine warm-starts from it); otherwise the tier knobs build a
         # private one
@@ -1334,8 +1604,15 @@ class PagedInferenceEngine(EngineBase):
                     if self.block_tables[slot, idx] != TRASH_PAGE:
                         continue
                     try:
-                        # best-effort: never evicts prefix pages
-                        (page,) = self.allocator.alloc(1, owner=st.seq_id)
+                        # best-effort: never evicts prefix pages;
+                        # partition-aligned under the CP pool
+                        if self._cp_parts:
+                            (page,) = self.allocator.alloc(
+                                1, owner=st.seq_id,
+                                part=self._page_part(idx))
+                        else:
+                            (page,) = self.allocator.alloc(1,
+                                                           owner=st.seq_id)
                     except OutOfPages:
                         break
                     self.block_tables[slot, idx] = page
@@ -1418,6 +1695,31 @@ class PagedInferenceEngine(EngineBase):
                 raise
             return self.allocator.alloc(n, owner=owner)
 
+    def _page_part(self, seq_page_idx: int) -> int:
+        """The CP partition owning a sequence's page index: page j covers
+        positions [j*page, (j+1)*page), which live on CP rank
+        j * P // pages_per_seq (page-aligned contiguous splits)."""
+        return seq_page_idx * self._cp_parts // self.pages_per_seq
+
+    def _alloc_seq_pages(self, seq_page_idxs, owner: int) -> List[int]:
+        """One page per sequence-page index.  Under the CP pool each page
+        comes from the partition owning that index's position range (all
+        or nothing: a partial failure frees what was taken); otherwise one
+        plain allocation."""
+        idxs = list(seq_page_idxs)
+        if not self._cp_parts:
+            return self._alloc_with_evict(len(idxs), owner=owner)
+        pages: List[int] = []
+        try:
+            for j in idxs:
+                pages.extend(self.allocator.alloc(
+                    1, owner=owner, part=self._page_part(j)))
+        except OutOfPages:
+            if pages:
+                self.allocator.free(pages, owner=owner)
+            raise
+        return pages
+
     def _admission_group(self) -> Tuple[List[_Pending],
                                         List[Tuple[List[int], int]]]:
         """Peek a FIFO run of same-bucket pending requests for one
@@ -1434,6 +1736,8 @@ class PagedInferenceEngine(EngineBase):
         matched: Tuple[List[int], int] = ([], 0)
         if self.prefix_cache is not None:
             matched = self.prefix_cache.match(head.prompt_ids)
+        if not self._batch_admission:
+            return [head], [matched]       # CP prefills one sequence
         b0 = self._bucket(len(head.prompt_ids))
         group, matches = [head], [matched]
         evictable = (self.prefix_cache.n_evictable
@@ -1503,7 +1807,10 @@ class PagedInferenceEngine(EngineBase):
         bucket, n_pages = suffix_bucket(self._bucket, len(rest), n_cp,
                                         self.page_size, self.pages_per_seq)
         try:
-            pages = self._alloc_with_evict(n_pages, owner=req.seq_id)
+            # sequence-page indices n_cp .. n_cp + n_pages - 1 (partition-
+            # aligned under the CP pool)
+            pages = self._alloc_seq_pages(range(n_cp, n_cp + n_pages),
+                                          owner=req.seq_id)
         except OutOfPages:
             if cached_pages:
                 self.prefix_cache.release(cached_pages)
@@ -1522,7 +1829,7 @@ class PagedInferenceEngine(EngineBase):
             else:
                 self._count("engine.dispatches")
                 self._count("engine.prefill_dispatches")
-                self.pool, logits = paged_prefill(
+                self.pool, logits = self._prefill_one(
                     self.model_cfg, self.params, self.pool,
                     self._to_device(padded), len(rest),
                     self._to_device(table[:n_pages]))
@@ -1824,7 +2131,7 @@ class PagedInferenceEngine(EngineBase):
             return                              # at cap; finish_reason handles
         if self.block_tables[slot, idx] != TRASH_PAGE:
             return                              # page already present
-        (page,) = self._alloc_with_evict(1, owner=st.seq_id)
+        (page,) = self._alloc_seq_pages([idx], owner=st.seq_id)
         self.block_tables[slot, idx] = page
         self._dev_edit_bt_row(slot)
 
@@ -2176,6 +2483,9 @@ class PagedInferenceEngine(EngineBase):
                         n)
             self._count("engine.crash_evictions", n)
         elif fault.kind == "oom":
+            if self._cp_parts:
+                log.warning("oom tick fault skipped: partitioned CP pool")
+                return
             n = self.allocator.n_free
             if n:
                 self._fault_pages = self.allocator.alloc(n,

@@ -281,12 +281,14 @@ def _moe_mlp(cfg: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
 
 def _block_prefill(cfg: ModelConfig, layer: Params, x: torch.Tensor,
                    angles: torch.Tensor, positions: torch.Tensor,
-                   seq_lens: torch.Tensor):
+                   seq_lens: Optional[torch.Tensor], attention_fn=None):
     """One transformer block over full right-padded sequences; attention
-    runs through ``ops.flash_attention``."""
+    runs through ``ops.flash_attention``, or ``attention_fn(q, k, v)`` (the
+    context-parallel ring or all-to-all)."""
     h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
     q, k, v = _qkv(cfg, layer, h, angles, positions)
-    attn = prefill_attention(cfg, q, k, v, seq_lens)
+    attn = (prefill_attention(cfg, q, k, v, seq_lens) if attention_fn is None
+            else attention_fn(q, k, v))
     b, s = attn.shape[:2]
     x = x + _row_mm(cfg, attn.reshape(b, s, cfg.q_dim), layer["wo"])
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
@@ -591,11 +593,80 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return _logits(cfg, params, x)
 
 
+def prefill_kv_cp(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                  length: int, mesh, seq_axis: str = "seq",
+                  cp_mode: str = "ring", head_axis: Optional[str] = None,
+                  ep_mesh=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Context-parallel prefill: ``prefill_kv`` with the sequence sharded
+    over ``mesh[seq_axis]``.  Every rank of the axis passes the whole
+    right-padded sequence, tokens [1, S_pad] (S_pad divisible by the axis
+    size), and runs the stack on its block [p * S_pad/P, (p+1) * S_pad/P)
+    only; attention is ``cp_mode`` "ring" (``parallel.ring_attention``)
+    or "ulysses" (``parallel.ulysses``).  Right padding is safe under pure
+    causal masking (padded keys sit at positions >= ``length``, which no
+    valid query attends to).
+
+    Returns what JAX's returns, on every rank: (new_k [L, S_pad, n_kv, d],
+    new_v, logits [1, V] of the last valid token): one all-gather of the
+    blocks' K/V over the axis (each rank then keeps the pages it owns) and
+    one of the candidate last rows, from which every rank takes the
+    owner's.
+
+    ``head_axis``: the mesh axis that shards the heads (CP x TP, the rank's
+    ``cfg`` a TP rank's): the ring or all-to-all runs per head shard.
+    ``ep_mesh`` (CP x EP) is not ported and raises."""
+    from k8s_llm_rca_tpu_torch.parallel.ring_attention import ring_attention
+    from k8s_llm_rca_tpu_torch.parallel.ulysses import ulysses_attention
+    from k8s_llm_rca_tpu_torch.runtime.mesh import (
+        axis_group, axis_rank, axis_size,
+    )
+
+    if cp_mode not in ("ring", "ulysses"):
+        raise ValueError(f"unknown cp_mode {cp_mode!r}")
+    if ep_mesh is not None:
+        raise NotImplementedError(
+            "context-parallel prefill with ep_mesh (CP x EP) is not ported "
+            "yet (ROADMAP Queue 1 item 10, multi-GPU)")
+    cp_attn = ring_attention if cp_mode == "ring" else ulysses_attention
+    n_cp = axis_size(mesh, seq_axis)
+    p = axis_rank(mesh, seq_axis)
+    group = axis_group(mesh, seq_axis)
+    dev = tokens.device
+    s_pad = tokens.shape[1]
+    if s_pad % n_cp:
+        raise ValueError(f"padded length {s_pad} not divisible by "
+                         f"{seq_axis}={n_cp}")
+    s_loc = s_pad // n_cp
+    block = slice(p * s_loc, (p + 1) * s_loc)
+    angles = _angles(cfg, dev)
+    positions = torch.arange(s_pad, device=dev)[None, block]
+    x = embed(cfg, params, tokens[:, block])
+    tp = _tp(cfg)
+    heads = None if tp is None else (tp.n_heads, tp.n_kv_heads)
+
+    def attn(q, k, v):
+        return cp_attn(q, k, v, mesh, seq_axis, head_axis, heads)
+
+    ks, vs = [], []
+    for layer in params["layers"]:
+        x, k, v = _block_prefill(cfg, layer, x, angles, positions, None,
+                                 attention_fn=attn)
+        ks.append(k[0])
+        vs.append(v[0])
+    kv = all_gather(torch.stack([torch.stack(ks), torch.stack(vs)]), group,
+                    dim=2)                         # [2, L, S_pad, n_kv, d]
+    owner, row = divmod(int(length) - 1, s_loc)
+    mine = x[:, row:row + 1] if owner == p else x[:, :1]
+    last = all_gather(mine, group, dim=0)[owner:owner + 1]       # [1, 1, H]
+    return kv[0], kv[1], _logits(cfg, params, last)[:, 0]
+
+
 def prefill_cp(*args, **kwargs):
-    """Context-parallel prefill over a device mesh: not ported."""
+    """Context-parallel prefill into the contiguous cache: the contiguous
+    engine's meshes are not ported (the paged engine's CP prefill is
+    ``engine.paged.paged_prefill_cp`` over ``prefill_kv_cp``)."""
     raise NotImplementedError(
-        "context-parallel prefill (prefill_cp) needs a device mesh, which is "
-        "not ported yet (ROADMAP Queue 1 item 10, multi-GPU)")
-
-
-prefill_kv_cp = prefill_cp
+        "context-parallel prefill into the contiguous cache (prefill_cp) is "
+        "not ported yet (ROADMAP Queue 1 item 10.6, the contiguous engine's "
+        "meshes); the paged engine serves cp_mesh")

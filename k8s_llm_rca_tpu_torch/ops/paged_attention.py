@@ -13,7 +13,11 @@ are the JAX package's:
   past a sequence's pages).
 
 ``paged_attention`` launches ``csrc/paged_attention.cu`` for CUDA tensors
-and takes ``paged_attention_plain`` only for CPU tensors.  There is no
+and takes ``paged_attention_plain`` only for CPU tensors.  With
+``return_lse`` both also return each row's log-sum-exp [B, n_heads] f32
+(natural log of the softmax denominator over the scaled scores; -1e30 and
+a zero output for a row with no key), by which a context-parallel rank's
+partial outputs over its own pages merge (``merge_partials``).  There is no
 fallback: a CUDA input the kernel does not take raises.  Each call is one
 launch: a thread block cluster of up to ``max_splits`` splits per (kv-head,
 sequence) that merge through distributed shared memory (the body is
@@ -95,10 +99,52 @@ def launched_splits(q: torch.Tensor, k_pages: torch.Tensor,
     return out.value
 
 
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lengths: torch.Tensor):
+    """One query token per sequence over dense keys, with its log-sum-exp:
+    q [B, n_heads, d], k/v [B, S, n_kv, d], keys at or past ``lengths``
+    masked.  In f32, as the kernel: the scores' max is the shift (0 for a
+    row with no key), the output is acc / l (0 where l is 0), the lse
+    m + log l (-1e30 where l is 0).  Returns (out in q's dtype, lse [B,
+    n_heads] f32)."""
+    d = q.shape[2]
+    n_rep = q.shape[1] // k.shape[2]
+    k = k.repeat_interleave(n_rep, dim=2).float()
+    v = v.repeat_interleave(n_rep, dim=2).float()
+    qf = q.float() / torch.sqrt(torch.tensor(float(d)))
+    s = torch.einsum("bhd,bkhd->bhk", qf, k)
+    k_pos = torch.arange(k.shape[1], device=q.device)[None, None, :]
+    valid = k_pos < lengths.to(q.device)[:, None, None]
+    m = torch.where(valid, s, torch.tensor(NEG_INF, device=q.device)).amax(-1)
+    m = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
+    p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(-1)
+    out = torch.einsum("bhk,bkhd->bhd", p, v) / torch.where(
+        l == 0, torch.ones_like(l), l)[..., None]
+    lse = torch.where(l == 0, torch.full_like(l, NEG_INF), m + torch.log(l))
+    return out.to(q.dtype), lse
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Merge P partial attention outputs over disjoint key sets: out [P, B,
+    H, d], lse [P, B, H] f32 -> [B, H, d] in out's dtype, each part weighted
+    by exp(lse - logsumexp(lse)).  A part with no key (lse -1e30) weighs 0;
+    in f32, so one part merges to itself exactly."""
+    top = lse.amax(0)
+    top = torch.where(top <= NEG_INF / 2, torch.zeros_like(top), top)
+    w = torch.exp(lse - top)                              # [P, B, H]
+    total = w.sum(0)
+    merged = (out.float() * w[..., None]).sum(0) / torch.where(
+        total == 0, torch.ones_like(total), total)[..., None]
+    return merged.to(out.dtype)
+
+
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, lengths: torch.Tensor,
-                          block_tables: torch.Tensor) -> torch.Tensor:
-    """Gather + masked softmax (the counterpart of ``paged_attention_xla``)."""
+                          block_tables: torch.Tensor,
+                          return_lse: bool = False):
+    """Gather + masked softmax (the counterpart of ``paged_attention_xla``);
+    with ``return_lse`` ``attention_lse_plain`` over the gathered pages."""
     b, n_heads, d = q.shape
     _, page_size, kv_dim = k_pages.shape
     n_kv = kv_dim // d
@@ -106,6 +152,8 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     tables = block_tables.long()
     k = k_pages[tables].reshape(b, -1, n_kv, d)          # [B, S_max, n_kv, d]
     v = v_pages[tables].reshape(b, -1, n_kv, d)
+    if return_lse:
+        return attention_lse_plain(q, k, v, lengths)
     k = k.repeat_interleave(n_rep, dim=2).float()
     v = v.repeat_interleave(n_rep, dim=2).float()
     qf = q.float() / torch.sqrt(torch.tensor(float(d)))
@@ -122,7 +170,7 @@ def _launcher():
     """The built kernel's C entry point with its argument types declared
     (without them ctypes would pass each pointer as a 32-bit int)."""
     fn = build.load("paged_attention").paged_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -164,17 +212,27 @@ def _check(q, k_pages, v_pages, lengths, block_tables) -> None:
         raise ValueError("the pools must be 16-byte aligned (vector loads)")
 
 
+def _lse_buffer(q: torch.Tensor, return_lse: bool):
+    """The kernel's optional [B, n_heads] f32 lse output and its pointer
+    (None: the kernel writes none)."""
+    if not return_lse:
+        return None, None
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    return lse, lse.data_ptr()
+
+
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, lengths: torch.Tensor,
-                    block_tables: torch.Tensor) -> torch.Tensor:
-    """Decode attention over a paged pool: [B, n_heads, d].
+                    block_tables: torch.Tensor, *, return_lse: bool = False):
+    """Decode attention over a paged pool: [B, n_heads, d], and with
+    ``return_lse`` also each row's log-sum-exp [B, n_heads] f32.
 
     CPU tensors take ``paged_attention_plain``; CUDA tensors launch the
     kernel on the current stream (``paged_attention.launches`` counts the
     launches) or raise."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, lengths,
-                                     block_tables)
+                                     block_tables, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cpu or cuda, not "
                          f"{q.device}")
@@ -184,16 +242,18 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     pps = block_tables.shape[1]
     n_split = max_splits(kv_dim // d, pps * page_size, _sm_count(q.device))
     out = torch.empty_like(q)
+    lse, lse_ptr = _lse_buffer(q, return_lse)
     rc = _launcher()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(), b,
+        lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(), lse_ptr,
+        b,
         n_heads, kv_dim // d, d, page_size, pps, n_split, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
     paged_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 paged_attention.launches = 0
@@ -221,24 +281,27 @@ def paged_attention_quant_plain(q: torch.Tensor, k_pages: torch.Tensor,
                                 v_pages: torch.Tensor, k_scales: torch.Tensor,
                                 v_scales: torch.Tensor, lengths: torch.Tensor,
                                 block_tables: torch.Tensor,
-                                packed: bool = False) -> torch.Tensor:
-    """Gather, dequantize, masked softmax: [B, n_heads, d] in q's dtype.
-    The pages dequantize in f32, where ``decode_attention`` computes (and
-    where XLA keeps the JAX engine's dequantized pages inside its jitted
-    step)."""
+                                packed: bool = False,
+                                return_lse: bool = False):
+    """Gather, dequantize, masked softmax: [B, n_heads, d] in q's dtype
+    (with ``return_lse``, ``attention_lse_plain`` and the lse).  The pages
+    dequantize in f32, where ``decode_attention`` computes (and where XLA
+    keeps the JAX engine's dequantized pages inside its jitted step)."""
     d = q.shape[2]
     n_kv = k_pages.shape[2] * (2 if packed else 1) // d
     k = gather_dequant_pages(k_pages, k_scales, block_tables, n_kv, d,
                              torch.float32, packed)
     v = gather_dequant_pages(v_pages, v_scales, block_tables, n_kv, d,
                              torch.float32, packed)
+    if return_lse:
+        return attention_lse_plain(q, k, v, lengths)
     return decode_attention(q[:, None], k, v, lengths)[:, 0]
 
 
 @functools.lru_cache(maxsize=None)
 def _quant_launcher():
     fn = build.load("paged_attention_quant").paged_attention_quant_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -292,8 +355,9 @@ def paged_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, k_scales: torch.Tensor,
                           v_scales: torch.Tensor, lengths: torch.Tensor,
                           block_tables: torch.Tensor, *,
-                          packed: bool = False) -> torch.Tensor:
-    """Decode attention over a quantized paged pool: [B, n_heads, d].
+                          packed: bool = False, return_lse: bool = False):
+    """Decode attention over a quantized paged pool: [B, n_heads, d], and
+    with ``return_lse`` also each row's log-sum-exp [B, n_heads] f32.
 
     CPU tensors take ``paged_attention_quant_plain``; CUDA tensors launch
     the kernel on the current stream (``paged_attention_quant.launches``
@@ -301,7 +365,7 @@ def paged_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_attention_quant_plain(q, k_pages, v_pages, k_scales,
                                            v_scales, lengths, block_tables,
-                                           packed)
+                                           packed, return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_quant runs on cpu or cuda, not "
                          f"{q.device}")
@@ -313,17 +377,18 @@ def paged_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
     pps = block_tables.shape[1]
     n_split = max_splits(n_kv, pps * page_size, _sm_count(q.device))
     out = torch.empty_like(q)
+    lse, lse_ptr = _lse_buffer(q, return_lse)
     rc = _quant_launcher()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr(), v_scales.data_ptr(), lengths.data_ptr(),
-        block_tables.data_ptr(), out.data_ptr(), b, n_heads, n_kv, d,
+        block_tables.data_ptr(), out.data_ptr(), lse_ptr, b, n_heads, n_kv, d,
         page_size, pps, n_split, int(packed),
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention_quant kernel launch failed: "
                            f"CUDA error {rc}")
     paged_attention_quant.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 paged_attention_quant.launches = 0
@@ -364,7 +429,7 @@ def paged_attention_sharded(q: torch.Tensor, k_pages: torch.Tensor,
                             v_pages: torch.Tensor, lengths: torch.Tensor,
                             block_tables: torch.Tensor, mesh,
                             head_axis: str = "model",
-                            global_heads=None) -> torch.Tensor:
+                            global_heads=None, return_lse: bool = False):
     """``paged_attention`` under tensor parallelism, on THIS rank's shard.
 
     Heads are independent, so each rank runs the kernel over its own
@@ -375,7 +440,8 @@ def paged_attention_sharded(q: torch.Tensor, k_pages: torch.Tensor,
     divide the ``head_axis`` size (whole GQA groups per shard).  Returns
     this rank's [B, n_heads/t, d] (JAX's ``shard_map`` out spec)."""
     _local_heads(q, k_pages.shape[-1], mesh, head_axis, global_heads)
-    return paged_attention(q, k_pages, v_pages, lengths, block_tables)
+    return paged_attention(q, k_pages, v_pages, lengths, block_tables,
+                           return_lse=return_lse)
 
 
 def paged_attention_quant_sharded(q: torch.Tensor, k_pages: torch.Tensor,
@@ -386,7 +452,8 @@ def paged_attention_quant_sharded(q: torch.Tensor, k_pages: torch.Tensor,
                                   block_tables: torch.Tensor, mesh,
                                   head_axis: str = "model",
                                   global_heads=None,
-                                  packed: bool = False) -> torch.Tensor:
+                                  packed: bool = False,
+                                  return_lse: bool = False):
     """``paged_attention_quant`` under tensor parallelism (int8 pools), on
     THIS rank's shard.  The per-token scale is the FULL-row scale (every
     rank writes the max over the TP group, ``quantize_kv(group=...)``), so
@@ -406,4 +473,4 @@ def paged_attention_quant_sharded(q: torch.Tensor, k_pages: torch.Tensor,
             "paged_attention_quant")
     _local_heads(q, k_pages.shape[-1], mesh, head_axis, global_heads)
     return paged_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
-                                 lengths, block_tables)
+                                 lengths, block_tables, return_lse=return_lse)

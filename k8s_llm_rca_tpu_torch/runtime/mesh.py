@@ -19,10 +19,12 @@ one rank.
   timeout that raises): the tests' and ``chip_smoke.py``'s stand-in for
   JAX's ``cpu_mesh_for_tests``.
 - The collectives the sharded model calls (sum and max all-reduce,
-  all-gather along an axis, all-to-all) count their calls in ``.calls``,
+  all-gather along an axis, all-to-all along any split and concat dims,
+  the ring step ``ppermute``) count their calls in ``.calls``,
   as the kernel wrappers count launches, so a run can prove that the
   sharded path ran.  They are called on every rank in the same order; a
-  size-1 group still calls the backend.
+  size-1 group still calls the backend, except ``ppermute``'s (a rank
+  cannot send to itself: the step is a copy).
 """
 
 from __future__ import annotations
@@ -195,18 +197,64 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
-def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    """Split ``x`` along dim 0 into one equal chunk per rank, send chunk j
-    to rank j, and return the chunks received, in rank order, along dim 0
-    (``all_to_all_single``)."""
+def _on_gloo_card(x: torch.Tensor, group) -> bool:
+    """True when ``x`` lies on the card and ``group`` is gloo: its
+    point-to-point and all-to-all take host tensors only, so these
+    collectives stage through host copies (several ranks on one card)."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int = 0,
+               concat_dim: int = 0) -> torch.Tensor:
+    """Split ``x`` along ``split_dim`` into one equal chunk per rank, send
+    chunk j to rank j, and return the chunks received, in rank order,
+    concatenated along ``concat_dim``: JAX's ``all_to_all(tiled=True)``.
+    The default dims (0, 0) are ``all_to_all_single``.  Over gloo a card
+    tensor goes through a host copy."""
+    n = dist.get_world_size(group)
+    tiled = bool(split_dim % x.dim() or concat_dim % x.dim())
+    if tiled:
+        x = torch.stack(x.chunk(n, dim=split_dim))       # [n, ...chunk]
     x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
+    staged = _on_gloo_card(x, group)
+    send = x.cpu() if staged else x
+    out = torch.empty_like(send)
+    dist.all_to_all_single(out, send, group=group)
     all_to_all.calls += 1
+    if staged:
+        out = out.to(x.device)
+    if tiled:
+        return torch.cat(out.unbind(0), dim=concat_dim)
     return out
 
 
-COLLECTIVES = (all_reduce_sum, all_reduce_max, all_gather, all_to_all)
+def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """One ring step: send ``x`` to the rank ``shift`` places on in
+    ``group`` and return what the rank ``shift`` places back sent
+    (JAX's ``ppermute`` with the pairs (i, i + shift)), as one
+    ``batch_isend_irecv`` of a send and a receive.  On a one-rank group
+    the step is the identity (a copy: a rank cannot send to itself).  Over
+    gloo a card tensor goes through a host copy."""
+    n = dist.get_world_size(group)
+    ppermute.calls += 1
+    if n == 1 or shift % n == 0:
+        return x.clone()
+    me = dist.get_rank(group)
+    dst = dist.get_global_rank(group, (me + shift) % n)
+    src = dist.get_global_rank(group, (me - shift) % n)
+    x = x.contiguous()
+    staged = _on_gloo_card(x, group)
+    send = x.cpu() if staged else x
+    out = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, dst, group),
+           dist.P2POp(dist.irecv, out, src, group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out.to(x.device) if staged else out
+
+
+COLLECTIVES = (all_reduce_sum, all_reduce_max, all_gather, all_to_all,
+               ppermute)
 for _fn in COLLECTIVES:
     _fn.calls = 0
 

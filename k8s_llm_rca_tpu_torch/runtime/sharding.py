@@ -202,24 +202,38 @@ class ExpertParallel:
     drops: Optional[torch.Tensor] = None
 
 
+@dataclass(frozen=True, eq=False)
+class ContextParallel:
+    """This rank's place on the CP axis: the group of the ranks that share
+    its other coordinates (the decode merge's all-gather runs over it),
+    its size and this rank's index (the page partition it owns)."""
+
+    group: Any
+    size: int
+    rank: int
+
+
 @dataclass(frozen=True)
 class RankModelConfig(ModelConfig):
     """A ``ModelConfig`` as one rank of a mesh runs it: ``n_heads`` and
     ``n_kv_heads`` are this rank's share (so ``q_dim``/``kv_dim`` are its
-    lanes and its paged pool holds only its heads), and ``tp``/``ep``
-    carry the groups of the collectives the forward calls.  Everything
-    else is the model's."""
+    lanes and its paged pool holds only its heads), and ``tp``/``ep``/
+    ``cp`` carry the groups of the collectives the forward calls.
+    Everything else is the model's."""
 
     tp: Optional[TensorParallel] = None
     ep: Optional[ExpertParallel] = None
+    cp: Optional[ContextParallel] = None
 
 
 def rank_config(cfg: ModelConfig, tp_mesh=None, ep_mesh=None,
-                device=None) -> RankModelConfig:
-    """``cfg`` for this rank of ``tp_mesh`` (heads divided over "model") and
+                device=None, cp_mesh=None,
+                cp_seq_axis: str = "seq") -> RankModelConfig:
+    """``cfg`` for this rank of ``tp_mesh`` (heads divided over "model"),
     ``ep_mesh`` (experts over "expert", tokens over "data" x "expert"; the
-    drop counter on ``device``).  Every rank must call it at the same
-    point (it may create process groups)."""
+    drop counter on ``device``) and ``cp_mesh`` (the sequence and the
+    paged pool's pages over ``cp_seq_axis``).  Every rank must call it at
+    the same point (it may create process groups)."""
     from k8s_llm_rca_tpu_torch.runtime.mesh import axis_group
 
     base = {f.name: getattr(cfg, f.name)
@@ -234,4 +248,9 @@ def rank_config(cfg: ModelConfig, tp_mesh=None, ep_mesh=None,
     if ep_mesh is not None:
         ep = ExpertParallel(ep_mesh, torch.zeros((), dtype=torch.int64,
                                                  device=device))
-    return RankModelConfig(**base, tp=tp, ep=ep)
+    cp = None
+    if cp_mesh is not None:
+        cp = ContextParallel(axis_group(cp_mesh, cp_seq_axis),
+                             axis_size(cp_mesh, cp_seq_axis),
+                             axis_rank(cp_mesh, cp_seq_axis))
+    return RankModelConfig(**base, tp=tp, ep=ep, cp=cp)

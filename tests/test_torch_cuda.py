@@ -24,8 +24,8 @@ from k8s_llm_rca_tpu_torch.models.quant import quantize, quantize_kv
 from k8s_llm_rca_tpu_torch.ops.attention import causal_attention
 from k8s_llm_rca_tpu_torch.ops.flash_attention import flash_attention
 from k8s_llm_rca_tpu_torch.ops.paged_attention import (
-    paged_attention, paged_attention_plain, paged_attention_quant,
-    paged_attention_quant_plain,
+    merge_partials, paged_attention, paged_attention_plain,
+    paged_attention_quant, paged_attention_quant_plain,
 )
 from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
     quant_matmul, quant_matmul_experts, quant_matmul_experts_plain,
@@ -664,6 +664,56 @@ def _check_pool(pool, args):
     assert torch.isfinite(out).all()
     assert _err(out, plain()) <= TOL[out.dtype]
     return out
+
+
+def _lse_calls(pool, args):
+    """(kernel, plain) of a pool kind, both with ``return_lse``."""
+    if pool == "float":
+        return (lambda a: paged_attention(*a, return_lse=True),
+                lambda a: paged_attention_plain(*a, return_lse=True))
+    packed = pool == "int4"
+    return (lambda a: paged_attention_quant(*a, packed=packed,
+                                            return_lse=True),
+            lambda a: paged_attention_quant_plain(*a, packed=packed,
+                                                  return_lse=True))
+
+
+@pytest.mark.parametrize("pool", _POOLS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gqa,d,page", [(4, 128, 64), (1, 32, 16),
+                                        (8, 64, 16)])
+def test_paged_lse_matches_plain_at_a_cp_rank(card, pool, dtype, gqa, d,
+                                              page):
+    """``return_lse`` of rows 1-2 at a CP-2 rank's share (its half of each
+    table, lengths clamped to its range): out and lse against the plain
+    version (lse atol 1e-3), the second rank's range empty for two rows
+    (lse -1e30 and a zero output, exactly); the two ranks' outputs merged
+    (``merge_partials``) equal the whole-table call; the output without
+    lse is the same bits as with it."""
+    pps, n_kv = 8, 2
+    span = pps // 2 * page
+    args = _pool_inputs(card, dtype, pool, gqa * n_kv, n_kv, d, page,
+                        [1, span, span + 1, 2 * span - 3], pps=pps)
+    kernel, plain = _lse_calls(pool, args)
+    lens, tables = args[-2], args[-1]
+    outs, lses = [], []
+    for p in range(2):
+        part = args[:-2] + (
+            (lens - p * span).clamp(0, span).to(torch.int32),
+            tables[:, p * pps // 2:(p + 1) * pps // 2].contiguous())
+        out, lse = kernel(part)
+        ref_out, ref_lse = plain(part)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert _err(out, ref_out) <= TOL[dtype]
+        assert (lse - ref_lse).abs().max().item() <= 1e-3
+        outs.append(out)
+        lses.append(lse)
+    assert torch.all(lses[1][:2] == -1e30) and torch.all(outs[1][:2] == 0)
+    merged = merge_partials(torch.stack(outs), torch.stack(lses))
+    whole = _pool_call(pool, args)[0]()
+    assert _err(merged, whole) <= TOL[dtype]
+    assert torch.equal(kernel(args)[0], whole)
 
 
 @pytest.mark.parametrize("pool", _POOLS)

@@ -136,8 +136,9 @@ def _rank_body(rank, inputs):
                                                  llama_param_specs(moe_cfg),
                                                  tp), {"tp_mesh": tp}))]
 
-    # rejections (JAX's :664): indivisible heads, cp_mesh, a packed pool
-    # handed to the sharded quant wrapper
+    # rejections (JAX's :664): indivisible heads, cp_mesh composed with
+    # ep_mesh (CP x EP, not ported), a packed pool handed to the sharded
+    # quant wrapper
     errors = {}
     for key, build in (
             ("heads", lambda: make_engine(
@@ -145,7 +146,7 @@ def _rank_body(rank, inputs):
                     None, 4), inputs["tiny"], tok, "cpu", tp_mesh=tp)),
             ("cp", lambda: make_engine(tiny, _tp_engine_config(None, 4),
                                        inputs["tiny"], tok, "cpu",
-                                       tp_mesh=tp, cp_mesh=tp)),
+                                       cp_mesh=tp, ep_mesh=tp)),
             ("packed", lambda: paged_attention_quant_sharded(
                 *inputs["paged_quant"], tp, packed=True))):
         try:
@@ -493,8 +494,10 @@ def test_paged_tp_engine_equals_jax_tp_engine(ranks, jax_params, cpu_devices,
 
 
 def test_tp_rejections_like_jax(ranks):
-    """Indivisible kv heads, a CP mesh and a packed int4 pool handed to the
-    sharded quantized kernel are refused (``tests/test_parallel.py:664``)."""
+    """Indivisible kv heads, a CP mesh composed with EP (CP x EP, not
+    ported; a CP mesh alone or with TP is served since the CP slice) and a
+    packed int4 pool handed to the sharded quantized kernel are refused
+    (``tests/test_parallel.py:664``)."""
     _, out = ranks
     errors = out[0]["errors"]
     assert errors["heads"].startswith("ValueError") \

@@ -45,6 +45,38 @@ def _fresh_metrics():
     METRICS.reset()
 
 
+class _FrozenClock:
+    """A ``time`` module whose ``time()`` stands still (everything else is
+    the real module's).  An incident's ``token_usage`` counts the runs in a
+    window of whole seconds, so two sweeps compare only under one clock:
+    on the wall clock the count depends on where each sweep crosses a
+    second."""
+
+    def __init__(self, now: float = 1_700_000_000.0):
+        self._now = now
+
+    def time(self) -> float:
+        return self._now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+@pytest.fixture
+def one_clock(monkeypatch):
+    """Both packages' RCA pipelines and assistant services read one frozen
+    clock (patched into the modules; no file of either package changes)."""
+    from k8s_llm_rca_tpu.rca import pipeline as j_pipeline
+    from k8s_llm_rca_tpu.serve import api as j_api
+    from k8s_llm_rca_tpu_torch.rca import pipeline
+    from k8s_llm_rca_tpu_torch.serve import api
+
+    clock = _FrozenClock()
+    for module in (pipeline, api, j_pipeline, j_api):
+        monkeypatch.setattr(module, "time", clock)
+    return clock
+
+
 def _records(path):
     text, decoder, idx, objs = open(path).read(), json.JSONDecoder(), 0, []
     while idx < len(text.rstrip()):
@@ -74,7 +106,7 @@ def test_run_file_schema_and_resume(tmp_path):
     assert run_file.completed_incidents(out) == 4
 
 
-def test_oracle_records_equal_the_jax_drivers(tmp_path):
+def test_oracle_records_equal_the_jax_drivers(tmp_path, one_clock):
     inp = str(tmp_path / "incidents.csv")
     out, j_out = str(tmp_path / "port.json"), str(tmp_path / "jax.json")
     run_file.write_default_corpus(inp)
@@ -212,7 +244,7 @@ def test_run_all_pipelined(capsys):
     assert "analyzed 2 incident(s)" in printed and "0 failure(s)" in printed
 
 
-def test_engine_sweep_on_the_cpu(tmp_path, monkeypatch):
+def test_engine_sweep_on_the_cpu(tmp_path, monkeypatch, one_clock):
     """The paged TINY engine behind the CLI, asked for the CPU, on the JAX
     CLI's weights (``PRNGKey(0)``, carried across): two incidents, the
     engine's decode timer feeds tokens per second, and the records,
