@@ -231,6 +231,27 @@ count the launches a replay makes.
    analytic model's fields (``runtime/profiling.py``, reported, not
    gated): ``mfu``, ``decode_roofline_share``, ``ttft_roofline_share``.
 
+12. pp: pipeline parallelism (slice 17; ``--pp`` runs it alone after
+   phase 3's microbatch cases, rows 1 and 2 at B = 2, with no result
+   line) under a 1-rank nccl process group, ``pp_microbatches`` 2.  (a)
+   Llama-3-8B bf16 on the slice engine with the prefix cache on, the
+   unsharded graphed engine and then ``make_engine(..., pp_mesh=)`` on
+   the rank's stage (the tree itself), graphed: equal streams or a
+   near-tie (``NEAR_TIE``), the launches and collectives the schedule
+   requires (a layer's kernels once per microbatch; per forward M + P - 1
+   ring steps and one broadcast), TTFT, decode tok/s, the graphed step's
+   wall and event ms beside the unsharded one's, the peak GB, the bubble
+   fraction; then the first prompt resubmitted, which must hit through
+   the pipelined chunk prefill; (b) the same with int4 weights over an
+   int4 pool; (c) Llama-3-8B bf16 at full depth at PP = 2 as two gloo
+   processes on the one card (eager), each making only its 16 layers:
+   the ranks equal, held to the 1-rank run to a near-tie, each rank's
+   peak GB; (d) 8B cut to 4 layers with int4 weights over an int4 pool
+   at PP = 2 x TP = 2 as four gloo processes: the ranks equal; (e)
+   Mixtral-8x7B int8 cut to 4 layers over an int8 pool (prefix cache
+   off), dense and at PP x EP on the 1-rank stage x expert mesh, graphed:
+   equal or a near-tie, no token dropped.
+
 Then the kernel table (one JSON line), the ``nvidia-smi`` name and power
 limit line, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -978,6 +999,7 @@ def phase_kernels() -> dict:
         slice3_kernels(table, ws, dtype_name, gen, flush)
     shard_kernels(table, ws, heads, w_mlp, gen, flush)
     cp_lse_kernels(table, gen, flush)
+    microbatch_paged_kernels(table, gen, flush)
     return table
 
 
@@ -1041,33 +1063,50 @@ def expected_counts(cfg, c: dict, quantized_kv: bool, bits=None,
     logits and one all-gather (the embedding), and over a quantized pool 2
     max all-reduces a layer per decode step and 2 per prefill dispatch
     (the k and v scales); with EP, 2 all-to-alls and one all-gather a
-    layer."""
+    layer.  Under PP (``cfg.pp``, ``cfg.n_layers`` the stage's) a rank runs
+    its layers once per microbatch of a decode step or batched prefill and
+    once per chunk prefill, the head once per forward on every rank; per
+    forward M + P - 1 ring steps (P for a chunk prefill) and one sum
+    all-reduce (the last stage's broadcast); the embedding and the head
+    are whole, so TP adds only its 2 sums a layer pass (and 2 max
+    all-reduces a layer pass of a decode step, 2 a pass of a prefill over
+    a quantized pool)."""
     steps = int(c.get("engine.decode_steps", 0))
     verify = int(c.get("engine.verify_steps", 0))
     prefills = int(c.get("engine.prefill_dispatches", 0))
     chunks = int(c.get("engine.chunk_prefill_dispatches", 0))
+    pp = getattr(cfg, "pp", None)
+    m = pp.microbatches if pp is not None else 1
     counts = {k: 0 for k in launch_counters()}
     counts["paged_quant" if quantized_kv else "paged"] = (
-        0 if contiguous else cfg.n_layers * (steps - verify))
-    counts["flash"] = cfg.n_layers * (prefills + chunks
+        0 if contiguous else cfg.n_layers * (m * steps - verify))
+    counts["flash"] = cfg.n_layers * (m * prefills + chunks
                                       + (0 if contiguous else verify))
+    fwd = steps + prefills + chunks
+    passes = m * (steps + prefills) + chunks      # layer passes a forward
     if cfg.fused_quant_matmul:
         sfx = "8" if bits == 8 else ""
-        calls = cfg.n_layers * (steps + prefills + chunks)
+        calls = cfg.n_layers * passes
         moe = cfg.n_experts > 0
         counts["qmm" + sfx] = (5 if moe else 7) * calls
         counts["qmm_experts" + sfx] = 3 * calls if moe else 0
-        counts["qmm_head" + sfx] = steps + prefills + chunks
-    fwd = steps + prefills + chunks
+        counts["qmm_head" + sfx] = fwd
     if getattr(cfg, "tp", None) is not None:
-        counts["all_reduce_sum"] = (2 * cfg.n_layers + 1) * fwd
-        counts["all_gather"] = fwd
+        if pp is None:
+            counts["all_reduce_sum"] = (2 * cfg.n_layers + 1) * fwd
+            counts["all_gather"] = fwd
+        else:
+            counts["all_reduce_sum"] = 2 * cfg.n_layers * passes
         if quantized_kv:
-            counts["all_reduce_max"] = 2 * (cfg.n_layers * steps + prefills
-                                            + chunks)
+            counts["all_reduce_max"] = 2 * (cfg.n_layers * m * steps
+                                            + m * prefills + chunks)
     if getattr(cfg, "ep", None) is not None:
-        counts["all_to_all"] = 2 * cfg.n_layers * fwd
-        counts["all_gather"] += cfg.n_layers * fwd
+        counts["all_to_all"] = 2 * cfg.n_layers * passes
+        counts["all_gather"] += cfg.n_layers * passes
+    if pp is not None:
+        counts["ppermute"] += ((m + pp.size - 1) * (steps + prefills)
+                               + pp.size * chunks)
+        counts["all_reduce_sum"] += fwd
     cp = getattr(cfg, "cp", None)
     if cp is not None:
         counts["all_gather"] += 2 * prefills + cfg.n_layers * steps
@@ -4583,6 +4622,60 @@ def cp_lse_kernels(table, gen, flush) -> None:
                 table[(kernel, dn, case)] = rec
 
 
+# one GPipe microbatch of the slice's decode batch (B = 4 over M = 2): the
+# mixed mix's first two lengths, the long mix's half
+MICROBATCH_LENGTHS = {"mixed": [1, 64], "long": [2400, 2400]}
+
+
+def microbatch_paged_kernels(table, gen, flush) -> None:
+    """Phase 3 at one PP microbatch's shape, bf16: rows 1 and 2 (bf16, int8
+    and int4 pools) over B = 2 slots of the slice's 168-page pool and
+    40-page tables, at ``MICROBATCH_LENGTHS``: each against its plain
+    version (``TOL``), timed beside its bound and SDPA over the gathered
+    pages.  The PP decode step makes these calls M = 2 times a layer."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.ops.paged_attention import (
+        launched_splits, paged_attention, paged_attention_plain,
+        paged_attention_quant, paged_attention_quant_plain,
+    )
+
+    dn = "bfloat16"
+    for mix, lengths in MICROBATCH_LENGTHS.items():
+        args = paged_case(torch.bfloat16, gen, lengths=lengths)
+        for pool in ("bf16", "int8", "int4"):
+            if pool == "bf16":
+                pargs, packed, kernel = args, None, "paged_attention"
+                run = lambda: paged_attention(*pargs)
+                plain = lambda: paged_attention_plain(*pargs)
+                library = paged_library_fn(*pargs)
+                splits = launched_splits(pargs[0], pargs[1], pargs[4])
+            else:
+                packed = pool == "int4"
+                pargs = paged_quant_case(args, packed)
+                kernel = "paged_attention_quant"
+                run = lambda: paged_attention_quant(*pargs, packed=packed)
+                plain = lambda: paged_attention_quant_plain(*pargs,
+                                                            packed=packed)
+                library = paged_quant_library_fn(*pargs, packed)
+                splits = launched_splits(pargs[0], pargs[1], pargs[6],
+                                         packed)
+            case = f"pp mb {mix} {pool}"
+            rec = held_record(kernel, dn, run(), plain(), case=case,
+                              splits=splits,
+                              shapes="B=2 H=32 n_kv=8 d=128 page=64 "
+                              "pages=168 pps=40 lens="
+                              + ",".join(map(str, lengths)))
+            rec["kernel_ms"] = time_ms(run, 200, flush_bytes=flush)
+            rec["plain_ms"] = time_ms(plain, 20, flush_bytes=flush)
+            rec["library_ms"] = time_ms(library, 200, flush_bytes=flush)
+            rec["bound_ms"], rec["bound_by"] = paged_bound(
+                pargs[0], pargs[1], pargs[-2], dn,
+                scale_bytes=0 if packed is None else 4)
+            emit("kernels", **rec)
+            table[(kernel, dn, case)] = rec
+
+
 def cp_engine_case(phase, mesh, name, bits, kv, modes) -> dict:
     """11a/11b: a slice model by the unsharded graphed engine and by
     ``make_engine(..., cp_mesh=mesh, cp_mode=)`` in each of ``modes`` on
@@ -4736,6 +4829,331 @@ def phase_cp() -> dict:
     finally:
         rmesh.shutdown_distributed()
     emit("cp_phase", seconds=time.perf_counter() - t0)
+    return out
+
+
+# ------------------------------------------------------------------ phase 12
+
+
+PP_MICROBATCHES = 2
+
+
+def pp_fields(engine) -> dict:
+    """A PP engine's schedule: stages, microbatches, the bubble fraction
+    ((P - 1) / (M + P - 1), ``runtime/profiling.py``), its stage's layers
+    and pool layers."""
+    from k8s_llm_rca_tpu_torch.runtime import profiling
+
+    pp = engine.model_cfg.pp
+    return {"stages": pp.size, "microbatches": pp.microbatches,
+            "bubble_fraction": profiling.pp_bubble_fraction(
+                pp.size, pp.microbatches),
+            "stage_layers": len(engine.params["layers"]),
+            "pool_layers": engine.pool.k.shape[0]}
+
+
+def pp_hit_case(engine, prompt, kv, bits) -> dict:
+    """One prompt served before on ``engine`` submitted again: it must hit
+    through the pipelined chunk prefill (``paged_pp_prefill_chunk``), with
+    the launches and collectives its counters require."""
+    import torch
+
+    before = dict(engine._counts)
+    reset_counts()
+    engine.generate([prompt], max_new_tokens=8)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    c = counts_since(engine, before)
+    expect = expected_counts(engine.model_cfg, c, kv is not None, bits)
+    hit = int(c.get("engine.prefix_hit_tokens", 0))
+    chunks = int(c.get("engine.chunk_prefill_dispatches", 0))
+    if counts != expect or not hit or not chunks:
+        raise SystemExit(f"pp resubmit: {hit} hit tokens, {chunks} chunk "
+                         f"prefills, launches {counts} != {expect}")
+    return {"hit_tokens": hit, "chunk_prefills": chunks, "launches": counts}
+
+
+def pp_engine_case(phase, mesh, name, bits, kv) -> tuple:
+    """12a/12b: a slice model (prefix cache on) by the unsharded graphed
+    engine and by ``make_engine(..., pp_mesh=mesh, pp_microbatches=2)`` on
+    the rank's stage of the same weights (on one rank the tree itself),
+    graphed: equal streams or a near-tie (``NEAR_TIE``), exact launches
+    and collectives, the graphed PP step's wall and event ms beside the
+    unsharded step's, the peak GB, and the first prompt resubmitted as a
+    prefix hit through the pipelined chunk prefill.  Returns (the serve
+    run's launches, the config, the weights)."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.sharding import shard_stage_params
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg, transform = slice_model(name, bits)
+    ecfg = mesh_engine_config(kv_cache_dtype=kv)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=transform)
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    base = mesh_run(make_engine(cfg, ecfg, params, tok), cfg, kv, bits)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    engine = make_engine(cfg, ecfg, shard_stage_params(params, cfg, mesh),
+                         tok, pp_mesh=mesh, pp_microbatches=PP_MICROBATCHES)
+    run = serve_four(engine, cfg, kv, bits)
+    # the resubmit before the step timing, which writes its own tables
+    hit = pp_hit_case(engine, run["prompts"][0], kv, bits)
+    run.update(graph_stats(engine))
+    run.update(decode_step_times(engine, profiled=False))
+    mesh_compare(phase, cfg, params, base, run, mesh="pp 1 rank (nccl)",
+                 weights=f"int{bits}" if bits else "bfloat16",
+                 kv_cache_dtype=kv, **pp_fields(engine),
+                 resubmit=hit,
+                 peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+                 **{f"mesh_{k}": v for k, v in
+                    roofline_fields(engine.model_cfg, run, bits, kv).items()},
+                 **{f"unsharded_{k}": v for k, v in
+                    roofline_fields(cfg, base, bits, kv).items()})
+    del engine
+    free_card()
+    return run["launches"], cfg, params
+
+
+def stage_transform(n_layers: int, stage: int, n_stages: int):
+    """A ``tensor_transform`` for ``init_params`` that keeps the matmul
+    weights of one stage's layers (and the embedding and head) and drops
+    the others as they are made: the generator runs exactly as for the
+    whole model, so the kept weights are the whole model's, but the rank
+    never holds more than its stage."""
+    import torch
+
+    made = [0]
+    per = n_layers // n_stages
+
+    def keep(w, axis=-1):
+        # a dense layer makes 7 (wq, wk, wv, wo, w_gate, w_up, w_down)
+        layer = made[0] // 7
+        made[0] += 1
+        if layer < n_layers and not stage * per <= layer < (stage + 1) * per:
+            return torch.empty(0, dtype=w.dtype, device=w.device)
+        return w
+
+    return keep
+
+
+def rank_served(engine, prompts, max_new, kv, bits) -> dict:
+    """An eager rank's engine over ``prompts``: tokens, seconds, and its
+    launches and collectives held to its counters."""
+    import torch
+
+    reset_counts()
+    before = dict(engine._counts)
+    t0 = time.perf_counter()
+    res = engine.generate(prompts, max_new_tokens=max_new)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    engine.allocator.check()
+    counts = read_counts()
+    expect = expected_counts(engine.model_cfg, counts_since(engine, before),
+                             kv is not None, bits)
+    return {"tokens": [r.token_ids for r in res], "seconds": seconds,
+            "launches": counts, "launches_exact": counts == expect,
+            "expected": expect}
+
+
+def pp2_rank(rank: int, max_new: int) -> dict:
+    """One of two stages on the one card (gloo over CUDA tensors):
+    Llama-3-8B bf16 at full depth, this rank's 16 layers made by the
+    parent's generator (``stage_transform``), the eager PP engine over
+    four prompts, its peak GB."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.mesh import local_mesh
+    from k8s_llm_rca_tpu_torch.runtime.sharding import stage_layers
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg = LLAMA3_8B
+    torch.cuda.reset_peak_memory_stats()
+    params = stage_layers(init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0),
+        tensor_transform=stage_transform(cfg.n_layers, rank, 2)), 2, rank)
+    mesh = local_mesh(stage=2)
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    engine = make_engine(cfg, mesh_engine_config(), params, tok,
+                         cuda_graphs=False, pp_mesh=mesh,
+                         pp_microbatches=PP_MICROBATCHES)
+    out = rank_served(engine, mesh_prompts(tok), max_new, None, None)
+    out.update(pp_fields(engine),
+               peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def pptp_rank(rank: int, n_layers: int, max_new: int) -> dict:
+    """One of four ranks (stage 2 x model 2) on the one card over gloo:
+    Llama-3-8B cut to ``n_layers`` layers with int4 weights over an int4
+    pool, this rank's stage and TP shard, the eager engine."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.mesh import local_mesh
+    from k8s_llm_rca_tpu_torch.runtime.sharding import shard_stage_params
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg, transform = slice_model("llama3-8b", 4)
+    cfg = cfg.replace(n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=transform)
+    mesh = local_mesh(stage=2, model=2)
+    shard = shard_stage_params(params, cfg, mesh)
+    del params
+    torch.cuda.empty_cache()
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    engine = make_engine(cfg, mesh_engine_config(kv_cache_dtype="int4"),
+                         shard, tok, cuda_graphs=False, pp_mesh=mesh,
+                         tp_mesh=mesh, pp_microbatches=PP_MICROBATCHES)
+    out = rank_served(engine, mesh_prompts(tok), max_new, "int4", 4)
+    out.update(pp_fields(engine), pool_lanes=engine.pool.k.shape[-1],
+               peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def pp_gloo_cases(mesh, cfg, params) -> None:
+    """12c: Llama-3-8B bf16 at full depth at PP = 2 as two gloo processes
+    on the one card, eager, each holding its 16 layers and its half of
+    the pool: both ranks' streams equal, held to the same model on the
+    1-rank nccl mesh (eager) to a near-tie, each rank's peak GB against
+    the whole model's.  12d: 8B cut to 4 layers, int4 over an int4 pool,
+    at PP = 2 x TP = 2 as four gloo processes: the four ranks equal.
+    Every rank's launches and collectives exact."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.runtime.mesh import run_ranks
+    from k8s_llm_rca_tpu_torch.runtime.sharding import shard_stage_params
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    max_new = 32
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    prompts = mesh_prompts(tok)
+    one = make_engine(cfg, mesh_engine_config(),
+                      shard_stage_params(params, cfg, mesh), tok,
+                      cuda_graphs=False, pp_mesh=mesh,
+                      pp_microbatches=PP_MICROBATCHES)
+    want = [r.token_ids for r in one.generate(prompts,
+                                              max_new_tokens=max_new)]
+    del one
+    free_card()
+    failed = []
+    for phase, fn, n, args in (
+            ("pp_gloo", pp2_rank, 2, (max_new,)),
+            ("pp_tp_gloo", pptp_rank, 4, (4, max_new))):
+        t0 = time.perf_counter()
+        ranks = run_ranks(fn, n, str(ROOT / "build" / "pp_ranks"),
+                          args=args, timeout_s=600, device="cuda-gloo")
+        wall = time.perf_counter() - t0
+        equal = all(r["tokens"] == ranks[0]["tokens"] for r in ranks)
+        exact = all(r["launches_exact"] for r in ranks)
+        rec = dict(ranks=n, backend="gloo", cuda_graphs=False,
+                   ranks_equal=equal, launches_exact=exact,
+                   rank_seconds=[r["seconds"] for r in ranks], wall_s=wall,
+                   launches=[r["launches"] for r in ranks],
+                   peak_gb=[r["peak_gb"] for r in ranks],
+                   **{k: ranks[0][k] for k in (
+                       "stages", "microbatches", "bubble_fraction",
+                       "stage_layers", "pool_layers")})
+        bad = []
+        if phase == "pp_gloo":
+            divs = divergences(cfg, params, prompts, want, ranks[0]["tokens"])
+            bad = [d for d in divs if d["logit_margin"] > NEAR_TIE]
+            rec.update(model=cfg.name, layers=cfg.n_layers, weights="bfloat16",
+                       equal_tokens=ranks[0]["tokens"] == want,
+                       equal_token_share=common_share(want,
+                                                      ranks[0]["tokens"]),
+                       divergences=divs, near_tie=NEAR_TIE,
+                       unsharded_peak_gb_pr11=19.6)
+        else:
+            rec.update(model=cfg.name, layers=4, weights="int4",
+                       kv_cache_dtype="int4", tp=2,
+                       pool_lanes=[r["pool_lanes"] for r in ranks])
+        emit(phase, **rec, nvidia_smi=nvidia_smi_name_power())
+        if not equal or not exact or bad:
+            failed.append((phase, equal, exact, bad))
+        free_card()
+    if failed:
+        raise SystemExit(f"pp gloo: (phase, ranks equal, launches exact, "
+                         f"beyond a near-tie) {failed}")
+
+
+def pp_ep_case(mesh) -> dict:
+    """12e: Mixtral-8x7B int8 cut to 4 layers at full width over an int8
+    pool (prefix cache off, as PP x EP requires), the dense graphed engine
+    and ``make_engine(..., pp_mesh=mesh, ep_mesh=mesh,
+    pp_microbatches=2)`` on the 1-rank stage x expert mesh, graphed:
+    equal streams or a near-tie, no token dropped, exact launches and
+    collectives."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.sharding import shard_stage_params
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    phase = "pp_mixtral"
+    cfg, transform = slice_model("mixtral-8x7b", 8)
+    cfg = cfg.replace(n_layers=4)
+    ecfg = slice_engine_config(kv_cache_dtype="int8")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=transform)
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    base = mesh_run(make_engine(cfg, ecfg, params, tok), cfg, "int8", 8)
+    free_card()
+    engine = make_engine(cfg, ecfg, shard_stage_params(params, cfg, mesh),
+                         tok, pp_mesh=mesh, ep_mesh=mesh,
+                         pp_microbatches=PP_MICROBATCHES)
+    run = mesh_run(engine, cfg, "int8", 8)
+    dropped = int(engine.model_cfg.ep.drops)
+    mesh_compare(phase, cfg, params, base, run, mesh="pp x ep 1 rank (nccl)",
+                 weights="int8", kv_cache_dtype="int8", layers=4,
+                 dropped=dropped, **pp_fields(engine))
+    if dropped or not run["launches"]["qmm_experts8"]:
+        raise SystemExit(f"{phase}: {dropped} tokens dropped, "
+                         f"{run['launches']['qmm_experts8']} ekn launches")
+    del engine, params
+    return run["launches"]
+
+
+def phase_pp() -> dict:
+    """Phase 12 under a 1-rank nccl process group (destroyed after): 12a
+    Llama-3-8B bf16 and 12b int4 over int4 at PP on one rank, 12c PP = 2
+    at full depth and 12d PP = 2 x TP = 2 over gloo, 12e Mixtral int8 at
+    PP x EP.  Returns the launch counts of 12a, 12b and 12e."""
+    from k8s_llm_rca_tpu_torch.runtime import mesh as rmesh
+
+    t0 = time.perf_counter()
+    rmesh.initialize_distributed()
+    out = {}
+    try:
+        mesh = rmesh.local_mesh()
+        out["pp"], cfg, params = pp_engine_case("pp", mesh, "llama3-8b",
+                                                None, None)
+        pp_gloo_cases(mesh, cfg, params)
+        del params
+        free_card()
+        out["pp_int4"], _, params = pp_engine_case("pp_int4", mesh,
+                                                   "llama3-8b", 4, "int4")
+        del params
+        free_card()
+        out["pp_mixtral"] = pp_ep_case(mesh)
+        free_card()
+    finally:
+        rmesh.shutdown_distributed()
+    emit("pp_phase", seconds=time.perf_counter() - t0)
     return out
 
 
@@ -4925,6 +5343,16 @@ def main(argv) -> int:
         phase_cp()
         return 0
 
+    if "--pp" in argv:
+        # phase 3's microbatch cases and phase 12 alone
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        microbatch_paged_kernels(
+            {}, torch.Generator(device="cuda").manual_seed(0), 256 << 20)
+        free_card()
+        phase_pp()
+        return 0
+
     if "--rerank" in argv:
         # phase 9 alone
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4986,6 +5414,8 @@ def main(argv) -> int:
     free_card()
     runs.update(phase_cp())
     free_card()
+    runs.update(phase_pp())
+    free_card()
 
     rows = []
     # launches: the main paths' runs of each kernel, summed (flash now
@@ -4996,7 +5426,7 @@ def main(argv) -> int:
              ("paged_attention", "bfloat16", "mixed"),
              ("slice", "slice_spec", "prefix", "memory", "rca", "rca_spec",
               "rca_resilient", "durable", "durable_cli", "rerank_rca",
-              "rerank_rca_yardstick", "mesh", "cp_ring", "cp_ulysses"),
+              "rerank_rca_yardstick", "mesh", "cp_ring", "cp_ulysses", "pp"),
              "paged"),
             ("flash_attention", FLASH_SRC,
              "k8s_llm_rca_tpu/ops/flash_attention.py:31",
@@ -5006,37 +5436,39 @@ def main(argv) -> int:
               "durable_int4", "durable_cli", "rerank_rca",
               "rerank_rca_yardstick", "contiguous", "contiguous_int4",
               "contiguous_cli", "mesh", "mesh_int4", "mesh_mixtral",
-              "cp_ulysses"), "flash"),
+              "cp_ulysses", "pp", "pp_int4", "pp_mixtral"), "flash"),
             ("quant_matmul", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:137",
              ("quant_matmul", "bfloat16", "decode"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
               "durable_int4", "contiguous_int4", "mesh_int4",
-              "cp_int4_ring"), "qmm"),
+              "cp_int4_ring", "pp_int4"), "qmm"),
             ("quant_matmul_head", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:177",
              ("quant_matmul_head", "bfloat16", "llama3-8b int4"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
               "durable_int4", "contiguous_int4", "mesh_int4",
-              "cp_int4_ring"), "qmm_head"),
+              "cp_int4_ring", "pp_int4"), "qmm_head"),
             ("paged_attention_quant", PAGED_QUANT_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:141",
              ("paged_attention_quant", "bfloat16", "int4"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
-              "durable_int4", "mesh_int4", "mesh_mixtral", "cp_int4_ring"),
-             "paged_quant"),
+              "durable_int4", "mesh_int4", "mesh_mixtral", "cp_int4_ring",
+              "pp_int4", "pp_mixtral"), "paged_quant"),
             ("quant_matmul_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:120",
              ("quant_matmul_int8", "bfloat16", "decode"),
-             ("slice_mixtral_int8", "mesh_mixtral"), "qmm8"),
+             ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral"), "qmm8"),
             ("quant_matmul_head_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:159",
              ("quant_matmul_head_int8", "bfloat16", "mixtral-8x7b int8"),
-             ("slice_mixtral_int8", "mesh_mixtral"), "qmm_head8"),
+             ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral"),
+             "qmm_head8"),
             ("quant_matmul_experts_int8", EKN_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:201",
              ("quant_matmul_experts_int8", "bfloat16", "3d decode"),
-             ("slice_mixtral_int8", "mesh_mixtral"), "qmm_experts8"),
+             ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral"),
+             "qmm_experts8"),
             ("quant_matmul_experts_int4", EKN_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:218",
              ("quant_matmul_experts_int4", "bfloat16", "3d decode"),

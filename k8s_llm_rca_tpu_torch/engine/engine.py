@@ -31,7 +31,7 @@ DFA inside it under ``decode_scan_dfa``), the overlapped step
 (``overlap_step``) or one stepwise decode.  The host keeps the tokens and
 lengths (numpy mirrors, uploaded into static device operands per
 dispatch); ``host_overlap`` keeps them resident instead and commits one
-tick late.  The device meshes raise (ROADMAP Queue 1 item 10).
+tick late.  The device meshes raise (ROADMAP Queue 1 item 10.6).
 """
 
 from __future__ import annotations
@@ -1026,6 +1026,12 @@ def dfa_greedy_multi(logits: torch.Tensor, states: torch.Tensor,
 MESH_ITEM = "ROADMAP Queue 1 item 10, multi-GPU"
 
 
+def mesh_item(sub: int) -> str:
+    """``MESH_ITEM`` narrowed to one of its steps (10.4 FSDP, 10.6 the
+    contiguous engine's meshes, 10.7 the features refused under a mesh)."""
+    return f"ROADMAP Queue 1 item 10.{sub}, multi-GPU"
+
+
 def _mesh_axis(mesh, axis: str) -> int:
     names = tuple(mesh.mesh_dim_names or ())
     if axis not in names:
@@ -1128,6 +1134,109 @@ def validate_ep_mesh(ep_mesh, model_cfg: ModelConfig,
             f"emit any page-multiple width; use a larger page_size or "
             f"prefix_cache=False")
 
+
+
+def _int4_leaves(tree) -> bool:
+    """True when any leaf of a param tree is an int4 weight."""
+    from k8s_llm_rca_tpu_torch.models.quant import QuantTensor4
+
+    if isinstance(tree, QuantTensor4):
+        return True
+    if isinstance(tree, dict):
+        return any(_int4_leaves(v) for v in tree.values())
+    if isinstance(tree, list):
+        return any(_int4_leaves(v) for v in tree)
+    return False
+
+
+def validate_pp_mesh(pp_mesh, model_cfg: ModelConfig,
+                     engine_cfg: EngineConfig, cp_mesh, ep_mesh, tp_mesh,
+                     microbatches: Optional[int],
+                     stage_axis: str = "stage", params=None
+                     ) -> Optional[int]:
+    """PP serving preconditions, JAX's refusals with JAX's messages
+    (``k8s_llm_rca_tpu/engine/engine.py::validate_pp_mesh``).  Returns the
+    microbatch count (None without ``pp_mesh``).
+
+    PP composes with TP on ONE mesh carrying "stage" and "model" (the stage
+    bodies run the TP block: column-parallel projections, row-parallel
+    sums), int4 weights included when every sharded channel dim splits
+    into 2 * model (per-shard split-half packing), but not with MoE; and
+    with EP on ONE mesh carrying "stage" and "expert" (each expert peer
+    routes its slice of a microbatch's tokens), but not with TP too.  CP is
+    exclusive."""
+    if pp_mesh is None:
+        return None
+    if cp_mesh is not None:
+        raise ValueError(
+            "pp_mesh and cp_mesh are mutually exclusive by design: "
+            "stage-local CP replicates the matmul FLOPs and weight "
+            "streaming that stage-local TP divides (1.5-3.6x the FLOPs, "
+            "1.2-2.9x the HBM bytes per device at 4k-128k contexts — "
+            "runtime.profiling.stage_local_cp_vs_tp and "
+            "docs/parallelism.md 'PP×CP: a quantified no'); use PP×TP, "
+            "or CP×TP for GQA-limited long contexts")
+    if ep_mesh is not None:
+        if ep_mesh is not pp_mesh:
+            raise ValueError(
+                "pp_mesh and ep_mesh must be the SAME composed mesh "
+                "(one Mesh carrying 'stage' and 'expert'); two distinct "
+                "meshes cannot both lay out the weights")
+        if tp_mesh is not None:
+            raise ValueError(
+                "PP×TP×EP is unsupported (the manual-TP stage block "
+                "computes a dense MLP; compose PP×EP or PP×TP)")
+        n_ep = _mesh_axis(ep_mesh, "expert")
+        m_ep = microbatches or _mesh_axis(pp_mesh, stage_axis)
+        if (engine_cfg.max_batch // max(1, m_ep)) % n_ep:
+            raise ValueError(
+                f"PP×EP needs the microbatch size "
+                f"{engine_cfg.max_batch}//{m_ep} divisible by the expert "
+                f"axis {n_ep} (each expert peer routes a distinct token "
+                f"slice of the microbatch)")
+    if tp_mesh is not None:
+        if tp_mesh is not pp_mesh:
+            raise ValueError(
+                "pp_mesh and tp_mesh must be the SAME composed mesh "
+                "(one Mesh carrying 'stage' and 'model'); two distinct "
+                "meshes cannot both lay out the weights and cache")
+        n_tp = _mesh_axis(tp_mesh, "model")
+        if model_cfg.n_heads % n_tp or model_cfg.n_kv_heads % n_tp:
+            raise ValueError(
+                f"n_heads={model_cfg.n_heads}/n_kv_heads="
+                f"{model_cfg.n_kv_heads} not divisible by model axis "
+                f"{n_tp} (required for PP×TP stage bodies)")
+        if params is not None and _int4_leaves(params):
+            for dim, what in ((model_cfg.q_dim, "q_dim"),
+                              (model_cfg.kv_dim, "kv_dim"),
+                              (model_cfg.intermediate_size,
+                               "intermediate_size")):
+                if dim % (2 * n_tp):
+                    raise ValueError(
+                        f"PP×TP with int4 weights needs {what}={dim} "
+                        f"divisible by 2*model axis={2 * n_tp} "
+                        f"(per-shard split-half nibble packing)")
+        if model_cfg.n_experts > 0:
+            raise ValueError(
+                "PP×TP does not support MoE models (the manual-TP stage "
+                "block computes a dense MLP; expert-stacked weights need "
+                "the EP dispatch, which PP excludes)")
+    names = tuple(pp_mesh.mesh_dim_names or ())
+    if stage_axis not in names:
+        shape = dict(zip(names, (int(n) for n in pp_mesh.mesh.shape)))
+        raise ValueError(f"pp_mesh needs a '{stage_axis}' axis, has "
+                         f"{shape}")
+    n_stages = _mesh_axis(pp_mesh, stage_axis)
+    if model_cfg.n_layers % n_stages:
+        raise ValueError(
+            f"n_layers={model_cfg.n_layers} not divisible into "
+            f"{n_stages} pipeline stages")
+    m = microbatches or n_stages
+    if engine_cfg.max_batch % m:
+        raise ValueError(
+            f"max_batch={engine_cfg.max_batch} not divisible into "
+            f"{m} PP microbatches")
+    return m
 
 def _leaves(tree):
     """Every tensor of a param tree (a quantized weight's q and scale)."""
@@ -1266,8 +1375,8 @@ class InferenceEngine(EngineBase):
                                              pp_mesh, fsdp_mesh)):
             raise NotImplementedError(
                 f"the contiguous engine's device meshes (TP/CP/EP/PP/FSDP, "
-                f"sp) are not ported yet ({MESH_ITEM}); the paged engine "
-                f"serves tp_mesh, cp_mesh and ep_mesh")
+                f"sp) are not ported yet ({mesh_item(6)}); the paged "
+                f"engine serves tp_mesh, cp_mesh, ep_mesh and pp_mesh")
         _check_contiguous_config(engine_cfg, prefix_store)
         self.device = resolve_device(device)
         check_params_device(params, self.device)

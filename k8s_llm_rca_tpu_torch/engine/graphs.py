@@ -34,6 +34,10 @@ gathered, padded states).
   replay counts nothing by itself: the runner takes back what the
   counters gained during capture, which launched nothing, and adds that
   gain again at every replay.
+- No garbage is collected during a capture: the cyclic collector runs
+  once before it and is off while it lasts.  A dead engine freed by the
+  collector inside a capture invalidates the capture, and PyTorch no
+  longer collects before a capture by itself.
 - A capture or replay that fails raises, naming its bucket; nothing falls
   back to the eager step.
 - Sampling at ``temperature > 0`` draws from the engine's generator,
@@ -43,6 +47,7 @@ gathered, padded states).
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Hashable, List, Optional, Tuple
 
@@ -131,6 +136,9 @@ class DecodeGraphs:
         counters = launch_counters()
         before = _read(counters)
         graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
         try:
             if self._gen is not None:
                 graph.register_generator_state(self._gen)
@@ -140,6 +148,8 @@ class DecodeGraphs:
             raise RuntimeError(f"CUDA graph capture of decode bucket {key} "
                                f"failed: {err}") from err
         finally:
+            if collecting:
+                gc.enable()
             after = _read(counters)
             for (wrapper, attr), n in zip(counters, before):
                 setattr(wrapper, attr, n)      # capture launched nothing

@@ -92,10 +92,21 @@
   prefill, ``host_overlap``, spill and the store tiers are refused with
   the JAX engine's messages.
 
-Not ported yet, and refused loudly when asked for: the PP/FSDP meshes, CP
-with EP, TP with EP, and under a mesh the memory tiers (spill,
-snapshot/restore, the prefix store), ``host_overlap`` and speculation
-(ROADMAP Queue 1 item 10); the disaggregated handoff's
+- ``pp_mesh`` (pipeline parallelism over its ``pp_stage_axis``, alone,
+  with ``tp_mesh`` or with ``ep_mesh``, the same mesh): a rank holds only
+  its stage's layers (``runtime.sharding.shard_stage_params``) and a pool
+  of only those layers; prefill, decode, the scans and the prefix hits'
+  chunk prefill run the GPipe schedule of ``parallel/pipeline.py`` over
+  ``pp_microbatches`` microbatches (one per stage by default).  Misses
+  admit through the batched prefill, padded to a multiple of the
+  microbatches; hits one at a time.  Chunked prefill, spill, the store
+  tiers and, under PP x EP, the prefix cache are refused with the JAX
+  engine's messages.
+
+Not ported yet, and refused loudly when asked for: the FSDP mesh (ROADMAP
+Queue 1 item 10.4), CP with EP, TP with EP, and under a mesh the memory
+tiers (spill, snapshot/restore, the prefix store), ``host_overlap`` and
+speculation (item 10.7); the disaggregated handoff's
 ``export_run``/``adopt_run`` (item 11).
 """
 
@@ -110,9 +121,9 @@ import torch
 
 from k8s_llm_rca_tpu_torch.config import EngineConfig, ModelConfig
 from k8s_llm_rca_tpu_torch.engine.engine import (
-    MESH_ITEM, EngineBase, SequenceResult, _Active, _Pending,
-    check_params_device, dfa_greedy_multi, dfa_scan_step,
-    validate_cp_divisibility, validate_ep_mesh, validate_tp_mesh,
+    EngineBase, SequenceResult, _Active, _Pending, check_params_device,
+    dfa_greedy_multi, dfa_scan_step, mesh_item, validate_cp_divisibility,
+    validate_ep_mesh, validate_pp_mesh, validate_tp_mesh,
 )
 from k8s_llm_rca_tpu_torch.engine.graphs import DecodeGraphs
 from k8s_llm_rca_tpu_torch.engine.prefix import (
@@ -421,7 +432,12 @@ def paged_prefill_batch(cfg: ModelConfig, params, pool: PagePool,
                         page_maps: torch.Tensor):
     """Prefill N sequences in ONE dispatch: tokens [N, S_pad] right-padded,
     lengths [N] int32, page_maps [N, S_pad // page_size] (padding rows
-    repeat the last real row).  Returns (pool, logits [N, V])."""
+    repeat the last real row).  Under PP (``cfg.pp``) it is
+    ``parallel.pipeline.paged_pp_prefill``.  Returns (pool, logits
+    [N, V])."""
+    if getattr(cfg, "pp", None) is not None:
+        return _pipeline().paged_pp_prefill(cfg, params, pool, tokens,
+                                            lengths, page_maps)
     n, s_pad = tokens.shape
     page_size = pool.page_size
     assert s_pad % page_size == 0, (s_pad, page_size)
@@ -611,7 +627,13 @@ def paged_prefill_chunk(cfg: ModelConfig, params, pool: PagePool,
     """Prefill the SUFFIX of ONE prompt whose first ``prefix_len`` tokens'
     KV already sit in the ``prefix_table`` pages (a prefix hit, or the
     chunks a chunked prefill has written): the N = 1 case of
-    ``paged_prefill_chunk_batch``.  Returns (pool, logits [1, V])."""
+    ``paged_prefill_chunk_batch``; under PP (``cfg.pp``)
+    ``parallel.pipeline.paged_pp_prefill_chunk``.  Returns (pool, logits
+    [1, V])."""
+    if getattr(cfg, "pp", None) is not None:
+        return _pipeline().paged_pp_prefill_chunk(
+            cfg, params, pool, tokens, chunk_len, prefix_len, prefix_table,
+            page_map)
     dev = tokens.device
     return paged_prefill_chunk_batch(
         cfg, params, pool, tokens,
@@ -638,27 +660,40 @@ def paged_prefill_chunk_batch(cfg: ModelConfig, params, pool: PagePool,
     masked); page_maps [N, C_pad // page] pages receiving each row's chunk
     KV (padding rows repeat a real row: identical duplicate writes).
     Returns (pool, logits [N, V] at each row's last valid token)."""
-    n, c_pad = tokens.shape
+    n = tokens.shape[0]
+    x = _chunk_layers(cfg, params["layers"], llama.embed(cfg, params, tokens),
+                      pool, chunk_lens, prefix_lens, prefix_tables, page_maps)
+    last = x[torch.arange(n, device=x.device),
+             (chunk_lens.long() - 1).clamp(min=0)][:, None]        # [N,1,H]
+    return pool, llama._logits(cfg, params, last)[:, 0]
+
+
+def _chunk_layers(cfg: ModelConfig, layers, x: torch.Tensor, pool: PagePool,
+                  chunk_lens: torch.Tensor, prefix_lens: torch.Tensor,
+                  prefix_tables: torch.Tensor,
+                  page_maps: torch.Tensor) -> torch.Tensor:
+    """The blocks of a chunked prefill over ``layers`` (layer ``li`` on
+    pool layer ``li``): x [N, C_pad, H] at absolute positions
+    ``prefix_len + i``, each layer through ``_chunk_layer``, then the
+    chunks' K/V scattered into their ``page_maps`` pages.  Returns x."""
+    n, c_pad = x.shape[:2]
     page_size = pool.page_size
     assert c_pad % page_size == 0, (c_pad, page_size)
-    dev = tokens.device
+    dev = x.device
     angles = llama._angles(cfg, dev)
     positions = (prefix_lens.long()[:, None]
                  + torch.arange(c_pad, device=dev)[None, :])       # [N, C]
     seq_lens = prefix_lens + chunk_lens
-    x = llama.embed(cfg, params, tokens)
     ks, vs = [], []
-    for li, layer in enumerate(params["layers"]):
+    for li, layer in enumerate(layers):
         x, k, v = _chunk_layer(cfg, layer, x, angles, positions, prefix_lens,
                                seq_lens, pool, li, prefix_tables)
         ks.append(k.reshape(n * c_pad, cfg.kv_dim))
         vs.append(v.reshape(n * c_pad, cfg.kv_dim))
-    pool = _write_pool_pages(cfg, pool, torch.stack(ks), torch.stack(vs),
-                             page_maps.reshape(-1),
-                             n * (c_pad // page_size), page_size)
-    last = x[torch.arange(n, device=dev),
-             (chunk_lens.long() - 1).clamp(min=0)][:, None]        # [N,1,H]
-    return pool, llama._logits(cfg, params, last)[:, 0]
+    _write_pool_pages(cfg, pool, torch.stack(ks), torch.stack(vs),
+                      page_maps.reshape(-1), n * (c_pad // page_size),
+                      page_size)
+    return x
 
 
 def _decode_attention(cfg: ModelConfig, q: torch.Tensor, pool: PagePool,
@@ -719,6 +754,65 @@ def _cp_decode_attention(cfg: ModelConfig, q: torch.Tensor, pool: PagePool,
     return merge_partials(parts[..., :-1], parts[..., -1]).to(q.dtype)
 
 
+def _decode_layers(cfg: ModelConfig, layers, x: torch.Tensor,
+                   pool: PagePool, lengths: torch.Tensor,
+                   block_tables: torch.Tensor,
+                   n_pages: Optional[int] = None) -> torch.Tensor:
+    """The blocks of a decode of T = x.shape[1] tokens a slot over
+    ``layers``, layer ``li`` on pool layer ``li``: x [B, T, H], tokens at
+    positions ``lengths[b] + i``.  Each layer writes its T new K/V tokens
+    (quantized per token for an int8/int4 pool; all T land in the slot's
+    current page, which the engine bounds) BEFORE attention runs over
+    ``lengths + T`` tokens: the paged kernel at T = 1 (under CP
+    ``_cp_decode_attention``), ``attend_over_pages`` above (``n_pages``:
+    the pages the card gathers per row).  Returns x."""
+    b, t = x.shape[:2]
+    page_size = pool.page_size
+    packed = _pool_packed(cfg, pool)
+    dev = x.device
+    lens = lengths.long()
+    angles = llama._angles(cfg, dev)
+    steps = torch.arange(t, device=dev)[None, :]
+    positions = lens[:, None] + steps                              # [B, T]
+    pages = block_tables.long().gather(
+        1, (lens // page_size)[:, None]).expand(b, t)              # [B, T]
+    offsets = (lens % page_size)[:, None] + steps
+    attn_lens = (lengths + t).to(torch.int32)
+    cp = getattr(cfg, "cp", None)
+    if cp is not None:
+        # the page's owner writes the token; the other ranks, the sink
+        pages = cp_local_pages(pages, cp.rank, pool.k.shape[1] - 1)
+        view = _cp_rank_view(cp, pool, attn_lens, block_tables)
+    for li, layer in enumerate(layers):
+        q, k, v = llama._decode_qkv(cfg, layer, x, angles, positions)
+        k_tok = k.reshape(b, t, cfg.kv_dim)
+        v_tok = v.reshape(b, t, cfg.kv_dim)
+        if pool.quantized:
+            k_tok, ks = quantize_kv(k_tok, packed, llama.kv_group(cfg))
+            v_tok, vs = quantize_kv(v_tok, packed, llama.kv_group(cfg))
+            pool.k_scale[li, pages, offsets] = ks.float()
+            pool.v_scale[li, pages, offsets] = vs.float()
+        pool.k[li, pages, offsets] = k_tok
+        pool.v[li, pages, offsets] = v_tok
+        if t > 1:
+            attn = attend_over_pages(cfg, q, pool, li, block_tables, lengths,
+                                     attn_lens, n_pages=n_pages)
+        elif cp is not None:
+            attn = _cp_decode_attention(cfg, q[:, 0], pool, li, view, packed)
+        else:
+            attn = _decode_attention(cfg, q[:, 0], pool, li, attn_lens,
+                                     block_tables, packed)
+        x = llama._decode_finish(cfg, layer, x,
+                                 attn.reshape(b, t, cfg.q_dim))
+    return x
+
+
+def _pipeline():
+    from k8s_llm_rca_tpu_torch.parallel import pipeline
+
+    return pipeline
+
+
 def paged_decode_step(cfg: ModelConfig, params, pool: PagePool,
                       tokens: torch.Tensor, lengths: torch.Tensor,
                       block_tables: torch.Tensor):
@@ -729,40 +823,14 @@ def paged_decode_step(cfg: ModelConfig, params, pool: PagePool,
     attention runs over lengths + 1 tokens.  Under CP (``cfg.cp``) the pool
     is this rank's and ``block_tables`` hold global ids: the write lands on
     the page's owner (``cp_local_pages``) and attention runs over each
-    rank's own positions, merged (``_cp_decode_attention``).  Returns
-    (pool, logits [B, V])."""
-    b = tokens.shape[0]
-    page_size = pool.page_size
-    packed = _pool_packed(cfg, pool)
-    lens = lengths.long()
-    angles = llama._angles(cfg, tokens.device)
+    rank's own positions, merged (``_cp_decode_attention``).  Under PP
+    (``cfg.pp``) it is ``parallel.pipeline.paged_pp_decode_step``.
+    Returns (pool, logits [B, V])."""
+    if getattr(cfg, "pp", None) is not None:
+        return _pipeline().paged_pp_decode_step(cfg, params, pool, tokens,
+                                                lengths, block_tables)
     x = llama.embed(cfg, params, tokens.long()[:, None])
-    page_ids = block_tables.long().gather(1, (lens // page_size)[:, None])[:, 0]
-    offsets = lens % page_size
-    attn_lens = (lengths + 1).to(torch.int32)
-    cp = getattr(cfg, "cp", None)
-    if cp is not None:
-        # the page's owner writes the token; the other ranks, the sink
-        page_ids = cp_local_pages(page_ids, cp.rank, pool.k.shape[1] - 1)
-        view = _cp_rank_view(cp, pool, attn_lens, block_tables)
-    for li, layer in enumerate(params["layers"]):
-        q, k, v = llama._decode_qkv(cfg, layer, x, angles, lens[:, None])
-        k_tok = k[:, 0].reshape(b, cfg.kv_dim)
-        v_tok = v[:, 0].reshape(b, cfg.kv_dim)
-        if pool.quantized:
-            k_tok, ks = quantize_kv(k_tok, packed, llama.kv_group(cfg))
-            v_tok, vs = quantize_kv(v_tok, packed, llama.kv_group(cfg))
-            pool.k_scale[li, page_ids, offsets] = ks.float()
-            pool.v_scale[li, page_ids, offsets] = vs.float()
-        pool.k[li, page_ids, offsets] = k_tok
-        pool.v[li, page_ids, offsets] = v_tok
-        if cp is None:
-            attn = _decode_attention(cfg, q[:, 0], pool, li, attn_lens,
-                                     block_tables, packed)
-        else:
-            attn = _cp_decode_attention(cfg, q[:, 0], pool, li, view, packed)
-        x = llama._decode_finish(cfg, layer, x,
-                                 attn.reshape(b, 1, cfg.q_dim))
+    x = _decode_layers(cfg, params["layers"], x, pool, lengths, block_tables)
     return pool, llama._logits(cfg, params, x)[:, 0]
 
 
@@ -777,35 +845,15 @@ def paged_decode_multi(cfg: ModelConfig, params, pool: PagePool,
     per token for an int8/int4 pool; then each layer attends T queries
     over the slot's pages through ``attend_over_pages`` (``n_pages``: the
     pages the card gathers per row, enough for every ``lengths + T``).
+    Under PP it is ``parallel.pipeline.paged_pp_decode_multi``.
     Returns (pool, greedy [B, T], logits [B, T, V])."""
-    b, t = tokens.shape
-    page_size = pool.page_size
-    packed = _pool_packed(cfg, pool)
-    dev = tokens.device
-    lens = lengths.long()
-    angles = llama._angles(cfg, dev)
-    steps = torch.arange(t, device=dev)[None, :]
-    positions = lens[:, None] + steps                              # [B, T]
+    if getattr(cfg, "pp", None) is not None:
+        return _pipeline().paged_pp_decode_multi(
+            cfg, params, pool, tokens, lengths, block_tables,
+            n_pages=n_pages)
     x = llama.embed(cfg, params, tokens.long())
-    page_ids = block_tables.long().gather(1, (lens // page_size)[:, None])
-    pages2d = page_ids.expand(b, t)                                # [B, T]
-    offsets = (lens % page_size)[:, None] + steps
-    seq_lens = lengths + t
-    for li, layer in enumerate(params["layers"]):
-        q, k, v = llama._decode_qkv(cfg, layer, x, angles, positions)
-        k_tok = k.reshape(b, t, cfg.kv_dim)
-        v_tok = v.reshape(b, t, cfg.kv_dim)
-        if pool.quantized:
-            k_tok, ks = quantize_kv(k_tok, packed, llama.kv_group(cfg))
-            v_tok, vs = quantize_kv(v_tok, packed, llama.kv_group(cfg))
-            pool.k_scale[li, pages2d, offsets] = ks.float()
-            pool.v_scale[li, pages2d, offsets] = vs.float()
-        pool.k[li, pages2d, offsets] = k_tok
-        pool.v[li, pages2d, offsets] = v_tok
-        attn = attend_over_pages(cfg, q, pool, li, block_tables, lengths,
-                                 seq_lens, n_pages=n_pages)
-        x = llama._decode_finish(cfg, layer, x,
-                                 attn.reshape(b, t, cfg.q_dim))
+    x = _decode_layers(cfg, params["layers"], x, pool, lengths, block_tables,
+                       n_pages)
     logits = llama._logits(cfg, params, x)                         # [B, T, V]
     return pool, logits.argmax(dim=-1), logits
 
@@ -1030,35 +1078,90 @@ def _check_cp_config(engine_cfg: EngineConfig, prefix_store, cp_mesh,
     return n_cp
 
 
+def _check_pp_config(engine_cfg: EngineConfig, prefix_store,
+                     ep_mesh) -> None:
+    """The PP paged engine's refusals, with the JAX engine's messages: the
+    prefix cache under PP x EP (the chunk layer has no expert dispatch),
+    chunked prefill, KV spill and the prefix store tiers."""
+    if engine_cfg.prefix_cache and ep_mesh is not None:
+        raise ValueError(
+            "prefix_cache composes with stage-only PP and PP×TP "
+            "(the pipelined chunked prefix prefill runs the "
+            "manual-TP chunk layer); it is not EP-composed — "
+            "use prefix_cache=False under PP×EP")
+    if engine_cfg.prefill_chunk_budget:
+        raise ValueError(
+            "prefill_chunk_budget is unsupported with pp_mesh: "
+            "the pipelined chunk prefill serves whole prefix-hit "
+            "admissions within one tick; spreading one admission "
+            "across ticks would interleave its stage schedule "
+            "with the GPipe decode microbatches — serve PP "
+            "engines with prefill_chunk_budget=0")
+    if engine_cfg.max_spilled_pages:
+        raise ValueError(
+            "max_spilled_pages (KV spill-to-host) is unsupported "
+            "with pp_mesh: the pool's LAYER axis is stage-sharded "
+            "(possibly across hosts over DCN), so spill d2h / "
+            "restore h2d would issue cross-stage collectives that "
+            "must interleave with the GPipe microbatch schedule "
+            "deterministically on every process; serve PP engines "
+            "with max_spilled_pages=0 (free-and-re-prefill)")
+    if (engine_cfg.prefix_host_pages or engine_cfg.prefix_disk_dir
+            or engine_cfg.prefix_disk_pages or prefix_store is not None):
+        raise ValueError(
+            "the tiered prefix cache is unsupported with pp_mesh: "
+            "the pool's LAYER axis is stage-sharded (possibly "
+            "across hosts over DCN), so demote d2h / promote h2d "
+            "would issue cross-stage collectives that must "
+            "interleave with the GPipe microbatch schedule "
+            "deterministically on every process — the same "
+            "physics as the max_spilled_pages exclusion; serve "
+            "PP engines without the prefix tier knobs")
+
+
 def check_meshes(model_cfg: ModelConfig, engine_cfg: EngineConfig, params,
                  device: torch.device, cuda_graphs: bool, draft_model,
                  prefix_store, tp_mesh, cp_mesh, ep_mesh, pp_mesh,
-                 fsdp_mesh, cp_seq_axis: str = "seq"):
-    """Refuse the meshes and the mesh features not ported (naming ROADMAP
-    Queue 1 item 10) and a misconfigured TP, EP or CP mesh; returns (the
-    mesh the engine runs on, None without one; the CP axis size, 0
-    without CP)."""
-    for name, mesh in (("pp_mesh", pp_mesh), ("fsdp_mesh", fsdp_mesh)):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"{name} is not ported yet ({MESH_ITEM}); the paged engine "
-                f"serves tp_mesh, cp_mesh and ep_mesh")
+                 fsdp_mesh, cp_seq_axis: str = "seq",
+                 pp_microbatches: Optional[int] = None,
+                 pp_stage_axis: str = "stage"):
+    """Refuse the meshes and the mesh features not ported (naming their
+    step of ROADMAP Queue 1 item 10) and a misconfigured TP, EP, CP or PP
+    mesh; returns (the mesh the engine runs on, None without one; the CP
+    axis size, 0 without CP; the PP microbatch count, None without PP)."""
+    if fsdp_mesh is not None:
+        if pp_mesh is not None:
+            # the PP arm of JAX's validate_fsdp_mesh
+            raise ValueError(
+                "fsdp×PP is unsupported until its greedy-parity matrix "
+                "lands (tests/test_sharding_rules.py): compose fsdp with "
+                "TP only")
+        raise NotImplementedError(
+            f"fsdp_mesh is not ported yet ({mesh_item(4)}); the paged "
+            f"engine serves tp_mesh, cp_mesh, ep_mesh and pp_mesh")
+    # before the TP x EP refusal: PP x TP x EP and PP x CP are JAX's
+    # ValueErrors
+    pp_m = validate_pp_mesh(pp_mesh, model_cfg, engine_cfg, cp_mesh,
+                            ep_mesh, tp_mesh, pp_microbatches,
+                            pp_stage_axis, params)
     if cp_mesh is not None and ep_mesh is not None:
         raise NotImplementedError(
             f"cp_mesh with ep_mesh (CP x EP) is not ported yet "
-            f"({MESH_ITEM})")
+            f"({mesh_item(7)})")
     if tp_mesh is not None and ep_mesh is not None:
         raise NotImplementedError(
             f"tp_mesh with ep_mesh (TP x EP) is not ported yet "
-            f"({MESH_ITEM})")
+            f"({mesh_item(7)})")
     validate_tp_mesh(tp_mesh, model_cfg, cp_mesh, cp_seq_axis)
     validate_ep_mesh(ep_mesh, model_cfg, engine_cfg)
     n_cp = (_check_cp_config(engine_cfg, prefix_store, cp_mesh, cp_seq_axis)
             if cp_mesh is not None else 0)
-    mesh = next((m for m in (tp_mesh, ep_mesh, cp_mesh) if m is not None),
-                None)
+    if pp_mesh is not None:
+        _check_pp_config(engine_cfg, prefix_store, ep_mesh)
+    mesh = next((m for m in (pp_mesh, tp_mesh, ep_mesh, cp_mesh)
+                 if m is not None), None)
     if mesh is None:
-        return None, 0
+        return None, 0, None
     refused = [name for name, on in (
         ("max_spilled_pages (KV spill)", engine_cfg.max_spilled_pages),
         ("the prefix store tiers (prefix_host_pages / prefix_disk_dir / "
@@ -1071,7 +1174,7 @@ def check_meshes(model_cfg: ModelConfig, engine_cfg: EngineConfig, params,
     if refused:
         raise NotImplementedError(
             f"under a device mesh {', '.join(refused)} is not ported yet "
-            f"({MESH_ITEM})")
+            f"({mesh_item(7)})")
     if (cuda_graphs and device.type == "cuda"
             and torch.distributed.get_backend() != "nccl"):
         raise ValueError(
@@ -1091,7 +1194,16 @@ def check_meshes(model_cfg: ModelConfig, engine_cfg: EngineConfig, params,
                 f"the {axis} axis needs this rank's shard of the params "
                 f"(runtime.sharding.shard_params): {key} has {got} along "
                 f"dim {dim}, the rank's share is {want}")
-    return mesh, n_cp
+    if pp_mesh is not None:
+        want = model_cfg.n_layers // int(pp_mesh.mesh.shape[
+            pp_mesh.mesh_dim_names.index(pp_stage_axis)])
+        if len(params["layers"]) != want:
+            raise ValueError(
+                f"the {pp_stage_axis} axis needs this rank's stage of the "
+                f"params (runtime.sharding.shard_stage_params): "
+                f"{len(params['layers'])} layers, the stage's share is "
+                f"{want}")
+    return mesh, n_cp, pp_m
 
 
 def _pow2_at_least(n: int) -> int:
@@ -1113,8 +1225,9 @@ class PagedInferenceEngine(EngineBase):
     per tick.  On the card the decode step and scans replay CUDA graphs
     (``engine/graphs.py``) unless ``cuda_graphs=False``, which runs them
     eagerly; on the CPU they always run eagerly.  ``tp_mesh``,
-    ``ep_mesh`` and ``cp_mesh`` (``cp_mode`` "ring" or "ulysses" over its
-    ``cp_seq_axis``) serve the model over a device mesh, one engine per
+    ``ep_mesh``, ``cp_mesh`` (``cp_mode`` "ring" or "ulysses" over its
+    ``cp_seq_axis``) and ``pp_mesh`` (``pp_microbatches`` over its
+    ``pp_stage_axis``) serve the model over a device mesh, one engine per
     rank (module docstring)."""
 
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
@@ -1122,20 +1235,28 @@ class PagedInferenceEngine(EngineBase):
                  cuda_graphs: bool = True, draft_model=None, tp_mesh=None,
                  cp_mesh=None, cp_seq_axis: str = "seq",
                  cp_mode: str = "ring", ep_mesh=None, pp_mesh=None,
-                 fsdp_mesh=None, prefix_store: Optional[PrefixStore] = None):
+                 pp_microbatches: Optional[int] = None,
+                 pp_stage_axis: str = "stage", fsdp_mesh=None,
+                 prefix_store: Optional[PrefixStore] = None):
         if cp_mode not in ("ring", "ulysses"):
             raise ValueError(f"unknown cp_mode {cp_mode!r}")
         check_engine_config(engine_cfg, prefix_store is not None)
         self.device = resolve_device(device)
         check_params_device(params, self.device)
-        self.mesh, n_cp = check_meshes(
+        self.mesh, n_cp, pp_m = check_meshes(
             model_cfg, engine_cfg, params, self.device, cuda_graphs,
             draft_model, prefix_store, tp_mesh, cp_mesh, ep_mesh, pp_mesh,
-            fsdp_mesh, cp_seq_axis)
+            fsdp_mesh, cp_seq_axis, pp_microbatches, pp_stage_axis)
         if self.mesh is not None:
-            # this rank's model: its heads, the collectives' groups
+            # this rank's model: its heads, its stage's layers (its pool's
+            # depth), the collectives' groups
             model_cfg = rank_config(model_cfg, tp_mesh, ep_mesh,
-                                    self.device, cp_mesh, cp_seq_axis)
+                                    self.device, cp_mesh, cp_seq_axis,
+                                    pp_mesh, pp_stage_axis, pp_m)
+        # PP: misses admit through the pipelined batched prefill, padded to
+        # a multiple of the microbatches; hits one at a time through the
+        # pipelined chunk prefill
+        self._pp_m = pp_m
         # CP: the allocator partitions the page ids over the seq axis (above
         # one rank, as JAX's), this rank's pool holds its partition and a
         # sink page, and admission prefills one sequence at a time through
@@ -1556,7 +1677,9 @@ class PagedInferenceEngine(EngineBase):
                 continue
             group, matches = self._admission_group()
             try:
-                if len(group) == 1:
+                # PP has no single-sequence full prefill: a lone miss
+                # takes the batched pipelined path too
+                if len(group) == 1 and (not self._pp_m or matches[0][1]):
                     early = self._admit(group[0], matches[0])
                     admitted = [early] if early is not None else []
                 elif matches[0][1]:
@@ -1736,8 +1859,9 @@ class PagedInferenceEngine(EngineBase):
         matched: Tuple[List[int], int] = ([], 0)
         if self.prefix_cache is not None:
             matched = self.prefix_cache.match(head.prompt_ids)
-        if not self._batch_admission:
-            return [head], [matched]       # CP prefills one sequence
+        if not self._batch_admission or (matched[1] and self._pp_m):
+            # CP prefills one sequence; PP's chunk prefill is per sequence
+            return [head], [matched]
         b0 = self._bucket(len(head.prompt_ids))
         group, matches = [head], [matched]
         evictable = (self.prefix_cache.n_evictable
@@ -2041,6 +2165,11 @@ class PagedInferenceEngine(EngineBase):
             raise
         slots = [self._free_slots.pop(0) for _ in range(n)]
         n_pad = _pow2_at_least(n)
+        if self._pp_m and n_pad % self._pp_m:
+            # the pipelined prefill microbatches its rows: pad to a
+            # multiple of the microbatches (the padding rows repeat the
+            # last real row's tokens and pages, as below)
+            n_pad = -(-n_pad // self._pp_m) * self._pp_m
         tokens = np.zeros((n_pad, bucket), np.int32)
         lens = np.zeros((n_pad,), np.int32)
         maps = np.zeros((n_pad, n_pages), np.int32)
@@ -2410,7 +2539,7 @@ class PagedInferenceEngine(EngineBase):
         if self.mesh is not None:
             raise NotImplementedError(
                 f"{what} under a device mesh is not ported yet "
-                f"({MESH_ITEM})")
+                f"({mesh_item(7)})")
 
     def restore_sequences(self, snap: Dict[str, object], *args, **kwargs):
         self._refuse_under_mesh("restore_sequences")

@@ -19,6 +19,11 @@
   longest matching prefix: NVIDIA H100 (SXM data sheet, dense bf16 989
   TFLOP/s, HBM3 3350 GB/s).  Any other device (the CPU included) has no
   entry and gets None, as JAX's do off its table.
+- Under PP a rank's config (``runtime.sharding.RankModelConfig``) has its
+  stage's ``n_layers``, so the model counts the weights and KV of the
+  stage's layers plus the whole embedding and head the rank holds: the
+  work one rank does.  ``pp_bubble_fraction`` is the GPipe schedule's
+  idle share beside it.
 """
 
 from __future__ import annotations
@@ -256,6 +261,12 @@ def roofline_decode_tps(cfg: ModelConfig, context_len: int, batch: int,
     memory = bw * 1e9 / decode_bytes_per_token(cfg, context_len, batch,
                                                weight_bits, kv_bits)
     return min(compute, memory)
+
+
+def pp_bubble_fraction(n_stages: int, microbatches: int) -> float:
+    """The share of a GPipe forward's M + P - 1 ticks a stage spends idle:
+    (P - 1) / (M + P - 1).  Reported beside the rooflines, not gated."""
+    return (n_stages - 1) / (microbatches + n_stages - 1)
 
 
 def roofline_prefill_tps(cfg: ModelConfig, prompt_len: int,

@@ -162,6 +162,36 @@ def shard_params(tree: PyTree, specs: PyTree, mesh, device=None) -> PyTree:
     return map_with_names(one, tree)
 
 
+def stage_layers(params: PyTree, n_stages: int, stage: int) -> PyTree:
+    """``params`` with its layer list cut to ``stage``'s run [stage * L/P,
+    (stage + 1) * L/P) of ``n_stages`` (list slicing: nothing is copied).
+    The other leaves stay as they are."""
+    layers = params["layers"]
+    if len(layers) % n_stages:
+        raise ValueError(f"{len(layers)} layers do not divide into "
+                         f"{n_stages} stages")
+    per = len(layers) // n_stages
+    return {**params, "layers": layers[stage * per:(stage + 1) * per]}
+
+
+def shard_stage_params(params: PyTree, cfg: ModelConfig, mesh,
+                       stage_axis: str = "stage", device=None) -> PyTree:
+    """THIS rank's params under pipeline parallelism on ``mesh``: the layers
+    of its stage along ``stage_axis``, each sharded by
+    ``llama_param_specs(cfg)`` over the mesh's other axes ("model" for TP,
+    "expert" for EP), and the embedding, final norm and head whole
+    (replicated: JAX computes them outside its stage ``shard_map``), all
+    on ``device`` (default: each leaf's own).  ``params`` is the full tree,
+    as ``shard_params`` takes it."""
+    part = stage_layers(params, axis_size(mesh, stage_axis),
+                        axis_rank(mesh, stage_axis))
+    spec = llama_param_specs(cfg)["layers"][0]
+    whole = {k: shard_leaf(v, PartitionSpec(), mesh, device)
+             for k, v in part.items() if k != "layers"}
+    return {**whole, "layers": shard_params(
+        part["layers"], [spec] * len(part["layers"]), mesh, device)}
+
+
 def _flatten_specs(specs, prefix: str = ""):
     if isinstance(specs, dict):
         for k, v in specs.items():
@@ -213,32 +243,51 @@ class ContextParallel:
     rank: int
 
 
+@dataclass(frozen=True, eq=False)
+class PipelineParallel:
+    """This rank's place on the PP axis: the group of its peers along the
+    pipeline (the ranks that share its other coordinates: the activations'
+    ring step and the last stage's broadcast run over it), the stage count,
+    this rank's stage and the GPipe microbatch count."""
+
+    group: Any
+    size: int
+    rank: int
+    microbatches: int
+
+
 @dataclass(frozen=True)
 class RankModelConfig(ModelConfig):
     """A ``ModelConfig`` as one rank of a mesh runs it: ``n_heads`` and
     ``n_kv_heads`` are this rank's share (so ``q_dim``/``kv_dim`` are its
-    lanes and its paged pool holds only its heads), and ``tp``/``ep``/
-    ``cp`` carry the groups of the collectives the forward calls.
-    Everything else is the model's."""
+    lanes and its paged pool holds only its heads), ``n_layers`` its
+    stage's under PP (so its pool holds only its layers), and ``tp``/
+    ``ep``/``cp``/``pp`` carry the groups of the collectives the forward
+    calls.  Everything else is the model's."""
 
     tp: Optional[TensorParallel] = None
     ep: Optional[ExpertParallel] = None
     cp: Optional[ContextParallel] = None
+    pp: Optional[PipelineParallel] = None
 
 
 def rank_config(cfg: ModelConfig, tp_mesh=None, ep_mesh=None,
-                device=None, cp_mesh=None,
-                cp_seq_axis: str = "seq") -> RankModelConfig:
+                device=None, cp_mesh=None, cp_seq_axis: str = "seq",
+                pp_mesh=None, pp_stage_axis: str = "stage",
+                pp_microbatches: Optional[int] = None) -> RankModelConfig:
     """``cfg`` for this rank of ``tp_mesh`` (heads divided over "model"),
     ``ep_mesh`` (experts over "expert", tokens over "data" x "expert"; the
-    drop counter on ``device``) and ``cp_mesh`` (the sequence and the
-    paged pool's pages over ``cp_seq_axis``).  Every rank must call it at
-    the same point (it may create process groups)."""
+    drop counter on ``device``), ``cp_mesh`` (the sequence and the paged
+    pool's pages over ``cp_seq_axis``) and ``pp_mesh`` (the layers over
+    ``pp_stage_axis``, ``pp_microbatches`` microbatches a forward, one per
+    stage by default).  Every rank must call it at the same point: it
+    creates the process groups the forward uses, all of them now, since
+    under PP the stages reach their collectives at different times."""
     from k8s_llm_rca_tpu_torch.runtime.mesh import axis_group
 
     base = {f.name: getattr(cfg, f.name)
             for f in dataclasses.fields(ModelConfig)}
-    tp = ep = None
+    tp = ep = cp = pp = None
     if tp_mesh is not None:
         n = axis_size(tp_mesh, "model")
         tp = TensorParallel(tp_mesh, axis_group(tp_mesh, "model"), n,
@@ -246,11 +295,17 @@ def rank_config(cfg: ModelConfig, tp_mesh=None, ep_mesh=None,
                             cfg.n_kv_heads)
         base.update(n_heads=cfg.n_heads // n, n_kv_heads=cfg.n_kv_heads // n)
     if ep_mesh is not None:
+        axis_group(ep_mesh, ("data", "expert"))     # the token groups
         ep = ExpertParallel(ep_mesh, torch.zeros((), dtype=torch.int64,
                                                  device=device))
-    cp = None
     if cp_mesh is not None:
         cp = ContextParallel(axis_group(cp_mesh, cp_seq_axis),
                              axis_size(cp_mesh, cp_seq_axis),
                              axis_rank(cp_mesh, cp_seq_axis))
-    return RankModelConfig(**base, tp=tp, ep=ep, cp=cp)
+    if pp_mesh is not None:
+        n = axis_size(pp_mesh, pp_stage_axis)
+        pp = PipelineParallel(axis_group(pp_mesh, pp_stage_axis), n,
+                              axis_rank(pp_mesh, pp_stage_axis),
+                              pp_microbatches or n)
+        base.update(n_layers=cfg.n_layers // n)
+    return RankModelConfig(**base, tp=tp, ep=ep, cp=cp, pp=pp)

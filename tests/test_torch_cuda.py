@@ -1054,6 +1054,30 @@ def test_graph_replays_advance_the_generator(card):
     assert engine._counts["engine.graph_replays"] > 0
 
 
+def test_no_collection_inside_a_capture(card):
+    """The cyclic collector is off while a capture lasts and back on after
+    it: a dead engine in a reference cycle, freed by the collector inside a
+    capture, invalidates the capture (phase 3 then phase 4 of
+    ``chip_smoke.py`` failed so), and PyTorch no longer collects before a
+    capture by itself.  The capture still replays."""
+    import gc
+
+    from k8s_llm_rca_tpu_torch.engine.graphs import DecodeGraphs
+
+    x = torch.ones(4, device="cuda")
+    enabled = []
+
+    def fn():
+        enabled.append(gc.isenabled())
+        return x * 3
+
+    graphs = DecodeGraphs(torch.device("cuda"), None, lambda *a: None)
+    graphs.run(("scan", 2), fn)
+    assert enabled == [True, False]            # the warm-up, the capture
+    assert gc.isenabled()
+    assert graphs.run(("scan", 2), fn).sum().item() == 12.0
+
+
 def test_graph_pool_is_freed_with_the_engine(card):
     """An engine's graphs and their memory pool go with the engine: the
     runner is collected and no segment of its pool is left on the card."""

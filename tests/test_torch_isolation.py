@@ -169,6 +169,18 @@ def test_sources_cover_the_cp_slice():
     assert "import jax" not in top and "k8s_llm_rca_tpu." not in top
 
 
+def test_sources_cover_the_pp_slice():
+    """Pipeline parallelism is the port's own copy (the import tests above
+    hold it to no jax and no JAX package), and the PP test module's ranks
+    import no JAX at its top."""
+    names = {p.relative_to(PORT).as_posix() for p in SOURCES if PORT in
+             p.parents}
+    assert "parallel/pipeline.py" in names
+    test_module = (ROOT / "tests" / "test_torch_pp.py").read_text()
+    top = test_module.split("\ndef ", 1)[0]
+    assert "import jax" not in top and "k8s_llm_rca_tpu." not in top
+
+
 def test_sources_cover_the_durability_slice():
     """Serving durability and the sweep drivers are the port's own copies
     (the import test above holds them to no jax and no JAX package)."""
@@ -361,15 +373,18 @@ def test_kv_cache_dtype_fp8_raises_like_jax():
                     params, tok, device="cpu")
 
 
-@pytest.mark.parametrize("meshes", [("cp_mesh", "ep_mesh"), ("pp_mesh",),
-                                    ("fsdp_mesh",)],
-                         ids=["cp_ep", "pp_mesh", "fsdp_mesh"])
-def test_meshes_raise(meshes):
-    """The paged engine's meshes not ported yet: PP, FSDP, and CP composed
-    with EP (cp_mesh alone and with tp_mesh is served since the CP
-    slice)."""
+@pytest.mark.parametrize("meshes,error,match", [
+    (("cp_mesh", "ep_mesh"), NotImplementedError, "Queue 1 item 10"),
+    (("pp_mesh", "cp_mesh"), ValueError, "mutually exclusive by design"),
+    (("fsdp_mesh",), NotImplementedError, "Queue 1 item 10"),
+], ids=["cp_ep", "pp_cp", "fsdp_mesh"])
+def test_meshes_raise(meshes, error, match):
+    """The paged engine's meshes not ported yet, FSDP and CP composed with
+    EP (cp_mesh alone and with tp_mesh is served since the CP slice), and
+    PP with CP, which JAX refuses by design (pp_mesh alone, with tp_mesh
+    or with ep_mesh is served since the PP slice)."""
     cfg, ecfg, params, tok = _tiny_engine_args()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(error, match=match):
         make_engine(cfg, ecfg, params, tok, device="cpu",
                     **{mesh: object() for mesh in meshes})
 
@@ -378,7 +393,7 @@ def test_meshes_raise(meshes):
                                   "fsdp_mesh"])
 def test_contiguous_engine_meshes_raise(mesh):
     cfg, ecfg, params, tok = _tiny_engine_args()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10.6"):
         make_engine(cfg, dataclasses.replace(ecfg, paged=False), params, tok,
                     device="cpu", **{mesh: object()})
 
@@ -403,12 +418,13 @@ def _serves(engine, n_tokens=3) -> None:
     engine.allocator.check()
 
 
-@pytest.mark.parametrize("mesh", ["tp_mesh", "ep_mesh"])
+@pytest.mark.parametrize("mesh", ["tp_mesh", "ep_mesh", "pp_mesh"])
 def test_meshes_build_and_serve_on_one_rank(one_rank_group, mesh):
-    """tp_mesh and ep_mesh build the paged engine on a 1-rank gloo mesh and
-    serve through the sharded path (its collectives counted)."""
+    """tp_mesh, ep_mesh and pp_mesh (two microbatches) build the paged
+    engine on a 1-rank gloo mesh and serve through the sharded or
+    pipelined path (its collectives counted)."""
     from k8s_llm_rca_tpu_torch.runtime.sharding import (
-        llama_param_specs, shard_params,
+        llama_param_specs, shard_params, shard_stage_params,
     )
 
     cfg, ecfg, params, tok = _tiny_engine_args()
@@ -417,12 +433,17 @@ def test_meshes_build_and_serve_on_one_rank(one_rank_group, mesh):
         params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     m = one_rank_group.single_device_mesh(device="cpu")
     one_rank_group.reset_collective_counts()
-    engine = make_engine(cfg, ecfg,
-                         shard_params(params, llama_param_specs(cfg), m),
-                         tok, device="cpu", **{mesh: m})
+    if mesh == "pp_mesh":
+        engine = make_engine(cfg, ecfg, shard_stage_params(params, cfg, m),
+                             tok, device="cpu", pp_mesh=m, pp_microbatches=2)
+    else:
+        engine = make_engine(cfg, ecfg,
+                             shard_params(params, llama_param_specs(cfg), m),
+                             tok, device="cpu", **{mesh: m})
     _serves(engine)
     counts = one_rank_group.collective_counts()
-    key = "all_reduce_sum" if mesh == "tp_mesh" else "all_to_all"
+    key = {"tp_mesh": "all_reduce_sum", "ep_mesh": "all_to_all",
+           "pp_mesh": "ppermute"}[mesh]
     assert counts[key] > 0, counts
 
 
