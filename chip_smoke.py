@@ -252,9 +252,37 @@ count the launches a replay makes.
    off), dense and at PP x EP on the 1-rank stage x expert mesh, graphed:
    equal or a near-tie, no token dropped.
 
+13. fsdp: FSDP and Megatron sequence parallelism (``--fsdp`` runs it
+   alone, with no result line) under a 1-rank nccl process group.  (a) Llama-3-8B bf16 on the slice engine with the prefix cache
+   on, the unsharded graphed engine and then ``make_engine(...,
+   fsdp_mesh=)`` on the rank's fsdp shard (the tree itself), graphed:
+   equal streams (the same arithmetic on the same bytes), the unsharded
+   engine's kernel launches, the gathers the docstring of
+   ``models/llama.py`` states (7 a layer and the head per forward),
+   TTFT, decode tok/s, the graphed step's wall and event ms both ways,
+   the peak GB, the parameter bytes a rank holds and the bytes a forward
+   gathers (``runtime/profiling.py``, with the least NVLink time of those
+   at fsdp 2); then the first prompt resubmitted, which must hit through
+   the chunk prefill; (b) the same with int4 weights over an int4 pool;
+   (c) Llama-3-8B bf16 at full depth at fsdp = 2 as two gloo processes on
+   the one card (eager), each making only its fsdp block of the parent's
+   weights: one prompt, a few tokens, the ranks equal and byte-equal to
+   the 1-rank unsharded eager run, each rank's peak GB (under 13 GB, the
+   memory split FSDP exists for); (d) 8B cut to 4 layers, int4 over an
+   int4 pool, at fsdp 2 x tp 2 as four gloo processes: the ranks equal
+   and equal to TP 2's engine (data 2 x model 2) in the same processes;
+   (e) ``sp=True`` on a 1-rank nccl TP mesh, 8B bf16 graphed: equal to
+   the TP engine without it, TTFT both ways, the reduce-scatters counted;
+   then 8B cut to 2 layers at TP 2 with and without ``sp`` as two gloo
+   processes: the ranks equal, and ``sp`` equal to no ``sp`` or parting
+   at a near-tie (``NEAR_TIE``, margins printed); (f) Mixtral-8x7B int8
+   cut to 4 layers over an int8 pool (prefix cache off), dense and at
+   fsdp on the 1-rank mesh, graphed: equal streams.
+
 Then the kernel table (one JSON line), the ``nvidia-smi`` name and power
 limit line, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+The kernel table sums the launches of phases 5-13.
 ``--spec`` builds every source and runs only the attention-over-pages
 cases of phase 3 and the speculative, overlap and TINY sweep cases of
 phase 4 (no result line).  ``--profile-decode`` runs only a profile of one decode step at the slice's
@@ -1070,7 +1098,11 @@ def expected_counts(cfg, c: dict, quantized_kv: bool, bits=None,
     all-reduce (the last stage's broadcast); the embedding and the head
     are whole, so TP adds only its 2 sums a layer pass (and 2 max
     all-reduces a layer pass of a decode step, 2 a pass of a prefill over
-    a quantized pool)."""
+    a quantized pool).  Under FSDP (``cfg.fsdp``) every forward gathers 7
+    weights a layer and the head (``all_gather_into``) and sums the
+    embedding rows once; with ``sp`` (``cfg.sp``, TP) a miss prefill
+    dispatch gathers the sequence 2 a layer and its last rows once and
+    reduce-scatters 2 a layer in place of its 2 sums a layer."""
     steps = int(c.get("engine.decode_steps", 0))
     verify = int(c.get("engine.verify_steps", 0))
     prefills = int(c.get("engine.prefill_dispatches", 0))
@@ -1095,6 +1127,10 @@ def expected_counts(cfg, c: dict, quantized_kv: bool, bits=None,
         if pp is None:
             counts["all_reduce_sum"] = (2 * cfg.n_layers + 1) * fwd
             counts["all_gather"] = fwd
+            if getattr(cfg, "sp", False):
+                counts["all_reduce_sum"] -= 2 * cfg.n_layers * prefills
+                counts["all_gather_into"] += (2 * cfg.n_layers + 1) * prefills
+                counts["reduce_scatter_sum"] += 2 * cfg.n_layers * prefills
         else:
             counts["all_reduce_sum"] = 2 * cfg.n_layers * passes
         if quantized_kv:
@@ -1106,6 +1142,9 @@ def expected_counts(cfg, c: dict, quantized_kv: bool, bits=None,
     if pp is not None:
         counts["ppermute"] += ((m + pp.size - 1) * (steps + prefills)
                                + pp.size * chunks)
+        counts["all_reduce_sum"] += fwd
+    if getattr(cfg, "fsdp", None) is not None:
+        counts["all_gather_into"] += (7 * cfg.n_layers + 1) * fwd
         counts["all_reduce_sum"] += fwd
     cp = getattr(cfg, "cp", None)
     if cp is not None:
@@ -4339,7 +4378,7 @@ def mesh_compare(phase, cfg, params, base, run, **record) -> None:
          divergences=divs, near_tie=NEAR_TIE,
          collectives={k: run["launches"][k] for k in (
              "all_reduce_sum", "all_reduce_max", "all_gather", "all_to_all",
-             "ppermute")},
+             "ppermute", "all_gather_into", "reduce_scatter_sum")},
          launches=run["launches"],
          **{f"mesh_{k}": run[k] for k in keep},
          **{f"unsharded_{k}": base[k] for k in keep},
@@ -4852,10 +4891,11 @@ def pp_fields(engine) -> dict:
             "pool_layers": engine.pool.k.shape[0]}
 
 
-def pp_hit_case(engine, prompt, kv, bits) -> dict:
+def pp_hit_case(engine, prompt, kv, bits, label: str = "pp") -> dict:
     """One prompt served before on ``engine`` submitted again: it must hit
-    through the pipelined chunk prefill (``paged_pp_prefill_chunk``), with
-    the launches and collectives its counters require."""
+    through the chunk prefill (under PP the pipelined one,
+    ``paged_pp_prefill_chunk``), with the launches and collectives its
+    counters require."""
     import torch
 
     before = dict(engine._counts)
@@ -4868,7 +4908,7 @@ def pp_hit_case(engine, prompt, kv, bits) -> dict:
     hit = int(c.get("engine.prefix_hit_tokens", 0))
     chunks = int(c.get("engine.chunk_prefill_dispatches", 0))
     if counts != expect or not hit or not chunks:
-        raise SystemExit(f"pp resubmit: {hit} hit tokens, {chunks} chunk "
+        raise SystemExit(f"{label} resubmit: {hit} hit tokens, {chunks} chunk "
                          f"prefills, launches {counts} != {expect}")
     return {"hit_tokens": hit, "chunk_prefills": chunks, "launches": counts}
 
@@ -5157,6 +5197,422 @@ def phase_pp() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 13
+
+
+def fsdp_fields(engine) -> dict:
+    """An FSDP engine's sizes (``runtime/profiling.py``, reported, not
+    gated): the fsdp axis, the parameter bytes the rank holds, the bytes a
+    forward gathers and the least NVLink time of those at this axis and at
+    fsdp 2 (what two cards would add to a step at least)."""
+    from k8s_llm_rca_tpu_torch.runtime import profiling
+
+    cfg = engine.model_cfg
+    n = cfg.fsdp.size
+    per_rank = profiling.fsdp_gather_bytes(cfg, engine.params, 1)
+    return {"fsdp": n, "param_bytes_rank": profiling.param_bytes(
+                engine.params),
+            "gather_bytes_forward": n * per_rank,
+            "gather_link_ms": profiling.fsdp_gather_link_ms(n * per_rank, n),
+            "gather_link_ms_at_fsdp2": profiling.fsdp_gather_link_ms(
+                n * per_rank, 2)}
+
+
+def kernel_launches(counts: dict) -> dict:
+    """A launch count dict without the collectives."""
+    from k8s_llm_rca_tpu_torch.runtime.mesh import COLLECTIVES
+
+    names = {fn.__name__ for fn in COLLECTIVES}
+    return {k: v for k, v in counts.items() if k not in names}
+
+
+def require_equal(phase: str, base: dict, run: dict) -> None:
+    """FSDP and SP compute what the unsharded (or TP) engine computes on
+    the same bytes: the streams must be equal and the kernels the same."""
+    if run["tokens"] != base["tokens"]:
+        raise SystemExit(f"{phase}: the streams part from the reference "
+                         f"engine's (share "
+                         f"{common_share(base['tokens'], run['tokens'])})")
+    if kernel_launches(run["launches"]) != kernel_launches(base["launches"]):
+        raise SystemExit(f"{phase}: kernel launches "
+                         f"{kernel_launches(run['launches'])} != the "
+                         f"reference's {kernel_launches(base['launches'])}")
+
+
+def fsdp_engine_case(phase, mesh, name, bits, kv) -> tuple:
+    """13a/13b: a slice model (prefix cache on) by the unsharded graphed
+    engine and by ``make_engine(..., fsdp_mesh=mesh)`` on the rank's fsdp
+    shard of the same weights (on one rank the tree itself), graphed:
+    equal streams and kernel launches, the gathers counted, the step's
+    wall and event ms both ways, the peak GB, the rank's parameter and
+    gathered bytes, and the first prompt resubmitted as a prefix hit.
+    Returns (the serve run's launches, the config, the weights)."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        FSDP_LAYOUT, llama_param_specs, shard_params,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg, transform = slice_model(name, bits)
+    ecfg = mesh_engine_config(kv_cache_dtype=kv)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=transform)
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    base = mesh_run(make_engine(cfg, ecfg, params, tok), cfg, kv, bits)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    engine = make_engine(cfg, ecfg, shard_params(
+        params, llama_param_specs(cfg, FSDP_LAYOUT), mesh), tok,
+        fsdp_mesh=mesh)
+    run = serve_four(engine, cfg, kv, bits)
+    hit = pp_hit_case(engine, run["prompts"][0], kv, bits, label=phase)
+    run.update(graph_stats(engine))
+    run.update(decode_step_times(engine, profiled=False))
+    mesh_compare(phase, cfg, params, base, run, mesh="fsdp 1 rank (nccl)",
+                 weights=f"int{bits}" if bits else "bfloat16",
+                 kv_cache_dtype=kv, **fsdp_fields(engine), resubmit=hit,
+                 peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+                 pool_lanes=engine.pool.k.shape[-1])
+    require_equal(phase, base, run)
+    del engine
+    free_card()
+    return run["launches"], cfg, params
+
+
+def fsdp_transform(cfg, mesh):
+    """A ``tensor_transform`` for ``init_params`` that keeps only this
+    rank's fsdp block of each matmul weight as it is made
+    (``runtime.sharding.shard_leaf`` under ``FSDP_LAYOUT``): the generator
+    runs exactly as for the whole model, so the blocks are the whole
+    model's, but the rank never holds more than its blocks and one whole
+    weight."""
+    from k8s_llm_rca_tpu_torch.runtime.rules import flatten_with_names
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        FSDP_LAYOUT, llama_param_specs, shard_leaf,
+    )
+
+    specs = dict(flatten_with_names(llama_param_specs(cfg, FSDP_LAYOUT)))
+    # init_params makes a dense layer's 7 weights in this order, then the
+    # embedding and the head
+    order = [f"layers/{i}/{k}" for i in range(cfg.n_layers)
+             for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")]
+    order += ["embedding"] + ([] if cfg.tie_embeddings else ["lm_head"])
+    made = iter(order)
+
+    def keep(w, axis=-1):
+        return shard_leaf(w, specs[next(made)], mesh)
+
+    return keep
+
+
+def fsdp2_rank(rank: int, max_new: int) -> dict:
+    """One of two fsdp ranks on the one card (gloo over CUDA tensors):
+    Llama-3-8B bf16 at full depth, this rank's fsdp blocks made by the
+    parent's generator (``fsdp_transform``), the eager engine over one
+    prompt, its peak GB and parameter bytes."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.mesh import local_mesh
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg = LLAMA3_8B
+    torch.cuda.reset_peak_memory_stats()
+    mesh = local_mesh(fsdp=2)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=fsdp_transform(cfg, mesh))
+    init_gb = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    engine = make_engine(cfg, mesh_engine_config(decode_chunk=1), params, tok,
+                         cuda_graphs=False, fsdp_mesh=mesh)
+    out = rank_served(engine, mesh_prompts(tok)[:1], max_new, None, None)
+    serve_gb = torch.cuda.max_memory_allocated() / 2**30
+    out.update(fsdp_fields(engine), init_peak_gb=init_gb,
+               serve_peak_gb=serve_gb, peak_gb=max(init_gb, serve_gb))
+    return out
+
+
+def fsdp_tp_rank(rank: int, n_layers: int, max_new: int) -> dict:
+    """One of four ranks (fsdp 2 x model 2) on the one card over gloo:
+    Llama-3-8B cut to ``n_layers`` layers with int4 weights over an int4
+    pool, this rank's fsdp x TP shard, the eager engine; then the TP-2
+    engine (data 2 x model 2) on the same weights in the same process."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.mesh import local_mesh
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        FSDP_LAYOUT, llama_param_specs, shard_params,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg, transform = slice_model("llama3-8b", 4)
+    cfg = cfg.replace(n_layers=n_layers)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=transform)
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    ecfg = mesh_engine_config(kv_cache_dtype="int4", decode_chunk=4)
+    mesh = local_mesh(fsdp=2, model=2)
+    tp = local_mesh(data=2, model=2)
+    fsdp_shard = shard_params(params, llama_param_specs(cfg, FSDP_LAYOUT),
+                              mesh)
+    tp_shard = shard_params(params, llama_param_specs(cfg), tp)
+    del params
+    torch.cuda.empty_cache()
+    engine = make_engine(cfg, ecfg, fsdp_shard, tok, cuda_graphs=False,
+                         fsdp_mesh=mesh, tp_mesh=mesh)
+    out = rank_served(engine, mesh_prompts(tok), max_new, "int4", 4)
+    out.update(fsdp_fields(engine), pool_lanes=engine.pool.k.shape[-1])
+    del engine
+    tp_engine = make_engine(cfg, ecfg, tp_shard, tok, cuda_graphs=False,
+                            tp_mesh=tp)
+    out["tp_tokens"] = rank_served(tp_engine, mesh_prompts(tok), max_new,
+                                   "int4", 4)["tokens"]
+    return out
+
+
+def sp2_rank(rank: int, n_layers: int, max_new: int) -> dict:
+    """One of two TP ranks on the one card over gloo: Llama-3-8B bf16 cut
+    to ``n_layers`` layers, this rank's TP shard, the eager engine with
+    ``sp=True`` and then without, over the four prompts."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.mesh import local_mesh
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        llama_param_specs, shard_params,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg = LLAMA3_8B.replace(n_layers=n_layers)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    mesh = local_mesh(model=2)
+    shard = shard_params(params, llama_param_specs(cfg), mesh)
+    del params
+    torch.cuda.empty_cache()
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    out = {}
+    for sp in (True, False):
+        engine = make_engine(cfg, mesh_engine_config(), shard, tok,
+                             cuda_graphs=False, tp_mesh=mesh, sp=sp)
+        out[sp] = rank_served(engine, mesh_prompts(tok), max_new, None, None)
+        del engine
+    return out
+
+
+def fsdp_gloo_cases(mesh, cfg, params) -> None:
+    """13c: Llama-3-8B bf16 at full depth at fsdp = 2 as two gloo processes
+    on the one card, eager, one prompt and two tokens, stepwise (a prefill
+    and one decode step): both ranks' streams equal, and
+    equal to the 1-rank unsharded eager run; each rank's peak GB against
+    the whole model's.  13d: 8B cut to 4 layers, int4 over an int4 pool,
+    at fsdp 2 x tp 2 as four gloo processes: the ranks equal, and equal to
+    the TP-2 engine's streams.  Every rank's launches and collectives
+    exact."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.runtime.mesh import run_ranks
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    # one prompt, two tokens, stepwise: a prefill and one decode step, each
+    # gathering 15 GB through host memory a rank
+    max_new = 2
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    one = make_engine(cfg, mesh_engine_config(decode_chunk=1), params, tok,
+                      cuda_graphs=False)
+    want = [r.token_ids for r in one.generate(mesh_prompts(tok)[:1],
+                                              max_new_tokens=max_new)]
+    del one
+    free_card()
+    failed = []
+    for phase, fn, n, args in (
+            ("fsdp_gloo", fsdp2_rank, 2, (max_new,)),
+            ("fsdp_tp_gloo", fsdp_tp_rank, 4, (4, 8))):
+        t0 = time.perf_counter()
+        ranks = run_ranks(fn, n, str(ROOT / "build" / "fsdp_ranks"),
+                          args=args, timeout_s=600, device="cuda-gloo")
+        wall = time.perf_counter() - t0
+        equal = all(r["tokens"] == ranks[0]["tokens"] for r in ranks)
+        exact = all(r["launches_exact"] for r in ranks)
+        rec = dict(ranks=n, backend="gloo", cuda_graphs=False,
+                   ranks_equal=equal, launches_exact=exact,
+                   rank_seconds=[r["seconds"] for r in ranks], wall_s=wall,
+                   launches=[r["launches"] for r in ranks],
+                   **{k: [r[k] for r in ranks] for k in (
+                       "fsdp", "param_bytes_rank", "gather_bytes_forward",
+                       "gather_link_ms")})
+        if phase == "fsdp_gloo":
+            same = ranks[0]["tokens"] == want
+            rec.update(model=cfg.name, layers=cfg.n_layers,
+                       weights="bfloat16", prompts=1, max_new_tokens=max_new,
+                       equal_tokens=same,
+                       peak_gb=[r["peak_gb"] for r in ranks],
+                       init_peak_gb=[r["init_peak_gb"] for r in ranks],
+                       serve_peak_gb=[r["serve_peak_gb"] for r in ranks],
+                       unsharded_peak_gb_pr11=19.6)
+        else:
+            same = all(r["tokens"] == r["tp_tokens"] for r in ranks)
+            rec.update(model=cfg.name, layers=4, weights="int4",
+                       kv_cache_dtype="int4", tp=2, equal_to_tp2=same,
+                       pool_lanes=[r["pool_lanes"] for r in ranks])
+        emit(phase, **rec, nvidia_smi=nvidia_smi_name_power())
+        if not (equal and exact and same):
+            failed.append((phase, equal, exact, same))
+        free_card()
+    if failed:
+        raise SystemExit(f"fsdp gloo: (phase, ranks equal, launches exact, "
+                         f"equal to the reference) {failed}")
+
+
+def sp_cases(mesh, cfg, params) -> dict:
+    """13e: Llama-3-8B bf16 on the 1-rank nccl TP mesh (the tree itself),
+    graphed, with ``sp=True`` against the TP engine without it: equal
+    streams, TTFT both ways, the reduce-scatters counted (checked with
+    the launches).  Then 8B cut to 2 layers at TP 2 as two gloo processes,
+    eager, with and without ``sp``: the ranks equal, ``sp`` equal to no
+    ``sp`` or parting at a near-tie.  Returns the ``sp`` run's
+    launches."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.mesh import run_ranks
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        llama_param_specs, shard_params,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    phase = "fsdp_sp"
+    ecfg = mesh_engine_config()
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    shard = shard_params(params, llama_param_specs(cfg), mesh)
+    base = mesh_run(make_engine(cfg, ecfg, shard, tok, tp_mesh=mesh), cfg,
+                    None, None)
+    free_card()
+    run = mesh_run(make_engine(cfg, ecfg, shard, tok, tp_mesh=mesh, sp=True),
+                   cfg, None, None)
+    mesh_compare(phase, cfg, params, base, run, mesh="tp 1 rank (nccl), sp",
+                 weights="bfloat16", reference="tp 1 rank without sp",
+                 reduce_scatters=run["launches"]["reduce_scatter_sum"])
+    require_equal(phase, base, run)
+    if not run["launches"]["reduce_scatter_sum"]:
+        raise SystemExit(f"{phase}: no reduce-scatter ran")
+    free_card()
+
+    n_layers, max_new = 2, 32
+    cut = LLAMA3_8B.replace(n_layers=n_layers)
+    cut_params = init_params(cut, torch.Generator(device="cuda").manual_seed(0))
+    prompts = mesh_prompts(tok)
+    t0 = time.perf_counter()
+    ranks = run_ranks(sp2_rank, 2, str(ROOT / "build" / "fsdp_ranks"),
+                      args=(n_layers, max_new), timeout_s=600,
+                      device="cuda-gloo")
+    wall = time.perf_counter() - t0
+    on = [r[True] for r in ranks]
+    off = [r[False] for r in ranks]
+    equal = on[0]["tokens"] == off[0]["tokens"]
+    ranks_equal = (on[0]["tokens"] == on[1]["tokens"]
+                   and off[0]["tokens"] == off[1]["tokens"])
+    divs = divergences(cut, cut_params, prompts, off[0]["tokens"],
+                       on[0]["tokens"])
+    bad = [d for d in divs if d["logit_margin"] > NEAR_TIE]
+    exact = all(r["launches_exact"] for r in on + off)
+    emit("fsdp_sp_tp2", model=cut.name, layers=n_layers, ranks=2,
+         backend="gloo", cuda_graphs=False, ranks_equal=ranks_equal,
+         equal_tokens=equal, launches_exact=exact,
+         equal_token_share=common_share(off[0]["tokens"], on[0]["tokens"]),
+         divergences=divs, near_tie=NEAR_TIE,
+         rank_seconds_sp=[r["seconds"] for r in on],
+         rank_seconds_no_sp=[r["seconds"] for r in off], wall_s=wall,
+         launches_sp=[r["launches"] for r in on],
+         nvidia_smi=nvidia_smi_name_power())
+    if not ranks_equal or bad or not exact:
+        raise SystemExit(f"fsdp_sp_tp2: ranks equal {ranks_equal}, launches "
+                         f"exact {exact}, beyond a near-tie {bad}")
+    del cut_params
+    return run["launches"]
+
+
+def fsdp_moe_case(mesh) -> dict:
+    """13f: Mixtral-8x7B int8 cut to 4 layers at full width over an int8
+    pool (prefix cache off), the dense graphed engine and ``make_engine(...,
+    fsdp_mesh=mesh)`` on the 1-rank mesh, graphed: equal streams and
+    kernel launches, the stacked experts gathered (the router whole)."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        FSDP_LAYOUT, llama_param_specs, shard_params,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    phase = "fsdp_mixtral"
+    cfg, transform = slice_model("mixtral-8x7b", 8)
+    cfg = cfg.replace(n_layers=4)
+    ecfg = slice_engine_config(kv_cache_dtype="int8")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=transform)
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    base = mesh_run(make_engine(cfg, ecfg, params, tok), cfg, "int8", 8)
+    free_card()
+    engine = make_engine(cfg, ecfg, shard_params(
+        params, llama_param_specs(cfg, FSDP_LAYOUT), mesh), tok,
+        fsdp_mesh=mesh)
+    run = mesh_run(engine, cfg, "int8", 8)
+    mesh_compare(phase, cfg, params, base, run, mesh="fsdp 1 rank (nccl)",
+                 weights="int8", kv_cache_dtype="int8", layers=4,
+                 **fsdp_fields(engine))
+    require_equal(phase, base, run)
+    del engine, params
+    return run["launches"]
+
+
+def phase_fsdp() -> dict:
+    """Phase 13 under a 1-rank nccl process group (destroyed after): 13a
+    Llama-3-8B bf16 and 13b int4 over int4 at FSDP on one rank, 13c fsdp =
+    2 at full depth and 13d fsdp 2 x tp 2 over gloo, 13e SP, 13f Mixtral
+    int8 at FSDP.  Returns the launch counts of 13a, 13b, 13e and 13f."""
+    from k8s_llm_rca_tpu_torch.runtime import mesh as rmesh
+
+    t0 = time.perf_counter()
+    rmesh.initialize_distributed()
+    out = {}
+    try:
+        mesh = rmesh.local_mesh()
+        out["fsdp"], cfg, params = fsdp_engine_case("fsdp", mesh,
+                                                    "llama3-8b", None, None)
+        out["fsdp_sp"] = sp_cases(mesh, cfg, params)
+        free_card()
+        fsdp_gloo_cases(mesh, cfg, params)
+        del params
+        free_card()
+        out["fsdp_int4"], _, params = fsdp_engine_case(
+            "fsdp_int4", mesh, "llama3-8b", 4, "int4")
+        del params
+        free_card()
+        out["fsdp_mixtral"] = fsdp_moe_case(mesh)
+        free_card()
+    finally:
+        rmesh.shutdown_distributed()
+    emit("fsdp_phase", seconds=time.perf_counter() - t0)
+    return out
+
+
 def ptxas_summary(report: str) -> list:
     """One line per kernel of a ``ptxas -v`` report: its name (demangled
     by ``c++filt`` where the toolchain has it, up to its parameter list),
@@ -5353,6 +5809,13 @@ def main(argv) -> int:
         phase_pp()
         return 0
 
+    if "--fsdp" in argv:
+        # phase 13 alone
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        phase_fsdp()
+        return 0
+
     if "--rerank" in argv:
         # phase 9 alone
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -5416,6 +5879,8 @@ def main(argv) -> int:
     free_card()
     runs.update(phase_pp())
     free_card()
+    runs.update(phase_fsdp())
+    free_card()
 
     rows = []
     # launches: the main paths' runs of each kernel, summed (flash now
@@ -5426,7 +5891,8 @@ def main(argv) -> int:
              ("paged_attention", "bfloat16", "mixed"),
              ("slice", "slice_spec", "prefix", "memory", "rca", "rca_spec",
               "rca_resilient", "durable", "durable_cli", "rerank_rca",
-              "rerank_rca_yardstick", "mesh", "cp_ring", "cp_ulysses", "pp"),
+              "rerank_rca_yardstick", "mesh", "cp_ring", "cp_ulysses", "pp",
+              "fsdp", "fsdp_sp"),
              "paged"),
             ("flash_attention", FLASH_SRC,
              "k8s_llm_rca_tpu/ops/flash_attention.py:31",
@@ -5436,39 +5902,42 @@ def main(argv) -> int:
               "durable_int4", "durable_cli", "rerank_rca",
               "rerank_rca_yardstick", "contiguous", "contiguous_int4",
               "contiguous_cli", "mesh", "mesh_int4", "mesh_mixtral",
-              "cp_ulysses", "pp", "pp_int4", "pp_mixtral"), "flash"),
+              "cp_ulysses", "pp", "pp_int4", "pp_mixtral", "fsdp",
+              "fsdp_int4", "fsdp_sp", "fsdp_mixtral"), "flash"),
             ("quant_matmul", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:137",
              ("quant_matmul", "bfloat16", "decode"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
               "durable_int4", "contiguous_int4", "mesh_int4",
-              "cp_int4_ring", "pp_int4"), "qmm"),
+              "cp_int4_ring", "pp_int4", "fsdp_int4"), "qmm"),
             ("quant_matmul_head", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:177",
              ("quant_matmul_head", "bfloat16", "llama3-8b int4"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
               "durable_int4", "contiguous_int4", "mesh_int4",
-              "cp_int4_ring", "pp_int4"), "qmm_head"),
+              "cp_int4_ring", "pp_int4", "fsdp_int4"), "qmm_head"),
             ("paged_attention_quant", PAGED_QUANT_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:141",
              ("paged_attention_quant", "bfloat16", "int4"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
               "durable_int4", "mesh_int4", "mesh_mixtral", "cp_int4_ring",
-              "pp_int4", "pp_mixtral"), "paged_quant"),
+              "pp_int4", "pp_mixtral", "fsdp_int4", "fsdp_mixtral"),
+             "paged_quant"),
             ("quant_matmul_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:120",
              ("quant_matmul_int8", "bfloat16", "decode"),
-             ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral"), "qmm8"),
+             ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral",
+              "fsdp_mixtral"), "qmm8"),
             ("quant_matmul_head_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:159",
              ("quant_matmul_head_int8", "bfloat16", "mixtral-8x7b int8"),
-             ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral"),
-             "qmm_head8"),
+             ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral",
+              "fsdp_mixtral"), "qmm_head8"),
             ("quant_matmul_experts_int8", EKN_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:201",
              ("quant_matmul_experts_int8", "bfloat16", "3d decode"),
-             ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral"),
-             "qmm_experts8"),
+             ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral",
+              "fsdp_mixtral"), "qmm_experts8"),
             ("quant_matmul_experts_int4", EKN_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:218",
              ("quant_matmul_experts_int4", "bfloat16", "3d decode"),

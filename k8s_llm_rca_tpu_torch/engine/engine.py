@@ -1027,7 +1027,7 @@ MESH_ITEM = "ROADMAP Queue 1 item 10, multi-GPU"
 
 
 def mesh_item(sub: int) -> str:
-    """``MESH_ITEM`` narrowed to one of its steps (10.4 FSDP, 10.6 the
+    """``MESH_ITEM`` narrowed to one of its steps (10.6 the
     contiguous engine's meshes, 10.7 the features refused under a mesh)."""
     return f"ROADMAP Queue 1 item 10.{sub}, multi-GPU"
 
@@ -1134,6 +1134,60 @@ def validate_ep_mesh(ep_mesh, model_cfg: ModelConfig,
             f"emit any page-multiple width; use a larger page_size or "
             f"prefix_cache=False")
 
+
+
+def _mesh_shape(mesh) -> Dict[str, int]:
+    """A mesh's axis sizes by name (a JAX ``Mesh.shape`` as a dict)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    return {a: int(s) for a, s in zip(names, mesh.mesh.shape)}
+
+
+def validate_fsdp_mesh(fsdp_mesh, model_cfg: ModelConfig,
+                       engine_cfg: EngineConfig, tp_mesh=None, cp_mesh=None,
+                       ep_mesh=None, pp_mesh=None, sp: bool = False) -> None:
+    """FSDP serving preconditions, JAX's refusals with JAX's messages
+    (``k8s_llm_rca_tpu/engine/engine.py::validate_fsdp_mesh``): parameters
+    shard along the "fsdp" axis (``runtime/rules.py`` FSDP_LAYOUT: the
+    non-TP matmul dim, hidden for the blocks, vocab for the embeddings)
+    and each rank gathers every weight on use, so prefill and decode
+    compute what the unsharded engine computes.
+
+    Composes with TP on ONE mesh carrying both "fsdp" and "model"; PP, CP,
+    EP and SP are refused.  The pool never shards on fsdp
+    (``rules.paged_pool_specs``): only the weights do."""
+    if fsdp_mesh is None:
+        return
+    shape = _mesh_shape(fsdp_mesh)
+    for axis in ("data", "fsdp", "model"):
+        if axis not in shape:
+            raise ValueError(f"fsdp_mesh needs a '{axis}' axis, has "
+                             f"{shape}")
+    if tp_mesh is not None and tp_mesh is not fsdp_mesh:
+        raise ValueError(
+            "fsdp_mesh and tp_mesh must be the SAME composed mesh (one "
+            "Mesh carrying 'fsdp' and 'model'); two distinct meshes "
+            "cannot both lay out the weights")
+    for other, what in ((cp_mesh, "CP"), (ep_mesh, "EP"), (pp_mesh, "PP")):
+        if other is not None:
+            raise ValueError(
+                f"fsdp×{what} is unsupported until its greedy-parity "
+                f"matrix lands (tests/test_sharding_rules.py): compose "
+                f"fsdp with TP only")
+    if sp:
+        raise ValueError(
+            "fsdp×SP is unsupported until its greedy-parity matrix lands: "
+            "compose fsdp with TP only")
+    n_f = shape["fsdp"]
+    for dim, what in ((model_cfg.hidden_size, "hidden_size"),
+                      (model_cfg.vocab_size, "vocab_size")):
+        if dim % n_f:
+            raise ValueError(
+                f"{what}={dim} not divisible by fsdp axis {n_f} "
+                f"(fsdp shards the hidden/vocab dim of every weight)")
+    if engine_cfg.max_batch % shape["data"]:
+        raise ValueError(
+            f"max_batch={engine_cfg.max_batch} not divisible by data axis "
+            f"{shape['data']}")
 
 
 def _int4_leaves(tree) -> bool:
@@ -1376,7 +1430,8 @@ class InferenceEngine(EngineBase):
             raise NotImplementedError(
                 f"the contiguous engine's device meshes (TP/CP/EP/PP/FSDP, "
                 f"sp) are not ported yet ({mesh_item(6)}); the paged "
-                f"engine serves tp_mesh, cp_mesh, ep_mesh and pp_mesh")
+                f"engine serves tp_mesh, cp_mesh, ep_mesh, pp_mesh, "
+                f"fsdp_mesh and sp")
         _check_contiguous_config(engine_cfg, prefix_store)
         self.device = resolve_device(device)
         check_params_device(params, self.device)

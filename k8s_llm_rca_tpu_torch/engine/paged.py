@@ -103,11 +103,27 @@
   tiers and, under PP x EP, the prefix cache are refused with the JAX
   engine's messages.
 
-Not ported yet, and refused loudly when asked for: the FSDP mesh (ROADMAP
-Queue 1 item 10.4), CP with EP, TP with EP, and under a mesh the memory
-tiers (spill, snapshot/restore, the prefix store), ``host_overlap`` and
-speculation (item 10.7); the disaggregated handoff's
-``export_run``/``adopt_run`` (item 11).
+- ``fsdp_mesh`` (alone, or with ``tp_mesh``, the same mesh): a rank
+  stores its block of every matmul weight along the "fsdp" axis
+  (``runtime.sharding.shard_params`` under ``rules.FSDP_LAYOUT``) and the
+  model gathers each weight whole just before the matmul that reads it
+  (``models/llama.py``), so every kernel sees the unsharded engine's
+  bytes and shapes and the streams are the unsharded (or TP-only)
+  engine's.  The pool does not shard on fsdp (``rules.paged_pool_specs``):
+  each fsdp rank holds its TP share of the whole pool.  The decode
+  attention stays on the paged kernels.  fsdp with CP, EP, PP or ``sp``
+  is refused with the JAX engine's messages.
+- ``sp=True`` with ``tp_mesh``: the miss prefills (batched and single)
+  run Megatron sequence parallelism (``models/llama.py``): the residual
+  stream stays split along the sequence over "model", with a gather
+  before and a reduce-scatter after each matmul pair.  Chunk prefill and
+  decode are not sequence-parallel, as in JAX.  A bucket the model axis
+  does not divide is a ValueError.
+
+Not ported yet, and refused loudly when asked for: CP with EP, TP with EP,
+and under a mesh the memory tiers (spill, snapshot/restore, the prefix
+store), ``host_overlap`` and speculation (item 10.7); the disaggregated
+handoff's ``export_run``/``adopt_run`` (item 11).
 """
 
 from __future__ import annotations
@@ -122,8 +138,9 @@ import torch
 from k8s_llm_rca_tpu_torch.config import EngineConfig, ModelConfig
 from k8s_llm_rca_tpu_torch.engine.engine import (
     EngineBase, SequenceResult, _Active, _Pending, check_params_device,
-    dfa_greedy_multi, dfa_scan_step, mesh_item, validate_cp_divisibility,
-    validate_ep_mesh, validate_pp_mesh, validate_tp_mesh,
+    _mesh_shape, dfa_greedy_multi, dfa_scan_step, mesh_item,
+    validate_cp_divisibility, validate_ep_mesh, validate_fsdp_mesh,
+    validate_pp_mesh, validate_tp_mesh,
 )
 from k8s_llm_rca_tpu_torch.engine.graphs import DecodeGraphs
 from k8s_llm_rca_tpu_torch.engine.prefix import (
@@ -1124,21 +1141,15 @@ def check_meshes(model_cfg: ModelConfig, engine_cfg: EngineConfig, params,
                  prefix_store, tp_mesh, cp_mesh, ep_mesh, pp_mesh,
                  fsdp_mesh, cp_seq_axis: str = "seq",
                  pp_microbatches: Optional[int] = None,
-                 pp_stage_axis: str = "stage"):
+                 pp_stage_axis: str = "stage", sp: bool = False):
     """Refuse the meshes and the mesh features not ported (naming their
-    step of ROADMAP Queue 1 item 10) and a misconfigured TP, EP, CP or PP
-    mesh; returns (the mesh the engine runs on, None without one; the CP
-    axis size, 0 without CP; the PP microbatch count, None without PP)."""
-    if fsdp_mesh is not None:
-        if pp_mesh is not None:
-            # the PP arm of JAX's validate_fsdp_mesh
-            raise ValueError(
-                "fsdp×PP is unsupported until its greedy-parity matrix "
-                "lands (tests/test_sharding_rules.py): compose fsdp with "
-                "TP only")
-        raise NotImplementedError(
-            f"fsdp_mesh is not ported yet ({mesh_item(4)}); the paged "
-            f"engine serves tp_mesh, cp_mesh, ep_mesh and pp_mesh")
+    step of ROADMAP Queue 1 item 10) and a misconfigured TP, EP, CP, PP or
+    FSDP mesh; returns (the mesh the engine runs on, None without one; the
+    CP axis size, 0 without CP; the PP microbatch count, None without
+    PP)."""
+    # first: fsdp x PP / CP / EP / SP are JAX's ValueErrors
+    validate_fsdp_mesh(fsdp_mesh, model_cfg, engine_cfg, tp_mesh, cp_mesh,
+                       ep_mesh, pp_mesh, sp)
     # before the TP x EP refusal: PP x TP x EP and PP x CP are JAX's
     # ValueErrors
     pp_m = validate_pp_mesh(pp_mesh, model_cfg, engine_cfg, cp_mesh,
@@ -1153,12 +1164,21 @@ def check_meshes(model_cfg: ModelConfig, engine_cfg: EngineConfig, params,
             f"tp_mesh with ep_mesh (TP x EP) is not ported yet "
             f"({mesh_item(7)})")
     validate_tp_mesh(tp_mesh, model_cfg, cp_mesh, cp_seq_axis)
+    if sp:
+        n_tp = _mesh_shape(tp_mesh)["model"]
+        page = engine_cfg.page_size
+        for b in tuple(engine_cfg.prefill_buckets) + (engine_cfg.max_seq_len,):
+            if (-(-b // page) * page) % n_tp:   # page-rounded, as _bucket
+                raise ValueError(
+                    f"sp=True shards the padded sequence over the model "
+                    f"axis: bucket {-(-b // page) * page} is not divisible "
+                    f"by its size {n_tp}")
     validate_ep_mesh(ep_mesh, model_cfg, engine_cfg)
     n_cp = (_check_cp_config(engine_cfg, prefix_store, cp_mesh, cp_seq_axis)
             if cp_mesh is not None else 0)
     if pp_mesh is not None:
         _check_pp_config(engine_cfg, prefix_store, ep_mesh)
-    mesh = next((m for m in (pp_mesh, tp_mesh, ep_mesh, cp_mesh)
+    mesh = next((m for m in (pp_mesh, tp_mesh, ep_mesh, cp_mesh, fsdp_mesh)
                  if m is not None), None)
     if mesh is None:
         return None, 0, None
@@ -1194,6 +1214,20 @@ def check_meshes(model_cfg: ModelConfig, engine_cfg: EngineConfig, params,
                 f"the {axis} axis needs this rank's shard of the params "
                 f"(runtime.sharding.shard_params): {key} has {got} along "
                 f"dim {dim}, the rank's share is {want}")
+    if fsdp_mesh is not None:
+        want = model_cfg.hidden_size // _mesh_shape(fsdp_mesh)["fsdp"]
+        got = params["layers"][0]["wq"].shape[0]
+        if got != want:
+            raise ValueError(
+                f"the fsdp axis needs this rank's shard of the params "
+                f"(runtime.sharding.shard_params under rules.FSDP_LAYOUT): "
+                f"wq has {got} along dim 0, the rank's share is {want}")
+        if tp_mesh is None and _mesh_shape(fsdp_mesh)["model"] > 1:
+            # shard_params splits the heads over "model": only a TP rank's
+            # model computes on them
+            raise ValueError(
+                "an fsdp_mesh with a 'model' axis above 1 is fsdp×tp: pass "
+                "the same mesh as tp_mesh")
     if pp_mesh is not None:
         want = model_cfg.n_layers // int(pp_mesh.mesh.shape[
             pp_mesh.mesh_dim_names.index(pp_stage_axis)])
@@ -1226,9 +1260,10 @@ class PagedInferenceEngine(EngineBase):
     (``engine/graphs.py``) unless ``cuda_graphs=False``, which runs them
     eagerly; on the CPU they always run eagerly.  ``tp_mesh``,
     ``ep_mesh``, ``cp_mesh`` (``cp_mode`` "ring" or "ulysses" over its
-    ``cp_seq_axis``) and ``pp_mesh`` (``pp_microbatches`` over its
-    ``pp_stage_axis``) serve the model over a device mesh, one engine per
-    rank (module docstring)."""
+    ``cp_seq_axis``), ``pp_mesh`` (``pp_microbatches`` over its
+    ``pp_stage_axis``) and ``fsdp_mesh`` serve the model over a device
+    mesh, one engine per rank; ``sp=True`` makes the TP miss prefills
+    sequence-parallel (module docstring)."""
 
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
                  params, tokenizer: Tokenizer, device=None, *,
@@ -1237,22 +1272,31 @@ class PagedInferenceEngine(EngineBase):
                  cp_mode: str = "ring", ep_mesh=None, pp_mesh=None,
                  pp_microbatches: Optional[int] = None,
                  pp_stage_axis: str = "stage", fsdp_mesh=None,
+                 sp: bool = False,
                  prefix_store: Optional[PrefixStore] = None):
         if cp_mode not in ("ring", "ulysses"):
             raise ValueError(f"unknown cp_mode {cp_mode!r}")
+        if sp and (tp_mesh is None or cp_mesh is not None
+                   or pp_mesh is not None):
+            raise ValueError("sp=True (Megatron sequence parallelism) "
+                             "requires tp_mesh, is exclusive with cp_mesh "
+                             "(CP already seq-shards activations), and is "
+                             "unsupported on the PP paths (the pipelined "
+                             "prefill/decode do not thread sp_mesh)")
         check_engine_config(engine_cfg, prefix_store is not None)
         self.device = resolve_device(device)
         check_params_device(params, self.device)
         self.mesh, n_cp, pp_m = check_meshes(
             model_cfg, engine_cfg, params, self.device, cuda_graphs,
             draft_model, prefix_store, tp_mesh, cp_mesh, ep_mesh, pp_mesh,
-            fsdp_mesh, cp_seq_axis, pp_microbatches, pp_stage_axis)
+            fsdp_mesh, cp_seq_axis, pp_microbatches, pp_stage_axis, sp)
         if self.mesh is not None:
             # this rank's model: its heads, its stage's layers (its pool's
-            # depth), the collectives' groups
+            # depth), the collectives' groups, fsdp and sp
             model_cfg = rank_config(model_cfg, tp_mesh, ep_mesh,
                                     self.device, cp_mesh, cp_seq_axis,
-                                    pp_mesh, pp_stage_axis, pp_m)
+                                    pp_mesh, pp_stage_axis, pp_m, fsdp_mesh,
+                                    sp)
         # PP: misses admit through the pipelined batched prefill, padded to
         # a multiple of the microbatches; hits one at a time through the
         # pipelined chunk prefill

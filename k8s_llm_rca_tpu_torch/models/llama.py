@@ -25,6 +25,29 @@ hidden-sharded embedding in one all-gather along hidden, the lm head over
 the rank's hidden slice in a sum all-reduce of the logits, and quantized
 KV takes the max over the group so every rank writes the full-row scale.
 With ``ep`` the MoE MLP dispatches through ``parallel.moe``'s all-to-all.
+
+With ``fsdp`` (``RankModelConfig.fsdp``; alone or with ``tp``) a rank
+stores only its block of each matmul weight (``runtime.sharding``: the
+non-TP dim, hidden for the blocks, vocab for the embedding and head) and
+gathers the whole weight (its TP shard of it) into one buffer over the
+fsdp group just before the matmul that reads it (``_whole``), so every
+matmul runs on the bytes and shapes of the unsharded model and the gathered
+weight is dead after it.  A forward calls exactly ``7 * n_layers + 1``
+``all_gather_into`` (wq, wk, wv, wo, w_gate, w_up, w_down a layer, the
+stacked experts in place of the MLP's for MoE; the head once; the router
+and the norms are whole) and one sum all-reduce for the embedding: each
+rank looks up the rows of its vocab block, zeros the others, and the sum
+over the group is the lookup (exact: one rank adds each row).
+
+With ``sp`` (Megatron sequence parallelism, TP only) the miss prefills
+(``prefill_kv``, ``_prefill_batch_kv``) keep the residual stream [B, S/t,
+H] per rank: norms on the rank's tokens, one all-gather along the
+sequence before each column-parallel pair (q/k/v, gate/up), a
+reduce-scatter along the sequence after each row-parallel matmul (wo,
+w_down) in place of the sum all-reduce, and one gather of the rows the
+logits need: per dispatch ``2 * n_layers + 1`` ``all_gather_into`` and
+``2 * n_layers`` ``reduce_scatter_sum``, and 1 sum all-reduce (the
+logits).
 """
 
 from __future__ import annotations
@@ -53,7 +76,9 @@ from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
 )
 from k8s_llm_rca_tpu_torch.ops.norms import rms_norm
 from k8s_llm_rca_tpu_torch.ops.rope import apply_rope, rope_frequencies
-from k8s_llm_rca_tpu_torch.runtime.mesh import all_gather, all_reduce_sum
+from k8s_llm_rca_tpu_torch.runtime.mesh import (
+    all_gather, all_gather_into, all_reduce_sum, reduce_scatter_sum,
+)
 from k8s_llm_rca_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -85,9 +110,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     out_scale = scale / math.sqrt(2 * cfg.n_layers)
 
     def dense(shape, s, axis=-1):
+        # scaled in place: one f32 copy of the weight at a time
         w = torch.randn(shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        w = (w * s).to(dtype)
+                        dtype=torch.float32).mul_(s).to(dtype)
         return w if tensor_transform is None else tensor_transform(w,
                                                                    axis=axis)
 
@@ -169,9 +194,13 @@ def params_from_numpy(tree, device=None,
 # ---------------------------------------------------------------------------
 
 
-def _w_mm(cfg: ModelConfig, x: torch.Tensor, w) -> torch.Tensor:
+def _w_mm(cfg: ModelConfig, x: torch.Tensor, w,
+          fsdp_dim: Optional[int] = None) -> torch.Tensor:
     """Every weight matmul: ``x @ dq(w)``, or the fused kernel shim under
-    ``cfg.fused_quant_matmul``."""
+    ``cfg.fused_quant_matmul``.  ``fsdp_dim``: the dim along which ``w`` is
+    stored fsdp-sharded (gathered whole first under ``cfg.fsdp``)."""
+    if fsdp_dim is not None:
+        w = _whole(cfg, w, fsdp_dim)
     if cfg.fused_quant_matmul:
         return qmm(x, w)
     return quant_matmul_plain(x, w)
@@ -182,6 +211,25 @@ def _tp(cfg: ModelConfig):
     return getattr(cfg, "tp", None)
 
 
+def _fsdp(cfg: ModelConfig):
+    """The rank's FSDP axis (``RankModelConfig.fsdp``), None without one."""
+    return getattr(cfg, "fsdp", None)
+
+
+def _whole(cfg: ModelConfig, w, dim: int):
+    """The whole weight (the rank's TP shard of it) from the rank's fsdp
+    block along ``dim``: one ``all_gather_into`` of ``q`` (int4 its packed
+    bytes) or of the tensor; a quantized leaf keeps its whole scale.
+    Without ``cfg.fsdp`` it is ``w``."""
+    fsdp = _fsdp(cfg)
+    if fsdp is None:
+        return w
+    if isinstance(w, (QuantTensor, QuantTensor4)):
+        return type(w)(q=all_gather_into(w.q, fsdp.group, dim),
+                       scale=w.scale)
+    return all_gather_into(w, fsdp.group, dim)
+
+
 def kv_group(cfg: ModelConfig):
     """The group whose max gives a quantized KV row its full-row scale
     (the TP group; None unsharded)."""
@@ -189,21 +237,50 @@ def kv_group(cfg: ModelConfig):
     return None if tp is None else tp.group
 
 
-def _row_mm(cfg: ModelConfig, x: torch.Tensor, w) -> torch.Tensor:
-    """A row-parallel matmul (wo, w_down): under TP each rank's partial
-    product over its rows, summed over the group (JAX's ``psum``)."""
-    out = _w_mm(cfg, x, w)
+def _tp_sum(cfg: ModelConfig, out: torch.Tensor, sp: bool = False
+            ) -> torch.Tensor:
+    """Under TP the sum of the ranks' partial ``out`` [B, S, H] (JAX's
+    ``psum``); with ``sp`` the rank's block of it along the sequence
+    (reduce-scatter)."""
     tp = _tp(cfg)
-    return out if tp is None else all_reduce_sum(out, tp.group)
+    if tp is None:
+        return out
+    if sp:
+        return reduce_scatter_sum(out, tp.group, dim=1)
+    return all_reduce_sum(out, tp.group)
+
+
+def _row_mm(cfg: ModelConfig, x: torch.Tensor, w, sp: bool = False
+            ) -> torch.Tensor:
+    """A row-parallel matmul (wo, w_down; fsdp-stored along its output
+    dim): under TP each rank's partial product over its rows, summed over
+    the group (``_tp_sum``)."""
+    return _tp_sum(cfg, _w_mm(cfg, x, w, fsdp_dim=-1), sp)
 
 
 def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor
           ) -> torch.Tensor:
     """The embedding lookup in the model dtype; under TP the table is
     hidden-sharded, each rank gathers its slice and one all-gather along
-    hidden rebuilds the rows."""
+    hidden rebuilds the rows.  Under FSDP the table is vocab-sharded: each
+    rank looks up the tokens of its block, zeros the others, and one sum
+    over the fsdp group gives every rank the rows."""
     dtype = torch_dtype(cfg.dtype)
-    x = gather_rows(params["embedding"], tokens, dtype).to(dtype)
+    table = params["embedding"]
+    fsdp = _fsdp(cfg)
+    if fsdp is None:
+        x = gather_rows(table, tokens, dtype).to(dtype)
+    else:
+        rows = table.shape[0]
+        if isinstance(table, (QuantTensor, QuantTensor4)):
+            # the whole per-row scale: this block's rows of it
+            table = type(table)(q=table.q, scale=table.scale.narrow(
+                0, fsdp.rank * rows, rows))
+        local = tokens.long() - fsdp.rank * rows
+        mine = (local >= 0) & (local < rows)
+        x = gather_rows(table, local.clamp(0, rows - 1), dtype).to(dtype)
+        x = all_reduce_sum(torch.where(mine[..., None], x, 0.0).to(dtype),
+                           fsdp.group)
     tp = _tp(cfg)
     if tp is not None:
         x = all_gather(x, tp.group, dim=-1).contiguous()
@@ -227,21 +304,25 @@ def _qkv(cfg: ModelConfig, layer: Params, x: torch.Tensor,
          angles: torch.Tensor, positions: torch.Tensor):
     """x [B, S, H] -> q [B, S, n_heads, d], k/v [B, S, n_kv, d] (roped q, k)."""
     b, s, _ = x.shape
-    q = _w_mm(cfg, x, layer["wq"]).reshape(b, s, -1, cfg.head_dim)
-    k = _w_mm(cfg, x, layer["wk"]).reshape(b, s, -1, cfg.head_dim)
-    v = _w_mm(cfg, x, layer["wv"]).reshape(b, s, -1, cfg.head_dim)
+    q = _w_mm(cfg, x, layer["wq"], 0).reshape(b, s, -1, cfg.head_dim)
+    k = _w_mm(cfg, x, layer["wk"], 0).reshape(b, s, -1, cfg.head_dim)
+    v = _w_mm(cfg, x, layer["wv"], 0).reshape(b, s, -1, cfg.head_dim)
     return apply_rope(q, angles, positions), apply_rope(k, angles, positions), v
 
 
-def _mlp(cfg: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
+def _mlp(cfg: ModelConfig, layer: Params, x: torch.Tensor,
+         sp: bool = False) -> torch.Tensor:
+    """The MLP (or the MoE MLP) of a block; with ``sp`` the output is the
+    rank's block along the sequence (``_tp_sum``)."""
     if cfg.n_experts > 0:
         if getattr(cfg, "ep", None) is not None:
             from k8s_llm_rca_tpu_torch.parallel.moe import moe_mlp_ep
 
             return moe_mlp_ep(cfg, layer, x)
-        return _moe_mlp(cfg, layer, x)
-    gate = F.silu(_w_mm(cfg, x, layer["w_gate"]))
-    return _row_mm(cfg, gate * _w_mm(cfg, x, layer["w_up"]), layer["w_down"])
+        return _moe_mlp(cfg, layer, x, sp)
+    gate = F.silu(_w_mm(cfg, x, layer["w_gate"], 0))
+    return _row_mm(cfg, gate * _w_mm(cfg, x, layer["w_up"], 0),
+                   layer["w_down"], sp)
 
 
 def _moe_route(router_logits: torch.Tensor, k: int
@@ -257,7 +338,8 @@ def _moe_route(router_logits: torch.Tensor, k: int
     return topi, torch.zeros_like(router_logits).scatter_(-1, topi, weights)
 
 
-def _moe_mlp(cfg: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
+def _moe_mlp(cfg: ModelConfig, layer: Params, x: torch.Tensor,
+             sp: bool = False) -> torch.Tensor:
     """Mixtral sparse-MoE MLP, the dense soft-dispatch form of JAX's
     ``llama._moe_mlp``: every expert runs on every token (padding rows
     included) and the top-k router weights zero out the rest.  The router
@@ -265,34 +347,45 @@ def _moe_mlp(cfg: ModelConfig, layer: Params, x: torch.Tensor) -> torch.Tensor:
     break the same way.  Under ``fused_quant_matmul`` the stacked einsums
     go through ``qmm_experts`` (the ekn kernels on the card); gate and up
     are combined in place, so a 5120-row prefill holds two [B, S, E, I]
-    tensors, not four."""
+    tensors, not four.  Under FSDP the stacked experts are stored along
+    hidden ([E, H/f, I], [E, I, H/f]) and gathered on use; the router is
+    whole."""
     router_logits = _w_mm(cfg, x, layer["router"]).float()       # [B,S,E]
     _, dense_w = _moe_route(router_logits, cfg.n_experts_per_tok)
     experts = (qmm_experts if cfg.fused_quant_matmul
                else quant_matmul_experts_plain)
-    h = F.silu(experts(x, layer["w_gate"]))
-    h.mul_(experts(x, layer["w_up"]))
-    per_expert = experts(h, layer["w_down"])                     # [B,S,E,H]
+    h = F.silu(experts(x, _whole(cfg, layer["w_gate"], 1)))
+    h.mul_(experts(x, _whole(cfg, layer["w_up"], 1)))
+    per_expert = experts(h, _whole(cfg, layer["w_down"], -1))    # [B,S,E,H]
     out = torch.einsum("bseh,bse->bsh", per_expert, dense_w.to(x.dtype))
-    tp = _tp(cfg)
     # under TP the experts' inner dim is the rank's: partial sums
-    return out if tp is None else all_reduce_sum(out, tp.group)
+    return _tp_sum(cfg, out, sp)
 
 
 def _block_prefill(cfg: ModelConfig, layer: Params, x: torch.Tensor,
                    angles: torch.Tensor, positions: torch.Tensor,
-                   seq_lens: Optional[torch.Tensor], attention_fn=None):
+                   seq_lens: Optional[torch.Tensor], attention_fn=None,
+                   sp: bool = False):
     """One transformer block over full right-padded sequences; attention
     runs through ``ops.flash_attention``, or ``attention_fn(q, k, v)`` (the
-    context-parallel ring or all-to-all)."""
+    context-parallel ring or all-to-all).  With ``sp`` (TP) ``x`` is the
+    rank's block [B, S/t, H] of the sequence: the normed stream is
+    gathered along the sequence before q/k/v and before gate/up, and wo
+    and w_down reduce-scatter back to the block; ``positions`` and the
+    returned k/v cover the whole sequence."""
+    group = _tp(cfg).group if sp else None
     h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+    if sp:
+        h = all_gather_into(h, group, dim=1)
     q, k, v = _qkv(cfg, layer, h, angles, positions)
     attn = (prefill_attention(cfg, q, k, v, seq_lens) if attention_fn is None
             else attention_fn(q, k, v))
     b, s = attn.shape[:2]
-    x = x + _row_mm(cfg, attn.reshape(b, s, cfg.q_dim), layer["wo"])
+    x = x + _row_mm(cfg, attn.reshape(b, s, cfg.q_dim), layer["wo"], sp)
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
-    return x + _mlp(cfg, layer, h), k, v
+    if sp:
+        h = all_gather_into(h, group, dim=1)
+    return x + _mlp(cfg, layer, h, sp), k, v
 
 
 def _decode_qkv(cfg: ModelConfig, layer: Params, x: torch.Tensor,
@@ -313,9 +406,11 @@ def _decode_finish(cfg: ModelConfig, layer: Params, x: torch.Tensor,
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """fp32 logits; under TP the head is hidden-sharded: each rank's
-    partial logits over its hidden slice, summed over the group."""
+    partial logits over its hidden slice, summed over the group.  Under
+    FSDP the head (vocab-sharded) is gathered whole first."""
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
+    head = _whole(cfg, params["embedding"] if cfg.tie_embeddings
+                  else params["lm_head"], 0)
     tp = _tp(cfg)
     if tp is not None:
         h = x.shape[-1] // tp.size
@@ -347,23 +442,64 @@ def _angles(cfg: ModelConfig, device) -> torch.Tensor:
     return table
 
 
+def _sp(cfg: ModelConfig) -> bool:
+    """True when the rank's TP prefill is sequence-parallel
+    (``RankModelConfig.sp``, set only with TP)."""
+    return bool(getattr(cfg, "sp", False))
+
+
+def _sp_block(cfg: ModelConfig, s_pad: int) -> slice:
+    """The rank's block of a padded sequence under SP."""
+    tp = _tp(cfg)
+    if s_pad % tp.size:
+        raise ValueError(
+            f"sp=True shards the padded sequence over the model axis: "
+            f"bucket {s_pad} is not divisible by its size {tp.size}")
+    s_loc = s_pad // tp.size
+    return slice(tp.rank * s_loc, (tp.rank + 1) * s_loc)
+
+
+def _sp_last_rows(cfg: ModelConfig, x: torch.Tensor,
+                  lengths: torch.Tensor) -> torch.Tensor:
+    """Each row's last valid token [N, 1, H] from the ranks' sequence
+    blocks x [N, S/t, H]: every rank offers the row at its offset in its
+    block, one gather, and each row takes its owner's (decided on the
+    device)."""
+    n, s_loc = x.shape[:2]
+    last = lengths.long() - 1
+    rows = torch.arange(n, device=x.device)
+    mine = x[rows, last % s_loc][:, None]                       # [N, 1, H]
+    parts = all_gather_into(mine, _tp(cfg).group)                # [t*N, 1, H]
+    return parts.view(-1, n, 1, x.shape[-1])[last // s_loc, rows]
+
+
 def prefill_kv(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                length: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the stack over ONE right-padded sequence: tokens [1, S_pad],
     ``length`` valid tokens.  Returns (new_k [L, S_pad, n_kv, d], new_v,
-    logits [1, V] of the last valid token)."""
+    logits [1, V] of the last valid token).  Sequence-parallel under
+    ``cfg.sp`` (module docstring)."""
     dev = tokens.device
     s_pad = tokens.shape[1]
     angles = _angles(cfg, dev)
     positions = torch.arange(s_pad, device=dev)[None, :]
     seq_lens = torch.tensor([int(length)], dtype=torch.int32, device=dev)
+    sp = _sp(cfg)
     x = embed(cfg, params, tokens)
+    if sp:
+        # every rank looks up every token (the table is hidden-sharded),
+        # then keeps its block of the sequence
+        x = x[:, _sp_block(cfg, s_pad)].contiguous()
     ks, vs = [], []
     for layer in params["layers"]:
-        x, k, v = _block_prefill(cfg, layer, x, angles, positions, seq_lens)
+        x, k, v = _block_prefill(cfg, layer, x, angles, positions, seq_lens,
+                                 sp=sp)
         ks.append(k[0])
         vs.append(v[0])
-    last = x[:, int(length) - 1:int(length)]                # [1, 1, H]
+    if sp:
+        last = _sp_last_rows(cfg, x, seq_lens)
+    else:
+        last = x[:, int(length) - 1:int(length)]            # [1, 1, H]
     return torch.stack(ks), torch.stack(vs), _logits(cfg, params, last)[:, 0]
 
 
@@ -372,18 +508,27 @@ def _prefill_batch_kv(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched prefill without a cache write: tokens [N, S_pad], lengths
     [N] int32 -> (new_k [L, N, S_pad, kv_dim], new_v, logits [N, V] at each
-    row's last valid token)."""
+    row's last valid token).  Sequence-parallel under ``cfg.sp``."""
     dev = tokens.device
     n, s_pad = tokens.shape
     angles = _angles(cfg, dev)
     positions = torch.arange(s_pad, device=dev)[None, :].expand(n, s_pad)
+    sp = _sp(cfg)
     x = embed(cfg, params, tokens)
+    if sp:
+        # every rank looks up every token (the table is hidden-sharded),
+        # then keeps its block of the sequence
+        x = x[:, _sp_block(cfg, s_pad)].contiguous()
     ks, vs = [], []
     for layer in params["layers"]:
-        x, k, v = _block_prefill(cfg, layer, x, angles, positions, lengths)
+        x, k, v = _block_prefill(cfg, layer, x, angles, positions, lengths,
+                                 sp=sp)
         ks.append(k.reshape(n, s_pad, cfg.kv_dim))
         vs.append(v.reshape(n, s_pad, cfg.kv_dim))
-    last = x[torch.arange(n, device=dev), lengths.long() - 1][:, None]
+    if sp:
+        last = _sp_last_rows(cfg, x, lengths)
+    else:
+        last = x[torch.arange(n, device=dev), lengths.long() - 1][:, None]
     return torch.stack(ks), torch.stack(vs), _logits(cfg, params, last)[:, 0]
 
 

@@ -19,8 +19,9 @@ one rank.
   timeout that raises): the tests' and ``chip_smoke.py``'s stand-in for
   JAX's ``cpu_mesh_for_tests``.
 - The collectives the sharded model calls (sum and max all-reduce,
-  all-gather along an axis, all-to-all along any split and concat dims,
-  the ring step ``ppermute``) count their calls in ``.calls``,
+  all-gather along an axis, as parts or into one buffer, the sum
+  reduce-scatter, all-to-all along any split and concat dims, the ring
+  step ``ppermute``) count their calls in ``.calls``,
   as the kernel wrappers count launches, so a run can prove that the
   sharded path ran.  They are called on every rank in the same order; a
   size-1 group still calls the backend, except ``ppermute``'s (a rank
@@ -204,6 +205,72 @@ def _on_gloo_card(x: torch.Tensor, group) -> bool:
     return x.is_cuda and dist.get_backend(group) == "gloo"
 
 
+def _pinned(shape, dtype) -> torch.Tensor:
+    """A host buffer in page-locked memory (PyTorch's caching host
+    allocator keeps it for the next request of its size): a gloo
+    collective over card tensors stages through it, the copies at the
+    link's rate and with no page faults."""
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
+def all_gather_into(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in group-rank order, as
+    ``all_gather``, but gathered into ONE buffer (``all_gather_into_tensor``)
+    instead of n parts and a ``torch.cat``: along dim 0 the buffer is the
+    result, so each gathered byte is written once.  Along another dim the
+    rank-major buffer is moved into place, a second write where both the
+    group and the dims before ``dim`` are wider than one.  Over gloo a card
+    tensor goes through page-locked host copies."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    staged = _on_gloo_card(x, group)
+    shape = (n * x.shape[0], *x.shape[1:])
+    if staged:
+        send = _pinned(x.shape, x.dtype).copy_(x)
+        out = _pinned(shape, x.dtype)
+    else:
+        send = x
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, send, group=group)
+    all_gather_into.calls += 1
+    if staged:
+        out = out.to(x.device)
+    dim %= x.dim()
+    if dim == 0:
+        return out
+    shape = list(x.shape)
+    shape[dim] *= n
+    return out.view(n, *x.shape).movedim(0, dim).reshape(shape)
+
+
+def reduce_scatter_sum(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Split ``x`` along ``dim`` into one equal block per rank and return
+    this rank's block summed over ``group`` (``reduce_scatter_tensor``):
+    the sum all-reduce of ``x`` followed by taking the rank's block, with
+    1/n of the result written.  Over gloo a card tensor goes through
+    page-locked host copies."""
+    n = dist.get_world_size(group)
+    dim %= x.dim()
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                         f"split into {n} equal parts")
+    # the blocks rank-major: [n, ...block] (a view where dim is 0 or the
+    # dims before it are all one)
+    blocks = x.unflatten(dim, (n, x.shape[dim] // n)).movedim(dim, 0)
+    send = blocks.contiguous()
+    staged = _on_gloo_card(send, group)
+    if staged:
+        send = _pinned(send.shape, send.dtype).copy_(send)
+        out = _pinned(send.shape[1:], send.dtype)
+    else:
+        out = torch.empty(send.shape[1:], dtype=send.dtype,
+                          device=send.device)
+    dist.reduce_scatter_tensor(out, send.view(-1, *send.shape[2:]),
+                               op=dist.ReduceOp.SUM, group=group)
+    reduce_scatter_sum.calls += 1
+    return out.to(x.device) if staged else out
+
+
 def all_to_all(x: torch.Tensor, group, split_dim: int = 0,
                concat_dim: int = 0) -> torch.Tensor:
     """Split ``x`` along ``split_dim`` into one equal chunk per rank, send
@@ -254,7 +321,7 @@ def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
 
 
 COLLECTIVES = (all_reduce_sum, all_reduce_max, all_gather, all_to_all,
-               ppermute)
+               ppermute, all_gather_into, reduce_scatter_sum)
 for _fn in COLLECTIVES:
     _fn.calls = 0
 

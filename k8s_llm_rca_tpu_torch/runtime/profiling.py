@@ -19,6 +19,11 @@
   longest matching prefix: NVIDIA H100 (SXM data sheet, dense bf16 989
   TFLOP/s, HBM3 3350 GB/s).  Any other device (the CPU included) has no
   entry and gets None, as JAX's do off its table.
+- FSDP (reported, not gated; the counterparts of the JAX bench's
+  ``fsdp_hbm_params_bytes_per_chip`` and ``fsdp_allgather_ms``):
+  ``param_bytes`` of a rank's tree, ``fsdp_gather_bytes`` (what a forward
+  gathers) and ``fsdp_gather_link_ms``, the least time a rank receives
+  its peers' blocks of those over NVLink.
 - Under PP a rank's config (``runtime.sharding.RankModelConfig``) has its
   stage's ``n_layers``, so the model counts the weights and KV of the
   stage's layers plus the whole embedding and head the rank holds: the
@@ -52,6 +57,13 @@ _PEAK_TFLOPS = {
 # the ceiling of decode at small context
 _HBM_GBPS = {
     "NVIDIA H100": 3350.0,
+}
+
+# NVLink GB/s each way per card (same keys): H100 SXM data sheet, 900 GB/s
+# of NVLink 4 per card in both directions together, 450 each way; the
+# floor of an fsdp gather between cards
+_NVLINK_GBPS = {
+    "NVIDIA H100": 450.0,
 }
 
 
@@ -261,6 +273,52 @@ def roofline_decode_tps(cfg: ModelConfig, context_len: int, batch: int,
     memory = bw * 1e9 / decode_bytes_per_token(cfg, context_len, batch,
                                                weight_bits, kv_bits)
     return min(compute, memory)
+
+
+def param_bytes(params) -> int:
+    """The bytes of a rank's parameter tree (quantized leaves' codes and
+    scales): under FSDP the rank's blocks, the counterpart of the JAX
+    bench's ``fsdp_hbm_params_bytes_per_chip``."""
+    from k8s_llm_rca_tpu_torch.runtime.rules import flatten_with_names
+
+    total = 0
+    for _, leaf in flatten_with_names(params):
+        parts = tuple(leaf) if hasattr(leaf, "_fields") else (leaf,)
+        total += sum(t.numel() * t.element_size() for t in parts
+                     if t is not None)
+    return total
+
+
+# the leaves a forward gathers under FSDP (models/llama.py): every layer's
+# matmul weights (MoE: the stacked experts; the router is whole) and the
+# head
+_GATHERED = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def fsdp_gather_bytes(cfg: ModelConfig, params, n_fsdp: int) -> int:
+    """The bytes one forward of a rank gathers under FSDP: ``n_fsdp`` times
+    the stored codes (int4: packed bytes) or tensor of every gathered leaf
+    of the rank's ``params``.  The embedding is looked up per rank, not
+    gathered, unless it is the tied head."""
+    def codes(w):
+        return getattr(w, "q", w)
+
+    leaves = [codes(layer[k]) for layer in params["layers"]
+              for k in _GATHERED]
+    leaves.append(codes(params["embedding"] if cfg.tie_embeddings
+                        else params["lm_head"]))
+    return n_fsdp * sum(t.numel() * t.element_size() for t in leaves)
+
+
+def fsdp_gather_link_ms(gathered_bytes: int, n_fsdp: int,
+                        device: Optional[Any] = None) -> Optional[float]:
+    """The least ms a rank spends receiving its peers' blocks of
+    ``gathered_bytes`` ((n - 1)/n of them) over NVLink at the card's
+    rate each way; 0 on one rank, None off the table."""
+    link = _longest_prefix(_NVLINK_GBPS, _device_kind(device))
+    if link is None:
+        return None
+    return gathered_bytes * (n_fsdp - 1) / n_fsdp / (link * 1e9) * 1e3
 
 
 def pp_bubble_fraction(n_stages: int, microbatches: int) -> float:

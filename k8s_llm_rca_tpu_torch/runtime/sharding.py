@@ -23,6 +23,16 @@ pairs columns i and i + C/2, which a contiguous column block does not
 keep) and the rank's group is handed over as a plain ``QuantTensor4`` of
 its own columns, as JAX's ``parallel/pipeline.py::_stage_local_params``
 unwraps it inside a stage body.
+
+Under ``FSDP_LAYOUT`` a spec entry "fsdp" (the non-TP matmul dim: hidden
+for the blocks, vocab for the embedding and head) splits the leaf only
+for STORAGE: the rank keeps its fsdp block and the model gathers the
+whole leaf on use (``models/llama.py``).  So the TP block is taken first,
+as above, and the fsdp block is a contiguous slice of its result: of the
+packed bytes for int4 (no repack: the gather reassembles the bytes, it
+never computes on a block's columns), and of ``q`` only for any
+quantized leaf, whose scale stays whole on every rank (1/K of the
+weight's bytes), so a leaf is one gather.
 """
 
 from __future__ import annotations
@@ -142,9 +152,49 @@ def leaf_block(leaf, parts, device=None):
     return place(leaf, parts)
 
 
+FSDP_AXIS = FSDP_LAYOUT.fsdp
+
+
+def fsdp_block(leaf, dim: int, n: int, i: int, device=None):
+    """Block ``i`` of ``n`` along ``dim`` of one (TP-sharded) leaf, on
+    ``device`` (default: where the leaf lives), as a tensor of its own: a
+    contiguous slice of ``q`` (the packed bytes of an int4 leaf) and the
+    whole scale for a quantized leaf.  ``n`` <= 1 is the leaf itself."""
+    leaf = _as_torch(leaf)
+    if n <= 1:
+        return leaf_block(leaf, (), device)
+
+    def cut(t):
+        if t.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
+                             f"split into {n} equal fsdp blocks")
+        size = t.shape[dim] // n
+        part = t.narrow(dim, i * size, size)
+        out = torch.empty(part.shape, dtype=t.dtype,
+                          device=device or t.device)
+        return out.copy_(part)
+
+    if isinstance(leaf, (QuantTensor, QuantTensor4)):
+        return type(leaf)(q=cut(leaf.q),
+                          scale=leaf.scale.to(device or leaf.scale.device))
+    return cut(leaf)
+
+
 def shard_leaf(leaf, spec: PartitionSpec, mesh, device=None):
-    """This rank's block of one leaf under ``spec`` (``leaf_block``)."""
-    return leaf_block(leaf, dim_parts(spec, mesh), device)
+    """This rank's block of one leaf under ``spec`` (``leaf_block``); an
+    "fsdp" entry takes the rank's fsdp block of its TP block
+    (``fsdp_block``)."""
+    dims = [d for d, e in enumerate(spec) if e == FSDP_AXIS]
+    if any(isinstance(e, tuple) and FSDP_AXIS in e for e in spec) \
+            or len(dims) > 1:
+        raise ValueError(f"spec {spec!r}: the fsdp axis shards one "
+                         f"dimension of a leaf, on its own")
+    if not dims:
+        return leaf_block(leaf, dim_parts(spec, mesh), device)
+    tp = PartitionSpec(*(None if e == FSDP_AXIS else e for e in spec))
+    return fsdp_block(leaf_block(leaf, dim_parts(tp, mesh)), dims[0],
+                      axis_size(mesh, FSDP_AXIS), axis_rank(mesh, FSDP_AXIS),
+                      device)
 
 
 def shard_params(tree: PyTree, specs: PyTree, mesh, device=None) -> PyTree:
@@ -256,26 +306,44 @@ class PipelineParallel:
     microbatches: int
 
 
+@dataclass(frozen=True, eq=False)
+class FullyShardedDP:
+    """This rank's place on the FSDP axis: the group that gathers each
+    weight on use (``models/llama.py``), its size and this rank's index
+    (the block of every weight it stores)."""
+
+    group: Any
+    size: int
+    rank: int
+
+
 @dataclass(frozen=True)
 class RankModelConfig(ModelConfig):
     """A ``ModelConfig`` as one rank of a mesh runs it: ``n_heads`` and
     ``n_kv_heads`` are this rank's share (so ``q_dim``/``kv_dim`` are its
     lanes and its paged pool holds only its heads), ``n_layers`` its
     stage's under PP (so its pool holds only its layers), and ``tp``/
-    ``ep``/``cp``/``pp`` carry the groups of the collectives the forward
-    calls.  Everything else is the model's."""
+    ``ep``/``cp``/``pp``/``fsdp`` carry the groups of the collectives the
+    forward calls.  ``sp``: the TP miss prefills keep the residual stream
+    split along the sequence (Megatron SP).  Everything else is the
+    model's."""
 
     tp: Optional[TensorParallel] = None
     ep: Optional[ExpertParallel] = None
     cp: Optional[ContextParallel] = None
     pp: Optional[PipelineParallel] = None
+    fsdp: Optional[FullyShardedDP] = None
+    sp: bool = False
 
 
 def rank_config(cfg: ModelConfig, tp_mesh=None, ep_mesh=None,
                 device=None, cp_mesh=None, cp_seq_axis: str = "seq",
                 pp_mesh=None, pp_stage_axis: str = "stage",
-                pp_microbatches: Optional[int] = None) -> RankModelConfig:
-    """``cfg`` for this rank of ``tp_mesh`` (heads divided over "model"),
+                pp_microbatches: Optional[int] = None, fsdp_mesh=None,
+                sp: bool = False) -> RankModelConfig:
+    """``cfg`` for this rank of ``tp_mesh`` (heads divided over "model";
+    ``sp`` the sequence-parallel TP prefill), ``fsdp_mesh`` (every
+    matmul weight stored as its block over "fsdp", gathered on use),
     ``ep_mesh`` (experts over "expert", tokens over "data" x "expert"; the
     drop counter on ``device``), ``cp_mesh`` (the sequence and the paged
     pool's pages over ``cp_seq_axis``) and ``pp_mesh`` (the layers over
@@ -287,7 +355,11 @@ def rank_config(cfg: ModelConfig, tp_mesh=None, ep_mesh=None,
 
     base = {f.name: getattr(cfg, f.name)
             for f in dataclasses.fields(ModelConfig)}
-    tp = ep = cp = pp = None
+    tp = ep = cp = pp = fsdp = None
+    if fsdp_mesh is not None:
+        fsdp = FullyShardedDP(axis_group(fsdp_mesh, FSDP_AXIS),
+                              axis_size(fsdp_mesh, FSDP_AXIS),
+                              axis_rank(fsdp_mesh, FSDP_AXIS))
     if tp_mesh is not None:
         n = axis_size(tp_mesh, "model")
         tp = TensorParallel(tp_mesh, axis_group(tp_mesh, "model"), n,
@@ -308,4 +380,5 @@ def rank_config(cfg: ModelConfig, tp_mesh=None, ep_mesh=None,
                               axis_rank(pp_mesh, pp_stage_axis),
                               pp_microbatches or n)
         base.update(n_layers=cfg.n_layers // n)
-    return RankModelConfig(**base, tp=tp, ep=ep, cp=cp, pp=pp)
+    return RankModelConfig(**base, tp=tp, ep=ep, cp=cp, pp=pp, fsdp=fsdp,
+                           sp=bool(sp and tp is not None))

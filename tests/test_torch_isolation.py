@@ -181,6 +181,24 @@ def test_sources_cover_the_pp_slice():
     assert "import jax" not in top and "k8s_llm_rca_tpu." not in top
 
 
+def test_sources_cover_the_fsdp_slice():
+    """FSDP and sequence parallelism live in the port's own mesh, sharding,
+    model and profiling modules (the import tests above hold them to no
+    jax and no JAX package), and the FSDP test module's ranks import no
+    JAX at its top."""
+    names = {p.relative_to(PORT).as_posix() for p in SOURCES if PORT in
+             p.parents}
+    assert {"runtime/mesh.py", "runtime/sharding.py", "models/llama.py",
+            "runtime/profiling.py", "engine/paged.py"} <= names
+    for path in SOURCES:
+        text = path.read_text()
+        if "def validate_fsdp_mesh" in text or "def all_gather_into" in text:
+            assert PORT in path.parents
+    test_module = (ROOT / "tests" / "test_torch_fsdp.py").read_text()
+    top = test_module.split("\ndef ", 1)[0]
+    assert "import jax" not in top and "k8s_llm_rca_tpu." not in top
+
+
 def test_sources_cover_the_durability_slice():
     """Serving durability and the sweep drivers are the port's own copies
     (the import test above holds them to no jax and no JAX package)."""
@@ -376,17 +394,25 @@ def test_kv_cache_dtype_fp8_raises_like_jax():
 @pytest.mark.parametrize("meshes,error,match", [
     (("cp_mesh", "ep_mesh"), NotImplementedError, "Queue 1 item 10"),
     (("pp_mesh", "cp_mesh"), ValueError, "mutually exclusive by design"),
-    (("fsdp_mesh",), NotImplementedError, "Queue 1 item 10"),
+    (("fsdp_mesh", "cp_mesh"), ValueError, "fsdp×CP is unsupported"),
 ], ids=["cp_ep", "pp_cp", "fsdp_mesh"])
 def test_meshes_raise(meshes, error, match):
-    """The paged engine's meshes not ported yet, FSDP and CP composed with
-    EP (cp_mesh alone and with tp_mesh is served since the CP slice), and
-    PP with CP, which JAX refuses by design (pp_mesh alone, with tp_mesh
-    or with ep_mesh is served since the PP slice)."""
+    """The paged engine's compositions not ported yet, CP with EP (cp_mesh
+    alone and with tp_mesh is served since the CP slice), and those JAX
+    refuses: PP with CP, by design (pp_mesh alone, with tp_mesh or with
+    ep_mesh is served since the PP slice), and FSDP with CP (fsdp_mesh
+    alone and with tp_mesh is served since the FSDP slice).  The meshes
+    are stand-ins with the six axes of size one: the refusals come before
+    anything else reads them."""
+    import types
+
+    mesh = types.SimpleNamespace(
+        mesh_dim_names=("data", "fsdp", "model", "expert", "seq", "stage"),
+        mesh=torch.zeros((1,) * 6))
     cfg, ecfg, params, tok = _tiny_engine_args()
     with pytest.raises(error, match=match):
         make_engine(cfg, ecfg, params, tok, device="cpu",
-                    **{mesh: object() for mesh in meshes})
+                    **{name: mesh for name in meshes})
 
 
 @pytest.mark.parametrize("mesh", ["tp_mesh", "cp_mesh", "ep_mesh", "pp_mesh",
@@ -418,13 +444,15 @@ def _serves(engine, n_tokens=3) -> None:
     engine.allocator.check()
 
 
-@pytest.mark.parametrize("mesh", ["tp_mesh", "ep_mesh", "pp_mesh"])
+@pytest.mark.parametrize("mesh", ["tp_mesh", "ep_mesh", "pp_mesh",
+                                  "fsdp_mesh", "sp"])
 def test_meshes_build_and_serve_on_one_rank(one_rank_group, mesh):
-    """tp_mesh, ep_mesh and pp_mesh (two microbatches) build the paged
-    engine on a 1-rank gloo mesh and serve through the sharded or
-    pipelined path (its collectives counted)."""
+    """tp_mesh, ep_mesh, pp_mesh (two microbatches), fsdp_mesh and tp_mesh
+    with sp=True build the paged engine on a 1-rank gloo mesh and serve
+    through the sharded, pipelined, gathered or sequence-parallel path
+    (its collectives counted)."""
     from k8s_llm_rca_tpu_torch.runtime.sharding import (
-        llama_param_specs, shard_params, shard_stage_params,
+        FSDP_LAYOUT, llama_param_specs, shard_params, shard_stage_params,
     )
 
     cfg, ecfg, params, tok = _tiny_engine_args()
@@ -436,6 +464,14 @@ def test_meshes_build_and_serve_on_one_rank(one_rank_group, mesh):
     if mesh == "pp_mesh":
         engine = make_engine(cfg, ecfg, shard_stage_params(params, cfg, m),
                              tok, device="cpu", pp_mesh=m, pp_microbatches=2)
+    elif mesh == "fsdp_mesh":
+        engine = make_engine(cfg, ecfg, shard_params(
+            params, llama_param_specs(cfg, FSDP_LAYOUT), m), tok,
+            device="cpu", fsdp_mesh=m)
+    elif mesh == "sp":
+        engine = make_engine(cfg, ecfg,
+                             shard_params(params, llama_param_specs(cfg), m),
+                             tok, device="cpu", tp_mesh=m, sp=True)
     else:
         engine = make_engine(cfg, ecfg,
                              shard_params(params, llama_param_specs(cfg), m),
@@ -443,7 +479,8 @@ def test_meshes_build_and_serve_on_one_rank(one_rank_group, mesh):
     _serves(engine)
     counts = one_rank_group.collective_counts()
     key = {"tp_mesh": "all_reduce_sum", "ep_mesh": "all_to_all",
-           "pp_mesh": "ppermute"}[mesh]
+           "pp_mesh": "ppermute", "fsdp_mesh": "all_gather_into",
+           "sp": "reduce_scatter_sum"}[mesh]
     assert counts[key] > 0, counts
 
 

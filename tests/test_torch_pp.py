@@ -27,6 +27,7 @@ Counterparts: ``tests/test_parallel.py`` (``pipeline_apply`` :64,
 TP paged engine :1629, PP x EP :1676, the refusals :1864 and :1910).
 """
 
+import copy
 import types
 from concurrent.futures import ThreadPoolExecutor
 
@@ -389,10 +390,15 @@ def spawned(inputs, tmp_path_factory):
     test that needs the ranks waits for them."""
     from k8s_llm_rca_tpu_torch.runtime.mesh import run_ranks
 
+    # the ranks get a copy: handing a tensor to a spawned process moves its
+    # storage into shared memory and frees the old buffer, which a JAX
+    # array made from it meanwhile (on the CPU JAX aliases the numpy
+    # memory) would go on reading
     with ThreadPoolExecutor(1) as pool:
         yield pool.submit(run_ranks, _ranks, 4,
                           str(tmp_path_factory.mktemp("pp")),
-                          args=(inputs,), timeout_s=RANKS_TIMEOUT_S)
+                          args=(copy.deepcopy(inputs),),
+                          timeout_s=RANKS_TIMEOUT_S)
 
 
 @pytest.fixture(scope="module")
@@ -694,9 +700,10 @@ def test_pp_engine_refuses_like_jax(name):
 
 
 def test_fsdp_with_pp_raises_jax_refusal():
-    """fsdp x PP raises the PP arm of JAX's ``validate_fsdp_mesh``; fsdp
-    alone still raises naming ROADMAP Queue 1 item 10.4, and the
-    contiguous engine's PP entry points item 10.6."""
+    """fsdp x PP raises the PP arm of JAX's ``validate_fsdp_mesh`` (fsdp
+    alone is served since the FSDP slice); the contiguous engine's
+    ``fsdp_mesh`` and ``sp=True`` and its PP entry points raise naming
+    item 10.6."""
     from k8s_llm_rca_tpu_torch.engine import make_engine
     from k8s_llm_rca_tpu_torch.models.llama import init_params
     from k8s_llm_rca_tpu_torch.parallel import pipeline
@@ -707,9 +714,12 @@ def test_fsdp_with_pp_raises_jax_refusal():
             init_params(cfg, torch.Generator(), "cpu"),
             get_tokenizer(vocab_size=512), "cpu")
     with pytest.raises(ValueError, match="fsdp×PP is unsupported"):
-        make_engine(*args, fsdp_mesh=object(), pp_mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10.4"):
-        make_engine(*args, fsdp_mesh=object())
+        make_engine(*args, fsdp_mesh=_fake_mesh(fsdp=2),
+                    pp_mesh=_fake_mesh(stage=2))
+    contiguous = (cfg, config.EngineConfig(paged=False), *args[2:])
+    for kw in ({"fsdp_mesh": _fake_mesh(fsdp=2)}, {"sp": True}):
+        with pytest.raises(NotImplementedError, match="item 10.6"):
+            make_engine(*contiguous, **kw)
     for fn in (pipeline.llama_pp_prefill, pipeline.llama_pp_decode_step,
                pipeline.llama_pp_decode_multi):
         with pytest.raises(NotImplementedError, match="item 10.6"):
