@@ -198,6 +198,9 @@ count the launches a replay makes.
    only at a near-tie, ``NEAR_TIE``) with its acceptance; then the CLI
    without ``--paged`` on 8B, one incident.
 
+Phases 10-13 run Llama-3-8B cut to 8 layers and Mixtral-8x7B cut to 4
+(``MESH_LAYERS``; at full width) wherever they do not cut it further.
+
 10. mesh: tensor and expert parallelism (slice 15; ``--mesh`` runs it
    alone after phase 3's mesh-rank cases, with no result line) under a
    1-rank nccl process group.  (a) Llama-3-8B bf16 on the slice engine
@@ -243,8 +246,8 @@ count the launches a replay makes.
    wall and event ms beside the unsharded one's, the peak GB, the bubble
    fraction; then the first prompt resubmitted, which must hit through
    the pipelined chunk prefill; (b) the same with int4 weights over an
-   int4 pool; (c) Llama-3-8B bf16 at full depth at PP = 2 as two gloo
-   processes on the one card (eager), each making only its 16 layers:
+   int4 pool; (c) Llama-3-8B bf16 at PP = 2 as two gloo processes on
+   the one card (eager), each making only its stage's layers:
    the ranks equal, held to the 1-rank run to a near-tie, each rank's
    peak GB; (d) 8B cut to 4 layers with int4 weights over an int4 pool
    at PP = 2 x TP = 2 as four gloo processes: the ranks equal; (e)
@@ -264,11 +267,11 @@ count the launches a replay makes.
    gathers (``runtime/profiling.py``, with the least NVLink time of those
    at fsdp 2); then the first prompt resubmitted, which must hit through
    the chunk prefill; (b) the same with int4 weights over an int4 pool;
-   (c) Llama-3-8B bf16 at full depth at fsdp = 2 as two gloo processes on
-   the one card (eager), each making only its fsdp block of the parent's
-   weights: one prompt, a few tokens, the ranks equal and byte-equal to
-   the 1-rank unsharded eager run, each rank's peak GB (under 13 GB, the
-   memory split FSDP exists for); (d) 8B cut to 4 layers, int4 over an
+   (c) Llama-3-8B bf16 at fsdp = 2 as two gloo processes on the one card
+   (eager), each making only its fsdp block of the parent's weights: one
+   prompt, one token, the ranks equal and byte-equal to the 1-rank
+   unsharded eager run, each rank's peak GB (the memory split FSDP
+   exists for); (d) 8B cut to 4 layers, int4 over an
    int4 pool, at fsdp 2 x tp 2 as four gloo processes: the ranks equal
    and equal to TP 2's engine (data 2 x model 2) in the same processes;
    (e) ``sp=True`` on a 1-rank nccl TP mesh, 8B bf16 graphed: equal to
@@ -279,10 +282,28 @@ count the launches a replay makes.
    cut to 4 layers over an int8 pool (prefix cache off), dense and at
    fsdp on the 1-rank mesh, graphed: equal streams.
 
+14. contiguous_mesh: the contiguous engine's meshes (slice 19;
+   ``--contiguous-mesh`` runs it alone, with no result line) under a
+   1-rank nccl process group, eager, the slice's four requests at
+   ``CONTIGUOUS_MESH_NEW`` new tokens.  (a) Llama-3-8B bf16 by the
+   unsharded contiguous engine, then ``make_engine(..., paged=False)``
+   on the rank's cut of the same weights (the tree itself on one rank)
+   at TP, fsdp, TP with ``sp``, CP ring, CP Ulysses and PP at M = 2:
+   equal streams or a near-tie (``NEAR_TIE``, margins printed), launches
+   exact against ``expected_counts(..., contiguous=True)`` (flash once a
+   microbatch under PP, none under the ring), the collectives per forward
+   by kind, TTFT, decode tok/s, the eager step's wall ms and the peak GB
+   both ways; (b) int4 weights over an int4 cache at TP and
+   PP (rows 5 and 7); (c) Mixtral-8x7B int8 cut to 4 layers at EP and PP
+   x EP (rows 4, 6 and 8), no token dropped; (d) Llama-3-8B bf16 cut to 2
+   layers as two gloo processes on the one card at TP 2, CP 2, PP 2 and
+   fsdp 2, two prompts, stepwise, a few tokens: the ranks equal, launches
+   exact, equal to the unsharded run or a near-tie.
+
 Then the kernel table (one JSON line), the ``nvidia-smi`` name and power
 limit line, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
-The kernel table sums the launches of phases 5-13.
+The kernel table sums the launches of phases 5-14.
 ``--spec`` builds every source and runs only the attention-over-pages
 cases of phase 3 and the speculative, overlap and TINY sweep cases of
 phase 4 (no result line).  ``--profile-decode`` runs only a profile of one decode step at the slice's
@@ -295,7 +316,9 @@ only phase 3's head cases; neither prints a result line.  ``--rca``
 builds every source and the native library and runs only phase 6, in a
 fresh process (with ``--after-memory``, after phase 7's bf16 half), and
 prints no result line.  ``--durable`` builds every source and the native
-library and runs only phase 8 (no result line).
+library and runs only phase 8 (no result line); ``--mesh``, ``--cp``,
+``--pp``, ``--fsdp`` and ``--contiguous-mesh`` run only phases 10, 11, 12,
+13 and 14 (no result line).
 """
 
 
@@ -1807,6 +1830,19 @@ def slice_model(name: str, bits=None):
     return cfg, None if bits is None else quantizing_transform(bits=bits)
 
 
+# the depth of the models of the mesh phases (10-13): at full depth the
+# whole script outgrew its 1200 s once phase 14 ran beside them (1197 s
+# and 1340 s on an H100 80GB HBM3 at 700 W, two runs of one tree)
+MESH_LAYERS = {"llama3-8b": 8, "mixtral-8x7b": 4}
+
+
+def mesh_model(name: str, bits=None):
+    """``slice_model`` cut to its depth in the mesh phases
+    (``MESH_LAYERS``)."""
+    cfg, transform = slice_model(name, bits)
+    return cfg.replace(n_layers=MESH_LAYERS[name]), transform
+
+
 def slice_engine_config(**over):
     """The soak engine at 8B: batch 4, max_seq_len 2560, buckets (512,
     1024, 2560), page 64, 168 pages, decode_chunk 16, greedy, 64 new
@@ -1821,13 +1857,15 @@ def slice_engine_config(**over):
     return EngineConfig(**kw)
 
 
-def warm_engine(engine) -> dict:
+def warm_engine(engine, new_tokens: int = 33) -> dict:
     """One short request (20 tokens, 33 new: one prefill, two 16-step
     scans, no full page to cache) before a timed run, so the run does not
-    pay the kernels' first launches or, graphed, the scan's capture.
-    Returns the engine's counters after it, to subtract."""
-    engine.generate([list(range(1, 21))], max_new_tokens=33)
-    return dict(engine._counts)
+    pay the kernels' first launches or, graphed, the scan's capture.  An
+    eager engine captures nothing: 2 new tokens (a prefill and one step)
+    launch every kernel of its path.  Returns the engine's counters after
+    it, to subtract."""
+    engine.generate([list(range(1, 21))], max_new_tokens=new_tokens)
+    return dict(engine._counts or {})
 
 
 def counts_since(engine, before: dict) -> dict:
@@ -1847,10 +1885,12 @@ def stamp_first_tokens(engine, stamps: list) -> None:
     engine._drain_admission_commits = drain_stamped
 
 
-def serve_four(engine, cfg, kv, bits) -> dict:
-    """The slice's four requests (~400, 900, 1500 and 2300 prompt tokens)
-    behind AssistantService on a warmed engine: tokens, launch counts
-    against the expected, TTFT, decode tok/s, total seconds."""
+def serve_four(engine, cfg, kv, bits, max_new: int = 64,
+               warm_new: int = 33) -> dict:
+    """The slice's four requests (~400, 900, 1500 and 2300 prompt tokens,
+    ``max_new`` new tokens each) behind AssistantService on an engine
+    warmed with ``warm_new`` new tokens (``warm_engine``): tokens, launch
+    counts against the expected, TTFT, decode tok/s, total seconds."""
     import torch
 
     from k8s_llm_rca_tpu_torch.serve.api import (
@@ -1861,7 +1901,7 @@ def serve_four(engine, cfg, kv, bits) -> dict:
     service = AssistantService(EngineBackend(engine))
     asst = service.create_assistant(
         "You are the root-cause analyst for a Kubernetes cluster.",
-        "analyst", gen=GenOptions(max_new_tokens=64))
+        "analyst", gen=GenOptions(max_new_tokens=max_new))
     stamps, results, prompts = [], [], {}
     step, register = engine.step, engine._register
 
@@ -1878,7 +1918,7 @@ def serve_four(engine, cfg, kv, bits) -> dict:
     with watch_logits() as finite:
         # warmed inside the watch: the scan graph it captures folds every
         # replay's logits into the flag, which lives with the engine
-        before = warm_engine(engine)
+        before = warm_engine(engine, warm_new)
         draft = engine._draft
         draft_before = draft.prefills if draft is not None else 0
         engine.logits_finite = finite
@@ -4023,15 +4063,14 @@ def phase_rerank_rca(e5) -> dict:
             "rerank_rca_yardstick": without["launches"]}
 
 
-def contiguous_step_ms(engine, steps: int = 8) -> dict:
+def contiguous_step_ms(engine, steps: int = 8, device: bool = True) -> dict:
     """The contiguous engine's eager decode step at batch 4 over 400, 900,
     1500 and 2300 cached tokens of its own cache rows: wall ms per step
-    (host clock around ``steps`` steps ending in a sync) and the device
-    ms between CUDA events (``time_ms``).  The rows' contents are left
-    as they were: the engine is not used after."""
+    (host clock around ``steps`` steps ending in a sync) and, with
+    ``device``, the device ms between CUDA events (``time_ms``).  The
+    rows' contents are left as they were: the engine is not used
+    after."""
     import torch
-
-    from k8s_llm_rca_tpu_torch.models import llama
 
     engine.lengths[:] = [400, 900, 1500, 2300]
     engine.cur_tokens[:] = 0
@@ -4039,7 +4078,8 @@ def contiguous_step_ms(engine, steps: int = 8) -> dict:
     cfg, params = engine.model_cfg, engine.params
 
     def step():
-        return llama.decode_step(cfg, params, engine.cache, cur, lens)[1]
+        # the engine's own step: under PP the pipelined one
+        return engine._decode_fn(cfg, params, engine.cache, cur, lens)[1]
 
     for _ in range(2):
         step()
@@ -4049,8 +4089,11 @@ def contiguous_step_ms(engine, steps: int = 8) -> dict:
         step()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    out = {"step_wall_ms": wall_ms}
+    if device:
+        out["step_device_ms"] = time_ms(step, steps)
     engine.lengths[:] = 0
-    return {"step_wall_ms": wall_ms, "step_device_ms": time_ms(step, steps)}
+    return out
 
 
 def draft_case(cfg, params, tok, plain) -> dict:
@@ -4406,7 +4449,7 @@ def mesh_tp_case(phase, mesh, name, bits, kv) -> dict:
     )
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    cfg, transform = slice_model(name, bits)
+    cfg, transform = mesh_model(name, bits)
     ecfg = mesh_engine_config(kv_cache_dtype=kv)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          tensor_transform=transform)
@@ -4451,7 +4494,7 @@ def mesh_ep_case(mesh) -> dict:
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
     phase = "mesh_mixtral"
-    cfg, transform = slice_model("mixtral-8x7b", 8)
+    cfg, transform = mesh_model("mixtral-8x7b", 8)
     ecfg = mesh_engine_config(kv_cache_dtype="int8")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          tensor_transform=transform)
@@ -4529,7 +4572,7 @@ def mesh_tp2_case(mesh) -> None:
     )
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    n_layers, max_new = 2, 32
+    n_layers, max_new = 2, 8
     cfg = LLAMA3_8B.replace(n_layers=n_layers)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     tok = get_tokenizer(vocab_size=cfg.vocab_size)
@@ -4727,7 +4770,7 @@ def cp_engine_case(phase, mesh, name, bits, kv, modes) -> dict:
     from k8s_llm_rca_tpu_torch.models.llama import init_params
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    cfg, transform = slice_model(name, bits)
+    cfg, transform = mesh_model(name, bits)
     ecfg = slice_engine_config(kv_cache_dtype=kv)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          tensor_transform=transform)
@@ -4805,7 +4848,7 @@ def cp_gloo_case(mesh) -> None:
     from k8s_llm_rca_tpu_torch.runtime.mesh import run_ranks
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    n_layers, max_new = 2, 32
+    n_layers, max_new = 2, 8
     cfg = LLAMA3_8B.replace(n_layers=n_layers)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     tok = get_tokenizer(vocab_size=cfg.vocab_size)
@@ -4929,7 +4972,7 @@ def pp_engine_case(phase, mesh, name, bits, kv) -> tuple:
     from k8s_llm_rca_tpu_torch.runtime.sharding import shard_stage_params
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    cfg, transform = slice_model(name, bits)
+    cfg, transform = mesh_model(name, bits)
     ecfg = mesh_engine_config(kv_cache_dtype=kv)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          tensor_transform=transform)
@@ -5000,9 +5043,9 @@ def rank_served(engine, prompts, max_new, kv, bits) -> dict:
             "expected": expect}
 
 
-def pp2_rank(rank: int, max_new: int) -> dict:
+def pp2_rank(rank: int, n_layers: int, max_new: int) -> dict:
     """One of two stages on the one card (gloo over CUDA tensors):
-    Llama-3-8B bf16 at full depth, this rank's 16 layers made by the
+    Llama-3-8B bf16 cut to ``n_layers``, this rank's stage made by the
     parent's generator (``stage_transform``), the eager PP engine over
     four prompts, its peak GB."""
     import torch
@@ -5015,7 +5058,7 @@ def pp2_rank(rank: int, max_new: int) -> dict:
     from k8s_llm_rca_tpu_torch.runtime.sharding import stage_layers
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    cfg = LLAMA3_8B
+    cfg = LLAMA3_8B.replace(n_layers=n_layers)
     torch.cuda.reset_peak_memory_stats()
     params = stage_layers(init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -5064,8 +5107,8 @@ def pptp_rank(rank: int, n_layers: int, max_new: int) -> dict:
 
 
 def pp_gloo_cases(mesh, cfg, params) -> None:
-    """12c: Llama-3-8B bf16 at full depth at PP = 2 as two gloo processes
-    on the one card, eager, each holding its 16 layers and its half of
+    """12c: Llama-3-8B bf16 (``MESH_LAYERS``) at PP = 2 as two gloo
+    processes on the one card, eager, each holding its stage and its half of
     the pool: both ranks' streams equal, held to the same model on the
     1-rank nccl mesh (eager) to a near-tie, each rank's peak GB against
     the whole model's.  12d: 8B cut to 4 layers, int4 over an int4 pool,
@@ -5078,7 +5121,7 @@ def pp_gloo_cases(mesh, cfg, params) -> None:
     from k8s_llm_rca_tpu_torch.runtime.sharding import shard_stage_params
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    max_new = 32
+    max_new = 8
     tok = get_tokenizer(vocab_size=cfg.vocab_size)
     prompts = mesh_prompts(tok)
     one = make_engine(cfg, mesh_engine_config(),
@@ -5091,7 +5134,7 @@ def pp_gloo_cases(mesh, cfg, params) -> None:
     free_card()
     failed = []
     for phase, fn, n, args in (
-            ("pp_gloo", pp2_rank, 2, (max_new,)),
+            ("pp_gloo", pp2_rank, 2, (cfg.n_layers, max_new)),
             ("pp_tp_gloo", pptp_rank, 4, (4, max_new))):
         t0 = time.perf_counter()
         ranks = run_ranks(fn, n, str(ROOT / "build" / "pp_ranks"),
@@ -5115,8 +5158,7 @@ def pp_gloo_cases(mesh, cfg, params) -> None:
                        equal_tokens=ranks[0]["tokens"] == want,
                        equal_token_share=common_share(want,
                                                       ranks[0]["tokens"]),
-                       divergences=divs, near_tie=NEAR_TIE,
-                       unsharded_peak_gb_pr11=19.6)
+                       divergences=divs, near_tie=NEAR_TIE)
         else:
             rec.update(model=cfg.name, layers=4, weights="int4",
                        kv_cache_dtype="int4", tp=2,
@@ -5256,7 +5298,7 @@ def fsdp_engine_case(phase, mesh, name, bits, kv) -> tuple:
     )
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    cfg, transform = slice_model(name, bits)
+    cfg, transform = mesh_model(name, bits)
     ecfg = mesh_engine_config(kv_cache_dtype=kv)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          tensor_transform=transform)
@@ -5308,9 +5350,9 @@ def fsdp_transform(cfg, mesh):
     return keep
 
 
-def fsdp2_rank(rank: int, max_new: int) -> dict:
+def fsdp2_rank(rank: int, n_layers: int, max_new: int) -> dict:
     """One of two fsdp ranks on the one card (gloo over CUDA tensors):
-    Llama-3-8B bf16 at full depth, this rank's fsdp blocks made by the
+    Llama-3-8B bf16 cut to ``n_layers``, this rank's fsdp blocks made by the
     parent's generator (``fsdp_transform``), the eager engine over one
     prompt, its peak GB and parameter bytes."""
     import torch
@@ -5322,7 +5364,7 @@ def fsdp2_rank(rank: int, max_new: int) -> dict:
     from k8s_llm_rca_tpu_torch.runtime.mesh import local_mesh
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    cfg = LLAMA3_8B
+    cfg = LLAMA3_8B.replace(n_layers=n_layers)
     torch.cuda.reset_peak_memory_stats()
     mesh = local_mesh(fsdp=2)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -5413,9 +5455,9 @@ def sp2_rank(rank: int, n_layers: int, max_new: int) -> dict:
 
 
 def fsdp_gloo_cases(mesh, cfg, params) -> None:
-    """13c: Llama-3-8B bf16 at full depth at fsdp = 2 as two gloo processes
-    on the one card, eager, one prompt and two tokens, stepwise (a prefill
-    and one decode step): both ranks' streams equal, and
+    """13c: Llama-3-8B bf16 (``MESH_LAYERS``) at fsdp = 2 as two gloo processes
+    on the one card, eager, one prompt and one token (the prefill): both
+    ranks' streams equal, and
     equal to the 1-rank unsharded eager run; each rank's peak GB against
     the whole model's.  13d: 8B cut to 4 layers, int4 over an int4 pool,
     at fsdp 2 x tp 2 as four gloo processes: the ranks equal, and equal to
@@ -5427,9 +5469,9 @@ def fsdp_gloo_cases(mesh, cfg, params) -> None:
     from k8s_llm_rca_tpu_torch.runtime.mesh import run_ranks
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    # one prompt, two tokens, stepwise: a prefill and one decode step, each
-    # gathering 15 GB through host memory a rank
-    max_new = 2
+    # one prompt, one token: a prefill, gathering 15 GB through host memory
+    # a rank (the decode step's gathers run in 13d)
+    max_new = 1
     tok = get_tokenizer(vocab_size=cfg.vocab_size)
     one = make_engine(cfg, mesh_engine_config(decode_chunk=1), params, tok,
                       cuda_graphs=False)
@@ -5439,7 +5481,7 @@ def fsdp_gloo_cases(mesh, cfg, params) -> None:
     free_card()
     failed = []
     for phase, fn, n, args in (
-            ("fsdp_gloo", fsdp2_rank, 2, (max_new,)),
+            ("fsdp_gloo", fsdp2_rank, 2, (cfg.n_layers, max_new)),
             ("fsdp_tp_gloo", fsdp_tp_rank, 4, (4, 8))):
         t0 = time.perf_counter()
         ranks = run_ranks(fn, n, str(ROOT / "build" / "fsdp_ranks"),
@@ -5461,8 +5503,7 @@ def fsdp_gloo_cases(mesh, cfg, params) -> None:
                        equal_tokens=same,
                        peak_gb=[r["peak_gb"] for r in ranks],
                        init_peak_gb=[r["init_peak_gb"] for r in ranks],
-                       serve_peak_gb=[r["serve_peak_gb"] for r in ranks],
-                       unsharded_peak_gb_pr11=19.6)
+                       serve_peak_gb=[r["serve_peak_gb"] for r in ranks])
         else:
             same = all(r["tokens"] == r["tp_tokens"] for r in ranks)
             rec.update(model=cfg.name, layers=4, weights="int4",
@@ -5513,7 +5554,7 @@ def sp_cases(mesh, cfg, params) -> dict:
         raise SystemExit(f"{phase}: no reduce-scatter ran")
     free_card()
 
-    n_layers, max_new = 2, 32
+    n_layers, max_new = 2, 8
     cut = LLAMA3_8B.replace(n_layers=n_layers)
     cut_params = init_params(cut, torch.Generator(device="cuda").manual_seed(0))
     prompts = mesh_prompts(tok)
@@ -5610,6 +5651,287 @@ def phase_fsdp() -> dict:
     finally:
         rmesh.shutdown_distributed()
     emit("fsdp_phase", seconds=time.perf_counter() - t0)
+    return out
+
+
+# ------------------------------------------------------------------ phase 14
+
+# new tokens a request in phase 14, a quarter of the slice's 64: the
+# whole script must end within its 1200 s (see ``MESH_LAYERS``); the gloo
+# cases of phases 10-13 were cut to 8 new tokens and 13c to one, the
+# prefill, for the same reason
+CONTIGUOUS_MESH_NEW = 16
+# the phases of 14a-14c's mesh runs (the kernel line sums their launches)
+CONTIGUOUS_MESH_BF16 = tuple(f"contiguous_mesh_{m}" for m in (
+    "tp", "fsdp", "sp", "cp_ring", "cp_ulysses", "pp"))
+CONTIGUOUS_MESH_INT4 = ("contiguous_mesh_int4_tp", "contiguous_mesh_int4_pp")
+CONTIGUOUS_MESH_MIXTRAL = ("contiguous_mesh_mixtral_ep",
+                           "contiguous_mesh_mixtral_pp_ep")
+COLLECTIVE_KEYS = ("all_reduce_sum", "all_reduce_max", "all_gather",
+                   "all_to_all", "ppermute", "all_gather_into",
+                   "reduce_scatter_sum")
+
+
+def contiguous_mesh_run(engine, cfg, kv, bits) -> dict:
+    """The slice's four requests on a contiguous engine (eager) with exact
+    launches (``serve_four``), its eager step (``contiguous_step_ms``),
+    the collectives per forward by kind and the peak GB since the last
+    ``reset_peak_memory_stats``."""
+    import torch
+
+    run = serve_four(engine, cfg, kv, bits, max_new=CONTIGUOUS_MESH_NEW,
+                     warm_new=2)
+    run.update(contiguous_step_ms(engine, steps=4, device=False))
+    fwd = run["prefill_dispatches"] + run["decode_steps"]
+    run["collectives"] = {k: run["launches"][k] for k in COLLECTIVE_KEYS}
+    run["collectives_per_forward"] = {
+        k: v / fwd for k, v in run["collectives"].items() if v}
+    run["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return run
+
+
+def contiguous_mesh_compare(phase, cfg, params, base, run, **record) -> None:
+    """Emit a contiguous mesh run beside its unsharded yardstick; fail
+    unless the streams are equal or part only at a near-tie
+    (``NEAR_TIE``, margins printed)."""
+    divs = divergences(cfg, params, run["prompts"], base["tokens"],
+                       run["tokens"])
+    bad = [d for d in divs if d["logit_margin"] > NEAR_TIE]
+    keep = ("ttft_s", "decode_tok_per_s", "total_s", "step_wall_ms",
+            "peak_gb", "prefill_dispatches", "decode_steps")
+    emit(phase, model=cfg.name, layers=cfg.n_layers, engine="contiguous",
+         cuda_graphs=False, **record, prompt_tokens=run["prompt_tokens"],
+         completion_tokens=run["completion_tokens"],
+         equal_tokens=run["tokens"] == base["tokens"],
+         equal_token_share=common_share(base["tokens"], run["tokens"]),
+         divergences=divs, near_tie=NEAR_TIE, launches=run["launches"],
+         launches_exact=run["launches"] == run["expected_launches"],
+         collectives=run["collectives"],
+         collectives_per_forward=run["collectives_per_forward"],
+         **{f"mesh_{k}": run[k] for k in keep},
+         **{f"unsharded_{k}": base[k] for k in keep},
+         nvidia_smi=nvidia_smi_name_power())
+    if bad:
+        raise SystemExit(f"{phase}: the contiguous mesh engine's streams "
+                         f"part from the unsharded engine's beyond a "
+                         f"near-tie: {bad}")
+
+
+def contiguous_mesh_cases(prefix, name, bits, kv, mesh, cases) -> dict:
+    """14a-14c: a slice model by the unsharded contiguous engine, then by
+    ``make_engine(..., paged=False)`` on each of ``cases`` (label, the
+    meshes' keywords, how the rank's params are cut: "tp", "fsdp" or
+    "stage"; on one rank each cut is the tree itself) on the same
+    weights.  Returns the mesh runs' launches by phase."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import InferenceEngine, make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        FSDP_LAYOUT, llama_param_specs, shard_params, shard_stage_params,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg, transform = slice_model(name, bits)
+    if name == "mixtral-8x7b":
+        cfg = cfg.replace(n_layers=4)
+    ecfg = slice_engine_config(paged=False, kv_cache_dtype=kv)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=transform)
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    base = contiguous_mesh_run(make_engine(cfg, ecfg, params, tok), cfg, kv,
+                               bits)
+    free_card()
+    cuts = {"tp": lambda: shard_params(params, llama_param_specs(cfg), mesh),
+            "fsdp": lambda: shard_params(
+                params, llama_param_specs(cfg, FSDP_LAYOUT), mesh),
+            "stage": lambda: shard_stage_params(params, cfg, mesh)}
+    out = {}
+    for label, kw, cut in cases:
+        phase = f"{prefix}_{label}"
+        torch.cuda.reset_peak_memory_stats()
+        engine = make_engine(cfg, ecfg, cuts[cut](), tok,
+                             **{k: mesh if v == "mesh" else v
+                                for k, v in kw.items()})
+        if not isinstance(engine, InferenceEngine):
+            raise SystemExit(f"{phase}: make_engine built {type(engine)}")
+        run = contiguous_mesh_run(engine, cfg, kv, bits)
+        ep = engine.model_cfg.ep
+        dropped = int(ep.drops) if ep is not None else 0
+        contiguous_mesh_compare(
+            phase, cfg, params, base, run,
+            mesh=f"{label} 1 rank (nccl)",
+            weights=f"int{bits}" if bits else "bfloat16", kv_cache_dtype=kv,
+            cache_shape=list(engine.cache.k.shape), dropped=dropped)
+        if dropped:
+            raise SystemExit(f"{phase}: {dropped} tokens dropped")
+        out[phase] = run["launches"]
+        del engine
+        free_card()
+    del params
+    free_card()
+    return out
+
+
+# the gloo ranks of 14d: (label, the mesh's axes, the engine's meshes, the
+# params' cut)
+CONTIGUOUS_GLOO = (("tp2", dict(model=2), ("tp_mesh",), "tp"),
+                   ("cp2", dict(seq=2), ("cp_mesh",), "tp"),
+                   ("pp2", dict(stage=2), ("pp_mesh",), "stage"),
+                   ("fsdp2", dict(fsdp=2), ("fsdp_mesh",), "fsdp"))
+CONTIGUOUS_GLOO_NEW = 2
+
+
+def contiguous_gloo_rank(rank: int, n_layers: int) -> dict:
+    """One of two ranks on the one card over gloo: Llama-3-8B bf16 cut to
+    ``n_layers`` layers, seeded as the parent seeds it, served by the
+    contiguous engine (eager, stepwise) at TP 2, CP 2 (ring), PP 2 (M = 2)
+    and fsdp 2 in turn, each on the rank's cut of the weights: tokens,
+    seconds, launches held to the counters, cache shape."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.mesh import local_mesh
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        FSDP_LAYOUT, llama_param_specs, shard_params, shard_stage_params,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg = LLAMA3_8B.replace(n_layers=n_layers)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    prompts = mesh_prompts(tok)[::3]
+    ecfg = slice_engine_config(paged=False, decode_chunk=1)
+    out = {}
+    for label, axes, meshes, cut in CONTIGUOUS_GLOO:
+        mesh = local_mesh(**axes)
+        if cut == "stage":
+            shard = shard_stage_params(params, cfg, mesh)
+        else:
+            shard = shard_params(params, llama_param_specs(
+                cfg, FSDP_LAYOUT if cut == "fsdp" else None), mesh)
+        kw = {k: mesh for k in meshes}
+        if cut == "stage":
+            kw["pp_microbatches"] = 2
+        engine = make_engine(cfg, ecfg, shard, tok, **kw)
+        reset_counts()
+        before = dict(engine._counts or {})
+        t0 = time.perf_counter()
+        res = engine.generate(prompts, max_new_tokens=CONTIGUOUS_GLOO_NEW)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        expect = expected_counts(engine.model_cfg,
+                                 counts_since(engine, before), False,
+                                 contiguous=True, cp_mode=engine.cp_mode)
+        out[label] = {"tokens": [r.token_ids for r in res],
+                      "seconds": seconds, "launches": counts,
+                      "launches_exact": counts == expect,
+                      "cache_shape": list(engine.cache.k.shape)}
+        del engine, shard
+        torch.cuda.empty_cache()
+    return out
+
+
+def contiguous_gloo_case() -> None:
+    """14d: Llama-3-8B bf16 cut to 2 layers as two gloo processes on the
+    one card (eager, stepwise, two prompts, a few tokens), at TP 2, CP 2,
+    PP 2 and fsdp 2 (``contiguous_gloo_rank``): the two ranks equal, every
+    launch count exact, and the streams equal to the unsharded contiguous
+    engine's on the same model in this process or parting at a
+    near-tie."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.mesh import run_ranks
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    n_layers = 2
+    cfg = LLAMA3_8B.replace(n_layers=n_layers)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    prompts = mesh_prompts(tok)[::3]
+    want = [r.token_ids for r in make_engine(
+        cfg, slice_engine_config(paged=False, decode_chunk=1), params,
+        tok).generate(prompts, max_new_tokens=CONTIGUOUS_GLOO_NEW)]
+    free_card()
+    t0 = time.perf_counter()
+    ranks = run_ranks(contiguous_gloo_rank, 2,
+                      str(ROOT / "build" / "contiguous_ranks"),
+                      args=(n_layers,), timeout_s=600, device="cuda-gloo")
+    wall = time.perf_counter() - t0
+    failed = []
+    for label, axes, _, _ in CONTIGUOUS_GLOO:
+        got = [r[label] for r in ranks]
+        equal = got[0]["tokens"] == got[1]["tokens"]
+        exact = all(g["launches_exact"] for g in got)
+        divs = divergences(cfg, params, prompts, want, got[0]["tokens"])
+        bad = [d for d in divs if d["logit_margin"] > NEAR_TIE]
+        emit(f"contiguous_mesh_gloo_{label}", model=cfg.name,
+             layers=n_layers, ranks=2, mesh=axes, backend="gloo",
+             cuda_graphs=False, engine="contiguous", ranks_equal=equal,
+             launches_exact=exact,
+             equal_tokens=got[0]["tokens"] == want,
+             equal_token_share=common_share(want, got[0]["tokens"]),
+             divergences=divs, near_tie=NEAR_TIE,
+             rank_seconds=[g["seconds"] for g in got],
+             launches=[g["launches"] for g in got],
+             cache_shape=[g["cache_shape"] for g in got],
+             nvidia_smi=nvidia_smi_name_power())
+        if not equal or not exact or bad:
+            failed.append((label, equal, exact, bad))
+    emit("contiguous_mesh_gloo", wall_s=wall)
+    del params
+    if failed:
+        raise SystemExit(f"contiguous mesh gloo: (mesh, ranks equal, "
+                         f"launches exact, beyond a near-tie) {failed}")
+
+
+def phase_contiguous_mesh() -> dict:
+    """Phase 14 under a 1-rank nccl process group (destroyed after): the
+    contiguous engine's meshes, eager.  14a Llama-3-8B bf16 at TP, fsdp,
+    TP with sp, CP ring and Ulysses and PP at M = 2; 14b int4 over an int4
+    cache at TP and PP; 14c Mixtral-8x7B int8 cut to 4 layers at EP and PP
+    x EP; 14d two gloo processes.  Returns the launch counts of 14a-14c's
+    mesh runs by phase."""
+    from k8s_llm_rca_tpu_torch.runtime import mesh as rmesh
+
+    t0 = time.perf_counter()
+    rmesh.initialize_distributed()
+    out = {}
+    try:
+        mesh = rmesh.local_mesh()
+        out.update(contiguous_mesh_cases(
+            "contiguous_mesh", "llama3-8b", None, None, mesh, (
+                ("tp", {"tp_mesh": "mesh"}, "tp"),
+                ("fsdp", {"fsdp_mesh": "mesh"}, "fsdp"),
+                ("sp", {"tp_mesh": "mesh", "sp": True}, "tp"),
+                ("cp_ring", {"cp_mesh": "mesh"}, "tp"),
+                ("cp_ulysses", {"cp_mesh": "mesh", "cp_mode": "ulysses"},
+                 "tp"),
+                ("pp", {"pp_mesh": "mesh", "pp_microbatches": 2},
+                 "stage"))))
+        out.update(contiguous_mesh_cases(
+            "contiguous_mesh_int4", "llama3-8b", 4, "int4", mesh, (
+                ("tp", {"tp_mesh": "mesh"}, "tp"),
+                ("pp", {"pp_mesh": "mesh", "pp_microbatches": 2},
+                 "stage"))))
+        out.update(contiguous_mesh_cases(
+            "contiguous_mesh_mixtral", "mixtral-8x7b", 8, "int8", mesh, (
+                ("ep", {"ep_mesh": "mesh"}, "tp"),
+                ("pp_ep", {"pp_mesh": "mesh", "ep_mesh": "mesh",
+                           "pp_microbatches": 2}, "stage"))))
+        contiguous_gloo_case()
+        free_card()
+    finally:
+        rmesh.shutdown_distributed()
+    emit("contiguous_mesh_phase", seconds=time.perf_counter() - t0)
     return out
 
 
@@ -5816,6 +6138,13 @@ def main(argv) -> int:
         phase_fsdp()
         return 0
 
+    if "--contiguous-mesh" in argv:
+        # phase 14 alone
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        phase_contiguous_mesh()
+        return 0
+
     if "--rerank" in argv:
         # phase 9 alone
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -5881,6 +6210,8 @@ def main(argv) -> int:
     free_card()
     runs.update(phase_fsdp())
     free_card()
+    runs.update(phase_contiguous_mesh())
+    free_card()
 
     rows = []
     # launches: the main paths' runs of each kernel, summed (flash now
@@ -5903,19 +6234,22 @@ def main(argv) -> int:
               "rerank_rca_yardstick", "contiguous", "contiguous_int4",
               "contiguous_cli", "mesh", "mesh_int4", "mesh_mixtral",
               "cp_ulysses", "pp", "pp_int4", "pp_mixtral", "fsdp",
-              "fsdp_int4", "fsdp_sp", "fsdp_mixtral"), "flash"),
+              "fsdp_int4", "fsdp_sp", "fsdp_mixtral") + CONTIGUOUS_MESH_BF16
+             + CONTIGUOUS_MESH_INT4 + CONTIGUOUS_MESH_MIXTRAL, "flash"),
             ("quant_matmul", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:137",
              ("quant_matmul", "bfloat16", "decode"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
               "durable_int4", "contiguous_int4", "mesh_int4",
-              "cp_int4_ring", "pp_int4", "fsdp_int4"), "qmm"),
+              "cp_int4_ring", "pp_int4", "fsdp_int4")
+             + CONTIGUOUS_MESH_INT4, "qmm"),
             ("quant_matmul_head", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:177",
              ("quant_matmul_head", "bfloat16", "llama3-8b int4"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
               "durable_int4", "contiguous_int4", "mesh_int4",
-              "cp_int4_ring", "pp_int4", "fsdp_int4"), "qmm_head"),
+              "cp_int4_ring", "pp_int4", "fsdp_int4")
+             + CONTIGUOUS_MESH_INT4, "qmm_head"),
             ("paged_attention_quant", PAGED_QUANT_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:141",
              ("paged_attention_quant", "bfloat16", "int4"),
@@ -5927,17 +6261,17 @@ def main(argv) -> int:
              "k8s_llm_rca_tpu/ops/quant_matmul.py:120",
              ("quant_matmul_int8", "bfloat16", "decode"),
              ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral",
-              "fsdp_mixtral"), "qmm8"),
+              "fsdp_mixtral") + CONTIGUOUS_MESH_MIXTRAL, "qmm8"),
             ("quant_matmul_head_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:159",
              ("quant_matmul_head_int8", "bfloat16", "mixtral-8x7b int8"),
              ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral",
-              "fsdp_mixtral"), "qmm_head8"),
+              "fsdp_mixtral") + CONTIGUOUS_MESH_MIXTRAL, "qmm_head8"),
             ("quant_matmul_experts_int8", EKN_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:201",
              ("quant_matmul_experts_int8", "bfloat16", "3d decode"),
              ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral",
-              "fsdp_mixtral"), "qmm_experts8"),
+              "fsdp_mixtral") + CONTIGUOUS_MESH_MIXTRAL, "qmm_experts8"),
             ("quant_matmul_experts_int4", EKN_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:218",
              ("quant_matmul_experts_int4", "bfloat16", "3d decode"),

@@ -31,11 +31,23 @@ DFA inside it under ``decode_scan_dfa``), the overlapped step
 (``overlap_step``) or one stepwise decode.  The host keeps the tokens and
 lengths (numpy mirrors, uploaded into static device operands per
 dispatch); ``host_overlap`` keeps them resident instead and commits one
-tick late.  The device meshes raise (ROADMAP Queue 1 item 10.6).
+tick late.
+
+Under a device mesh (``tp_mesh``, ``ep_mesh``, ``fsdp_mesh``, ``sp`` with TP,
+``cp_mesh`` ring or Ulysses, ``pp_mesh``, and the compositions the paged
+engine serves) every rank runs its own ``InferenceEngine`` on its shard of
+the weights with its rank's config (``runtime.sharding.rank_config``): the
+cache holds the rank's lanes under TP, its stage's layers under PP and its
+block of the sequence under CP (``models.llama.prefill_cp`` and the CP
+decode); PP admits every group through ``parallel.pipeline.
+llama_pp_prefill`` and decodes through ``llama_pp_decode_step``.  The
+refusals are the paged engine's (``refuse_mesh_compositions``,
+``refuse_mesh_features``).
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import time
 from dataclasses import dataclass, field
@@ -53,6 +65,7 @@ from k8s_llm_rca_tpu_torch.faults import inject
 from k8s_llm_rca_tpu_torch.models import llama
 from k8s_llm_rca_tpu_torch.obs import trace as obs_trace
 from k8s_llm_rca_tpu_torch.runtime.profiling import annotate
+from k8s_llm_rca_tpu_torch.runtime.sharding import rank_config
 from k8s_llm_rca_tpu_torch.utils.device import resolve_device
 from k8s_llm_rca_tpu_torch.utils.pages import to_host
 from k8s_llm_rca_tpu_torch.utils.logging import METRICS, get_logger
@@ -114,6 +127,8 @@ class EngineBase:
     # tokens}; _admit_pending: admissions whose sampled first token has
     # not crossed to the host yet; _flushed_out: results of a flush made
     # outside a tick (cancel, deadlines), surfaced by the next tick.
+    # the device mesh the engine's rank runs on (None: unsharded)
+    mesh = None
     _overlap: bool = False
     _overlap_lag: int = 2
     _inflight: Optional[List[dict]] = None
@@ -291,6 +306,12 @@ class EngineBase:
             "deadline": (self._deadlines or {}).get(seq_id),
         }
 
+    def _refuse_under_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} under a device mesh is not ported yet "
+                f"({mesh_item(7)})")
+
     def snapshot_sequences(self) -> Dict[str, object]:
         """Export every live sequence's durable state: original prompt,
         every generated token (those before a preemption too), remaining
@@ -302,6 +323,7 @@ class EngineBase:
         back, as in the JAX engine (whose ``sequences`` list this equals on
         the same run).  ``rng_key`` is the port generator's state as a list
         of ints: the port's random bits never matched JAX's."""
+        self._refuse_under_mesh("snapshot_sequences")
         self._overlap_barrier()
         resumed = self._resumed
         seqs = []
@@ -334,6 +356,7 @@ class EngineBase:
         ``grammars``: freshly compiled FSMs by seq_id for sequences
         snapshotted with ``grammar: true``, advanced here over the
         generated tokens; a missing one raises.  Returns the seq_ids."""
+        self._refuse_under_mesh("restore_sequences")
         self._overlap_barrier()
         cap = self.engine_cfg.max_seq_len
         restored: List[int] = []
@@ -1023,12 +1046,9 @@ def dfa_greedy_multi(logits: torch.Tensor, states: torch.Tensor,
 # the contiguous-slot engine and its device loops
 # ---------------------------------------------------------------------------
 
-MESH_ITEM = "ROADMAP Queue 1 item 10, multi-GPU"
-
-
 def mesh_item(sub: int) -> str:
-    """``MESH_ITEM`` narrowed to one of its steps (10.6 the
-    contiguous engine's meshes, 10.7 the features refused under a mesh)."""
+    """A step of ROADMAP Queue 1 item 10, multi-GPU (10.7: the features
+    refused under a mesh)."""
     return f"ROADMAP Queue 1 item 10.{sub}, multi-GPU"
 
 
@@ -1190,6 +1210,91 @@ def validate_fsdp_mesh(fsdp_mesh, model_cfg: ModelConfig,
             f"{shape['data']}")
 
 
+def validate_sp_buckets(tp_mesh, sizes) -> None:
+    """Under ``sp`` the TP prefill splits the padded sequence over the model
+    axis: every prefill bucket and max_seq_len (paged callers pass the
+    page-rounded sizes) must divide by its size."""
+    n_tp = _mesh_shape(tp_mesh)["model"]
+    for b in sizes:
+        if b % n_tp:
+            raise ValueError(
+                f"sp=True shards the padded sequence over the model "
+                f"axis: bucket {b} is not divisible by its size {n_tp}")
+
+
+def refuse_mesh_compositions(tp_mesh, cp_mesh, ep_mesh) -> None:
+    """The compositions neither engine serves yet: CP x EP and TP x EP."""
+    if cp_mesh is not None and ep_mesh is not None:
+        raise NotImplementedError(
+            f"cp_mesh with ep_mesh (CP x EP) is not ported yet "
+            f"({mesh_item(7)})")
+    if tp_mesh is not None and ep_mesh is not None:
+        raise NotImplementedError(
+            f"tp_mesh with ep_mesh (TP x EP) is not ported yet "
+            f"({mesh_item(7)})")
+
+
+def refuse_mesh_features(engine_cfg: EngineConfig, draft_model,
+                         prefix_store) -> None:
+    """The engine features neither engine serves yet under a device mesh
+    (the contiguous engine refuses the first two as ValueErrors before)."""
+    refused = [name for name, on in (
+        ("max_spilled_pages (KV spill)", engine_cfg.max_spilled_pages),
+        ("the prefix store tiers (prefix_host_pages / prefix_disk_dir / "
+         "prefix_disk_pages / prefix_store)",
+         engine_cfg.prefix_host_pages or engine_cfg.prefix_disk_dir
+         or engine_cfg.prefix_disk_pages or prefix_store is not None),
+        ("host_overlap", engine_cfg.host_overlap),
+        ("speculative_k / draft_model",
+         engine_cfg.speculative_k or draft_model is not None)) if on]
+    if refused:
+        raise NotImplementedError(
+            f"under a device mesh {', '.join(refused)} is not ported yet "
+            f"({mesh_item(7)})")
+
+
+def check_rank_params(model_cfg: ModelConfig, params, tp_mesh, ep_mesh,
+                      fsdp_mesh, pp_mesh, pp_stage_axis: str = "stage"
+                      ) -> None:
+    """Refuse a param tree that is not this rank's shard of the meshes
+    (``runtime.sharding.shard_params`` / ``shard_stage_params``)."""
+    for m, axis, key, dim, total in (
+            (tp_mesh, "model", "wq", -1, model_cfg.q_dim),
+            (ep_mesh, "expert", "w_gate", 0, model_cfg.n_experts)):
+        if m is None:
+            continue
+        want = total // int(m.mesh.shape[m.mesh_dim_names.index(axis)])
+        got = params["layers"][0][key].shape[dim]
+        if got != want:
+            raise ValueError(
+                f"the {axis} axis needs this rank's shard of the params "
+                f"(runtime.sharding.shard_params): {key} has {got} along "
+                f"dim {dim}, the rank's share is {want}")
+    if fsdp_mesh is not None:
+        want = model_cfg.hidden_size // _mesh_shape(fsdp_mesh)["fsdp"]
+        got = params["layers"][0]["wq"].shape[0]
+        if got != want:
+            raise ValueError(
+                f"the fsdp axis needs this rank's shard of the params "
+                f"(runtime.sharding.shard_params under rules.FSDP_LAYOUT): "
+                f"wq has {got} along dim 0, the rank's share is {want}")
+        if tp_mesh is None and _mesh_shape(fsdp_mesh)["model"] > 1:
+            # shard_params splits the heads over "model": only a TP rank's
+            # model computes on them
+            raise ValueError(
+                "an fsdp_mesh with a 'model' axis above 1 is fsdp×tp: pass "
+                "the same mesh as tp_mesh")
+    if pp_mesh is not None:
+        want = model_cfg.n_layers // int(pp_mesh.mesh.shape[
+            pp_mesh.mesh_dim_names.index(pp_stage_axis)])
+        if len(params["layers"]) != want:
+            raise ValueError(
+                f"the {pp_stage_axis} axis needs this rank's stage of the "
+                f"params (runtime.sharding.shard_stage_params): "
+                f"{len(params['layers'])} layers, the stage's share is "
+                f"{want}")
+
+
 def _int4_leaves(tree) -> bool:
     """True when any leaf of a param tree is an int4 weight."""
     from k8s_llm_rca_tpu_torch.models.quant import QuantTensor4
@@ -1312,14 +1417,17 @@ def check_params_device(params, device: torch.device) -> None:
 
 def overlap_step(cfg: ModelConfig, params, cache, cur_tokens: torch.Tensor,
                  lengths: torch.Tensor, generator: Optional[torch.Generator],
-                 sampling: SamplingParams, cap: int):
+                 sampling: SamplingParams, cap: int, decode_fn=None):
     """One step of the overlapped hot loop: decode, sample, and advance
     every slot's length (clamped at ``cap``, the last cache row), all on
     the device; ``cur_tokens``/``lengths`` are the engine's resident
     operands and take the new values IN PLACE.  A slot the host already
     retired decodes garbage into its own row until the lagged commit drops
-    its tokens.  Returns (cache, next_tokens [B], lengths)."""
-    cache, logits = llama.decode_step(cfg, params, cache, cur_tokens, lengths)
+    its tokens.  ``decode_fn``: the decode step (default
+    ``llama.decode_step``; under PP ``llama_pp_decode_step``).  Returns
+    (cache, next_tokens [B], lengths)."""
+    decode_fn = decode_fn or llama.decode_step
+    cache, logits = decode_fn(cfg, params, cache, cur_tokens, lengths)
     nxt = sample_tokens(logits, generator, sampling)
     cur_tokens.copy_(nxt)
     lengths.copy_(torch.clamp(lengths + 1, max=cap))
@@ -1329,15 +1437,17 @@ def overlap_step(cfg: ModelConfig, params, cache, cur_tokens: torch.Tensor,
 def decode_scan(cfg: ModelConfig, params, cache, cur_tokens: torch.Tensor,
                 lengths: torch.Tensor, generator: Optional[torch.Generator],
                 n_steps: int, sampling: SamplingParams = SamplingParams(),
-                eos_id: int = -1):
+                eos_id: int = -1, decode_fn=None):
     """``n_steps`` decode steps for the whole batch with no host sync.
     Slots that hit ``eos_id`` stop advancing (their token repeats; the
-    host trims).  Returns (cache, tokens [n_steps, B], lengths)."""
+    host trims).  ``decode_fn`` as in ``overlap_step``.  Returns (cache,
+    tokens [n_steps, B], lengths)."""
+    decode_fn = decode_fn or llama.decode_step
     cur, lens = cur_tokens, lengths
     done = torch.zeros_like(cur_tokens, dtype=torch.bool)
     toks = []
     for _ in range(n_steps):
-        cache, logits = llama.decode_step(cfg, params, cache, cur, lens)
+        cache, logits = decode_fn(cfg, params, cache, cur, lens)
         nxt = sample_tokens(logits, generator, sampling)
         advance = ~done
         done = done | (nxt == eos_id)
@@ -1354,15 +1464,16 @@ def decode_scan_dfa(cfg: ModelConfig, params, cache,
                     states: torch.Tensor, remaining: torch.Tensor,
                     allow_t: torch.Tensor, next_t: torch.Tensor,
                     dist_t: torch.Tensor, close_t: torch.Tensor,
-                    complete_t: torch.Tensor):
+                    complete_t: torch.Tensor, decode_fn=None):
     """``decode_scan`` with the compiled grammar DFA riding inside the loop
-    (``dfa_scan_step``).  Returns (cache, tokens [n_steps, B], lengths,
-    states)."""
+    (``dfa_scan_step``); ``decode_fn`` as in ``overlap_step``.  Returns
+    (cache, tokens [n_steps, B], lengths, states)."""
+    decode_fn = decode_fn or llama.decode_step
     cur, lens = cur_tokens, lengths
     done = torch.zeros_like(cur_tokens, dtype=torch.bool)
     toks = []
     for _ in range(n_steps):
-        cache, logits = llama.decode_step(cfg, params, cache, cur, lens)
+        cache, logits = decode_fn(cfg, params, cache, cur, lens)
         cur, lens, done, states, remaining = dfa_scan_step(
             logits, cur, lens, done, states, remaining, generator, sampling,
             eos_id, allow_t, next_t, dist_t, close_t, complete_t)
@@ -1407,10 +1518,6 @@ def _check_contiguous_config(engine_cfg: EngineConfig, prefix_store) -> None:
             "and a store: the contiguous cache has no prefix pages "
             "to publish.  Use paged=True (PagedInferenceEngine) or "
             "prefix_store_writethrough=False")
-    if engine_cfg.kv_cache_dtype not in (None, "int8", "int4"):
-        raise ValueError(
-            f"unsupported kv_cache_dtype {engine_cfg.kv_cache_dtype!r} "
-            f"(None, 'int8' or 'int4')")
 
 
 class InferenceEngine(EngineBase):
@@ -1418,23 +1525,97 @@ class InferenceEngine(EngineBase):
     [max_seq_len] KV row; a sequence keeps its slot until it retires.
     Runs on ``device`` (``None`` = the card); ``params`` must live there.
     ``draft_model=(cfg, params)`` of a small Llama with the same
-    vocabulary drafts for ``speculative_k`` instead of n-gram lookup."""
+    vocabulary drafts for ``speculative_k`` instead of n-gram lookup.
+    ``tp_mesh``, ``ep_mesh``, ``fsdp_mesh``, ``cp_mesh`` (``cp_mode``
+    "ring" or "ulysses" over its ``cp_seq_axis``; admission one sequence
+    at a time), ``pp_mesh`` (``pp_microbatches`` over its
+    ``pp_stage_axis``) and ``sp=True`` with TP serve the model over a
+    device mesh, one engine per rank with its shard of the params; the
+    meshes compose as on the paged engine."""
 
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
                  params, tokenizer: Tokenizer, device=None, *,
-                 draft_model=None, tp_mesh=None, cp_mesh=None, ep_mesh=None,
-                 pp_mesh=None, fsdp_mesh=None, sp: bool = False,
-                 prefix_store=None):
-        if sp or any(m is not None for m in (tp_mesh, cp_mesh, ep_mesh,
-                                             pp_mesh, fsdp_mesh)):
-            raise NotImplementedError(
-                f"the contiguous engine's device meshes (TP/CP/EP/PP/FSDP, "
-                f"sp) are not ported yet ({mesh_item(6)}); the paged "
-                f"engine serves tp_mesh, cp_mesh, ep_mesh, pp_mesh, "
-                f"fsdp_mesh and sp")
+                 draft_model=None, tp_mesh=None, cp_mesh=None,
+                 cp_seq_axis: str = "seq", cp_mode: str = "ring",
+                 ep_mesh=None, pp_mesh=None,
+                 pp_microbatches: Optional[int] = None,
+                 pp_stage_axis: str = "stage", fsdp_mesh=None,
+                 sp: bool = False, prefix_store=None):
+        # JAX's ValueErrors first, in JAX's order
+        if cp_mode not in ("ring", "ulysses"):
+            raise ValueError(f"unknown cp_mode {cp_mode!r}")
+        if sp and (tp_mesh is None or cp_mesh is not None
+                   or pp_mesh is not None):
+            raise ValueError("sp=True (Megatron sequence parallelism) "
+                             "requires tp_mesh, is exclusive with cp_mesh "
+                             "(CP already seq-shards activations), and is "
+                             "unsupported on the PP paths (the pipelined "
+                             "prefill/decode do not thread sp_mesh)")
+        if engine_cfg.host_overlap and cp_mesh is not None:
+            raise ValueError(
+                "host_overlap=True is unsupported with cp_mesh: CP admits "
+                "per-sequence through prefill_cp and its multi-process "
+                "host_np collectives must line up SPMD-identically across "
+                "processes — a lagged commit would reorder them.  Run CP "
+                "engines with host_overlap=False")
         _check_contiguous_config(engine_cfg, prefix_store)
+        sizes = tuple(engine_cfg.prefill_buckets) + (engine_cfg.max_seq_len,)
+        n_cp = 0
+        if cp_mesh is not None:
+            n_cp = _mesh_axis(cp_mesh, cp_seq_axis)
+            validate_cp_divisibility(cp_seq_axis, n_cp, sizes)
+        validate_ep_mesh(ep_mesh, model_cfg, engine_cfg, cp_mesh,
+                         cp_seq_axis)
+        validate_tp_mesh(tp_mesh, model_cfg, cp_mesh, cp_seq_axis)
+        validate_fsdp_mesh(fsdp_mesh, model_cfg, engine_cfg, tp_mesh,
+                           cp_mesh, ep_mesh, pp_mesh, sp)
+        pp_m = validate_pp_mesh(pp_mesh, model_cfg, engine_cfg, cp_mesh,
+                                ep_mesh, tp_mesh, pp_microbatches,
+                                pp_stage_axis, params)
+        if engine_cfg.kv_cache_dtype not in (None, "int8", "int4"):
+            raise ValueError(
+                f"unsupported kv_cache_dtype {engine_cfg.kv_cache_dtype!r} "
+                f"(None, 'int8' or 'int4')")
+        if sp:
+            # the contiguous buckets are not page-rounded
+            validate_sp_buckets(tp_mesh, sizes)
+        # then what neither engine serves yet, the paged engine's list
+        self.mesh = next((m for m in (pp_mesh, tp_mesh, ep_mesh, cp_mesh,
+                                      fsdp_mesh) if m is not None), None)
+        if self.mesh is not None:
+            refuse_mesh_compositions(tp_mesh, cp_mesh, ep_mesh)
+            refuse_mesh_features(engine_cfg, draft_model, prefix_store)
+            check_rank_params(model_cfg, params, tp_mesh, ep_mesh, fsdp_mesh,
+                              pp_mesh, pp_stage_axis)
         self.device = resolve_device(device)
         check_params_device(params, self.device)
+        if self.mesh is not None:
+            # this rank's model: its heads, its stage's layers (its cache's
+            # depth), the collectives' groups, fsdp and sp
+            model_cfg = rank_config(model_cfg, tp_mesh, ep_mesh, self.device,
+                                    cp_mesh, cp_seq_axis, pp_mesh,
+                                    pp_stage_axis, pp_m, fsdp_mesh, sp)
+        # PP: every admission goes through the pipelined batched prefill,
+        # padded to a multiple of the microbatches.  CP: one sequence at a
+        # time through the ring or the all-to-all, each rank keeping its
+        # block of the sequence
+        self._pp_m = pp_m
+        self.cp_mode = cp_mode if cp_mesh is not None else None
+        self._batch_admission = cp_mesh is None
+        self._prefill_one = llama.prefill
+        self._prefill_batch = llama.prefill_batch
+        self._decode_fn = llama.decode_step
+        if cp_mesh is not None:
+            self._prefill_one = functools.partial(
+                llama.prefill_cp, mesh=cp_mesh, seq_axis=cp_seq_axis,
+                cp_mode=cp_mode,
+                head_axis="model" if tp_mesh is not None else None)
+        if pp_mesh is not None:
+            from k8s_llm_rca_tpu_torch.parallel import pipeline
+
+            self._prefill_one = None
+            self._prefill_batch = pipeline.llama_pp_prefill
+            self._decode_fn = pipeline.llama_pp_decode_step
         self.model_cfg = model_cfg
         self.engine_cfg = engine_cfg
         self.params = params
@@ -1451,8 +1632,11 @@ class InferenceEngine(EngineBase):
             self._draft.on_sync = lambda: self._count("engine.d2h_syncs")
 
         b = engine_cfg.max_batch
-        self.cache = llama.init_cache(model_cfg, b, engine_cfg.max_seq_len,
-                                      engine_cfg.kv_cache_dtype, self.device)
+        # under CP the rank's block of every row, under TP its lanes,
+        # under PP its stage's layers; fsdp keeps the whole cache
+        self.cache = llama.init_cache(
+            model_cfg, b, engine_cfg.max_seq_len // max(n_cp, 1),
+            engine_cfg.kv_cache_dtype, self.device)
         self.lengths = np.zeros((b,), np.int64)
         self.cur_tokens = np.zeros((b,), np.int64)
         self._free_slots = list(range(b))
@@ -1522,7 +1706,9 @@ class InferenceEngine(EngineBase):
             finished.extend(self._overlap_flush())
         while self._pending and self._free_slots:
             group = self._admission_group()
-            if len(group) == 1:
+            # PP has no single-sequence prefill: every group goes through
+            # the pipelined batched path
+            if len(group) == 1 and self._prefill_one is not None:
                 early = self._admit(group[0])
                 if early is not None:    # first token already terminal
                     finished.append(early)
@@ -1556,7 +1742,7 @@ class InferenceEngine(EngineBase):
         with annotate("engine.decode_step"):
             self._count("engine.dispatches")
             self._count("engine.decode_steps")
-            self.cache, logits = llama.decode_step(
+            self.cache, logits = self._decode_fn(
                 self.model_cfg, self.params, self.cache, cur_d, lens_d)
             if allow is not None:
                 next_tokens = sample_tokens_masked(
@@ -1594,7 +1780,8 @@ class InferenceEngine(EngineBase):
             self._count("engine.decode_steps")
             self.cache, nxt, _ = overlap_step(
                 self.model_cfg, self.params, self.cache, cur_d, lens_d,
-                self._gen, self.sampling, self._overlap_cap)
+                self._gen, self.sampling, self._overlap_cap,
+                decode_fn=self._decode_fn)
         self._inflight.append({"slots": slots, "toks": nxt,
                                "admits": admits})
         if len(self._inflight) >= self._overlap_lag:
@@ -1614,13 +1801,14 @@ class InferenceEngine(EngineBase):
             if setup is None:
                 self.cache, toks, lens = decode_scan(
                     cfg, params, self.cache, cur_d, lens_d, self._gen, chunk,
-                    self.sampling, eos)
+                    self.sampling, eos, decode_fn=self._decode_fn)
             else:
                 tables, states, remaining = setup
                 self.cache, toks, lens, _ = decode_scan_dfa(
                     cfg, params, self.cache, cur_d, lens_d, self._gen, chunk,
                     self.sampling, eos, self._upload(2, states),
-                    self._upload(3, remaining), *tables)
+                    self._upload(3, remaining), *tables,
+                    decode_fn=self._decode_fn)
         if self._overlap:
             # the surviving slots' host mirrors advance to exactly these
             # values in the commit below, so the resident operands stay
@@ -1693,8 +1881,11 @@ class InferenceEngine(EngineBase):
 
     def _admission_group(self) -> List[_Pending]:
         """Pop a FIFO run of pending requests sharing one prefill bucket,
-        bounded by the free slots and 8: one batched prefill."""
+        bounded by the free slots and 8: one batched prefill (under CP one
+        request: ``prefill_cp`` is per sequence)."""
         group = [self._pending.pop(0)]
+        if not self._batch_admission:
+            return group                    # CP prefills one sequence
         b0 = self._bucket(len(group[0].prompt_ids))
         while (self._pending and len(group) < len(self._free_slots)
                and len(group) < 8
@@ -1713,7 +1904,7 @@ class InferenceEngine(EngineBase):
         with annotate("engine.prefill"):
             self._count("engine.dispatches")
             self._count("engine.prefill_dispatches")
-            self.cache, logits = llama.prefill(
+            self.cache, logits = self._prefill_one(
                 self.model_cfg, self.params, self.cache,
                 self._to_device(padded), n, slot)
             first = sample_tokens(logits, self._gen, self.sampling)
@@ -1728,13 +1919,16 @@ class InferenceEngine(EngineBase):
 
     def _admit_batch(self, reqs: List[_Pending]) -> List[SequenceResult]:
         """Admit N same-bucket sequences with one batched prefill, padded
-        to a power of two by repeating the last row (same slot: the
-        duplicate writes are equal)."""
+        to a power of two (under PP then to a multiple of the microbatches)
+        by repeating the last row (same slot: the duplicate writes are
+        equal)."""
         n = len(reqs)
         bucket = self._bucket(max(len(r.prompt_ids) for r in reqs))
         n_pad = 1
         while n_pad < n:
             n_pad *= 2
+        if self._pp_m and n_pad % self._pp_m:
+            n_pad = -(-n_pad // self._pp_m) * self._pp_m
         slots = [self._free_slots.pop(0) for _ in range(n)]
         tokens = np.zeros((n_pad, bucket), np.int64)
         lens = np.zeros((n_pad,), np.int32)
@@ -1748,7 +1942,7 @@ class InferenceEngine(EngineBase):
         with annotate("engine.prefill"):
             self._count("engine.dispatches")
             self._count("engine.prefill_dispatches")
-            self.cache, logits = llama.prefill_batch(
+            self.cache, logits = self._prefill_batch(
                 self.model_cfg, self.params, self.cache,
                 *(self._to_device(a) for a in (tokens, lens, slot_arr)))
             firsts = sample_tokens(logits, self._gen, self.sampling)

@@ -138,9 +138,10 @@ import torch
 from k8s_llm_rca_tpu_torch.config import EngineConfig, ModelConfig
 from k8s_llm_rca_tpu_torch.engine.engine import (
     EngineBase, SequenceResult, _Active, _Pending, check_params_device,
-    _mesh_shape, dfa_greedy_multi, dfa_scan_step, mesh_item,
+    check_rank_params, dfa_greedy_multi, dfa_scan_step,
+    refuse_mesh_compositions, refuse_mesh_features,
     validate_cp_divisibility, validate_ep_mesh, validate_fsdp_mesh,
-    validate_pp_mesh, validate_tp_mesh,
+    validate_pp_mesh, validate_sp_buckets, validate_tp_mesh,
 )
 from k8s_llm_rca_tpu_torch.engine.graphs import DecodeGraphs
 from k8s_llm_rca_tpu_torch.engine.prefix import (
@@ -157,11 +158,11 @@ from k8s_llm_rca_tpu_torch.ops.attention import (
 )
 from k8s_llm_rca_tpu_torch.ops.norms import rms_norm
 from k8s_llm_rca_tpu_torch.ops.paged_attention import (
-    gather_dequant_pages, merge_partials, paged_attention,
+    gather_dequant_pages, paged_attention,
     paged_attention_quant, paged_attention_quant_sharded,
     paged_attention_sharded,
 )
-from k8s_llm_rca_tpu_torch.runtime.mesh import all_gather, axis_rank
+from k8s_llm_rca_tpu_torch.runtime.mesh import axis_rank
 from k8s_llm_rca_tpu_torch.runtime.profiling import annotate
 from k8s_llm_rca_tpu_torch.runtime.sharding import rank_config
 from k8s_llm_rca_tpu_torch.utils.device import resolve_device
@@ -762,13 +763,10 @@ def _cp_decode_attention(cfg: ModelConfig, q: torch.Tensor, pool: PagePool,
     rank's pages only, with the rows' log-sum-exp; one all-gather of
     (out, lse) over the seq group; the merge (``merge_partials``, plain
     torch: JAX leaves it to GSPMD outside any kernel)."""
-    cp = cfg.cp
     lens, tables = view
     out, lse = _decode_attention(cfg, q, pool, li, lens, tables, packed,
                                  return_lse=True)
-    part = torch.cat([out.float(), lse[..., None]], dim=-1)     # [B, H, d+1]
-    parts = all_gather(part[None], cp.group, dim=0)             # [P, B, H, d+1]
-    return merge_partials(parts[..., :-1], parts[..., -1]).to(q.dtype)
+    return llama.cp_merge(cfg, out, lse)
 
 
 def _decode_layers(cfg: ModelConfig, layers, x: torch.Tensor,
@@ -1155,24 +1153,13 @@ def check_meshes(model_cfg: ModelConfig, engine_cfg: EngineConfig, params,
     pp_m = validate_pp_mesh(pp_mesh, model_cfg, engine_cfg, cp_mesh,
                             ep_mesh, tp_mesh, pp_microbatches,
                             pp_stage_axis, params)
-    if cp_mesh is not None and ep_mesh is not None:
-        raise NotImplementedError(
-            f"cp_mesh with ep_mesh (CP x EP) is not ported yet "
-            f"({mesh_item(7)})")
-    if tp_mesh is not None and ep_mesh is not None:
-        raise NotImplementedError(
-            f"tp_mesh with ep_mesh (TP x EP) is not ported yet "
-            f"({mesh_item(7)})")
+    refuse_mesh_compositions(tp_mesh, cp_mesh, ep_mesh)
     validate_tp_mesh(tp_mesh, model_cfg, cp_mesh, cp_seq_axis)
     if sp:
-        n_tp = _mesh_shape(tp_mesh)["model"]
         page = engine_cfg.page_size
-        for b in tuple(engine_cfg.prefill_buckets) + (engine_cfg.max_seq_len,):
-            if (-(-b // page) * page) % n_tp:   # page-rounded, as _bucket
-                raise ValueError(
-                    f"sp=True shards the padded sequence over the model "
-                    f"axis: bucket {-(-b // page) * page} is not divisible "
-                    f"by its size {n_tp}")
+        validate_sp_buckets(tp_mesh, [   # page-rounded, as _bucket
+            -(-b // page) * page for b in tuple(engine_cfg.prefill_buckets)
+            + (engine_cfg.max_seq_len,)])
     validate_ep_mesh(ep_mesh, model_cfg, engine_cfg)
     n_cp = (_check_cp_config(engine_cfg, prefix_store, cp_mesh, cp_seq_axis)
             if cp_mesh is not None else 0)
@@ -1182,19 +1169,7 @@ def check_meshes(model_cfg: ModelConfig, engine_cfg: EngineConfig, params,
                  if m is not None), None)
     if mesh is None:
         return None, 0, None
-    refused = [name for name, on in (
-        ("max_spilled_pages (KV spill)", engine_cfg.max_spilled_pages),
-        ("the prefix store tiers (prefix_host_pages / prefix_disk_dir / "
-         "prefix_disk_pages / prefix_store)",
-         engine_cfg.prefix_host_pages or engine_cfg.prefix_disk_dir
-         or engine_cfg.prefix_disk_pages or prefix_store is not None),
-        ("host_overlap", engine_cfg.host_overlap),
-        ("speculative_k / draft_model",
-         engine_cfg.speculative_k or draft_model is not None)) if on]
-    if refused:
-        raise NotImplementedError(
-            f"under a device mesh {', '.join(refused)} is not ported yet "
-            f"({mesh_item(7)})")
+    refuse_mesh_features(engine_cfg, draft_model, prefix_store)
     if (cuda_graphs and device.type == "cuda"
             and torch.distributed.get_backend() != "nccl"):
         raise ValueError(
@@ -1202,41 +1177,8 @@ def check_meshes(model_cfg: ModelConfig, engine_cfg: EngineConfig, params,
             f"CUDA graph captures; the group's backend is "
             f"{torch.distributed.get_backend()!r}, whose collectives sync "
             f"with the host (pass cuda_graphs=False)")
-    for m, axis, key, dim, total in (
-            (tp_mesh, "model", "wq", -1, model_cfg.q_dim),
-            (ep_mesh, "expert", "w_gate", 0, model_cfg.n_experts)):
-        if m is None:
-            continue
-        want = total // int(m.mesh.shape[m.mesh_dim_names.index(axis)])
-        got = params["layers"][0][key].shape[dim]
-        if got != want:
-            raise ValueError(
-                f"the {axis} axis needs this rank's shard of the params "
-                f"(runtime.sharding.shard_params): {key} has {got} along "
-                f"dim {dim}, the rank's share is {want}")
-    if fsdp_mesh is not None:
-        want = model_cfg.hidden_size // _mesh_shape(fsdp_mesh)["fsdp"]
-        got = params["layers"][0]["wq"].shape[0]
-        if got != want:
-            raise ValueError(
-                f"the fsdp axis needs this rank's shard of the params "
-                f"(runtime.sharding.shard_params under rules.FSDP_LAYOUT): "
-                f"wq has {got} along dim 0, the rank's share is {want}")
-        if tp_mesh is None and _mesh_shape(fsdp_mesh)["model"] > 1:
-            # shard_params splits the heads over "model": only a TP rank's
-            # model computes on them
-            raise ValueError(
-                "an fsdp_mesh with a 'model' axis above 1 is fsdp×tp: pass "
-                "the same mesh as tp_mesh")
-    if pp_mesh is not None:
-        want = model_cfg.n_layers // int(pp_mesh.mesh.shape[
-            pp_mesh.mesh_dim_names.index(pp_stage_axis)])
-        if len(params["layers"]) != want:
-            raise ValueError(
-                f"the {pp_stage_axis} axis needs this rank's stage of the "
-                f"params (runtime.sharding.shard_stage_params): "
-                f"{len(params['layers'])} layers, the stage's share is "
-                f"{want}")
+    check_rank_params(model_cfg, params, tp_mesh, ep_mesh, fsdp_mesh,
+                      pp_mesh, pp_stage_axis)
     return mesh, n_cp, pp_m
 
 
@@ -2578,16 +2520,6 @@ class PagedInferenceEngine(EngineBase):
                 if flushed:
                     self._count("engine.prefix_writethrough_pages",
                                 flushed)
-
-    def _refuse_under_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} under a device mesh is not ported yet "
-                f"({mesh_item(7)})")
-
-    def restore_sequences(self, snap: Dict[str, object], *args, **kwargs):
-        self._refuse_under_mesh("restore_sequences")
-        return super().restore_sequences(snap, *args, **kwargs)
 
     def snapshot_sequences(self) -> Dict[str, object]:
         """``EngineBase.snapshot_sequences`` aware of chunked prefills: a

@@ -48,6 +48,15 @@ w_down) in place of the sum all-reduce, and one gather of the rows the
 logits need: per dispatch ``2 * n_layers + 1`` ``all_gather_into`` and
 ``2 * n_layers`` ``reduce_scatter_sum``, and 1 sum all-reduce (the
 logits).
+
+With ``cp`` (context parallelism) a rank's contiguous cache holds its block
+of every slot's sequence, S/P positions: ``prefill_cp`` keeps that block of
+``prefill_kv_cp``'s K/V, a decode step writes each new token on the rank
+whose block holds its position only, and every rank attends over its own
+block with the log-sum-exp, merged over the seq group by one all-gather a
+layer (``_cp_decode_attention``).  Under PP a rank holds one stage's
+layers: the whole-stack entry points refuse its config, and
+``parallel/pipeline.py``'s ``llama_pp_*`` run the stages.
 """
 
 from __future__ import annotations
@@ -64,9 +73,7 @@ from k8s_llm_rca_tpu_torch.models.quant import (
     QuantTensor, QuantTensor4, QuantTensor4Grouped, dequant_kv, gather_rows,
     quantize_kv,
 )
-from k8s_llm_rca_tpu_torch.ops.attention import (
-    decode_attention, decode_attention_multi,
-)
+from k8s_llm_rca_tpu_torch.ops.attention import decode_attention_multi
 from k8s_llm_rca_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_sharded,
 )
@@ -75,6 +82,9 @@ from k8s_llm_rca_tpu_torch.ops.quant_matmul import (
     quant_matmul_head_plain, quant_matmul_plain,
 )
 from k8s_llm_rca_tpu_torch.ops.norms import rms_norm
+from k8s_llm_rca_tpu_torch.ops.paged_attention import (
+    attention_lse_plain, merge_partials,
+)
 from k8s_llm_rca_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from k8s_llm_rca_tpu_torch.runtime.mesh import (
     all_gather, all_gather_into, all_reduce_sum, reduce_scatter_sum,
@@ -596,18 +606,26 @@ def _kv_packed(cfg: ModelConfig, cache: KVCache) -> bool:
 
 
 def _store_kv(cfg: ModelConfig, cache: KVCache, li, index,
-              k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+              k_new: torch.Tensor, v_new: torch.Tensor,
+              keep: Optional[torch.Tensor] = None) -> None:
     """Write new k/v rows ([..., kv_dim], model dtype) into layer(s) ``li``
     of the cache at ``index`` (a tuple indexing the [B, S] axes),
-    quantizing per token when the cache is int8/int4."""
+    quantizing per token when the cache is int8/int4 (under TP with the
+    full-row scale, the max over the group: ``kv_group``).  ``keep`` (a
+    bool mask over the written rows' leading dims): where False the cache
+    keeps what it holds there (a CP rank that does not own the
+    position)."""
+    new = [k_new, v_new]
     if cache.quantized:
         packed = _kv_packed(cfg, cache)
-        k_new, ks = quantize_kv(k_new, packed)
-        v_new, vs = quantize_kv(v_new, packed)
-        cache.k_scale[(li,) + index] = ks
-        cache.v_scale[(li,) + index] = vs
-    cache.k[(li,) + index] = k_new
-    cache.v[(li,) + index] = v_new
+        (k_q, ks), (v_q, vs) = (quantize_kv(t, packed, kv_group(cfg))
+                                for t in new)
+        new = [k_q, v_q, ks, vs]
+    for buf, t in zip(cache, new):
+        if keep is not None:
+            t = torch.where(keep[(...,) + (None,) * (t.dim() - keep.dim())],
+                            t, buf[(li,) + index])
+        buf[(li,) + index] = t
 
 
 def _write_prefill_kv(cfg: ModelConfig, cache: KVCache, new_k: torch.Tensor,
@@ -621,6 +639,15 @@ def _write_prefill_kv(cfg: ModelConfig, cache: KVCache, new_k: torch.Tensor,
     return cache
 
 
+def _no_pp(cfg: ModelConfig, name: str, pp_name: str) -> None:
+    """Under PP a rank holds one stage's layers: the pipelined entry point
+    ``pp_name`` of ``parallel/pipeline.py`` runs them."""
+    if getattr(cfg, "pp", None) is not None:
+        raise ValueError(f"{name} runs the whole stack, and a rank under a "
+                         f"pp_mesh holds one stage: use "
+                         f"parallel.pipeline.{pp_name}")
+
+
 def prefill(cfg: ModelConfig, params: Params, cache: KVCache,
             tokens: torch.Tensor, length: int, slot: int
             ) -> Tuple[KVCache, torch.Tensor]:
@@ -628,6 +655,7 @@ def prefill(cfg: ModelConfig, params: Params, cache: KVCache,
     valid) into cache slot ``slot``; attention is ``ops.flash_attention``
     (the kernel on the card).  Returns (cache, logits [1, V] of the last
     valid token)."""
+    _no_pp(cfg, "prefill", "llama_pp_prefill")
     new_k, new_v, logits = prefill_kv(cfg, params, tokens, length)
     return _write_prefill_kv(cfg, cache, new_k, new_v, slot), logits
 
@@ -640,6 +668,7 @@ def prefill_batch(cfg: ModelConfig, params: Params, cache: KVCache,
     slots are allowed only for identical rows (the admission batcher pads
     a batch by repeating its last row: the duplicate writes are equal).
     Returns (cache, logits [N, V] at each row's last valid token)."""
+    _no_pp(cfg, "prefill_batch", "llama_pp_prefill")
     s_pad = tokens.shape[1]
     new_k, new_v, logits = _prefill_batch_kv(cfg, params, tokens, lengths)
     _store_kv(cfg, cache, slice(None), (slots.long(), slice(0, s_pad)),
@@ -647,16 +676,29 @@ def prefill_batch(cfg: ModelConfig, params: Params, cache: KVCache,
     return cache, logits
 
 
-def _token_index(cache: KVCache, lengths: torch.Tensor, t: int = 1):
-    """(slot, position) index of each slot's next ``t`` cache rows.  A
-    position past the cache writes its last row instead, as a JAX
-    ``dynamic_update_slice`` clamps its start: only slots that are not
-    live reach it, and the row is rewritten before it is attended."""
+def _token_index(cfg: ModelConfig, cache: KVCache, lengths: torch.Tensor,
+                 t: int = 1):
+    """((slot, position) index of each slot's next ``t`` cache rows, the
+    rows this rank writes: None = all of them).  A position past the
+    sequence writes its last row instead, as a JAX ``dynamic_update_slice``
+    clamps its start: only slots that are not live reach it, and the row
+    is rewritten before it is attended.  Under CP (``cfg.cp``) the cache
+    holds this rank's block of the sequence, [rank * S/P, (rank + 1) *
+    S/P): the clamp is the whole sequence's, the index local, and a
+    position outside the block is not written (its owner writes it)."""
     b = lengths.shape[0]
-    s_max = cache.max_seq_len
+    dev = lengths.device
+    cp = getattr(cfg, "cp", None)
+    s_rows = cache.max_seq_len
+    s_max = s_rows * (cp.size if cp is not None else 1)
     start = torch.clamp(lengths.long(), max=s_max - t)
-    rows = torch.arange(b, device=lengths.device)[:, None]
-    return rows, start[:, None] + torch.arange(t, device=lengths.device)
+    pos = start[:, None] + torch.arange(t, device=dev)
+    rows = torch.arange(b, device=dev)[:, None]
+    if cp is None:
+        return (rows, pos), None
+    local = pos - cp.rank * s_rows
+    keep = (local >= 0) & (local < s_rows)
+    return (rows, local.clamp(0, s_rows - 1)), keep
 
 
 def _cached_layer(cfg: ModelConfig, cache: KVCache, li: int, dtype):
@@ -672,6 +714,68 @@ def _cached_layer(cfg: ModelConfig, cache: KVCache, li: int, dtype):
         for kv, sc in zip((cache.k, cache.v), scales))
 
 
+def cp_merge(cfg: ModelConfig, out: torch.Tensor, lse: torch.Tensor
+             ) -> torch.Tensor:
+    """The CP decode merge: every rank's partial attention out [B, H, d]
+    over its own keys with its log-sum-exp lse [B, H]; one all-gather of
+    (out, lse) over the seq group, then ``merge_partials`` (plain torch:
+    JAX leaves the combine to GSPMD outside any kernel).  [B, H, d] in
+    out's dtype."""
+    part = torch.cat([out.float(), lse[..., None]], dim=-1)     # [B, H, d+1]
+    parts = all_gather(part[None], cfg.cp.group, dim=0)         # [P, B, H, d+1]
+    return merge_partials(parts[..., :-1], parts[..., -1]).to(out.dtype)
+
+
+def _cp_decode_attention(cfg: ModelConfig, q: torch.Tensor,
+                         k_all: torch.Tensor, v_all: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """Decode attention over the sequence-sharded cache: q [B, 1, H, d] at
+    position ``lengths``, k/v_all this rank's block [B, S/P, n_kv, d]; the
+    plain attention over the block's valid positions with its lse
+    (``attention_lse_plain``), merged over the seq group (``cp_merge``).
+    Returns [B, 1, H, d]."""
+    cp = cfg.cp
+    s_rows = k_all.shape[1]
+    lens = (lengths + 1 - cp.rank * s_rows).clamp(0, s_rows)
+    out, lse = attention_lse_plain(q[:, 0], k_all, v_all, lens)
+    return cp_merge(cfg, out, lse)[:, None]
+
+
+def _decode_layers(cfg: ModelConfig, layers, x: torch.Tensor,
+                   cache: KVCache, lengths: torch.Tensor) -> torch.Tensor:
+    """The blocks of a decode of T = x.shape[1] tokens a slot, layer ``li``
+    on cache layer ``li``: x [B, T, H] at positions ``lengths[b] + i``.
+    Each layer writes its T new K/V rows (quantized per token in an
+    int8/int4 cache) BEFORE attention, where query i sees ``lengths[b] +
+    1 + i`` positions (``ops.attention.decode_attention_multi``, plain
+    torch as JAX computes it outside any kernel; under CP at T = 1
+    ``_cp_decode_attention``).  Returns x."""
+    b, t = x.shape[:2]
+    dev = x.device
+    dtype = torch_dtype(cfg.dtype)
+    angles = _angles(cfg, dev)
+    positions = lengths.long()[:, None] + torch.arange(t, device=dev)[None, :]
+    cp = getattr(cfg, "cp", None)
+    if cp is not None and t > 1:
+        from k8s_llm_rca_tpu_torch.engine.engine import mesh_item
+
+        raise NotImplementedError(
+            f"a multi-token decode (the speculative verify step) over the "
+            f"sequence-sharded cache is not ported yet ({mesh_item(7)})")
+    index, keep = _token_index(cfg, cache, lengths, t)
+    for li, layer in enumerate(layers):
+        q, k, v = _decode_qkv(cfg, layer, x, angles, positions)
+        _store_kv(cfg, cache, li, index, k.reshape(b, t, cfg.kv_dim),
+                  v.reshape(b, t, cfg.kv_dim), keep)
+        k_all, v_all = _cached_layer(cfg, cache, li, dtype)
+        if cp is None:
+            attn = decode_attention_multi(q, k_all, v_all, lengths + 1)
+        else:
+            attn = _cp_decode_attention(cfg, q, k_all, v_all, lengths)
+        x = _decode_finish(cfg, layer, x, attn.reshape(b, t, cfg.q_dim))
+    return x
+
+
 def decode_multi(cfg: ModelConfig, params: Params, cache: KVCache,
                  tokens: torch.Tensor, lengths: torch.Tensor
                  ) -> Tuple[KVCache, torch.Tensor]:
@@ -682,20 +786,9 @@ def decode_multi(cfg: ModelConfig, params: Params, cache: KVCache,
     plain torch as JAX computes it outside any kernel).  Rejected drafts
     need no rollback: attention masks by length.  Returns (cache, logits
     [B, T, V])."""
-    b, t = tokens.shape
-    dev = tokens.device
-    dtype = torch_dtype(cfg.dtype)
-    angles = _angles(cfg, dev)
-    positions = lengths.long()[:, None] + torch.arange(t, device=dev)[None, :]
+    _no_pp(cfg, "decode_multi", "llama_pp_decode_multi")
     x = embed(cfg, params, tokens.long())
-    index = _token_index(cache, lengths, t)
-    for li, layer in enumerate(params["layers"]):
-        q, k, v = _decode_qkv(cfg, layer, x, angles, positions)
-        _store_kv(cfg, cache, li, index, k.reshape(b, t, cfg.kv_dim),
-                  v.reshape(b, t, cfg.kv_dim))
-        k_all, v_all = _cached_layer(cfg, cache, li, dtype)
-        attn = decode_attention_multi(q, k_all, v_all, lengths + 1)
-        x = _decode_finish(cfg, layer, x, attn.reshape(b, t, cfg.q_dim))
+    x = _decode_layers(cfg, params["layers"], x, cache, lengths)
     return cache, _logits(cfg, params, x)
 
 
@@ -705,20 +798,12 @@ def decode_step(cfg: ModelConfig, params: Params, cache: KVCache,
     """One decode step for ALL slots: tokens [B] current tokens, lengths
     [B] tokens already cached; the new token's KV is written at
     lengths[b] and attends to lengths[b] + 1 positions
-    (``ops.attention.decode_attention``).  Returns (cache, logits [B, V])."""
-    b = tokens.shape[0]
-    dev = tokens.device
-    dtype = torch_dtype(cfg.dtype)
-    angles = _angles(cfg, dev)
+    (``ops.attention.decode_attention``; under CP (``cfg.cp``) each rank
+    over its block of the sequence, merged: ``_cp_decode_attention``).
+    Returns (cache, logits [B, V])."""
+    _no_pp(cfg, "decode_step", "llama_pp_decode_step")
     x = embed(cfg, params, tokens.long()[:, None])
-    index = _token_index(cache, lengths)
-    for li, layer in enumerate(params["layers"]):
-        q, k, v = _decode_qkv(cfg, layer, x, angles, lengths.long()[:, None])
-        _store_kv(cfg, cache, li, index, k.reshape(b, 1, cfg.kv_dim),
-                  v.reshape(b, 1, cfg.kv_dim))
-        k_all, v_all = _cached_layer(cfg, cache, li, dtype)
-        attn = decode_attention(q, k_all, v_all, lengths + 1)
-        x = _decode_finish(cfg, layer, x, attn.reshape(b, 1, cfg.q_dim))
+    x = _decode_layers(cfg, params["layers"], x, cache, lengths)
     return cache, _logits(cfg, params, x)[:, 0]
 
 
@@ -770,9 +855,11 @@ def prefill_kv_cp(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     if cp_mode not in ("ring", "ulysses"):
         raise ValueError(f"unknown cp_mode {cp_mode!r}")
     if ep_mesh is not None:
+        from k8s_llm_rca_tpu_torch.engine.engine import mesh_item
+
         raise NotImplementedError(
-            "context-parallel prefill with ep_mesh (CP x EP) is not ported "
-            "yet (ROADMAP Queue 1 item 10, multi-GPU)")
+            f"context-parallel prefill with ep_mesh (CP x EP) is not ported "
+            f"yet ({mesh_item(7)})")
     cp_attn = ring_attention if cp_mode == "ring" else ulysses_attention
     n_cp = axis_size(mesh, seq_axis)
     p = axis_rank(mesh, seq_axis)
@@ -807,11 +894,30 @@ def prefill_kv_cp(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return kv[0], kv[1], _logits(cfg, params, last)[:, 0]
 
 
-def prefill_cp(*args, **kwargs):
-    """Context-parallel prefill into the contiguous cache: the contiguous
-    engine's meshes are not ported (the paged engine's CP prefill is
-    ``engine.paged.paged_prefill_cp`` over ``prefill_kv_cp``)."""
-    raise NotImplementedError(
-        "context-parallel prefill into the contiguous cache (prefill_cp) is "
-        "not ported yet (ROADMAP Queue 1 item 10.6, the contiguous engine's "
-        "meshes); the paged engine serves cp_mesh")
+def prefill_cp(cfg: ModelConfig, params: Params, cache: KVCache,
+               tokens: torch.Tensor, length: int, slot: int, mesh,
+               seq_axis: str = "seq", cp_mode: str = "ring",
+               head_axis: Optional[str] = None, ep_mesh=None
+               ) -> Tuple[KVCache, torch.Tensor]:
+    """Context-parallel prefill of ONE right-padded sequence into cache slot
+    ``slot`` (the counterpart of JAX's ``prefill_cp``): ``prefill_kv_cp``
+    (ring or Ulysses, per head shard under CP x TP), then each rank keeps
+    its block of the sequence, positions [rank * S/P, (rank + 1) * S/P),
+    of every layer: the rank's cache holds S/P positions a slot (``cfg``
+    is the rank's config, ``cfg.cp`` its place on the seq axis).  Returns
+    (cache, logits [1, V] of the last valid token), the same on every
+    rank."""
+    new_k, new_v, logits = prefill_kv_cp(cfg, params, tokens, length, mesh,
+                                         seq_axis, cp_mode, head_axis,
+                                         ep_mesh)
+    s_rows = cache.max_seq_len
+    lo = cfg.cp.rank * s_rows
+    hi = min(lo + s_rows, tokens.shape[1])
+    if hi > lo:
+        # every rank of a TP group shares its seq rank: the quantized
+        # write's max over the group runs on all of them or none
+        n_layers = new_k.shape[0]
+        _store_kv(cfg, cache, slice(None), (int(slot), slice(0, hi - lo)),
+                  new_k[:, lo:hi].reshape(n_layers, hi - lo, cfg.kv_dim),
+                  new_v[:, lo:hi].reshape(n_layers, hi - lo, cfg.kv_dim))
+    return cache, logits

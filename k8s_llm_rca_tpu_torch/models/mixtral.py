@@ -8,8 +8,9 @@ soft-dispatch form, whose stacked-expert matmuls run the ekn kernels under
 ``fused_quant_matmul``).  This module re-exports the presets and the model
 entry points, as the JAX module does, and holds the expert-parallel
 serving assembly: the (data, expert) mesh, this rank's shard of the
-stacked expert weights, and a paged engine whose every MoE MLP (prefill
-and decode) dispatches through the all-to-all of ``parallel/moe.py``.
+stacked expert weights, and an engine (paged or contiguous) whose every
+MoE MLP (prefill and decode) dispatches through the all-to-all of
+``parallel/moe.py``.
 Every rank of the process group calls these with the same arguments.
 
 One card serves Mixtral-8x7B with int8 weights (~47 GB; bf16 is ~93 GB):
@@ -28,21 +29,19 @@ from k8s_llm_rca_tpu_torch.models.llama import (  # noqa: F401
     init_params, params_from_numpy, prefill_kv,
 )
 
-MESH_ITEM = "ROADMAP Queue 1 item 10, multi-GPU"
-
-
 def build_ep_mesh(n_expert_shards: int, n_data: int = 1, n_seq: int = 1,
                   device=None):
     """The (data, expert) mesh of EP serving over the ranks of the default
     process group: ``n_expert_shards`` ranks hold disjoint expert subsets,
     ``n_data`` replicas shard the token batch.  ``n_seq`` > 1 (the CP x EP
-    composition) is not ported."""
+    composition) is not ported on either engine."""
+    from k8s_llm_rca_tpu_torch.engine.engine import mesh_item
     from k8s_llm_rca_tpu_torch.runtime.mesh import build_mesh
 
     if n_seq > 1:
         raise NotImplementedError(
-            f"build_ep_mesh(n_seq > 1): context parallelism is not ported "
-            f"yet ({MESH_ITEM})")
+            f"build_ep_mesh(n_seq > 1): CP x EP is not ported yet "
+            f"({mesh_item(7)})")
     return build_mesh(MeshConfig(data=n_data, expert=n_expert_shards),
                       device=device)
 
@@ -64,8 +63,8 @@ def make_ep_engine(cfg: ModelConfig, engine_cfg: EngineConfig, params,
     """Expert-parallel serving engine on this rank (``device``: ``None`` =
     the card).  Builds the (data, expert) mesh over the process group (or
     takes ``mesh``), shards the FULL ``params`` to this rank's experts on
-    ``device``, and returns the engine (paged when ``engine_cfg.paged``;
-    the contiguous engine's meshes are not ported) whose MoE MLPs run the
+    ``device``, and returns the engine (paged when ``engine_cfg.paged``,
+    else the contiguous ``InferenceEngine``) whose MoE MLPs run the
     all-to-all dispatch.  ``n_expert_shards`` defaults to every rank."""
     import torch.distributed as dist
 

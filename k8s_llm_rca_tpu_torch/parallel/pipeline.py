@@ -29,7 +29,7 @@ group taken off.  The stage bodies are the port's own layer functions
 under the rank's config, so TP inside a stage is the TP block of
 ``models/llama.py`` (sum all-reduces over the stage's "model" group) and
 EP the all-to-all MoE of ``parallel/moe.py`` over the stage's "expert"
-group.  The decode attention is the paged kernel on the stage's own pool
+group.  The paged decode attention is the paged kernel on the stage's own pool
 at each microbatch's rows (JAX reads a gathered XLA page view there).
 
 Collectives per forward, on every rank (M microbatches, P stages, L/P
@@ -43,8 +43,11 @@ logits all-reduce: those are replicated), over a quantized pool 2
 chunk; under EP 2 ``all_to_all`` and 1 ``all_gather`` a layer.
 
 The contiguous engine's entry points (``llama_pp_prefill``,
-``llama_pp_decode_step``, ``llama_pp_decode_multi``) are not ported
-(ROADMAP Queue 1 item 10.6, with the contiguous engine's other meshes).
+``llama_pp_decode_step``, ``llama_pp_decode_multi``) run the same schedule
+over a stage-local contiguous cache (``RankModelConfig.n_layers`` = L/P
+layers, every slot): a stage writes its layers' K/V into the rows of its
+microbatch's slots and the decode attends over them in plain torch
+(``llama._decode_layers``), with the same collectives per forward.
 """
 
 from __future__ import annotations
@@ -290,23 +293,100 @@ def paged_pp_prefill_chunk(cfg, params, pool, tokens: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the contiguous engine's PP (not ported)
+# contiguous-cache PP serving
 # ---------------------------------------------------------------------------
 
 
-def _contiguous(name: str):
-    def refuse(*args, **kwargs):
-        from k8s_llm_rca_tpu_torch.engine.engine import mesh_item
-
-        raise NotImplementedError(
-            f"{name} (pipeline parallelism on the contiguous cache) is not "
-            f"ported yet ({mesh_item(6)}, with the contiguous engine's "
-            f"other meshes); the paged engine serves pp_mesh")
-
-    refuse.__name__ = name
-    return refuse
+def _rows(cache, r: slice):
+    """The contiguous cache's slots ``r`` as a cache of their own: views,
+    so the layers' writes land in ``cache``."""
+    return type(cache)(*(None if t is None else t[:, r] for t in cache))
 
 
-llama_pp_prefill = _contiguous("llama_pp_prefill")
-llama_pp_decode_step = _contiguous("llama_pp_decode_step")
-llama_pp_decode_multi = _contiguous("llama_pp_decode_multi")
+def llama_pp_prefill(cfg, params, cache, tokens: torch.Tensor,
+                     lengths: torch.Tensor, slots: torch.Tensor,
+                     microbatches: Optional[int] = None):
+    """Pipeline-parallel batched prefill into the contiguous cache (the
+    port of JAX's ``llama_pp_prefill``): tokens [N, S_pad] right-padded,
+    lengths [N], ``slots`` [N] the cache rows (padding rows repeat a real
+    row: identical duplicate writes), N a multiple of the microbatch count
+    (``cfg.pp``'s unless given).  Each stage runs its layers over each
+    microbatch and writes their K/V into its own layers of the cache
+    (``llama.prefill_batch``'s write).  Returns (cache, logits [N, V] at
+    each row's last valid token), the same on every rank."""
+    from k8s_llm_rca_tpu_torch.models import llama
+
+    pp = _pp(cfg)
+    m = microbatches or pp.microbatches
+    n, s_pad = tokens.shape
+    bm = _microbatches(n, m)
+    dev = tokens.device
+    rep = _replicated(cfg)
+    x = llama.embed(rep, params, tokens)                    # [N, S, H]
+    x_mb = x.reshape(m, bm, s_pad, x.shape[-1])
+    angles = llama._angles(cfg, dev)
+    positions = torch.arange(s_pad, device=dev)[None, :].expand(bm, s_pad)
+    last = lengths.long() - 1
+    rows = torch.arange(bm, device=dev)
+
+    def stage_apply(h, mb):
+        r = slice(mb * bm, (mb + 1) * bm)
+        ks, vs = [], []
+        for layer in params["layers"]:
+            h, k, v = llama._block_prefill(cfg, layer, h, angles, positions,
+                                           lengths[r])
+            ks.append(k.reshape(bm, s_pad, cfg.kv_dim))
+            vs.append(v.reshape(bm, s_pad, cfg.kv_dim))
+        llama._store_kv(cfg, cache, slice(None),
+                        (slots[r].long(), slice(0, s_pad)), torch.stack(ks),
+                        torch.stack(vs))
+        return h
+
+    # the last stage keeps each row's last valid token only
+    out = _gpipe_loop(stage_apply, x_mb, pp.group, out=x_mb[:, :, 0],
+                      select=lambda h, mb: h[rows, last[mb * bm:
+                                                      (mb + 1) * bm]])
+    return cache, llama._logits(rep, params, out.reshape(n, 1, -1))[:, 0]
+
+
+def llama_pp_decode_step(cfg, params, cache, tokens: torch.Tensor,
+                         lengths: torch.Tensor,
+                         microbatches: Optional[int] = None):
+    """One pipeline-parallel decode step for ALL slots of the contiguous
+    cache: tokens [B], lengths [B].  The T = 1 case of
+    ``llama_pp_decode_multi``, as in JAX.  Returns (cache, logits [B, V])
+    matching ``llama.decode_step``."""
+    cache, _, logits = llama_pp_decode_multi(cfg, params, cache,
+                                             tokens[:, None], lengths,
+                                             microbatches)
+    return cache, logits[:, 0]
+
+
+def llama_pp_decode_multi(cfg, params, cache, tokens: torch.Tensor,
+                          lengths: torch.Tensor,
+                          microbatches: Optional[int] = None):
+    """Pipeline-parallel decode of T tokens a slot over the contiguous
+    cache (speculative verification; T = 1 the decode step): tokens [B, T]
+    at positions ``lengths[b] + i``.  The slots split into microbatches
+    of B / M rows; each stage writes its layers' new K/V into its slots of
+    the cache and attends over them (``llama._decode_layers`` on a view of
+    the microbatch's rows).  Returns (cache, greedy [B, T], logits [B, T,
+    V]), JAX's return, matching ``llama.decode_multi``'s logits."""
+    from k8s_llm_rca_tpu_torch.models import llama
+
+    pp = _pp(cfg)
+    m = microbatches or pp.microbatches
+    b, t = tokens.shape
+    bm = _microbatches(b, m)
+    rep = _replicated(cfg)
+    x = llama.embed(rep, params, tokens.long())             # [B, T, H]
+
+    def stage_apply(h, mb):
+        r = slice(mb * bm, (mb + 1) * bm)
+        return llama._decode_layers(cfg, params["layers"], h,
+                                    _rows(cache, r), lengths[r])
+
+    out = _gpipe_loop(stage_apply, x.reshape(m, bm, t, x.shape[-1]),
+                      pp.group)
+    logits = llama._logits(rep, params, out.reshape(b, t, -1))  # [B, T, V]
+    return cache, logits.argmax(dim=-1), logits

@@ -7,6 +7,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -251,8 +252,14 @@ def test_params_on_another_device_are_refused():
         make_engine(cfg, ecfg, params, tok, device="cpu")
 
 
+# a stand-in for a 1-rank mesh: the six axes of size one (the refusals
+# come before anything else reads it)
+_ONE_RANK = types.SimpleNamespace(
+    mesh_dim_names=("data", "fsdp", "model", "expert", "seq", "stage"),
+    mesh=torch.zeros((1,) * 6))
 UNPORTED = [
-    ({"paged": False}, {"tp_mesh": object()}, "Queue 1 item 10"),
+    ({"paged": False, "host_overlap": True}, {"tp_mesh": _ONE_RANK},
+     "Queue 1 item 10.7"),
 ]
 
 
@@ -260,8 +267,10 @@ UNPORTED = [
                          ids=[next(iter(o)) for o, _, _ in UNPORTED])
 def test_unported_engine_knob_raises(over, kw, item):
     """``paged=False`` builds the contiguous-slot engine (it raised
-    naming Queue 1 item 9 before that engine was ported); its device
-    meshes still raise, naming item 10."""
+    naming Queue 1 item 9 before that engine was ported), with
+    ``host_overlap`` too; its device meshes are served since the
+    contiguous-mesh slice, and ``host_overlap`` under one still raises,
+    naming item 10.7."""
     cfg, ecfg, params, tok = _tiny_engine_args()
     ecfg = dataclasses.replace(ecfg, **over)
     assert type(make_engine(cfg, ecfg, params, tok, device="cpu")).__name__ \
@@ -404,8 +413,6 @@ def test_meshes_raise(meshes, error, match):
     alone and with tp_mesh is served since the FSDP slice).  The meshes
     are stand-ins with the six axes of size one: the refusals come before
     anything else reads them."""
-    import types
-
     mesh = types.SimpleNamespace(
         mesh_dim_names=("data", "fsdp", "model", "expert", "seq", "stage"),
         mesh=torch.zeros((1,) * 6))
@@ -415,13 +422,68 @@ def test_meshes_raise(meshes, error, match):
                     **{name: mesh for name in meshes})
 
 
-@pytest.mark.parametrize("mesh", ["tp_mesh", "cp_mesh", "ep_mesh", "pp_mesh",
-                                  "fsdp_mesh"])
-def test_contiguous_engine_meshes_raise(mesh):
+# the contiguous engine's refusals under a mesh: (the meshes, what else the
+# engine is given, the error, its message).  The item 10.7 features under
+# each mesh the engine serves, then JAX's ValueErrors (host_overlap with
+# CP, sp without TP, a bucket off the CP axis or, under sp, off the TP
+# axis) and the compositions neither engine serves (CP x EP, TP x EP)
+CONTIGUOUS_REFUSALS = {
+    **{f"{mesh}-{feature}": ((mesh,), over, NotImplementedError,
+                             f"{what} is not ported yet \\(ROADMAP Queue 1 "
+                             f"item 10.7")
+       for mesh in ("tp_mesh", "ep_mesh", "pp_mesh", "fsdp_mesh", "cp_mesh")
+       for feature, over, what in (
+           ("host_overlap", {"host_overlap": True}, "host_overlap"),
+           ("speculative_k", {"speculative_k": 2},
+            "speculative_k / draft_model"),
+           ("draft_model", {"draft": True}, "speculative_k / draft_model"))
+       if (mesh, feature) != ("cp_mesh", "host_overlap")},
+    "cp_mesh-host_overlap": (("cp_mesh",), {"host_overlap": True}, ValueError,
+                             "host_overlap=True is unsupported with cp_mesh"),
+    "sp_without_tp": ((), {"sp": True}, ValueError, "requires tp_mesh"),
+    "cp_bucket": (("cp_mesh",), {"seq": 2, "prefill_buckets": (33,)},
+                  ValueError, "offending sizes: \\[33\\]"),
+    "sp_bucket": (("tp_mesh",), {"model": 2, "sp": True,
+                                 "prefill_buckets": (33,)}, ValueError,
+                  "bucket 33 is not divisible by its size 2"),
+    "cp_ep": (("cp_mesh", "ep_mesh"), {}, NotImplementedError,
+              "CP x EP\\) is not ported yet \\(ROADMAP Queue 1 item 10.7"),
+    "tp_ep": (("tp_mesh", "ep_mesh"), {}, NotImplementedError,
+              "TP x EP\\) is not ported yet \\(ROADMAP Queue 1 item 10.7"),
+}
+
+
+@pytest.mark.parametrize("case", list(CONTIGUOUS_REFUSALS))
+def test_contiguous_engine_meshes_raise(case):
+    """The contiguous engine (``paged=False``) serves every mesh since the
+    contiguous-mesh slice; it refuses under each of them what the paged
+    engine refuses (host_overlap, speculative_k, draft_model: item 10.7,
+    one shared list), and raises JAX's ValueErrors first (host_overlap
+    with CP, sp without TP, a bucket the CP axis or, under sp, the TP
+    axis does not divide).  The meshes are stand-ins with the six axes
+    (of size one unless the case sizes one): the refusals come before
+    anything else reads them."""
+    names, over, error, match = CONTIGUOUS_REFUSALS[case]
+    over = dict(over)
+    sizes = {a: over.pop(a, 1) for a in ("seq", "model")}
+    axes = ("data", "fsdp", "model", "expert", "seq", "stage")
+    mesh = types.SimpleNamespace(
+        mesh_dim_names=axes,
+        mesh=torch.zeros([sizes.get(a, 1) for a in axes]))
+    moe = "ep_mesh" in names
     cfg, ecfg, params, tok = _tiny_engine_args()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10.6"):
-        make_engine(cfg, dataclasses.replace(ecfg, paged=False), params, tok,
-                    device="cpu", **{mesh: object()})
+    if moe:
+        cfg = config.TINY_MOE
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    kw = {name: mesh for name in names}
+    if over.pop("draft", False):
+        kw["draft_model"] = (cfg, params)
+        over["speculative_k"] = 2
+    if "sp" in over:
+        kw["sp"] = over.pop("sp")
+    ecfg = dataclasses.replace(ecfg, paged=False, **over)
+    with pytest.raises(error, match=match):
+        make_engine(cfg, ecfg, params, tok, device="cpu", **kw)
 
 
 @pytest.fixture
@@ -509,7 +571,7 @@ def test_ep_assembly_builds_on_one_rank(one_rank_group, name):
     if name == "build_ep_mesh":
         m = mixtral.build_ep_mesh(1, device="cpu")
         assert m.mesh_dim_names == config.MeshConfig().axis_names
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10.7"):
             mixtral.build_ep_mesh(1, n_seq=2, device="cpu")
     elif name == "shard_params_ep":
         m = mixtral.build_ep_mesh(1, device="cpu")

@@ -700,30 +700,66 @@ def test_pp_engine_refuses_like_jax(name):
 
 
 def test_fsdp_with_pp_raises_jax_refusal():
-    """fsdp x PP raises the PP arm of JAX's ``validate_fsdp_mesh`` (fsdp
-    alone is served since the FSDP slice); the contiguous engine's
-    ``fsdp_mesh`` and ``sp=True`` and its PP entry points raise naming
-    item 10.6."""
+    """fsdp x PP raises the PP arm of JAX's ``validate_fsdp_mesh`` on both
+    engines (fsdp alone is served since the FSDP slice).  The contiguous
+    engine's PP entry points run since the contiguous-mesh slice: on a
+    1-rank group at M = 2, ``llama_pp_prefill``, ``llama_pp_decode_step``
+    and ``llama_pp_decode_multi`` give the unsharded ``prefill_batch``,
+    ``decode_step`` and ``decode_multi``'s logits (within 1e-5 of their
+    largest: a microbatch's matmuls round otherwise than the whole
+    batch's) and cache rows, and the whole-stack functions refuse a stage's
+    config."""
     from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models import llama
     from k8s_llm_rca_tpu_torch.models.llama import init_params
     from k8s_llm_rca_tpu_torch.parallel import pipeline
+    from k8s_llm_rca_tpu_torch.runtime import mesh as rmesh
+    from k8s_llm_rca_tpu_torch.runtime.sharding import rank_config
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
     cfg = _tiny()
-    args = (cfg, config.EngineConfig(paged=True, prefix_cache=False),
-            init_params(cfg, torch.Generator(), "cpu"),
-            get_tokenizer(vocab_size=512), "cpu")
-    with pytest.raises(ValueError, match="fsdp×PP is unsupported"):
-        make_engine(*args, fsdp_mesh=_fake_mesh(fsdp=2),
-                    pp_mesh=_fake_mesh(stage=2))
-    contiguous = (cfg, config.EngineConfig(paged=False), *args[2:])
-    for kw in ({"fsdp_mesh": _fake_mesh(fsdp=2)}, {"sp": True}):
-        with pytest.raises(NotImplementedError, match="item 10.6"):
-            make_engine(*contiguous, **kw)
-    for fn in (pipeline.llama_pp_prefill, pipeline.llama_pp_decode_step,
-               pipeline.llama_pp_decode_multi):
-        with pytest.raises(NotImplementedError, match="item 10.6"):
-            fn()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for paged in (True, False):
+        with pytest.raises(ValueError, match="fsdp×PP is unsupported"):
+            make_engine(cfg, config.EngineConfig(paged=paged,
+                                                 prefix_cache=False),
+                        params, get_tokenizer(vocab_size=512), "cpu",
+                        fsdp_mesh=_fake_mesh(fsdp=2),
+                        pp_mesh=_fake_mesh(stage=2))
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(1, 512, (2, 16)))
+    lens = torch.tensor([16, 9], dtype=torch.int32)
+    slots = torch.tensor([1, 0])
+    lengths = torch.tensor([9, 16], dtype=torch.int32)
+    cur = torch.tensor([5, 6])
+    multi = torch.from_numpy(rng.integers(1, 512, (2, 3)))
+    assert rmesh.initialize_distributed(device="cpu")
+    try:
+        rcfg = rank_config(cfg, pp_mesh=rmesh.local_mesh(device="cpu"),
+                           pp_microbatches=2, device="cpu")
+        caches = [llama.init_cache(c, 2, 64, "int8", "cpu")
+                  for c in (cfg, rcfg)]
+        outs = []
+        for c, cache in zip((cfg, rcfg), caches):
+            pp = c is rcfg
+            mod = pipeline if pp else llama
+            _, a = (mod.llama_pp_prefill if pp else mod.prefill_batch)(
+                c, params, cache, tokens, lens, slots)
+            _, b = (mod.llama_pp_decode_step if pp else mod.decode_step)(
+                c, params, cache, cur, lengths)
+            got = (mod.llama_pp_decode_multi if pp else mod.decode_multi)(
+                c, params, cache, multi, lengths + 1)
+            outs.append((a, b, got[-1]))
+        for want, got in zip(*outs):
+            scale = float(want.abs().max())
+            assert float((got - want).abs().max()) <= 1e-5 * scale
+        for f in range(4):
+            assert (caches[1][f].float() - caches[0][f].float()).abs().max() \
+                <= (1 if f < 2 else 1e-5)
+        with pytest.raises(ValueError, match="llama_pp_decode_step"):
+            llama.decode_step(rcfg, params, caches[1], cur, lengths)
+    finally:
+        rmesh.shutdown_distributed()
 
 
 def _jax_engine(cfg, ecfg, params, **meshes):
