@@ -159,7 +159,8 @@ count the launches a replay makes.
    --paged --model llama3-8b --max-seq-len 2560 --fresh-threads
    --concurrency 4 --slice 0:4``; the default EngineConfig otherwise:
    batch 8, page 16, 1024 pages, prefix cache on) through
-   ``run_file.main`` in this process: 4 incidents, no failure, 4
+   ``run_file.main`` in this process, the 8B cut to ``CUT_LAYERS`` (4)
+   layers at full width: 4 incidents, no failure, 4
    records, ``decode_tokens_per_sec`` and the memory keys in its summary,
    and the launches its engine's counters require (phase 3 holds the
    paged and flash kernels at this engine's shapes too).  (c) ``run_file`` on TINY with 4 workers over 3x the
@@ -188,7 +189,8 @@ count the launches a replay makes.
    clean engine with exact launches, and the analyzer's audit runs read
    fewer prompt tokens with the reranker; the encoder's seconds.  (d) the
    contiguous engine (``EngineConfig(paged=False)``, eager) serves the
-   slice's four requests on 8B bf16 and on int4 weights over an int4
+   slice's four requests on 8B at ``CUT_LAYERS`` layers, bf16 and int4
+   weights over an int4
    cache (exact launches: flash per prefill, the int4 matmuls and head
    per step and prefill; decode attention is plain torch), against the
    paged engine on the same weights (equal tokens, or each first
@@ -196,10 +198,11 @@ count the launches a replay makes.
    peak GB; then ``draft_model=`` (a seeded 2-layer draft at the 8B's
    widths, ``speculative_k`` 4) against plain greedy (equal, or parting
    only at a near-tie, ``NEAR_TIE``) with its acceptance; then the CLI
-   without ``--paged`` on 8B, one incident.
+   without ``--paged`` on 8B at ``CUT_LAYERS`` layers, one incident.
 
-Phases 10-13 run Llama-3-8B cut to 8 layers and Mixtral-8x7B cut to 4
-(``MESH_LAYERS``; at full width) wherever they do not cut it further.
+Phases 10-14 and 15b-15c run Llama-3-8B cut to 2 layers and
+Mixtral-8x7B cut to 4 (``MESH_LAYERS``; at full width) wherever they do
+not cut it further; 12d and 13d run 8B at 2 layers (``GLOO4_LAYERS``).
 
 10. mesh: tensor and expert parallelism (slice 15; ``--mesh`` runs it
    alone after phase 3's mesh-rank cases, with no result line) under a
@@ -285,7 +288,8 @@ Phases 10-13 run Llama-3-8B cut to 8 layers and Mixtral-8x7B cut to 4
 14. contiguous_mesh: the contiguous engine's meshes (slice 19;
    ``--contiguous-mesh`` runs it alone, with no result line) under a
    1-rank nccl process group, eager, the slice's four requests at
-   ``CONTIGUOUS_MESH_NEW`` new tokens.  (a) Llama-3-8B bf16 by the
+   ``CONTIGUOUS_MESH_NEW`` new tokens, the models at ``MESH_LAYERS``
+   depth.  (a) Llama-3-8B bf16 by the
    unsharded contiguous engine, then ``make_engine(..., paged=False)``
    on the rank's cut of the same weights (the tree itself on one rank)
    at TP, fsdp, TP with ``sp``, CP ring, CP Ulysses and PP at M = 2:
@@ -294,16 +298,42 @@ Phases 10-13 run Llama-3-8B cut to 8 layers and Mixtral-8x7B cut to 4
    microbatch under PP, none under the ring), the collectives per forward
    by kind, TTFT, decode tok/s, the eager step's wall ms and the peak GB
    both ways; (b) int4 weights over an int4 cache at TP and
-   PP (rows 5 and 7); (c) Mixtral-8x7B int8 cut to 4 layers at EP and PP
-   x EP (rows 4, 6 and 8), no token dropped; (d) Llama-3-8B bf16 cut to 2
+   PP (rows 5 and 7); (c) Mixtral-8x7B int8 at EP and PP x EP (rows 4,
+   6 and 8), no token dropped; (d) Llama-3-8B bf16 cut to 2
    layers as two gloo processes on the one card at TP 2, CP 2, PP 2 and
    fsdp 2, two prompts, stepwise, a few tokens: the ranks equal, launches
    exact, equal to the unsharded run or a near-tie.
+15. mesh_tiers: the memory tiers, snapshots and the overlapped loop under
+   a mesh (``--mesh-tiers`` runs it alone, with no result
+   line) under a 1-rank nccl process group, graphed, against the
+   unsharded engine with the same knobs.  (a) Llama-3-8B bf16 at full
+   depth and width under TP: a preemption at tick 2 with spill (gather
+   and restore GB/s against the 64 GB/s link, restored pages byte-equal,
+   streams equal or a near-tie); the lone prompt of ``prefix_prompts``,
+   every page evicted into L1 (64 host pages) or L2 (the disk alone),
+   the three hits promoted (TTFT beside the unsharded engine's, equal
+   tokens); ``host_overlap`` off and on at ``decode_chunk`` 1 (ms per
+   step, tok/s, syncs per token, equal streams); a snapshot after two
+   ticks restored into a fresh TP engine on the same store (the
+   uninterrupted stream or a near-tie).  Launches exact, the tiers'
+   collectives included (``expected_with_tiers``).  (b) int4 weights over
+   an int4 pool at ``MESH_LAYERS``: the TP engine's ``.page`` files byte
+   for byte the unsharded engine's.  (c) Mixtral-8x7B int8 under EP with
+   spill and ``host_overlap``; Llama-3-8B bf16 at ``MESH_LAYERS`` under
+   FSDP (an L1 hit, ``host_overlap``) and PP (``host_overlap``).  (d)
+   Llama-3-8B cut to 2 layers over an int4 pool at TP 2 as two gloo
+   processes on the one card: the ``.page`` files are the unsharded
+   engine's set, each the two ranks' shares joined apart from the port's
+   code (``page_lanes_joined``), written by one rank, and they promote
+   into the unsharded engine with its own L2 hits' streams (or a
+   near-tie); prints how many files are byte-equal to the unsharded
+   engine's.  (d) runs with ``--mesh-tiers`` only: the whole script
+   leaves it out to end within its 1200 s.
 
 Then the kernel table (one JSON line), the ``nvidia-smi`` name and power
 limit line, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
-The kernel table sums the launches of phases 5-14.
+The kernel table sums the launches of phases 5-15.
 ``--spec`` builds every source and runs only the attention-over-pages
 cases of phase 3 and the speculative, overlap and TINY sweep cases of
 phase 4 (no result line).  ``--profile-decode`` runs only a profile of one decode step at the slice's
@@ -336,6 +366,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# the script's start: every record carries the seconds since (``emit``)
+STARTED = time.perf_counter()
 PAGED_SRC = "k8s_llm_rca_tpu_torch/csrc/paged_attention.cu"
 FLASH_SRC = "k8s_llm_rca_tpu_torch/csrc/flash_attention.cu"
 QMM_SRC = "k8s_llm_rca_tpu_torch/csrc/quant_matmul.cu"
@@ -367,8 +399,10 @@ TOL = {"bfloat16": 2 ** -6, "float32": 1e-4}
 
 def emit(phase: str, **fields) -> None:
     """Print one record; every record carries the card's name and power
-    limit, read when the record is made unless the caller read them."""
+    limit, read when the record is made unless the caller read them, and
+    the seconds since the script started (``elapsed_s``)."""
     fields.setdefault("nvidia_smi", nvidia_smi_name_power())
+    fields["elapsed_s"] = time.perf_counter() - STARTED
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -1830,10 +1864,16 @@ def slice_model(name: str, bits=None):
     return cfg, None if bits is None else quantizing_transform(bits=bits)
 
 
-# the depth of the models of the mesh phases (10-13): at full depth the
-# whole script outgrew its 1200 s once phase 14 ran beside them (1197 s
-# and 1340 s on an H100 80GB HBM3 at 700 W, two runs of one tree)
-MESH_LAYERS = {"llama3-8b": 8, "mixtral-8x7b": 4}
+# the depth of the models of the mesh phases (10-14, 15b-15c): at full
+# depth the whole script outgrew its 1200 s once phase 14 ran beside them
+# (1197 s and 1340 s on an H100 80GB HBM3 at 700 W, two runs of one
+# tree); with phase 15 beside 8B at 8 layers in phases 10-13 and at full
+# depth in phase 14 it took 1232 s, at 4 layers in 10-14 854 s and 1127 s
+# (two cards of one kind, the host-bound phases 1.3x apart)
+MESH_LAYERS = {"llama3-8b": 2, "mixtral-8x7b": 4}
+# the depth of the four-rank gloo cases 12d (PP 2 x TP 2) and 13d (fsdp
+# 2 x tp 2), Llama-3-8B with int4 weights
+GLOO4_LAYERS = 2
 
 
 def mesh_model(name: str, bits=None):
@@ -1976,22 +2016,14 @@ def serve_four(engine, cfg, kv, bits, max_new: int = 64,
             "total_s": t_end - t_submit}
 
 
-def decode_step_times(engine, steps: int = 8, verify_t: int = 0,
-                      profiled: bool = True) -> dict:
+def decode_step_fn(engine, verify_t: int = 0):
     """The engine's own decode step (its static operands, then the eager
     step or the step graph's replay) at the slice's decode shapes: batch 4
     at 400/900/1500/2300 cached tokens over pages of the engine's pool;
     with ``verify_t`` the speculative verify step of T = ``verify_t``
     tokens a slot (``paged_decode_multi``, its graph) at 400/900/1500/
-    2290.  Wall ms per step
-    over ``steps`` steps, the device ms and kernel launches of one
-    profiled step, and the device's busy share: that device time over the
-    unprofiled wall time (the profiler's own host work would stretch a
-    profiled step).  ``profiled=False`` skips the profile: wall ms and the
-    CUDA events' device ms only."""
+    2290.  Returns the step as a function of no arguments."""
     import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
 
     from k8s_llm_rca_tpu_torch.engine.paged import (
         paged_decode_multi, paged_decode_step,
@@ -2028,6 +2060,82 @@ def decode_step_times(engine, steps: int = 8, verify_t: int = 0,
                 ("multi", verify_t, n_pages), lambda: paged_decode_multi(
                     cfg, params, pool, toks, lengths, tables, n_pages)[1:])
 
+    return step
+
+
+# seconds the host waits, with the card idle, after the profiler opens its
+# active window and before it closes it (ROADMAP Queue 3, fault 6, open):
+# one profile of an eager step saw 221 of the 224 kn4 launches its
+# counters gained (the first layer's wq, wk and wv).  The cause is not
+# known (another profile kept a kernel stamped 0.4 ms before the window's
+# start); the guard puts the step's kernels well inside the window.
+# ``tools/profile_window.py`` profiles that step over and over with the
+# guard and without it.
+PROFILE_GUARD_S = 0.02
+
+
+def dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def profile_step(step) -> dict:
+    """One profiled call of ``step`` after a discarded warm-up call under
+    the same profiler (a profile started cold missed an eager step's first
+    kernels: ROADMAP Queue 3, fault 6), with ``PROFILE_GUARD_S`` of idle
+    host time at both ends of the active window.  Returns the step's kernel events
+    (``key_averages``, the schedule's ``ProfilerStep*`` range left out: it
+    carries the whole step's device time), the launch counters' gain over
+    the profiled call, and the gaps, in microseconds, from the window's
+    start to its first kernel and from its last kernel's end to the
+    window's end."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        step()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(PROFILE_GUARD_S)
+        counted = read_counts()
+        step()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_GUARD_S)
+        prof.step()
+    gain = {k: v - counted[k] for k, v in read_counts().items()}
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0
+              and not e.key.startswith("ProfilerStep")]
+    window = [e for e in prof.events() if e.name.startswith("ProfilerStep")
+              and not str(e.device_type).endswith("CUDA")]
+    kernels = [e for e in prof.events()
+               if str(e.device_type).endswith("CUDA")
+               and not e.name.startswith("ProfilerStep")]
+    gaps = {"first_kernel_us": None, "last_kernel_us": None}
+    if window and kernels:
+        w0 = min(e.time_range.start for e in window)
+        w1 = max(e.time_range.end for e in window)
+        gaps = {"first_kernel_us": min(e.time_range.start
+                                       for e in kernels) - w0,
+                "last_kernel_us": w1 - max(e.time_range.end
+                                           for e in kernels)}
+    return {"events": events, "gain": gain, **gaps}
+
+
+def decode_step_times(engine, steps: int = 8, verify_t: int = 0,
+                      profiled: bool = True) -> dict:
+    """The engine's own decode step (``decode_step_fn``) at the slice's
+    decode shapes.  Wall ms per step over ``steps`` steps, the device ms
+    and kernel launches of one profiled step (``profile_step``), and the
+    device's busy share: that device time over the unprofiled wall time
+    (the profiler's own host work would stretch a profiled step).
+    ``profiled=False`` skips the profile: wall ms and the CUDA events'
+    device ms only."""
+    import torch
+
+    step = decode_step_fn(engine, verify_t)
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -2040,33 +2148,11 @@ def decode_step_times(engine, steps: int = 8, verify_t: int = 0,
         # the mesh phases: the device time between CUDA events only
         return {"wall_ms_per_step": wall_ms,
                 "event_device_ms_per_step": time_ms(step, steps)}
-    # one warm-up step under the profiler, discarded, before the step it
-    # reports: a profile started cold missed the first kernels of an eager
-    # step (3 of 256 int8 matmuls and 1 of 32 paged calls in one run)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        step()
-        torch.cuda.synchronize()
-        prof.step()
-        counted = read_counts()
-        step()
-        torch.cuda.synchronize()
-        prof.step()
-    gain = {k: v - counted[k] for k, v in read_counts().items()}
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # the schedule's own ``ProfilerStep#`` range carries the device time of
-    # the whole step: kernels only
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0
-              and not e.key.startswith("ProfilerStep")]
+    prof = profile_step(step)
+    events = prof["events"]
     device_ms = sum(dev_us(e) for e in events) / 1e3
     seen = profiled_launches(events)
-    want = counted_launches(gain)
+    want = counted_launches(prof["gain"])
     # the device time between CUDA events around the step, the host's
     # enqueue covered by a device sleep (``time_ms``): it needs no trace
     events_ms = time_ms(step, steps)
@@ -2086,12 +2172,16 @@ def decode_step_times(engine, steps: int = 8, verify_t: int = 0,
     elif seen != want:
         raise SystemExit(f"one {mode} decode step: the profiler saw the "
                          f"port's kernels {seen}, the launch counters "
-                         f"gained {want}")
+                         f"gained {want} (window gaps: first kernel "
+                         f"{prof['first_kernel_us']} us, last "
+                         f"{prof['last_kernel_us']} us)")
     return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
             "event_device_ms_per_step": events_ms,
             "kernels_per_step": sum(e.count for e in events),
             "port_kernels_per_step": seen, "counted_per_step": want,
-            "device_busy_share": device_ms / wall_ms}
+            "device_busy_share": device_ms / wall_ms,
+            "profile_first_kernel_us": prof["first_kernel_us"],
+            "profile_last_kernel_us": prof["last_kernel_us"]}
 
 
 # a port kernel's name in a profile (demangled ``kn_gemv_mma_kernel<4,
@@ -3356,12 +3446,33 @@ def durable_recovery(name: str, bits, kv) -> tuple:
     return total, service
 
 
+# the depth of Llama-3-8B in phase 8b's CLI and phase 9d's contiguous
+# engine and CLI: its full width, the first CUT_LAYERS layers (the whole
+# script's time, PERF.md)
+CUT_LAYERS = 4
+
+
+@contextlib.contextmanager
+def cli_depth(name: str, n_layers: int):
+    """``--model name`` at ``n_layers`` layers, full width, while the CLI
+    runs in this process (``MODEL_REGISTRY`` is the presets' table)."""
+    from k8s_llm_rca_tpu_torch.config import MODEL_REGISTRY
+
+    full = MODEL_REGISTRY[name]
+    MODEL_REGISTRY[name] = full.replace(n_layers=n_layers)
+    try:
+        yield
+    finally:
+        MODEL_REGISTRY[name] = full
+
+
 def cli_sweep_case() -> dict:
-    """Phase 8b: the CLI on the card at full width (Llama-3-8B bf16, four
-    incidents at concurrency 4), ``run_file.main`` in this process on a
-    fresh output file, between ``reset_counts()`` and ``read_counts()``:
-    its summary line, 4 records that parse, and the launches its engine's
-    counters require.  Returns the launch counts."""
+    """Phase 8b: the CLI on the card at full width (Llama-3-8B bf16 at
+    ``CUT_LAYERS`` layers, four incidents at concurrency 4),
+    ``run_file.main`` in this process on a fresh output file, between
+    ``reset_counts()`` and ``read_counts()``: its summary line, 4 records
+    that parse, and the launches its engine's counters require.  Returns
+    the launch counts."""
     import torch
 
     from k8s_llm_rca_tpu_torch.sweeps import run_file
@@ -3385,7 +3496,8 @@ def cli_sweep_case() -> dict:
     reset_counts()
     t0 = time.perf_counter()
     try:
-        summary = run_file.main(argv)
+        with cli_depth("llama3-8b", CUT_LAYERS):
+            summary = run_file.main(argv)
     finally:
         run_file.build_service = build
     torch.cuda.synchronize()
@@ -3398,7 +3510,8 @@ def cli_sweep_case() -> dict:
     chip = summary["chip"]
     ecfg = engine.engine_cfg
     emit("durable_cli", command="python -m k8s_llm_rca_tpu_torch.sweeps."
-         "run_file " + " ".join(argv), seconds=seconds,
+         "run_file " + " ".join(argv), layers=engine.model_cfg.n_layers,
+         seconds=seconds,
          engine={"max_batch": ecfg.max_batch, "page_size": ecfg.page_size,
                  "num_pages": ecfg.num_pages,
                  "pages_per_seq": engine.pages_per_seq,
@@ -3599,10 +3712,6 @@ def phase_profile_decode(name: str, bits=None, kv=None,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_profiled = run(steps)
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
 
     # kernels only: a CPU-side op (aten::mm) also carries the device time of
     # the kernels it launched, which are listed on their own
@@ -4140,7 +4249,8 @@ NEAR_TIE = 2 ** -3
 
 def phase_contiguous() -> dict:
     """9d: the contiguous engine (``EngineConfig(paged=False)``, eager) on
-    Llama-3-8B bf16 and on int4 weights over an int4 cache, the slice's
+    Llama-3-8B at ``CUT_LAYERS`` layers (full width), bf16 and int4
+    weights over an int4 cache, the slice's
     four requests (400-2300 tokens, batch 4, max_seq_len 2560, 64 new
     tokens) behind AssistantService, exact launches; then the paged
     engine on the same weights: equal tokens, or the first divergence
@@ -4157,6 +4267,7 @@ def phase_contiguous() -> dict:
     for phase, bits, kv in (("contiguous", None, None),
                             ("contiguous_int4", 4, "int4")):
         cfg, transform = slice_model("llama3-8b", bits)
+        cfg = cfg.replace(n_layers=CUT_LAYERS)
         torch.cuda.reset_peak_memory_stats()
         params = init_params(cfg, torch.Generator(device="cuda")
                              .manual_seed(0), tensor_transform=transform)
@@ -4177,7 +4288,8 @@ def phase_contiguous() -> dict:
         divs = divergences(cfg, params, run["prompts"], paged["tokens"],
                            run["tokens"])
         record = dict(
-            model=cfg.name, weights=f"int{bits}" if bits else "bfloat16",
+            model=cfg.name, layers=cfg.n_layers,
+            weights=f"int{bits}" if bits else "bfloat16",
             kv_cache_dtype=kv, fused_quant_matmul=cfg.fused_quant_matmul,
             prompt_tokens=run["prompt_tokens"],
             completion_tokens=run["completion_tokens"],
@@ -4215,7 +4327,8 @@ def phase_contiguous() -> dict:
 
 def contiguous_cli_case() -> dict:
     """The CLI without ``--paged`` (the contiguous engine, the default
-    EngineConfig otherwise: batch 8) on Llama-3-8B bf16, one incident,
+    EngineConfig otherwise: batch 8) on Llama-3-8B bf16 at ``CUT_LAYERS``
+    layers, one incident,
     ``run_file.main`` in this process: one record, no failure, the
     launches its engine's counters require.  Returns the counts."""
     import torch
@@ -4241,7 +4354,8 @@ def contiguous_cli_case() -> dict:
     reset_counts()
     t0 = time.perf_counter()
     try:
-        summary = run_file.main(argv)
+        with cli_depth("llama3-8b", CUT_LAYERS):
+            summary = run_file.main(argv)
     finally:
         run_file.build_service = build
     torch.cuda.synchronize()
@@ -4253,7 +4367,8 @@ def contiguous_cli_case() -> dict:
                              contiguous=True)
     records, _ = run_file.scan_output(str(out))
     emit("contiguous_cli", command="python -m k8s_llm_rca_tpu_torch.sweeps."
-         "run_file " + " ".join(argv), seconds=seconds,
+         "run_file " + " ".join(argv), layers=engine.model_cfg.n_layers,
+         seconds=seconds,
          engine=type(engine).__name__,
          max_batch=engine.engine_cfg.max_batch,
          incidents=summary["incidents"], failures=summary["failures"],
@@ -5135,7 +5250,7 @@ def pp_gloo_cases(mesh, cfg, params) -> None:
     failed = []
     for phase, fn, n, args in (
             ("pp_gloo", pp2_rank, 2, (cfg.n_layers, max_new)),
-            ("pp_tp_gloo", pptp_rank, 4, (4, max_new))):
+            ("pp_tp_gloo", pptp_rank, 4, (GLOO4_LAYERS, max_new))):
         t0 = time.perf_counter()
         ranks = run_ranks(fn, n, str(ROOT / "build" / "pp_ranks"),
                           args=args, timeout_s=600, device="cuda-gloo")
@@ -5160,7 +5275,7 @@ def pp_gloo_cases(mesh, cfg, params) -> None:
                                                       ranks[0]["tokens"]),
                        divergences=divs, near_tie=NEAR_TIE)
         else:
-            rec.update(model=cfg.name, layers=4, weights="int4",
+            rec.update(model=cfg.name, layers=GLOO4_LAYERS, weights="int4",
                        kv_cache_dtype="int4", tp=2,
                        pool_lanes=[r["pool_lanes"] for r in ranks])
         emit(phase, **rec, nvidia_smi=nvidia_smi_name_power())
@@ -5213,7 +5328,7 @@ def pp_ep_case(mesh) -> dict:
 def phase_pp() -> dict:
     """Phase 12 under a 1-rank nccl process group (destroyed after): 12a
     Llama-3-8B bf16 and 12b int4 over int4 at PP on one rank, 12c PP = 2
-    at full depth and 12d PP = 2 x TP = 2 over gloo, 12e Mixtral int8 at
+    (``MESH_LAYERS``) and 12d PP = 2 x TP = 2 over gloo, 12e Mixtral int8 at
     PP x EP.  Returns the launch counts of 12a, 12b and 12e."""
     from k8s_llm_rca_tpu_torch.runtime import mesh as rmesh
 
@@ -5482,7 +5597,7 @@ def fsdp_gloo_cases(mesh, cfg, params) -> None:
     failed = []
     for phase, fn, n, args in (
             ("fsdp_gloo", fsdp2_rank, 2, (cfg.n_layers, max_new)),
-            ("fsdp_tp_gloo", fsdp_tp_rank, 4, (4, 8))):
+            ("fsdp_tp_gloo", fsdp_tp_rank, 4, (GLOO4_LAYERS, 8))):
         t0 = time.perf_counter()
         ranks = run_ranks(fn, n, str(ROOT / "build" / "fsdp_ranks"),
                           args=args, timeout_s=600, device="cuda-gloo")
@@ -5506,7 +5621,7 @@ def fsdp_gloo_cases(mesh, cfg, params) -> None:
                        serve_peak_gb=[r["serve_peak_gb"] for r in ranks])
         else:
             same = all(r["tokens"] == r["tp_tokens"] for r in ranks)
-            rec.update(model=cfg.name, layers=4, weights="int4",
+            rec.update(model=cfg.name, layers=GLOO4_LAYERS, weights="int4",
                        kv_cache_dtype="int4", tp=2, equal_to_tp2=same,
                        pool_lanes=[r["pool_lanes"] for r in ranks])
         emit(phase, **rec, nvidia_smi=nvidia_smi_name_power())
@@ -5626,7 +5741,7 @@ def fsdp_moe_case(mesh) -> dict:
 def phase_fsdp() -> dict:
     """Phase 13 under a 1-rank nccl process group (destroyed after): 13a
     Llama-3-8B bf16 and 13b int4 over int4 at FSDP on one rank, 13c fsdp =
-    2 at full depth and 13d fsdp 2 x tp 2 over gloo, 13e SP, 13f Mixtral
+    2 (``MESH_LAYERS``) and 13d fsdp 2 x tp 2 over gloo, 13e SP, 13f Mixtral
     int8 at FSDP.  Returns the launch counts of 13a, 13b, 13e and 13f."""
     from k8s_llm_rca_tpu_torch.runtime import mesh as rmesh
 
@@ -5732,9 +5847,7 @@ def contiguous_mesh_cases(prefix, name, bits, kv, mesh, cases) -> dict:
     )
     from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
 
-    cfg, transform = slice_model(name, bits)
-    if name == "mixtral-8x7b":
-        cfg = cfg.replace(n_layers=4)
+    cfg, transform = mesh_model(name, bits)
     ecfg = slice_engine_config(paged=False, kv_cache_dtype=kv)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          tensor_transform=transform)
@@ -5895,10 +6008,10 @@ def contiguous_gloo_case() -> None:
 
 def phase_contiguous_mesh() -> dict:
     """Phase 14 under a 1-rank nccl process group (destroyed after): the
-    contiguous engine's meshes, eager.  14a Llama-3-8B bf16 at TP, fsdp,
-    TP with sp, CP ring and Ulysses and PP at M = 2; 14b int4 over an int4
-    cache at TP and PP; 14c Mixtral-8x7B int8 cut to 4 layers at EP and PP
-    x EP; 14d two gloo processes.  Returns the launch counts of 14a-14c's
+    contiguous engine's meshes, eager, the models at ``MESH_LAYERS``
+    depth.  14a Llama-3-8B bf16 at TP, fsdp, TP with sp, CP ring and
+    Ulysses and PP at M = 2; 14b int4 over an int4 cache at TP and PP; 14c
+    Mixtral-8x7B int8 at EP and PP x EP; 14d two gloo processes.  Returns the launch counts of 14a-14c's
     mesh runs by phase."""
     from k8s_llm_rca_tpu_torch.runtime import mesh as rmesh
 
@@ -5997,12 +6110,17 @@ def kn_sass(build) -> dict:
     tile body (M > 16) must issue wgmma (HGMMA) on operands brought by TMA
     (UTMALDG), the kn weight-streaming body and, in the two libraries with
     a head, the nk body mma.sync (HMMA); exits if not."""
+    from concurrent.futures import ThreadPoolExecutor
+
     out = {}
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")  # beside nvcc
-    for name in ("quant_matmul", "quant_matmul_int8", "quant_matmul_experts"):
-        counts = sass_counts(cuobjdump, build.library_path(name),
-                             ("kn_wgmma_kernel", "kn_gemv_mma_kernel",
-                              "nk_mma_kernel"))
+    names = ("quant_matmul", "quant_matmul_int8", "quant_matmul_experts")
+    with ThreadPoolExecutor(len(names)) as pool:    # the listings at once
+        listed = list(pool.map(lambda name: sass_counts(
+            cuobjdump, build.library_path(name),
+            ("kn_wgmma_kernel", "kn_gemv_mma_kernel", "nk_mma_kernel")),
+            names))
+    for name, counts in zip(names, listed):
         tiles = {f: c for f, c in counts.items() if "kn_wgmma_kernel" in f}
         gemvs = {f: c for f, c in counts.items() if "kn_gemv_mma_kernel" in f}
         heads = {f: c for f, c in counts.items() if "nk_mma_kernel" in f}
@@ -6023,6 +6141,627 @@ def free_card() -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 15
+
+
+def tier_counts(engine) -> tuple:
+    """The pages an engine's prefix store gathered whole and the L2
+    decisions it shared under a mesh (``engine/prefix.py::MeshTier``; (0,
+    0) without one)."""
+    tier = getattr(engine.prefix_store, "mesh_tier", None)
+    return (0, 0) if tier is None else (tier.gathered, tier.decided)
+
+
+def expected_with_tiers(engine, c: dict, kv, bits, before: tuple) -> dict:
+    """``expected_counts`` of a mesh engine's run plus the collectives of
+    its prefix store's tiers since ``before`` (``tier_counts``): two lane
+    all-gathers (k, v) a page written whole to the disk tier under TP and
+    one broadcast an L2 read decided over more than one rank."""
+    expect = expected_counts(engine.model_cfg, c, kv is not None, bits)
+    gathered, decided = tier_counts(engine)
+    expect["all_gather"] += 2 * (gathered - before[0])
+    expect["broadcast"] += decided - before[1]
+    return expect
+
+
+def tiers_spill_run(label, cfg, params, tok, prompts, kv, bits, base,
+                    max_new=None, **kw) -> dict:
+    """An engine with a spill budget (``kw``: its mesh and shard) serves
+    ``prompts`` under a FaultPlan that preempts the youngest sequence at
+    tick 2: the spill's gather and restore timed against the link
+    (``watch_page_moves``), the restored pages byte-equal to the record,
+    the launches exact and the streams ``base``'s or a near-tie."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.faults import inject
+    from k8s_llm_rca_tpu_torch.faults.plan import Fault, FaultPlan
+
+    shard = kw.pop("shard", params)
+    engine = make_engine(cfg, slice_engine_config(
+        kv_cache_dtype=kv, max_spilled_pages=168), shard, tok, **kw)
+    before = warm_engine(engine)
+    moves = []
+    reset_counts()
+    t0 = time.perf_counter()
+    with watch_page_moves(moves), inject.armed(FaultPlan(
+            [Fault(inject.SITE_ENGINE_TICK, 2, "preempt")])):
+        res = engine.generate(prompts, max_new_tokens=max_new)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0 - sum(m[5] for m in moves)
+    counts = read_counts()
+    c = counts_since(engine, before)
+    engine.allocator.check()
+    expect = expected_counts(engine.model_cfg, c, kv is not None, bits)
+    tokens = [r.token_ids for r in res]
+    divs = divergences(cfg, params, prompts, base, tokens)
+    run = {"total_s": total_s, "equal_tokens": tokens == base,
+           "divergences": divs,
+           **{k.split(".")[1]: int(c.get(k, 0)) for k in (
+               "engine.preemptions", "engine.spilled_pages",
+               "engine.restored_pages")},
+           **move_stats(moves, "gather"), **move_stats(moves, "restore"),
+           "launches": counts}
+    if counts != expect:
+        raise SystemExit(f"{label} spill: launch counts {counts} != "
+                         f"expected {expect}")
+    if not (run["spilled_pages"] and run["restored_pages"]
+            == run["spilled_pages"] and run["restore_equal"]):
+        raise SystemExit(f"{label} spill: spilled {run['spilled_pages']}, "
+                         f"restored {run['restored_pages']}, restore equal "
+                         f"{run['restore_equal']}")
+    if any(d["logit_margin"] > NEAR_TIE for d in divs):
+        raise SystemExit(f"{label} spill: streams part from the "
+                         f"uninterrupted run beyond a near-tie: {divs}")
+    del engine
+    free_card()
+    return run
+
+
+def tiers_prefix_run(label, cfg, params, tok, tier: str, kv=None,
+                     bits=None, max_new: int = 8, **kw) -> dict:
+    """Phase 5e's tier protocol on an engine (``kw``: its mesh and shard):
+    the lone prompt of ``prefix_prompts`` (a miss), every resident page
+    evicted into the store (L1: 64 host pages; L2: the disk alone), then
+    the three hits from the promoted pages.  The hits' TTFT, the pages
+    promoted, the demotion's gather and the promotion's restore (byte
+    equal); launches exact, the tiers' collectives included."""
+    import tempfile
+
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+
+    shard = kw.pop("shard", params)
+    prompts = prefix_prompts(tok)
+    with tempfile.TemporaryDirectory() as d:
+        store = ({"prefix_host_pages": 64} if tier == "l1"
+                 else {"prefix_host_pages": 0, "prefix_disk_dir": d})
+        engine = make_engine(cfg, slice_engine_config(
+            prefix_cache=True, kv_cache_dtype=kv, max_new_tokens=max_new,
+            **store), shard, tok, **kw)
+        before = warm_engine(engine)
+        tiers_before = tier_counts(engine)
+        stamps, moves, ttft, tokens = [], [], [], []
+        stamp_first_tokens(engine, stamps)
+        reset_counts()
+        with watch_page_moves(moves):
+            for i, wave in enumerate((prompts[:1], prompts[1:])):
+                if i:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    demoted = engine.prefix_cache.evict(10 ** 6)
+                    evict_s = time.perf_counter() - t0
+                stamps.clear()
+                checked = sum(m[5] for m in moves)
+                t0 = time.perf_counter()
+                ids = [engine.submit(p) for p in wave]
+                res = {r.seq_id: r for r in engine.run_to_completion()}
+                ttft.append(stamps[0] - t0
+                            - (sum(m[5] for m in moves) - checked))
+                tokens += [res[i].token_ids for i in ids]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        c = counts_since(engine, before)
+        engine.allocator.check()
+        expect = expected_with_tiers(engine, c, kv, bits, tiers_before)
+        run = {"tokens": tokens, "ttft_s": ttft, "demoted_pages": demoted,
+               "evict_s": evict_s,
+               **{k.split(".")[1]: int(c.get(k, 0)) for k in (
+                   f"engine.prefix_hits_{tier}",
+                   "engine.prefix_promoted_pages",
+                   "engine.prefix_hit_tokens")},
+               **move_stats(moves, "gather"), **move_stats(moves, "restore"),
+               "launches": counts}
+        if not run[f"prefix_hits_{tier}"] or not run["restore_equal"]:
+            raise SystemExit(f"{label} {tier}: no page promoted, or a "
+                             f"restored page differs from its record")
+        if counts != expect:
+            raise SystemExit(f"{label} {tier}: launch counts {counts} != "
+                             f"expected {expect}")
+        del engine
+    free_card()
+    return run
+
+
+def tiers_overlap_run(label, cfg, params, tok, kv, bits, base=None,
+                      overlap: bool = True, **kw) -> dict:
+    """The slice's four requests (32 new tokens) at ``decode_chunk`` 1 with
+    ``host_overlap`` on or off (``kw``: the mesh and shard), graphed where
+    the engine graphs: decode tok/s, ms per decode step over the run,
+    syncs per token, launches exact; the streams ``base``'s (a run at the
+    same 32 tokens) or a near-tie."""
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+
+    shard = kw.pop("shard", params)
+    engine = make_engine(cfg, slice_engine_config(
+        kv_cache_dtype=kv, decode_chunk=1, host_overlap=overlap), shard,
+        tok, **kw)
+    run = serve_four(engine, cfg, kv, bits, max_new=32)
+    steps = max(1, run["decode_steps"])
+    run["decode_ms_per_step"] = (1e3 * (sum(run["completion_tokens"])
+                                        - len(run["completion_tokens"]))
+                                 / run["decode_tok_per_s"] / steps)
+    run["syncs_per_token"] = run["d2h_syncs"] / max(
+        1, sum(run["completion_tokens"]))
+    run.update(graph_stats(engine))
+    if base is not None:
+        run["divergences"] = divergences(cfg, params, run["prompts"], base,
+                                         run["tokens"])
+        if any(d["logit_margin"] > NEAR_TIE for d in run["divergences"]):
+            raise SystemExit(f"{label} overlap: streams part beyond a "
+                             f"near-tie: {run['divergences']}")
+    del engine
+    free_card()
+    return run
+
+
+def tiers_snapshot_run(label, cfg, params, tok, base, mesh, shard) -> dict:
+    """A TP engine with the prefix cache and a 256-page host store decodes
+    the four prompts two ticks and snapshots (publishing the sequences'
+    pages); a fresh TP engine on the same store restores it and finishes:
+    the uninterrupted stream (``base``) or a near-tie, promoted pages,
+    launches exact."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+
+    ecfg = slice_engine_config(prefix_cache=True, prefix_host_pages=256)
+    prompts = memory_prompts(tok)
+    first = make_engine(cfg, ecfg, shard, tok, tp_mesh=mesh)
+    warm_engine(first)
+    for p in prompts:
+        first.submit(p)
+    first.step()
+    first.step()
+    t0 = time.perf_counter()
+    snap = first.snapshot_sequences()
+    snapshot_s = time.perf_counter() - t0
+    store = first.prefix_store
+    del first
+    free_card()
+    fresh = make_engine(cfg, ecfg, shard, tok, tp_mesh=mesh,
+                        prefix_store=store)
+    before = warm_engine(fresh)
+    reset_counts()
+    t0 = time.perf_counter()
+    fresh.restore_sequences(snap)
+    res = {r.seq_id: r.token_ids for r in fresh.run_to_completion()}
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts()
+    c = counts_since(fresh, before)
+    fresh.allocator.check()
+    expect = expected_counts(fresh.model_cfg, c, False)
+    tokens = [res[i] for i in sorted(res)]
+    divs = divergences(cfg, params, prompts, base, tokens)
+    run = {"snapshot_s": snapshot_s, "total_s": total_s,
+           "sequences": len(snap["sequences"]),
+           "promoted_pages": int(c.get("engine.prefix_promoted_pages", 0)),
+           "equal_tokens": tokens == base, "divergences": divs,
+           "launches": counts}
+    if counts != expect:
+        raise SystemExit(f"{label} snapshot: launch counts {counts} != "
+                         f"expected {expect}")
+    if not run["promoted_pages"] or any(d["logit_margin"] > NEAR_TIE
+                                        for d in divs):
+        raise SystemExit(f"{label} snapshot: promoted "
+                         f"{run['promoted_pages']} pages; streams {divs}")
+    del fresh
+    free_card()
+    return run
+
+
+def l2_files(cfg, params, tok, kv, d, max_new: int = 2, **kw) -> dict:
+    """The ``.page`` files an engine writes into ``d`` when it serves the
+    lone prompt of ``prefix_prompts`` and demotes every resident page (the
+    disk tier alone), by name; ``kw``: its mesh and shard."""
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+
+    shard = kw.pop("shard", params)
+    engine = make_engine(cfg, slice_engine_config(
+        prefix_cache=True, kv_cache_dtype=kv, prefix_host_pages=0,
+        prefix_disk_dir=d, max_new_tokens=max_new), shard, tok, **kw)
+    engine.generate(prefix_prompts(tok)[:1])
+    engine.prefix_cache.evict(10 ** 6)
+    del engine
+    free_card()
+    return {n: (Path(d) / n).read_bytes()
+            for n in sorted(os.listdir(d)) if n.endswith(".page")}
+
+
+def mesh_tiers_8b(mesh, out: dict) -> None:
+    """15a: Llama-3-8B bf16 at full depth and width, the unsharded graphed
+    engine beside the 1-rank TP engine: a forced preemption with spill;
+    L1 and L2 hits (TTFT next to the unsharded engine's); ``host_overlap``
+    off and on; a snapshot restored into a fresh TP engine."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        llama_param_specs, shard_params,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg, _ = slice_model("llama3-8b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    shard = shard_params(params, llama_param_specs(cfg), mesh)
+    prompts = memory_prompts(tok)
+    engine = make_engine(cfg, slice_engine_config(), params, tok)
+    warm_engine(engine)
+    base = [r.token_ids for r in engine.generate(prompts)]
+    del engine
+    free_card()
+    tp = {"shard": shard, "tp_mesh": mesh}
+    spill = tiers_spill_run("15a", cfg, params, tok, prompts, None, None,
+                            base, **tp)
+    tiers = {}
+    for tier in ("l1", "l2"):
+        for who, kw in (("unsharded", {}), ("tp", tp)):
+            tiers[who, tier] = tiers_prefix_run(f"15a {who}", cfg, params,
+                                                tok, tier, **dict(kw))
+        if tiers["tp", tier]["tokens"] != tiers["unsharded", tier]["tokens"]:
+            raise SystemExit(f"15a {tier}: the TP engine's hits differ from "
+                             f"the unsharded engine's")
+    plain = tiers_overlap_run("15a", cfg, params, tok, None, None,
+                              overlap=False, **tp)
+    lagged = tiers_overlap_run("15a", cfg, params, tok, None, None,
+                               plain["tokens"], **tp)
+    snap = tiers_snapshot_run("15a", cfg, params, tok, base, mesh, shard)
+    emit("mesh_tiers", model=cfg.name, layers=cfg.n_layers,
+         weights="bfloat16", mesh="tp 1 rank (nccl)",
+         spill={k: v for k, v in spill.items() if k != "launches"},
+         **{f"{who}_{tier}": {k: v for k, v in run.items()
+                              if k not in ("tokens", "launches")}
+            for (who, tier), run in tiers.items()},
+         overlap_off={k: plain[k] for k in (
+             "decode_tok_per_s", "decode_ms_per_step", "syncs_per_token",
+             "ttft_s", "graph_replays")},
+         overlap_on={k: lagged[k] for k in (
+             "decode_tok_per_s", "decode_ms_per_step", "syncs_per_token",
+             "ttft_s", "graph_replays", "divergences")},
+         overlap_equal_tokens=lagged["tokens"] == plain["tokens"],
+         snapshot=snap, nvidia_smi=nvidia_smi_name_power())
+    total = {k: 0 for k in launch_counters()}
+    for run in (spill, *tiers.values(), plain, lagged, snap):
+        for k in total:
+            total[k] += run["launches"][k]
+    out["mesh_tiers"] = total
+    del shard, params
+
+
+def page_lanes_joined(shares: list) -> dict:
+    """Two TP ranks' shares of one int4 page joined here, in numpy and
+    apart from the port's code: each rank's split-half bytes unpacked to
+    its lanes, the lanes joined in rank order and packed split-half over
+    all of them (the scale fields are the full row's on both ranks)."""
+    import numpy as np
+
+    def unpack(p):
+        lo = (p & 0x0F).astype(np.int8)
+        lo = np.where(lo >= 8, lo - 16, lo)
+        return np.concatenate([lo, p >> 4], axis=-1).astype(np.int8)
+
+    def pack(q):
+        half = q.shape[-1] // 2
+        b = ((q[..., half:].astype(np.uint8) & 0x0F) << 4) \
+            | (q[..., :half].astype(np.uint8) & 0x0F)
+        return b.astype(np.uint8).view(np.int8)
+
+    import torch
+
+    rec = {"n_pages": 1}
+    for f in shares[0]:
+        if f in ("k", "v"):
+            lanes = np.concatenate([unpack(s[f].numpy()) for s in shares],
+                                   axis=-1)
+            rec[f] = torch.from_numpy(pack(lanes))
+        else:
+            if not all(torch.equal(s[f], shares[0][f]) for s in shares):
+                raise SystemExit(f"15d: the ranks' {f} differ")
+            rec[f] = shares[0][f]
+    return rec
+
+
+def tiers_tp2_rank(rank: int, n_layers: int, disk_dir: str) -> dict:
+    """15d, one of two ranks on the one card (gloo): Llama-3-8B cut to
+    ``n_layers`` layers, seeded as the parent seeds it, this rank's TP
+    shard over an int4 pool, eager, the disk tier in ``disk_dir`` (one
+    directory both ranks see): the lone prompt served, every resident page
+    demoted.  Returns the shares each demotion gathered, by digest."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.mesh import (
+        collective_counts, local_mesh,
+    )
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        llama_param_specs, shard_params,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg = LLAMA3_8B.replace(n_layers=n_layers)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    mesh = local_mesh(model=2)
+    shard = shard_params(params, llama_param_specs(cfg), mesh)
+    del params
+    torch.cuda.empty_cache()
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    engine = make_engine(cfg, slice_engine_config(
+        prefix_cache=True, kv_cache_dtype="int4", prefix_host_pages=0,
+        prefix_disk_dir=disk_dir, max_new_tokens=2), shard, tok,
+        cuda_graphs=False, tp_mesh=mesh)
+    shares = {}
+    demote = engine.prefix_cache._demote
+
+    def watched(pages):
+        recs = demote(pages)
+        for page, rec in zip(pages, recs):
+            shares[engine.prefix_cache._key_of[page].hex()] = {
+                f: v for f, v in rec.items() if f != "n_pages"}
+        return recs
+
+    engine.prefix_cache._demote = watched
+    t0 = time.perf_counter()
+    engine.generate(prefix_prompts(tok)[:1])
+    demoted = engine.prefix_cache.evict(10 ** 6)
+    torch.cuda.synchronize()
+    dist.barrier()
+    return {"shares": shares, "demoted": demoted,
+            "seconds": time.perf_counter() - t0,
+            "gathered": engine.prefix_store.mesh_tier.gathered,
+            "writer": engine.prefix_store.mesh_tier.writer,
+            "collectives": collective_counts(),
+            "pool_lanes": engine.pool.k.shape[-1]}
+
+
+def mesh_tiers_tp2() -> None:
+    """15d: Llama-3-8B cut to 2 layers over an int4 pool at TP = 2 as two
+    gloo processes on the one card: the demoted ``.page`` files are the
+    unsharded engine's set, each byte for byte the page joined from the
+    two ranks' shares (``page_lanes_joined``, written once), and they
+    promote into the unsharded engine with its own L2 hits' streams (or a
+    near-tie).  Prints how many files are byte-equal to the unsharded
+    engine's and the largest scale difference."""
+    import shutil
+
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.mesh import run_ranks
+    from k8s_llm_rca_tpu_torch.utils.pages import (
+        decode_page_record, encode_page_record,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    n_layers = 2
+    work = ROOT / "build" / "mesh_tiers"
+    shutil.rmtree(work, ignore_errors=True)
+    tp_dir, u_dir = work / "tp2", work / "unsharded"
+    t0 = time.perf_counter()
+    ranks = run_ranks(tiers_tp2_rank, 2, str(work / "ranks"),
+                      args=(n_layers, str(tp_dir)), timeout_s=600,
+                      device="cuda-gloo")
+    wall = time.perf_counter() - t0
+    cfg = LLAMA3_8B.replace(n_layers=n_layers)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    theirs = l2_files(cfg, params, tok, "int4", str(u_dir))
+    mine = {n: (tp_dir / n).read_bytes()
+            for n in sorted(os.listdir(tp_dir)) if n.endswith(".page")}
+    joined = all(
+        data == encode_page_record(page_lanes_joined(
+            [r["shares"][n[:-len(".page")]] for r in ranks]))
+        for n, data in mine.items())
+    scale_diff = 0.0
+    for n in set(mine) & set(theirs):
+        a, b = decode_page_record(mine[n]), decode_page_record(theirs[n])
+        for f in ("k_scale", "v_scale"):
+            scale_diff = max(scale_diff, (a[f].float() - b[f].float())
+                             .abs().max().item())
+    hits = {}
+    for name, d in (("own", u_dir), ("tp2", tp_dir)):
+        engine = make_engine(cfg, slice_engine_config(
+            prefix_cache=True, kv_cache_dtype="int4", prefix_host_pages=0,
+            prefix_disk_dir=str(d), max_new_tokens=8), params, tok)
+        res = engine.generate(prefix_prompts(tok)[1:])
+        hits[name] = {"tokens": [r.token_ids for r in res],
+                      "l2": int(engine._counts.get("engine.prefix_hits_l2",
+                                                   0))}
+        del engine
+        free_card()
+    divs = divergences(cfg, params, prefix_prompts(tok)[1:],
+                       hits["own"]["tokens"], hits["tp2"]["tokens"])
+    emit("mesh_tiers_tp2", model=cfg.name, layers=n_layers, ranks=2,
+         backend="gloo", kv_cache_dtype="int4", files=len(mine),
+         same_files=sorted(mine) == sorted(theirs),
+         files_byte_equal_to_unsharded=sum(mine[n] == theirs.get(n)
+                                           for n in mine),
+         files_equal_joined_shares=joined, max_scale_diff=scale_diff,
+         writers=[r["writer"] for r in ranks],
+         gathered=[r["gathered"] for r in ranks],
+         demoted=[r["demoted"] for r in ranks],
+         l2_hits={k: v["l2"] for k, v in hits.items()},
+         promoted_equal_tokens=hits["own"]["tokens"] == hits["tp2"]["tokens"],
+         divergences=divs, rank_seconds=[r["seconds"] for r in ranks],
+         wall_s=wall, pool_lanes=[r["pool_lanes"] for r in ranks],
+         nvidia_smi=nvidia_smi_name_power())
+    if not (mine and sorted(mine) == sorted(theirs) and joined):
+        raise SystemExit(f"15d: {len(mine)} files, the unsharded set "
+                         f"{sorted(mine) == sorted(theirs)}, the joined "
+                         f"shares' bytes {joined}")
+    if not hits["tp2"]["l2"] or any(d["logit_margin"] > NEAR_TIE
+                                    for d in divs):
+        raise SystemExit(f"15d: {hits['tp2']['l2']} L2 hits; streams {divs}")
+    del params
+
+
+def phase_mesh_tiers(gloo: bool = True) -> dict:
+    """Phase 15 under a 1-rank nccl process group (destroyed after): the
+    memory tiers, snapshots and the overlapped loop under TP, EP, FSDP and
+    PP (``mesh_tiers_8b``: 15a; 15b-15c below), then, with ``gloo``, 15d's
+    two gloo ranks (``--mesh-tiers``; the whole script leaves 15d out to
+    end within its 1200 s).  Returns the launch counts by phase."""
+    import tempfile
+
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models import mixtral
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime import mesh as rmesh
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        FSDP_LAYOUT, llama_param_specs, shard_params, shard_stage_params,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    t0 = time.perf_counter()
+    rmesh.initialize_distributed()
+    out = {}
+    try:
+        mesh = rmesh.local_mesh()
+        mesh_tiers_8b(mesh, out)
+        # 15b: int4 over an int4 pool at MESH_LAYERS, the L2 records of
+        # the unsharded and the TP engine byte for byte
+        cfg, transform = mesh_model("llama3-8b", 4)
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), tensor_transform=transform)
+        tok = get_tokenizer(vocab_size=cfg.vocab_size)
+        with tempfile.TemporaryDirectory() as d:
+            reset_counts()
+            theirs = l2_files(cfg, params, tok, "int4", d + "/u")
+            mine = l2_files(cfg, params, tok, "int4", d + "/tp",
+                            shard=shard_params(params,
+                                               llama_param_specs(cfg), mesh),
+                            tp_mesh=mesh)
+            out["mesh_tiers_int4"] = read_counts()
+        equal = bool(mine) and mine == theirs
+        emit("mesh_tiers_int4", model=cfg.name, layers=cfg.n_layers,
+             weights="int4", kv_cache_dtype="int4", mesh="tp 1 rank (nccl)",
+             files=len(mine), files_byte_equal=equal,
+             nvidia_smi=nvidia_smi_name_power())
+        if not equal:
+            raise SystemExit("15b: the TP engine's L2 records differ from "
+                             "the unsharded engine's")
+        del params
+        free_card()
+        # 15c: Mixtral int8 under EP with spill and host_overlap
+        cfg, transform = mesh_model("mixtral-8x7b", 8)
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), tensor_transform=transform)
+        tok = get_tokenizer(vocab_size=cfg.vocab_size)
+        prompts = memory_prompts(tok)
+        engine = make_engine(cfg, slice_engine_config(kv_cache_dtype="int8"),
+                             params, tok)
+        warm_engine(engine)
+        base = [r.token_ids for r in engine.generate(prompts)]
+        del engine
+        free_card()
+        base32 = tiers_overlap_run("15c unsharded", cfg, params, tok, "int8",
+                                   8, overlap=False)["tokens"]
+        ep = {"shard": mixtral.shard_params_ep(cfg, params, mesh),
+              "ep_mesh": mesh}
+        spill = tiers_spill_run("15c ep", cfg, params, tok, prompts, "int8",
+                                8, base, **dict(ep))
+        lagged = tiers_overlap_run("15c ep", cfg, params, tok, "int8", 8,
+                                   base32, **dict(ep))
+        emit("mesh_tiers_mixtral", model=cfg.name, layers=cfg.n_layers,
+             weights="int8", kv_cache_dtype="int8", mesh="ep 1 rank (nccl)",
+             spill={k: v for k, v in spill.items() if k != "launches"},
+             overlap_on={k: lagged[k] for k in (
+                 "decode_tok_per_s", "decode_ms_per_step",
+                 "syncs_per_token", "graph_replays", "divergences")},
+             nvidia_smi=nvidia_smi_name_power())
+        out["mesh_tiers_mixtral"] = {k: spill["launches"][k]
+                                     + lagged["launches"][k]
+                                     for k in spill["launches"]}
+        del ep, params
+        free_card()
+        # 15c: 8B bf16 at MESH_LAYERS under FSDP (L1 hit, overlap) and PP
+        # (overlap)
+        cfg, _ = mesh_model("llama3-8b")
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0))
+        tok = get_tokenizer(vocab_size=cfg.vocab_size)
+        base32 = tiers_overlap_run("15c unsharded", cfg, params, tok, None,
+                                   None, overlap=False)["tokens"]
+        l1 = tiers_prefix_run("15c unsharded", cfg, params, tok, "l1")
+        fsdp = {"shard": shard_params(params, llama_param_specs(
+            cfg, FSDP_LAYOUT), mesh), "fsdp_mesh": mesh}
+        fsdp_l1 = tiers_prefix_run("15c fsdp", cfg, params, tok, "l1",
+                                   **dict(fsdp))
+        if fsdp_l1["tokens"] != l1["tokens"]:
+            raise SystemExit("15c fsdp: the L1 hits' tokens differ from the "
+                             "unsharded engine's")
+        fsdp_lagged = tiers_overlap_run("15c fsdp", cfg, params, tok, None,
+                                        None, base32, **dict(fsdp))
+        del fsdp
+        free_card()
+        pp = {"shard": shard_stage_params(params, cfg, mesh),
+              "pp_mesh": mesh, "pp_microbatches": PP_MICROBATCHES}
+        pp_lagged = tiers_overlap_run("15c pp", cfg, params, tok, None, None,
+                                      base32, **dict(pp))
+        del pp
+        emit("mesh_tiers_cut", model=cfg.name, layers=cfg.n_layers,
+             weights="bfloat16", mesh="fsdp, pp 1 rank (nccl)",
+             unsharded_l1={k: v for k, v in l1.items()
+                           if k not in ("tokens", "launches")},
+             fsdp_l1={k: v for k, v in fsdp_l1.items()
+                      if k not in ("tokens", "launches")},
+             **{f"{name}_overlap_on": {k: run[k] for k in (
+                 "decode_tok_per_s", "decode_ms_per_step",
+                 "syncs_per_token", "graph_replays", "divergences")}
+                for name, run in (("fsdp", fsdp_lagged),
+                                  ("pp", pp_lagged))},
+             nvidia_smi=nvidia_smi_name_power())
+        out["mesh_tiers_cut"] = {k: sum(r["launches"][k] for r in (
+            l1, fsdp_l1, fsdp_lagged, pp_lagged)) for k in l1["launches"]}
+        del params
+        free_card()
+    finally:
+        rmesh.shutdown_distributed()
+    if gloo:
+        mesh_tiers_tp2()
+        free_card()
+    emit("mesh_tiers_phase", seconds=time.perf_counter() - t0)
+    return out
+
+
+# phases 5-5d: (phase, model, weight bits, kv_cache_dtype)
+SLICES = (("slice", "llama3-8b", None, None),
+          ("slice_int4", "llama3-8b", 4, "int4"),
+          ("slice_mixtral_int8", "mixtral-8x7b", 8, "int8"),
+          ("slice_mixtral_int4", "mixtral-8x7b", 4, "int4"))
 
 
 def main(argv) -> int:
@@ -6138,6 +6877,13 @@ def main(argv) -> int:
         phase_fsdp()
         return 0
 
+    if "--mesh-tiers" in argv:
+        # phase 15 alone
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        phase_mesh_tiers()
+        return 0
+
     if "--contiguous-mesh" in argv:
         # phase 14 alone
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -6170,6 +6916,13 @@ def main(argv) -> int:
         spec_overlap_case()
         sweep_case()
         return 0
+    if "--slices" in argv:
+        # phases 5-5d alone (their profiled steps: ROADMAP Queue 3, fault
+        # 6)
+        for phase, name, bits, kv in SLICES:
+            phase_slice(phase, name, bits, kv)
+            free_card()
+        return 0
     if "--profile-decode" in argv:
         for name, bits, kv in (("llama3-8b", None, None),
                                ("llama3-8b", 4, "int4"),
@@ -6182,12 +6935,7 @@ def main(argv) -> int:
     free_card()
     phase_cross_device()
     runs = {}
-    for phase, name, bits, kv in (("slice", "llama3-8b", None, None),
-                                  ("slice_int4", "llama3-8b", 4, "int4"),
-                                  ("slice_mixtral_int8", "mixtral-8x7b", 8,
-                                   "int8"),
-                                  ("slice_mixtral_int4", "mixtral-8x7b", 4,
-                                   "int4")):
+    for phase, name, bits, kv in SLICES:
         runs.update(phase_slice(phase, name, bits, kv))
         free_card()                   # one model on the card at a time
     runs["prefix"] = phase_prefix()
@@ -6212,6 +6960,8 @@ def main(argv) -> int:
     free_card()
     runs.update(phase_contiguous_mesh())
     free_card()
+    runs.update(phase_mesh_tiers(gloo=False))
+    free_card()
 
     rows = []
     # launches: the main paths' runs of each kernel, summed (flash now
@@ -6223,7 +6973,7 @@ def main(argv) -> int:
              ("slice", "slice_spec", "prefix", "memory", "rca", "rca_spec",
               "rca_resilient", "durable", "durable_cli", "rerank_rca",
               "rerank_rca_yardstick", "mesh", "cp_ring", "cp_ulysses", "pp",
-              "fsdp", "fsdp_sp"),
+              "fsdp", "fsdp_sp", "mesh_tiers", "mesh_tiers_cut"),
              "paged"),
             ("flash_attention", FLASH_SRC,
              "k8s_llm_rca_tpu/ops/flash_attention.py:31",
@@ -6234,44 +6984,50 @@ def main(argv) -> int:
               "rerank_rca_yardstick", "contiguous", "contiguous_int4",
               "contiguous_cli", "mesh", "mesh_int4", "mesh_mixtral",
               "cp_ulysses", "pp", "pp_int4", "pp_mixtral", "fsdp",
-              "fsdp_int4", "fsdp_sp", "fsdp_mixtral") + CONTIGUOUS_MESH_BF16
-             + CONTIGUOUS_MESH_INT4 + CONTIGUOUS_MESH_MIXTRAL, "flash"),
+              "fsdp_int4", "fsdp_sp", "fsdp_mixtral", "mesh_tiers",
+              "mesh_tiers_int4", "mesh_tiers_mixtral", "mesh_tiers_cut")
+             + CONTIGUOUS_MESH_BF16 + CONTIGUOUS_MESH_INT4
+             + CONTIGUOUS_MESH_MIXTRAL, "flash"),
             ("quant_matmul", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:137",
              ("quant_matmul", "bfloat16", "decode"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
               "durable_int4", "contiguous_int4", "mesh_int4",
-              "cp_int4_ring", "pp_int4", "fsdp_int4")
+              "cp_int4_ring", "pp_int4", "fsdp_int4", "mesh_tiers_int4")
              + CONTIGUOUS_MESH_INT4, "qmm"),
             ("quant_matmul_head", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:177",
              ("quant_matmul_head", "bfloat16", "llama3-8b int4"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
               "durable_int4", "contiguous_int4", "mesh_int4",
-              "cp_int4_ring", "pp_int4", "fsdp_int4")
+              "cp_int4_ring", "pp_int4", "fsdp_int4", "mesh_tiers_int4")
              + CONTIGUOUS_MESH_INT4, "qmm_head"),
             ("paged_attention_quant", PAGED_QUANT_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:141",
              ("paged_attention_quant", "bfloat16", "int4"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
               "durable_int4", "mesh_int4", "mesh_mixtral", "cp_int4_ring",
-              "pp_int4", "pp_mixtral", "fsdp_int4", "fsdp_mixtral"),
+              "pp_int4", "pp_mixtral", "fsdp_int4", "fsdp_mixtral",
+              "mesh_tiers_int4", "mesh_tiers_mixtral"),
              "paged_quant"),
             ("quant_matmul_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:120",
              ("quant_matmul_int8", "bfloat16", "decode"),
              ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral",
-              "fsdp_mixtral") + CONTIGUOUS_MESH_MIXTRAL, "qmm8"),
+              "fsdp_mixtral", "mesh_tiers_mixtral")
+             + CONTIGUOUS_MESH_MIXTRAL, "qmm8"),
             ("quant_matmul_head_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:159",
              ("quant_matmul_head_int8", "bfloat16", "mixtral-8x7b int8"),
              ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral",
-              "fsdp_mixtral") + CONTIGUOUS_MESH_MIXTRAL, "qmm_head8"),
+              "fsdp_mixtral", "mesh_tiers_mixtral")
+             + CONTIGUOUS_MESH_MIXTRAL, "qmm_head8"),
             ("quant_matmul_experts_int8", EKN_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:201",
              ("quant_matmul_experts_int8", "bfloat16", "3d decode"),
              ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral",
-              "fsdp_mixtral") + CONTIGUOUS_MESH_MIXTRAL, "qmm_experts8"),
+              "fsdp_mixtral", "mesh_tiers_mixtral")
+             + CONTIGUOUS_MESH_MIXTRAL, "qmm_experts8"),
             ("quant_matmul_experts_int4", EKN_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:218",
              ("quant_matmul_experts_int4", "bfloat16", "3d decode"),

@@ -41,8 +41,12 @@ cache holds the rank's lanes under TP, its stage's layers under PP and its
 block of the sequence under CP (``models.llama.prefill_cp`` and the CP
 decode); PP admits every group through ``parallel.pipeline.
 llama_pp_prefill`` and decodes through ``llama_pp_decode_step``.  The
-refusals are the paged engine's (``refuse_mesh_compositions``,
-``refuse_mesh_features``).
+refusals are the paged engine's (``refuse_mesh_compositions``: CP x EP
+and TP x EP, item 10.9; ``refuse_mesh_features``: speculation, item
+10.8).  ``host_overlap`` runs under every mesh but CP (JAX's ValueError),
+and ``snapshot_sequences``/``restore_sequences`` under every mesh: a
+snapshot is host state, equal on every rank, and restores into an engine
+of any sharding.
 """
 
 from __future__ import annotations
@@ -306,12 +310,6 @@ class EngineBase:
             "deadline": (self._deadlines or {}).get(seq_id),
         }
 
-    def _refuse_under_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} under a device mesh is not ported yet "
-                f"({mesh_item(7)})")
-
     def snapshot_sequences(self) -> Dict[str, object]:
         """Export every live sequence's durable state: original prompt,
         every generated token (those before a preemption too), remaining
@@ -322,8 +320,11 @@ class EngineBase:
         Order: active sequences by seq_id, then the pending queue front to
         back, as in the JAX engine (whose ``sequences`` list this equals on
         the same run).  ``rng_key`` is the port generator's state as a list
-        of ints: the port's random bits never matched JAX's."""
-        self._refuse_under_mesh("snapshot_sequences")
+        of ints: the port's random bits never matched JAX's.  Under a
+        device mesh every rank returns the same snapshot: the host loop
+        runs alike on every rank and each rank's generator is seeded
+        with ``EngineConfig.seed`` and draws from the same (all-reduced
+        or broadcast) logits."""
         self._overlap_barrier()
         resumed = self._resumed
         seqs = []
@@ -355,8 +356,10 @@ class EngineBase:
         finishes with the tokens an uninterrupted greedy run produces.
         ``grammars``: freshly compiled FSMs by seq_id for sequences
         snapshotted with ``grammar: true``, advanced here over the
-        generated tokens; a missing one raises.  Returns the seq_ids."""
-        self._refuse_under_mesh("restore_sequences")
+        generated tokens; a missing one raises.  Returns the seq_ids.
+        Under a device mesh every rank restores the same snapshot and
+        queues the same prefills; a snapshot of any sharding (or none)
+        restores into any other."""
         self._overlap_barrier()
         cap = self.engine_cfg.max_seq_len
         restored: List[int] = []
@@ -1047,8 +1050,8 @@ def dfa_greedy_multi(logits: torch.Tensor, states: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def mesh_item(sub: int) -> str:
-    """A step of ROADMAP Queue 1 item 10, multi-GPU (10.7: the features
-    refused under a mesh)."""
+    """A step of ROADMAP Queue 1 item 10, multi-GPU (10.8: speculation
+    under a mesh; 10.9: the compositions TP x EP and CP x EP)."""
     return f"ROADMAP Queue 1 item 10.{sub}, multi-GPU"
 
 
@@ -1227,30 +1230,22 @@ def refuse_mesh_compositions(tp_mesh, cp_mesh, ep_mesh) -> None:
     if cp_mesh is not None and ep_mesh is not None:
         raise NotImplementedError(
             f"cp_mesh with ep_mesh (CP x EP) is not ported yet "
-            f"({mesh_item(7)})")
+            f"({mesh_item(9)})")
     if tp_mesh is not None and ep_mesh is not None:
         raise NotImplementedError(
             f"tp_mesh with ep_mesh (TP x EP) is not ported yet "
-            f"({mesh_item(7)})")
+            f"({mesh_item(9)})")
 
 
-def refuse_mesh_features(engine_cfg: EngineConfig, draft_model,
-                         prefix_store) -> None:
-    """The engine features neither engine serves yet under a device mesh
-    (the contiguous engine refuses the first two as ValueErrors before)."""
-    refused = [name for name, on in (
-        ("max_spilled_pages (KV spill)", engine_cfg.max_spilled_pages),
-        ("the prefix store tiers (prefix_host_pages / prefix_disk_dir / "
-         "prefix_disk_pages / prefix_store)",
-         engine_cfg.prefix_host_pages or engine_cfg.prefix_disk_dir
-         or engine_cfg.prefix_disk_pages or prefix_store is not None),
-        ("host_overlap", engine_cfg.host_overlap),
-        ("speculative_k / draft_model",
-         engine_cfg.speculative_k or draft_model is not None)) if on]
-    if refused:
+def refuse_mesh_features(engine_cfg: EngineConfig, draft_model) -> None:
+    """The engine feature neither engine serves yet under a device mesh:
+    speculation (n-gram drafts or a draft model).  The memory tiers and
+    ``host_overlap`` are served; the pairs JAX refuses (with CP or PP)
+    raise its ValueErrors before this."""
+    if engine_cfg.speculative_k or draft_model is not None:
         raise NotImplementedError(
-            f"under a device mesh {', '.join(refused)} is not ported yet "
-            f"({mesh_item(7)})")
+            f"under a device mesh speculative_k / draft_model is not "
+            f"ported yet ({mesh_item(8)})")
 
 
 def check_rank_params(model_cfg: ModelConfig, params, tp_mesh, ep_mesh,
@@ -1584,7 +1579,7 @@ class InferenceEngine(EngineBase):
                                       fsdp_mesh) if m is not None), None)
         if self.mesh is not None:
             refuse_mesh_compositions(tp_mesh, cp_mesh, ep_mesh)
-            refuse_mesh_features(engine_cfg, draft_model, prefix_store)
+            refuse_mesh_features(engine_cfg, draft_model)
             check_rank_params(model_cfg, params, tp_mesh, ep_mesh, fsdp_mesh,
                               pp_mesh, pp_stage_axis)
         self.device = resolve_device(device)

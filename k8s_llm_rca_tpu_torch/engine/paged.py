@@ -76,6 +76,21 @@
   all-to-all of ``parallel/moe.py``.  On the card the graphs capture the
   collectives (nccl); gloo cannot be captured and needs
   ``cuda_graphs=False``.
+- The memory tiers and the overlapped loop under ``tp_mesh``,
+  ``ep_mesh`` and ``fsdp_mesh`` (``host_overlap`` under ``pp_mesh``
+  too): the scheduler runs alike on every rank, so a preemption spills
+  and resumes the same sequence at the same tick everywhere, and the
+  spill budget counts logical pages.  A spill gathers and restores the
+  rank's own share of the pool (its lanes under TP, its whole pool under
+  EP and FSDP) through its own pinned buffer.  The prefix store's L1 is
+  rank-local; its ``.page`` files hold whole pages in JAX's layout (the
+  lanes all-gathered over "model", an int4 page re-packed over all
+  lanes), written by one rank, and an L2 read is decided by that rank
+  and broadcast (``engine/prefix.py::MeshTier``).  The lagged commit of
+  ``host_overlap`` issues each step's collectives in the step itself, so
+  every rank issues them in the same order; on the card the "overlap"
+  graph captures them under nccl.  Snapshots are host state and equal on
+  every rank.
 - ``cp_mesh`` (context parallelism over its ``cp_seq_axis``, JAX's
   long-context mode): the allocator partitions the page ids into one
   contiguous range per rank of the axis (``PartitionedPageAllocator``, a
@@ -90,7 +105,7 @@
   (the SAME mesh) the pool is also sharded on lanes over "model" and the
   ring or all-to-all runs per head shard.  The prefix cache, chunked
   prefill, ``host_overlap``, spill and the store tiers are refused with
-  the JAX engine's messages.
+  the JAX engine's messages, before any other mesh check.
 
 - ``pp_mesh`` (pipeline parallelism over its ``pp_stage_axis``, alone,
   with ``tp_mesh`` or with ``ep_mesh``, the same mesh): a rank holds only
@@ -120,9 +135,8 @@
   decode are not sequence-parallel, as in JAX.  A bucket the model axis
   does not divide is a ValueError.
 
-Not ported yet, and refused loudly when asked for: CP with EP, TP with EP,
-and under a mesh the memory tiers (spill, snapshot/restore, the prefix
-store), ``host_overlap`` and speculation (item 10.7); the disaggregated
+Not ported yet, and refused loudly when asked for: speculation under a
+mesh (item 10.8), CP with EP and TP with EP (item 10.9); the disaggregated
 handoff's ``export_run``/``adopt_run`` (item 11).
 """
 
@@ -145,7 +159,7 @@ from k8s_llm_rca_tpu_torch.engine.engine import (
 )
 from k8s_llm_rca_tpu_torch.engine.graphs import DecodeGraphs
 from k8s_llm_rca_tpu_torch.engine.prefix import (
-    CACHE_OWNER, PrefixCache, PrefixStore, _page_keys,
+    CACHE_OWNER, MeshTier, PrefixCache, PrefixStore, _page_keys,
 )
 from k8s_llm_rca_tpu_torch.engine.speculative import setup_draft
 from k8s_llm_rca_tpu_torch.engine.sampling import (
@@ -1024,18 +1038,22 @@ def check_engine_config(engine_cfg: EngineConfig,
             f"page)")
 
 
-def _check_cp_config(engine_cfg: EngineConfig, prefix_store, cp_mesh,
-                     cp_seq_axis: str) -> int:
-    """The CP paged engine's preconditions, with the JAX engine's messages;
-    returns the CP axis size.  Refused: the overlapped loop, chunked
-    prefill, KV spill, the prefix store tiers and the prefix cache (the
-    chunk-prefill path is not context-parallel).  Every page-rounded
-    prefill bucket and max_seq_len divides by the axis; above one rank,
-    so do pages_per_seq (page-aligned splits) and num_pages (the pool's
-    page axis shards evenly)."""
-    from k8s_llm_rca_tpu_torch.runtime.mesh import axis_size
-
-    if engine_cfg.host_overlap:
+def _refuse_pairs_like_jax(engine_cfg: EngineConfig, prefix_store,
+                           cp_mesh, ep_mesh, pp_mesh) -> None:
+    """The pairs the JAX paged engine refuses, with its ValueErrors, in its
+    order and before any other mesh check: the prefix cache under PP x EP
+    (the chunk layer has no expert dispatch), ``host_overlap`` with CP,
+    chunked prefill, KV spill and the prefix store tiers with CP or PP
+    (``k8s_llm_rca_tpu/engine/paged.py:932-1072``)."""
+    tiered = bool(engine_cfg.prefix_host_pages or engine_cfg.prefix_disk_dir
+                  or engine_cfg.prefix_disk_pages or prefix_store is not None)
+    if pp_mesh is not None and engine_cfg.prefix_cache and ep_mesh is not None:
+        raise ValueError(
+            "prefix_cache composes with stage-only PP and PP×TP "
+            "(the pipelined chunked prefix prefill runs the "
+            "manual-TP chunk layer); it is not EP-composed — "
+            "use prefix_cache=False under PP×EP")
+    if cp_mesh is not None and engine_cfg.host_overlap:
         raise ValueError(
             "host_overlap=True is unsupported with cp_mesh: CP admits "
             "per-sequence through prefill_kv_cp and its multi-process "
@@ -1043,29 +1061,72 @@ def _check_cp_config(engine_cfg: EngineConfig, prefix_store, cp_mesh,
             "processes — a lagged commit would reorder them; serve CP "
             "engines with host_overlap=False")
     if engine_cfg.prefill_chunk_budget:
-        raise ValueError(
-            "prefill_chunk_budget is unsupported with cp_mesh "
-            "(the chunk-prefill path is not context-parallel; CP "
-            "prefills whole sequences through prefill_kv_cp)")
+        if cp_mesh is not None:
+            raise ValueError(
+                "prefill_chunk_budget is unsupported with cp_mesh "
+                "(the chunk-prefill path is not context-parallel; CP "
+                "prefills whole sequences through prefill_kv_cp)")
+        if pp_mesh is not None:
+            raise ValueError(
+                "prefill_chunk_budget is unsupported with pp_mesh: "
+                "the pipelined chunk prefill serves whole prefix-hit "
+                "admissions within one tick; spreading one admission "
+                "across ticks would interleave its stage schedule "
+                "with the GPipe decode microbatches — serve PP "
+                "engines with prefill_chunk_budget=0")
     if engine_cfg.max_spilled_pages:
-        raise ValueError(
-            "max_spilled_pages (KV spill-to-host) is unsupported "
-            "with cp_mesh: the CP pool's PAGE axis is sequence-"
-            "sharded, so one logical page is not one host buffer "
-            "— a spill gather/restore scatter would reshard the "
-            "pool through host memory every preemption; serve CP "
-            "engines with max_spilled_pages=0 (free-and-re-"
-            "prefill)")
-    if (engine_cfg.prefix_host_pages or engine_cfg.prefix_disk_dir
-            or engine_cfg.prefix_disk_pages or prefix_store is not None):
-        raise ValueError(
-            "the tiered prefix cache is unsupported with cp_mesh: "
-            "the CP pool's PAGE axis is sequence-sharded, so one "
-            "logical page is not one host buffer — a demote "
-            "gather / promote scatter would reshard the pool "
-            "through host memory (and cp_mesh already requires "
-            "prefix_cache=False); serve CP engines without the "
-            "prefix tier knobs")
+        if cp_mesh is not None:
+            raise ValueError(
+                "max_spilled_pages (KV spill-to-host) is unsupported "
+                "with cp_mesh: the CP pool's PAGE axis is sequence-"
+                "sharded, so one logical page is not one host buffer "
+                "— a spill gather/restore scatter would reshard the "
+                "pool through host memory every preemption; serve CP "
+                "engines with max_spilled_pages=0 (free-and-re-"
+                "prefill)")
+        if pp_mesh is not None:
+            raise ValueError(
+                "max_spilled_pages (KV spill-to-host) is unsupported "
+                "with pp_mesh: the pool's LAYER axis is stage-sharded "
+                "(possibly across hosts over DCN), so spill d2h / "
+                "restore h2d would issue cross-stage collectives that "
+                "must interleave with the GPipe microbatch schedule "
+                "deterministically on every process; serve PP engines "
+                "with max_spilled_pages=0 (free-and-re-prefill)")
+    if tiered:
+        if cp_mesh is not None:
+            raise ValueError(
+                "the tiered prefix cache is unsupported with cp_mesh: "
+                "the CP pool's PAGE axis is sequence-sharded, so one "
+                "logical page is not one host buffer — a demote "
+                "gather / promote scatter would reshard the pool "
+                "through host memory (and cp_mesh already requires "
+                "prefix_cache=False); serve CP engines without the "
+                "prefix tier knobs")
+        if pp_mesh is not None:
+            raise ValueError(
+                "the tiered prefix cache is unsupported with pp_mesh: "
+                "the pool's LAYER axis is stage-sharded (possibly "
+                "across hosts over DCN), so demote d2h / promote h2d "
+                "would issue cross-stage collectives that must "
+                "interleave with the GPipe microbatch schedule "
+                "deterministically on every process — the same "
+                "physics as the max_spilled_pages exclusion; serve "
+                "PP engines without the prefix tier knobs")
+
+
+def _check_cp_config(engine_cfg: EngineConfig, cp_mesh,
+                     cp_seq_axis: str) -> int:
+    """The CP paged engine's preconditions, with the JAX engine's messages;
+    returns the CP axis size.  Refused here: the prefix cache (the
+    chunk-prefill path is not context-parallel; the overlapped loop,
+    chunked prefill, KV spill and the store tiers are refused before, by
+    ``_refuse_pairs_like_jax``).  Every page-rounded prefill bucket and
+    max_seq_len divides by the axis; above one rank, so do pages_per_seq
+    (page-aligned splits) and num_pages (the pool's page axis shards
+    evenly)."""
+    from k8s_llm_rca_tpu_torch.runtime.mesh import axis_size
+
     if engine_cfg.prefix_cache:
         raise ValueError(
             "cp_mesh requires prefix_cache=False (the chunked "
@@ -1093,59 +1154,22 @@ def _check_cp_config(engine_cfg: EngineConfig, prefix_store, cp_mesh,
     return n_cp
 
 
-def _check_pp_config(engine_cfg: EngineConfig, prefix_store,
-                     ep_mesh) -> None:
-    """The PP paged engine's refusals, with the JAX engine's messages: the
-    prefix cache under PP x EP (the chunk layer has no expert dispatch),
-    chunked prefill, KV spill and the prefix store tiers."""
-    if engine_cfg.prefix_cache and ep_mesh is not None:
-        raise ValueError(
-            "prefix_cache composes with stage-only PP and PP×TP "
-            "(the pipelined chunked prefix prefill runs the "
-            "manual-TP chunk layer); it is not EP-composed — "
-            "use prefix_cache=False under PP×EP")
-    if engine_cfg.prefill_chunk_budget:
-        raise ValueError(
-            "prefill_chunk_budget is unsupported with pp_mesh: "
-            "the pipelined chunk prefill serves whole prefix-hit "
-            "admissions within one tick; spreading one admission "
-            "across ticks would interleave its stage schedule "
-            "with the GPipe decode microbatches — serve PP "
-            "engines with prefill_chunk_budget=0")
-    if engine_cfg.max_spilled_pages:
-        raise ValueError(
-            "max_spilled_pages (KV spill-to-host) is unsupported "
-            "with pp_mesh: the pool's LAYER axis is stage-sharded "
-            "(possibly across hosts over DCN), so spill d2h / "
-            "restore h2d would issue cross-stage collectives that "
-            "must interleave with the GPipe microbatch schedule "
-            "deterministically on every process; serve PP engines "
-            "with max_spilled_pages=0 (free-and-re-prefill)")
-    if (engine_cfg.prefix_host_pages or engine_cfg.prefix_disk_dir
-            or engine_cfg.prefix_disk_pages or prefix_store is not None):
-        raise ValueError(
-            "the tiered prefix cache is unsupported with pp_mesh: "
-            "the pool's LAYER axis is stage-sharded (possibly "
-            "across hosts over DCN), so demote d2h / promote h2d "
-            "would issue cross-stage collectives that must "
-            "interleave with the GPipe microbatch schedule "
-            "deterministically on every process — the same "
-            "physics as the max_spilled_pages exclusion; serve "
-            "PP engines without the prefix tier knobs")
-
-
 def check_meshes(model_cfg: ModelConfig, engine_cfg: EngineConfig, params,
                  device: torch.device, cuda_graphs: bool, draft_model,
                  prefix_store, tp_mesh, cp_mesh, ep_mesh, pp_mesh,
                  fsdp_mesh, cp_seq_axis: str = "seq",
                  pp_microbatches: Optional[int] = None,
                  pp_stage_axis: str = "stage", sp: bool = False):
-    """Refuse the meshes and the mesh features not ported (naming their
-    step of ROADMAP Queue 1 item 10) and a misconfigured TP, EP, CP, PP or
-    FSDP mesh; returns (the mesh the engine runs on, None without one; the
+    """Refuse what JAX refuses under a mesh (its ValueErrors, first), the
+    meshes and the mesh features not ported (naming their step of ROADMAP
+    Queue 1 item 10) and a misconfigured TP, EP, CP, PP or FSDP mesh;
+    returns (the mesh the engine runs on, None without one; the
     CP axis size, 0 without CP; the PP microbatch count, None without
     PP)."""
-    # first: fsdp x PP / CP / EP / SP are JAX's ValueErrors
+    # first: the feature pairs JAX refuses under CP and PP
+    _refuse_pairs_like_jax(engine_cfg, prefix_store, cp_mesh, ep_mesh,
+                           pp_mesh)
+    # then fsdp x PP / CP / EP / SP are JAX's ValueErrors
     validate_fsdp_mesh(fsdp_mesh, model_cfg, engine_cfg, tp_mesh, cp_mesh,
                        ep_mesh, pp_mesh, sp)
     # before the TP x EP refusal: PP x TP x EP and PP x CP are JAX's
@@ -1161,15 +1185,13 @@ def check_meshes(model_cfg: ModelConfig, engine_cfg: EngineConfig, params,
             -(-b // page) * page for b in tuple(engine_cfg.prefill_buckets)
             + (engine_cfg.max_seq_len,)])
     validate_ep_mesh(ep_mesh, model_cfg, engine_cfg)
-    n_cp = (_check_cp_config(engine_cfg, prefix_store, cp_mesh, cp_seq_axis)
+    n_cp = (_check_cp_config(engine_cfg, cp_mesh, cp_seq_axis)
             if cp_mesh is not None else 0)
-    if pp_mesh is not None:
-        _check_pp_config(engine_cfg, prefix_store, ep_mesh)
     mesh = next((m for m in (pp_mesh, tp_mesh, ep_mesh, cp_mesh, fsdp_mesh)
                  if m is not None), None)
     if mesh is None:
         return None, 0, None
-    refuse_mesh_features(engine_cfg, draft_model, prefix_store)
+    refuse_mesh_features(engine_cfg, draft_model)
     if (cuda_graphs and device.type == "cuda"
             and torch.distributed.get_backend() != "nccl"):
         raise ValueError(
@@ -1302,6 +1324,14 @@ class PagedInferenceEngine(EngineBase):
                 host_pages=engine_cfg.prefix_host_pages,
                 disk_dir=engine_cfg.prefix_disk_dir,
                 disk_pages=engine_cfg.prefix_disk_pages)
+        if self.prefix_store is not None:
+            # under a mesh L1 holds this rank's share, L2 whole pages
+            # written by one rank, an L2 read decided once
+            # (engine/prefix.py); a store keeps one sharding for its life
+            tier = None if self.mesh is None else MeshTier.for_mesh(
+                self.mesh, getattr(model_cfg, "tp", None),
+                engine_cfg.kv_cache_dtype == "int4", self.device)
+            self.prefix_store.attach_mesh(tier)
         self.prefix_cache = (
             PrefixCache(self.allocator, self.page_size,
                         store=self.prefix_store,
@@ -2527,7 +2557,6 @@ class PagedInferenceEngine(EngineBase):
         nothing generated), between the active sequences and the queue.
         With a store attached, the active sequences' written pages publish
         first (``_publish_sequence_pages``), so a restore promotes them."""
-        self._refuse_under_mesh("snapshot_sequences")
         self._publish_sequence_pages()
         snap = super().snapshot_sequences()
         if not self._prefilling:

@@ -28,9 +28,21 @@ layout of KV spill, ``utils/pages.py``) before freeing them, and
 back into fresh pages (one in-place write).  Entries are keyed by the same
 chained digests, so a promoted page holds the bytes eviction demoted and a
 promoted hit runs the prefix-hit prefill path of an L0 hit.  The store is
-shareable across engines: a restarted engine promotes the pages its
-predecessor published (``flush_to_store``, ``snapshot_sequences``).
-Without a store, eviction discards.
+shareable across the engines of one sharding: a restarted engine
+promotes the pages its predecessor published (``flush_to_store``,
+``snapshot_sequences``).  Without a store, eviction discards.
+
+Under a device mesh (``MeshTier``, attached by the paged engine) each rank
+keeps its own store object.  L1 is rank-local and holds the rank's share
+of a page (its lanes under TP, the whole page under EP and FSDP); the disk
+tier holds whole pages in the JAX package's layout, the layout an
+unsharded engine of either package writes and promotes.  Every rank runs the
+same host loop, so its L1, its LRU order and its disk index evolve alike:
+an L1 overflow gathers the lanes on every rank at the same point, and one
+rank (the mesh's lowest) writes the file.  An L2 read is decided once: the
+writer reads and decodes the file and broadcasts hit or miss, and only
+then do the other ranks read it, so no rank can see a file the writer is
+still writing and the ranks' collectives never part.
 """
 
 from __future__ import annotations
@@ -44,7 +56,8 @@ import numpy as np
 
 from k8s_llm_rca_tpu_torch.utils.logging import METRICS, get_logger
 from k8s_llm_rca_tpu_torch.utils.pages import (
-    decode_page_record, encode_page_record,
+    decode_page_record, encode_page_record, rank_page_record,
+    whole_page_record,
 )
 
 log = get_logger(__name__)
@@ -68,6 +81,83 @@ def _page_keys(prompt_ids: Sequence[int], n_pages: int,
     return keys
 
 
+class MeshTier:
+    """How one rank of a device mesh uses the store's tiers: ``tp`` (the
+    rank config's ``TensorParallel``, None without TP) names the lanes it
+    holds, ``packed`` an int4 pool; ``writer`` is the one rank that writes
+    and removes files; ``agree`` shares the writer's L2 decision over
+    ``group`` (None: the default group; one rank: no collective).
+    ``device``: where the lane gather runs (the card under nccl).
+    ``gathered`` and ``decided`` count the pages gathered whole and the L2
+    decisions shared (each a collective)."""
+
+    def __init__(self, tp, packed: bool, ranks: Sequence[int], group,
+                 device=None):
+        import torch.distributed as dist
+
+        self.tp = tp
+        self.packed = packed
+        self.ranks = list(ranks)
+        self.group = group
+        self.writer_rank = min(self.ranks)
+        self.rank = dist.get_rank()
+        self.writer = self.rank == self.writer_rank
+        nccl = dist.get_backend(group) == "nccl"
+        self.device = device if nccl else None
+        self.gathered = 0
+        self.decided = 0
+
+    @classmethod
+    def for_mesh(cls, mesh, tp, packed: bool, device) -> "MeshTier":
+        """The tier of this rank of ``mesh``: the decision's group spans the
+        mesh's ranks (the default group when the mesh spans the world).
+        Every rank of the mesh calls it at the same point (a group of a
+        part of the world is created here)."""
+        import torch.distributed as dist
+
+        from k8s_llm_rca_tpu_torch.runtime.mesh import axis_group
+
+        ranks = sorted(int(r) for r in mesh.mesh.flatten().tolist())
+        group = None
+        if 1 < len(ranks) < dist.get_world_size():
+            group = axis_group(mesh, tuple(mesh.mesh_dim_names))
+        return cls(tp, packed, ranks, group, device)
+
+    def same_layout(self, other: "MeshTier") -> bool:
+        return (self.packed == other.packed and self.ranks == other.ranks
+                and (self.tp is None) == (other.tp is None)
+                and (self.tp is None or (self.tp.size, self.tp.rank)
+                     == (other.tp.size, other.tp.rank)))
+
+    def whole(self, rec: Dict[str, object]) -> Dict[str, object]:
+        """The whole page of a share (a collective under TP)."""
+        if self.tp is None:
+            return rec
+        self.gathered += 1
+        return whole_page_record(rec, self.tp.group, self.packed,
+                                 self.device)
+
+    def share(self, rec: Dict[str, object]) -> Dict[str, object]:
+        """This rank's share of a whole page (no collective)."""
+        if self.tp is None:
+            return rec
+        return rank_page_record(rec, self.tp.size, self.tp.rank,
+                                self.packed)
+
+    def agree(self, hit: bool) -> bool:
+        """The writer's ``hit`` on every rank."""
+        if len(self.ranks) == 1:
+            return hit
+        import torch
+
+        from k8s_llm_rca_tpu_torch.runtime.mesh import broadcast
+
+        self.decided += 1
+        flag = torch.tensor([int(hit)], dtype=torch.int32,
+                            device=self.device or "cpu")
+        return bool(broadcast(flag, self.writer_rank, self.group).item())
+
+
 class PrefixStore:
     """Host-RAM (L1) + disk (L2) tiers of demoted prefix-page KV.
 
@@ -86,10 +176,12 @@ class PrefixStore:
     which is how a restarted process (or a new replica handed the same
     directory) warm-starts across process death.
 
-    The store is engine-agnostic and shareable: it never touches a page
-    allocator or device memory — engines gather INTO it and scatter OUT
-    of it through their own hooks.  Single-threaded by design, like the
-    cluster pump that shares it.
+    The store is shareable among the engines of one sharding: it never
+    touches a page allocator — engines gather INTO it and scatter OUT of
+    it through their own hooks.  Under a device mesh it holds one rank's
+    ``MeshTier`` (``attach_mesh``), whose lane gather and L2 decision are
+    collectives of that mesh (on the card under nccl).  Single-threaded
+    by design, like the cluster pump that shares it.
     """
 
     def __init__(self, host_pages: int = 0,
@@ -108,6 +200,8 @@ class PrefixStore:
         self.disk_pages = disk_pages
         self._l1: "OrderedDict[bytes, Dict[str, object]]" = OrderedDict()
         self._l2: "OrderedDict[bytes, str]" = OrderedDict()
+        # set by a paged engine under a device mesh (module docstring)
+        self.mesh_tier: Optional[MeshTier] = None
         if disk_dir:
             os.makedirs(disk_dir, exist_ok=True)
             # deterministic re-index order (sorted names, not mtime):
@@ -122,6 +216,30 @@ class PrefixStore:
                     self._l2[key] = os.path.join(disk_dir, name)
 
     # ------------------------------------------------------------- stats
+
+    def attach_mesh(self, tier: Optional[MeshTier]) -> None:
+        """Serve one rank of a device mesh (``tier``) or an unsharded
+        engine (None); the paged engine calls it with every store it is
+        given.  A store serves one sharding for its life: under a mesh its
+        host tier holds the rank's shares and its disk tier is written by
+        one rank over the mesh's group, so a tier of another layout, an
+        unsharded engine after a mesh engine, and a first tier over a host
+        tier that already holds an unsharded engine's pages are refused."""
+        if self.mesh_tier is None and tier is None:
+            return
+        if self.mesh_tier is None and self._l1:
+            raise ValueError(
+                "this PrefixStore's host tier holds an unsharded engine's "
+                "pages; give the mesh engine its own store (they may share "
+                "disk_dir: the disk tier holds whole pages)")
+        if self.mesh_tier is not None and (
+                tier is None or not self.mesh_tier.same_layout(tier)):
+            raise ValueError(
+                "this PrefixStore already serves another sharding of the "
+                "pool (its host tier holds that rank's lanes); give each "
+                "sharding its own store (they may share disk_dir: the "
+                "disk tier holds whole pages)")
+        self.mesh_tier = tier
 
     @property
     def n_host(self) -> int:
@@ -165,27 +283,41 @@ class PrefixStore:
         if key in self._l2:
             self._l2.move_to_end(key)
             return
+        tier = self.mesh_tier
+        if tier is not None:
+            rec = tier.whole(rec)   # every rank, at the same point
         path = os.path.join(self.disk_dir, key.hex() + ".page")
         try:
             frame = encode_page_record(rec)
         except ValueError:
             return
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as f:
-            f.write(frame)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
+        if tier is None or tier.writer:
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as f:
+                f.write(frame)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
         self._l2[key] = path
         while self.disk_pages and len(self._l2) > self.disk_pages:
             self._drop_disk(*self._l2.popitem(last=False))
 
-    @staticmethod
-    def _drop_disk(key: bytes, path: str) -> None:
+    def _drop_disk(self, key: bytes, path: str) -> None:
+        if self.mesh_tier is not None and not self.mesh_tier.writer:
+            return
         try:
             os.remove(path)
         except OSError:
             pass                        # already gone: cap still holds
+
+    @staticmethod
+    def _read(path: str) -> Optional[Dict[str, object]]:
+        try:
+            with open(path, "rb") as f:
+                data = f.read()
+        except OSError:
+            data = b""
+        return decode_page_record(data)
 
     # --------------------------------------------------------------- get
 
@@ -203,12 +335,22 @@ class PrefixStore:
         path = self._l2.get(key)
         if path is None:
             return None
-        try:
-            with open(path, "rb") as f:
-                data = f.read()
-        except OSError:
-            data = b""
-        rec = decode_page_record(data)
+        tier = self.mesh_tier
+        if tier is None:
+            rec = self._read(path)
+        else:
+            # decided once: the writer's read, then the others'
+            rec = self._read(path) if tier.writer else None
+            if tier.agree(rec is not None) and not tier.writer:
+                rec = self._read(path)
+                if rec is None:
+                    raise RuntimeError(
+                        f"prefix store: {os.path.basename(path)} decoded "
+                        f"on the writing rank {tier.writer_rank} but not "
+                        f"on rank {tier.rank}; the disk tier must be one "
+                        f"directory all ranks see")
+            if rec is not None:
+                rec = tier.share(rec)
         if rec is None:
             self._l2.pop(key, None)
             self._drop_disk(key, path)

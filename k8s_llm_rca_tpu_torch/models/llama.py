@@ -761,7 +761,7 @@ def _decode_layers(cfg: ModelConfig, layers, x: torch.Tensor,
 
         raise NotImplementedError(
             f"a multi-token decode (the speculative verify step) over the "
-            f"sequence-sharded cache is not ported yet ({mesh_item(7)})")
+            f"sequence-sharded cache is not ported yet ({mesh_item(8)})")
     index, keep = _token_index(cfg, cache, lengths, t)
     for li, layer in enumerate(layers):
         q, k, v = _decode_qkv(cfg, layer, x, angles, positions)
@@ -859,7 +859,7 @@ def prefill_kv_cp(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
         raise NotImplementedError(
             f"context-parallel prefill with ep_mesh (CP x EP) is not ported "
-            f"yet ({mesh_item(7)})")
+            f"yet ({mesh_item(9)})")
     cp_attn = ring_attention if cp_mode == "ring" else ulysses_attention
     n_cp = axis_size(mesh, seq_axis)
     p = axis_rank(mesh, seq_axis)

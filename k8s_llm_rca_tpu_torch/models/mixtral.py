@@ -41,7 +41,7 @@ def build_ep_mesh(n_expert_shards: int, n_data: int = 1, n_seq: int = 1,
     if n_seq > 1:
         raise NotImplementedError(
             f"build_ep_mesh(n_seq > 1): CP x EP is not ported yet "
-            f"({mesh_item(7)})")
+            f"({mesh_item(9)})")
     return build_mesh(MeshConfig(data=n_data, expert=n_expert_shards),
                       device=device)
 

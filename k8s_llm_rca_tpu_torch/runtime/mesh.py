@@ -21,7 +21,8 @@ one rank.
 - The collectives the sharded model calls (sum and max all-reduce,
   all-gather along an axis, as parts or into one buffer, the sum
   reduce-scatter, all-to-all along any split and concat dims, the ring
-  step ``ppermute``) count their calls in ``.calls``,
+  step ``ppermute``, and the broadcast of the prefix store's L2 decision)
+  count their calls in ``.calls``,
   as the kernel wrappers count launches, so a run can prove that the
   sharded path ran.  They are called on every rank in the same order; a
   size-1 group still calls the backend, except ``ppermute``'s (a rank
@@ -320,8 +321,21 @@ def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
     return out.to(x.device) if staged else out
 
 
+def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``x`` of the global rank ``src`` on every rank of ``group``, in
+    place; returns ``x``.  Over gloo a card tensor goes through a host
+    copy."""
+    staged = _on_gloo_card(x, group)
+    buf = x.cpu() if staged else x
+    dist.broadcast(buf, src=src, group=group)
+    broadcast.calls += 1
+    if staged:
+        x.copy_(buf)
+    return x
+
+
 COLLECTIVES = (all_reduce_sum, all_reduce_max, all_gather, all_to_all,
-               ppermute, all_gather_into, reduce_scatter_sum)
+               ppermute, all_gather_into, reduce_scatter_sum, broadcast)
 for _fn in COLLECTIVES:
     _fn.calls = 0
 

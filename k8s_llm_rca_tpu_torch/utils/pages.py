@@ -17,6 +17,11 @@ no bf16 without ``ml_dtypes``, and the card's machine has none).
   that storage, so a restore that allocated new tensors would leave them
   reading the old pages.
 
+Under TP a rank's pool holds its lanes of every page: spill and the
+host tier keep that share, and ``whole_page_record`` /
+``rank_page_record`` convert between it and the whole page that the disk
+tier stores.
+
 The disk codec frames one per-page record with ``utils/wal.py``: a JSON
 field header, a NUL, then the raw bytes, in one CRC32 frame, byte for
 byte the JAX package's files.  A bf16 field is written under JAX's tag
@@ -151,6 +156,68 @@ def stack_pages(recs: Sequence[Dict[str, object]],
         out = torch.empty(shape, dtype=parts[0].dtype, pin_memory=pin)
         rec[f] = torch.cat(parts, dim=1, out=out)
     return rec
+
+
+def whole_page_record(rec: Dict[str, object], group, packed: bool,
+                      device=None) -> Dict[str, object]:
+    """A TP rank's share of a page record (its lanes of the merged kv axis,
+    ``rules.paged_pool_specs``) as the whole page in the JAX package's
+    layout, the one ``.page`` files hold: k and v all-gathered along the
+    lanes over the TP ``group``, in group-rank order.  An int4 share is
+    split-half packed over the rank's own lanes: each share is unpacked,
+    the lanes joined and packed split-half over all of them, a pure nibble
+    permutation (the scale is already the full row's, the max over the
+    group).  The scale fields are equal on every rank and pass through.
+    ``device``: where the gather runs (the card under nccl; None keeps the
+    host tensors, as gloo takes).  Every rank of ``group`` calls it, in the
+    same order."""
+    from k8s_llm_rca_tpu_torch.models.quant import (
+        _pack_nibbles, _unpack_nibbles,
+    )
+    from k8s_llm_rca_tpu_torch.runtime.mesh import all_gather
+
+    out: Dict[str, object] = {"n_pages": int(rec["n_pages"])}
+    for f in record_fields(rec):
+        t = as_tensor(rec[f])
+        if f in _KV_FIELDS:
+            src = t.to(device) if device is not None else t
+            parts = all_gather(src, group, dim=0).cpu()
+            parts = parts.view(-1, *t.shape)              # [n, L, p, pg, w]
+            if packed:
+                parts = _unpack_nibbles(parts)
+            t = parts.movedim(0, -2).reshape(*t.shape[:-1], -1)
+            if packed:
+                t = _pack_nibbles(t)
+        out[f] = t
+    return out
+
+
+def rank_page_record(rec: Dict[str, object], n_parts: int, part: int,
+                     packed: bool) -> Dict[str, object]:
+    """The inverse of ``whole_page_record`` on one rank: a whole page
+    record's lanes of TP rank ``part`` of ``n_parts`` (int4: unpacked,
+    sliced and packed split-half over the rank's lanes).  A record whose
+    lanes do not split into ``n_parts`` comes back unchanged, for
+    ``records_compatible`` to refuse."""
+    from k8s_llm_rca_tpu_torch.models.quant import (
+        _pack_nibbles, _unpack_nibbles,
+    )
+
+    width = as_tensor(rec["k"]).shape[-1] * (2 if packed else 1)
+    lanes = width // n_parts
+    if width % n_parts or (packed and lanes % 2):
+        return rec
+    out: Dict[str, object] = {"n_pages": int(rec["n_pages"])}
+    for f in record_fields(rec):
+        t = as_tensor(rec[f])
+        if f in _KV_FIELDS:
+            if packed:
+                t = _pack_nibbles(
+                    _unpack_nibbles(t)[..., part * lanes:(part + 1) * lanes])
+            else:
+                t = t[..., part * lanes:(part + 1) * lanes].contiguous()
+        out[f] = t
+    return out
 
 
 def _compatible(pool, rec: Dict[str, object], n: int) -> bool:

@@ -4,6 +4,7 @@ ported instead of ignoring it."""
 
 import ast
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -28,7 +29,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "k8s_llm_rca_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tools" / "profile_window.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -258,8 +260,8 @@ _ONE_RANK = types.SimpleNamespace(
     mesh_dim_names=("data", "fsdp", "model", "expert", "seq", "stage"),
     mesh=torch.zeros((1,) * 6))
 UNPORTED = [
-    ({"paged": False, "host_overlap": True}, {"tp_mesh": _ONE_RANK},
-     "Queue 1 item 10.7"),
+    ({"paged": False, "speculative_k": 2}, {"tp_mesh": _ONE_RANK},
+     "Queue 1 item 10.8"),
 ]
 
 
@@ -268,9 +270,10 @@ UNPORTED = [
 def test_unported_engine_knob_raises(over, kw, item):
     """``paged=False`` builds the contiguous-slot engine (it raised
     naming Queue 1 item 9 before that engine was ported), with
-    ``host_overlap`` too; its device meshes are served since the
-    contiguous-mesh slice, and ``host_overlap`` under one still raises,
-    naming item 10.7."""
+    ``speculative_k`` too; its device meshes are served since the
+    contiguous-mesh slice and ``host_overlap`` under them since the
+    mesh-tiers slice (``test_host_overlap_serves_on_one_rank``), while
+    speculation under one still raises, naming item 10.8."""
     cfg, ecfg, params, tok = _tiny_engine_args()
     ecfg = dataclasses.replace(ecfg, **over)
     assert type(make_engine(cfg, ecfg, params, tok, device="cpu")).__name__ \
@@ -423,21 +426,21 @@ def test_meshes_raise(meshes, error, match):
 
 
 # the contiguous engine's refusals under a mesh: (the meshes, what else the
-# engine is given, the error, its message).  The item 10.7 features under
+# engine is given, the error, its message).  Speculation (item 10.8) under
 # each mesh the engine serves, then JAX's ValueErrors (host_overlap with
 # CP, sp without TP, a bucket off the CP axis or, under sp, off the TP
-# axis) and the compositions neither engine serves (CP x EP, TP x EP)
+# axis) and the compositions neither engine serves (CP x EP, TP x EP:
+# item 10.9).  host_overlap under the other meshes is served since the
+# mesh-tiers slice (test_host_overlap_serves_on_one_rank)
 CONTIGUOUS_REFUSALS = {
     **{f"{mesh}-{feature}": ((mesh,), over, NotImplementedError,
                              f"{what} is not ported yet \\(ROADMAP Queue 1 "
-                             f"item 10.7")
+                             f"item 10.8")
        for mesh in ("tp_mesh", "ep_mesh", "pp_mesh", "fsdp_mesh", "cp_mesh")
        for feature, over, what in (
-           ("host_overlap", {"host_overlap": True}, "host_overlap"),
            ("speculative_k", {"speculative_k": 2},
             "speculative_k / draft_model"),
-           ("draft_model", {"draft": True}, "speculative_k / draft_model"))
-       if (mesh, feature) != ("cp_mesh", "host_overlap")},
+           ("draft_model", {"draft": True}, "speculative_k / draft_model"))},
     "cp_mesh-host_overlap": (("cp_mesh",), {"host_overlap": True}, ValueError,
                              "host_overlap=True is unsupported with cp_mesh"),
     "sp_without_tp": ((), {"sp": True}, ValueError, "requires tp_mesh"),
@@ -447,9 +450,9 @@ CONTIGUOUS_REFUSALS = {
                                  "prefill_buckets": (33,)}, ValueError,
                   "bucket 33 is not divisible by its size 2"),
     "cp_ep": (("cp_mesh", "ep_mesh"), {}, NotImplementedError,
-              "CP x EP\\) is not ported yet \\(ROADMAP Queue 1 item 10.7"),
+              "CP x EP\\) is not ported yet \\(ROADMAP Queue 1 item 10.9"),
     "tp_ep": (("tp_mesh", "ep_mesh"), {}, NotImplementedError,
-              "TP x EP\\) is not ported yet \\(ROADMAP Queue 1 item 10.7"),
+              "TP x EP\\) is not ported yet \\(ROADMAP Queue 1 item 10.9"),
 }
 
 
@@ -457,10 +460,10 @@ CONTIGUOUS_REFUSALS = {
 def test_contiguous_engine_meshes_raise(case):
     """The contiguous engine (``paged=False``) serves every mesh since the
     contiguous-mesh slice; it refuses under each of them what the paged
-    engine refuses (host_overlap, speculative_k, draft_model: item 10.7,
-    one shared list), and raises JAX's ValueErrors first (host_overlap
-    with CP, sp without TP, a bucket the CP axis or, under sp, the TP
-    axis does not divide).  The meshes are stand-ins with the six axes
+    engine refuses (speculative_k, draft_model: item 10.8, one shared
+    list), and raises JAX's ValueErrors first (host_overlap with CP, sp
+    without TP, a bucket the CP axis or, under sp, the TP axis does not
+    divide).  The meshes are stand-ins with the six axes
     (of size one unless the case sizes one): the refusals come before
     anything else reads them."""
     names, over, error, match = CONTIGUOUS_REFUSALS[case]
@@ -571,7 +574,7 @@ def test_ep_assembly_builds_on_one_rank(one_rank_group, name):
     if name == "build_ep_mesh":
         m = mixtral.build_ep_mesh(1, device="cpu")
         assert m.mesh_dim_names == config.MeshConfig().axis_names
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10.7"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10.9"):
             mixtral.build_ep_mesh(1, n_seq=2, device="cpu")
     elif name == "shard_params_ep":
         m = mixtral.build_ep_mesh(1, device="cpu")
@@ -579,6 +582,195 @@ def test_ep_assembly_builds_on_one_rank(one_rank_group, name):
         assert shard["layers"][0]["w_gate"] is params["layers"][0]["w_gate"]
     else:
         _serves(mixtral.make_ep_engine(moe, ecfg, params, tok, device="cpu"))
+
+
+# the pairs JAX's paged engine refuses under CP and PP, with its
+# ValueErrors, before any other mesh check: speculative_k (item 10.8, a
+# NotImplementedError) rides along and must not come first
+JAX_PAIR_REFUSALS = {
+    "cp_spill": ("cp_mesh", {"max_spilled_pages": 4},
+                 "max_spilled_pages \\(KV spill-to-host\\) is unsupported "
+                 "with cp_mesh"),
+    "cp_tiers": ("cp_mesh", {"prefix_cache": True, "prefix_host_pages": 4},
+                 "the tiered prefix cache is unsupported with cp_mesh"),
+    "pp_spill": ("pp_mesh", {"max_spilled_pages": 4},
+                 "max_spilled_pages \\(KV spill-to-host\\) is unsupported "
+                 "with pp_mesh"),
+    "pp_tiers": ("pp_mesh", {"prefix_cache": True, "prefix_host_pages": 4},
+                 "the tiered prefix cache is unsupported with pp_mesh"),
+}
+
+
+@pytest.mark.parametrize("case", list(JAX_PAIR_REFUSALS))
+def test_paged_engine_refuses_jax_pairs_first(case):
+    """KV spill and the prefix store tiers under CP and PP raise the JAX
+    paged engine's ValueErrors (``k8s_llm_rca_tpu/engine/paged.py:
+    1011-1072``), before the refusal of what is not ported (speculation
+    under a mesh, item 10.8); under TP, EP and FSDP both are served
+    (``tests/test_torch_mesh_tiers.py``)."""
+    name, over, match = JAX_PAIR_REFUSALS[case]
+    cfg, ecfg, params, tok = _tiny_engine_args(speculative_k=2)
+    ecfg = dataclasses.replace(ecfg, **over)
+    with pytest.raises(ValueError, match=match):
+        make_engine(cfg, ecfg, params, tok, device="cpu",
+                    **{name: _ONE_RANK})
+
+
+def _one_rank_engine(rmesh, mesh, ecfg, moe=False, **kw):
+    """The paged or contiguous engine (``ecfg.paged``) under a 1-rank
+    ``mesh`` (``tp_mesh``, ``ep_mesh``, ``pp_mesh`` or ``fsdp_mesh``);
+    ``kw`` goes to ``make_engine``."""
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        FSDP_LAYOUT, llama_param_specs, shard_params, shard_stage_params,
+    )
+
+    cfg, params = _one_rank_params(moe)
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    m = rmesh.single_device_mesh(device="cpu")
+    if mesh == "pp_mesh":
+        return make_engine(cfg, ecfg, shard_stage_params(params, cfg, m),
+                           tok, device="cpu", pp_mesh=m, pp_microbatches=2,
+                           **kw)
+    layout = FSDP_LAYOUT if mesh == "fsdp_mesh" else None
+    return make_engine(cfg, ecfg, shard_params(
+        params, llama_param_specs(cfg, layout), m), tok, device="cpu",
+        **{mesh: m}, **kw)
+
+
+# the 1-rank served cases' prompt and tokens
+ONE_RANK_PROMPT = list(range(1, 20))
+ONE_RANK_TOKENS = 8
+
+
+def _one_rank_params(moe=False):
+    """The 1-rank cases' seeded weights: TINY, or TINY_MOE, the layers'
+    matrices times 3 (at the init's scales greedy decode repeats the
+    prompt's last token)."""
+    cfg = config.TINY_MOE if moe else config.TINY
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for layer in params["layers"]:
+        for w in layer.values():
+            if w.dim() > 1:
+                w.mul_(3.0)
+    return cfg, params
+
+
+def _one_rank_ecfg(paged):
+    return dataclasses.replace(_tiny_engine_args(decode_chunk=1)[1],
+                               paged=paged)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_tokens(paged, moe=False):
+    """JAX's plain unsharded engine (its paged engine without kernels, or
+    its contiguous engine) on the 1-rank cases' weights, engine config and
+    prompt: the greedy tokens."""
+    import jax.numpy as jnp
+
+    from k8s_llm_rca_tpu import config as jconfig
+    from k8s_llm_rca_tpu.engine.engine import InferenceEngine
+    from k8s_llm_rca_tpu.engine.paged import PagedInferenceEngine
+    from k8s_llm_rca_tpu.utils.tokenizer import get_tokenizer as jax_tok
+
+    from k8s_llm_rca_tpu_torch.runtime import rules
+
+    cfg, params = _one_rank_params(moe)
+    ecfg = _one_rank_ecfg(paged)
+    jcfg = jconfig.ModelConfig(**{f: getattr(cfg, f)
+                                  for f in cfg.__dataclass_fields__})
+    jecfg = jconfig.EngineConfig(**{
+        f: getattr(ecfg, f) for f in ecfg.__dataclass_fields__
+        if f in jconfig.EngineConfig.__dataclass_fields__})
+    jparams = rules.map_with_names(lambda _, w: jnp.asarray(w.numpy()),
+                                   params)
+    tok = jax_tok(vocab_size=cfg.vocab_size)
+    engine = (PagedInferenceEngine(jcfg, jecfg, jparams, tok,
+                                   use_kernel=False) if paged
+              else InferenceEngine(jcfg, jecfg, jparams, tok))
+    return engine.generate([ONE_RANK_PROMPT],
+                           max_new_tokens=ONE_RANK_TOKENS)[0].token_ids
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+@pytest.mark.parametrize("mesh", ["tp_mesh", "ep_mesh", "pp_mesh",
+                                  "fsdp_mesh"])
+def test_host_overlap_serves_on_one_rank(one_rank_group, mesh, paged):
+    """``host_overlap`` under TP, EP, PP and FSDP on both engines (it
+    raised naming item 10.7 before the mesh-tiers slice): on a 1-rank
+    gloo mesh the plain and the overlapped loop serve the tokens of JAX's
+    plain unsharded engine of the same kind (TINY_MOE under EP)."""
+    moe = mesh == "ep_mesh"
+    want = _jax_tokens(paged, moe)
+    assert len(want) == ONE_RANK_TOKENS and len(set(want)) > 2, want
+    for overlap in (False, True):
+        engine = _one_rank_engine(one_rank_group, mesh, dataclasses.replace(
+            _one_rank_ecfg(paged), host_overlap=overlap), moe)
+        assert engine.generate([ONE_RANK_PROMPT], ONE_RANK_TOKENS)[
+            0].token_ids == want, overlap
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+def test_snapshot_restores_across_shardings_on_one_rank(one_rank_group,
+                                                        paged):
+    """``snapshot_sequences`` / ``restore_sequences`` under a mesh (both
+    raised naming item 10.7 before the mesh-tiers slice): a 1-rank TP
+    engine's snapshot mid-decode restores into an unsharded engine to the
+    uninterrupted stream, JAX's plain unsharded engine's."""
+    cfg, params = _one_rank_params()
+    ecfg = _one_rank_ecfg(paged)
+    eng = _one_rank_engine(one_rank_group, "tp_mesh", ecfg)
+    sid = eng.submit(ONE_RANK_PROMPT, max_new_tokens=ONE_RANK_TOKENS)
+    for _ in range(3):
+        eng.step()
+    snap = eng.snapshot_sequences()
+    assert snap["sequences"][0]["generated"]
+    fresh = make_engine(cfg, ecfg, params, get_tokenizer(
+        vocab_size=cfg.vocab_size), device="cpu")
+    assert fresh.restore_sequences(snap) == [sid]
+    done = {}
+    while fresh.has_work:
+        done.update({r.seq_id: r.token_ids for r in fresh.step()})
+    assert done[sid] == _jax_tokens(paged)
+
+
+@pytest.mark.parametrize("case", ["restarted_mesh_engine",
+                                  "unsharded_after_mesh",
+                                  "mesh_over_unsharded_pages"])
+def test_prefix_store_serves_one_sharding(one_rank_group, case):
+    """A passed ``PrefixStore`` serves one sharding for its life: a
+    restarted 1-rank TP engine promotes its predecessor's host-tier pages
+    with the same tokens, while an unsharded engine given a TP engine's
+    store (whose tier would run that mesh's collectives and leave its
+    files to the mesh's writer) and a TP engine given a store whose host
+    tier holds an unsharded engine's whole pages are refused."""
+    cfg, params = _one_rank_params()
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    ecfg = dataclasses.replace(_one_rank_ecfg(True), prefix_cache=True,
+                               prefix_host_pages=16)
+    prompt = [list(range(1, 40))]
+
+    def build(mesh, store=None):
+        if mesh:
+            return _one_rank_engine(one_rank_group, "tp_mesh", ecfg,
+                                    prefix_store=store)
+        return make_engine(cfg, ecfg, params, tok, device="cpu",
+                           prefix_store=store)
+
+    first = build(case != "mesh_over_unsharded_pages")
+    want = first.generate(prompt, 4)[0].token_ids
+    first.prefix_cache.evict(10 ** 6)
+    store = first.prefix_store
+    assert store.n_host > 0
+    if case == "restarted_mesh_engine":
+        again = build(True, store)
+        assert again.generate(prompt, 4)[0].token_ids == want
+        assert again._counts["engine.prefix_hits_l1"] > 0
+    else:
+        match = ("already serves another sharding"
+                 if case == "unsharded_after_mesh"
+                 else "holds an unsharded engine's pages")
+        with pytest.raises(ValueError, match=match):
+            build(case == "mesh_over_unsharded_pages", store)
 
 
 @pytest.mark.parametrize("bits", [4, 8])
