@@ -329,11 +329,32 @@ not cut it further; 12d and 13d run 8B at 2 layers (``GLOO4_LAYERS``).
    near-tie); prints how many files are byte-equal to the unsharded
    engine's.  (d) runs with ``--mesh-tiers`` only: the whole script
    leaves it out to end within its 1200 s.
+16. mesh_spec: speculation under a mesh (``--mesh-spec`` runs phase 3's
+   CP fold cases and it alone, with no result line) under a 1-rank nccl
+   process group, ``speculative_k`` 4 at ``decode_chunk`` 1, greedy,
+   the slice's four requests at ``MESH_SPEC_NEW`` new tokens, against
+   the unsharded speculative engine with the same knobs: streams equal
+   or a near-tie (``NEAR_TIE``, margins printed), equal streams with
+   equal ``verify_steps``, ``spec_drafted`` and ``spec_accepted``,
+   launches exact, one verify step's collectives by kind equal to one
+   decode step's, and the verify and the decode step's wall and device
+   ms both ways.  (a) Llama-3-8B bf16 at ``MESH_LAYERS``, paged and
+   graphed, n-gram drafts, at TP, FSDP, PP (M = 2) and CP ring (the
+   verify step's T queries folded into one paged call a layer with the
+   rows' lse); (b) int4 weights over an int4 pool with the target's own
+   weights as its draft model at TP and CP: drafts accepted in every run
+   (so rows 1..k of each verify step decide the streams), one broadcast
+   of the drafts a verify tick, its host ms; (c) Mixtral-8x7B int8 at
+   EP, no token dropped; (d) the contiguous engine (eager) on 8B bf16 at
+   ``CUT_LAYERS`` at TP, PP and CP; (e) 8B cut to 2 layers at TP 2 and
+   CP 2 as two gloo processes on the one card: the ranks equal, launches
+   exact, equal to the unsharded speculative engine or a near-tie.  (e)
+   runs with ``--mesh-spec`` only.
 
 Then the kernel table (one JSON line), the ``nvidia-smi`` name and power
 limit line, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
-The kernel table sums the launches of phases 5-15.
+The kernel table sums the launches of phases 5-16.
 ``--spec`` builds every source and runs only the attention-over-pages
 cases of phase 3 and the speculative, overlap and TINY sweep cases of
 phase 4 (no result line).  ``--profile-decode`` runs only a profile of one decode step at the slice's
@@ -347,8 +368,9 @@ builds every source and the native library and runs only phase 6, in a
 fresh process (with ``--after-memory``, after phase 7's bf16 half), and
 prints no result line.  ``--durable`` builds every source and the native
 library and runs only phase 8 (no result line); ``--mesh``, ``--cp``,
-``--pp``, ``--fsdp`` and ``--contiguous-mesh`` run only phases 10, 11, 12,
-13 and 14 (no result line).
+``--pp``, ``--fsdp``, ``--contiguous-mesh``, ``--mesh-tiers`` and
+``--mesh-spec`` run only phases 10, 11, 12, 13, 14, 15 and 16 (no result
+line).
 """
 
 
@@ -1134,7 +1156,9 @@ def expected_counts(cfg, c: dict, quantized_kv: bool, bits=None,
     one decode attention per single-token decode step, and one flash call
     per prefill dispatch of a miss, per chunk prefill (a prefix hit or a
     chunked prompt, over its gathered pages) and per speculative verify
-    step (T queries over the gathered pages).  The ``contiguous`` engine
+    step (T queries over the gathered pages; under PP once a microbatch;
+    under CP none: its T queries fold into the paged call a layer that a
+    decode step makes).  The ``contiguous`` engine
     (``InferenceEngine``) attends its decode and verify steps in plain
     torch over its cache rows: only its prefills launch flash.  Under
     fused_quant_matmul
@@ -1165,12 +1189,16 @@ def expected_counts(cfg, c: dict, quantized_kv: bool, bits=None,
     prefills = int(c.get("engine.prefill_dispatches", 0))
     chunks = int(c.get("engine.chunk_prefill_dispatches", 0))
     pp = getattr(cfg, "pp", None)
+    cp = getattr(cfg, "cp", None)
     m = pp.microbatches if pp is not None else 1
+    # a paged verify step attends through flash (once a microbatch under
+    # PP), under CP through the paged kernel over its folded queries
+    flash_verify = 0 if contiguous or cp is not None else verify
     counts = {k: 0 for k in launch_counters()}
     counts["paged_quant" if quantized_kv else "paged"] = (
-        0 if contiguous else cfg.n_layers * (m * steps - verify))
-    counts["flash"] = cfg.n_layers * (m * prefills + chunks
-                                      + (0 if contiguous else verify))
+        0 if contiguous else cfg.n_layers * m * (steps - flash_verify))
+    counts["flash"] = cfg.n_layers * m * (prefills + flash_verify) \
+        + cfg.n_layers * chunks
     fwd = steps + prefills + chunks
     passes = m * (steps + prefills) + chunks      # layer passes a forward
     if cfg.fused_quant_matmul:
@@ -1203,7 +1231,6 @@ def expected_counts(cfg, c: dict, quantized_kv: bool, bits=None,
     if getattr(cfg, "fsdp", None) is not None:
         counts["all_gather_into"] += (7 * cfg.n_layers + 1) * fwd
         counts["all_reduce_sum"] += fwd
-    cp = getattr(cfg, "cp", None)
     if cp is not None:
         counts["all_gather"] += 2 * prefills + cfg.n_layers * steps
         if cp_mode == "ring":
@@ -1960,7 +1987,8 @@ def serve_four(engine, cfg, kv, bits, max_new: int = 64,
         # replay's logits into the flag, which lives with the engine
         before = warm_engine(engine, warm_new)
         draft = engine._draft
-        draft_before = draft.prefills if draft is not None else 0
+        draft_before = ((draft.prefills, draft.scan_steps)
+                        if draft is not None else None)
         engine.logits_finite = finite
         stamp_first_tokens(engine, stamps)
         engine.step = recorded
@@ -1992,9 +2020,18 @@ def serve_four(engine, cfg, kv, bits, max_new: int = 64,
                              contiguous=not engine.engine_cfg.paged,
                              cp_mode=getattr(engine, "cp_mode", None))
     if draft is not None:
-        # a draft model's re-prefills attend through flash too
-        expect["flash"] += draft.cfg.n_layers * (draft.prefills
-                                                 - draft_before)
+        # a draft model's own launches: its re-prefills attend through
+        # flash, and over quantized weights its re-prefills and scan steps
+        # run the kn matmuls and the head
+        drafted = expected_counts(draft.cfg, {
+            "engine.prefill_dispatches": draft.prefills - draft_before[0],
+            "engine.decode_steps": draft.scan_steps - draft_before[1]},
+            False, bits, contiguous=True)
+        for k, n in drafted.items():
+            expect[k] += n
+    if getattr(engine, "_draft_agree", None) is not None:
+        # under a mesh its drafts are broadcast once a verify tick
+        expect["broadcast"] += int(c.get("engine.verify_steps", 0))
     if counts != expect:
         raise SystemExit(f"launch counts {counts} != expected {expect}")
     return {"tokens": [r.token_ids for r in
@@ -4755,10 +4792,12 @@ def cp_lse_kernels(table, gen, flush) -> None:
     one half of each 40-page table, each slot's length clamped to the
     half's 1280 positions, at both length mixes and both ranks (rank 1's
     share of the mixed mix is empty for three slots: lse -1e30, output
-    0), the bf16, int8 and int4 pools.  Out against the plain version
-    (``TOL``), lse at atol 1e-3, timed beside the same call without the
-    lse, its bound (the rank's rows, q, out and lse) and SDPA over the
-    rank's gathered pages."""
+    0), the bf16, int8 and int4 pools; and the CP verify step's fold
+    (``cp_fold_case``: 20 rows, some of them empty on rank 1).  Out
+    against the plain version (``TOL``), lse at atol 1e-3, timed beside
+    the same call without the lse, its bound (the rank's rows, q, out and
+    lse; a folded slot's pages once) and SDPA over the rank's gathered
+    pages."""
     import torch
 
     from k8s_llm_rca_tpu_torch.ops.paged_attention import (
@@ -4767,8 +4806,10 @@ def cp_lse_kernels(table, gen, flush) -> None:
     )
 
     dn, span = "bfloat16", 20 * 64
-    for mix, lengths in PAGED_LENGTHS.items():
-        args = paged_case(torch.bfloat16, gen, lengths=lengths)
+    cases = [(mix, paged_case(torch.bfloat16, gen, lengths=lengths), 1)
+             for mix, lengths in PAGED_LENGTHS.items()]
+    cases.append(("verify fold", cp_fold_case(gen), FOLD_T))
+    for mix, args, t in cases:
         lens, tables = args[3], args[4]
         for rank in (0, 1):
             part = args[:3] + ((lens - rank * span).clamp(0, span)
@@ -4797,9 +4838,18 @@ def cp_lse_kernels(table, gen, flush) -> None:
                 ref, ref_lse = plain()
                 case = f"cp2 rank{rank} {mix} {pool} lse"
                 rec = held_record(kernel, dn, out, ref, case=case,
-                                  shapes=f"B=4 H=32 n_kv=8 d=128 page=64 "
-                                  f"pps=20 lens=" + ",".join(
+                                  shapes=f"B={out.shape[0]} H=32 n_kv=8 "
+                                  f"d=128 page=64 pps=20 lens=" + ",".join(
                                       map(str, part[3].tolist())))
+                if t > 1:
+                    # rows of no key: lse -1e30 and a zero output
+                    empty = part[3] == 0
+                    rec["empty_rows"] = int(empty.sum())
+                    if not (torch.all(lse[empty] == -1e30)
+                            and torch.all(out[empty] == 0)):
+                        emit("kernels", **rec)
+                        raise SystemExit(f"{kernel} {case}: an empty row "
+                                         f"is not lse -1e30 and zero")
                 rec["lse_max_abs_err"] = (lse - ref_lse).abs().max().item()
                 rec["lse_tol"] = 1e-3
                 if rec["lse_max_abs_err"] > 1e-3:
@@ -4811,12 +4861,39 @@ def cp_lse_kernels(table, gen, flush) -> None:
                                                        flush_bytes=flush)
                 rec["plain_ms"] = time_ms(plain, 20, flush_bytes=flush)
                 rec["library_ms"] = time_ms(library, 200, flush_bytes=flush)
+                # a folded slot's pages are read once, for its last query
                 rec["bound_ms"], rec["bound_by"] = paged_bound(
-                    pargs[0], pargs[1], pargs[-2], dn,
-                    scale_bytes=0 if packed is None else 4,
+                    pargs[0], pargs[1], pargs[-2].reshape(-1, t).amax(-1),
+                    dn, scale_bytes=0 if packed is None else 4,
                     extra_bytes=4 * out.shape[0] * out.shape[1])
                 emit("kernels", **rec)
                 table[(kernel, dn, case)] = rec
+
+
+# the CP verify step at the slice's shapes: batch 4, T = speculative_k + 1
+# queries a slot at these lengths (the third slot's queries cross rank 1's
+# range at 1280)
+FOLD_T = 5
+FOLD_LENGTHS = [400, 900, 1276, 2290]
+
+
+def cp_fold_case(gen):
+    """The paged engine's CP verify step folded into the batch
+    (``engine/paged.py::_cp_fold_view``): 20 rows, row (b, i) query i of
+    slot b over slot b's table at ``FOLD_LENGTHS[b] + 1 + i`` positions,
+    the slice's 168-page pool.  (q [20, 32, 128], k and v pages, lengths
+    [20], tables [20, 40]) as ``paged_case`` gives them."""
+    import torch
+
+    _, kp, vp, _, tables = paged_case(
+        torch.bfloat16, gen, lengths=[n + FOLD_T for n in FOLD_LENGTHS])
+    q = torch.randn((len(FOLD_LENGTHS) * FOLD_T, 32, 128), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    lens = torch.tensor([n + 1 + i for n in FOLD_LENGTHS
+                         for i in range(FOLD_T)], dtype=torch.int32,
+                        device="cuda")
+    return (q, kp, vp, lens,
+            tables.repeat_interleave(FOLD_T, dim=0).contiguous())
 
 
 # one GPipe microbatch of the slice's decode batch (B = 4 over M = 2): the
@@ -6757,6 +6834,415 @@ def phase_mesh_tiers(gloo: bool = True) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 16
+
+# speculation under a mesh: k, the new tokens of a served run (the slice's
+# four requests), and the phases whose launches the kernel line sums
+MESH_SPEC_K = 4
+MESH_SPEC_NEW = 32
+MESH_SPEC_BF16 = tuple(f"mesh_spec_{m}" for m in ("tp", "fsdp", "pp", "cp"))
+MESH_SPEC_INT4 = ("mesh_spec_int4_tp", "mesh_spec_int4_cp")
+MESH_SPEC_MIXTRAL = ("mesh_spec_mixtral_ep",)
+MESH_SPEC_CONTIGUOUS = tuple(f"mesh_spec_contiguous_{m}"
+                             for m in ("tp", "pp", "cp"))
+SPEC_COUNTER_KEYS = ("verify_steps", "spec_drafted", "spec_accepted")
+
+
+def mesh_spec_config(**over):
+    """The slice engine with ``speculative_k`` 4 at ``decode_chunk`` 1,
+    greedy."""
+    return slice_engine_config(speculative_k=MESH_SPEC_K, decode_chunk=1,
+                               **over)
+
+
+def step_collectives(engine) -> dict:
+    """The collectives of one verify step (T = k + 1) and of one decode
+    step at the slice's decode shapes (``decode_step_fn``), by kind: each
+    step run once (captured where the engine graphs), then counted over
+    one more call.  The engine is not used after."""
+    import torch
+
+    out = {}
+    for label, t in (("verify", MESH_SPEC_K + 1), ("decode", 0)):
+        step = decode_step_fn(engine, t)
+        step()
+        torch.cuda.synchronize()
+        reset_counts()
+        step()
+        torch.cuda.synchronize()
+        c = read_counts()
+        out[f"{label}_step_collectives"] = {
+            k: c[k] for k in COLLECTIVE_KEYS + ("broadcast",) if c[k]}
+    return out
+
+
+def time_draft_broadcasts(engine) -> list:
+    """Wrap a mesh engine's draft broadcast (``speculative.
+    DraftAgreement``): the host ms of each call, appended to the list
+    returned."""
+    agree, ms = engine._draft_agree, []
+
+    def timed(tokens_in):
+        t0 = time.perf_counter()
+        out = agree(tokens_in)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    engine._draft_agree = timed
+    return ms
+
+
+def mesh_spec_run(engine, cfg, kv, bits, paged: bool = True) -> dict:
+    """The slice's four requests on a speculative engine (``serve_four``:
+    launches exact, a draft's broadcasts among them), its speculation
+    counters; on the paged engine (graphed) the verify step's and the
+    decode step's wall and device ms and collectives by kind."""
+    draft_ms = (time_draft_broadcasts(engine)
+                if engine._draft_agree is not None else None)
+    if paged:
+        run = serve_four(engine, cfg, kv, bits, max_new=MESH_SPEC_NEW)
+    else:
+        run = serve_four(engine, cfg, kv, bits, max_new=CONTIGUOUS_MESH_NEW,
+                         warm_new=2)
+    # the contiguous engine runs eagerly: it has no graphs
+    run.update(graph_stats(engine) if paged
+               else {"graph_captures": 0, "graph_replays": 0})
+    if not run["verify_steps"]:
+        raise SystemExit(f"{cfg.name}: speculative_k {MESH_SPEC_K} verified "
+                         f"nothing")
+    if draft_ms is not None:
+        run["draft_broadcasts"] = len(draft_ms)
+        run["draft_broadcast_host_ms"] = statistics.mean(draft_ms)
+        run["draft_broadcast_host_ms_max"] = max(draft_ms)
+    run["collectives"] = {k: run["launches"][k]
+                          for k in COLLECTIVE_KEYS + ("broadcast",)}
+    if paged:
+        run.update({f"verify_{k}": v for k, v in decode_step_times(
+            engine, verify_t=MESH_SPEC_K + 1, profiled=False).items()})
+        run.update(decode_step_times(engine, profiled=False))
+        run.update(step_collectives(engine))
+    return run
+
+
+def mesh_spec_compare(phase, cfg, params, base, run, **record) -> None:
+    """Emit a speculative mesh run beside the unsharded speculative engine
+    with the same knobs; fail unless the streams are equal or part only
+    at a near-tie (``NEAR_TIE``), unless equal streams come with equal
+    speculation counters, unless a verify step issues a decode step's
+    collectives by kind, and unless a draft model's drafts went through
+    one broadcast a verify tick (none without one)."""
+    divs = divergences(cfg, params, run["prompts"], base["tokens"],
+                       run["tokens"])
+    bad = [d for d in divs if d["logit_margin"] > NEAR_TIE]
+    equal = run["tokens"] == base["tokens"]
+    counters = {k: (base[k], run[k]) for k in SPEC_COUNTER_KEYS}
+    keep = ("ttft_s", "decode_tok_per_s", "total_s", "wall_ms_per_step",
+            "event_device_ms_per_step", "verify_wall_ms_per_step",
+            "verify_event_device_ms_per_step", "graph_captures",
+            "graph_replays", "prefill_dispatches", "decode_steps",
+            "draft_broadcast_host_ms", "draft_broadcast_host_ms_max")
+    emit(phase, model=cfg.name, layers=cfg.n_layers,
+         speculative_k=MESH_SPEC_K, **record,
+         prompt_tokens=run["prompt_tokens"],
+         completion_tokens=run["completion_tokens"], equal_tokens=equal,
+         equal_token_share=common_share(base["tokens"], run["tokens"]),
+         divergences=divs, near_tie=NEAR_TIE,
+         spec_counters_unsharded_mesh=counters,
+         collectives=run["collectives"],
+         verify_step_collectives=run.get("verify_step_collectives"),
+         decode_step_collectives=run.get("decode_step_collectives"),
+         launches=run["launches"],
+         launches_exact=run["launches"] == run["expected_launches"],
+         **{f"mesh_{k}": run[k] for k in keep if k in run},
+         **{f"unsharded_{k}": base[k] for k in keep if k in base},
+         nvidia_smi=nvidia_smi_name_power())
+    if bad:
+        raise SystemExit(f"{phase}: the speculative mesh engine's streams "
+                         f"part from the unsharded engine's beyond a "
+                         f"near-tie: {bad}")
+    if equal and any(a != b for a, b in counters.values()):
+        raise SystemExit(f"{phase}: equal streams, other speculation "
+                         f"counters (unsharded, mesh): {counters}")
+    if run.get("verify_step_collectives") != run.get(
+            "decode_step_collectives"):
+        raise SystemExit(f"{phase}: a verify step's collectives "
+                         f"{run['verify_step_collectives']} are not a "
+                         f"decode step's {run['decode_step_collectives']}")
+    broadcasts = run["verify_steps"] if "draft_broadcasts" in run else 0
+    if run["collectives"]["broadcast"] != broadcasts:
+        raise SystemExit(f"{phase}: {run['collectives']['broadcast']} "
+                         f"broadcasts over {run['verify_steps']} verify "
+                         f"steps")
+    if record.get("cuda_graphs", True) and run["graph_captures"] \
+            and not run["graph_replays"]:
+        raise SystemExit(f"{phase}: the graphed mesh engine replayed nothing")
+
+
+def mesh_spec_paged_cases(prefix, name, bits, kv, mesh, cases,
+                          draft: bool = False) -> dict:
+    """16a-16c: a slice model at ``MESH_LAYERS`` by the unsharded graphed
+    speculative engine, then on each of ``cases`` (label, the meshes'
+    keywords, the params' cut: "tp", "fsdp", "stage", "whole" or "ep") on
+    the same weights, n-gram drafts or (``draft``) the target's own
+    weights as its draft model, whole on the rank (as the card test does
+    with TINY): its drafts are accepted, so the verify step's rows 1..k
+    (under CP the folded queries) decide the streams; each run must
+    accept some.  Returns the mesh runs' launches by phase."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models import mixtral
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        FSDP_LAYOUT, llama_param_specs, shard_params, shard_stage_params,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg, transform = mesh_model(name, bits)
+    ecfg = mesh_spec_config(kv_cache_dtype=kv)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         tensor_transform=transform)
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    kw = {"draft_model": (cfg, params)} if draft else {}
+
+    def accepted(phase, run):
+        if draft and not run["spec_accepted"]:
+            raise SystemExit(f"{phase}: the draft model's drafts were never "
+                             f"accepted ({run['spec_drafted']} drafted)")
+
+    base = mesh_spec_run(make_engine(cfg, ecfg, params, tok, **kw), cfg, kv,
+                         bits)
+    accepted(f"{prefix}_unsharded", base)
+    free_card()
+    cuts = {"tp": lambda: shard_params(params, llama_param_specs(cfg), mesh),
+            "fsdp": lambda: shard_params(
+                params, llama_param_specs(cfg, FSDP_LAYOUT), mesh),
+            "stage": lambda: shard_stage_params(params, cfg, mesh),
+            "ep": lambda: mixtral.shard_params_ep(cfg, params, mesh),
+            "whole": lambda: params}
+    out = {}
+    for label, meshes, cut in cases:
+        phase = f"{prefix}_{label}"
+        engine = make_engine(cfg, ecfg, cuts[cut](), tok, **kw,
+                             **{k: mesh if v == "mesh" else v
+                                for k, v in meshes.items()})
+        run = mesh_spec_run(engine, cfg, kv, bits)
+        ep = engine.model_cfg.ep
+        dropped = int(ep.drops) if ep is not None else 0
+        mesh_spec_compare(phase, cfg, params, base, run,
+                          mesh=f"{label} 1 rank (nccl)", engine="paged",
+                          weights=f"int{bits}" if bits else "bfloat16",
+                          kv_cache_dtype=kv, dropped=dropped,
+                          drafts="model" if draft else "ngram",
+                          draft_layers=cfg.n_layers if draft else None)
+        accepted(phase, run)
+        if dropped:
+            raise SystemExit(f"{phase}: {dropped} tokens dropped")
+        out[phase] = run["launches"]
+        del engine
+        free_card()
+    del params, kw
+    free_card()
+    return out
+
+
+def mesh_spec_contiguous_cases(mesh) -> dict:
+    """16d: the contiguous engine (eager) on Llama-3-8B bf16 at
+    ``CUT_LAYERS``, n-gram drafts, unsharded and at TP, PP (M = 2) and CP
+    ring on the same weights.  Returns the mesh runs' launches by
+    phase."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        llama_param_specs, shard_params, shard_stage_params,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg = slice_model("llama3-8b")[0].replace(n_layers=CUT_LAYERS)
+    ecfg = mesh_spec_config(paged=False)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    base = mesh_spec_run(make_engine(cfg, ecfg, params, tok), cfg, None,
+                         None, paged=False)
+    free_card()
+    out = {}
+    for label, kw, shard in (
+            ("tp", {"tp_mesh": mesh},
+             lambda: shard_params(params, llama_param_specs(cfg), mesh)),
+            ("pp", {"pp_mesh": mesh, "pp_microbatches": PP_MICROBATCHES},
+             lambda: shard_stage_params(params, cfg, mesh)),
+            ("cp", {"cp_mesh": mesh}, lambda: params)):
+        phase = f"mesh_spec_contiguous_{label}"
+        engine = make_engine(cfg, ecfg, shard(), tok, **kw)
+        run = mesh_spec_run(engine, cfg, None, None, paged=False)
+        mesh_spec_compare(phase, cfg, params, base, run,
+                          mesh=f"{label} 1 rank (nccl)", engine="contiguous",
+                          cuda_graphs=False, weights="bfloat16",
+                          drafts="ngram",
+                          cache_shape=list(engine.cache.k.shape))
+        out[phase] = run["launches"]
+        del engine
+        free_card()
+    del params
+    free_card()
+    return out
+
+
+# 16e's two gloo ranks: (label, the mesh's axes, the engine's mesh keyword)
+MESH_SPEC_GLOO = (("tp2", dict(model=2), "tp_mesh"),
+                  ("cp2", dict(seq=2), "cp_mesh"))
+MESH_SPEC_GLOO_NEW = 8
+
+
+def mesh_spec_gloo_rank(rank: int, n_layers: int) -> dict:
+    """One of two ranks on the one card over gloo: Llama-3-8B bf16 cut to
+    ``n_layers`` layers, seeded as the parent seeds it, the paged
+    speculative engine (eager) at TP 2 and at CP 2 (ring) on the rank's
+    cut of the weights: tokens, speculation counters, launches held to
+    the counters."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.mesh import local_mesh
+    from k8s_llm_rca_tpu_torch.runtime.sharding import (
+        llama_param_specs, shard_params,
+    )
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    cfg = LLAMA3_8B.replace(n_layers=n_layers)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    out = {}
+    for label, axes, kw_name in MESH_SPEC_GLOO:
+        mesh = local_mesh(**axes)
+        shard = (params if kw_name == "cp_mesh"
+                 else shard_params(params, llama_param_specs(cfg), mesh))
+        engine = make_engine(cfg, mesh_spec_config(), shard, tok,
+                             cuda_graphs=False, **{kw_name: mesh})
+        reset_counts()
+        t0 = time.perf_counter()
+        res = engine.generate(mesh_prompts(tok),
+                              max_new_tokens=MESH_SPEC_GLOO_NEW)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        c = engine._counts
+        expect = expected_counts(engine.model_cfg, c, False,
+                                 cp_mode=engine.cp_mode)
+        out[label] = {"tokens": [r.token_ids for r in res],
+                      "seconds": seconds, "launches": counts,
+                      "launches_exact": counts == expect,
+                      **{k: int(c.get(f"engine.{k}", 0))
+                         for k in SPEC_COUNTER_KEYS}}
+        del engine, shard
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_spec_gloo_case() -> None:
+    """16e: Llama-3-8B bf16 cut to 2 layers as two gloo processes on the
+    one card (eager), the paged speculative engine at TP 2 and CP 2 over
+    the four prompts (``mesh_spec_gloo_rank``): the ranks equal, launches
+    exact, the streams equal to the unsharded speculative engine's (eager,
+    in this process) or parting at a near-tie."""
+    import torch
+
+    from k8s_llm_rca_tpu_torch.config import LLAMA3_8B
+    from k8s_llm_rca_tpu_torch.engine import make_engine
+    from k8s_llm_rca_tpu_torch.models.llama import init_params
+    from k8s_llm_rca_tpu_torch.runtime.mesh import run_ranks
+    from k8s_llm_rca_tpu_torch.utils.tokenizer import get_tokenizer
+
+    n_layers = 2
+    cfg = LLAMA3_8B.replace(n_layers=n_layers)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tok = get_tokenizer(vocab_size=cfg.vocab_size)
+    prompts = mesh_prompts(tok)
+    engine = make_engine(cfg, mesh_spec_config(), params, tok,
+                         cuda_graphs=False)
+    want = [r.token_ids for r in engine.generate(
+        prompts, max_new_tokens=MESH_SPEC_GLOO_NEW)]
+    want_counts = {k: int(engine._counts.get(f"engine.{k}", 0))
+                   for k in SPEC_COUNTER_KEYS}
+    del engine
+    free_card()
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_spec_gloo_rank, 2,
+                      str(ROOT / "build" / "mesh_spec_ranks"),
+                      args=(n_layers,), timeout_s=600, device="cuda-gloo")
+    wall = time.perf_counter() - t0
+    failed = []
+    for label, axes, _ in MESH_SPEC_GLOO:
+        got = [r[label] for r in ranks]
+        equal = got[0]["tokens"] == got[1]["tokens"]
+        exact = all(g["launches_exact"] for g in got)
+        divs = divergences(cfg, params, prompts, want, got[0]["tokens"])
+        bad = [d for d in divs if d["logit_margin"] > NEAR_TIE]
+        emit(f"mesh_spec_gloo_{label}", model=cfg.name, layers=n_layers,
+             ranks=2, mesh=axes, backend="gloo", cuda_graphs=False,
+             engine="paged", speculative_k=MESH_SPEC_K, ranks_equal=equal,
+             launches_exact=exact, equal_tokens=got[0]["tokens"] == want,
+             equal_token_share=common_share(want, got[0]["tokens"]),
+             divergences=divs, near_tie=NEAR_TIE,
+             spec_counters_unsharded=want_counts,
+             spec_counters_ranks=[{k: g[k] for k in SPEC_COUNTER_KEYS}
+                                  for g in got],
+             rank_seconds=[g["seconds"] for g in got],
+             launches=[g["launches"] for g in got],
+             nvidia_smi=nvidia_smi_name_power())
+        if not equal or not exact or bad:
+            failed.append((label, equal, exact, bad))
+    emit("mesh_spec_gloo", wall_s=wall)
+    del params
+    if failed:
+        raise SystemExit(f"mesh spec gloo: (mesh, ranks equal, launches "
+                         f"exact, beyond a near-tie) {failed}")
+
+
+def phase_mesh_spec(gloo: bool = True) -> dict:
+    """Phase 16 under a 1-rank nccl process group (destroyed after):
+    speculation under a mesh.  16a Llama-3-8B bf16 paged, n-gram drafts,
+    at TP, FSDP, PP (M = 2) and CP ring; 16b int4 weights over an int4
+    pool with the target as its own draft model at TP and CP; 16c
+    Mixtral-8x7B int8 at EP; 16d the contiguous engine at TP, PP and CP; then, with
+    ``gloo``, 16e's two gloo ranks (``--mesh-spec``).  Returns the launch
+    counts of 16a-16d's mesh runs by phase."""
+    from k8s_llm_rca_tpu_torch.runtime import mesh as rmesh
+
+    t0 = time.perf_counter()
+    rmesh.initialize_distributed()
+    out = {}
+    try:
+        mesh = rmesh.local_mesh()
+        out.update(mesh_spec_paged_cases(
+            "mesh_spec", "llama3-8b", None, None, mesh, (
+                ("tp", {"tp_mesh": "mesh"}, "tp"),
+                ("fsdp", {"fsdp_mesh": "mesh"}, "fsdp"),
+                ("pp", {"pp_mesh": "mesh",
+                        "pp_microbatches": PP_MICROBATCHES}, "stage"),
+                ("cp", {"cp_mesh": "mesh"}, "whole"))))
+        out.update(mesh_spec_paged_cases(
+            "mesh_spec_int4", "llama3-8b", 4, "int4", mesh, (
+                ("tp", {"tp_mesh": "mesh"}, "tp"),
+                ("cp", {"cp_mesh": "mesh"}, "whole")), draft=True))
+        out.update(mesh_spec_paged_cases(
+            "mesh_spec_mixtral", "mixtral-8x7b", 8, "int8", mesh, (
+                ("ep", {"ep_mesh": "mesh"}, "ep"),)))
+        out.update(mesh_spec_contiguous_cases(mesh))
+    finally:
+        rmesh.shutdown_distributed()
+    if gloo:
+        mesh_spec_gloo_case()
+        free_card()
+    emit("mesh_spec_phase", seconds=time.perf_counter() - t0)
+    return out
+
+
 # phases 5-5d: (phase, model, weight bits, kv_cache_dtype)
 SLICES = (("slice", "llama3-8b", None, None),
           ("slice_int4", "llama3-8b", 4, "int4"),
@@ -6884,6 +7370,16 @@ def main(argv) -> int:
         phase_mesh_tiers()
         return 0
 
+    if "--mesh-spec" in argv:
+        # phase 3's CP fold cases and phase 16 alone, 16e with it
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cp_lse_kernels({}, torch.Generator(device="cuda").manual_seed(0),
+                       256 << 20)
+        free_card()
+        phase_mesh_spec()
+        return 0
+
     if "--contiguous-mesh" in argv:
         # phase 14 alone
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -6962,6 +7458,8 @@ def main(argv) -> int:
     free_card()
     runs.update(phase_mesh_tiers(gloo=False))
     free_card()
+    runs.update(phase_mesh_spec(gloo=False))
+    free_card()
 
     rows = []
     # launches: the main paths' runs of each kernel, summed (flash now
@@ -6973,8 +7471,8 @@ def main(argv) -> int:
              ("slice", "slice_spec", "prefix", "memory", "rca", "rca_spec",
               "rca_resilient", "durable", "durable_cli", "rerank_rca",
               "rerank_rca_yardstick", "mesh", "cp_ring", "cp_ulysses", "pp",
-              "fsdp", "fsdp_sp", "mesh_tiers", "mesh_tiers_cut"),
-             "paged"),
+              "fsdp", "fsdp_sp", "mesh_tiers", "mesh_tiers_cut")
+             + MESH_SPEC_BF16, "paged"),
             ("flash_attention", FLASH_SRC,
              "k8s_llm_rca_tpu/ops/flash_attention.py:31",
              ("flash_attention", "bfloat16", "full"),
@@ -6987,47 +7485,48 @@ def main(argv) -> int:
               "fsdp_int4", "fsdp_sp", "fsdp_mixtral", "mesh_tiers",
               "mesh_tiers_int4", "mesh_tiers_mixtral", "mesh_tiers_cut")
              + CONTIGUOUS_MESH_BF16 + CONTIGUOUS_MESH_INT4
-             + CONTIGUOUS_MESH_MIXTRAL, "flash"),
+             + CONTIGUOUS_MESH_MIXTRAL + MESH_SPEC_BF16 + MESH_SPEC_INT4
+             + MESH_SPEC_MIXTRAL + MESH_SPEC_CONTIGUOUS, "flash"),
             ("quant_matmul", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:137",
              ("quant_matmul", "bfloat16", "decode"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
               "durable_int4", "contiguous_int4", "mesh_int4",
               "cp_int4_ring", "pp_int4", "fsdp_int4", "mesh_tiers_int4")
-             + CONTIGUOUS_MESH_INT4, "qmm"),
+             + CONTIGUOUS_MESH_INT4 + MESH_SPEC_INT4, "qmm"),
             ("quant_matmul_head", QMM_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:177",
              ("quant_matmul_head", "bfloat16", "llama3-8b int4"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
               "durable_int4", "contiguous_int4", "mesh_int4",
               "cp_int4_ring", "pp_int4", "fsdp_int4", "mesh_tiers_int4")
-             + CONTIGUOUS_MESH_INT4, "qmm_head"),
+             + CONTIGUOUS_MESH_INT4 + MESH_SPEC_INT4, "qmm_head"),
             ("paged_attention_quant", PAGED_QUANT_SRC,
              "k8s_llm_rca_tpu/ops/paged_attention.py:141",
              ("paged_attention_quant", "bfloat16", "int4"),
              ("slice_int4", "slice_int4_spec", "memory_int4",
               "durable_int4", "mesh_int4", "mesh_mixtral", "cp_int4_ring",
               "pp_int4", "pp_mixtral", "fsdp_int4", "fsdp_mixtral",
-              "mesh_tiers_int4", "mesh_tiers_mixtral"),
-             "paged_quant"),
+              "mesh_tiers_int4", "mesh_tiers_mixtral")
+             + MESH_SPEC_INT4 + MESH_SPEC_MIXTRAL, "paged_quant"),
             ("quant_matmul_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:120",
              ("quant_matmul_int8", "bfloat16", "decode"),
              ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral",
               "fsdp_mixtral", "mesh_tiers_mixtral")
-             + CONTIGUOUS_MESH_MIXTRAL, "qmm8"),
+             + CONTIGUOUS_MESH_MIXTRAL + MESH_SPEC_MIXTRAL, "qmm8"),
             ("quant_matmul_head_int8", QMM8_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:159",
              ("quant_matmul_head_int8", "bfloat16", "mixtral-8x7b int8"),
              ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral",
               "fsdp_mixtral", "mesh_tiers_mixtral")
-             + CONTIGUOUS_MESH_MIXTRAL, "qmm_head8"),
+             + CONTIGUOUS_MESH_MIXTRAL + MESH_SPEC_MIXTRAL, "qmm_head8"),
             ("quant_matmul_experts_int8", EKN_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:201",
              ("quant_matmul_experts_int8", "bfloat16", "3d decode"),
              ("slice_mixtral_int8", "mesh_mixtral", "pp_mixtral",
               "fsdp_mixtral", "mesh_tiers_mixtral")
-             + CONTIGUOUS_MESH_MIXTRAL, "qmm_experts8"),
+             + CONTIGUOUS_MESH_MIXTRAL + MESH_SPEC_MIXTRAL, "qmm_experts8"),
             ("quant_matmul_experts_int4", EKN_SRC,
              "k8s_llm_rca_tpu/ops/quant_matmul.py:218",
              ("quant_matmul_experts_int4", "bfloat16", "3d decode"),

@@ -42,11 +42,16 @@ block of the sequence under CP (``models.llama.prefill_cp`` and the CP
 decode); PP admits every group through ``parallel.pipeline.
 llama_pp_prefill`` and decodes through ``llama_pp_decode_step``.  The
 refusals are the paged engine's (``refuse_mesh_compositions``: CP x EP
-and TP x EP, item 10.9; ``refuse_mesh_features``: speculation, item
-10.8).  ``host_overlap`` runs under every mesh but CP (JAX's ValueError),
-and ``snapshot_sequences``/``restore_sequences`` under every mesh: a
-snapshot is host state, equal on every rank, and restores into an engine
-of any sharding.
+and TP x EP, item 10.9).  ``host_overlap`` runs under every mesh but CP
+(JAX's ValueError), and ``snapshot_sequences``/``restore_sequences``
+under every mesh: a snapshot is host state, equal on every rank, and
+restores into an engine of any sharding.  Speculation runs under every
+mesh: the verify step is ``llama.decode_multi`` (under CP its lse-merged
+attention over the rank's block of every row) or, under PP,
+``parallel.pipeline.llama_pp_decode_multi``; n-gram drafts are host
+state, equal on every rank, and a draft model runs whole on every rank,
+its drafts broadcast from the mesh's lowest rank
+(``speculative.DraftAgreement``).
 """
 
 from __future__ import annotations
@@ -64,7 +69,9 @@ from k8s_llm_rca_tpu_torch.config import EngineConfig, ModelConfig
 from k8s_llm_rca_tpu_torch.engine.sampling import (
     SamplingParams, sample_tokens, sample_tokens_masked,
 )
-from k8s_llm_rca_tpu_torch.engine.speculative import ngram_draft, setup_draft
+from k8s_llm_rca_tpu_torch.engine.speculative import (
+    DraftAgreement, ngram_draft, setup_draft,
+)
 from k8s_llm_rca_tpu_torch.faults import inject
 from k8s_llm_rca_tpu_torch.models import llama
 from k8s_llm_rca_tpu_torch.obs import trace as obs_trace
@@ -141,6 +148,9 @@ class EngineBase:
     # a draft model's speculation state (speculative.ModelDraft), or None
     # for n-gram drafts
     _draft = None
+    # under a mesh, the broadcast of a draft model's drafts
+    # (speculative.DraftAgreement), or None
+    _draft_agree = None
 
     def _now(self) -> float:
         if self.clock is not None:
@@ -598,6 +608,12 @@ class EngineBase:
             for slot in active_slots:
                 tokens_in[slot, 0] = cur_host[slot]
                 tokens_in[slot, 1:1 + len(drafts[slot])] = drafts[slot]
+            if self._draft_agree is not None:
+                # every rank verifies the lowest rank's drafts, so no rank
+                # can part from the others in the verify step's collectives
+                tokens_in = self._draft_agree(tokens_in)
+                drafts = {s: [int(x) for x in tokens_in[s, 1:1 + len(d)]]
+                          for s, d in drafts.items()}
             return tokens_in, drafts
         for slot in active_slots:
             st = self._active[slot]
@@ -1050,8 +1066,8 @@ def dfa_greedy_multi(logits: torch.Tensor, states: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def mesh_item(sub: int) -> str:
-    """A step of ROADMAP Queue 1 item 10, multi-GPU (10.8: speculation
-    under a mesh; 10.9: the compositions TP x EP and CP x EP)."""
+    """A step of ROADMAP Queue 1 item 10, multi-GPU (10.9: the
+    compositions TP x EP and CP x EP)."""
     return f"ROADMAP Queue 1 item 10.{sub}, multi-GPU"
 
 
@@ -1237,17 +1253,6 @@ def refuse_mesh_compositions(tp_mesh, cp_mesh, ep_mesh) -> None:
             f"({mesh_item(9)})")
 
 
-def refuse_mesh_features(engine_cfg: EngineConfig, draft_model) -> None:
-    """The engine feature neither engine serves yet under a device mesh:
-    speculation (n-gram drafts or a draft model).  The memory tiers and
-    ``host_overlap`` are served; the pairs JAX refuses (with CP or PP)
-    raise its ValueErrors before this."""
-    if engine_cfg.speculative_k or draft_model is not None:
-        raise NotImplementedError(
-            f"under a device mesh speculative_k / draft_model is not "
-            f"ported yet ({mesh_item(8)})")
-
-
 def check_rank_params(model_cfg: ModelConfig, params, tp_mesh, ep_mesh,
                       fsdp_mesh, pp_mesh, pp_stage_axis: str = "stage"
                       ) -> None:
@@ -1429,6 +1434,16 @@ def overlap_step(cfg: ModelConfig, params, cache, cur_tokens: torch.Tensor,
     return cache, nxt, lengths
 
 
+def decode_multi_greedy(cfg: ModelConfig, params, cache,
+                        tokens: torch.Tensor, lengths: torch.Tensor):
+    """The contiguous engine's verify step without PP: ``llama.
+    decode_multi`` and its greedy choices on the device, returned as
+    ``parallel.pipeline.llama_pp_decode_multi`` returns them (JAX's
+    ``_verify_step``): (cache, greedy [B, T], logits [B, T, V])."""
+    cache, logits = llama.decode_multi(cfg, params, cache, tokens, lengths)
+    return cache, logits.argmax(dim=-1), logits
+
+
 def decode_scan(cfg: ModelConfig, params, cache, cur_tokens: torch.Tensor,
                 lengths: torch.Tensor, generator: Optional[torch.Generator],
                 n_steps: int, sampling: SamplingParams = SamplingParams(),
@@ -1579,7 +1594,6 @@ class InferenceEngine(EngineBase):
                                       fsdp_mesh) if m is not None), None)
         if self.mesh is not None:
             refuse_mesh_compositions(tp_mesh, cp_mesh, ep_mesh)
-            refuse_mesh_features(engine_cfg, draft_model)
             check_rank_params(model_cfg, params, tp_mesh, ep_mesh, fsdp_mesh,
                               pp_mesh, pp_stage_axis)
         self.device = resolve_device(device)
@@ -1600,6 +1614,7 @@ class InferenceEngine(EngineBase):
         self._prefill_one = llama.prefill
         self._prefill_batch = llama.prefill_batch
         self._decode_fn = llama.decode_step
+        self._decode_multi_fn = decode_multi_greedy
         if cp_mesh is not None:
             self._prefill_one = functools.partial(
                 llama.prefill_cp, mesh=cp_mesh, seq_axis=cp_seq_axis,
@@ -1611,6 +1626,7 @@ class InferenceEngine(EngineBase):
             self._prefill_one = None
             self._prefill_batch = pipeline.llama_pp_prefill
             self._decode_fn = pipeline.llama_pp_decode_step
+            self._decode_multi_fn = pipeline.llama_pp_decode_multi
         self.model_cfg = model_cfg
         self.engine_cfg = engine_cfg
         self.params = params
@@ -1625,6 +1641,7 @@ class InferenceEngine(EngineBase):
         if self._draft is not None:
             # the draft scan's token fetch is one of this engine's syncs
             self._draft.on_sync = lambda: self._count("engine.d2h_syncs")
+            self._draft_agree = DraftAgreement.for_engine(self)
 
         b = engine_cfg.max_batch
         # under CP the rank's block of every row, under TP its lanes,
@@ -1821,7 +1838,8 @@ class InferenceEngine(EngineBase):
                                     post_commit)
 
     def _speculative_tick(self) -> List[SequenceResult]:
-        """Verification tick: the drafts scored by ONE ``decode_multi``,
+        """Verification tick: the drafts scored by ONE ``decode_multi``
+        (``_decode_multi_fn``: under PP ``llama_pp_decode_multi``),
         committed through ``_verify_and_commit``.  Grammar slots sharing
         one compiled DFA verify constrained on the device
         (``dfa_greedy_multi``); otherwise [B, T, V] logits go to the host
@@ -1840,10 +1858,9 @@ class InferenceEngine(EngineBase):
             self._count("engine.dispatches")
             self._count("engine.decode_steps")
             self._count("engine.verify_steps")
-            self.cache, logits = llama.decode_multi(
+            self.cache, greedy, logits = self._decode_multi_fn(
                 self.model_cfg, self.params, self.cache, toks_d, lens_d)
             if setup is None:
-                greedy = logits.argmax(dim=-1)
                 if need_logits:
                     greedy_host, logits_host = self._fetch(greedy, logits)
                 else:

@@ -128,6 +128,16 @@
   each fsdp rank holds its TP share of the whole pool.  The decode
   attention stays on the paged kernels.  fsdp with CP, EP, PP or ``sp``
   is refused with the JAX engine's messages.
+- Speculation under every mesh above (n-gram drafts and a draft model):
+  the verify step is ``paged_decode_multi`` on the rank's shard (under PP
+  ``parallel.pipeline.paged_pp_decode_multi``).  Under CP its T queries
+  fold into the batch: one launch of the paged kernel with the rows'
+  log-sum-exp over each rank's own positions (row (b, i) sees ``lengths[b]
+  + 1 + i`` of them), one all-gather and the merge a layer, as a decode
+  step.  n-gram drafts are host state, equal on every rank; a draft model
+  runs whole on every rank and the mesh's lowest rank broadcasts its
+  drafts (``speculative.DraftAgreement``), so every rank verifies the
+  same tokens.
 - ``sp=True`` with ``tp_mesh``: the miss prefills (batched and single)
   run Megatron sequence parallelism (``models/llama.py``): the residual
   stream stays split along the sequence over "model", with a gather
@@ -135,9 +145,9 @@
   decode are not sequence-parallel, as in JAX.  A bucket the model axis
   does not divide is a ValueError.
 
-Not ported yet, and refused loudly when asked for: speculation under a
-mesh (item 10.8), CP with EP and TP with EP (item 10.9); the disaggregated
-handoff's ``export_run``/``adopt_run`` (item 11).
+Not ported yet, and refused loudly when asked for: CP with EP and TP
+with EP (item 10.9); the disaggregated handoff's
+``export_run``/``adopt_run`` (item 11).
 """
 
 from __future__ import annotations
@@ -153,7 +163,7 @@ from k8s_llm_rca_tpu_torch.config import EngineConfig, ModelConfig
 from k8s_llm_rca_tpu_torch.engine.engine import (
     EngineBase, SequenceResult, _Active, _Pending, check_params_device,
     check_rank_params, dfa_greedy_multi, dfa_scan_step,
-    refuse_mesh_compositions, refuse_mesh_features,
+    refuse_mesh_compositions,
     validate_cp_divisibility, validate_ep_mesh, validate_fsdp_mesh,
     validate_pp_mesh, validate_sp_buckets, validate_tp_mesh,
 )
@@ -161,7 +171,9 @@ from k8s_llm_rca_tpu_torch.engine.graphs import DecodeGraphs
 from k8s_llm_rca_tpu_torch.engine.prefix import (
     CACHE_OWNER, MeshTier, PrefixCache, PrefixStore, _page_keys,
 )
-from k8s_llm_rca_tpu_torch.engine.speculative import setup_draft
+from k8s_llm_rca_tpu_torch.engine.speculative import (
+    DraftAgreement, setup_draft,
+)
 from k8s_llm_rca_tpu_torch.engine.sampling import (
     SamplingParams, sample_tokens, sample_tokens_masked,
 )
@@ -756,19 +768,25 @@ def _decode_attention(cfg: ModelConfig, q: torch.Tensor, pool: PagePool,
                            block_tables, return_lse=return_lse)
 
 
-def _cp_rank_view(cp, pool: PagePool, attn_lens: torch.Tensor,
-                  block_tables: torch.Tensor):
-    """A CP rank's share of a decode step's attention: the block-table
-    columns of its position range [rank * span, (rank + 1) * span) as
-    indices into its pool, and each slot's length clamped to that range
-    (0 where the slot has not reached it: the rank adds nothing)."""
+def _cp_fold_view(cp, pool: PagePool, lengths: torch.Tensor,
+                  block_tables: torch.Tensor, t: int):
+    """A CP rank's share of the attention of a decode of T queries a slot
+    (T = 1, or a verify step's), the queries folded into the batch: row
+    b * T + i is query i of slot b, which sees ``lengths[b] + 1 + i``
+    positions, clamped to the rank's range [rank * span, (rank + 1) *
+    span) (0 where the slot has not reached it: the rank adds nothing),
+    over slot b's block-table columns of that range as indices into the
+    rank's pool.  [B * T] lengths, [B * T, span_pages] tables."""
     per = pool.k.shape[1] - 1
     span_pages = block_tables.shape[1] // cp.size
     span = span_pages * pool.page_size
     cols = block_tables[:, cp.rank * span_pages:(cp.rank + 1) * span_pages]
-    tables = cp_local_pages(cols, cp.rank, per).to(torch.int32).contiguous()
-    lens = (attn_lens - cp.rank * span).clamp(0, span).to(torch.int32)
-    return lens, tables
+    tables = cp_local_pages(cols, cp.rank, per).to(torch.int32)
+    if t > 1:
+        tables = tables.repeat_interleave(t, dim=0)
+    steps = torch.arange(1, t + 1, device=lengths.device, dtype=torch.int32)
+    lens = (lengths[:, None] + steps - cp.rank * span).clamp(0, span)
+    return lens.reshape(-1).to(torch.int32).contiguous(), tables.contiguous()
 
 
 def _cp_decode_attention(cfg: ModelConfig, q: torch.Tensor, pool: PagePool,
@@ -792,9 +810,12 @@ def _decode_layers(cfg: ModelConfig, layers, x: torch.Tensor,
     positions ``lengths[b] + i``.  Each layer writes its T new K/V tokens
     (quantized per token for an int8/int4 pool; all T land in the slot's
     current page, which the engine bounds) BEFORE attention runs over
-    ``lengths + T`` tokens: the paged kernel at T = 1 (under CP
-    ``_cp_decode_attention``), ``attend_over_pages`` above (``n_pages``:
-    the pages the card gathers per row).  Returns x."""
+    ``lengths + T`` tokens: the paged kernel at T = 1,
+    ``attend_over_pages`` above (``n_pages``: the pages the card gathers
+    per row).  Under CP every T takes ``_cp_decode_attention``, the T
+    queries folded into the batch (``_cp_fold_view``; at T = 1 the batch
+    itself): one launch of the paged kernel a layer, with the rows' lse.
+    Returns x."""
     b, t = x.shape[:2]
     page_size = pool.page_size
     packed = _pool_packed(cfg, pool)
@@ -811,7 +832,7 @@ def _decode_layers(cfg: ModelConfig, layers, x: torch.Tensor,
     if cp is not None:
         # the page's owner writes the token; the other ranks, the sink
         pages = cp_local_pages(pages, cp.rank, pool.k.shape[1] - 1)
-        view = _cp_rank_view(cp, pool, attn_lens, block_tables)
+        view = _cp_fold_view(cp, pool, lengths, block_tables, t)
     for li, layer in enumerate(layers):
         q, k, v = llama._decode_qkv(cfg, layer, x, angles, positions)
         k_tok = k.reshape(b, t, cfg.kv_dim)
@@ -823,11 +844,15 @@ def _decode_layers(cfg: ModelConfig, layers, x: torch.Tensor,
             pool.v_scale[li, pages, offsets] = vs.float()
         pool.k[li, pages, offsets] = k_tok
         pool.v[li, pages, offsets] = v_tok
-        if t > 1:
+        if cp is not None:
+            # the CP arm before t > 1: attend_over_pages would read this
+            # rank's pool with global page ids
+            attn = _cp_decode_attention(
+                cfg, q.reshape(b * t, *q.shape[2:]).contiguous(), pool, li,
+                view, packed)
+        elif t > 1:
             attn = attend_over_pages(cfg, q, pool, li, block_tables, lengths,
                                      attn_lens, n_pages=n_pages)
-        elif cp is not None:
-            attn = _cp_decode_attention(cfg, q[:, 0], pool, li, view, packed)
         else:
             attn = _decode_attention(cfg, q[:, 0], pool, li, attn_lens,
                                      block_tables, packed)
@@ -873,8 +898,10 @@ def paged_decode_multi(cfg: ModelConfig, params, pool: PagePool,
     engine bounds T by each slot's room in its current page), quantized
     per token for an int8/int4 pool; then each layer attends T queries
     over the slot's pages through ``attend_over_pages`` (``n_pages``: the
-    pages the card gathers per row, enough for every ``lengths + T``).
-    Under PP it is ``parallel.pipeline.paged_pp_decode_multi``.
+    pages the card gathers per row, enough for every ``lengths + T``;
+    under CP the paged kernel over the rank's pages, the queries folded
+    into the batch, gathers nothing and ignores it).  Under PP it is
+    ``parallel.pipeline.paged_pp_decode_multi``.
     Returns (pool, greedy [B, T], logits [B, T, V])."""
     if getattr(cfg, "pp", None) is not None:
         return _pipeline().paged_pp_decode_multi(
@@ -1155,14 +1182,14 @@ def _check_cp_config(engine_cfg: EngineConfig, cp_mesh,
 
 
 def check_meshes(model_cfg: ModelConfig, engine_cfg: EngineConfig, params,
-                 device: torch.device, cuda_graphs: bool, draft_model,
+                 device: torch.device, cuda_graphs: bool,
                  prefix_store, tp_mesh, cp_mesh, ep_mesh, pp_mesh,
                  fsdp_mesh, cp_seq_axis: str = "seq",
                  pp_microbatches: Optional[int] = None,
                  pp_stage_axis: str = "stage", sp: bool = False):
     """Refuse what JAX refuses under a mesh (its ValueErrors, first), the
-    meshes and the mesh features not ported (naming their step of ROADMAP
-    Queue 1 item 10) and a misconfigured TP, EP, CP, PP or FSDP mesh;
+    compositions not ported (naming their step of ROADMAP Queue 1 item
+    10) and a misconfigured TP, EP, CP, PP or FSDP mesh;
     returns (the mesh the engine runs on, None without one; the
     CP axis size, 0 without CP; the PP microbatch count, None without
     PP)."""
@@ -1191,7 +1218,6 @@ def check_meshes(model_cfg: ModelConfig, engine_cfg: EngineConfig, params,
                  if m is not None), None)
     if mesh is None:
         return None, 0, None
-    refuse_mesh_features(engine_cfg, draft_model)
     if (cuda_graphs and device.type == "cuda"
             and torch.distributed.get_backend() != "nccl"):
         raise ValueError(
@@ -1252,7 +1278,7 @@ class PagedInferenceEngine(EngineBase):
         check_params_device(params, self.device)
         self.mesh, n_cp, pp_m = check_meshes(
             model_cfg, engine_cfg, params, self.device, cuda_graphs,
-            draft_model, prefix_store, tp_mesh, cp_mesh, ep_mesh, pp_mesh,
+            prefix_store, tp_mesh, cp_mesh, ep_mesh, pp_mesh,
             fsdp_mesh, cp_seq_axis, pp_microbatches, pp_stage_axis, sp)
         if self.mesh is not None:
             # this rank's model: its heads, its stage's layers (its pool's
@@ -1292,6 +1318,7 @@ class PagedInferenceEngine(EngineBase):
         if self._draft is not None:
             # the draft scan's token fetch is one of this engine's syncs
             self._draft.on_sync = lambda: self._count("engine.d2h_syncs")
+            self._draft_agree = DraftAgreement.for_engine(self)
 
         b = engine_cfg.max_batch
         self.page_size = engine_cfg.page_size
@@ -1595,7 +1622,10 @@ class PagedInferenceEngine(EngineBase):
     def _verify_pages(self, active_slots, t: int) -> int:
         """Pages per row the card's verify attention gathers: enough for
         the batch's longest ``lengths + T``, rounded up to a power of two
-        (one graph per bucket) and capped at the table."""
+        (one graph per bucket) and capped at the table.  Under CP the
+        verify attention gathers nothing: 0, one graph for every length."""
+        if self.cp_mode is not None:
+            return 0
         need = max(int(self.lengths[s]) + t for s in active_slots)
         return min(_pow2_at_least(-(-need // self.page_size)),
                    self.pages_per_seq)

@@ -110,18 +110,11 @@ class MeshTier:
     @classmethod
     def for_mesh(cls, mesh, tp, packed: bool, device) -> "MeshTier":
         """The tier of this rank of ``mesh``: the decision's group spans the
-        mesh's ranks (the default group when the mesh spans the world).
-        Every rank of the mesh calls it at the same point (a group of a
-        part of the world is created here)."""
-        import torch.distributed as dist
-
-        from k8s_llm_rca_tpu_torch.runtime.mesh import axis_group
+        mesh's ranks (``runtime.mesh.mesh_group``)."""
+        from k8s_llm_rca_tpu_torch.runtime.mesh import mesh_group
 
         ranks = sorted(int(r) for r in mesh.mesh.flatten().tolist())
-        group = None
-        if 1 < len(ranks) < dist.get_world_size():
-            group = axis_group(mesh, tuple(mesh.mesh_dim_names))
-        return cls(tp, packed, ranks, group, device)
+        return cls(tp, packed, ranks, mesh_group(mesh), device)
 
     def same_layout(self, other: "MeshTier") -> bool:
         return (self.packed == other.packed and self.ranks == other.ranks

@@ -9,6 +9,14 @@ engine commits the longest draft prefix that agrees with the model's own
 greedy (grammar-constrained) choice plus one bonus token, so the output
 equals plain greedy decoding and only the tokens committed per dispatch
 change.  The draft's quality moves the acceptance rate, never the result.
+
+Under a device mesh the draft is never sharded: as JAX runs its
+``ModelDraft`` whole beside a sharded target, every rank builds the draft
+on its own device from the whole draft params.  The ranks' drafts would
+be equal, but the verify step's collectives need every rank to verify
+the same tokens, so ``DraftAgreement`` broadcasts the mesh's lowest
+rank's drafts once a verify tick.  n-gram drafts need no broadcast: they
+are a function of the committed tokens, equal on every rank.
 """
 
 from __future__ import annotations
@@ -70,6 +78,7 @@ class ModelDraft:
         self.cur = np.zeros((b,), np.int64)
         self._owner: Dict[int, Tuple[int, int]] = {}   # slot -> (seq, ctxlen)
         self.prefills = 0          # sync re-prefills (diagnostics, tests)
+        self.scan_steps = 0        # decode steps of the draft scans (same)
         self._buckets = tuple(
             s for s in sorted(set(engine_cfg.prefill_buckets))
             if s <= self.max_seq) or (self.max_seq,)
@@ -134,6 +143,7 @@ class ModelDraft:
             return {s: [] for s in active_slots}
         cur = torch.from_numpy(self.cur.astype(np.int32)).to(self.device)
         lens = torch.from_numpy(self.lengths.astype(np.int32)).to(self.device)
+        self.scan_steps += k + 1
         self.cache, toks, _ = decode_scan(
             self.cfg, self.params, self.cache, cur, lens, None, k + 1,
             self._greedy, eos_id)
@@ -186,3 +196,47 @@ def setup_draft(draft_model, model_cfg, engine_cfg, device):
             f"draft vocab {dcfg.vocab_size} != target vocab "
             f"{model_cfg.vocab_size} (draft tokens must be target tokens)")
     return ModelDraft(dcfg, dparams, engine_cfg, device)
+
+
+class DraftAgreement:
+    """The broadcast of a draft model's verify-step tokens under a device
+    mesh: ``tokens_in`` [B, k + 1] int32 (each slot's current token, then
+    its drafts) from the mesh's lowest rank to every rank of the mesh, one
+    counted ``runtime.mesh.broadcast`` a verify tick (on one rank too).
+    nccl takes only card tensors, so under nccl the array goes through
+    one on the engine's device, and its fetch back is a host sync
+    (``on_sync``, the owning engine's d2h counter); gloo takes it in host
+    memory."""
+
+    def __init__(self, ranks: Sequence[int], group, device: torch.device):
+        import torch.distributed as dist
+
+        self.src = min(ranks)
+        self.group = group
+        nccl = dist.get_backend(group) == "nccl"
+        self.device = device if nccl else torch.device("cpu")
+        self.on_sync = None
+
+    @classmethod
+    def for_engine(cls, engine) -> "DraftAgreement":
+        """The agreement of a mesh engine with a draft model (None without
+        a mesh), over the mesh's ranks (``runtime.mesh.mesh_group``)."""
+        from k8s_llm_rca_tpu_torch.runtime.mesh import mesh_group
+
+        mesh = engine.mesh
+        if mesh is None:
+            return None
+        ranks = [int(r) for r in mesh.mesh.flatten().tolist()]
+        agree = cls(ranks, mesh_group(mesh), engine.device)
+        if agree.device.type == "cuda":
+            agree.on_sync = lambda: engine._count("engine.d2h_syncs")
+        return agree
+
+    def __call__(self, tokens_in: np.ndarray) -> np.ndarray:
+        from k8s_llm_rca_tpu_torch.runtime.mesh import broadcast
+
+        buf = torch.from_numpy(np.ascontiguousarray(tokens_in, np.int32))
+        buf = broadcast(buf.to(self.device), self.src, self.group)
+        if self.on_sync is not None:
+            self.on_sync()
+        return buf.cpu().numpy()

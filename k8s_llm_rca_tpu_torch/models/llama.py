@@ -612,19 +612,29 @@ def _store_kv(cfg: ModelConfig, cache: KVCache, li, index,
     of the cache at ``index`` (a tuple indexing the [B, S] axes),
     quantizing per token when the cache is int8/int4 (under TP with the
     full-row scale, the max over the group: ``kv_group``).  ``keep`` (a
-    bool mask over the written rows' leading dims): where False the cache
-    keeps what it holds there (a CP rank that does not own the
-    position)."""
+    bool mask [B, T] over a CP rank's ``_token_index`` entries): where
+    False the cache keeps what it holds there (the rank does not own the
+    position).  Such an entry's index is clamped onto the block's edge,
+    where a write of T tokens straddling two ranks' blocks also has an
+    owned entry: every entry onto that row writes the owned entry's value,
+    as a write with repeated indices keeps one of them, unspecified
+    which."""
     new = [k_new, v_new]
     if cache.quantized:
         packed = _kv_packed(cfg, cache)
         (k_q, ks), (v_q, vs) = (quantize_kv(t, packed, kv_group(cfg))
                                 for t in new)
         new = [k_q, v_q, ks, vs]
+    if keep is not None:
+        local = index[1]
+        onto = (local[:, :, None] == local[:, None, :]) & keep[:, None, :]
+        owned = onto.any(-1)                          # [B, T]
+        src = (torch.arange(keep.shape[0], device=keep.device)[:, None],
+               onto.int().argmax(-1))
     for buf, t in zip(cache, new):
         if keep is not None:
-            t = torch.where(keep[(...,) + (None,) * (t.dim() - keep.dim())],
-                            t, buf[(li,) + index])
+            t = torch.where(owned[(...,) + (None,) * (t.dim() - keep.dim())],
+                            t[src], buf[(li,) + index])
         buf[(li,) + index] = t
 
 
@@ -720,7 +730,7 @@ def cp_merge(cfg: ModelConfig, out: torch.Tensor, lse: torch.Tensor
     over its own keys with its log-sum-exp lse [B, H]; one all-gather of
     (out, lse) over the seq group, then ``merge_partials`` (plain torch:
     JAX leaves the combine to GSPMD outside any kernel).  [B, H, d] in
-    out's dtype."""
+    out's dtype.  A verify step passes its B * T query rows as the batch."""
     part = torch.cat([out.float(), lse[..., None]], dim=-1)     # [B, H, d+1]
     parts = all_gather(part[None], cfg.cp.group, dim=0)         # [P, B, H, d+1]
     return merge_partials(parts[..., :-1], parts[..., -1]).to(out.dtype)
@@ -729,16 +739,22 @@ def cp_merge(cfg: ModelConfig, out: torch.Tensor, lse: torch.Tensor
 def _cp_decode_attention(cfg: ModelConfig, q: torch.Tensor,
                          k_all: torch.Tensor, v_all: torch.Tensor,
                          lengths: torch.Tensor) -> torch.Tensor:
-    """Decode attention over the sequence-sharded cache: q [B, 1, H, d] at
-    position ``lengths``, k/v_all this rank's block [B, S/P, n_kv, d]; the
-    plain attention over the block's valid positions with its lse
-    (``attention_lse_plain``), merged over the seq group (``cp_merge``).
-    Returns [B, 1, H, d]."""
+    """Decode attention over the sequence-sharded cache: q [B, T, H, d] at
+    positions ``lengths + i``, k/v_all this rank's block [B, S/P, n_kv,
+    d]; query i of row b sees ``lengths[b] + 1 + i`` positions, clamped to
+    the block.  The plain attention over the block's valid positions with
+    its lse (``attention_lse_plain``), merged over the seq group
+    (``cp_merge``, the B * T query rows at once: one all-gather a layer).
+    Returns [B, T, H, d]."""
     cp = cfg.cp
+    b, t = q.shape[:2]
     s_rows = k_all.shape[1]
-    lens = (lengths + 1 - cp.rank * s_rows).clamp(0, s_rows)
-    out, lse = attention_lse_plain(q[:, 0], k_all, v_all, lens)
-    return cp_merge(cfg, out, lse)[:, None]
+    steps = torch.arange(1, t + 1, device=q.device)
+    lens = (lengths[:, None] + steps - cp.rank * s_rows).clamp(0, s_rows)
+    out, lse = attention_lse_plain(q, k_all, v_all, lens)
+    merged = cp_merge(cfg, out.reshape(b * t, *out.shape[2:]),
+                      lse.reshape(b * t, -1))
+    return merged.reshape(b, t, *merged.shape[1:])
 
 
 def _decode_layers(cfg: ModelConfig, layers, x: torch.Tensor,
@@ -748,20 +764,16 @@ def _decode_layers(cfg: ModelConfig, layers, x: torch.Tensor,
     Each layer writes its T new K/V rows (quantized per token in an
     int8/int4 cache) BEFORE attention, where query i sees ``lengths[b] +
     1 + i`` positions (``ops.attention.decode_attention_multi``, plain
-    torch as JAX computes it outside any kernel; under CP at T = 1
-    ``_cp_decode_attention``).  Returns x."""
+    torch as JAX computes it outside any kernel; under CP
+    ``_cp_decode_attention``).  Under CP a write of T tokens that
+    straddles two ranks' blocks splits there (``_token_index``: each rank
+    keeps its own rows).  Returns x."""
     b, t = x.shape[:2]
     dev = x.device
     dtype = torch_dtype(cfg.dtype)
     angles = _angles(cfg, dev)
     positions = lengths.long()[:, None] + torch.arange(t, device=dev)[None, :]
     cp = getattr(cfg, "cp", None)
-    if cp is not None and t > 1:
-        from k8s_llm_rca_tpu_torch.engine.engine import mesh_item
-
-        raise NotImplementedError(
-            f"a multi-token decode (the speculative verify step) over the "
-            f"sequence-sharded cache is not ported yet ({mesh_item(8)})")
     index, keep = _token_index(cfg, cache, lengths, t)
     for li, layer in enumerate(layers):
         q, k, v = _decode_qkv(cfg, layer, x, angles, positions)

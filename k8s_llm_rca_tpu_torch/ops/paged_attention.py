@@ -101,25 +101,30 @@ def launched_splits(q: torch.Tensor, k_pages: torch.Tensor,
 
 def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         lengths: torch.Tensor):
-    """One query token per sequence over dense keys, with its log-sum-exp:
-    q [B, n_heads, d], k/v [B, S, n_kv, d], keys at or past ``lengths``
-    masked.  In f32, as the kernel: the scores' max is the shift (0 for a
-    row with no key), the output is acc / l (0 where l is 0), the lse
-    m + log l (-1e30 where l is 0).  Returns (out in q's dtype, lse [B,
+    """Query tokens over dense keys, with their log-sum-exp: q [B, n_heads,
+    d] (one query a sequence) or [B, T, n_heads, d] (the CP verify step's
+    T), k/v [B, S, n_kv, d], ``lengths`` [B] or [B, T]: query i of row b
+    over the keys below ``lengths[b, i]``.  In f32, as the kernel: the
+    scores' max is the shift (0 for a row with no key), the output is
+    acc / l (0 where l is 0), the lse m + log l (-1e30 where l is 0).
+    Returns (out in q's dtype, shaped as q; lse [B, n_heads] or [B, T,
     n_heads] f32)."""
-    d = q.shape[2]
-    n_rep = q.shape[1] // k.shape[2]
+    if q.dim() == 3:
+        out, lse = attention_lse_plain(q[:, None], k, v, lengths[:, None])
+        return out[:, 0], lse[:, 0]
+    d = q.shape[3]
+    n_rep = q.shape[2] // k.shape[2]
     k = k.repeat_interleave(n_rep, dim=2).float()
     v = v.repeat_interleave(n_rep, dim=2).float()
     qf = q.float() / torch.sqrt(torch.tensor(float(d)))
-    s = torch.einsum("bhd,bkhd->bhk", qf, k)
-    k_pos = torch.arange(k.shape[1], device=q.device)[None, None, :]
-    valid = k_pos < lengths.to(q.device)[:, None, None]
+    s = torch.einsum("bthd,bkhd->bthk", qf, k)
+    k_pos = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+    valid = k_pos < lengths.to(q.device)[:, :, None, None]
     m = torch.where(valid, s, torch.tensor(NEG_INF, device=q.device)).amax(-1)
     m = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
     p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
     l = p.sum(-1)
-    out = torch.einsum("bhk,bkhd->bhd", p, v) / torch.where(
+    out = torch.einsum("bthk,bkhd->bthd", p, v) / torch.where(
         l == 0, torch.ones_like(l), l)[..., None]
     lse = torch.where(l == 0, torch.full_like(l, NEG_INF), m + torch.log(l))
     return out.to(q.dtype), lse

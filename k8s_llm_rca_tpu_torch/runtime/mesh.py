@@ -80,6 +80,7 @@ def shutdown_distributed() -> None:
     """Destroy the default process group (and every mesh built on it)."""
     if dist.is_initialized():
         dist.destroy_process_group()
+    _MESH_GROUPS.clear()
 
 
 def build_mesh(cfg: MeshConfig, ranks: Optional[Sequence[int]] = None,
@@ -167,6 +168,26 @@ def axis_group(mesh, axes: Axes):
             if me in row:
                 cache[axes] = group
     return cache[axes]
+
+
+_MESH_GROUPS: dict = {}
+
+
+def mesh_group(mesh):
+    """The process group of all of ``mesh``'s ranks: None (the default
+    group) when the mesh spans the world, else a group of the mesh's ranks
+    alone.  A rank outside the mesh does not know of it, so the group is
+    made with ``use_local_synchronization`` (only its members enter
+    ``new_group``), once per set of ranks (torch names such a group by its
+    ranks)."""
+    ranks = sorted(int(r) for r in mesh.mesh.flatten().tolist())
+    if len(ranks) == dist.get_world_size():
+        return None
+    key = tuple(ranks)
+    if key not in _MESH_GROUPS:
+        _MESH_GROUPS[key] = dist.new_group(ranks,
+                                           use_local_synchronization=True)
+    return _MESH_GROUPS[key]
 
 
 # ---------------------------------------------------------------------------

@@ -718,6 +718,111 @@ def test_paged_lse_matches_plain_at_a_cp_rank(card, pool, dtype, gqa, d,
 
 @pytest.mark.parametrize("pool", _POOLS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_lse_on_folded_verify_rows_at_a_cp_rank(card, pool, dtype):
+    """The CP verify step's fold (``engine/paged.py::_cp_fold_view``): T
+    = 5 queries of each of 4 slots as 20 rows of one call with
+    ``return_lse``, row (b, i) over slot b's half of the table and
+    ``lengths[b] + 1 + i`` positions clamped to the rank's range, 8B's
+    32/8 heads at head_dim 128 over pages of 64.  Each rank's call is one
+    launch; out and lse agree with the plain version (lse atol 1e-3);
+    rank 1's rows of the slots that have not reached its range have
+    length 0, lse -1e30 and a zero output; the two ranks merged equal the
+    whole-table call on the same 20 rows."""
+    b, t, pps, page, n_kv, d = 4, 5, 40, 64, 8, 128
+    span = pps // 2 * page
+    slot_lens = [400, 1270, 1276, 2290]
+    args = _pool_inputs(card, dtype, pool, 32, n_kv, d, page,
+                        [n + t for n in slot_lens], pps=pps)
+    q = torch.randn((b * t, 32, d), generator=card,
+                    device="cuda").to(dtype)
+    rows = torch.tensor([n + 1 + i for n in slot_lens for i in range(t)],
+                        dtype=torch.int32, device="cuda")
+    tables = args[-1].repeat_interleave(t, dim=0).contiguous()
+    kernel, plain = _lse_calls(pool, args)
+    wrapper = paged_attention if pool == "float" else paged_attention_quant
+    outs, lses = [], []
+    for p in range(2):
+        part = (q,) + args[1:-2] + (
+            (rows - p * span).clamp(0, span).to(torch.int32),
+            tables[:, p * pps // 2:(p + 1) * pps // 2].contiguous())
+        before = wrapper.launches
+        out, lse = kernel(part)
+        assert wrapper.launches == before + 1
+        ref_out, ref_lse = plain(part)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert _err(out, ref_out) <= TOL[dtype]
+        assert (lse - ref_lse).abs().max().item() <= 1e-3
+        outs.append(out)
+        lses.append(lse)
+    # rank 1's range starts at 1280: the first two slots' rows and four of
+    # the third's see none of it
+    empty = (rows <= span).nonzero().flatten()
+    assert len(empty) == 14
+    assert torch.all(lses[1][empty] == -1e30)
+    assert torch.all(outs[1][empty] == 0)
+    merged = merge_partials(torch.stack(outs), torch.stack(lses))
+    whole = kernel((q,) + args[1:-2] + (rows, tables))[0]
+    assert _err(merged, whole) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("drafts", ["ngram", "self"])
+@pytest.mark.parametrize("mesh", ["tp_mesh", "cp_mesh"])
+def test_speculation_on_a_one_rank_nccl_mesh_replays_graphs(card, mesh,
+                                                            drafts):
+    """Speculation (k 4, stepwise; one-token n-grams, or the model as its
+    own draft, whose drafts are accepted) on a 1-rank nccl mesh, graphed:
+    the streams and the speculation counters of the unsharded graphed
+    engine, a draft model's drafts broadcast once a verify tick over nccl
+    (through a card tensor), the verify step replayed as a graph (under
+    CP one "multi" graph for every length: the fold gathers no pages) and,
+    under CP, no flash launch (the ring prefill, and a verify step's paged
+    kernel with the rows' lse, once a layer, as a decode step's)."""
+    from k8s_llm_rca_tpu_torch.config import TINY
+    from k8s_llm_rca_tpu_torch.runtime import mesh as rmesh
+
+    over = dict(speculative_k=4, speculative_ngram=1, decode_chunk=1,
+                page_size=64, num_pages=48)
+    prompts = [list(range(5, 25)) * 5, list(range(40, 90))]
+    keys = ("engine.spec_drafted", "engine.spec_accepted",
+            "engine.verify_steps")
+    self_draft = drafts == "self"
+    base = _tiny_engine(True, self_draft=self_draft, **over)
+    want = [r.token_ids for r in base.generate(prompts)]
+    want_counts = {k: base._counts[k] for k in keys}
+    assert rmesh.initialize_distributed()
+    try:
+        engine = _tiny_engine(True, meshes={
+            mesh: rmesh.single_device_mesh()}, self_draft=self_draft,
+            **over)
+        rmesh.reset_collective_counts()
+        flash, paged = flash_attention.launches, paged_attention.launches
+        got = [r.token_ids for r in engine.generate(prompts)]
+        flash = flash_attention.launches - flash
+        paged = paged_attention.launches - paged
+        broadcasts = rmesh.collective_counts()["broadcast"]
+    finally:
+        rmesh.shutdown_distributed()
+    assert got == want
+    assert {k: engine._counts[k] for k in keys} == want_counts
+    c, n = engine._counts, TINY.n_layers
+    if self_draft:
+        assert c["engine.spec_accepted"] > 0
+        assert broadcasts == c["engine.verify_steps"]
+        # the draft's re-prefills attend through flash too
+        flash -= n * engine._draft.prefills
+    else:
+        assert broadcasts == 0
+    multi = [k for k in engine.graphs.buckets if k[0] == "multi"]
+    assert multi and engine._counts["engine.graph_replays"] > 0
+    if mesh == "cp_mesh":
+        assert {k[2] for k in multi} == {0}
+        assert flash == 0
+        assert paged == n * c["engine.decode_steps"]
+
+
+@pytest.mark.parametrize("pool", _POOLS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("page", [16, 64])
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("gqa", [1, 4, 8])
@@ -910,9 +1015,13 @@ def test_dfa_scan_step_card_equals_cpu(card, vocab):
 # ------------------------------------------------ CUDA graphs of the engine
 
 
-def _tiny_engine(graphs, bits=None, kv=None, **over):
+def _tiny_engine(graphs, bits=None, kv=None, meshes=None,
+                 self_draft=False, **over):
     """TINY (fp32, projections x3) on the card, ``bits``-wide weights under
-    fused_quant_matmul when given; replaying CUDA graphs or eager."""
+    fused_quant_matmul when given; replaying CUDA graphs or eager;
+    ``meshes``: ``make_engine``'s mesh keywords (1-rank meshes, whose
+    shard of the weights is the tree itself); ``self_draft``: the model
+    drafts for itself (``draft_model=``)."""
     from k8s_llm_rca_tpu_torch.config import TINY, EngineConfig
     from k8s_llm_rca_tpu_torch.engine import make_engine
     from k8s_llm_rca_tpu_torch.models.llama import init_params
@@ -934,9 +1043,13 @@ def _tiny_engine(graphs, bits=None, kv=None, **over):
               max_new_tokens=40, paged=True, page_size=16, num_pages=168,
               prefix_cache=False, decode_chunk=16, kv_cache_dtype=kv)
     kw.update(over)
+    if self_draft:
+        over_kw = dict(meshes or {}, draft_model=(cfg, params))
+    else:
+        over_kw = dict(meshes or {})
     return make_engine(cfg, EngineConfig(**kw), params,
                        get_tokenizer(vocab_size=cfg.vocab_size),
-                       cuda_graphs=graphs)
+                       cuda_graphs=graphs, **over_kw)
 
 
 def _card_leaf(w):

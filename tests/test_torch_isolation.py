@@ -259,27 +259,6 @@ def test_params_on_another_device_are_refused():
 _ONE_RANK = types.SimpleNamespace(
     mesh_dim_names=("data", "fsdp", "model", "expert", "seq", "stage"),
     mesh=torch.zeros((1,) * 6))
-UNPORTED = [
-    ({"paged": False, "speculative_k": 2}, {"tp_mesh": _ONE_RANK},
-     "Queue 1 item 10.8"),
-]
-
-
-@pytest.mark.parametrize("over,kw,item", UNPORTED,
-                         ids=[next(iter(o)) for o, _, _ in UNPORTED])
-def test_unported_engine_knob_raises(over, kw, item):
-    """``paged=False`` builds the contiguous-slot engine (it raised
-    naming Queue 1 item 9 before that engine was ported), with
-    ``speculative_k`` too; its device meshes are served since the
-    contiguous-mesh slice and ``host_overlap`` under them since the
-    mesh-tiers slice (``test_host_overlap_serves_on_one_rank``), while
-    speculation under one still raises, naming item 10.8."""
-    cfg, ecfg, params, tok = _tiny_engine_args()
-    ecfg = dataclasses.replace(ecfg, **over)
-    assert type(make_engine(cfg, ecfg, params, tok, device="cpu")).__name__ \
-        == "InferenceEngine"
-    with pytest.raises(NotImplementedError, match=item):
-        make_engine(cfg, ecfg, params, tok, device="cpu", **kw)
 
 
 _TIERED = {"prefix_cache": True}
@@ -426,21 +405,14 @@ def test_meshes_raise(meshes, error, match):
 
 
 # the contiguous engine's refusals under a mesh: (the meshes, what else the
-# engine is given, the error, its message).  Speculation (item 10.8) under
-# each mesh the engine serves, then JAX's ValueErrors (host_overlap with
-# CP, sp without TP, a bucket off the CP axis or, under sp, off the TP
-# axis) and the compositions neither engine serves (CP x EP, TP x EP:
-# item 10.9).  host_overlap under the other meshes is served since the
-# mesh-tiers slice (test_host_overlap_serves_on_one_rank)
+# engine is given, the error, its message).  JAX's ValueErrors
+# (host_overlap with CP, sp without TP, a bucket off the CP axis or, under
+# sp, off the TP axis) and the compositions neither engine serves (CP x
+# EP, TP x EP: item 10.9).  host_overlap under the other meshes is served
+# since the mesh-tiers slice (test_host_overlap_serves_on_one_rank), and
+# speculation under every mesh since the mesh-speculation slice
+# (test_speculation_serves_on_one_rank)
 CONTIGUOUS_REFUSALS = {
-    **{f"{mesh}-{feature}": ((mesh,), over, NotImplementedError,
-                             f"{what} is not ported yet \\(ROADMAP Queue 1 "
-                             f"item 10.8")
-       for mesh in ("tp_mesh", "ep_mesh", "pp_mesh", "fsdp_mesh", "cp_mesh")
-       for feature, over, what in (
-           ("speculative_k", {"speculative_k": 2},
-            "speculative_k / draft_model"),
-           ("draft_model", {"draft": True}, "speculative_k / draft_model"))},
     "cp_mesh-host_overlap": (("cp_mesh",), {"host_overlap": True}, ValueError,
                              "host_overlap=True is unsupported with cp_mesh"),
     "sp_without_tp": ((), {"sp": True}, ValueError, "requires tp_mesh"),
@@ -459,11 +431,11 @@ CONTIGUOUS_REFUSALS = {
 @pytest.mark.parametrize("case", list(CONTIGUOUS_REFUSALS))
 def test_contiguous_engine_meshes_raise(case):
     """The contiguous engine (``paged=False``) serves every mesh since the
-    contiguous-mesh slice; it refuses under each of them what the paged
-    engine refuses (speculative_k, draft_model: item 10.8, one shared
-    list), and raises JAX's ValueErrors first (host_overlap with CP, sp
-    without TP, a bucket the CP axis or, under sp, the TP axis does not
-    divide).  The meshes are stand-ins with the six axes
+    contiguous-mesh slice; it refuses the compositions the paged engine
+    refuses (CP x EP, TP x EP: item 10.9, one shared list), and raises
+    JAX's ValueErrors first (host_overlap with CP, sp without TP, a bucket
+    the CP axis or, under sp, the TP axis does not divide).  The meshes
+    are stand-ins with the six axes
     (of size one unless the case sizes one): the refusals come before
     anything else reads them."""
     names, over, error, match = CONTIGUOUS_REFUSALS[case]
@@ -479,9 +451,6 @@ def test_contiguous_engine_meshes_raise(case):
         cfg = config.TINY_MOE
         params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     kw = {name: mesh for name in names}
-    if over.pop("draft", False):
-        kw["draft_model"] = (cfg, params)
-        over["speculative_k"] = 2
     if "sp" in over:
         kw["sp"] = over.pop("sp")
     ecfg = dataclasses.replace(ecfg, paged=False, **over)
@@ -585,8 +554,9 @@ def test_ep_assembly_builds_on_one_rank(one_rank_group, name):
 
 
 # the pairs JAX's paged engine refuses under CP and PP, with its
-# ValueErrors, before any other mesh check: speculative_k (item 10.8, a
-# NotImplementedError) rides along and must not come first
+# ValueErrors, before any other mesh check: speculative_k rides along
+# (served under every mesh since the mesh-speculation slice) and raises
+# nothing after them
 JAX_PAIR_REFUSALS = {
     "cp_spill": ("cp_mesh", {"max_spilled_pages": 4},
                  "max_spilled_pages \\(KV spill-to-host\\) is unsupported "
@@ -605,8 +575,9 @@ JAX_PAIR_REFUSALS = {
 def test_paged_engine_refuses_jax_pairs_first(case):
     """KV spill and the prefix store tiers under CP and PP raise the JAX
     paged engine's ValueErrors (``k8s_llm_rca_tpu/engine/paged.py:
-    1011-1072``), before the refusal of what is not ported (speculation
-    under a mesh, item 10.8); under TP, EP and FSDP both are served
+    1011-1072``) first, with ``speculative_k`` riding along: speculation
+    under a mesh is served since the mesh-speculation slice, so nothing
+    raises after them; under TP, EP and FSDP spill and the tiers are served
     (``tests/test_torch_mesh_tiers.py``)."""
     name, over, match = JAX_PAIR_REFUSALS[case]
     cfg, ecfg, params, tok = _tiny_engine_args(speculative_k=2)
@@ -616,17 +587,22 @@ def test_paged_engine_refuses_jax_pairs_first(case):
                     **{name: _ONE_RANK})
 
 
-def _one_rank_engine(rmesh, mesh, ecfg, moe=False, **kw):
+def _one_rank_engine(rmesh, mesh, ecfg, moe=False, params=None, **kw):
     """The paged or contiguous engine (``ecfg.paged``) under a 1-rank
-    ``mesh`` (``tp_mesh``, ``ep_mesh``, ``pp_mesh`` or ``fsdp_mesh``);
+    ``mesh`` (``tp_mesh``, ``ep_mesh``, ``pp_mesh``, ``fsdp_mesh`` or
+    ``cp_mesh``) on ``params`` (default: ``_one_rank_params(moe)``'s);
     ``kw`` goes to ``make_engine``."""
     from k8s_llm_rca_tpu_torch.runtime.sharding import (
         FSDP_LAYOUT, llama_param_specs, shard_params, shard_stage_params,
     )
 
-    cfg, params = _one_rank_params(moe)
+    cfg, params = params or _one_rank_params(moe)
     tok = get_tokenizer(vocab_size=cfg.vocab_size)
     m = rmesh.single_device_mesh(device="cpu")
+    if mesh == "cp_mesh":
+        # CP shards the sequence, not the weights
+        return make_engine(cfg, ecfg, params, tok, device="cpu", cp_mesh=m,
+                           **kw)
     if mesh == "pp_mesh":
         return make_engine(cfg, ecfg, shard_stage_params(params, cfg, m),
                            tok, device="cpu", pp_mesh=m, pp_microbatches=2,
@@ -642,16 +618,16 @@ ONE_RANK_PROMPT = list(range(1, 20))
 ONE_RANK_TOKENS = 8
 
 
-def _one_rank_params(moe=False):
+def _one_rank_params(moe=False, x=3.0):
     """The 1-rank cases' seeded weights: TINY, or TINY_MOE, the layers'
-    matrices times 3 (at the init's scales greedy decode repeats the
+    matrices times ``x`` (at the init's scales greedy decode repeats the
     prompt's last token)."""
     cfg = config.TINY_MOE if moe else config.TINY
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     for layer in params["layers"]:
         for w in layer.values():
             if w.dim() > 1:
-                w.mul_(3.0)
+                w.mul_(x)
     return cfg, params
 
 
@@ -660,11 +636,10 @@ def _one_rank_ecfg(paged):
                                paged=paged)
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_tokens(paged, moe=False):
+def _jax_engine(ecfg, model, draft=None):
     """JAX's plain unsharded engine (its paged engine without kernels, or
-    its contiguous engine) on the 1-rank cases' weights, engine config and
-    prompt: the greedy tokens."""
+    its contiguous engine, by ``ecfg.paged``) on the port's (cfg, params)
+    ``model``, with ``draft`` (cfg, params) as its draft model."""
     import jax.numpy as jnp
 
     from k8s_llm_rca_tpu import config as jconfig
@@ -674,19 +649,30 @@ def _jax_tokens(paged, moe=False):
 
     from k8s_llm_rca_tpu_torch.runtime import rules
 
-    cfg, params = _one_rank_params(moe)
-    ecfg = _one_rank_ecfg(paged)
-    jcfg = jconfig.ModelConfig(**{f: getattr(cfg, f)
-                                  for f in cfg.__dataclass_fields__})
+    def jax_model(cfg, params):
+        return (jconfig.ModelConfig(**{f: getattr(cfg, f)
+                                       for f in cfg.__dataclass_fields__}),
+                rules.map_with_names(lambda _, w: jnp.asarray(w.numpy()),
+                                     params))
+
+    jcfg, jparams = jax_model(*model)
     jecfg = jconfig.EngineConfig(**{
         f: getattr(ecfg, f) for f in ecfg.__dataclass_fields__
         if f in jconfig.EngineConfig.__dataclass_fields__})
-    jparams = rules.map_with_names(lambda _, w: jnp.asarray(w.numpy()),
-                                   params)
-    tok = jax_tok(vocab_size=cfg.vocab_size)
-    engine = (PagedInferenceEngine(jcfg, jecfg, jparams, tok,
-                                   use_kernel=False) if paged
-              else InferenceEngine(jcfg, jecfg, jparams, tok))
+    kw = {} if draft is None else {"draft_model": jax_model(*draft)}
+    tok = jax_tok(vocab_size=jcfg.vocab_size)
+    if ecfg.paged:
+        return PagedInferenceEngine(jcfg, jecfg, jparams, tok,
+                                    use_kernel=False, **kw)
+    return InferenceEngine(jcfg, jecfg, jparams, tok, **kw)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_tokens(paged, moe=False):
+    """JAX's plain unsharded engine (its paged engine without kernels, or
+    its contiguous engine) on the 1-rank cases' weights, engine config and
+    prompt: the greedy tokens."""
+    engine = _jax_engine(_one_rank_ecfg(paged), _one_rank_params(moe))
     return engine.generate([ONE_RANK_PROMPT],
                            max_new_tokens=ONE_RANK_TOKENS)[0].token_ids
 
@@ -707,6 +693,70 @@ def test_host_overlap_serves_on_one_rank(one_rank_group, mesh, paged):
             _one_rank_ecfg(paged), host_overlap=overlap), moe)
         assert engine.generate([ONE_RANK_PROMPT], ONE_RANK_TOKENS)[
             0].token_ids == want, overlap
+
+
+# the speculative 1-rank cases: weights times 2 (greedy decode repeats
+# some tokens, so n-gram drafts of one token are made and some accepted),
+# a draft model of the same shapes times 1.8 (some of its drafts
+# accepted), k 3, 16 new tokens
+SPEC_SCALE, DRAFT_SCALE = 2.0, 1.8
+SPEC_TOKENS = 16
+SPEC_COUNTERS = ("engine.spec_drafted", "engine.spec_accepted")
+
+
+def _spec_ecfg(paged):
+    return dataclasses.replace(_one_rank_ecfg(paged), speculative_k=3,
+                               speculative_ngram=1)
+
+
+def _spec_models(drafts, moe):
+    """The target (cfg, params) and the draft model (None for n-gram
+    drafts) of a speculative 1-rank case."""
+    draft = (_one_rank_params(moe, DRAFT_SCALE) if drafts == "draft"
+             else None)
+    return _one_rank_params(moe, SPEC_SCALE), draft
+
+
+def _spec_run(engine) -> dict:
+    out = engine.generate([ONE_RANK_PROMPT], SPEC_TOKENS)[0].token_ids
+    return {"tokens": out, **{k: int(engine._counts.get(k, 0))
+                              for k in SPEC_COUNTERS}}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_spec(paged, drafts, moe):
+    """JAX's unsharded speculative engine of the 1-rank cases: the stream
+    and the speculation counters."""
+    return _spec_run(_jax_engine(_spec_ecfg(paged),
+                                 *_spec_models(drafts, moe)))
+
+
+@pytest.mark.parametrize("drafts", ["ngram", "draft"])
+@pytest.mark.parametrize("mesh", ["tp_mesh", "ep_mesh", "fsdp_mesh",
+                                  "pp_mesh", "cp_mesh"])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+def test_speculation_serves_on_one_rank(one_rank_group, paged, mesh,
+                                        drafts):
+    """``speculative_k`` (n-gram drafts) and ``draft_model=`` under TP, EP
+    (TINY_MOE), FSDP, PP (two microbatches) and CP on both engines (they
+    raised naming item 10.8 before the mesh-speculation slice): on a
+    1-rank gloo mesh the stream, ``spec_drafted``, ``spec_accepted`` and
+    the verify steps are those of JAX's unsharded speculative engine of
+    the same kind with the same weights and knobs (JAX counts no verify
+    steps); a draft model's drafts go through one counted broadcast a
+    verify step."""
+    moe = mesh == "ep_mesh"
+    want = _jax_spec(paged, drafts, moe)
+    assert want["engine.spec_accepted"] > 0, want
+    assert len(set(want["tokens"])) > 2, want
+    model, draft = _spec_models(drafts, moe)
+    engine = _one_rank_engine(one_rank_group, mesh, _spec_ecfg(paged), moe,
+                              params=model, draft_model=draft)
+    one_rank_group.reset_collective_counts()
+    assert _spec_run(engine) == want
+    verify = int(engine._counts["engine.verify_steps"])
+    broadcasts = one_rank_group.collective_counts()["broadcast"]
+    assert verify > 0 and broadcasts == (verify if draft else 0)
 
 
 @pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
